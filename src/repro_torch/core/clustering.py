@@ -1,0 +1,123 @@
+"""OPTICS clustering over the Hellinger-distance matrix (FedLECC §IV-B).
+
+Ported from ``repro.core.clustering``; host-side numpy, because the loop
+is K sequential steps of O(K) work on a matrix that already lives on the
+host (``hellinger_blocked`` returns it there).
+
+- ``optics``           — density ordering + reachability profile.  With a
+    precomputed distance matrix and ``max_eps=inf`` the OPTICS expansion
+    reduces to a Prim-style loop: repeatedly visit the unprocessed point
+    with the smallest reachability and relax every unprocessed point with
+    ``max(core_dist(i), D[i, j])``.  The float32 arithmetic and the
+    first-occurrence ``argmin`` tie-break are those of the reference, so
+    the ordering and the labels are identical.
+- ``extract_clusters`` — DBSCAN-equivalent extraction at a cut ``eps``
+    (sklearn's ``cluster_optics_dbscan`` rule); ``eps="auto"`` picks the
+    cut from the reachability profile.  Noise points become singleton
+    clusters so every client stays selectable.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.hellinger import hellinger_blocked
+
+__all__ = ["OpticsResult", "optics", "extract_clusters", "cluster_label_histograms"]
+
+
+class OpticsResult(NamedTuple):
+    ordering: np.ndarray        # (K,) int32 — visit order (permutation)
+    reachability: np.ndarray    # (K,) float32 — reachability per *point index*
+    core_distances: np.ndarray  # (K,) float32
+
+
+def optics(dist, min_samples: int = 3) -> OpticsResult:
+    """OPTICS ordering from a precomputed (K, K) distance matrix, with
+    ``max_eps`` infinite (every point is every point's neighbour)."""
+    dist = np.asarray(dist, np.float32)
+    k = dist.shape[0]
+    ms = min(int(min_samples), k)
+    # Core distance: distance to the ms-th nearest point, self included
+    # (row i of dist has a zero at i, matching sklearn's kneighbors).
+    core = np.sort(dist, axis=1)[:, ms - 1]
+    reach = np.full((k,), np.inf, np.float32)
+    processed = np.zeros((k,), bool)
+    ordering = np.zeros((k,), np.int32)
+    for t in range(k):
+        key = np.where(processed, np.float32(np.inf), reach)
+        # Unvisited starts have reach=inf; argmin's first-occurrence
+        # tie-break reproduces "next unprocessed in index order".
+        i = int(np.argmin(key))
+        ordering[t] = i
+        processed[i] = True
+        new = np.maximum(core[i], dist[i])
+        reach = np.where(processed, reach, np.minimum(reach, new))
+    return OpticsResult(ordering=ordering, reachability=reach, core_distances=core)
+
+
+def _auto_eps(res: OpticsResult) -> float:
+    """Pick the reachability cut from the profile (largest-gap heuristic):
+    sorting the finite reachabilities ascending, the cut goes through the
+    largest gap in the upper half — below every separator jump between
+    clusters, above every dense plateau inside one."""
+    r = np.asarray(res.reachability)
+    finite = np.sort(r[np.isfinite(r)])
+    if finite.size < 2:
+        return float("inf")
+    gaps = np.diff(finite)
+    lo = finite.size // 2  # never cut inside the dense low region
+    upper = gaps[lo:]
+    if upper.size == 0 or upper.max() <= 1e-9:
+        return float(finite[-1]) + 1e-6  # no structure: single cluster
+    g = lo + int(np.argmax(upper))
+    return float(0.5 * (finite[g] + finite[g + 1]))
+
+
+def extract_clusters(res: OpticsResult, eps: float | str = "auto") -> np.ndarray:
+    """DBSCAN-equivalent label extraction at reachability cut ``eps``.
+
+    Returns (K,) int labels in [0, n_clusters); noise points are assigned
+    fresh singleton cluster ids (FedLECC keeps every client selectable).
+    """
+    if eps == "auto":
+        eps = _auto_eps(res)
+    ordering = np.asarray(res.ordering)
+    reach = np.asarray(res.reachability)
+    core = np.asarray(res.core_distances)
+
+    k = ordering.shape[0]
+    labels = np.zeros(k, dtype=np.int64)
+    far_reach = reach > eps
+    near_core = core <= eps
+    # a far-reach near-core point *starts* a new cluster; a far-reach
+    # far-core point is noise.
+    starts = far_reach[ordering] & near_core[ordering]
+    labels[ordering] = np.cumsum(starts) - 1
+    labels[far_reach & ~near_core] = -1
+    # The first visited point always has reach=inf; cumsum-1 can leave -1
+    # for a leading run that is not near_core — normalize below.
+    next_id = labels.max() + 1 if labels.max() >= 0 else 0
+    for i in np.where(labels < 0)[0]:
+        labels[i] = next_id
+        next_id += 1
+    # Compact ids to 0..n-1 preserving first-appearance order.
+    _, labels = np.unique(labels, return_inverse=True)
+    return labels.astype(np.int64)
+
+
+def cluster_label_histograms(
+    hists,
+    min_samples: int = 3,
+    eps: float | str = "auto",
+    *,
+    device: str | torch.device = "cuda",
+) -> tuple[np.ndarray, OpticsResult]:
+    """End-to-end: label histograms -> HD matrix (strip kernel on
+    ``device``) -> OPTICS -> cluster labels."""
+    d = hellinger_blocked(hists, device=device)
+    res = optics(d, min_samples=min_samples)
+    return extract_clusters(res, eps=eps), res

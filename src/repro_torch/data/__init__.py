@@ -1,0 +1,14 @@
+from repro_torch.data.partition import (
+    calibrate_alpha,
+    calibrate_shards,
+    dirichlet_partition,
+    label_histograms,
+    pack_clients,
+    shard_partition,
+)
+from repro_torch.data.synthetic import Dataset, make_classification
+
+__all__ = [
+    "Dataset", "make_classification", "dirichlet_partition", "shard_partition",
+    "calibrate_alpha", "calibrate_shards", "pack_clients", "label_histograms",
+]

@@ -1,0 +1,42 @@
+"""repro_torch.engine — the federated engine API of the port.
+
+- ``config``      — ``FLConfig``, field for field the reference's, with
+                    validation that rejects what this slice lacks
+- ``registry``    — strategy / aggregator / task registries
+- ``base``        — ``Engine`` round protocol and ``RoundResult``
+- ``host``        — ``HostEngine``: numpy selection + cohort training on
+                    the device
+- ``aggregators`` — ``FedAvgAggregator`` (the FedAvg reduce kernel)
+- ``tasks``       — ``ClassificationTask`` (the paper's MLP)
+- ``draws``       — ``TorchDraws``, the one source of randomness
+
+Typical use::
+
+    from repro_torch.data import make_classification
+    from repro_torch.engine import FLConfig, make_engine
+
+    engine = make_engine(FLConfig(rounds=5), train, test, n_classes=10)
+    for result in engine.rounds():
+        ...
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.engine.config import BACKENDS, FLConfig
+
+__all__ = ["BACKENDS", "FLConfig", "make_engine"]
+
+
+def make_engine(cfg: FLConfig, train, test, n_classes: int, *,
+                device: str | torch.device = "cuda", draws: Any = None):
+    """Build the engine for ``cfg.backend`` (this slice: ``host``) on
+    ``device`` (default ``"cuda"``; raises without a card unless the
+    caller passes ``"cpu"``).  ``draws`` replaces the default
+    ``TorchDraws`` (see ``repro_torch.engine.draws``)."""
+    from repro_torch.engine.host import HostEngine
+
+    return HostEngine(cfg, train, test, n_classes, device=device, draws=draws)

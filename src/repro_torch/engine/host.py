@@ -1,0 +1,53 @@
+"""HostEngine — the paper-faithful simulation backend, ported from
+``repro.engine.host``.
+
+Selection is host-side numpy (K scalars per round); local training runs
+the selected cohort as one (m, P) tensor on the engine's device
+(``repro_torch.federated.client.local_train``); aggregation reduces that
+tensor with the registered aggregator (FedAvg: one launch of the FedAvg
+reduce kernel on the card).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.engine.base import Engine
+from repro_torch.federated.client import local_train
+
+__all__ = ["HostEngine"]
+
+
+class HostEngine(Engine):
+    backend = "host"
+
+    def select(self, rnd: int, losses: np.ndarray) -> np.ndarray:
+        return self.strategy.select(rnd, losses, self.rng)
+
+    def local_train(self, rnd: int, sel: np.ndarray):
+        sel_t = torch.as_tensor(sel, device=self.device)
+        bidx = self.draws.batch_indices(
+            rnd, sel, self.sample_probs[torch.as_tensor(sel)], self.max_steps,
+            self.cfg.batch_size,
+        )
+        stacked, local_losses = local_train(
+            self._apply_fn, self._loss_fn, self.params,
+            self.xs[sel_t], self.ys[sel_t], bidx,
+            torch.as_tensor(self.taus[sel], device=self.device),
+            lr=self.cfg.lr, max_steps=self.max_steps,
+        )
+        return stacked, local_losses.cpu().numpy()
+
+    def aggregate(self, rnd: int, sel: np.ndarray, payload) -> None:
+        stacked = payload
+        w = self.sizes[sel] / self.sizes[sel].sum()
+        w_t = torch.as_tensor(w, dtype=torch.float32, device=self.device)
+        taus_t = torch.as_tensor(self.taus[sel], dtype=torch.float32, device=self.device)
+        new_params = self.aggregator.aggregate(
+            stacked, self.params, w_t, taus_t, self.agg_state, n_selected=len(sel)
+        )
+        self.agg_state = self.aggregator.update_state(
+            self.agg_state, stacked, self.params, w_t, n_selected=len(sel)
+        )
+        self.params = new_params

@@ -1,0 +1,106 @@
+"""Pluggable-component registries, the part of ``repro.engine.registry``
+this slice of the port needs (stdlib only).
+
+One ``Registry`` per axis of an experiment — strategies, aggregators and
+tasks — filled at class-definition time by the ``register_*`` decorators.
+Lookups lazily import the provider modules, so
+``STRATEGY_REGISTRY["fedlecc"]`` works regardless of import order.
+"""
+
+from __future__ import annotations
+
+import importlib
+from collections.abc import Mapping
+from typing import Any, Callable, Iterator
+
+__all__ = [
+    "Registry",
+    "STRATEGY_REGISTRY",
+    "AGGREGATOR_REGISTRY",
+    "TASK_REGISTRY",
+    "register_strategy",
+    "register_aggregator",
+    "register_task",
+]
+
+# Modules whose import populates each registry (decorator side-effects).
+_PROVIDERS: dict[str, tuple[str, ...]] = {
+    "strategy": ("repro_torch.core.strategies",),
+    "aggregator": ("repro_torch.engine.aggregators",),
+    "task": ("repro_torch.engine.tasks",),
+}
+
+
+class Registry(Mapping[str, Any]):
+    """A named string → component mapping with a ``register`` decorator."""
+
+    def __init__(self, kind: str):
+        self.kind = kind
+        self._items: dict[str, Any] = {}
+        self._populated = False
+
+    def register(self, name: str | None = None) -> Callable[[Any], Any]:
+        """Decorator: ``@REG.register("name")`` or ``@REG.register()``
+        (falls back to the object's ``name`` attribute, then __name__)."""
+
+        def deco(obj: Any) -> Any:
+            key = name or getattr(obj, "name", None) or getattr(obj, "__name__", None)
+            if not key or not isinstance(key, str):
+                raise ValueError(f"cannot infer a registry name for {obj!r}")
+            existing = self._items.get(key)
+            if existing is not None and existing is not obj:
+                raise ValueError(
+                    f"duplicate {self.kind} registration {key!r} ({existing!r} vs {obj!r})"
+                )
+            self._items[key] = obj
+            return obj
+
+        return deco
+
+    def _populate(self) -> None:
+        if self._populated:
+            return
+        for mod in _PROVIDERS.get(self.kind, ()):
+            importlib.import_module(mod)
+        self._populated = True
+
+    def build(self, name: str, *args: Any, **kwargs: Any) -> Any:
+        """Instantiate the registered class ``name`` with the given args."""
+        return self[name](*args, **kwargs)
+
+    def names(self) -> list[str]:
+        self._populate()
+        return sorted(self._items)
+
+    def __getitem__(self, name: str) -> Any:
+        self._populate()
+        try:
+            return self._items[name]
+        except KeyError:
+            raise KeyError(
+                f"unknown {self.kind} {name!r}; available: {sorted(self._items)}"
+            ) from None
+
+    def __iter__(self) -> Iterator[str]:
+        self._populate()
+        return iter(self._items)
+
+    def __len__(self) -> int:
+        self._populate()
+        return len(self._items)
+
+    def __contains__(self, name: object) -> bool:
+        self._populate()
+        return name in self._items
+
+    def __repr__(self) -> str:
+        return f"Registry({self.kind!r}, {sorted(self._items)})"
+
+
+STRATEGY_REGISTRY = Registry("strategy")
+AGGREGATOR_REGISTRY = Registry("aggregator")
+TASK_REGISTRY = Registry("task")
+
+register_strategy = STRATEGY_REGISTRY.register
+register_aggregator = AGGREGATOR_REGISTRY.register
+register_task = TASK_REGISTRY.register

@@ -1,0 +1,50 @@
+"""Client-side local training over the whole cohort at once, ported from
+``repro.federated.client.local_train`` (plain mode).
+
+The reference vmaps one client's ``lax.scan`` of SGD steps over the
+cohort; here the client axis is explicit.  The m models are one (m, P)
+tensor, and each step is one forward over per-client views and one
+autograd call on the *sum* of the per-client mean losses: row i of its
+gradient is exactly client i's own gradient, since no other term depends
+on row i.  The scan becomes a Python loop over ``max_steps``; a client
+whose budget ``tau`` is spent keeps its parameters (``live = t < tau``),
+and the mean loss divides by ``max(min(tau, max_steps), 1)``, both as in
+the reference.  The update is applied in place, under ``torch.no_grad``,
+to the cohort tensor.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+__all__ = ["local_train"]
+
+
+def local_train(
+    apply_fn: Callable,
+    loss_fn: Callable,
+    global_params: torch.Tensor,  # (P,)
+    x: torch.Tensor,              # (m, N_max, F) padded cohort features
+    y: torch.Tensor,              # (m, N_max) padded labels
+    batch_idx: torch.Tensor,      # (max_steps, m, batch) row indices
+    tau: torch.Tensor,            # (m,) true local step budgets
+    lr: float,
+    max_steps: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (params_end (m, P), mean train loss over executed steps (m,))."""
+    m = x.shape[0]
+    rows = torch.arange(m, device=x.device)[:, None]
+    theta = global_params.expand(m, -1).clone().requires_grad_(True)
+    loss_sum = torch.zeros(m, dtype=torch.float32, device=x.device)
+    for t in range(max_steps):
+        bidx = batch_idx[t]
+        loss = loss_fn(apply_fn(theta, x[rows, bidx]), y[rows, bidx], None)  # (m,)
+        (grad,) = torch.autograd.grad(loss.sum(), theta)
+        live = (t < tau).to(torch.float32)
+        with torch.no_grad():
+            theta -= (lr * live)[:, None] * grad
+            loss_sum += live * loss
+    mean_loss = loss_sum / torch.clamp(torch.clamp(tau, max=max_steps).to(torch.float32), min=1.0)
+    return theta.detach(), mean_loss

@@ -1,0 +1,11 @@
+"""Hand-written Hopper kernels of the port, each beside its plain version.
+
+- ``hellinger`` — the Hellinger strip (replaces the TPU kernel in
+  ``repro/kernels/hellinger/kernel.py``), source ``csrc/hellinger_strip.cu``.
+- ``aggregate`` — the FedAvg reduce (replaces the TPU kernel in
+  ``repro/kernels/aggregate/kernel.py``), source ``csrc/fedavg_reduce.cu``.
+
+A wrapper launches its CUDA kernel for CUDA tensors and takes the plain
+PyTorch version (``ref.py``) only for CPU tensors.  Each wrapper counts its
+kernel launches in its ``launches`` attribute.
+"""

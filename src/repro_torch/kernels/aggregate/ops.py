@@ -1,0 +1,77 @@
+"""Wrapper of the FedAvg reduce kernel (``csrc/fedavg_reduce.cu``).
+
+The port's counterpart of ``masked_weighted_sum_pallas``: one launch
+reduces a whole (M, N) cohort of flat parameter vectors, with no padding
+of N (the kernel masks the ragged edge).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels.aggregate.ref import masked_weighted_sum_ref
+from repro_torch.kernels.build import load
+
+__all__ = ["masked_weighted_sum"]
+
+_SYMBOLS = {torch.float32: "fedavg_reduce_f32", torch.bfloat16: "fedavg_reduce_bf16"}
+_MAX_BLOCKS = 2**31 - 1  # CUDA's limit on gridDim.x (256 columns a block)
+
+
+@functools.cache
+def _kernel(dtype: torch.dtype):
+    fn = getattr(load("fedavg_reduce"), _SYMBOLS[dtype])
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(stacked: torch.Tensor, weights: torch.Tensor) -> None:
+    if stacked.device != weights.device or stacked.device.type not in ("cpu", "cuda"):
+        raise ValueError(
+            f"stacked and weights must share one CPU or CUDA device; got "
+            f"{stacked.device} and {weights.device}"
+        )
+    if stacked.dtype not in _SYMBOLS:
+        raise TypeError(f"stacked must be float32 or bfloat16; got {stacked.dtype}")
+    if weights.dtype != torch.float32:
+        raise TypeError(f"weights must be float32; got {weights.dtype}")
+    if stacked.ndim != 2 or weights.shape != (stacked.shape[0],):
+        raise ValueError(
+            f"stacked must be (M, N) and weights (M,); got {tuple(stacked.shape)} "
+            f"and {tuple(weights.shape)}"
+        )
+    if not (stacked.is_contiguous() and weights.is_contiguous()):
+        raise ValueError("stacked and weights must be contiguous")
+    if stacked.shape[0] >= 2**31 or -(-stacked.shape[1] // 256) > _MAX_BLOCKS:
+        raise ValueError(f"cohort {tuple(stacked.shape)} exceeds the kernel's grid")
+
+
+def masked_weighted_sum(stacked: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """(M, N) fp32/bf16 stacked replicas x (M,) fp32 weights -> (N,) fp32
+    sum_m w_m * x_m, accumulated in fp32.
+
+    CUDA tensors launch the kernel on the current stream (counted in
+    ``masked_weighted_sum.launches``); CPU tensors take the plain version."""
+    _check(stacked, weights)
+    if stacked.device.type == "cpu":
+        return masked_weighted_sum_ref(stacked, weights)
+    m, n = stacked.shape
+    out = torch.empty(n, dtype=torch.float32, device=stacked.device)
+    if n == 0:
+        return out
+    err = _kernel(stacked.dtype)(
+        stacked.data_ptr(), weights.data_ptr(), out.data_ptr(), m, n, stacked.device.index,
+        torch.cuda.current_stream(stacked.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"masked_weighted_sum kernel launch failed: cudaError {err}")
+    masked_weighted_sum.launches += 1
+    return out
+
+
+masked_weighted_sum.launches = 0  # type: ignore[attr-defined]

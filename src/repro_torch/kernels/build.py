@@ -1,0 +1,97 @@
+"""Build the port's CUDA sources into shared libraries and load them.
+
+Every kernel source ``src/repro_torch/csrc/<name>.cu`` exposes a plain C
+interface and compiles with ``nvcc`` on its own into
+``build/kernels/lib<name>-<digest>.so`` at the repository root, where
+``<digest>`` hashes the source and the flags, so an edited source is
+rebuilt and an unchanged one is reused.  The libraries are loaded with
+``ctypes``; nothing here includes PyTorch's headers, which keeps a build
+at a few seconds.
+
+Nothing is compiled when this module is imported: ``build`` and ``load``
+run at a kernel's first launch (or when a caller asks, as
+``chip_smoke.py`` does to time the build).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+__all__ = ["SOURCES", "BUILD_DIR", "build", "load"]
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parents[1] / "build" / "kernels"
+SOURCES = ("hellinger_strip", "fedavg_reduce")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    found = shutil.which("nvcc")
+    if found is None and CUDA_HOME is not None:
+        cand = Path(CUDA_HOME) / "bin" / "nvcc"
+        found = str(cand) if cand.exists() else None
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (neither on PATH nor under CUDA_HOME): the "
+            "port's CUDA kernels are built from source at first use"
+        )
+    return found
+
+
+def _target(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build(names: tuple[str, ...] = SOURCES) -> dict[str, Path]:
+    """Compile every named source whose library is missing, one ``nvcc``
+    process per source, all started together.  Returns name -> library
+    path.  Raises ``RuntimeError`` with the compiler's output if any
+    build fails."""
+    targets = {n: _target(n) for n in names}
+    todo = {n: t for n, t in targets.items() if not t.exists()}
+    if not todo:
+        return targets
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for n, t in todo.items():
+        tmp = t.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        procs[n] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        ))
+    failed = []
+    for n, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"--- {n}.cu (nvcc exit {proc.returncode}) ---\n{out}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, todo[n])  # atomic: a reader never sees half a file
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return targets
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of source ``name``, built first if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build((name,))[name]))
+        _loaded[name] = lib
+    return lib
