@@ -12,14 +12,18 @@ Phases, each printed on its own lines:
 3. kernels — holds each kernel against its plain PyTorch version on the
    card and times the kernel, the plain version and one PyTorch library
    call computing the same function (median over 30 calls, CUDA events).
-4. main path — the paper's experiment at full width (K = 100 clients,
-   m = 10, MLP 784-200-200-10, shards partition at target HD 0.9, FedLECC
-   with J = 3, batch 64, lr 0.005) for 5 rounds through
-   ``make_engine(...).rounds()``, with every kernel's launch count read
-   from this run alone.
-5. agreement — a small configuration run on the CPU (plain versions) and
-   on the card (kernels) from the same draws must select the same clients
-   and reach the same parameters.
+4. main paths, each driven through ``make_engine(...).rounds()`` with
+   every kernel's launch count set to 0 just before and read just after:
+   - the paper's experiment at full width (K = 100 clients, m = 10, MLP
+     784-200-200-10, shards partition at target HD 0.9, FedLECC with
+     J = 3, batch 64, lr 0.005) for 5 rounds;
+   - federated LM training on stablelm-3b at full width, cut from 32 to
+     2 layers (P = 380,789,760), K = 100, m = 10, batch 8 of 64 tokens,
+     3 rounds, with the flash-attention kernel forward (poll, local SGD,
+     evaluation) and backward (local SGD).
+5. agreement — a small configuration of each task run on the CPU (plain
+   versions) and on the card (kernels) from the same draws must select
+   the same clients and reach the same parameters.
 
 Then one JSON line lists the kernels, and the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
@@ -40,6 +44,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_FP32_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
+PEAK_BF16_PER_S = 989e12     # H100 SXM dense bf16 on the tensor cores
 TIMED_CALLS = 30
 
 
@@ -61,8 +66,8 @@ def _median_ms(fn, calls: int = TIMED_CALLS, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def _bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_ops / PEAK_FP32_PER_S
+def _bound(n_bytes: float, n_ops: float, peak_ops: float = PEAK_FP32_PER_S) -> tuple[float, str]:
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_ops / peak_ops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -107,10 +112,10 @@ def _check_aggregate(shape, dtype, device):
     from repro_torch.kernels.aggregate import masked_weighted_sum, masked_weighted_sum_ref
 
     m, n = shape
-    g = torch.Generator().manual_seed(m + n)
-    x = torch.randn(m, n, generator=g).to(dtype).to(device)
-    w = torch.rand(m, generator=g)
-    w = (w / w.sum()).to(device)
+    g = torch.Generator(device=device).manual_seed(m + n)  # drawn on the card: (10, P) is 15 GB
+    x = torch.randn(m, n, generator=g, device=device).to(dtype)
+    w = torch.rand(m, generator=g, device=device)
+    w = w / w.sum()
     got = masked_weighted_sum(x, w)
     want = masked_weighted_sum_ref(x, w)
     torch.cuda.synchronize()
@@ -129,6 +134,97 @@ def _check_aggregate(shape, dtype, device):
         "bound_ms": bound_ms, "bound_by": bound_by,
     }
     print(f"kernel masked_weighted_sum {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def _attention_work(shape, window, is_global, elem):
+    """(visible (q, k) pairs, bytes forward, bytes backward) of K3 at
+    (B, S, H, KV, D): each input read once, each output written once."""
+    b, s, h, kv, d = shape
+    if window > 0 and not is_global > 0:
+        pairs = sum(min(i + 1, window) for i in range(s))
+    else:
+        pairs = s * (s + 1) // 2
+    q_bytes, kv_bytes, stat = b * s * h * d * elem, b * s * kv * d * elem, 4 * b * h * s
+    fwd = q_bytes + 2 * kv_bytes + q_bytes + stat                     # q, k, v -> O, L
+    bwd = 3 * q_bytes + 2 * kv_bytes + stat + q_bytes + 2 * kv_bytes  # q, k, v, O, dO, L -> dq, dk, dv
+    return b * h * pairs, fwd, bwd
+
+
+def _check_flash(shape, dtype, window, is_global, device):
+    """K3 at (B, S, H, KV, D): forward (O, L) and backward (dq, dk, dv)
+    against the plain version and its autograd on the card, and times."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (
+        attention_ref,
+        flash_attention_backward,
+        flash_attention_forward,
+    )
+
+    b, s, h, kv, d = shape
+    g = torch.Generator().manual_seed(b * s + h * d + kv)
+    q, k, v = (torch.randn(b, s, n, d, generator=g).to(dtype).to(device) for n in (h, kv, kv))
+    do = torch.randn(b, s, h, d, generator=g).to(dtype).to(device)
+    o, lse = flash_attention_forward(q, k, v, window, is_global)
+    dq, dk, dv = flash_attention_backward(q, k, v, o, lse, do, window, is_global)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    o_ref, lse_ref = attention_ref(*leaves, window, is_global)
+    grads_ref = torch.autograd.grad(o_ref, leaves, do, retain_graph=True)
+    torch.cuda.synchronize()
+
+    # fp32: sums over D and S in another order than the plain version's
+    # matrix products; bf16: one rounding of the output to bf16 (8 bits of
+    # mantissa) on either side.  Both relative to max(1, max |plain|).
+    tol = 2e-5 if dtype == torch.float32 else 1e-2
+    errs, limits = {}, {}
+    for name, got, want in [("o", o, o_ref), ("lse", lse, lse_ref), ("dq", dq, grads_ref[0]),
+                            ("dk", dk, grads_ref[1]), ("dv", dv, grads_ref[2])]:
+        if got.shape != want.shape or got.dtype != want.dtype or not torch.isfinite(got).all():
+            raise AssertionError(f"flash_attention {shape} {dtype} {name}: bad output "
+                                 f"{tuple(got.shape)} {got.dtype}")
+        errs[name] = (got.float() - want.float()).abs().max().item()
+        limits[name] = tol * max(1.0, want.float().abs().max().item())
+    tag = f"{list(shape)} {str(dtype).replace('torch.', '')} window={window} is_global={is_global}"
+    if any(errs[n] > limits[n] for n in errs):
+        raise AssertionError(f"flash_attention {tag}: max |err| {errs} above {limits}")
+    rec = {"shape": list(shape), "dtype": str(dtype).replace("torch.", ""), "window": window,
+           "is_global": is_global, "errors": errs, "tolerance": tol,
+           "forward": {"max_abs_err": max(errs["o"], errs["lse"])},
+           "backward": {"max_abs_err": max(errs["dq"], errs["dk"], errs["dv"])}}
+    pairs, fwd_bytes, bwd_bytes = _attention_work(shape, window, is_global, q.element_size())
+    peak = PEAK_FP32_PER_S if dtype == torch.float32 else PEAK_BF16_PER_S
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if window > 0 and not is_global > 0:
+        pos = torch.arange(s, device=device)
+        mask = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < window)
+        lib_kw = {"attn_mask": mask}
+    else:
+        lib_kw = {"is_causal": True}
+    if kv != h:
+        lib_kw["enable_gqa"] = True
+    lib_leaves = [t.detach().requires_grad_(True) for t in (qt, kt, vt)]
+    lib_out = F.scaled_dot_product_attention(*lib_leaves, **lib_kw)
+    do_t = do.transpose(1, 2)
+    fwd_bound = _bound(fwd_bytes, 4 * d * pairs, peak)
+    bwd_bound = _bound(bwd_bytes, 10 * d * pairs, peak)
+    rec["forward"] |= {
+        "ms": _median_ms(lambda: flash_attention_forward(q, k, v, window, is_global)),
+        "plain_ms": _median_ms(lambda: attention_ref(q, k, v, window, is_global)),
+        "library_ms": _median_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, **lib_kw)),
+        "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
+    }
+    rec["backward"] |= {
+        "ms": _median_ms(lambda: flash_attention_backward(q, k, v, o, lse, do, window,
+                                                          is_global)),
+        "plain_ms": _median_ms(lambda: torch.autograd.grad(o_ref, leaves, do,
+                                                           retain_graph=True)),
+        "library_ms": _median_ms(lambda: torch.autograd.grad(lib_out, lib_leaves, do_t,
+                                                             retain_graph=True)),
+        "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
+    }
+    print(f"kernel flash_attention {json.dumps(rec)}", flush=True)
     return rec
 
 
@@ -221,6 +317,160 @@ def _agreement(device):
         raise AssertionError(f"card and CPU parameters differ by {diff} > 1e-4")
 
 
+LM_MICRO = {"model": "stablelm-3b", "hist_bins": 16,
+            "overrides": {"d_model": 32, "n_heads": 2, "n_kv_heads": 2, "head_dim": 16,
+                          "d_ff": 64, "vocab": 32, "loss_chunk": 16, "attn_chunk": 16,
+                          "remat": False}}
+
+
+def _profiled(on: bool):
+    """``torch.profiler`` over CPU and CUDA activity when ``on``."""
+    import contextlib
+
+    import torch
+
+    if not on:
+        return contextlib.nullcontext()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    return torch.profiler.profile(activities=acts)
+
+
+def _print_profile(prof, wall_s: float) -> None:
+    """Device time of one profiled round by kernel: the busy and idle shares
+    of the round's wall time, the attention kernels' share, the top kernels."""
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    total_us = sum(e.self_device_time_total for e in events)
+    if total_us <= 0:
+        print("lm profile: the profiler recorded no device time", flush=True)
+        return
+    attn_us = sum(e.self_device_time_total for e in events
+                  if any(k in e.key for k in ("fwd_kernel", "dq_kernel", "dkdv_kernel")))
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    summary = {"wall_ms": wall_s * 1e3, "device_busy_ms": total_us / 1e3,
+               "device_idle_share": max(0.0, 1 - total_us / 1e3 / (wall_s * 1e3)),
+               "attention_kernels_ms": attn_us / 1e3, "attention_share_of_busy": attn_us / total_us,
+               "top": [{"kernel": e.key[:90], "ms": e.self_device_time_total / 1e3,
+                        "calls": e.count} for e in top]}
+    print(f"lm profile: {json.dumps(summary)}", flush=True)
+
+
+def _lm_main_path(device):
+    """Federated LM training on stablelm-3b at full width, cut to 2 of its
+    32 layers, 3 rounds; returns the kernels' launch counts from this run."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import make_token_stream
+    from repro_torch.engine import FLConfig, make_engine
+    from repro_torch.kernels.aggregate import masked_weighted_sum
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward,
+        flash_attention_forward,
+    )
+    from repro_torch.kernels.hellinger import hellinger_strip
+
+    vocab, seq = 50304, 64
+    t = time.perf_counter()
+    train = make_token_stream(2400, seq, vocab, seed=0)
+    test = make_token_stream(64, seq, vocab, seed=1)
+    print(f"lm: data {time.perf_counter() - t:.3f} s  train {train.x.shape} test {test.x.shape} "
+          f"vocab {vocab}", flush=True)
+    cfg = FLConfig(task="lm", task_kwargs={"model": "stablelm-3b", "reduced": False,
+                                           "overrides": {"n_layers": 2}, "hist_bins": 64},
+                   n_clients=100, m=10, strategy="fedlecc", strategy_kwargs={"J": 3},
+                   batch_size=8, eval_samples=4, eval_every=1, target_hd=0.9, rounds=3, seed=0)
+    print("lm: stablelm-3b at full width (d_model 2560, 32 heads of 80, d_ff 6912, vocab "
+          "50304); cut: n_layers 32 -> 2, which one card's memory forces for the (10, P) "
+          "cohort and its gradient", flush=True)
+
+    counters = (hellinger_strip, masked_weighted_sum, flash_attention_forward,
+                flash_attention_backward)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    engine = make_engine(cfg, train, test, n_classes=vocab, device=device)
+    torch.cuda.synchronize()
+    mc = engine.task.model_cfg
+    print(f"lm: engine setup {time.perf_counter() - t:.3f} s  shards/client={engine.alpha:g}  "
+          f"OPTICS clusters={engine.strategy.n_clusters}  P={engine.n_params}  "
+          f"max_steps={engine.max_steps}  peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+    results = []
+    it = engine.rounds()
+    for rnd in range(cfg.rounds):
+        torch.cuda.reset_peak_memory_stats()
+        last = rnd == cfg.rounds - 1
+        with _profiled(last) as prof:
+            t = time.perf_counter()
+            r = next(it)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        results.append(r)
+        print(f"lm: round {r.round} selected={list(r.selected)} test_loss={r.test_loss:.4f} "
+              f"next_token_acc={r.test_acc:.4f} ppl={r.metrics['ppl']:.2f} "
+              f"train_loss={r.mean_selected_loss:.4f} comm={r.comm_mb:.1f} MB "
+              f"wall={wall:.3f} s{' (under the profiler)' if last else ''} "
+              f"peak={torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+        if last:
+            _print_profile(prof, wall)
+    launches = {c.__name__: c.launches for c in counters}
+    print(f"lm: launches {json.dumps(launches)}", flush=True)
+
+    want_fwd = mc.n_layers * cfg.rounds * (1 + engine.max_steps + 2)  # poll, steps, eval x 2
+    want_bwd = mc.n_layers * cfg.rounds * engine.max_steps
+    if any(v == 0 for v in launches.values()):
+        raise AssertionError(f"a kernel of the LM path never launched: {launches}")
+    if (launches["flash_attention_forward"], launches["flash_attention_backward"]) != (
+            want_fwd, want_bwd):
+        raise AssertionError(f"attention launches {launches}; expected forward {want_fwd} "
+                             f"(layers x rounds x (poll + steps + 2 evaluations)) and backward "
+                             f"{want_bwd} (layers x rounds x steps)")
+    if len(results) != cfg.rounds or engine.n_params != 380_789_760:
+        raise AssertionError(f"ran {len(results)} rounds with P={engine.n_params}")
+    for r in results:
+        sel = list(r.selected)
+        if len(sel) != cfg.m or sorted(set(sel)) != sel or not 0 <= sel[0] <= sel[-1] < cfg.n_clients:
+            raise AssertionError(f"round {r.round}: bad selection {sel}")
+        ppl = r.metrics["ppl"]
+        if not (math.isfinite(r.test_loss) and 0.0 <= r.test_acc <= 1.0 and math.isfinite(ppl)
+                and ppl > 1.0 and math.isfinite(r.mean_selected_loss)):
+            raise AssertionError(f"round {r.round}: bad metrics {r}")
+        if not abs(math.log(ppl) - np.float32(r.test_loss)) < 1e-3:  # ppl = exp(mean NLL)
+            raise AssertionError(f"round {r.round}: ppl {ppl} is not exp(test_loss {r.test_loss})")
+    if not (engine.params.is_cuda and torch.isfinite(engine.params).all()):
+        raise AssertionError("final LM parameters are not a finite CUDA tensor")
+    return launches
+
+
+def _lm_agreement(device):
+    """The LM micro configuration on the CPU (plain versions) and on the card
+    (kernels) from the same draws."""
+    import numpy as np
+
+    from repro_torch.data import make_token_stream
+    from repro_torch.engine import FLConfig, make_engine
+
+    train = make_token_stream(48, 16, 32, seed=0)
+    test = make_token_stream(16, 16, 32, seed=1)
+    cfg = FLConfig(task="lm", task_kwargs=LM_MICRO, n_clients=8, m=3, rounds=2,
+                   strategy_kwargs={"J": 2}, batch_size=4, eval_samples=4, eval_every=1,
+                   target_hd=0.8, max_steps_cap=3, seed=0)
+    on_card = make_engine(cfg, train, test, 32, device=device)
+    on_cpu = make_engine(cfg, train, test, 32, device="cpu")
+    res_card, res_cpu = list(on_card.rounds()), list(on_cpu.rounds())
+    sel_card, sel_cpu = [r.selected for r in res_card], [r.selected for r in res_cpu]
+    diff = float(np.abs(on_card.params.cpu().numpy() - on_cpu.params.numpy()).max())
+    ppl_diff = max(abs(a.metrics["ppl"] - b.metrics["ppl"]) for a, b in zip(res_card, res_cpu))
+    print(f"lm agreement: selected card={sel_card} cpu={sel_cpu} max |params diff|={diff:.3g} "
+          f"max |ppl diff|={ppl_diff:.3g} (tolerance 1e-4)", flush=True)
+    if sel_card != sel_cpu:
+        raise AssertionError("LM: card and CPU runs selected different clients")
+    if not (diff <= 1e-4 and ppl_diff <= 1e-4):
+        raise AssertionError(f"LM: card and CPU differ by {diff} (params), {ppl_diff} (ppl) > 1e-4")
+
+
 def main() -> int:
     import torch
 
@@ -251,28 +501,48 @@ def main() -> int:
           f"({', '.join(sorted(libs))}) into {build.BUILD_DIR.relative_to(ROOT)}", flush=True)
 
     # 3. kernels against their plain versions
-    k2 = [_check_hellinger(s, device) for s in [(100, 100, 10), (4096, 16384, 10)]]
+    k2 = [_check_hellinger(s, device) for s in [(100, 100, 10), (100, 100, 64), (4096, 16384, 10)]]
     k1 = [_check_aggregate(s, dt, device)
-          for s, dt in [((10, 199_210), torch.float32), ((64, 199_210), torch.bfloat16)]]
-    print("kernels: hellinger_strip passed at (100,100,10) and (4096,16384,10); "
-          "masked_weighted_sum passed at (10,199210) fp32 and (64,199210) bf16", flush=True)
+          for s, dt in [((10, 199_210), torch.float32), ((10, 380_789_760), torch.float32),
+                        ((64, 199_210), torch.bfloat16)]]
+    k3 = [_check_flash(s, dt, w, ig, device) for s, dt, w, ig in [
+        ((80, 64, 32, 32, 80), torch.float32, 0, 1.0),     # local SGD: m x batch sequences
+        ((400, 64, 32, 32, 80), torch.float32, 0, 1.0),    # the poll: K x eval_samples
+        ((4, 2048, 32, 32, 80), torch.float32, 0, 1.0),
+        ((4, 2048, 32, 32, 80), torch.bfloat16, 0, 1.0),
+        ((2, 1024, 8, 2, 128), torch.float32, 256, 0.0),   # GQA, sliding window
+    ]]
+    print("kernels: hellinger_strip, masked_weighted_sum and flash_attention (forward and "
+          "backward) passed at every shape above", flush=True)
+    torch.cuda.empty_cache()
 
-    # 4. main path
+    # 4. main paths: the paper's classification experiment, then LM training
     launches = _main_path(device)
+    lm_launches = _lm_main_path(device)
 
     # 5. small-input agreement with the CPU path
     _agreement(device)
+    _lm_agreement(device)
 
-    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
         {"name": "hellinger_strip", "route": "cuda",
          "source": "src/repro_torch/csrc/hellinger_strip.cu",
          "replaces": "src/repro/kernels/hellinger/kernel.py:38",
-         "launches": launches["hellinger_strip"], **{k: k2[0][k] for k in keys}},
+         "launches": launches["hellinger_strip"], "shape": k2[0]["shape"],
+         **{k: k2[0][k] for k in keys}},
         {"name": "masked_weighted_sum", "route": "cuda",
          "source": "src/repro_torch/csrc/fedavg_reduce.cu",
          "replaces": "src/repro/kernels/aggregate/kernel.py:29",
-         "launches": launches["masked_weighted_sum"], **{k: k1[0][k] for k in keys}},
+         "launches": launches["masked_weighted_sum"], "shape": k1[0]["shape"],
+         **{k: k1[0][k] for k in keys}},
+    ] + [
+        {"name": f"flash_attention_{direction}", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:68",
+         "launches": lm_launches[f"flash_attention_{direction}"], "shape": k3[0]["shape"],
+         **{k: k3[0][direction][k] for k in keys}}
+        for direction in ("forward", "backward")
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

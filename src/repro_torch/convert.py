@@ -1,9 +1,11 @@
 """Conversion between the JAX package's parameters and the port's.
 
 The reference keeps the MLP as a list of layers ``[{"w": (in, out),
-"b": (out,)}, ...]``; the port keeps one flat fp32 vector (P,) laid out
-by ``repro_torch.models.mlp.MLPLayout``.  Arrays cross as numpy, so this
-module needs neither JAX nor the reference package.
+"b": (out,)}, ...]`` and the transformer as a tree whose ``"layers"``
+leaves are stacked on a leading layer axis; the port keeps either model
+as one flat fp32 vector (P,), laid out by ``MLPLayout`` or
+``TransformerLayout``.  Arrays cross as numpy, so this module needs
+neither JAX nor the reference package.
 """
 
 from __future__ import annotations
@@ -12,8 +14,10 @@ import numpy as np
 import torch
 
 from repro_torch.models.mlp import MLPLayout
+from repro_torch.models.transformer import TransformerLayout
 
-__all__ = ["params_from_jax", "params_to_numpy"]
+__all__ = ["params_from_jax", "params_to_numpy", "transformer_params_from_jax",
+           "transformer_params_to_numpy"]
 
 
 def params_from_jax(params) -> torch.Tensor:
@@ -31,3 +35,49 @@ def params_to_numpy(flat: torch.Tensor, sizes: tuple[int, ...]) -> list[dict]:
     ``[{"w": (in, out), "b": (out,)}, ...]`` float32 numpy layers."""
     layers = MLPLayout(sizes).views(flat.detach().to("cpu", torch.float32))
     return [{"w": w.numpy().copy(), "b": b.numpy().copy()} for w, b in layers]
+
+
+def _map_tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_tree(fn, v) for v in tree]
+    return fn(tree)
+
+
+def transformer_params_from_jax(tree, cfg) -> torch.Tensor:
+    """The reference's transformer tree (numpy or array-like leaves, layer
+    leaves stacked on a leading axis) -> flat (P,) fp32 CPU tensor in
+    ``TransformerLayout(cfg)``."""
+    layers = tree["layers"]
+    ported = {k: v for k, v in tree.items() if k != "layers"}
+    ported["layers"] = [
+        _map_tree(lambda a, i=i: a[i], layers) for i in range(cfg.n_layers)
+    ]
+    ported = _map_tree(lambda a: torch.from_numpy(np.array(a, np.float32)), ported)
+    return TransformerLayout(cfg).flatten(ported)
+
+
+def transformer_params_to_numpy(flat: torch.Tensor, cfg) -> dict:
+    """Flat (P,) transformer parameters -> the reference's tree of float32
+    numpy arrays, layer leaves stacked on a leading axis."""
+    tree = TransformerLayout(cfg).views(flat.detach().to("cpu", torch.float32))
+    out = {k: v.numpy().copy() for k, v in tree.items() if k != "layers"}
+    layers = tree["layers"]
+
+    def stack(path):
+        leaves = []
+        for layer in layers:
+            node = layer
+            for key in path:
+                node = node[key]
+            leaves.append(node.numpy())
+        return np.stack(leaves)
+
+    def build(node, path):
+        if isinstance(node, dict):
+            return {k: build(v, path + (k,)) for k, v in node.items()}
+        return stack(path)
+
+    out["layers"] = build(layers[0], ())
+    return out

@@ -6,9 +6,9 @@ from repro_torch.data.partition import (
     pack_clients,
     shard_partition,
 )
-from repro_torch.data.synthetic import Dataset, make_classification
+from repro_torch.data.synthetic import Dataset, make_classification, make_token_stream
 
 __all__ = [
-    "Dataset", "make_classification", "dirichlet_partition", "shard_partition",
+    "Dataset", "make_classification", "make_token_stream", "dirichlet_partition", "shard_partition",
     "calibrate_alpha", "calibrate_shards", "pack_clients", "label_histograms",
 ]

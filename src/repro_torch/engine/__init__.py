@@ -7,7 +7,8 @@
 - ``host``        — ``HostEngine``: numpy selection + cohort training on
                     the device
 - ``aggregators`` — ``FedAvgAggregator`` (the FedAvg reduce kernel)
-- ``tasks``       — ``ClassificationTask`` (the paper's MLP)
+- ``tasks``       — ``ClassificationTask`` (the paper's MLP) and ``LMTask``
+                    (federated language modelling on a transformer)
 - ``draws``       — ``TorchDraws``, the one source of randomness
 
 Typical use::
@@ -32,11 +33,18 @@ __all__ = ["BACKENDS", "FLConfig", "make_engine"]
 
 
 def make_engine(cfg: FLConfig, train, test, n_classes: int, *,
-                device: str | torch.device = "cuda", draws: Any = None):
+                device: str | torch.device = "cuda", draws: Any = None,
+                partition_labels=None):
     """Build the engine for ``cfg.backend`` (this slice: ``host``) on
     ``device`` (default ``"cuda"``; raises without a card unless the
-    caller passes ``"cpu"``).  ``draws`` replaces the default
-    ``TorchDraws`` (see ``repro_torch.engine.draws``)."""
+    caller passes ``"cpu"``).  ``train``/``test`` are the task's datasets
+    (features and labels for ``task="classification"``, token and
+    next-token sequences for ``task="lm"``); ``n_classes`` is the label
+    cardinality (the vocab size for LM).  ``draws`` replaces the default
+    ``TorchDraws`` (see ``repro_torch.engine.draws``);
+    ``partition_labels`` is a (N,) integer array the non-IID partitioner
+    splits on instead of the task's derived labels."""
     from repro_torch.engine.host import HostEngine
 
-    return HostEngine(cfg, train, test, n_classes, device=device, draws=draws)
+    return HostEngine(cfg, train, test, n_classes, device=device, draws=draws,
+                      partition_labels=partition_labels)

@@ -60,6 +60,9 @@ class RoundResult:
       to and including this round.
     - ``test_loss``/``test_acc`` — global-model evaluation on the held-out
       set; ``None`` on rounds skipped by the ``eval_every`` cadence.
+    - ``metrics``            — the task's extra held-out metrics on
+      evaluated rounds (the LM task's ``ppl`` and ``ppl_per_cluster``);
+      ``None`` otherwise.
     - ``params_version``     — server params version after this round.
     """
 
@@ -69,6 +72,7 @@ class RoundResult:
     comm_mb: float
     test_loss: float | None = None
     test_acc: float | None = None
+    metrics: dict | None = None
     params_version: int = 0
 
     @property
@@ -82,12 +86,15 @@ class Engine:
     ``device`` (default ``"cuda"``) holds the client data, the model and
     every kernel launch; it raises when no card is present unless the
     caller asks for ``"cpu"``.  ``draws`` replaces the default
-    ``TorchDraws(cfg.seed, device)``."""
+    ``TorchDraws(cfg.seed, device)``.  ``partition_labels`` is a (N,)
+    integer array the non-IID partitioner splits on instead of the task's
+    derived labels (e.g. ground-truth topic ids for an LM corpus)."""
 
     backend = "base"
 
     def __init__(self, cfg: FLConfig, train, test, n_classes: int, *,
-                 device: str | torch.device = "cuda", draws: Any = None):
+                 device: str | torch.device = "cuda", draws: Any = None,
+                 partition_labels=None):
         if not isinstance(cfg, FLConfig):
             raise TypeError(
                 "cfg must be a repro_torch.engine.FLConfig (build one from the "
@@ -103,8 +110,20 @@ class Engine:
         self.draws = TorchDraws(cfg.seed, self.device) if draws is None else draws
 
         # --- non-IID partition (calibrated to the paper's HD regime) ---
-        labels = np.asarray(self.task.partition_labels(train))
+        if partition_labels is None:
+            labels = np.asarray(self.task.partition_labels(train))
+        else:
+            labels = np.asarray(partition_labels)
+            if labels.shape != (len(train.x),):
+                raise ValueError(
+                    f"partition_labels must be ({len(train.x)},); got shape {labels.shape}"
+                )
         part_classes = self.task.partition_classes(n_classes)
+        if partition_labels is not None and (labels.min() < 0 or labels.max() >= part_classes):
+            raise ValueError(
+                f"partition_labels values must lie in [0, {part_classes}) (the task's "
+                f"partition-label space); got range [{labels.min()}, {labels.max()}]"
+            )
         if cfg.partition == "shards":
             s = calibrate_shards(labels, cfg.n_clients, cfg.target_hd,
                                  part_classes, seed=cfg.seed)
@@ -151,6 +170,7 @@ class Engine:
         self.comm_mb = self.comm.one_time_mb(self.strategy.needs_histograms)
 
         self._apply_fn, self._loss_fn, self._metric_fn = self.task.build_fns(train, n_classes)
+        self._eval_extra = self.task.build_eval_extra(test, n_classes)
         self._round = 0
         self.history: dict[str, list] = {
             "round": [], "test_acc": [], "test_loss": [], "comm_mb": [],
@@ -192,6 +212,13 @@ class Engine:
             metric = self._metric_fn(out, self.test_y)
         return float(loss), float(metric)
 
+    def eval_metrics(self) -> dict | None:
+        """The task's extra metrics on the held-out set (None when the task
+        has none), computed on the ``eval_every`` cadence only."""
+        if self._eval_extra is None:
+            return None
+        return self._eval_extra(self.params, self.test_x, self.test_y)
+
     def _record_history(self, r: RoundResult) -> None:
         """Evaluated rounds land in the in-memory history dict."""
         if not r.evaluated:
@@ -202,6 +229,8 @@ class Engine:
         self.history["comm_mb"].append(r.comm_mb)
         self.history["mean_selected_loss"].append(r.mean_selected_loss)
         self.history["selected"].append(list(r.selected))
+        for k, v in (r.metrics or {}).items():
+            self.history.setdefault(k, []).append(v)
 
     # -- the canonical round loop --------------------------------------
     def rounds(
@@ -222,14 +251,16 @@ class Engine:
             sel = np.asarray(self.select(rnd, losses))
             payload, sel_losses = self.local_train(rnd, sel)
             self.aggregate(rnd, sel, payload)
+            del payload  # the (m, P) cohort: free it before evaluation and the next round
             mean_loss = _mean_loss(sel_losses)
             self.comm_mb += self.comm.round_mb(len(sel), self.strategy.needs_losses)
 
-            test_loss = test_acc = None
+            test_loss = test_acc = metrics = None
             # absolute cadence keyed to the configured terminal round, so
             # chunked rounds() calls evaluate on one contiguous schedule
             if rnd % cfg.eval_every == 0 or rnd == cfg.rounds - 1:
                 test_loss, test_acc = self.evaluate()
+                metrics = self.eval_metrics()
 
             self._round = rnd + 1
             result = RoundResult(
@@ -239,6 +270,7 @@ class Engine:
                 comm_mb=float(self.comm_mb),
                 test_loss=test_loss,
                 test_acc=test_acc,
+                metrics=metrics,
                 params_version=rnd + 1,
             )
             self._record_history(result)

@@ -4,7 +4,8 @@ field for field the reference's ``repro.engine.config.FLConfig``, so one
 
 Validation rejects, with a message naming what this slice of the port
 implements, every value it does not: a backend other than ``host``, a
-task other than ``classification``, a strategy other than ``fedlecc``
+task other than ``classification`` or ``lm`` (the LM task on a model this
+slice runs, stablelm-3b), a strategy other than ``fedlecc``
 (with ``cluster="optics"``), an aggregator other than ``fedavg``, a
 client mode other than ``plain``, a non-zero ``fuse_rounds`` or
 ``compress_bits``, and any ``systems``, ``async_mode``, ``faults`` or
@@ -111,7 +112,7 @@ class FLConfig:
 
         try:
             build_task(self)
-        except TypeError as e:  # unknown task kwarg
+        except (TypeError, KeyError) as e:  # unknown task kwarg / model name
             raise ValueError(f"invalid task_kwargs for task {self.task!r}: {e}") from None
         get_aggregator(self.aggregator, self)
         try:

@@ -3,8 +3,10 @@
 Every random draw of a run goes through a ``draws`` object with three
 methods, the counterparts of the reference's ``jax.random`` call sites:
 
-- ``init_params(sizes)`` -> flat (P,) fp32 initial MLP parameters
-  (``repro.models.mlp.init_mlp``);
+- ``init_params(spec)`` -> flat (P,) fp32 initial parameters of the
+  model the task names by ``spec``: the MLP's layer sizes (a tuple,
+  ``repro.models.mlp.init_mlp``) or a transformer's ``ModelConfig``
+  (``repro.models.transformer.init_transformer``);
 - ``poll_indices(rnd, probs, n)`` -> (K, n) int64 sample indices per
   client for the loss poll (``Engine._poll_losses`` in the reference);
 - ``batch_indices(rnd, clients, probs, steps, batch)`` -> (steps, m,
@@ -23,7 +25,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.configs import ModelConfig
 from repro_torch.models.mlp import init_mlp
+from repro_torch.models.transformer import init_transformer
 
 __all__ = ["TorchDraws"]
 
@@ -39,8 +43,10 @@ class TorchDraws:
         self._init = torch.Generator().manual_seed(int(seed))
         self._rounds = torch.Generator().manual_seed(int(seed) + 17)
 
-    def init_params(self, sizes: tuple[int, ...]) -> torch.Tensor:
-        return init_mlp(self._init, sizes).to(self.device)
+    def init_params(self, spec: tuple[int, ...] | ModelConfig) -> torch.Tensor:
+        if isinstance(spec, ModelConfig):
+            return init_transformer(self._init, spec).to(self.device)
+        return init_mlp(self._init, spec).to(self.device)
 
     def poll_indices(self, rnd: int, probs: torch.Tensor, n: int) -> torch.Tensor:
         idx = torch.multinomial(probs.cpu(), n, replacement=True, generator=self._rounds)

@@ -10,7 +10,10 @@ on row i.  The scan becomes a Python loop over ``max_steps``; a client
 whose budget ``tau`` is spent keeps its parameters (``live = t < tau``),
 and the mean loss divides by ``max(min(tau, max_steps), 1)``, both as in
 the reference.  The update is applied in place, under ``torch.no_grad``,
-to the cohort tensor.
+to the cohort tensor; the step is scaled in the gradient's own buffer,
+so the update allocates no further (m, P) tensor, which matters when
+the cohort is 15 GB.  Rows are examples: feature vectors for classification, whole
+token sequences for the LM task.
 """
 
 from __future__ import annotations
@@ -26,8 +29,8 @@ def local_train(
     apply_fn: Callable,
     loss_fn: Callable,
     global_params: torch.Tensor,  # (P,)
-    x: torch.Tensor,              # (m, N_max, F) padded cohort features
-    y: torch.Tensor,              # (m, N_max) padded labels
+    x: torch.Tensor,              # (m, N_max, ...) padded cohort features / tokens
+    y: torch.Tensor,              # (m, N_max, ...) padded labels / next tokens
     batch_idx: torch.Tensor,      # (max_steps, m, batch) row indices
     tau: torch.Tensor,            # (m,) true local step budgets
     lr: float,
@@ -44,7 +47,7 @@ def local_train(
         (grad,) = torch.autograd.grad(loss.sum(), theta)
         live = (t < tau).to(torch.float32)
         with torch.no_grad():
-            theta -= (lr * live)[:, None] * grad
+            theta -= grad.mul_((lr * live)[:, None])
             loss_sum += live * loss
     mean_loss = loss_sum / torch.clamp(torch.clamp(tau, max=max_steps).to(torch.float32), min=1.0)
     return theta.detach(), mean_loss

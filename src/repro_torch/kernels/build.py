@@ -27,7 +27,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "build", "load"]
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parents[1] / "build" / "kernels"
-SOURCES = ("hellinger_strip", "fedavg_reduce")
+SOURCES = ("hellinger_strip", "fedavg_reduce", "flash_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -8,6 +8,8 @@ identical ``comm_mb``; params allclose at atol 1e-5 and ``test_acc``
 within 1 / len(test).  The tolerances cover fp32 sums taken in different
 orders (XLA's matrix products and reductions vs PyTorch's)."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -19,9 +21,12 @@ import jax.numpy as jnp  # noqa: E402
 
 from conftest import fl_cfg  # noqa: E402
 
+from repro.configs import ModelConfig as RefModelConfig  # noqa: E402
 from repro.engine import make_engine as ref_make_engine  # noqa: E402
 from repro.models.mlp import init_mlp  # noqa: E402
-from repro_torch.convert import params_from_jax  # noqa: E402
+from repro.models.transformer import init_transformer  # noqa: E402
+from repro_torch.configs import ModelConfig  # noqa: E402
+from repro_torch.convert import params_from_jax, transformer_params_from_jax  # noqa: E402
 from repro_torch.engine import FLConfig, make_engine  # noqa: E402
 from repro_torch.engine.draws import TorchDraws  # noqa: E402
 
@@ -42,7 +47,8 @@ class JaxReplayDraws:
     ``Engine`` draws: ``PRNGKey(seed + 17)`` split 3 ways per round into
     (carry, poll, train); the poll splits its key K ways; training folds
     the client id into the train key and splits it per step; the weights
-    come from ``init_mlp(PRNGKey(seed))``."""
+    come from ``init_mlp(PRNGKey(seed))``, or for a transformer spec (a
+    ``ModelConfig``) from ``init_transformer(PRNGKey(seed), cfg)``."""
 
     def __init__(self, seed, device):
         self.seed, self.device = seed, torch.device(device)
@@ -67,8 +73,13 @@ class JaxReplayDraws:
     def _to_torch(self, a):
         return torch.as_tensor(np.array(a), dtype=torch.int64, device=self.device)
 
-    def init_params(self, sizes):
-        params = init_mlp(jax.random.PRNGKey(self.seed), sizes)
+    def init_params(self, spec):
+        if isinstance(spec, ModelConfig):
+            ref_cfg = RefModelConfig(**dataclasses.asdict(spec))
+            params = init_transformer(jax.random.PRNGKey(self.seed), ref_cfg)
+            flat = transformer_params_from_jax(jax.tree.map(np.asarray, params), spec)
+            return flat.to(self.device)
+        params = init_mlp(jax.random.PRNGKey(self.seed), spec)
         return params_from_jax(jax.tree.map(np.asarray, params)).to(self.device)
 
     def poll_indices(self, rnd, probs, n):

@@ -4,18 +4,27 @@ reference package, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-Both kernels repeat their plain version's arithmetic operation for
-operation (fp32, separately rounded multiply and add, index order), so
-they must agree with it exactly."""
+The Hellinger and FedAvg kernels repeat their plain version's arithmetic
+operation for operation (fp32, separately rounded multiply and add, index
+order), so they must agree with it exactly.  The flash-attention kernels
+sum over D and S in another order than the plain version's matrix
+products, so they agree within 2e-5 in fp32 and 1e-2 in bf16 (one
+rounding to 8 mantissa bits), relative to max(1, max |plain|)."""
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.data import make_classification  # noqa: E402
+from repro_torch.data import make_classification, make_token_stream  # noqa: E402
 from repro_torch.engine import FLConfig, make_engine  # noqa: E402
 from repro_torch.kernels.aggregate import masked_weighted_sum, masked_weighted_sum_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    attention_ref,
+    flash_attention,
+    flash_attention_backward,
+    flash_attention_forward,
+)
 from repro_torch.kernels.hellinger import hellinger_strip, hellinger_strip_ref  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -86,3 +95,68 @@ def test_engine_on_card_matches_cpu(cuda):
     np.testing.assert_allclose(gpu.params.cpu().numpy(), cpu.params.numpy(), atol=1e-4)
     for a, b in zip(res_gpu, res_cpu):
         assert abs(a.test_acc - b.test_acc) <= 1.0 / len(test.y)
+
+
+@pytest.mark.parametrize("b,s,h,kv,d,window,is_global,dtype", [
+    (80, 64, 32, 32, 80, 0, 1.0, torch.float32),      # the LM path's local SGD
+    (4, 2048, 32, 32, 80, 0, 1.0, torch.float32),
+    (4, 2048, 32, 32, 80, 0, 1.0, torch.bfloat16),
+    (2, 1024, 8, 2, 128, 256, 0.0, torch.float32),    # GQA, sliding window
+    (3, 77, 6, 3, 16, 9, 0.0, torch.bfloat16),        # ragged S, D below a tile
+    (1, 100, 2, 1, 256, 0, 1.0, torch.float32),       # the largest D
+])
+def test_flash_attention_kernels_match_plain(cuda, b, s, h, kv, d, window, is_global, dtype):
+    g = torch.Generator().manual_seed(b * s + h * d)
+    q, k, v = (torch.randn(b, s, n, d, generator=g).to(dtype).to(cuda) for n in (h, kv, kv))
+    do = torch.randn(b, s, h, d, generator=g).to(dtype).to(cuda)
+    before = (flash_attention_forward.launches, flash_attention_backward.launches)
+    o, lse = flash_attention_forward(q, k, v, window, is_global)
+    grads = flash_attention_backward(q, k, v, o, lse, do, window, is_global)
+    torch.cuda.synchronize()
+    assert (flash_attention_forward.launches, flash_attention_backward.launches) == (
+        before[0] + 1, before[1] + 1)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    o_ref, lse_ref = attention_ref(*leaves, window, is_global)
+    want = torch.autograd.grad(o_ref, leaves, do)
+    tol = 2e-5 if dtype == torch.float32 else 1e-2
+    for got, ref in [(o, o_ref), (lse, lse_ref), *zip(grads, want)]:
+        assert got.shape == ref.shape and got.dtype == ref.dtype
+        limit = tol * max(1.0, ref.float().abs().max().item())
+        assert (got.float() - ref.float()).abs().max().item() <= limit
+
+
+def test_flash_attention_autograd_runs_both_kernels(cuda):
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(2, 50, 4, 80, generator=g).to(cuda).requires_grad_(True)
+               for _ in range(3))
+    before = (flash_attention_forward.launches, flash_attention_backward.launches)
+    flash_attention(q, k, v).square().sum().backward()
+    assert (flash_attention_forward.launches, flash_attention_backward.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in (q, k, v))
+
+
+def test_lm_engine_on_card_launches_attention_kernels(cuda):
+    """One round of the LM micro configuration on the card: K3 runs forward
+    in the poll, the local steps and both evaluations, and backward in the
+    local steps; the CPU run from the same draws selects the same clients."""
+    train = make_token_stream(48, 16, 32, seed=0)
+    test = make_token_stream(16, 16, 32, seed=1)
+    cfg = FLConfig(task="lm", n_clients=8, m=3, rounds=1, strategy_kwargs={"J": 2},
+                   batch_size=4, eval_samples=4, eval_every=1, target_hd=0.8, max_steps_cap=3,
+                   seed=0, task_kwargs={
+                       "model": "stablelm-3b", "hist_bins": 16,
+                       "overrides": {"d_model": 32, "n_heads": 2, "n_kv_heads": 2,
+                                     "head_dim": 16, "d_ff": 64, "vocab": 32,
+                                     "loss_chunk": 16, "attn_chunk": 16, "remat": False}})
+    before = (flash_attention_forward.launches, flash_attention_backward.launches)
+    gpu = make_engine(cfg, train, test, 32)
+    res_gpu = list(gpu.rounds())
+    layers, steps = gpu.task.model_cfg.n_layers, gpu.max_steps
+    assert (flash_attention_forward.launches - before[0],
+            flash_attention_backward.launches - before[1]) == (layers * (3 + steps),
+                                                               layers * steps)
+    res_cpu = list(make_engine(cfg, train, test, 32, device="cpu").rounds())
+    assert [r.selected for r in res_gpu] == [r.selected for r in res_cpu]
+    assert abs(res_gpu[0].metrics["ppl"] - res_cpu[0].metrics["ppl"]) <= 1e-4
+

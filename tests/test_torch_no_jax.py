@@ -10,7 +10,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.data import make_classification  # noqa: E402
+from repro_torch.data import make_classification, make_token_stream  # noqa: E402
 from repro_torch.engine import FLConfig, make_engine  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -35,6 +35,10 @@ def test_port_file_list_is_complete():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert "chip_smoke.py" in names and (ROOT / "chip_smoke.py").exists()
     assert "src/repro_torch/engine/host.py" in names
+    for lm_module in ("configs/base.py", "configs/stablelm_3b.py", "models/common.py",
+                      "models/attention.py", "models/transformer.py",
+                      "kernels/flash_attention/ops.py", "kernels/flash_attention/ref.py"):
+        assert f"src/repro_torch/{lm_module}" in names
     assert len(names) > 20
 
 
@@ -51,6 +55,12 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
     cfg = FLConfig(n_clients=6, m=2, rounds=1, hidden=(8,), eval_samples=8, target_hd=0.5)
     with pytest.raises(RuntimeError, match="cuda"):
         make_engine(cfg, train, test, 4)
+    lm_cfg = FLConfig(task="lm", n_clients=4, m=2, rounds=1, batch_size=2, eval_samples=2,
+                      target_hd=0.5, task_kwargs={"model": "stablelm-3b", "hist_bins": 8,
+                                                  "overrides": {"vocab": 16}})
+    tokens = make_token_stream(16, 8, 16, seed=0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_engine(lm_cfg, tokens, tokens, 16)
     from repro_torch.core.hellinger import hellinger_blocked
 
     with pytest.raises(RuntimeError, match="cuda"):
@@ -59,7 +69,7 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
 
 @pytest.mark.parametrize("field,value", [
     ("backend", "compiled"),
-    ("task", "lm"),
+    ("task", "lm"),  # the LM task's default model, xlstm-125m, comes in a later slice
     ("strategy", "poc"),
     ("strategy_kwargs", {"cluster": "auto"}),
     ("aggregator", "fednova"),
