@@ -11,7 +11,8 @@ Phases, each printed on its own lines:
    with nvcc (one process per source, in parallel) into ``build/kernels/``.
 3. kernels — holds each kernel against its plain PyTorch version on the
    card and times the kernel, the plain version and one PyTorch library
-   call computing the same function (median over 30 calls, CUDA events).
+   call computing the same function where one exists (median over 30
+   calls, CUDA events; 5 for the plain scan over 2048 steps).
 4. main paths, each driven through ``make_engine(...).rounds()`` with
    every kernel's launch count set to 0 just before and read just after:
    - the paper's experiment at full width (K = 100 clients, m = 10, MLP
@@ -20,10 +21,14 @@ Phases, each printed on its own lines:
    - federated LM training on stablelm-3b at full width, cut from 32 to
      2 layers (P = 380,789,760), K = 100, m = 10, batch 8 of 64 tokens,
      3 rounds, with the flash-attention kernel forward (poll, local SGD,
-     evaluation) and backward (local SGD).
-5. agreement — a small configuration of each task run on the CPU (plain
-   versions) and on the card (kernels) from the same draws must select
-   the same clients and reach the same parameters.
+     evaluation) and backward (local SGD);
+   - federated LM training on hymba-1.5b at full width, cut from 32 to 6
+     layers (P = 344,430,400), the same data recipe and settings, with the
+     flash-attention kernel at hymba's shape and the selective-scan kernel,
+     each forward (poll, local SGD, evaluation) and backward (local SGD).
+5. agreement — a small configuration of each task and model run on the
+   CPU (plain versions) and on the card (kernels) from the same draws must
+   select the same clients and reach the same parameters.
 
 Then one JSON line lists the kernels, and the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
@@ -35,6 +40,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -45,6 +51,9 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_FP32_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
 PEAK_BF16_PER_S = 989e12     # H100 SXM dense bf16 on the tensor cores
+# exp and the other special functions: 16 a clock per SM (NVIDIA's Hopper
+# SM description) x 132 SMs x the 1.98 GHz boost clock of the SXM part
+PEAK_SFU_PER_S = 16 * 132 * 1.98e9
 TIMED_CALLS = 30
 
 
@@ -228,6 +237,101 @@ def _check_flash(shape, dtype, window, is_global, device):
     return rec
 
 
+def _mamba_work(shape, groups, elem):
+    """(forward bytes, backward bytes, (b, t, d, n) elements) of K4 at
+    (B, S, D, N): each input read once, each output written once.  The
+    state checkpoints that the forward keeps for the backward are this
+    design's choice, not the function's, and are not counted."""
+    b, s, d, n = shape
+    seq, state = b * s * d * elem, b * s * n * elem
+    weights = 4 * groups * d * (n + 1)
+    fwd = 2 * seq + 2 * state + weights + seq                              # x, dt, Bm, Cm, w -> y
+    bwd = 3 * seq + 2 * state + weights + 2 * seq + 2 * state + weights    # ..., dy -> six grads
+    return fwd, bwd, b * s * d * n
+
+
+def _scan_bound(n_bytes, elements, flops_per_element, exps_per_element):
+    """K4's bound: bytes over HBM, against the larger of its fp32 operations
+    over the CUDA cores and its exps over the special-function units."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S
+    t_ops = max(elements * flops_per_element / PEAK_FP32_PER_S,
+                elements * exps_per_element / PEAK_SFU_PER_S)
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _check_mamba(shape, groups, dtype, checkpoints, device):
+    """K4 at (B, S, D, N) with ``groups`` weight sets (0: shared (D, N)
+    weights): forward y, with and without checkpoints, and backward (all
+    six gradients) against the plain version and its autograd on the card,
+    and times."""
+    import torch
+
+    from repro_torch.kernels.mamba_scan import (
+        mamba_scan_backward,
+        mamba_scan_forward,
+        mamba_scan_ref,
+    )
+
+    b, s, d, n = shape
+    g = torch.Generator().manual_seed(b * s + d + n + groups)
+    x = (torch.randn(b, s, d, generator=g) * 0.5).to(dtype).to(device)
+    dt = (torch.randn(b, s, d, generator=g) * 0.02 + 0.05).abs().to(dtype).to(device)
+    bm, cm = (torch.randn(b, s, n, generator=g).to(dtype).to(device) for _ in range(2))
+    wshape = (d, n) if groups == 0 else (groups, d, n)
+    a_log = torch.log(torch.arange(1, n + 1, dtype=torch.float32)).expand(*wshape)
+    a_log = (a_log + 0.1 * torch.randn(*wshape, generator=g)).to(device)
+    d_skip = (1 + 0.1 * torch.randn(*wshape[:-1], generator=g)).to(device)
+    dy = torch.randn(b, s, d, generator=g).to(dtype).to(device)
+    inputs = (x, dt, bm, cm, a_log, d_skip)
+    y, ckpt = mamba_scan_forward(*inputs, checkpoints=True)
+    y_no_ckpt = mamba_scan_forward(*inputs)   # as the poll and the evaluations call it
+    grads = mamba_scan_backward(*inputs, ckpt, dy)
+    leaves = [t.detach().requires_grad_(True) for t in inputs]
+    y_ref = mamba_scan_ref(*leaves)
+    grads_ref = torch.autograd.grad(y_ref, leaves, dy, retain_graph=True)
+    torch.cuda.synchronize()
+
+    # fp32: the kernel sums over N, over channels (dbmat, dcmat) and over rows
+    # and steps (da_log, dd_skip) in another order than the plain version, and
+    # contracts multiply-adds; bf16: one rounding of y and of the four
+    # sequence gradients to 8 bits of mantissa.  Relative to max(1, max |plain|).
+    tol = 2e-5 if dtype == torch.float32 else 1e-2
+    errs, limits = {}, {}
+    names = ("y", "y_no_ckpt", "dx", "ddt", "dbmat", "dcmat", "da_log", "dd_skip")
+    for name, got, want in zip(names, (y, y_no_ckpt, *grads), (y_ref, y_ref, *grads_ref)):
+        if got.shape != want.shape or got.dtype != want.dtype or not torch.isfinite(got).all():
+            raise AssertionError(f"mamba_scan {shape} {dtype} {name}: bad output "
+                                 f"{tuple(got.shape)} {got.dtype}")
+        errs[name] = (got.float() - want.float()).abs().max().item()
+        limits[name] = tol * max(1.0, want.float().abs().max().item())
+    tag = f"{list(shape)} groups={groups} {str(dtype).replace('torch.', '')}"
+    if any(errs[k] > limits[k] for k in errs):
+        raise AssertionError(f"mamba_scan {tag}: max |err| {errs} above {limits}")
+    fwd_bytes, bwd_bytes, elements = _mamba_work(shape, max(groups, 1), x.element_size())
+    # per (b, t, d, n): forward 1 exp and 5 flops (dt A, the state update and
+    # the C contraction); backward at least 1 exp and 16 flops (the state
+    # recurrence again, then the reverse one and its six gradient terms)
+    fwd_bound = _scan_bound(fwd_bytes, elements, 5, 1)
+    bwd_bound = _scan_bound(bwd_bytes, elements, 16, 1)
+    plain_calls, plain_warmup = (5, 1) if s > 1024 else (TIMED_CALLS, 3)
+    rec = {"shape": list(shape), "groups": groups, "dtype": str(dtype).replace("torch.", ""),
+           "checkpoints": checkpoints, "errors": errs, "tolerance": tol,
+           "forward": {
+               "max_abs_err": max(errs["y"], errs["y_no_ckpt"]),
+               "ms": _median_ms(lambda: mamba_scan_forward(*inputs, checkpoints=checkpoints)),
+               "plain_ms": _median_ms(lambda: mamba_scan_ref(*inputs), plain_calls, plain_warmup),
+               "library_ms": None, "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1]},
+           "backward": {
+               "max_abs_err": max(errs[k] for k in names[2:]),
+               "ms": _median_ms(lambda: mamba_scan_backward(*inputs, ckpt, dy)),
+               "plain_ms": _median_ms(lambda: torch.autograd.grad(y_ref, leaves, dy,
+                                                                  retain_graph=True),
+                                      plain_calls, plain_warmup),
+               "library_ms": None, "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1]}}
+    print(f"kernel mamba_scan {json.dumps(rec)}", flush=True)
+    return rec
+
+
 def _main_path(device):
     """The paper's experiment at full width, 5 rounds; returns the kernels'
     launch counts from this run alone."""
@@ -321,7 +425,11 @@ LM_MICRO = {"model": "stablelm-3b", "hist_bins": 16,
             "overrides": {"d_model": 32, "n_heads": 2, "n_kv_heads": 2, "head_dim": 16,
                           "d_ff": 64, "vocab": 32, "loss_chunk": 16, "attn_chunk": 16,
                           "remat": False}}
-
+# hymba at micro width; its pattern "GL" makes layer 1 windowed at S = 16
+HYMBA_MICRO = {"model": "hymba-1.5b", "hist_bins": 16,
+               "overrides": {"d_model": 32, "n_heads": 4, "n_kv_heads": 2, "head_dim": 16,
+                             "d_ff": 64, "vocab": 32, "loss_chunk": 16, "attn_chunk": 16,
+                             "remat": False, "sliding_window": 8}}
 
 def _profiled(on: bool):
     """``torch.profiler`` over CPU and CUDA activity when ``on``."""
@@ -335,56 +443,68 @@ def _profiled(on: bool):
     return torch.profiler.profile(activities=acts)
 
 
-def _print_profile(prof, wall_s: float) -> None:
+def _print_profile(prof, wall_s: float, tag: str, families) -> None:
     """Device time of one profiled round by kernel: the busy and idle shares
-    of the round's wall time, the attention kernels' share, the top kernels."""
+    of the round's wall time, each kernel family's share, the top kernels.
+    Fails if a family's kernels launched but the profile holds none of them."""
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     total_us = sum(e.self_device_time_total for e in events)
     if total_us <= 0:
-        print("lm profile: the profiler recorded no device time", flush=True)
+        print(f"{tag} profile: the profiler recorded no device time", flush=True)
         return
-    attn_us = sum(e.self_device_time_total for e in events
-                  if any(k in e.key for k in ("fwd_kernel", "dq_kernel", "dkdv_kernel")))
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     summary = {"wall_ms": wall_s * 1e3, "device_busy_ms": total_us / 1e3,
-               "device_idle_share": max(0.0, 1 - total_us / 1e3 / (wall_s * 1e3)),
-               "attention_kernels_ms": attn_us / 1e3, "attention_share_of_busy": attn_us / total_us,
-               "top": [{"kernel": e.key[:90], "ms": e.self_device_time_total / 1e3,
-                        "calls": e.count} for e in top]}
-    print(f"lm profile: {json.dumps(summary)}", flush=True)
+               "device_idle_share": max(0.0, 1 - total_us / 1e3 / (wall_s * 1e3))}
+    for fwd, _, names in families:
+        fam_us = sum(e.self_device_time_total for e in events if names.search(e.key))
+        if fam_us <= 0:
+            raise AssertionError(f"{tag} profile: no kernel matches {names.pattern}")
+        fam = fwd.__name__.removesuffix("_forward")
+        summary[f"{fam}_kernels_ms"] = fam_us / 1e3
+        summary[f"{fam}_share_of_busy"] = fam_us / total_us
+    summary["top"] = [{"kernel": e.key[:90], "ms": e.self_device_time_total / 1e3,
+                       "calls": e.count} for e in top]
+    print(f"{tag} profile: {json.dumps(summary)}", flush=True)
 
 
-def _lm_main_path(device):
-    """Federated LM training on stablelm-3b at full width, cut to 2 of its
-    32 layers, 3 rounds; returns the kernels' launch counts from this run."""
+def _lm_main_path(device, tag, model, n_layers, n_params, families):
+    """Federated LM training on ``model`` at full width, cut to ``n_layers``,
+    3 rounds (the last under the profiler); returns the kernels' launch
+    counts from this run.  ``families`` holds one (forward wrapper, backward
+    wrapper, profile-name regex) for each kernel that the model runs in
+    every layer: each launches forward layers x rounds x (poll + steps + 2
+    evaluations) times and backward layers x rounds x steps times."""
     import numpy as np
     import torch
 
+    from repro_torch.configs import get_config
     from repro_torch.data import make_token_stream
     from repro_torch.engine import FLConfig, make_engine
     from repro_torch.kernels.aggregate import masked_weighted_sum
-    from repro_torch.kernels.flash_attention import (
-        flash_attention_backward,
-        flash_attention_forward,
-    )
     from repro_torch.kernels.hellinger import hellinger_strip
 
-    vocab, seq = 50304, 64
+    counters = [hellinger_strip, masked_weighted_sum] + [w for fam in families for w in fam[:2]]
+    full = get_config(model)
+    vocab, seq = full.vocab, 64
     t = time.perf_counter()
     train = make_token_stream(2400, seq, vocab, seed=0)
     test = make_token_stream(64, seq, vocab, seed=1)
-    print(f"lm: data {time.perf_counter() - t:.3f} s  train {train.x.shape} test {test.x.shape} "
-          f"vocab {vocab}", flush=True)
-    cfg = FLConfig(task="lm", task_kwargs={"model": "stablelm-3b", "reduced": False,
-                                           "overrides": {"n_layers": 2}, "hist_bins": 64},
+    print(f"{tag}: data {time.perf_counter() - t:.3f} s  train {train.x.shape} "
+          f"test {test.x.shape} vocab {vocab}", flush=True)
+    cfg = FLConfig(task="lm", task_kwargs={"model": model, "reduced": False,
+                                           "overrides": {"n_layers": n_layers}, "hist_bins": 64},
                    n_clients=100, m=10, strategy="fedlecc", strategy_kwargs={"J": 3},
                    batch_size=8, eval_samples=4, eval_every=1, target_hd=0.9, rounds=3, seed=0)
-    print("lm: stablelm-3b at full width (d_model 2560, 32 heads of 80, d_ff 6912, vocab "
-          "50304); cut: n_layers 32 -> 2, which one card's memory forces for the (10, P) "
-          "cohort and its gradient", flush=True)
+    mamba = (f", Mamba heads with N {full.ssm.d_state} and conv {full.ssm.conv_kernel}"
+             if full.block_type == "hymba" else "")
+    window = (f"; at S = {seq} the {full.sliding_window}-token window never bites (the kernel "
+              "phase runs it at S = 2048)" if full.sliding_window >= seq else "")
+    print(f"{tag}: {model} at full width (d_model {full.d_model}, {full.n_heads} query heads of "
+          f"{full.resolved_head_dim} on {full.n_kv_heads} kv heads, {full.mlp_activation} d_ff "
+          f"{full.d_ff}{mamba}, vocab {vocab}); cut: n_layers {full.n_layers} -> {n_layers}, "
+          f"which one card's memory forces for the (10, P) cohort and its gradient{window}",
+          flush=True)
 
-    counters = (hellinger_strip, masked_weighted_sum, flash_attention_forward,
-                flash_attention_backward)
     for c in counters:
         c.launches = 0
     torch.cuda.empty_cache()
@@ -393,7 +513,7 @@ def _lm_main_path(device):
     engine = make_engine(cfg, train, test, n_classes=vocab, device=device)
     torch.cuda.synchronize()
     mc = engine.task.model_cfg
-    print(f"lm: engine setup {time.perf_counter() - t:.3f} s  shards/client={engine.alpha:g}  "
+    print(f"{tag}: engine setup {time.perf_counter() - t:.3f} s  shards/client={engine.alpha:g}  "
           f"OPTICS clusters={engine.strategy.n_clusters}  P={engine.n_params}  "
           f"max_steps={engine.max_steps}  peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
           flush=True)
@@ -408,27 +528,29 @@ def _lm_main_path(device):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
         results.append(r)
-        print(f"lm: round {r.round} selected={list(r.selected)} test_loss={r.test_loss:.4f} "
+        print(f"{tag}: round {r.round} selected={list(r.selected)} test_loss={r.test_loss:.4f} "
               f"next_token_acc={r.test_acc:.4f} ppl={r.metrics['ppl']:.2f} "
               f"train_loss={r.mean_selected_loss:.4f} comm={r.comm_mb:.1f} MB "
               f"wall={wall:.3f} s{' (under the profiler)' if last else ''} "
               f"peak={torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
         if last:
-            _print_profile(prof, wall)
+            _print_profile(prof, wall, tag, families)
     launches = {c.__name__: c.launches for c in counters}
-    print(f"lm: launches {json.dumps(launches)}", flush=True)
+    print(f"{tag}: launches {json.dumps(launches)}", flush=True)
 
-    want_fwd = mc.n_layers * cfg.rounds * (1 + engine.max_steps + 2)  # poll, steps, eval x 2
-    want_bwd = mc.n_layers * cfg.rounds * engine.max_steps
+    want = (mc.n_layers * cfg.rounds * (1 + engine.max_steps + 2),  # poll, steps, eval x 2
+            mc.n_layers * cfg.rounds * engine.max_steps)
     if any(v == 0 for v in launches.values()):
-        raise AssertionError(f"a kernel of the LM path never launched: {launches}")
-    if (launches["flash_attention_forward"], launches["flash_attention_backward"]) != (
-            want_fwd, want_bwd):
-        raise AssertionError(f"attention launches {launches}; expected forward {want_fwd} "
-                             f"(layers x rounds x (poll + steps + 2 evaluations)) and backward "
-                             f"{want_bwd} (layers x rounds x steps)")
-    if len(results) != cfg.rounds or engine.n_params != 380_789_760:
-        raise AssertionError(f"ran {len(results)} rounds with P={engine.n_params}")
+        raise AssertionError(f"a kernel of the {tag} path never launched: {launches}")
+    for fwd, bwd, _ in families:
+        got = (fwd.launches, bwd.launches)
+        if got != want:
+            raise AssertionError(f"{fwd.__name__}/{bwd.__name__} launches {got}; expected "
+                                 f"forward {want[0]} (layers x rounds x (poll + steps + 2 "
+                                 f"evaluations)) and backward {want[1]} (layers x rounds x steps)")
+    if len(results) != cfg.rounds or engine.n_params != n_params or mc.n_layers != n_layers:
+        raise AssertionError(f"ran {len(results)} rounds with P={engine.n_params}, "
+                             f"{mc.n_layers} layers")
     for r in results:
         sel = list(r.selected)
         if len(sel) != cfg.m or sorted(set(sel)) != sel or not 0 <= sel[0] <= sel[-1] < cfg.n_clients:
@@ -440,12 +562,14 @@ def _lm_main_path(device):
         if not abs(math.log(ppl) - np.float32(r.test_loss)) < 1e-3:  # ppl = exp(mean NLL)
             raise AssertionError(f"round {r.round}: ppl {ppl} is not exp(test_loss {r.test_loss})")
     if not (engine.params.is_cuda and torch.isfinite(engine.params).all()):
-        raise AssertionError("final LM parameters are not a finite CUDA tensor")
+        raise AssertionError(f"final {tag} parameters are not a finite CUDA tensor")
+    del engine, it
+    torch.cuda.empty_cache()
     return launches
 
 
-def _lm_agreement(device):
-    """The LM micro configuration on the CPU (plain versions) and on the card
+def _lm_agreement(device, tag, task_kwargs):
+    """An LM micro configuration on the CPU (plain versions) and on the card
     (kernels) from the same draws."""
     import numpy as np
 
@@ -454,7 +578,7 @@ def _lm_agreement(device):
 
     train = make_token_stream(48, 16, 32, seed=0)
     test = make_token_stream(16, 16, 32, seed=1)
-    cfg = FLConfig(task="lm", task_kwargs=LM_MICRO, n_clients=8, m=3, rounds=2,
+    cfg = FLConfig(task="lm", task_kwargs=task_kwargs, n_clients=8, m=3, rounds=2,
                    strategy_kwargs={"J": 2}, batch_size=4, eval_samples=4, eval_every=1,
                    target_hd=0.8, max_steps_cap=3, seed=0)
     on_card = make_engine(cfg, train, test, 32, device=device)
@@ -463,12 +587,13 @@ def _lm_agreement(device):
     sel_card, sel_cpu = [r.selected for r in res_card], [r.selected for r in res_cpu]
     diff = float(np.abs(on_card.params.cpu().numpy() - on_cpu.params.numpy()).max())
     ppl_diff = max(abs(a.metrics["ppl"] - b.metrics["ppl"]) for a, b in zip(res_card, res_cpu))
-    print(f"lm agreement: selected card={sel_card} cpu={sel_cpu} max |params diff|={diff:.3g} "
+    print(f"{tag} agreement: selected card={sel_card} cpu={sel_cpu} max |params diff|={diff:.3g} "
           f"max |ppl diff|={ppl_diff:.3g} (tolerance 1e-4)", flush=True)
     if sel_card != sel_cpu:
-        raise AssertionError("LM: card and CPU runs selected different clients")
+        raise AssertionError(f"{tag}: card and CPU runs selected different clients")
     if not (diff <= 1e-4 and ppl_diff <= 1e-4):
-        raise AssertionError(f"LM: card and CPU differ by {diff} (params), {ppl_diff} (ppl) > 1e-4")
+        raise AssertionError(f"{tag}: card and CPU differ by {diff} (params), {ppl_diff} (ppl) "
+                             "> 1e-4")
 
 
 def main() -> int:
@@ -511,18 +636,42 @@ def main() -> int:
         ((4, 2048, 32, 32, 80), torch.float32, 0, 1.0),
         ((4, 2048, 32, 32, 80), torch.bfloat16, 0, 1.0),
         ((2, 1024, 8, 2, 128), torch.float32, 256, 0.0),   # GQA, sliding window
+        ((80, 64, 25, 5, 64), torch.float32, 1024, 0.0),   # hymba's local SGD (GQA group 5)
+        ((4, 2048, 25, 5, 64), torch.float32, 1024, 0.0),  # hymba's window where it bites
     ]]
-    print("kernels: hellinger_strip, masked_weighted_sum and flash_attention (forward and "
-          "backward) passed at every shape above", flush=True)
+    k4 = [_check_mamba(s, g, dt, ck, device) for s, g, dt, ck in [
+        ((80, 64, 1600, 16), 10, torch.float32, True),     # hymba's local SGD: 10 clients
+        ((400, 64, 1600, 16), 0, torch.float32, False),    # the poll: shared weights
+        ((4, 2048, 1600, 16), 0, torch.float32, True),
+        ((4, 2048, 1600, 16), 0, torch.bfloat16, True),
+        ((3, 100, 130, 16), 0, torch.float32, True),       # ragged D and S
+    ]]
+    print("kernels: hellinger_strip, masked_weighted_sum, flash_attention and mamba_scan "
+          "(forward and backward) passed at every shape above", flush=True)
     torch.cuda.empty_cache()
 
     # 4. main paths: the paper's classification experiment, then LM training
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward,
+        flash_attention_forward,
+    )
+    from repro_torch.kernels.mamba_scan import mamba_scan_backward, mamba_scan_forward
+
+    # K3's forward, dQ and dK/dV kernels; K4's scan kernels and the second
+    # pass of its backward (a word boundary keeps scan_fwd_kernel out of K3)
+    attention = (flash_attention_forward, flash_attention_backward,
+                 re.compile(r"\b(?:fwd|dq|dkdv)_kernel\b"))
+    scan = (mamba_scan_forward, mamba_scan_backward,
+            re.compile(r"\b(?:scan_fwd|scan_bwd|reduce_bc|reduce_params)_kernel\b"))
     launches = _main_path(device)
-    lm_launches = _lm_main_path(device)
+    lm_launches = _lm_main_path(device, "lm", "stablelm-3b", 2, 380_789_760, (attention,))
+    hymba_launches = _lm_main_path(device, "hymba", "hymba-1.5b", 6, 344_430_400,
+                                   (attention, scan))
 
     # 5. small-input agreement with the CPU path
     _agreement(device)
-    _lm_agreement(device)
+    _lm_agreement(device, "lm", LM_MICRO)
+    _lm_agreement(device, "hymba", HYMBA_MICRO)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
@@ -542,6 +691,13 @@ def main() -> int:
          "replaces": "src/repro/kernels/flash_attention/kernel.py:68",
          "launches": lm_launches[f"flash_attention_{direction}"], "shape": k3[0]["shape"],
          **{k: k3[0][direction][k] for k in keys}}
+        for direction in ("forward", "backward")
+    ] + [
+        {"name": f"mamba_scan_{direction}", "route": "cuda",
+         "source": "src/repro_torch/csrc/mamba_scan.cu",
+         "replaces": "src/repro/kernels/mamba_scan/kernel.py:69",
+         "launches": hymba_launches[f"mamba_scan_{direction}"], "shape": k4[0]["shape"],
+         **{k: k4[0][direction][k] for k in keys}}
         for direction in ("forward", "backward")
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,4 +1,4 @@
-"""Architecture configs of the port (this slice: stablelm-3b).
+"""Architecture configs of the port (stablelm-3b and hymba-1.5b).
 
 ``get_config(name)`` returns the full configuration;
 ``get_config(name, reduced=True)`` the smoke-test variant (2 layers,

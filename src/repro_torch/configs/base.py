@@ -3,8 +3,9 @@
 Frozen dataclasses with the reference's field lists, so one config reads
 the same in both packages.  Each architecture registers itself from its
 own module under ``repro_torch.configs``; ``get_config`` imports them
-lazily.  This slice registers only what the port runs: stablelm-3b (dense
-attention).  Any other name raises with the slice that brings it.
+lazily.  The port registers what it runs: stablelm-3b (dense attention)
+and hymba-1.5b (attention in parallel with Mamba heads).  Any other name
+raises with the slice that brings it.
 """
 
 from __future__ import annotations
@@ -146,14 +147,12 @@ class ModelConfig:
 
 _REGISTRY: dict[str, ModelConfig] = {}
 
-_ARCH_MODULES = ["stablelm_3b"]
+_ARCH_MODULES = ["stablelm_3b", "hymba_1_5b"]
 
 # The reference's other architectures, each with the slice of the port that
 # brings the blocks it needs.
 _LATER = {
-    "hymba-1.5b": "the next slice (hymba: the mamba half of ssm.py, the "
-                  "attention || SSM block and the Mamba scan kernel)",
-    "xlstm-125m": "the slice after hymba (xlstm)",
+    "xlstm-125m": "the next slice (xlstm: mLSTM and sLSTM blocks)",
     "dbrx-132b": "the MoE slice",
     "deepseek-v3-671b": "the MoE and MLA slices",
     "glm4-9b": "a later slice (dense attention with its own options)",

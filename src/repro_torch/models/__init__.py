@@ -1,1 +1,3 @@
-"""Models of the port (this slice: the paper's MLP)."""
+"""Models of the port: the paper's MLP (``mlp``) and the decoder stack
+(``transformer``) with its attention (``attention``) and Mamba (``ssm``)
+blocks."""

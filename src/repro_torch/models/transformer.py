@@ -1,12 +1,15 @@
-"""Decoder stack, ported from ``repro.models.transformer`` (this slice: the
-dense attention block — pre-norm GQA attention plus pre-norm dense MLP —
-over token inputs).
+"""Decoder stack, ported from ``repro.models.transformer`` over token
+inputs, with two block types: ``attn`` (pre-norm GQA attention plus
+pre-norm dense MLP) and ``hymba`` (attention in parallel with Mamba heads on
+the same normed input, their outputs fused as the mean of per-branch
+RMS-normed outputs, then the MLP).
 
 Parameters live in one flat fp32 vector (P,), and a cohort of m client
 models is one (m, P) tensor, as for the MLP.  ``TransformerLayout`` gives
 the reference's parameter tree as views of either: ``{"layers": [{
 "norm1_scale", ..., "attn": {wq, wk, wv, wo}, "mlp": {w_up, w_down}}, ...],
-"final_norm_*", "embed", "head"}``, each leaf with the reference's shape
+"final_norm_*", "embed", "head"}`` (a hymba layer adds ``"ssm": {...}``,
+``attn_out_norm`` and ``ssm_out_norm``), each leaf with the reference's shape
 behind the leading client axis, if any.  The views come from one
 ``torch.split``, so the gradient of the flat vector is assembled by one
 concatenation rather than one full-size scatter per leaf.
@@ -14,11 +17,11 @@ concatenation rather than one full-size scatter per leaf.
 ``forward`` takes tokens (..., S) with weights (P,) shared by the whole
 batch (poll, evaluation), or tokens (m, B, S) with weights (m, P), one set
 per client (local SGD).  Client and batch axes fold into one batch axis for
-attention, which runs through the flash-attention kernel on the card.
+attention, which runs through the flash-attention kernel on the card, and
+into the rows of the selective-scan kernel for the Mamba heads.
 The reference's ``remat`` (``jax.checkpoint`` per layer) changes no
-number and is not mapped.  What this slice does not run is rejected up
-front: a block type other than ``attn``, MoE, MLA, non-token inputs and
-the MTP head.
+number and is not mapped.  What the port does not run yet is rejected up
+front: the ``xlstm`` block, MoE, MLA, non-token inputs and the MTP head.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.attention import gqa_attention, gqa_shapes, init_gqa
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (
     activation,
     layer_norm,
@@ -46,9 +50,12 @@ __all__ = [
 
 
 def check_supported(cfg) -> None:
-    """Raise for what this slice of the port does not run."""
+    """Raise for what the port does not run yet."""
     unsupported = [
-        (cfg.block_type != "attn", f"block_type={cfg.block_type!r} (hymba and xlstm come later)"),
+        (cfg.block_type not in ("attn", "hymba"),
+         f"block_type={cfg.block_type!r} (xlstm comes in a later slice)"),
+        (cfg.block_type == "hymba" and (cfg.ssm is None or cfg.ssm.family != "mamba"),
+         "a hymba block without a mamba SSM config"),
         (cfg.moe is not None, "MoE layers"),
         (cfg.use_mla, "MLA attention"),
         (cfg.input_mode != "tokens", f"input_mode={cfg.input_mode!r}"),
@@ -91,8 +98,9 @@ def _mlp_shapes(cfg) -> dict[str, tuple[int, ...]]:
 
 class TransformerLayout:
     """Where each parameter of the reference's tree sits in the flat
-    vector: layer by layer (norm1, attn, norm2, mlp), then the final norm,
-    the embedding and the untied head."""
+    vector: layer by layer (norm1, attn, for hymba ssm, attn_out_norm and
+    ssm_out_norm, then norm2, mlp), then the final norm, the embedding and
+    the untied head."""
 
     def __init__(self, cfg):
         check_supported(cfg)
@@ -103,6 +111,11 @@ class TransformerLayout:
                 self.entries.append((("layers", i, name), shape))
             for name, shape in gqa_shapes(cfg).items():
                 self.entries.append((("layers", i, "attn", name), shape))
+            if cfg.block_type == "hymba":
+                for name, shape in ssm_mod.mamba_shapes(cfg).items():
+                    self.entries.append((("layers", i, "ssm", name), shape))
+                for name in ("attn_out_norm", "ssm_out_norm"):
+                    self.entries.append((("layers", i, name), (cfg.d_model,)))
             for name, shape in _norm_shapes(cfg, "norm2").items():
                 self.entries.append((("layers", i, name), shape))
             for name, shape in _mlp_shapes(cfg).items():
@@ -121,11 +134,11 @@ class TransformerLayout:
         if flat.shape[-1] != self.n_params:
             raise ValueError(f"parameter vector has {flat.shape[-1]} entries; "
                              f"{self.cfg.name} needs {self.n_params}")
-        tree: dict = {"layers": [{"attn": {}, "mlp": {}} for _ in range(self.cfg.n_layers)]}
+        tree: dict = {"layers": [{} for _ in range(self.cfg.n_layers)]}
         for (path, shape), part in zip(self.entries, torch.split(flat, self.sizes, dim=-1)):
             node = tree
             for key in path[:-1]:
-                node = node[key]
+                node = node[key] if isinstance(key, int) else node.setdefault(key, {})
             node[path[-1]] = part.unflatten(-1, shape)
         return tree
 
@@ -168,13 +181,18 @@ def init_transformer(generator: torch.Generator, cfg) -> torch.Tensor:
     """Flat (P,) fp32 initial parameters drawn from ``generator`` on its
     device, with the reference's distributions: LeCun projections, unit
     LayerNorm scales (zero RMSNorm scales), zero biases, N(0, 0.02^2)
-    embedding, LeCun head."""
+    embedding, LeCun head; a hymba layer's Mamba heads as ``init_mamba``
+    draws them and zero scales for its two output norms."""
     layout = TransformerLayout(cfg)
     dev = generator.device
     layers = []
     for _ in range(cfg.n_layers):
         layer = {**_init_norm(cfg, "norm1", dev), **_init_norm(cfg, "norm2", dev)}
         layer["attn"] = init_gqa(generator, cfg)
+        if cfg.block_type == "hymba":
+            layer["ssm"] = ssm_mod.init_mamba(generator, cfg)
+            layer["attn_out_norm"] = torch.zeros(cfg.d_model, device=dev)
+            layer["ssm_out_norm"] = torch.zeros(cfg.d_model, device=dev)
         layer["mlp"] = _init_mlp(generator, cfg)
         layers.append(layer)
     tree = {"layers": layers, **_init_norm(cfg, "final_norm", dev)}
@@ -233,10 +251,16 @@ def _select_rope(tabs_l, tabs_g, is_global: float):
 
 
 def _apply_layer_seq(pl, cfg, x, is_global: float, tabs_l, tabs_g):
-    """One dense attention layer over the full sequence."""
+    """One layer over the full sequence: attention (in parallel with the
+    Mamba heads for hymba), then the MLP."""
     sin, cos = _select_rope(tabs_l, tabs_g, is_global)
     h = _norm(pl, cfg, x, "norm1")
-    x = x + gqa_attention(pl["attn"], cfg, h, sin, cos, is_global)
+    a_out = gqa_attention(pl["attn"], cfg, h, sin, cos, is_global)
+    if cfg.block_type == "hymba":
+        s_out = ssm_mod.mamba_seq(pl["ssm"], cfg, h)
+        a_out = 0.5 * (rms_norm(a_out, per_client(pl["attn_out_norm"], a_out), cfg.norm_eps)
+                       + rms_norm(s_out, per_client(pl["ssm_out_norm"], s_out), cfg.norm_eps))
+    x = x + a_out
     h2 = _norm(pl, cfg, x, "norm2")
     return x + _mlp(pl["mlp"], cfg, h2)
 

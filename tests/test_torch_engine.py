@@ -22,6 +22,7 @@ import jax.numpy as jnp  # noqa: E402
 from conftest import fl_cfg  # noqa: E402
 
 from repro.configs import ModelConfig as RefModelConfig  # noqa: E402
+from repro.configs import SSMConfig as RefSSMConfig  # noqa: E402
 from repro.engine import make_engine as ref_make_engine  # noqa: E402
 from repro.models.mlp import init_mlp  # noqa: E402
 from repro.models.transformer import init_transformer  # noqa: E402
@@ -75,7 +76,10 @@ class JaxReplayDraws:
 
     def init_params(self, spec):
         if isinstance(spec, ModelConfig):
-            ref_cfg = RefModelConfig(**dataclasses.asdict(spec))
+            fields = dataclasses.asdict(spec)  # nested configs become dicts: rebuild them
+            if spec.ssm is not None:
+                fields["ssm"] = RefSSMConfig(**fields["ssm"])
+            ref_cfg = RefModelConfig(**fields)
             params = init_transformer(jax.random.PRNGKey(self.seed), ref_cfg)
             flat = transformer_params_from_jax(jax.tree.map(np.asarray, params), spec)
             return flat.to(self.device)

@@ -9,7 +9,9 @@ operation for operation (fp32, separately rounded multiply and add, index
 order), so they must agree with it exactly.  The flash-attention kernels
 sum over D and S in another order than the plain version's matrix
 products, so they agree within 2e-5 in fp32 and 1e-2 in bf16 (one
-rounding to 8 mantissa bits), relative to max(1, max |plain|)."""
+rounding to 8 mantissa bits), relative to max(1, max |plain|).  So do the
+selective-scan kernels, which sum over N, channels, rows and steps in
+another order than the plain version's loop."""
 
 import numpy as np
 import pytest
@@ -26,6 +28,12 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_forward,
 )
 from repro_torch.kernels.hellinger import hellinger_strip, hellinger_strip_ref  # noqa: E402
+from repro_torch.kernels.mamba_scan import (  # noqa: E402
+    mamba_scan,
+    mamba_scan_backward,
+    mamba_scan_forward,
+    mamba_scan_ref,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -160,3 +168,84 @@ def test_lm_engine_on_card_launches_attention_kernels(cuda):
     assert [r.selected for r in res_gpu] == [r.selected for r in res_cpu]
     assert abs(res_gpu[0].metrics["ppl"] - res_cpu[0].metrics["ppl"]) <= 1e-4
 
+
+
+def _scan_inputs(b, s, d, n, groups, dtype, device, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = (torch.randn(b, s, d, generator=g) * 0.5).to(dtype).to(device)
+    dt = (torch.randn(b, s, d, generator=g) * 0.02 + 0.05).abs().to(dtype).to(device)
+    bm, cm = (torch.randn(b, s, n, generator=g).to(dtype).to(device) for _ in range(2))
+    wshape = (d, n) if groups == 0 else (groups, d, n)
+    a_log = torch.log(torch.arange(1, n + 1, dtype=torch.float32)).expand(*wshape)
+    a_log = (a_log + 0.1 * torch.randn(*wshape, generator=g)).to(device)
+    d_skip = (1 + 0.1 * torch.randn(*wshape[:-1], generator=g)).to(device)
+    return x, dt, bm, cm, a_log, d_skip
+
+
+@pytest.mark.parametrize("b,s,d,n,groups,dtype", [
+    (80, 64, 1600, 16, 10, torch.float32),     # hymba's local SGD: 10 clients x 8 sequences
+    (3, 100, 130, 16, 0, torch.float32),       # ragged D and S, shared weights
+    (2, 37, 10, 8, 2, torch.float32),          # N below 16, one row a group
+    (4, 300, 200, 16, 0, torch.bfloat16),
+])
+def test_mamba_scan_kernels_match_plain(cuda, b, s, d, n, groups, dtype):
+    inputs = _scan_inputs(b, s, d, n, groups, dtype, cuda, b * s + d)
+    dy = torch.randn(b, s, d, generator=torch.Generator().manual_seed(1)).to(dtype).to(cuda)
+    before = (mamba_scan_forward.launches, mamba_scan_backward.launches)
+    y, ckpt = mamba_scan_forward(*inputs, checkpoints=True)
+    grads = mamba_scan_backward(*inputs, ckpt, dy)
+    torch.cuda.synchronize()
+    assert (mamba_scan_forward.launches, mamba_scan_backward.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(mamba_scan_forward(*inputs), y)  # no checkpoints: the same values
+    leaves = [t.detach().requires_grad_(True) for t in inputs]
+    y_ref = mamba_scan_ref(*leaves)
+    want = torch.autograd.grad(y_ref, leaves, dy)
+    tol = 2e-5 if dtype == torch.float32 else 1e-2
+    for got, ref in [(y, y_ref), *zip(grads, want)]:
+        assert got.shape == ref.shape and got.dtype == ref.dtype
+        limit = tol * max(1.0, ref.float().abs().max().item())
+        assert (got.float() - ref.float()).abs().max().item() <= limit
+
+
+def test_mamba_scan_autograd_runs_both_kernels(cuda):
+    leaves = [t.requires_grad_(True) for t in _scan_inputs(4, 50, 96, 16, 2, torch.float32,
+                                                           cuda, 0)]
+    before = (mamba_scan_forward.launches, mamba_scan_backward.launches)
+    mamba_scan(*leaves).square().sum().backward()
+    assert (mamba_scan_forward.launches, mamba_scan_backward.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in leaves)
+    with torch.no_grad():  # no gradient wanted: the forward alone, no checkpoints
+        mamba_scan(*leaves)
+    assert mamba_scan_backward.launches == before[1] + 1
+    with pytest.raises(ValueError, match="contiguous"):
+        mamba_scan(leaves[0].transpose(1, 2).contiguous().transpose(1, 2), *leaves[1:])
+
+
+def test_hymba_engine_on_card_launches_both_kernels(cuda):
+    """One round of the hymba micro configuration on the card: K3 and K4 run
+    forward in the poll, the local steps and both evaluations, and backward
+    in the local steps; the CPU run from the same draws selects the same
+    clients."""
+    train = make_token_stream(48, 16, 32, seed=0)
+    test = make_token_stream(16, 16, 32, seed=1)
+    cfg = FLConfig(task="lm", n_clients=8, m=3, rounds=1, strategy_kwargs={"J": 2},
+                   batch_size=4, eval_samples=4, eval_every=1, target_hd=0.8, max_steps_cap=3,
+                   seed=0, task_kwargs={
+                       "model": "hymba-1.5b", "hist_bins": 16,
+                       "overrides": {"d_model": 32, "n_heads": 4, "n_kv_heads": 2,
+                                     "head_dim": 16, "d_ff": 64, "vocab": 32,
+                                     "loss_chunk": 16, "attn_chunk": 16, "remat": False,
+                                     "sliding_window": 8}})
+    counters = (flash_attention_forward, flash_attention_backward, mamba_scan_forward,
+                mamba_scan_backward)
+    before = [c.launches for c in counters]
+    gpu = make_engine(cfg, train, test, 32)
+    res_gpu = list(gpu.rounds())
+    layers, steps = gpu.task.model_cfg.n_layers, gpu.max_steps
+    assert [c.launches - b for c, b in zip(counters, before)] == [
+        layers * (3 + steps), layers * steps] * 2
+    res_cpu = list(make_engine(cfg, train, test, 32, device="cpu").rounds())
+    assert [r.selected for r in res_gpu] == [r.selected for r in res_cpu]
+    assert abs(res_gpu[0].metrics["ppl"] - res_cpu[0].metrics["ppl"]) <= 1e-4

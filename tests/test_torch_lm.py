@@ -1,8 +1,9 @@
-"""Port parity for the federated LM slice: the same numpy inputs go through
+"""Port parity for the federated LM slices: the same numpy inputs go through
 the JAX package and the port on the CPU, module by module (token stream,
-norms, activation, RoPE, attention and its gradient, the stablelm
-forward, the LM task) and for the slice as a whole (``lm_fl_cfg()`` in
-both ``HostEngine``s under the reference's draws).
+norms, activation, RoPE, attention and its gradient, the stablelm and
+hymba forwards, the LM task) and for each slice as a whole (``lm_fl_cfg()``
+on stablelm and on a hymba micro config, in both ``HostEngine``s under the
+reference's draws).
 
 Tolerances: 1e-6 for elementwise fp32 ops (one or two roundings apart);
 1e-5 for attention, the transformer and the losses, whose fp32 sums run
@@ -54,6 +55,7 @@ from repro_torch.models.transformer import (  # noqa: E402
     TransformerLayout,
     forward,
     init_transformer,
+    layer_flags,
     output_head,
 )
 
@@ -85,7 +87,15 @@ def test_stablelm_config_matches_reference():
         assert dataclasses.asdict(port) == dataclasses.asdict(ref)
 
 
-@pytest.mark.parametrize("name", ["xlstm-125m", "hymba-1.5b", "deepseek-v3-671b"])
+def test_hymba_config_matches_reference():
+    for reduced in (False, True):
+        ref = ref_get_config("hymba-1.5b", reduced=reduced)
+        port = get_config("hymba-1.5b", reduced=reduced)
+        assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert port.source == "arXiv:2411.13676"
+
+
+@pytest.mark.parametrize("name", ["xlstm-125m", "dbrx-132b", "deepseek-v3-671b"])
 def test_unported_configs_name_their_slice(name):
     with pytest.raises(ValueError, match="repro_torch does not implement .* arrives in"):
         get_config(name)
@@ -285,7 +295,7 @@ def test_transformer_init_draws_the_reference_distributions():
 
 def test_transformer_rejects_what_the_slice_does_not_run():
     cfg = _micro_cfgs()[1]
-    for change in ({"block_type": "hymba"}, {"use_mla": True}, {"input_mode": "frames"},
+    for change in ({"block_type": "xlstm"}, {"use_mla": True}, {"input_mode": "frames"},
                    {"dtype": "bfloat16"}):
         with pytest.raises(ValueError, match="repro_torch"):
             TransformerLayout(dataclasses.replace(cfg, **change))
@@ -413,3 +423,91 @@ def test_lm_torch_draws_run_is_deterministic(lm_data):
         assert np.isfinite(r.test_loss) and 0.0 <= r.test_acc <= 1.0
         assert np.isfinite(r.metrics["ppl"]) and r.metrics["ppl"] > 1.0
     assert a.history["round"] == [0, 1] and len(a.history["ppl"]) == 2
+
+
+# ---------------------------------------------------------------------------
+# hymba: attention in parallel with Mamba heads
+# ---------------------------------------------------------------------------
+
+# The reduced hymba config at micro width; its pattern "GL" makes layer 1 a
+# sliding-window layer that bites at S = 16.
+HYMBA_MICRO = {"model": "hymba-1.5b", "hist_bins": 16,
+               "overrides": {"d_model": 32, "n_heads": 4, "n_kv_heads": 2, "head_dim": 16,
+                             "d_ff": 64, "vocab": LM_VOCAB, "loss_chunk": 16,
+                             "attn_chunk": 16, "remat": False, "sliding_window": 8}}
+
+
+def _hymba_cfgs(fuse=True):
+    ov = {"dtype": "float32", **HYMBA_MICRO["overrides"]}
+    ref = dataclasses.replace(ref_get_config("hymba-1.5b", reduced=True), **ov)
+    ref = dataclasses.replace(ref, ssm=dataclasses.replace(ref.ssm, fuse_contraction=fuse))
+    port = dataclasses.replace(get_config("hymba-1.5b", reduced=True), **ov)
+    return ref, port
+
+
+@pytest.fixture(scope="module")
+def hymba():
+    ref_cfg, cfg = _hymba_cfgs()
+    ref_params = ref_init_transformer(jax.random.PRNGKey(0), ref_cfg)
+    return cfg, ref_params, transformer_params_from_jax(jax.tree.map(np.asarray, ref_params), cfg)
+
+
+def test_hymba_conversion_round_trips_exactly(hymba):
+    cfg, ref_params, flat = hymba
+    layout = TransformerLayout(cfg)
+    assert flat.shape == (layout.n_params,) and flat.dtype == torch.float32
+    layer = layout.views(flat)["layers"][1]
+    assert set(layer) == {"norm1", "attn", "ssm", "attn_out_norm", "ssm_out_norm", "norm2", "mlp"}
+    back = transformer_params_to_numpy(flat, cfg)
+    assert jax.tree.structure(back) == jax.tree.structure(jax.tree.map(np.asarray, ref_params))
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(ref_params)):
+        assert a.shape == b.shape and np.array_equal(a, np.asarray(b))
+    assert torch.equal(transformer_params_from_jax(back, cfg), flat)
+
+
+@pytest.mark.parametrize("fuse", [True, False])
+def test_hymba_forward_matches_reference(hymba, fuse):
+    """Both layouts of the reference's Mamba scan give the port's numbers."""
+    cfg, ref_params, flat = hymba
+    ref_cfg = _hymba_cfgs(fuse)[0]
+    assert "".join("G" if g else "L" for g in layer_flags(cfg)["is_global"]) == "GL"
+    toks = np.random.default_rng(3).integers(0, LM_VOCAB, (3, 16)).astype(np.int32)
+    want = ref_forward(ref_params, ref_cfg, {"tokens": jnp.asarray(toks)})[0]
+    got = forward(flat, cfg, _t(toks))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+def test_hymba_cohort_forward_is_per_client(hymba):
+    cfg, _, flat = hymba
+    cohort = torch.stack([flat, flat * 1.5, flat - 0.01])
+    toks = _t(np.random.default_rng(4).integers(0, LM_VOCAB, (3, 2, 16)).astype(np.int32))
+    got = forward(cohort, cfg, toks)
+    for i in range(3):
+        torch.testing.assert_close(got[i], forward(cohort[i].clone(), cfg, toks[i]),
+                                   atol=1e-5, rtol=0)
+
+
+def test_hymba_lm_rounds_match_reference(lm_data):
+    """2 rounds of ``lm_fl_cfg`` on the hymba micro config in the reference
+    ``HostEngine`` and in the port on the CPU under the reference's draws."""
+    train, test = lm_data
+    ref_cfg = lm_fl_cfg(task_kwargs=HYMBA_MICRO)
+    ref_eng = ref_make_engine(ref_cfg, train, test, n_classes=LM_VOCAB)
+    ref_res = list(ref_eng.rounds())
+    cfg = FLConfig.from_dict(ref_cfg.to_dict())
+    eng = make_engine(cfg, train, test, LM_VOCAB, device="cpu",
+                      draws=JaxReplayDraws(cfg.seed, "cpu"))
+    res = list(eng.rounds())
+    assert eng.task.model_cfg.block_type == "hymba"
+    assert eng.n_params == ref_eng.n_params and eng.max_steps == ref_eng.max_steps
+    assert len(res) == len(ref_res) == 2
+    for r, w in zip(res, ref_res):
+        assert r.selected == w.selected
+        assert r.comm_mb == w.comm_mb
+        assert abs(r.test_loss - w.test_loss) <= 1e-4
+        assert abs(r.test_acc - w.test_acc) <= 1e-4
+        assert abs(r.mean_selected_loss - w.mean_selected_loss) <= 1e-4
+        assert abs(r.metrics["ppl"] - w.metrics["ppl"]) <= 1e-4
+    want = transformer_params_from_jax(jax.tree.map(np.asarray, ref_eng.params),
+                                       eng.task.model_cfg).numpy()
+    np.testing.assert_allclose(eng.params.numpy(), want, atol=1e-5)

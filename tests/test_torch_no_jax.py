@@ -37,7 +37,9 @@ def test_port_file_list_is_complete():
     assert "src/repro_torch/engine/host.py" in names
     for lm_module in ("configs/base.py", "configs/stablelm_3b.py", "models/common.py",
                       "models/attention.py", "models/transformer.py",
-                      "kernels/flash_attention/ops.py", "kernels/flash_attention/ref.py"):
+                      "kernels/flash_attention/ops.py", "kernels/flash_attention/ref.py",
+                      "configs/hymba_1_5b.py", "models/ssm.py", "kernels/mamba_scan/__init__.py",
+                      "kernels/mamba_scan/ops.py", "kernels/mamba_scan/ref.py"):
         assert f"src/repro_torch/{lm_module}" in names
     assert len(names) > 20
 
@@ -61,6 +63,11 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
     tokens = make_token_stream(16, 8, 16, seed=0)
     with pytest.raises(RuntimeError, match="cuda"):
         make_engine(lm_cfg, tokens, tokens, 16)
+    hymba_cfg = FLConfig(task="lm", n_clients=4, m=2, rounds=1, batch_size=2, eval_samples=2,
+                         target_hd=0.5, task_kwargs={"model": "hymba-1.5b", "hist_bins": 8,
+                                                     "overrides": {"vocab": 16}})
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_engine(hymba_cfg, tokens, tokens, 16)
     from repro_torch.core.hellinger import hellinger_blocked
 
     with pytest.raises(RuntimeError, match="cuda"):
