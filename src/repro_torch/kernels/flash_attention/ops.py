@@ -8,8 +8,11 @@ GQA repeat).  ``flash_attention`` is differentiable: on CUDA tensors a
 O and the row log-sum-exp L) and, for the gradient,
 ``flash_attention_backward`` (one launch of the dQ kernel, which also
 writes delta = rowsum(dO * O), then one of the dK/dV kernel).  Each of the
-two counts its launches in its ``launches`` attribute.  CPU tensors take
-the plain version (``ref.py``) and its autograd.
+two counts its launches in its ``launches`` attribute.  The kernels
+multiply on the tensor cores (bf16, or fp32 as 3xTF32) and read q, k and
+v through their strides, which must be 1 on D: a CUDA tensor with another
+stride raises, it is never copied.  CPU tensors take the plain version
+(``ref.py``) and its autograd.
 """
 
 from __future__ import annotations
@@ -57,6 +60,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.is_cuda and not (0 < d <= _MAX_D and 0 < s and 0 < b <= _MAX_GRID and h <= _MAX_GRID):
         raise ValueError(f"the kernel takes 0 < D <= {_MAX_D}, S > 0, B and H <= {_MAX_GRID}; "
                          f"got q {tuple(q.shape)}")
+    if q.is_cuda and any(t.stride(3) != 1 for t in (q, k, v)):
+        raise ValueError("the kernel reads q, k and v in place and needs unit stride on D; got "
+                         f"strides {q.stride()}, {k.stride()}, {v.stride()}")
 
 
 def _dims(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):

@@ -7,9 +7,11 @@ reference package, so it runs on a machine that has only PyTorch:
 The Hellinger and FedAvg kernels repeat their plain version's arithmetic
 operation for operation (fp32, separately rounded multiply and add, index
 order), so they must agree with it exactly.  The flash-attention kernels
-sum over D and S in another order than the plain version's matrix
-products, so they agree within 2e-5 in fp32 and 1e-2 in bf16 (one
-rounding to 8 mantissa bits), relative to max(1, max |plain|).  So do the
+multiply on the tensor cores (fp32 as 3xTF32, which keeps about 21
+mantissa bits of each operand) and sum over D and S in another order than
+the plain version's matrix products, so they agree within 2e-5 in fp32
+and 1e-2 in bf16 (one rounding to 8 mantissa bits), relative to max(1,
+max |plain|); they use no atomics, so two runs give the same bits.  So do the
 selective-scan kernels, which sum over N, channels, rows and steps in
 another order than the plain version's loop."""
 
@@ -112,11 +114,36 @@ def test_engine_on_card_matches_cpu(cuda):
     (2, 1024, 8, 2, 128, 256, 0.0, torch.float32),    # GQA, sliding window
     (3, 77, 6, 3, 16, 9, 0.0, torch.bfloat16),        # ragged S, D below a tile
     (1, 100, 2, 1, 256, 0, 1.0, torch.float32),       # the largest D
+    (80, 64, 32, 32, 80, 0, 1.0, torch.bfloat16),     # the local-SGD shape in bf16
+    (80, 64, 25, 5, 64, 1024, 0.0, torch.float32),    # hymba's local SGD (GQA group 5)
+    (2, 1, 4, 2, 64, 0, 1.0, torch.float32),          # S = 1
+    (2, 65, 4, 2, 64, 0, 1.0, torch.float32),         # S = 65, across a tile edge
+    (2, 70, 4, 2, 20, 0, 1.0, torch.float32),         # D = 20: padded to the MMA depth
+    (2, 70, 4, 2, 40, 0, 1.0, torch.bfloat16),        # D = 40: padded to 48 in bf16
+    (2, 70, 4, 2, 3, 0, 1.0, torch.float32),          # D = 3: rows not 16-byte aligned
+    (2, 70, 4, 2, 3, 0, 1.0, torch.bfloat16),         # D = 3 in bf16: element copies
 ])
 def test_flash_attention_kernels_match_plain(cuda, b, s, h, kv, d, window, is_global, dtype):
     g = torch.Generator().manual_seed(b * s + h * d)
     q, k, v = (torch.randn(b, s, n, d, generator=g).to(dtype).to(cuda) for n in (h, kv, kv))
     do = torch.randn(b, s, h, d, generator=g).to(dtype).to(cuda)
+    _check_flash_against_plain(q, k, v, do, window, is_global)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_reads_fused_qkv_views(cuda, dtype):
+    """q, k and v as strided views of one (B, S, H + 2 KV, D) tensor."""
+    b, s, h, kv, d = 2, 100, 6, 2, 80
+    g = torch.Generator().manual_seed(7)
+    qkv = torch.randn(b, s, h + 2 * kv, d, generator=g).to(dtype).to(cuda)
+    q, k, v = qkv[:, :, :h], qkv[:, :, h:h + kv], qkv[:, :, h + kv:]
+    assert not q.is_contiguous() and not k.is_contiguous()
+    do = torch.randn(b, s, h, d, generator=g).to(dtype).to(cuda)
+    _check_flash_against_plain(q, k, v, do, 0, 1.0)
+
+
+def _check_flash_against_plain(q, k, v, do, window, is_global):
+    dtype = q.dtype
     before = (flash_attention_forward.launches, flash_attention_backward.launches)
     o, lse = flash_attention_forward(q, k, v, window, is_global)
     grads = flash_attention_backward(q, k, v, o, lse, do, window, is_global)
@@ -131,6 +158,32 @@ def test_flash_attention_kernels_match_plain(cuda, b, s, h, kv, d, window, is_gl
         assert got.shape == ref.shape and got.dtype == ref.dtype
         limit = tol * max(1.0, ref.float().abs().max().item())
         assert (got.float() - ref.float()).abs().max().item() <= limit
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_is_deterministic(cuda, dtype):
+    """No atomics: two launches give the same bits in O, L and every gradient."""
+    g = torch.Generator().manual_seed(3)
+    q = torch.randn(3, 300, 10, 64, generator=g).to(dtype).to(cuda)
+    k, v = (torch.randn(3, 300, 2, 64, generator=g).to(dtype).to(cuda) for _ in range(2))
+    do = torch.randn(3, 300, 10, 64, generator=g).to(dtype).to(cuda)
+    runs = []
+    for _ in range(2):
+        o, lse = flash_attention_forward(q, k, v, 128, 0.0)
+        runs.append((o, lse, *flash_attention_backward(q, k, v, o, lse, do, 128, 0.0)))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_flash_attention_rejects_non_unit_d_stride(cuda):
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(2, 16, 2, 8, generator=g).to(cuda) for _ in range(3))
+    before = flash_attention_forward.launches
+    with pytest.raises(ValueError, match="unit stride on D"):
+        flash_attention_forward(q[..., ::2], k[..., ::2], v[..., ::2])
+    with pytest.raises(ValueError, match="unit stride on D"):
+        flash_attention(q, k.transpose(1, 3).contiguous().transpose(1, 3), v)
+    assert flash_attention_forward.launches == before
 
 
 def test_flash_attention_autograd_runs_both_kernels(cuda):
