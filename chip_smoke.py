@@ -29,6 +29,10 @@ Phases, each printed on its own lines:
 5. agreement — a small configuration of each task and model run on the
    CPU (plain versions) and on the card (kernels) from the same draws must
    select the same clients and reach the same parameters.
+6. kernel-only — the selective scan's kernels' own device time a call at
+   each of its phase-3 shapes (``torch.profiler``, median of 30 calls),
+   without the wrapper's host work; last, so that no profiler session
+   precedes a host-timed phase.
 
 Then one JSON line lists the kernels, and the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
@@ -76,6 +80,29 @@ def _median_ms(fn, calls: int = TIMED_CALLS, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _kernel_ms(fn, names, calls: int = TIMED_CALLS) -> float:
+    """Device time a call of the kernels whose names match ``names``: for
+    each such kernel the median of its ``calls`` launches under
+    ``torch.profiler`` (after one warm-up call), summed over the kernels.
+    The kernels alone, without the wrapper's host work (checks,
+    allocations, the ctypes call) that the event-timed ``ms`` includes."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with _profiled(True) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    per_kernel: dict[str, list[float]] = {}
+    for e in prof.events():
+        if e.device_type.name == "CUDA" and names.search(e.name):
+            per_kernel.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    if not per_kernel:
+        raise AssertionError(f"the profiler recorded no kernel matching {names.pattern}")
+    return sum(statistics.median(v) for v in per_kernel.values()) / 1e3
 
 
 def _bound(n_bytes: float, n_ops: float, peak_ops: float = PEAK_FP32_PER_S) -> tuple[float, str]:
@@ -265,6 +292,31 @@ def _scan_bound(n_bytes, elements, flops_per_element, exps_per_element):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+# K4's kernels by name: the forward scan; the reverse scan and the second
+# pass that sums its partials
+SCAN_FORWARD = re.compile(r"\bscan_fwd_kernel\b")
+SCAN_BACKWARD = re.compile(r"\b(?:scan_bwd|reduce_bc|reduce_params)_kernel\b")
+
+
+def _scan_inputs(shape, groups, dtype, device):
+    """K4's inputs (x, dt, Bm, Cm, a_log, d_skip) and an output gradient at
+    (B, S, D, N), from a seed (dt = |0.02 randn + 0.05|, a_log = log(1..N) +
+    0.1 randn), with ``groups`` weight sets (0: shared)."""
+    import torch
+
+    b, s, d, n = shape
+    g = torch.Generator().manual_seed(b * s + d + n + groups)
+    x = (torch.randn(b, s, d, generator=g) * 0.5).to(dtype).to(device)
+    dt = (torch.randn(b, s, d, generator=g) * 0.02 + 0.05).abs().to(dtype).to(device)
+    bm, cm = (torch.randn(b, s, n, generator=g).to(dtype).to(device) for _ in range(2))
+    wshape = (d, n) if groups == 0 else (groups, d, n)
+    a_log = torch.log(torch.arange(1, n + 1, dtype=torch.float32)).expand(*wshape)
+    a_log = (a_log + 0.1 * torch.randn(*wshape, generator=g)).to(device)
+    d_skip = (1 + 0.1 * torch.randn(*wshape[:-1], generator=g)).to(device)
+    dy = torch.randn(b, s, d, generator=g).to(dtype).to(device)
+    return (x, dt, bm, cm, a_log, d_skip), dy
+
+
 def _check_mamba(shape, groups, dtype, checkpoints, device):
     """K4 at (B, S, D, N) with ``groups`` weight sets (0: shared (D, N)
     weights): forward y, with and without checkpoints, and backward (all
@@ -279,16 +331,8 @@ def _check_mamba(shape, groups, dtype, checkpoints, device):
     )
 
     b, s, d, n = shape
-    g = torch.Generator().manual_seed(b * s + d + n + groups)
-    x = (torch.randn(b, s, d, generator=g) * 0.5).to(dtype).to(device)
-    dt = (torch.randn(b, s, d, generator=g) * 0.02 + 0.05).abs().to(dtype).to(device)
-    bm, cm = (torch.randn(b, s, n, generator=g).to(dtype).to(device) for _ in range(2))
-    wshape = (d, n) if groups == 0 else (groups, d, n)
-    a_log = torch.log(torch.arange(1, n + 1, dtype=torch.float32)).expand(*wshape)
-    a_log = (a_log + 0.1 * torch.randn(*wshape, generator=g)).to(device)
-    d_skip = (1 + 0.1 * torch.randn(*wshape[:-1], generator=g)).to(device)
-    dy = torch.randn(b, s, d, generator=g).to(dtype).to(device)
-    inputs = (x, dt, bm, cm, a_log, d_skip)
+    inputs, dy = _scan_inputs(shape, groups, dtype, device)
+    x = inputs[0]
     y, ckpt = mamba_scan_forward(*inputs, checkpoints=True)
     y_no_ckpt = mamba_scan_forward(*inputs)   # as the poll and the evaluations call it
     grads = mamba_scan_backward(*inputs, ckpt, dy)
@@ -320,22 +364,46 @@ def _check_mamba(shape, groups, dtype, checkpoints, device):
     fwd_bound = _scan_bound(fwd_bytes, elements, 5, 1)
     bwd_bound = _scan_bound(bwd_bytes, elements, 16, 1)
     plain_calls, plain_warmup = (5, 1) if s > 1024 else (TIMED_CALLS, 3)
+    forward = lambda: mamba_scan_forward(*inputs, checkpoints=checkpoints)  # noqa: E731
+    backward = lambda: mamba_scan_backward(*inputs, ckpt, dy)  # noqa: E731
     rec = {"shape": list(shape), "groups": groups, "dtype": str(dtype).replace("torch.", ""),
            "checkpoints": checkpoints, "errors": errs, "tolerance": tol,
            "forward": {
                "max_abs_err": max(errs["y"], errs["y_no_ckpt"]),
-               "ms": _median_ms(lambda: mamba_scan_forward(*inputs, checkpoints=checkpoints)),
+               "ms": _median_ms(forward),
                "plain_ms": _median_ms(lambda: mamba_scan_ref(*inputs), plain_calls, plain_warmup),
                "library_ms": None, "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1]},
            "backward": {
                "max_abs_err": max(errs[k] for k in names[2:]),
-               "ms": _median_ms(lambda: mamba_scan_backward(*inputs, ckpt, dy)),
+               "ms": _median_ms(backward),
                "plain_ms": _median_ms(lambda: torch.autograd.grad(y_ref, leaves, dy,
                                                                   retain_graph=True),
                                       plain_calls, plain_warmup),
                "library_ms": None, "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1]}}
     print(f"kernel mamba_scan {json.dumps(rec)}", flush=True)
     return rec
+
+
+def _scan_kernel_ms(rec, device) -> None:
+    """Adds ``kernel_ms`` to the forward and backward of a ``_check_mamba``
+    record: the scan kernels' own device time a call, on the same inputs.
+    Run after every timed path, so that no profiler session precedes a
+    host-bound measurement."""
+    import torch
+
+    from repro_torch.kernels.mamba_scan import mamba_scan_backward, mamba_scan_forward
+
+    dtype = getattr(torch, rec["dtype"])
+    inputs, dy = _scan_inputs(tuple(rec["shape"]), rec["groups"], dtype, device)
+    _, ckpt = mamba_scan_forward(*inputs, checkpoints=True)
+    rec["forward"]["kernel_ms"] = _kernel_ms(
+        lambda: mamba_scan_forward(*inputs, checkpoints=rec["checkpoints"]), SCAN_FORWARD)
+    rec["backward"]["kernel_ms"] = _kernel_ms(
+        lambda: mamba_scan_backward(*inputs, ckpt, dy), SCAN_BACKWARD)
+    tag = {k: rec[k] for k in ("shape", "groups", "dtype", "checkpoints")}
+    print(f"kernel mamba_scan kernel-only {json.dumps(tag)}: forward "
+          f"{rec['forward']['kernel_ms']} ms, backward {rec['backward']['kernel_ms']} ms",
+          flush=True)
 
 
 def _main_path(device):
@@ -649,6 +717,7 @@ def main() -> int:
     k4 = [_check_mamba(s, g, dt, ck, device) for s, g, dt, ck in [
         ((80, 64, 1600, 16), 10, torch.float32, True),     # hymba's local SGD: 10 clients
         ((400, 64, 1600, 16), 0, torch.float32, False),    # the poll: shared weights
+        ((64, 64, 1600, 16), 0, torch.float32, False),     # the evaluations: shared weights
         ((4, 2048, 1600, 16), 0, torch.float32, True),
         ((4, 2048, 1600, 16), 0, torch.bfloat16, True),
         ((3, 100, 130, 16), 0, torch.float32, True),       # ragged D and S
@@ -669,7 +738,7 @@ def main() -> int:
     attention = (flash_attention_forward, flash_attention_backward,
                  re.compile(r"\b(?:fwd|dq|dkdv)_kernel\b"))
     scan = (mamba_scan_forward, mamba_scan_backward,
-            re.compile(r"\b(?:scan_fwd|scan_bwd|reduce_bc|reduce_params)_kernel\b"))
+            re.compile(f"{SCAN_FORWARD.pattern}|{SCAN_BACKWARD.pattern}"))
     launches = _main_path(device)
     lm_launches = _lm_main_path(device, "lm", "stablelm-3b", 2, 380_789_760, (attention,))
     hymba_launches = _lm_main_path(device, "hymba", "hymba-1.5b", 6, 344_430_400,
@@ -679,6 +748,10 @@ def main() -> int:
     _agreement(device)
     _lm_agreement(device, "lm", LM_MICRO)
     _lm_agreement(device, "hymba", HYMBA_MICRO)
+
+    # 6. the scan kernels' own device time, after every host-timed phase
+    for rec in k4:
+        _scan_kernel_ms(rec, device)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
@@ -704,7 +777,7 @@ def main() -> int:
          "source": "src/repro_torch/csrc/mamba_scan.cu",
          "replaces": "src/repro/kernels/mamba_scan/kernel.py:69",
          "launches": hymba_launches[f"mamba_scan_{direction}"], "shape": k4[0]["shape"],
-         **{k: k4[0][direction][k] for k in keys}}
+         **{k: k4[0][direction][k] for k in keys + ("kernel_ms",)}}
         for direction in ("forward", "backward")
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

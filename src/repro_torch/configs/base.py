@@ -156,8 +156,8 @@ _LATER = {
     "dbrx-132b": "the MoE slice",
     "deepseek-v3-671b": "the MoE and MLA slices",
     "glm4-9b": "a later slice (dense attention with its own options)",
-    "qwen3-14b": "a later slice (qk-norm)",
-    "gemma3-27b": "a later slice (local/global rope thetas and logit soft-capping)",
+    "qwen3-14b": "a later slice (its registration: the dense block already runs its options)",
+    "gemma3-27b": "a later slice (its registration: the dense block already runs its options)",
     "musicgen-large": "a later slice (frame inputs)",
     "internvl2-1b": "a later slice (image-patch inputs)",
 }

@@ -4,8 +4,8 @@ field for field the reference's ``repro.engine.config.FLConfig``, so one
 
 Validation rejects, with a message naming what this slice of the port
 implements, every value it does not: a backend other than ``host``, a
-task other than ``classification`` or ``lm`` (the LM task on a model this
-slice runs, stablelm-3b), a strategy other than ``fedlecc``
+task other than ``classification`` or ``lm`` (the LM task on a model the
+port runs, stablelm-3b or hymba-1.5b), a strategy other than ``fedlecc``
 (with ``cluster="optics"``), an aggregator other than ``fedavg``, a
 client mode other than ``plain``, a non-zero ``fuse_rounds`` or
 ``compress_bits``, and any ``systems``, ``async_mode``, ``faults`` or

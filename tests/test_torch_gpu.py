@@ -240,6 +240,8 @@ def _scan_inputs(b, s, d, n, groups, dtype, device, seed):
     (3, 100, 130, 16, 0, torch.float32),       # ragged D and S, shared weights
     (2, 37, 10, 8, 2, torch.float32),          # N below 16, one row a group
     (4, 300, 200, 16, 0, torch.bfloat16),
+    (3, 45, 70, 5, 3, torch.float32),          # N = 5: a lane with one live state
+    (2, 19, 33, 1, 0, torch.float32),          # N = 1: three lanes of a channel idle
 ])
 def test_mamba_scan_kernels_match_plain(cuda, b, s, d, n, groups, dtype):
     inputs = _scan_inputs(b, s, d, n, groups, dtype, cuda, b * s + d)
@@ -259,6 +261,24 @@ def test_mamba_scan_kernels_match_plain(cuda, b, s, d, n, groups, dtype):
         assert got.shape == ref.shape and got.dtype == ref.dtype
         limit = tol * max(1.0, ref.float().abs().max().item())
         assert (got.float() - ref.float()).abs().max().item() <= limit
+
+
+@pytest.mark.parametrize("b,s,d,n,groups", [
+    (80, 64, 1600, 16, 10),  # hymba's local SGD
+    (3, 100, 130, 5, 0),     # ragged D and S, a partly filled lane
+])
+def test_mamba_scan_is_deterministic(cuda, b, s, d, n, groups):
+    """No atomics: two launches give the same bits in y, the checkpoints and
+    all six gradients."""
+    inputs = _scan_inputs(b, s, d, n, groups, torch.float32, cuda, b + s + d)
+    dy = torch.randn(b, s, d, generator=torch.Generator().manual_seed(2)).to(cuda)
+    runs = []
+    for _ in range(2):
+        y, ckpt = mamba_scan_forward(*inputs, checkpoints=True)
+        runs.append((y, ckpt, *mamba_scan_backward(*inputs, ckpt, dy)))
+    torch.cuda.synchronize()
+    for first, second in zip(*runs):
+        assert torch.equal(first, second)
 
 
 def test_mamba_scan_autograd_runs_both_kernels(cuda):
