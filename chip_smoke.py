@@ -29,10 +29,11 @@ Phases, each printed on its own lines:
 5. agreement — a small configuration of each task and model run on the
    CPU (plain versions) and on the card (kernels) from the same draws must
    select the same clients and reach the same parameters.
-6. kernel-only — the selective scan's kernels' own device time a call at
-   each of its phase-3 shapes (``torch.profiler``, median of 30 calls),
-   without the wrapper's host work; last, so that no profiler session
-   precedes a host-timed phase.
+6. kernel-only — each kernel's own device time a call, without the
+   wrapper's host work, at each of its phase-3 shapes: K1, K2 and the
+   selective scan, and beside K1 and K2 the device time of the kernels
+   that their library call launches (``torch.profiler``, median of 30
+   calls); last, so that no profiler session precedes a host-timed phase.
 
 Then one JSON line lists the kernels, and the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
@@ -84,10 +85,11 @@ def _median_ms(fn, calls: int = TIMED_CALLS, warmup: int = 3) -> float:
 
 def _kernel_ms(fn, names, calls: int = TIMED_CALLS) -> float:
     """Device time a call of the kernels whose names match ``names``: for
-    each such kernel the median of its ``calls`` launches under
-    ``torch.profiler`` (after one warm-up call), summed over the kernels.
-    The kernels alone, without the wrapper's host work (checks,
-    allocations, the ctypes call) that the event-timed ``ms`` includes."""
+    each such kernel the median of its launches in ``calls`` calls under
+    ``torch.profiler`` (after one warm-up call) times its launches a call,
+    summed over the kernels.  The kernels alone, without the wrapper's host
+    work (checks, allocations, the ctypes call) that the event-timed ``ms``
+    includes."""
     import torch
 
     fn()
@@ -97,12 +99,16 @@ def _kernel_ms(fn, names, calls: int = TIMED_CALLS) -> float:
             fn()
         torch.cuda.synchronize()
     per_kernel: dict[str, list[float]] = {}
+    seen = set()
     for e in prof.events():
-        if e.device_type.name == "CUDA" and names.search(e.name):
-            per_kernel.setdefault(e.name, []).append(e.time_range.elapsed_us())
+        if e.device_type.name == "CUDA":
+            seen.add(e.name[:80])
+            if names.search(e.name):
+                per_kernel.setdefault(e.name, []).append(e.time_range.elapsed_us())
     if not per_kernel:
-        raise AssertionError(f"the profiler recorded no kernel matching {names.pattern}")
-    return sum(statistics.median(v) for v in per_kernel.values()) / 1e3
+        raise AssertionError(f"the profiler recorded no kernel matching {names.pattern}; "
+                             f"device events: {sorted(seen)}")
+    return sum(statistics.median(v) * len(v) / calls for v in per_kernel.values()) / 1e3
 
 
 def _bound(n_bytes: float, n_ops: float, peak_ops: float = PEAK_FP32_PER_S) -> tuple[float, str]:
@@ -110,11 +116,15 @@ def _bound(n_bytes: float, n_ops: float, peak_ops: float = PEAK_FP32_PER_S) -> t
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def _check_hellinger(shape, device):
-    """K2 at (B, K, C): kernel vs plain version, and times."""
-    import torch
+# K1's and K2's kernels by name; every kernel that a library call launches
+FEDAVG_KERNEL = re.compile(r"fedavg_reduce_kernel")
+STRIP_KERNEL = re.compile(r"hellinger_strip_kernel")
+ANY_KERNEL = re.compile("")
 
-    from repro_torch.kernels.hellinger import hellinger_strip, hellinger_strip_ref
+
+def _strip_inputs(shape, device):
+    """K2's sqrt-histogram panels (B, C) and (K, C), from a seed."""
+    import torch
 
     b, k, c = shape
     g = torch.Generator().manual_seed(b + k + c)
@@ -124,12 +134,28 @@ def _check_hellinger(shape, device):
         h = h / torch.clamp(h.sum(1, keepdim=True), min=1e-12)
         return torch.sqrt(h).to(device)
 
-    rb, r = panel(b), panel(k)
+    return panel(b), panel(k)
+
+
+def _strip_library(rb, r):
+    import torch
+
+    return torch.sqrt(torch.clamp(1 - rb @ r.T, 0, 1))
+
+
+def _check_hellinger(shape, device):
+    """K2 at (B, K, C): kernel vs plain version, and times."""
+    import torch
+
+    from repro_torch.kernels.hellinger import hellinger_strip, hellinger_strip_ref
+
+    b, k, c = shape
+    rb, r = _strip_inputs(shape, device)
     got = hellinger_strip(rb, r)
     want = hellinger_strip_ref(rb, r)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
-    tol = 1e-6
+    tol = 0.0  # the same operations in the same order: the same bits
     if not (got.shape == (b, k) and torch.isfinite(got).all() and err <= tol):
         raise AssertionError(f"hellinger_strip {shape}: max |HD - plain| = {err} > {tol}")
     bound_ms, bound_by = _bound(4 * (b * c + k * c + b * k), 2 * b * k * c + 4 * b * k)
@@ -137,11 +163,23 @@ def _check_hellinger(shape, device):
         "shape": [b, k, c], "max_abs_err": err, "tolerance": tol,
         "ms": _median_ms(lambda: hellinger_strip(rb, r)),
         "plain_ms": _median_ms(lambda: hellinger_strip_ref(rb, r)),
-        "library_ms": _median_ms(lambda: torch.sqrt(torch.clamp(1 - rb @ r.T, 0, 1))),
+        "library_ms": _median_ms(lambda: _strip_library(rb, r)),
         "bound_ms": bound_ms, "bound_by": bound_by,
     }
     print(f"kernel hellinger_strip {json.dumps(rec)}", flush=True)
     return rec
+
+
+def _aggregate_inputs(shape, dtype, device):
+    """K1's (M, N) cohort in ``dtype`` and its (M,) fp32 weights, from a
+    seed, drawn on the card: (10, P) is 15 GB."""
+    import torch
+
+    m, n = shape
+    g = torch.Generator(device=device).manual_seed(m + n)
+    x = torch.randn(m, n, generator=g, device=device).to(dtype)
+    w = torch.rand(m, generator=g, device=device)
+    return x, w / w.sum()
 
 
 def _check_aggregate(shape, dtype, device):
@@ -151,15 +189,12 @@ def _check_aggregate(shape, dtype, device):
     from repro_torch.kernels.aggregate import masked_weighted_sum, masked_weighted_sum_ref
 
     m, n = shape
-    g = torch.Generator(device=device).manual_seed(m + n)  # drawn on the card: (10, P) is 15 GB
-    x = torch.randn(m, n, generator=g, device=device).to(dtype)
-    w = torch.rand(m, generator=g, device=device)
-    w = w / w.sum()
+    x, w = _aggregate_inputs(shape, dtype, device)
     got = masked_weighted_sum(x, w)
     want = masked_weighted_sum_ref(x, w)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
-    tol = 1e-6
+    tol = 0.0  # the same operations in the same order: the same bits
     if not (got.shape == (n,) and torch.isfinite(got).all() and err <= tol):
         raise AssertionError(f"masked_weighted_sum {shape} {dtype}: max |err| = {err} > {tol}")
     w_lib = w.to(dtype)
@@ -404,6 +439,45 @@ def _scan_kernel_ms(rec, device) -> None:
     print(f"kernel mamba_scan kernel-only {json.dumps(tag)}: forward "
           f"{rec['forward']['kernel_ms']} ms, backward {rec['backward']['kernel_ms']} ms",
           flush=True)
+
+
+def _reduce_kernel_ms(rec, device) -> None:
+    """Adds ``kernel_ms`` and ``library_kernel_ms`` to a ``_check_aggregate``
+    record: K1's own device time a call, and that of the kernels that
+    ``w @ x`` launches, on the same inputs."""
+    import torch
+
+    from repro_torch.kernels.aggregate import masked_weighted_sum
+
+    x, w = _aggregate_inputs(tuple(rec["shape"]), getattr(torch, rec["dtype"]), device)
+    w_lib = w.to(x.dtype)
+    rec["kernel_ms"] = _kernel_ms(lambda: masked_weighted_sum(x, w), FEDAVG_KERNEL)
+    rec["library_kernel_ms"] = _kernel_ms(lambda: w_lib @ x, ANY_KERNEL)
+    _print_kernel_only("masked_weighted_sum", {k: rec[k] for k in ("shape", "dtype")}, rec)
+    del x, w, w_lib
+    torch.cuda.empty_cache()
+
+
+def _strip_kernel_ms(rec, device) -> None:
+    """Adds ``kernel_ms`` and ``library_kernel_ms`` to a ``_check_hellinger``
+    record: K2's own device time a call, and that of the kernels that
+    ``sqrt(clamp(1 - rb @ r.T, 0, 1))`` launches, on the same inputs."""
+    from repro_torch.kernels.hellinger import hellinger_strip
+
+    rb, r = _strip_inputs(tuple(rec["shape"]), device)
+    rec["kernel_ms"] = _kernel_ms(lambda: hellinger_strip(rb, r), STRIP_KERNEL)
+    rec["library_kernel_ms"] = _kernel_ms(lambda: _strip_library(rb, r), ANY_KERNEL)
+    _print_kernel_only("hellinger_strip", {"shape": rec["shape"]}, rec)
+
+
+def _print_kernel_only(name, tag, rec) -> None:
+    """One phase-6 line: the kernel's and the library's device time a call,
+    and the share of the wrapper's event-timed ``ms`` (phase 3) that is host
+    work; negative where this phase's kernel time exceeds phase 3's ``ms``."""
+    rec["host_share"] = 1 - rec["kernel_ms"] / rec["ms"]
+    print(f"kernel {name} kernel-only {json.dumps(tag)}: kernel {rec['kernel_ms']} ms, "
+          f"library {rec['library_kernel_ms']} ms, host share of the wrapper's "
+          f"{rec['ms']} ms {rec['host_share']:.3f}", flush=True)
 
 
 def _main_path(device):
@@ -703,7 +777,7 @@ def main() -> int:
     k2 = [_check_hellinger(s, device) for s in [(100, 100, 10), (100, 100, 64), (4096, 16384, 10)]]
     k1 = [_check_aggregate(s, dt, device)
           for s, dt in [((10, 199_210), torch.float32), ((10, 380_789_760), torch.float32),
-                        ((64, 199_210), torch.bfloat16)]]
+                        ((10, 344_430_400), torch.float32), ((64, 199_210), torch.bfloat16)]]
     k3 = [_check_flash(s, dt, w, ig, device) for s, dt, w, ig in [
         ((80, 64, 32, 32, 80), torch.float32, 0, 1.0),     # local SGD: m x batch sequences
         ((80, 64, 32, 32, 80), torch.bfloat16, 0, 1.0),
@@ -749,7 +823,11 @@ def main() -> int:
     _lm_agreement(device, "lm", LM_MICRO)
     _lm_agreement(device, "hymba", HYMBA_MICRO)
 
-    # 6. the scan kernels' own device time, after every host-timed phase
+    # 6. the kernels' own device time, after every host-timed phase
+    for rec in k1:
+        _reduce_kernel_ms(rec, device)
+    for rec in k2:
+        _strip_kernel_ms(rec, device)
     for rec in k4:
         _scan_kernel_ms(rec, device)
 
@@ -759,12 +837,12 @@ def main() -> int:
          "source": "src/repro_torch/csrc/hellinger_strip.cu",
          "replaces": "src/repro/kernels/hellinger/kernel.py:38",
          "launches": launches["hellinger_strip"], "shape": k2[0]["shape"],
-         **{k: k2[0][k] for k in keys}},
+         **{k: k2[0][k] for k in keys + ("kernel_ms", "library_kernel_ms")}},
         {"name": "masked_weighted_sum", "route": "cuda",
          "source": "src/repro_torch/csrc/fedavg_reduce.cu",
          "replaces": "src/repro/kernels/aggregate/kernel.py:29",
          "launches": launches["masked_weighted_sum"], "shape": k1[0]["shape"],
-         **{k: k1[0][k] for k in keys}},
+         **{k: k1[0][k] for k in keys + ("kernel_ms", "library_kernel_ms")}},
     ] + [
         {"name": f"flash_attention_{direction}", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",

@@ -2,7 +2,8 @@
 
 The port's counterpart of ``masked_weighted_sum_pallas``: one launch
 reduces a whole (M, N) cohort of flat parameter vectors, with no padding
-of N (the kernel masks the ragged edge).
+of N.  ``load_width`` picks the columns a thread (the width of its
+loads) from the cohort's address and row pitch.
 """
 
 from __future__ import annotations
@@ -15,19 +16,42 @@ import torch
 from repro_torch.kernels.aggregate.ref import masked_weighted_sum_ref
 from repro_torch.kernels.build import load
 
-__all__ = ["masked_weighted_sum"]
+__all__ = ["load_width", "masked_weighted_sum"]
 
 _SYMBOLS = {torch.float32: "fedavg_reduce_f32", torch.bfloat16: "fedavg_reduce_bf16"}
-_MAX_BLOCKS = 2**31 - 1  # CUDA's limit on gridDim.x (256 columns a block)
+_THREADS = 256           # threads a block in the kernel
+_MAX_BLOCKS = 2**31 - 1  # CUDA's limit on gridDim.x
+
+
+def load_width(addr: int, n: int, elt: int, sms: int = 132) -> int:
+    """Columns a thread of the kernel for an (M, N) cohort of ``elt``-byte
+    elements at device address ``addr`` on a card with ``sms`` SMs.  A
+    thread loads its columns as one vector a row: the widest of 16, 8 or 4
+    bytes that divides both ``addr`` and the row pitch N * ``elt`` (so
+    every row's vectors are aligned and N is a multiple of the width) and
+    still leaves two 256-thread blocks an SM; one column where no width
+    does."""
+    for width in (16, 8, 4):
+        vec = width // elt
+        if addr % width or (n * elt) % width:
+            continue
+        if -(-n // vec // _THREADS) >= 2 * sms:
+            return vec
+    return 1
 
 
 @functools.cache
 def _kernel(dtype: torch.dtype):
     fn = getattr(load("fedavg_reduce"), _SYMBOLS[dtype])
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(stacked: torch.Tensor, weights: torch.Tensor) -> None:
@@ -47,7 +71,7 @@ def _check(stacked: torch.Tensor, weights: torch.Tensor) -> None:
         )
     if not (stacked.is_contiguous() and weights.is_contiguous()):
         raise ValueError("stacked and weights must be contiguous")
-    if stacked.shape[0] >= 2**31 or -(-stacked.shape[1] // 256) > _MAX_BLOCKS:
+    if stacked.shape[0] >= 2**31 or -(-stacked.shape[1] // _THREADS) > _MAX_BLOCKS:
         raise ValueError(f"cohort {tuple(stacked.shape)} exceeds the kernel's grid")
 
 
@@ -64,8 +88,10 @@ def masked_weighted_sum(stacked: torch.Tensor, weights: torch.Tensor) -> torch.T
     out = torch.empty(n, dtype=torch.float32, device=stacked.device)
     if n == 0:
         return out
+    index = stacked.device.index
+    vec = load_width(stacked.data_ptr(), n, stacked.element_size(), _sms(index))
     err = _kernel(stacked.dtype)(
-        stacked.data_ptr(), weights.data_ptr(), out.data_ptr(), m, n, stacked.device.index,
+        stacked.data_ptr(), weights.data_ptr(), out.data_ptr(), m, n, vec, index,
         torch.cuda.current_stream(stacked.device).cuda_stream,
     )
     if err != 0:

@@ -20,6 +20,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core.hellinger import _sqrt_rows, hellinger_blocked  # noqa: E402
 from repro_torch.data import make_classification, make_token_stream  # noqa: E402
 from repro_torch.engine import FLConfig, make_engine  # noqa: E402
 from repro_torch.kernels.aggregate import masked_weighted_sum, masked_weighted_sum_ref  # noqa: E402
@@ -52,17 +53,68 @@ def _panel(n, c, g):
     return torch.sqrt(h / torch.clamp(h.sum(1, keepdim=True), min=1e-12))
 
 
-@pytest.mark.parametrize("b,k,c", [(1, 1, 1), (100, 100, 10), (37, 70, 130),
-                                   (300, 1000, 10), (33, 65, 32), (64, 64, 33)])
-def test_hellinger_kernel_matches_plain(cuda, b, k, c):
-    g = torch.Generator().manual_seed(b * k + c)
-    rb, r = _panel(b, c, g).to(cuda), _panel(k, c, g).to(cuda)
+def _check_strip(rb, r):
     before = hellinger_strip.launches
     got = hellinger_strip(rb, r)
     torch.cuda.synchronize()
     assert hellinger_strip.launches == before + 1
-    assert got.shape == (b, k) and got.dtype == torch.float32 and got.is_cuda
+    assert got.shape == (rb.shape[0], r.shape[0]) and got.dtype == torch.float32 and got.is_cuda
     assert torch.equal(got, hellinger_strip_ref(rb, r))
+
+
+@pytest.mark.parametrize("b,k,c", [(1, 1, 1), (100, 100, 10), (37, 70, 130),
+                                   (300, 1000, 10), (33, 65, 32), (64, 64, 33)])
+def test_hellinger_kernel_matches_plain(cuda, b, k, c):
+    g = torch.Generator().manual_seed(b * k + c)
+    _check_strip(_panel(b, c, g).to(cuda), _panel(k, c, g).to(cuda))
+
+
+# k % 4 = 0 takes the 16-byte stores, 1..3 the masked 4-byte ones; b off
+# the tile rows; C = 64, 65 and 130 take several 32-class chunks.  Strips
+# of fewer 64 x 128 tiles than SMs take 32-row tiles, the last two (132
+# and 201 such tiles on 132 SMs) 64-row ones
+@pytest.mark.parametrize("b,k", [(100, 100), (70, 301), (129, 302), (65, 303),
+                                 (128, 66 * 128), (129, 66 * 128 + 1)])
+@pytest.mark.parametrize("c", [1, 10, 64, 65, 130])
+def test_hellinger_kernel_store_paths_and_chunks(cuda, b, k, c):
+    g = torch.Generator().manual_seed(b + k * c)
+    _check_strip(_panel(b, c, g).to(cuda), _panel(k, c, g).to(cuda))
+
+
+@pytest.mark.parametrize("c", [10, 65])
+def test_hellinger_kernel_reads_a_misaligned_row_slice(cuda, c):
+    """rb = r[7:300], as hellinger_blocked cuts it at block = 7: its base is
+    7 * C floats past r's, not 16-byte aligned for these C."""
+    g = torch.Generator().manual_seed(c)
+    r = _panel(300, c, g).to(cuda)
+    rb = r[7:300]
+    assert rb.is_contiguous() and rb.data_ptr() % 16 != 0
+    _check_strip(rb, r)
+
+
+def test_hellinger_blocked_on_card_equals_cpu(cuda):
+    """Strips of 7 rows (row slices r[i0:i0 + 7], mostly misaligned) give
+    the card's plain version of the whole matrix bit for bit.  Against the
+    CPU run they agree within one ulp, not bit for bit: PyTorch's
+    vectorised fp32 sqrt on the CPU is not correctly rounded (the card's,
+    and IEEE sqrtf in the kernel, are)."""
+    rng = np.random.default_rng(0)
+    h = rng.dirichlet(np.ones(10) * 0.5, size=300)
+    got = hellinger_blocked(h, block=7, device=cuda)
+    r = torch.from_numpy(_sqrt_rows(h)).to(cuda)
+    want = hellinger_strip_ref(r, r).cpu().numpy()
+    np.fill_diagonal(want, 0.0)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_max_ulp(got, hellinger_blocked(h, block=7, device="cpu"), maxulp=1)
+
+
+def _check_reduce(x, w):
+    before = masked_weighted_sum.launches
+    got = masked_weighted_sum(x, w)
+    torch.cuda.synchronize()
+    assert masked_weighted_sum.launches == before + 1
+    assert got.shape == (x.shape[1],) and got.dtype == torch.float32 and got.is_cuda
+    assert torch.equal(got, masked_weighted_sum_ref(x, w))
 
 
 @pytest.mark.parametrize("m,n", [(1, 1), (10, 199_210), (3, 513), (64, 4099)])
@@ -71,12 +123,25 @@ def test_aggregate_kernel_matches_plain(cuda, m, n, dtype):
     g = torch.Generator().manual_seed(m + n)
     x = torch.randn(m, n, generator=g).to(dtype).to(cuda)
     w = (torch.rand(m, generator=g) * (torch.rand(m, generator=g) > 0.3)).to(cuda)
-    before = masked_weighted_sum.launches
-    got = masked_weighted_sum(x, w)
-    torch.cuda.synchronize()
-    assert masked_weighted_sum.launches == before + 1
-    assert got.shape == (n,) and got.dtype == torch.float32 and got.is_cuda
-    assert torch.equal(got, masked_weighted_sum_ref(x, w))
+    _check_reduce(x, w)
+
+
+# n = 600,000 + r: wide enough for every load width under the two-blocks-an-SM
+# cap, and n % 8 = r picks the width (16, 8 or 4 bytes, or one element); m
+# a part of one 16-row batch, whole batches, and whole batches and a part;
+# rows 1.. of an (m + 1, n) tensor start 4- or 8-byte aligned
+@pytest.mark.parametrize("r", [0, 1, 2, 3, 4])
+@pytest.mark.parametrize("m", [1, 9, 64, 65])
+@pytest.mark.parametrize("offset_row", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_aggregate_kernel_load_widths(cuda, r, m, offset_row, dtype):
+    n = 600_000 + r
+    g = torch.Generator().manual_seed(m * 10 + r)
+    full = torch.randn(m + offset_row, n, generator=g).to(dtype).to(cuda)
+    x = full[1:] if offset_row else full
+    w = (torch.rand(m, generator=g) * (torch.rand(m, generator=g) > 0.3)).to(cuda)
+    assert x.is_contiguous()
+    _check_reduce(x, w)
 
 
 def test_wrappers_reject_mixed_devices(cuda):
