@@ -15,6 +15,10 @@ host (``hellinger_blocked`` returns it there).
     (sklearn's ``cluster_optics_dbscan`` rule); ``eps="auto"`` picks the
     cut from the reachability profile.  Noise points become singleton
     clusters so every client stays selectable.
+- ``kmedoids`` / ``silhouette_score`` / ``best_clustering`` — the
+    k-medoids fallback that fedlecc's ``cluster="auto"`` sweeps when the
+    OPTICS silhouette is poor; numpy on the same float32 matrix, with the
+    reference's seeded draws, so the labels are identical.
 """
 
 from __future__ import annotations
@@ -26,7 +30,15 @@ import torch
 
 from repro_torch.core.hellinger import hellinger_blocked
 
-__all__ = ["OpticsResult", "optics", "extract_clusters", "cluster_label_histograms"]
+__all__ = [
+    "OpticsResult",
+    "optics",
+    "extract_clusters",
+    "cluster_label_histograms",
+    "kmedoids",
+    "best_clustering",
+    "silhouette_score",
+]
 
 
 class OpticsResult(NamedTuple):
@@ -121,3 +133,78 @@ def cluster_label_histograms(
     d = hellinger_blocked(hists, device=device)
     res = optics(d, min_samples=min_samples)
     return extract_clusters(res, eps=eps), res
+
+
+def kmedoids(dist: np.ndarray, k: int, seed: int = 0, iters: int = 25) -> np.ndarray:
+    """PAM-lite k-medoids over a precomputed distance matrix, with
+    k-means++-style seeding from ``np.random.default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    n = dist.shape[0]
+    k = min(k, n)
+    medoids = [int(rng.integers(n))]
+    for _ in range(k - 1):
+        d_min = dist[:, medoids].min(axis=1)
+        p = d_min**2
+        p = p / p.sum() if p.sum() > 0 else np.full(n, 1.0 / n)
+        medoids.append(int(rng.choice(n, p=p)))
+    medoids = np.array(medoids)
+    for _ in range(iters):
+        labels = np.argmin(dist[:, medoids], axis=1)
+        new = medoids.copy()
+        for c in range(k):
+            members = np.where(labels == c)[0]
+            if members.size == 0:
+                continue
+            within = dist[np.ix_(members, members)].sum(axis=1)
+            new[c] = members[int(np.argmin(within))]
+        if np.array_equal(new, medoids):
+            break
+        medoids = new
+    return np.argmin(dist[:, medoids], axis=1).astype(np.int64)
+
+
+def best_clustering(
+    dist: np.ndarray,
+    min_samples: int = 3,
+    silhouette_floor: float = 0.2,
+    k_range=range(3, 16),
+    seed: int = 0,
+) -> tuple[np.ndarray, str]:
+    """OPTICS first; if its silhouette is poor (no density structure),
+    sweep k-medoids over k and keep the best-silhouette clustering.
+    Returns (labels, method_used)."""
+    labels = extract_clusters(optics(dist, min_samples=min_samples))
+    s_opt = silhouette_score(dist, labels)
+    if s_opt >= silhouette_floor:
+        return labels, "optics"
+    best_labels, best_s = labels, s_opt
+    for k in k_range:
+        if k >= dist.shape[0]:
+            break
+        lab = kmedoids(dist, k, seed=seed)
+        s = silhouette_score(dist, lab)
+        if s > best_s:
+            best_labels, best_s = lab, s
+    return best_labels, "kmedoids" if best_s > s_opt else "optics"
+
+
+def silhouette_score(dist: np.ndarray, labels: np.ndarray) -> float:
+    """Silhouette over a precomputed distance matrix, in float64;
+    singleton clusters contribute 0 (sklearn's convention)."""
+    dist = np.asarray(dist, np.float64)
+    labels = np.asarray(labels)
+    k = dist.shape[0]
+    uniq = np.unique(labels)
+    if uniq.size < 2:
+        return 0.0
+    s = np.zeros(k)
+    for i in range(k):
+        mine = labels == labels[i]
+        n_mine = mine.sum()
+        if n_mine <= 1:
+            continue
+        a = dist[i, mine].sum() / (n_mine - 1)
+        b = min(dist[i, labels == c].mean() for c in uniq if c != labels[i])
+        denom = max(a, b)
+        s[i] = 0.0 if denom == 0 else (b - a) / denom
+    return float(s.mean())

@@ -1,12 +1,17 @@
 """repro_torch.engine — the federated engine API of the port.
 
 - ``config``      — ``FLConfig``, field for field the reference's, with
-                    validation that rejects what this slice lacks
-- ``registry``    — strategy / aggregator / task registries
-- ``base``        — ``Engine`` round protocol and ``RoundResult``
+                    validation that rejects what the port lacks
+- ``registry``    — strategy / aggregator / client-mode / task / preset
+                    registries
+- ``base``        — ``Engine`` round protocol, ``RoundResult`` and
+                    ``rounds_to_accuracy``
 - ``host``        — ``HostEngine``: numpy selection + cohort training on
                     the device
-- ``aggregators`` — ``FedAvgAggregator`` (the FedAvg reduce kernel)
+- ``aggregators`` — ``fedavg``, ``fednova``, ``feddyn`` (the FedAvg reduce
+                    kernel), ``trimmed_mean``, ``coordinate_median``
+- ``client_modes``— ``plain``, ``fedprox``, ``feddyn``
+- ``presets``     — the paper's named methods (``get_preset``)
 - ``tasks``       — ``ClassificationTask`` (the paper's MLP) and ``LMTask``
                     (federated language modelling on a transformer)
 - ``draws``       — ``TorchDraws``, the one source of randomness
@@ -27,9 +32,19 @@ from typing import Any
 
 import torch
 
+from repro_torch.engine.base import rounds_to_accuracy
 from repro_torch.engine.config import BACKENDS, FLConfig
+from repro_torch.engine.presets import ExperimentPreset, get_preset, list_presets
 
-__all__ = ["BACKENDS", "FLConfig", "make_engine"]
+__all__ = [
+    "BACKENDS",
+    "ExperimentPreset",
+    "FLConfig",
+    "get_preset",
+    "list_presets",
+    "make_engine",
+    "rounds_to_accuracy",
+]
 
 
 def make_engine(cfg: FLConfig, train, test, n_classes: int, *,

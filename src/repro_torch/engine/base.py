@@ -4,7 +4,8 @@ faults, population, async or checkpoint seams — ``FLConfig`` rejects
 those axes up front).
 
 ``Engine`` owns the non-IID partition, the packed client tensors on the
-device, the selection strategy, the aggregator and the comm ledger, and
+device, the selection strategy, the aggregator, the client mode (with
+FedDyn's (K, P) per-client state) and the comm ledger, and
 drives one canonical round loop:
 
     poll_losses → select → local_train → aggregate → evaluate
@@ -34,12 +35,13 @@ from repro_torch.data.partition import (
 )
 from repro_torch.device import pin_fp32_matmul, resolve_device
 from repro_torch.engine.aggregators import get_aggregator
+from repro_torch.engine.client_modes import get_client_mode
 from repro_torch.engine.config import FLConfig
 from repro_torch.engine.draws import TorchDraws
 from repro_torch.engine.registry import STRATEGY_REGISTRY
 from repro_torch.engine.tasks import build_task
 
-__all__ = ["Engine", "RoundResult"]
+__all__ = ["Engine", "RoundResult", "rounds_to_accuracy"]
 
 
 def _mean_loss(sel_losses) -> float:
@@ -164,6 +166,10 @@ class Engine:
         self.strategy.setup(self.hists, self.sizes, seed=cfg.seed, device=self.device)
         self.aggregator = get_aggregator(cfg.aggregator, cfg)
         self.agg_state = self.aggregator.init_state(self.params)
+        # FedDyn's h_i: (K, P) fp32 on the device — 80 MB at the paper's
+        # MLP, too large at LM width
+        self.client_mode = get_client_mode(cfg.client_mode)
+        self.h_clients = self.client_mode.init_client_state(self.params, cfg.n_clients)
 
         # --- communication ledger ---
         self.comm = CommModel(self.n_params, cfg.n_clients, self.hists.shape[1])
@@ -289,3 +295,12 @@ class Engine:
                     f"comm={r.comm_mb:.1f}MB"
                 )
         return self.history
+
+
+def rounds_to_accuracy(history: dict[str, list], target: float) -> int | None:
+    """First evaluated round reaching ``target`` test accuracy (the paper's
+    rounds-to-accuracy comparison); None if never reached."""
+    for rnd, acc in zip(history["round"], history["test_acc"]):
+        if acc >= target:
+            return rnd
+    return None

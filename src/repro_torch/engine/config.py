@@ -2,14 +2,13 @@
 field for field the reference's ``repro.engine.config.FLConfig``, so one
 ``to_dict()`` builds both engines.
 
-Validation rejects, with a message naming what this slice of the port
-implements, every value it does not: a backend other than ``host``, a
-task other than ``classification`` or ``lm`` (the LM task on a model the
-port runs, stablelm-3b or hymba-1.5b), a strategy other than ``fedlecc``
-(with ``cluster="optics"``), an aggregator other than ``fedavg``, a
-client mode other than ``plain``, a non-zero ``fuse_rounds`` or
-``compress_bits``, and any ``systems``, ``async_mode``, ``faults`` or
-``population`` axis.
+Strategies, aggregators, client modes and tasks resolve against the
+port's registries, which hold every name the reference registers; the
+LM task runs the models the port has (stablelm-3b, hymba-1.5b).
+Validation rejects, with a message naming the port, every value it does
+not implement yet: a backend other than ``host``, a non-zero
+``fuse_rounds`` or ``compress_bits``, and any ``systems``,
+``async_mode``, ``faults`` or ``population`` axis.
 """
 
 from __future__ import annotations
@@ -21,7 +20,6 @@ __all__ = ["FLConfig", "BACKENDS"]
 
 BACKENDS = ("host",)
 _PARTITIONS = ("shards", "dirichlet")
-_CLIENT_MODES = ("plain",)
 
 
 def _unported(what: str, got: Any, supported: Any) -> ValueError:
@@ -86,27 +84,26 @@ class FLConfig:
                 raise ValueError(f"{name} must be a dict")
         from repro_torch.engine.registry import (
             AGGREGATOR_REGISTRY,
+            CLIENT_MODE_REGISTRY,
             STRATEGY_REGISTRY,
             TASK_REGISTRY,
         )
 
-        for what, reg, name in (
-            ("strategy", STRATEGY_REGISTRY, self.strategy),
-            ("aggregator", AGGREGATOR_REGISTRY, self.aggregator),
-            ("task", TASK_REGISTRY, self.task),
+        for reg, name in (
+            (STRATEGY_REGISTRY, self.strategy),
+            (AGGREGATOR_REGISTRY, self.aggregator),
+            (CLIENT_MODE_REGISTRY, self.client_mode),
+            (TASK_REGISTRY, self.task),
         ):
             if name not in reg:
-                raise _unported(what, name, reg.names())
-        if self.client_mode not in _CLIENT_MODES:
-            raise _unported("client_mode", self.client_mode, _CLIENT_MODES)
+                raise ValueError(f"unknown {reg.kind} {name!r}; available: {reg.names()}")
         for name in ("fuse_rounds", "compress_bits"):
             if getattr(self, name) != 0:
                 raise _unported(name, getattr(self, name), (0,))
         for name in ("systems", "async_mode", "faults", "population"):
             if getattr(self, name) is not None:
                 raise _unported(name, getattr(self, name), (None,))
-        # Components validate their kwargs when built (cheap: no state);
-        # the fedlecc strategy rejects a cluster method other than optics.
+        # Components validate their kwargs when built (cheap: no state).
         from repro_torch.engine.aggregators import get_aggregator
         from repro_torch.engine.tasks import build_task
 

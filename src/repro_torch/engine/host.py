@@ -4,8 +4,11 @@
 Selection is host-side numpy (K scalars per round); local training runs
 the selected cohort as one (m, P) tensor on the engine's device
 (``repro_torch.federated.client.local_train``); aggregation reduces that
-tensor with the registered aggregator (FedAvg: one launch of the FedAvg
-reduce kernel on the card).
+tensor with the registered aggregator (FedAvg, FedNova, FedDyn: one
+launch of the FedAvg reduce kernel on the card).  Under FedDyn's client
+mode the cohort's rows of the (K, P) ``h_clients`` go to local training
+and come back updated against the *new* global params, as in the
+reference's ``HostEngine.aggregate``.
 """
 
 from __future__ import annotations
@@ -31,16 +34,18 @@ class HostEngine(Engine):
             rnd, sel, self.sample_probs[torch.as_tensor(sel)], self.max_steps,
             self.cfg.batch_size,
         )
+        h_sel = self.h_clients[sel_t] if self.client_mode.needs_h else None
         stacked, local_losses = local_train(
             self._apply_fn, self._loss_fn, self.params,
             self.xs[sel_t], self.ys[sel_t], bidx,
             torch.as_tensor(self.taus[sel], device=self.device),
             lr=self.cfg.lr, max_steps=self.max_steps,
+            mode=self.cfg.client_mode, mu=self.cfg.mu, h_state=h_sel,
         )
-        return stacked, local_losses.cpu().numpy()
+        return (stacked, h_sel), local_losses.cpu().numpy()
 
     def aggregate(self, rnd: int, sel: np.ndarray, payload) -> None:
-        stacked = payload
+        stacked, h_sel = payload
         w = self.sizes[sel] / self.sizes[sel].sum()
         w_t = torch.as_tensor(w, dtype=torch.float32, device=self.device)
         taus_t = torch.as_tensor(self.taus[sel], dtype=torch.float32, device=self.device)
@@ -51,3 +56,6 @@ class HostEngine(Engine):
             self.agg_state, stacked, self.params, w_t, n_selected=len(sel)
         )
         self.params = new_params
+        if self.client_mode.needs_h:
+            h_new = self.client_mode.update_client_state(h_sel, stacked, self.params, self.cfg.mu)
+            self.h_clients[torch.as_tensor(sel, device=self.device)] = h_new

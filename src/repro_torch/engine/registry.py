@@ -1,8 +1,10 @@
 """Pluggable-component registries, the part of ``repro.engine.registry``
-this slice of the port needs (stdlib only).
+the port needs (stdlib only).
 
-One ``Registry`` per axis of an experiment — strategies, aggregators and
-tasks — filled at class-definition time by the ``register_*`` decorators.
+One ``Registry`` per axis of an experiment — strategies, aggregators,
+client modes, tasks and the named presets that pin all four — filled at
+definition time by the ``register_*`` decorators (presets by
+``repro_torch.engine.presets.register_preset``).
 Lookups lazily import the provider modules, so
 ``STRATEGY_REGISTRY["fedlecc"]`` works regardless of import order.
 """
@@ -17,9 +19,12 @@ __all__ = [
     "Registry",
     "STRATEGY_REGISTRY",
     "AGGREGATOR_REGISTRY",
+    "CLIENT_MODE_REGISTRY",
     "TASK_REGISTRY",
+    "PRESET_REGISTRY",
     "register_strategy",
     "register_aggregator",
+    "register_client_mode",
     "register_task",
 ]
 
@@ -27,7 +32,9 @@ __all__ = [
 _PROVIDERS: dict[str, tuple[str, ...]] = {
     "strategy": ("repro_torch.core.strategies",),
     "aggregator": ("repro_torch.engine.aggregators",),
+    "client_mode": ("repro_torch.engine.client_modes",),
     "task": ("repro_torch.engine.tasks",),
+    "preset": ("repro_torch.engine.presets",),
 }
 
 
@@ -99,8 +106,11 @@ class Registry(Mapping[str, Any]):
 
 STRATEGY_REGISTRY = Registry("strategy")
 AGGREGATOR_REGISTRY = Registry("aggregator")
+CLIENT_MODE_REGISTRY = Registry("client_mode")
 TASK_REGISTRY = Registry("task")
+PRESET_REGISTRY = Registry("preset")
 
 register_strategy = STRATEGY_REGISTRY.register
 register_aggregator = AGGREGATOR_REGISTRY.register
+register_client_mode = CLIENT_MODE_REGISTRY.register
 register_task = TASK_REGISTRY.register

@@ -1,5 +1,5 @@
 """Client-side local training over the whole cohort at once, ported from
-``repro.federated.client.local_train`` (plain mode).
+``repro.federated.client.local_train``.
 
 The reference vmaps one client's ``lax.scan`` of SGD steps over the
 cohort; here the client axis is explicit.  The m models are one (m, P)
@@ -14,6 +14,11 @@ to the cohort tensor; the step is scaled in the gradient's own buffer,
 so the update allocates no further (m, P) tensor, which matters when
 the cohort is 15 GB.  Rows are examples: feature vectors for classification, whole
 token sequences for the LM task.
+
+A client mode (``repro_torch.engine.client_modes``: ``plain``,
+``fedprox``, ``feddyn``) transforms the gradient before the ``live``
+gate, as the reference's scan step does, in the gradient's own buffer;
+``feddyn`` also reads the cohort's (m, P) ``h_state``.
 """
 
 from __future__ import annotations
@@ -21,6 +26,8 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+
+from repro_torch.engine.client_modes import get_client_mode
 
 __all__ = ["local_train"]
 
@@ -35,8 +42,12 @@ def local_train(
     tau: torch.Tensor,            # (m,) true local step budgets
     lr: float,
     max_steps: int,
+    mode: str = "plain",                 # plain | fedprox | feddyn
+    mu: float = 0.0,                     # fedprox mu / feddyn alpha
+    h_state: torch.Tensor | None = None,  # (m, P) feddyn per-client correction
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (params_end (m, P), mean train loss over executed steps (m,))."""
+    mode_impl = get_client_mode(mode)
     m = x.shape[0]
     rows = torch.arange(m, device=x.device)[:, None]
     theta = global_params.expand(m, -1).clone().requires_grad_(True)
@@ -47,6 +58,7 @@ def local_train(
         (grad,) = torch.autograd.grad(loss.sum(), theta)
         live = (t < tau).to(torch.float32)
         with torch.no_grad():
+            grad = mode_impl.modify_grads(grad, theta, global_params, h_state, mu)
             theta -= grad.mul_((lr * live)[:, None])
             loss_sum += live * loss
     mean_loss = loss_sum / torch.clamp(torch.clamp(tau, max=max_steps).to(torch.float32), min=1.0)

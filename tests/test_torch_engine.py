@@ -106,13 +106,40 @@ def _run_both(data, **kw):
     return ref_eng, list(ref_eng.rounds()), eng, list(eng.rounds())
 
 
-@pytest.mark.parametrize("kw", [{}, {"seed": 1, "m": 5}, {"partition": "dirichlet"}])
+# The classification presets of ``repro.engine.presets`` (their four axes
+# and hyperparameters), the other strategies, and the robust aggregators
+# under random selection.
+PRESET_CASES = {
+    "fedavg": {"strategy": "random"},
+    "fedprox": {"strategy": "random", "client_mode": "fedprox", "mu": 0.01},
+    "fednova": {"strategy": "random", "aggregator": "fednova"},
+    "feddyn": {"strategy": "random", "client_mode": "feddyn", "aggregator": "feddyn", "mu": 0.1},
+    "haccs": {"strategy": "haccs"},
+    "fedcls": {"strategy": "fedcls"},
+    "fedcor": {"strategy": "fedcor"},
+    "poc": {"strategy": "poc"},
+    "fedlecc": {"strategy": "fedlecc", "strategy_kwargs": {"J": 10}},
+    "fedlecc_adaptive": {"strategy": "fedlecc_adaptive"},
+    "fedcs": {"strategy": "fedcs"},
+    "lossonly": {"strategy": "lossonly"},
+    "clusterrandom": {"strategy": "clusterrandom", "strategy_kwargs": {"J": 3}},
+    "fedlecc_auto": {"strategy_kwargs": {"J": 3, "cluster": "auto"}},
+    "trimmed_mean": {"strategy": "random", "aggregator": "trimmed_mean"},
+    "coordinate_median": {"strategy": "random", "aggregator": "coordinate_median"},
+}
+
+
+@pytest.mark.parametrize("kw", [{}, {"seed": 1, "m": 5}, {"partition": "dirichlet"}] + [
+    pytest.param(kw, id=name) for name, kw in PRESET_CASES.items()])
 def test_rounds_match_reference(data, kw):
     ref_eng, ref_res, eng, res = _run_both(data, **kw)
     assert eng.alpha == ref_eng.alpha
     for a, b in zip(eng.client_idx, ref_eng.client_idx):
         np.testing.assert_array_equal(a, b)
-    np.testing.assert_array_equal(eng.strategy.labels, ref_eng.strategy.labels)
+    if hasattr(ref_eng.strategy, "labels"):
+        np.testing.assert_array_equal(eng.strategy.labels, ref_eng.strategy.labels)
+        assert getattr(eng.strategy, "cluster_method", None) == getattr(
+            ref_eng.strategy, "cluster_method", None)
     assert eng.n_params == ref_eng.n_params and eng.max_steps == ref_eng.max_steps
     assert len(res) == len(ref_res) == 3
     n_test = len(data[1].y)
@@ -126,6 +153,13 @@ def test_rounds_match_reference(data, kw):
     want = params_from_jax(jax.tree.map(np.asarray, ref_eng.params)).numpy()
     np.testing.assert_allclose(eng.params.numpy(), want, atol=1e-5)
     assert eng.history["selected"] == ref_eng.history["selected"]
+    if eng.client_mode.needs_h:  # FedDyn's per-client state, client by client
+        for i in range(eng.cfg.n_clients):
+            h = params_from_jax(jax.tree.map(lambda a: np.asarray(a[i]), ref_eng.h_clients))
+            np.testing.assert_allclose(eng.h_clients[i].numpy(), h.numpy(), atol=1e-5)
+    if eng.aggregator.needs_state:  # FedDyn's server h
+        h = params_from_jax(jax.tree.map(np.asarray, ref_eng.agg_state)).numpy()
+        np.testing.assert_allclose(eng.agg_state.numpy(), h, atol=1e-5)
 
 
 def test_config_round_trips_between_packages():

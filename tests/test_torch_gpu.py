@@ -151,6 +151,64 @@ def test_wrappers_reject_mixed_devices(cuda):
         masked_weighted_sum(torch.rand(2, 5, device=cuda), torch.rand(2))
 
 
+@pytest.mark.parametrize("m,n", [(10, 199_210), (4, 4099)])
+def test_fednova_and_feddyn_on_the_kernel_equal_their_cpu_plain_versions(cuda, m, n):
+    """One K1 launch a rule, the cohort left as it was; against the same rule
+    on the CPU (the plain reduce) within a few fp32 ulps (rtol 1e-6): the
+    few-element weight sums are taken in another order on the card, and
+    FedNova scales that by τ_eff."""
+    from repro_torch.federated.aggregation import feddyn_server, feddyn_update_h, fednova
+
+    g = torch.Generator().manual_seed(m * n)
+    x, gp, h = torch.randn(m, n, generator=g), torch.randn(n, generator=g), torch.randn(n, generator=g)
+    w = torch.rand(m, generator=g) + 0.1
+    w, taus = w / w.sum(), torch.randint(0, 9, (m,), generator=g).to(torch.float32)
+    xc, gpc, hc, wc, tc = (t.to(cuda) for t in (x, gp, h, w, taus))
+    before = masked_weighted_sum.launches
+    nova = fednova(xc, gpc, wc, tc)
+    theta, mean = feddyn_server(xc, wc, hc, 0.1)
+    h_new = feddyn_update_h(hc, mean, gpc, 0.1, m / 100)
+    torch.cuda.synchronize()
+    assert masked_weighted_sum.launches == before + 2
+    assert torch.equal(xc.cpu(), x)
+    want = (fednova(x, gp, w, taus), *feddyn_server(x, w, h, 0.1))
+    want += (feddyn_update_h(h, want[2], gp, 0.1, m / 100),)
+    for got, ref in zip((nova, theta, mean, h_new), want):
+        assert got.is_cuda and got.shape == (n,)
+        np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("name,k1_per_round", [("fedavg", 1), ("fednova", 1), ("feddyn", 1),
+                                               ("fedprox", 1), ("trimmed_mean", 0),
+                                               ("coordinate_median", 0)])
+def test_baseline_engines_on_card_match_cpu(cuda, name, k1_per_round):
+    """The paper's baselines (random selection, so K2 never launches) and the
+    robust aggregators: one K1 launch a round where the rule reduces, none
+    where it sorts, and the card's run equals the CPU's as in
+    ``test_engine_on_card_matches_cpu``."""
+    from repro_torch.engine import get_preset
+
+    train = make_classification(800, n_features=64, n_classes=10, seed=0)
+    test = make_classification(200, n_features=64, n_classes=10, seed=1)
+    kw = dict(n_clients=12, m=4, rounds=3, hidden=(16,), eval_samples=16, eval_every=1,
+              target_hd=0.8, seed=0)
+    if name in ("trimmed_mean", "coordinate_median"):
+        cfg = FLConfig(strategy="random", aggregator=name, **kw)
+    else:
+        cfg = get_preset(name).make_config(**kw)
+    k1, k2 = masked_weighted_sum.launches, hellinger_strip.launches
+    gpu = make_engine(cfg, train, test, 10)
+    res_gpu = list(gpu.rounds())
+    assert masked_weighted_sum.launches == k1 + 3 * k1_per_round
+    assert hellinger_strip.launches == k2
+    cpu = make_engine(cfg, train, test, 10, device="cpu")
+    res_cpu = list(cpu.rounds())
+    assert [r.selected for r in res_gpu] == [r.selected for r in res_cpu]
+    np.testing.assert_allclose(gpu.params.cpu().numpy(), cpu.params.numpy(), atol=1e-4)
+    if gpu.h_clients is not None:
+        np.testing.assert_allclose(gpu.h_clients.cpu().numpy(), cpu.h_clients.numpy(), atol=1e-4)
+
+
 def test_engine_on_card_matches_cpu(cuda):
     """The default draws come from host generators, so one seed gives the
     same indices on either device; the rounds then differ only by fp32

@@ -371,8 +371,21 @@ def test_lm_config_validation():
 def test_lm_rounds_match_reference(lm_data):
     """``lm_fl_cfg()`` for 2 rounds in the reference ``HostEngine`` and in the
     port on the CPU under the reference's draws."""
+    _check_lm_rounds(lm_data)
+
+
+@pytest.mark.parametrize("kw", [{"aggregator": "fednova"},
+                                {"client_mode": "fedprox", "mu": 0.01}],
+                         ids=["fednova", "fedprox"])
+def test_lm_rounds_match_reference_other_axes(lm_data, kw):
+    """The aggregator and client-mode hooks do not depend on the task: the
+    same 2 rounds under FedNova's aggregation and FedProx's local term."""
+    _check_lm_rounds(lm_data, **kw)
+
+
+def _check_lm_rounds(lm_data, **kw):
     train, test = lm_data
-    ref_cfg = lm_fl_cfg()
+    ref_cfg = lm_fl_cfg(**kw)
     ref_eng = ref_make_engine(ref_cfg, train, test, n_classes=LM_VOCAB)
     ref_res = list(ref_eng.rounds())
     cfg = FLConfig.from_dict(ref_cfg.to_dict())

@@ -1,7 +1,8 @@
 """The port stands alone: nothing under ``src/repro_torch/`` and nothing in
 ``chip_smoke.py`` imports JAX or the reference package ``repro``; entry
-points default to the card and raise without one; the config rejects
-what this slice does not implement."""
+points default to the card and raise without one; the config accepts
+every registered strategy, aggregator and client mode and rejects what
+the port does not implement yet."""
 
 import ast
 from pathlib import Path
@@ -39,7 +40,9 @@ def test_port_file_list_is_complete():
                       "models/attention.py", "models/transformer.py",
                       "kernels/flash_attention/ops.py", "kernels/flash_attention/ref.py",
                       "configs/hymba_1_5b.py", "models/ssm.py", "kernels/mamba_scan/__init__.py",
-                      "kernels/mamba_scan/ops.py", "kernels/mamba_scan/ref.py"):
+                      "kernels/mamba_scan/ops.py", "kernels/mamba_scan/ref.py",
+                      "engine/client_modes.py", "engine/presets.py", "optim/fedmods.py",
+                      "data/pipeline.py"):
         assert f"src/repro_torch/{lm_module}" in names
     assert len(names) > 20
 
@@ -77,10 +80,10 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
 @pytest.mark.parametrize("field,value", [
     ("backend", "compiled"),
     ("task", "lm"),  # the LM task's default model, xlstm-125m, comes in a later slice
-    ("strategy", "poc"),
-    ("strategy_kwargs", {"cluster": "auto"}),
-    ("aggregator", "fednova"),
-    ("client_mode", "fedprox"),
+    ("backend", "scaleout"),
+    ("compress_bits", 4),
+    ("fuse_rounds", 1),
+    ("population", {"n_shards": 4, "shards_per_round": 2}),
     ("fuse_rounds", 4),
     ("compress_bits", 8),
     ("systems", {"profile": "mobile_mix"}),
@@ -93,6 +96,17 @@ def test_config_rejects_unported_values(field, value):
         FLConfig(**{field: value})
 
 
+@pytest.mark.parametrize("field,value", [
+    ("strategy", "poc"),
+    ("strategy_kwargs", {"cluster": "auto"}),
+    ("aggregator", "fednova"),
+    ("client_mode", "fedprox"),
+])
+def test_config_accepts_ported_values(field, value):
+    cfg = FLConfig(**{field: value})
+    assert getattr(cfg, field) == value and FLConfig.from_dict(cfg.to_dict()) == cfg
+
+
 def test_config_rejects_bad_values_and_round_trips():
     with pytest.raises(ValueError):
         FLConfig(m=0)
@@ -102,5 +116,8 @@ def test_config_rejects_bad_values_and_round_trips():
         FLConfig(aggregator_kwargs={"trim_frac": 0.1})
     with pytest.raises(ValueError):
         FLConfig.from_dict({"bogus": 1})
+    for field in ("strategy", "aggregator", "client_mode"):
+        with pytest.raises(ValueError, match="unknown"):
+            FLConfig(**{field: "no-such-name"})
     cfg = FLConfig(hidden=(32, 16), strategy_kwargs={"J": 2})
     assert FLConfig.from_dict(cfg.to_dict()) == cfg
