@@ -27,6 +27,24 @@ Phases, each printed on its own lines:
      never where it sorts, K2 once at setup exactly where a strategy
      builds the Hellinger matrix.  It runs before the LM paths, whose last
      rounds run under the profiler, which slows later host work;
+   - the paper's configuration (FedLECC, J = 3, 150 rounds) on each backend:
+     (a) ``backend="host"``, (b) ``backend="compiled"`` (eager: the round's
+     mask, cohort and K1 reduce on the card, read once a round), (c) (b) in
+     fused chunks of 5 rounds (``fuse_rounds=5``: each chunk length captured
+     once as a CUDA graph, then replayed) and (d) (c) with int8 uploads
+     (``compress_bits=8``); one ``backends:`` line each with setup, median
+     round (fused: replayed chunks' ms / rounds, the first chunk of each
+     length, eager then captured, apart), accuracy, rounds to 50 %, MB and
+     K1/K2 launches (K1 150 in each run, replays counted as replays x the
+     launches captured a graph; K2 1).  (b) and (c) must select the same
+     clients every round and end within 1e-5, as must lossonly and haccs
+     over 30 rounds; random, poc and clusterrandom's fused ``rounds(30)`` in
+     three calls must equal one call; (d) must bill fewer MB than (c) and
+     stay within 5e-3 of it after 3 rounds; (b) with ``cohort_gather=False``
+     (every client trains, K1 reduces (100, P)) must equal (b) over 3
+     rounds.  Then ``torch.profiler`` over
+     one host round and one replayed chunk (busy ms, idle share, top
+     device operations);
    - federated LM training on stablelm-3b at full width, cut from 32 to
      2 layers (P = 380,789,760), K = 100, m = 10, batch 8 of 64 tokens,
      3 rounds, with the flash-attention kernel forward (poll, local SGD,
@@ -35,18 +53,20 @@ Phases, each printed on its own lines:
      layers (P = 344,430,400), the same data recipe and settings, with the
      flash-attention kernel at hymba's shape and the selective-scan kernel,
      each forward (poll, local SGD, evaluation) and backward (local SGD).
-5. agreement — a small configuration of each task and model, and of
-   every classification preset, run on the CPU (plain versions) and on the
-   card (kernels) from the same draws must select the same clients and
-   reach the same parameters.
+5. agreement — a small configuration of each task and model, of every
+   classification preset and of fused compiled chunks, run on the CPU
+   (plain versions, eager chunks) and on the card (kernels, captured
+   chunks) from the same draws must select the same clients and reach the
+   same parameters.
 6. kernel-only — each kernel's own device time a call, without the
    wrapper's host work, at each of its phase-3 shapes: K1, K2 and the
    selective scan, and beside K1 and K2 the device time of the kernels
    that their library call launches (``torch.profiler``, median of 30
    calls); last, so that no profiler session precedes a host-timed phase.
 
-Then one JSON line lists the kernels, and the last line is
-``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
+Then the card's name and power limit again, one JSON line lists the
+kernels (K1's launches summed over every path above), and the last line
+is ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
 before that line; so does a machine with no CUDA device, and a directory
 that holds this script without the repository's ``src/``.
 """
@@ -680,6 +700,202 @@ def _comparison(device):
     return records
 
 
+# The paper's configuration on the backends: (a) the host backend, (b) the
+# compiled backend, eager, (c) compiled, fused in chunks of 5 rounds (a CUDA
+# graph a chunk length), (d) (c) with int8 uploads
+BACKEND_RUNS = {"host": {}, "compiled": {"backend": "compiled"},
+                "fused": {"backend": "compiled", "fuse_rounds": 5},
+                "fused_int8": {"backend": "compiled", "fuse_rounds": 5, "compress_bits": 8}}
+# the host-parity tolerance of tests/test_torch_engine.py, and the reference's
+# bound for int8 uploads against exact ones (tests/test_backend_conformance.py)
+PARITY_ATOL, INT8_ATOL = 1e-5, 5e-3
+
+
+def _k1_launches(engine) -> int:
+    """K1's launches in a run: the wrapper's eager launches, and those that
+    the replays of a fused engine's CUDA graphs make."""
+    from repro_torch.kernels.aggregate import masked_weighted_sum
+
+    return masked_weighted_sum.launches + (
+        engine.replayed_launches() if hasattr(engine, "replayed_launches") else 0)
+
+
+def _backend_run(device, tag, cfg, train, test):
+    """``cfg`` to its last round through ``make_engine(...).rounds()``, K1 and
+    K2 counted from 0 over it, each step timed (a fused chunk's rounds
+    together); checks launches, replays, selections and learning; returns
+    (record, engine, results)."""
+    import torch
+
+    from repro_torch.engine import make_engine, rounds_to_accuracy
+    from repro_torch.kernels.aggregate import masked_weighted_sum
+    from repro_torch.kernels.hellinger import hellinger_strip
+
+    hellinger_strip.launches = masked_weighted_sum.launches = masked_weighted_sum.captured = 0
+    t = time.perf_counter()
+    engine = make_engine(cfg, train, test, n_classes=10, device=device)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+    fused = cfg.fuse_rounds > 0
+    results, steps = [], []  # steps: (rounds, ms, whether a graph replayed them)
+    it = engine.rounds()
+    while len(results) < cfg.rounds:
+        length = engine._chunk_len(len(results), cfg.rounds) if fused else 1
+        replay = fused and length in engine._graphs
+        t = time.perf_counter()
+        for _ in range(length):
+            results.append(next(it))
+        torch.cuda.synchronize()
+        steps.append((length, (time.perf_counter() - t) * 1e3, replay))
+    timed = [ms / n for n, ms, replay in steps if replay or not fused]
+    last = results[-1]
+    rec = {"tag": tag, "backend": cfg.backend, "fuse_rounds": cfg.fuse_rounds,
+           "compress_bits": cfg.compress_bits, "rounds": len(results), "setup_s": setup_s,
+           "median_round_ms": statistics.median(timed), "final_test_acc": last.test_acc,
+           "rounds_to_50": rounds_to_accuracy(engine.history, 0.5), "comm_mb": last.comm_mb,
+           "k1_launches": _k1_launches(engine), "k2_launches": hellinger_strip.launches}
+    if fused:
+        seen = set()
+        rec["first_chunk_ms"] = {}  # the first chunk of each length: eager, then captured
+        for n, ms, _ in steps:
+            if n not in seen:
+                seen.add(n)
+                rec["first_chunk_ms"][n] = ms
+        rec |= {"k1_eager": masked_weighted_sum.launches, "k1_replayed": engine.replayed_launches(),
+                "graph_replays": engine.graph_replays, "graph_launches": engine.graph_launches,
+                "median_chunk_ms": statistics.median(ms for _, ms, replay in steps if replay)}
+    if cfg.compress_bits:
+        rec["last_quant_error"] = engine.last_quant_error
+    print(f"backends: {json.dumps(rec)}", flush=True)
+    if (rec["k1_launches"], rec["k2_launches"]) != (cfg.rounds, 1):
+        raise AssertionError(f"{tag}: K1/K2 launched {rec['k1_launches']}/{rec['k2_launches']} "
+                             f"times; expected {cfg.rounds}/1")
+    if fused:
+        if not any(engine.graph_replays.values()):
+            raise AssertionError(f"{tag}: no CUDA graph was replayed {engine.graph_replays}")
+        if (masked_weighted_sum.captured != sum(engine.graph_launches.values())
+                or any(k1 != n for n, k1 in engine.graph_launches.items())):
+            raise AssertionError(f"{tag}: a captured chunk of L rounds should hold L K1 launches: "
+                                 f"{engine.graph_launches}")
+    for r in results:
+        sel = list(r.selected)
+        if len(sel) != cfg.m or sorted(set(sel)) != sel or not 0 <= sel[0] <= sel[-1] < cfg.n_clients:
+            raise AssertionError(f"{tag} round {r.round}: bad selection {sel}")
+        if not (math.isfinite(r.mean_selected_loss) and math.isfinite(r.comm_mb)):
+            raise AssertionError(f"{tag} round {r.round}: bad metrics {r}")
+    if not (engine.params.is_cuda and torch.isfinite(engine.params).all()
+            and last.test_acc > 0.5):
+        raise AssertionError(f"{tag}: final parameters not finite or no learning "
+                             f"(accuracy {last.test_acc})")
+    return rec, engine, results
+
+
+def _same_run(tag, a, b, atol):
+    """Two runs (engine, results) select the same clients every round and
+    end within ``atol`` of each other's parameters."""
+    (ea, ra), (eb, rb) = a, b
+    sel_a, sel_b = [r.selected for r in ra], [r.selected for r in rb]
+    diff = float((ea.params - eb.params).abs().max())
+    same = sel_a == sel_b and [r.round for r in ra] == [r.round for r in rb]
+    print(f"backends {tag}: {len(ra)} rounds, same selections every round: {same}, "
+          f"max |params diff| {diff:.3g} (tolerance {atol})", flush=True)
+    if not same:
+        raise AssertionError(f"{tag}: the runs selected different clients")
+    if not diff <= atol:
+        raise AssertionError(f"{tag}: parameters differ by {diff} > {atol}")
+
+
+def _backends(device):
+    """The paper's configuration for 150 rounds on the host backend, the
+    compiled backend, its fused chunks and fused int8 uploads; then their
+    agreements, and a profile of a host round and of a replayed chunk.
+    Returns K1's launches over the four runs."""
+    import torch
+
+    from repro_torch.data import make_classification
+    from repro_torch.engine import FLConfig, make_engine
+
+    train = make_classification(20_000, seed=0)
+    test = make_classification(2_000, seed=1)
+    paper = dict(n_clients=100, m=10, partition="shards", target_hd=0.9, batch_size=64, lr=0.005,
+                 hidden=(200, 200), seed=0, strategy="fedlecc", strategy_kwargs={"J": 3},
+                 rounds=150, eval_every=5)
+    t = time.perf_counter()
+    runs = {tag: _backend_run(device, tag, FLConfig(**paper, **kw), train, test)
+            for tag, kw in BACKEND_RUNS.items()}
+    _same_run("fedlecc compiled vs fused", runs["compiled"][1:], runs["fused"][1:], PARITY_ATOL)
+    k1 = sum(rec["k1_launches"] for rec, _, _ in runs.values())
+    if not runs["fused_int8"][0]["comm_mb"] < runs["fused"][0]["comm_mb"]:
+        raise AssertionError("int8 uploads did not bill fewer MB")
+    del runs
+
+    def run(n, cohort_gather=True, **kw):
+        engine = make_engine(FLConfig(**(paper | kw)), train, test, n_classes=10, device=device,
+                             cohort_gather=cohort_gather)
+        return engine, list(engine.rounds(n))
+
+    # the legacy path: all 100 clients train, K1 reduces (100, P) with zero
+    # weights outside the mask
+    _same_run("fedlecc compiled cohort_gather=False vs gathered",
+              run(3, backend="compiled"), run(3, cohort_gather=False, backend="compiled"),
+              PARITY_ATOL)
+
+    for strategy in ("lossonly", "haccs"):
+        _same_run(f"{strategy} compiled vs fused",
+                  run(30, strategy=strategy, strategy_kwargs={}, backend="compiled"),
+                  run(30, strategy=strategy, strategy_kwargs={}, backend="compiled",
+                      fuse_rounds=5), PARITY_ATOL)
+    for strategy, skw in (("random", {}), ("poc", {}), ("clusterrandom", {"J": 3})):
+        kw = dict(strategy=strategy, strategy_kwargs=skw, backend="compiled", fuse_rounds=5)
+        engine = make_engine(FLConfig(**(paper | kw)), train, test, n_classes=10, device=device)
+        chunked = list(engine.rounds(7)) + list(engine.rounds(11)) + list(engine.rounds(12))
+        _same_run(f"{strategy} fused rounds(30) in three calls vs one", run(30, **kw),
+                  (engine, chunked), PARITY_ATOL)
+    exact = run(3, backend="compiled", fuse_rounds=5)
+    quant = run(3, backend="compiled", fuse_rounds=5, compress_bits=8)
+    diff = float((exact[0].params - quant[0].params).abs().max())
+    mb = (exact[1][-1].comm_mb, quant[1][-1].comm_mb)
+    print(f"backends int8 vs exact fused uploads, 3 rounds: max |params diff| {diff:.3g} "
+          f"(tolerance {INT8_ATOL}), {mb[1]:.3f} MB against {mb[0]:.3f}, mean quantization "
+          f"error {quant[0].last_quant_error:.3g}", flush=True)
+    if not (diff <= INT8_ATOL and mb[1] < mb[0]):
+        raise AssertionError(f"int8 uploads: params differ by {diff} (> {INT8_ATOL}?) or "
+                             f"{mb[1]} MB is not below {mb[0]}")
+    print(f"backends: phase in {time.perf_counter() - t:.1f} s", flush=True)
+
+    # device profiles of one host round and one replayed fused chunk, after
+    # this phase's host-timed runs
+    engine = make_engine(FLConfig(**(paper | {"rounds": 5})), train, test, n_classes=10,
+                         device=device)
+    it = engine.rounds()
+    next(it), next(it)  # rounds 0 (evaluated) and 1; round 2 is not evaluated
+    torch.cuda.synchronize()
+    with _profiled(True) as prof:
+        t = time.perf_counter()
+        next(it)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    _print_profile(prof, wall, "backends host round", (), host_top=True)
+    engine = make_engine(FLConfig(**(paper | {"rounds": 11, "backend": "compiled",
+                                              "fuse_rounds": 5})),
+                         train, test, n_classes=10, device=device)
+    it = engine.rounds()
+    for _ in range(6):  # round 0, then rounds 1-5: the chunk of 5 that is captured
+        next(it)
+    torch.cuda.synchronize()
+    with _profiled(True) as prof:
+        t = time.perf_counter()
+        for _ in range(5):  # rounds 6-10: a replay
+            next(it)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    if engine.graph_replays.get(5) != 1:
+        raise AssertionError(f"the profiled chunk was not a replay: {engine.graph_replays}")
+    _print_profile(prof, wall, "backends fused chunk (5 rounds, replayed)", (), host_top=True)
+    return k1
+
+
+
 def _agreement(device):
     """Small configurations, FedLECC (J = 3) and every classification preset:
     CPU (plain versions) vs card (kernels), same draws."""
@@ -694,6 +910,9 @@ def _agreement(device):
                  target_hd=0.8, seed=0)
     cfgs = {"fedlecc J=3": FLConfig(strategy_kwargs={"J": 3}, **small)}
     cfgs |= {name: get_preset(name).make_config(**small) for name in PRESETS}
+    # fused chunks of 3: round 0, then rounds 1-3 eager and captured, 4-6 replayed, 7
+    cfgs["fedlecc J=3 fused"] = FLConfig(strategy_kwargs={"J": 3}, backend="compiled",
+                                         fuse_rounds=3, **(small | {"rounds": 8, "eval_every": 3}))
     for tag, cfg in cfgs.items():
         on_card = make_engine(cfg, train, test, 10, device=device)
         on_cpu = make_engine(cfg, train, test, 10, device="cpu")
@@ -731,9 +950,10 @@ def _profiled(on: bool):
     return torch.profiler.profile(activities=acts)
 
 
-def _print_profile(prof, wall_s: float, tag: str, families) -> None:
+def _print_profile(prof, wall_s: float, tag: str, families, host_top: bool = False) -> None:
     """Device time of one profiled round by kernel: the busy and idle shares
-    of the round's wall time, each kernel family's share, the top kernels.
+    of the round's wall time, each kernel family's share, the top kernels
+    (and with ``host_top`` the top host operations by their own CPU time).
     Fails if a family's kernels launched but the profile holds none of them."""
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     total_us = sum(e.self_device_time_total for e in events)
@@ -752,6 +972,10 @@ def _print_profile(prof, wall_s: float, tag: str, families) -> None:
         summary[f"{fam}_share_of_busy"] = fam_us / total_us
     summary["top"] = [{"kernel": e.key[:90], "ms": e.self_device_time_total / 1e3,
                        "calls": e.count} for e in top]
+    if host_top:
+        host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:8]
+        summary["host_top"] = [{"op": e.key[:60], "ms": e.self_cpu_time_total / 1e3,
+                                "calls": e.count} for e in host]
     print(f"{tag} profile: {json.dumps(summary)}", flush=True)
 
 
@@ -917,7 +1141,8 @@ def main() -> int:
     k2 = [_check_hellinger(s, device) for s in [(100, 100, 10), (100, 100, 64), (4096, 16384, 10)]]
     k1 = [_check_aggregate(s, dt, device)
           for s, dt in [((10, 199_210), torch.float32), ((10, 380_789_760), torch.float32),
-                        ((10, 344_430_400), torch.float32), ((64, 199_210), torch.bfloat16)]]
+                        ((10, 344_430_400), torch.float32), ((64, 199_210), torch.bfloat16),
+                        ((100, 199_210), torch.float32)]]  # cohort_gather=False: all K clients
     k3 = [_check_flash(s, dt, w, ig, device) for s, dt, w, ig in [
         ((80, 64, 32, 32, 80), torch.float32, 0, 1.0),     # local SGD: m x batch sequences
         ((80, 64, 32, 32, 80), torch.bfloat16, 0, 1.0),
@@ -955,6 +1180,7 @@ def main() -> int:
             re.compile(f"{SCAN_FORWARD.pattern}|{SCAN_BACKWARD.pattern}"))
     launches = _main_path(device)
     _comparison(device)
+    backend_k1 = _backends(device)
     lm_launches = _lm_main_path(device, "lm", "stablelm-3b", 2, 380_789_760, (attention,))
     hymba_launches = _lm_main_path(device, "hymba", "hymba-1.5b", 6, 344_430_400,
                                    (attention, scan))
@@ -982,7 +1208,10 @@ def main() -> int:
         {"name": "masked_weighted_sum", "route": "cuda",
          "source": "src/repro_torch/csrc/fedavg_reduce.cu",
          "replaces": "src/repro/kernels/aggregate/kernel.py:29",
-         "launches": launches["masked_weighted_sum"], "shape": k1[0]["shape"],
+         "launches": (launches["masked_weighted_sum"] + backend_k1
+                      + lm_launches["masked_weighted_sum"]
+                      + hymba_launches["masked_weighted_sum"]),
+         "shape": k1[0]["shape"],
          **{k: k1[0][k] for k in keys + ("kernel_ms", "library_kernel_ms")}},
     ] + [
         {"name": f"flash_attention_{direction}", "route": "cuda",
@@ -999,6 +1228,7 @@ def main() -> int:
          **{k: k4[0][direction][k] for k in keys + ("kernel_ms",)}}
         for direction in ("forward", "backward")
     ]
+    print(smi, flush=True)  # again, so that the end of the output names the card
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

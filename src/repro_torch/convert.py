@@ -5,7 +5,8 @@ The reference keeps the MLP as a list of layers ``[{"w": (in, out),
 leaves are stacked on a leading layer axis; the port keeps either model
 as one flat fp32 vector (P,), laid out by ``MLPLayout`` or
 ``TransformerLayout``.  Arrays cross as numpy, so this module needs
-neither JAX nor the reference package.
+neither JAX nor the reference package.  ``leaf_segments`` says which
+stretches of the flat vector make up each of the reference's leaves.
 """
 
 from __future__ import annotations
@@ -16,8 +17,8 @@ import torch
 from repro_torch.models.mlp import MLPLayout
 from repro_torch.models.transformer import TransformerLayout
 
-__all__ = ["params_from_jax", "params_to_numpy", "transformer_params_from_jax",
-           "transformer_params_to_numpy"]
+__all__ = ["leaf_segments", "params_from_jax", "params_to_numpy",
+           "transformer_params_from_jax", "transformer_params_to_numpy"]
 
 
 def params_from_jax(params) -> torch.Tensor:
@@ -81,3 +82,26 @@ def transformer_params_to_numpy(flat: torch.Tensor, cfg) -> dict:
 
     out["layers"] = build(layers[0], ())
     return out
+
+
+def leaf_segments(layout) -> list[list[tuple[int, int]]]:
+    """The reference's parameter leaves as stretches of the port's flat
+    vector: one list of (start, stop) column ranges a leaf.  An MLP's
+    ``w`` and ``b`` of each layer are one stretch each; a transformer's
+    leaf under ``"layers"`` is stacked over the layers in the reference,
+    so it is one stretch a layer here, in layer order."""
+    if isinstance(layout, MLPLayout):
+        leaves = []
+        for off, fan_in, fan_out in layout.layers:
+            leaves.append([(off, off + fan_in * fan_out)])
+            leaves.append([(off + fan_in * fan_out, off + fan_in * fan_out + fan_out)])
+        return leaves
+    if isinstance(layout, TransformerLayout):
+        stacked: dict[tuple, list[tuple[int, int]]] = {}
+        off = 0
+        for (path, _), size in zip(layout.entries, layout.sizes):
+            key = tuple(k for k in path if not isinstance(k, int))
+            stacked.setdefault(key, []).append((off, off + size))
+            off += size
+        return list(stacked.values())
+    raise TypeError(f"no leaf structure for {type(layout).__name__}")

@@ -13,7 +13,29 @@ Every strategy implements:
 Selection is host-side numpy: K scalars per round.  Each ``select``
 consumes ``rng`` in exactly the reference's calls, with the same
 arguments and in the same order, so one seed gives the reference's
-selections.  The strategies that cluster (``fedlecc``,
+selections.
+
+The compiled backend calls two more tiers, as the reference does:
+
+    select_mask(losses, rng) -> (K,) bool mask on the strategy's device
+                                (``supports_compiled_selection``; the
+                                counterpart of ``select_mask_jax``)
+    select_mask_traced(losses, noise) -> (K,) bool mask with no host read
+                                (``supports_traced_selection``; runs
+                                inside a fused, captured round chunk)
+
+``select_mask`` draws any randomness from ``rng`` exactly as ``select``
+does (so host and compiled runs of one seed stay in lockstep) and ranks
+on the device; it equals ``select`` for the same inputs and rng state.
+``select_mask_traced`` takes its randomness as ``noise``, the tensors
+that ``traced_noise`` names and the engine's draws make: ``"uniform"``
+scores (``random``), ``"gumbel"`` noise (``poc``'s Gumbel-top-k
+candidate draw) or ``"permutations"`` of the clusters and the clients
+(``clusterrandom``); ``None`` for the strategies that are deterministic
+given the losses (``fedlecc``, ``lossonly``, ``haccs``, ``fedcs``), whose
+traced mask is their ``select_mask``.  ``fedlecc_adaptive`` is
+compiled-only (its J is a host decision); ``fedcls`` and ``fedcor`` are
+host-only.  The strategies that cluster (``fedlecc``,
 ``fedlecc_adaptive``, ``clusterrandom``, ``haccs``) and ``fedcor`` build
 the Hellinger matrix at setup on ``device`` (the strip kernel on the
 card).  Offline clients arrive as ``-inf`` losses and every strategy
@@ -30,7 +52,7 @@ import torch
 
 from repro_torch.core.clustering import best_clustering, cluster_label_histograms
 from repro_torch.core.hellinger import hellinger_blocked
-from repro_torch.core.selection import fedlecc_select
+from repro_torch.core.selection import fedlecc_select, fedlecc_select_mask, top_m_mask
 from repro_torch.engine.registry import register_strategy
 
 __all__ = [
@@ -58,20 +80,26 @@ class SelectionStrategy:
 
     ``profile_latency`` is the systems layer's per-client round time in
     the reference; it stays ``None`` in the port, which has no systems
-    axis yet, so ``haccs`` and ``fedcs`` take their fallbacks."""
+    axis yet, so ``haccs`` and ``fedcs`` take their fallbacks.  ``device``
+    is where the masks are built (set by ``setup``)."""
 
     m: int
     name: str = "random"
     needs_losses: bool = False          # does the server poll all clients for loss?
     needs_histograms: bool = False      # one-time label-histogram upload?
+    supports_compiled_selection = True  # has select_mask?
+    supports_traced_selection = True    # has select_mask_traced?
+    traced_noise = "uniform"            # the noise select_mask_traced takes (None: none)
     K: int = field(default=0, init=False)
     client_sizes: np.ndarray | None = field(default=None, init=False)
     profile_latency: np.ndarray | None = field(default=None, init=False)
+    device: torch.device = field(default=torch.device("cpu"), init=False)
 
     def setup(self, hists: np.ndarray, client_sizes: np.ndarray, seed: int = 0,
               *, device: str | torch.device = "cuda") -> None:
         self.K = len(client_sizes)
         self.client_sizes = np.asarray(client_sizes)
+        self.device = torch.device(device)
 
     @staticmethod
     def _gate_scores(scores: np.ndarray, losses) -> np.ndarray:
@@ -88,8 +116,32 @@ class SelectionStrategy:
         lowest index (the stable argsort of the reference)."""
         return np.sort(np.argsort(-scores, kind="stable")[: min(self.m, self.K)])
 
+    def _losses(self, losses) -> torch.Tensor:
+        """The loss vector as (K,) fp32 on the strategy's device."""
+        return torch.as_tensor(losses, dtype=torch.float32, device=self.device)
+
+    def _gate(self, scores: torch.Tensor, losses) -> torch.Tensor:
+        """``_gate_scores`` on the device: offline clients' scores become
+        -inf."""
+        if losses is None:
+            return scores
+        return torch.where(self._losses(losses) == -torch.inf, -torch.inf, scores)
+
+    def _mask_top_m(self, scores: torch.Tensor) -> torch.Tensor:
+        return top_m_mask(scores, min(self.m, self.K))
+
     def select(self, rnd: int, losses: np.ndarray, rng: np.random.Generator) -> np.ndarray:
         return self._top_m(self._gate_scores(rng.random(self.K), losses))
+
+    def select_mask(self, losses, rng=None) -> torch.Tensor:
+        if rng is None:
+            raise ValueError("random selection draws scores host-side; pass rng")
+        scores = torch.as_tensor(rng.random(self.K).astype(np.float32), device=self.device)
+        return self._mask_top_m(self._gate(scores, losses))
+
+    def select_mask_traced(self, losses: torch.Tensor, noise) -> torch.Tensor:
+        (scores,) = noise  # (K,) fp32 uniforms
+        return self._mask_top_m(self._gate(scores, losses))
 
     def extra_upload_bytes_per_round(self) -> float:
         # Loss scalars polled from all clients each round, if used.
@@ -113,6 +165,7 @@ class FedLECC(SelectionStrategy):
     name: str = "fedlecc"
     needs_losses: bool = True
     needs_histograms: bool = True
+    traced_noise = None
     labels: np.ndarray | None = field(default=None, init=False)
     n_clusters: int = field(default=0, init=False)
     cluster_method: str = field(default="optics", init=False)
@@ -129,12 +182,28 @@ class FedLECC(SelectionStrategy):
                 hists, min_samples=self.min_samples, eps=self.eps, device=device
             )
         self.n_clusters = int(self.labels.max()) + 1  # J_max from OPTICS
+        self._labels = torch.as_tensor(self.labels, dtype=torch.int64, device=self.device)
 
-    def _round_J(self, losses: np.ndarray) -> int:
+    def _round_J(self, losses) -> int:
         return min(self.J, self.n_clusters)
+
+    def _mask_algorithm1(self, scores: torch.Tensor, J: int) -> torch.Tensor:
+        return fedlecc_select_mask(self._labels, scores, m=min(self.m, self.K),
+                                   J=max(1, min(J, self.n_clusters)), n_clusters=self.n_clusters)
 
     def select(self, rnd, losses, rng) -> np.ndarray:
         return fedlecc_select(self.labels, losses, m=self.m, J=self._round_J(losses))
+
+    def select_mask(self, losses, rng=None) -> torch.Tensor:
+        """Deterministic given the losses; ``rng`` is accepted for the
+        protocol."""
+        return self._mask_algorithm1(self._losses(losses), self._round_J(losses))
+
+    def select_mask_traced(self, losses: torch.Tensor, noise) -> torch.Tensor:
+        """J here is loss-independent, so this is ``select_mask``'s mask
+        (``fedlecc_adaptive``, whose J is read from the losses on the
+        host, opts out)."""
+        return self._mask_algorithm1(self._losses(losses), self.J)
 
 
 @register_strategy("poc")
@@ -146,16 +215,42 @@ class PowerOfChoice(SelectionStrategy):
     d: int = 0  # candidate-set size; 0 -> max(2m, K//5)
     name: str = "poc"
     needs_losses: bool = True
+    traced_noise = "gumbel"
+
+    def setup(self, hists, client_sizes, seed: int = 0, *, device="cuda") -> None:
+        super().setup(hists, client_sizes, seed, device=device)
+        p = torch.as_tensor(self.client_sizes / self.client_sizes.sum(), dtype=torch.float32,
+                            device=self.device)
+        self._log_p = torch.log(torch.clamp(p, min=1e-30))
 
     def _d(self) -> int:
         d = self.d or max(2 * self.m, self.K // 5)
         return min(max(d, self.m), self.K)
 
-    def select(self, rnd, losses, rng) -> np.ndarray:
+    def _candidate_mask(self, rng: np.random.Generator) -> np.ndarray:
+        """(K,) bool: the d candidates drawn ~ p_i without replacement."""
         p = self.client_sizes / self.client_sizes.sum()
         cand = np.zeros(self.K, bool)
         cand[rng.choice(self.K, size=self._d(), replace=False, p=p)] = True
+        return cand
+
+    def select(self, rnd, losses, rng) -> np.ndarray:
+        cand = self._candidate_mask(rng)
         return self._top_m(np.where(cand, np.asarray(losses, np.float32), -np.inf))
+
+    def select_mask(self, losses, rng=None) -> torch.Tensor:
+        if rng is None:
+            raise ValueError("poc selection draws candidates host-side; pass rng")
+        cand = torch.as_tensor(self._candidate_mask(rng), device=self.device)
+        return self._mask_top_m(torch.where(cand, self._losses(losses), -torch.inf))
+
+    def select_mask_traced(self, losses: torch.Tensor, noise) -> torch.Tensor:
+        """Gumbel-top-k: the d largest log p_i + Gumbel noise are a draw of
+        d candidates ~ p_i without replacement; then the top m losses
+        among them."""
+        (gumbel,) = noise
+        cand = top_m_mask(self._log_p + gumbel, self._d())
+        return self._mask_top_m(torch.where(cand, self._losses(losses), -torch.inf))
 
 
 @register_strategy("haccs")
@@ -174,6 +269,7 @@ class HACCS(SelectionStrategy):
     min_samples: int = 3
     name: str = "haccs"
     needs_histograms: bool = True
+    traced_noise = None
     labels: np.ndarray | None = field(default=None, init=False)
     latency: np.ndarray | None = field(default=None, init=False)
     n_clusters: int = field(default=0, init=False)
@@ -188,6 +284,7 @@ class HACCS(SelectionStrategy):
             self.latency = self.profile_latency
         else:
             self.latency = np.random.default_rng(seed).lognormal(0.0, 0.5, size=self.K)
+        self._keys = torch.as_tensor(self._selection_keys(), device=self.device)
 
     def _selection_keys(self) -> np.ndarray:
         """(K,) int sort key: ascending order visits clients exactly as the
@@ -216,6 +313,15 @@ class HACCS(SelectionStrategy):
             keys = np.where(offline, keys + 2 * self.K * self.K, keys)
         return np.sort(np.argsort(keys, kind="stable")[: min(self.m, self.K)])
 
+    def select_mask(self, losses, rng=None) -> torch.Tensor:
+        keys = self._keys
+        if losses is not None:
+            keys = torch.where(self._losses(losses) == -torch.inf, keys + 2 * self.K * self.K, keys)
+        return self._mask_top_m(-keys)  # the m lowest keys (all distinct)
+
+    def select_mask_traced(self, losses: torch.Tensor, noise) -> torch.Tensor:
+        return self.select_mask(losses)
+
 
 @register_strategy("fedcs")
 @dataclass
@@ -226,6 +332,11 @@ class FedCS(SelectionStrategy):
     online clients."""
 
     name: str = "fedcs"
+    traced_noise = None
+
+    def setup(self, hists, client_sizes, seed: int = 0, *, device="cuda") -> None:
+        super().setup(hists, client_sizes, seed, device=device)
+        self._scores_t = torch.as_tensor(self._scores(), device=self.device)
 
     def _scores(self) -> np.ndarray:
         if self.profile_latency is None:
@@ -234,6 +345,12 @@ class FedCS(SelectionStrategy):
 
     def select(self, rnd, losses, rng) -> np.ndarray:
         return self._top_m(self._gate_scores(self._scores(), losses))
+
+    def select_mask(self, losses, rng=None) -> torch.Tensor:
+        return self._mask_top_m(self._gate(self._scores_t, losses))
+
+    def select_mask_traced(self, losses: torch.Tensor, noise) -> torch.Tensor:
+        return self.select_mask(losses)
 
 
 @register_strategy("fedcls")
@@ -246,6 +363,8 @@ class FedCLS(SelectionStrategy):
     presence_threshold: float = 0.05
     name: str = "fedcls"
     needs_histograms: bool = True
+    supports_compiled_selection = False  # greedy host loop, no mask
+    supports_traced_selection = False
     presence: np.ndarray | None = field(default=None, init=False)
 
     def setup(self, hists, client_sizes, seed: int = 0, *, device="cuda") -> None:
@@ -292,6 +411,8 @@ class FedCor(SelectionStrategy):
     name: str = "fedcor"
     needs_losses: bool = True
     needs_histograms: bool = True
+    supports_compiled_selection = False  # iterative GP conditioning, host-only
+    supports_traced_selection = False
     Kmat: np.ndarray | None = field(default=None, init=False)
 
     def setup(self, hists, client_sizes, seed: int = 0, *, device="cuda") -> None:
@@ -326,9 +447,16 @@ class LossOnly(SelectionStrategy):
 
     name: str = "lossonly"
     needs_losses: bool = True
+    traced_noise = None
 
     def select(self, rnd, losses, rng) -> np.ndarray:
         return self._top_m(np.asarray(losses, np.float32))
+
+    def select_mask(self, losses, rng=None) -> torch.Tensor:
+        return self._mask_top_m(self._losses(losses))
+
+    def select_mask_traced(self, losses: torch.Tensor, noise) -> torch.Tensor:
+        return self.select_mask(losses)
 
 
 @register_strategy("clusterrandom")
@@ -341,6 +469,7 @@ class ClusterRandom(FedLECC):
 
     name: str = "clusterrandom"
     needs_losses: bool = False
+    traced_noise = "permutations"
 
     def _random_scores(self, rng: np.random.Generator) -> np.ndarray:
         cluster_rank = rng.permutation(self.n_clusters)  # 0 = drawn first
@@ -354,6 +483,20 @@ class ClusterRandom(FedLECC):
         scores = self._gate_scores(self._random_scores(rng), losses)
         return fedlecc_select(self.labels, scores, m=self.m, J=min(self.J, self.n_clusters))
 
+    def select_mask(self, losses, rng=None) -> torch.Tensor:
+        if rng is None:
+            raise ValueError("clusterrandom draws its random scores host-side; pass rng")
+        scores = torch.as_tensor(self._random_scores(rng).astype(np.float32), device=self.device)
+        return self._mask_algorithm1(self._gate(scores, losses), self.J)
+
+    def select_mask_traced(self, losses: torch.Tensor, noise) -> torch.Tensor:
+        """The same integer scores from ``noise``'s cluster and client
+        permutations (drawn by the engine's draws, not ``rng``)."""
+        cluster_rank, client_rank = noise
+        scores = ((self.n_clusters - cluster_rank[self._labels]) * (self.K + 1)
+                  + (self.K - client_rank)).to(torch.float32)
+        return self._mask_algorithm1(self._gate(scores, losses), self.J)
+
 
 @register_strategy("fedlecc_adaptive")
 @dataclass
@@ -364,8 +507,13 @@ class FedLECCAdaptive(FedLECC):
     out of the means."""
 
     name: str = "fedlecc_adaptive"
+    # J is read from the losses on the host: a mask, but no traced mask
+    supports_traced_selection = False
 
-    def _round_J(self, losses: np.ndarray) -> int:
+    def _round_J(self, losses) -> int:
+        if isinstance(losses, torch.Tensor):
+            losses = losses.cpu().numpy()
+        losses = np.asarray(losses)
         means = []
         for c in np.unique(self.labels):
             ls = losses[self.labels == c]

@@ -8,6 +8,12 @@
                     ``rounds_to_accuracy``
 - ``host``        — ``HostEngine``: numpy selection + cohort training on
                     the device
+- ``compiled``    — ``CompiledEngine``: mask selection, cohort gather,
+                    training and aggregation on the device, read once a
+                    round (``backend="compiled"``)
+- ``fused``       — ``FusedEngine``: chunks of compiled rounds, each
+                    length captured once as a CUDA graph on the card
+                    (``fuse_rounds > 0``)
 - ``aggregators`` — ``fedavg``, ``fednova``, ``feddyn`` (the FedAvg reduce
                     kernel), ``trimmed_mean``, ``coordinate_median``
 - ``client_modes``— ``plain``, ``fedprox``, ``feddyn``
@@ -15,6 +21,9 @@
 - ``tasks``       — ``ClassificationTask`` (the paper's MLP) and ``LMTask``
                     (federated language modelling on a transformer)
 - ``draws``       — ``TorchDraws``, the one source of randomness
+- ``registry``    — also ``mask_selection_strategies`` and
+                    ``traced_selection_strategies``, the strategies the
+                    compiled backend and the fused mode run
 
 Typical use::
 
@@ -35,6 +44,7 @@ import torch
 from repro_torch.engine.base import rounds_to_accuracy
 from repro_torch.engine.config import BACKENDS, FLConfig
 from repro_torch.engine.presets import ExperimentPreset, get_preset, list_presets
+from repro_torch.engine.registry import mask_selection_strategies, traced_selection_strategies
 
 __all__ = [
     "BACKENDS",
@@ -43,23 +53,39 @@ __all__ = [
     "get_preset",
     "list_presets",
     "make_engine",
+    "mask_selection_strategies",
     "rounds_to_accuracy",
+    "traced_selection_strategies",
 ]
 
 
 def make_engine(cfg: FLConfig, train, test, n_classes: int, *,
                 device: str | torch.device = "cuda", draws: Any = None,
-                partition_labels=None):
-    """Build the engine for ``cfg.backend`` (this slice: ``host``) on
-    ``device`` (default ``"cuda"``; raises without a card unless the
-    caller passes ``"cpu"``).  ``train``/``test`` are the task's datasets
-    (features and labels for ``task="classification"``, token and
-    next-token sequences for ``task="lm"``); ``n_classes`` is the label
-    cardinality (the vocab size for LM).  ``draws`` replaces the default
-    ``TorchDraws`` (see ``repro_torch.engine.draws``);
-    ``partition_labels`` is a (N,) integer array the non-IID partitioner
-    splits on instead of the task's derived labels."""
-    from repro_torch.engine.host import HostEngine
+                partition_labels=None, cohort_gather: bool = True):
+    """Build the engine for ``cfg.backend`` on ``device`` (default
+    ``"cuda"``; raises without a card unless the caller passes ``"cpu"``):
+    ``HostEngine`` for ``"host"``, ``CompiledEngine`` for ``"compiled"``
+    and ``FusedEngine`` for ``"compiled"`` with ``fuse_rounds > 0``.
+    ``train``/``test`` are the task's datasets (features and labels for
+    ``task="classification"``, token and next-token sequences for
+    ``task="lm"``); ``n_classes`` is the label cardinality (the vocab size
+    for LM).  ``draws`` replaces the default ``TorchDraws`` (see
+    ``repro_torch.engine.draws``); ``partition_labels`` is a (N,) integer
+    array the non-IID partitioner splits on instead of the task's derived
+    labels.  ``cohort_gather=False`` (compiled only; fused chunks always
+    gather) trains every client and gates the aggregation with the mask,
+    the reference's legacy path."""
+    kw = dict(device=device, draws=draws, partition_labels=partition_labels)
+    if cfg.backend == "host":
+        if not cohort_gather:
+            raise ValueError("cohort_gather=False applies to backend='compiled'")
+        from repro_torch.engine.host import HostEngine
 
-    return HostEngine(cfg, train, test, n_classes, device=device, draws=draws,
-                      partition_labels=partition_labels)
+        return HostEngine(cfg, train, test, n_classes, **kw)
+    if cfg.fuse_rounds > 0:
+        from repro_torch.engine.fused import FusedEngine
+
+        return FusedEngine(cfg, train, test, n_classes, **kw)
+    from repro_torch.engine.compiled import CompiledEngine
+
+    return CompiledEngine(cfg, train, test, n_classes, cohort_gather=cohort_gather, **kw)

@@ -10,10 +10,14 @@ drives one canonical round loop:
 
     poll_losses → select → local_train → aggregate → evaluate
 
-Backends implement ``select`` / ``local_train`` / ``aggregate``
-(``HostEngine`` in ``repro_torch.engine.host``).  ``rounds()`` yields one
-frozen ``RoundResult`` per round; ``run()`` drains it into the history
-dict.  Every random draw goes through ``self.draws``
+``HostEngine`` (``repro_torch.engine.host``) implements ``select`` /
+``local_train`` / ``aggregate``; ``CompiledEngine``
+(``repro_torch.engine.compiled``) replaces the whole round step with one
+on the device, its selection a mask (``MaskSelectionMixin``), and
+``FusedEngine`` (``repro_torch.engine.fused``) runs chunks of such rounds
+with no host read between them.  ``rounds()`` yields one frozen
+``RoundResult`` per round; ``run()`` drains it into the history dict.
+Every random draw goes through ``self.draws``
 (``repro_torch.engine.draws``).
 """
 
@@ -36,12 +40,16 @@ from repro_torch.data.partition import (
 from repro_torch.device import pin_fp32_matmul, resolve_device
 from repro_torch.engine.aggregators import get_aggregator
 from repro_torch.engine.client_modes import get_client_mode
-from repro_torch.engine.config import FLConfig
+from repro_torch.engine.config import (
+    FLConfig,
+    mask_backend_client_mode_error,
+    mask_backend_strategy_error,
+)
 from repro_torch.engine.draws import TorchDraws
 from repro_torch.engine.registry import STRATEGY_REGISTRY
 from repro_torch.engine.tasks import build_task
 
-__all__ = ["Engine", "RoundResult", "rounds_to_accuracy"]
+__all__ = ["Engine", "MaskSelectionMixin", "RoundResult", "rounds_to_accuracy"]
 
 
 def _mean_loss(sel_losses) -> float:
@@ -171,8 +179,11 @@ class Engine:
         self.client_mode = get_client_mode(cfg.client_mode)
         self.h_clients = self.client_mode.init_client_state(self.params, cfg.n_clients)
 
-        # --- communication ledger ---
-        self.comm = CommModel(self.n_params, cfg.n_clients, self.hists.shape[1])
+        # --- communication ledger (quantized uploads bill bits / 8 a parameter) ---
+        self.comm = CommModel(
+            self.n_params, cfg.n_clients, self.hists.shape[1],
+            upload_bytes_per_param=cfg.compress_bits / 8.0 if cfg.compress_bits else None,
+        )
         self.comm_mb = self.comm.one_time_mb(self.strategy.needs_histograms)
 
         self._apply_fn, self._loss_fn, self._metric_fn = self.task.build_fns(train, n_classes)
@@ -191,11 +202,15 @@ class Engine:
         if not self.strategy.needs_losses:
             return np.zeros(self.cfg.n_clients, np.float32)
         idx = self.draws.poll_indices(rnd, self.sample_probs, self.cfg.eval_samples)
+        return self._poll(self.params, idx).cpu().numpy()
+
+    def _poll(self, params: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        """(K,) losses of ``params`` on each client's (K, n) sampled rows
+        ``idx``, on the device."""
         rows = torch.arange(self.cfg.n_clients, device=self.device)[:, None]
         with torch.no_grad():
-            out = self._apply_fn(self.params, self.xs[rows, idx])
-            losses = self._loss_fn(out, self.ys[rows, idx], None)
-        return losses.cpu().numpy()
+            out = self._apply_fn(params, self.xs[rows, idx])
+            return self._loss_fn(out, self.ys[rows, idx], None)
 
     def select(self, rnd: int, losses: np.ndarray) -> np.ndarray:
         """Sorted indices of this round's participants."""
@@ -239,6 +254,39 @@ class Engine:
             self.history.setdefault(k, []).append(v)
 
     # -- the canonical round loop --------------------------------------
+    def _round_step(self, rnd: int) -> tuple[np.ndarray, np.ndarray]:
+        """One round through the hooks; returns the sorted participants and
+        their local training losses."""
+        losses = self.poll_losses(rnd)
+        sel = np.asarray(self.select(rnd, losses))
+        payload, sel_losses = self.local_train(rnd, sel)
+        self.aggregate(rnd, sel, payload)
+        return sel, sel_losses  # the (m, P) payload is freed here, before evaluation
+
+    def _finish_round(self, rnd: int, sel: np.ndarray, sel_losses) -> RoundResult:
+        """Bill round ``rnd``, evaluate it when due and record it."""
+        cfg = self.cfg
+        self.comm_mb += self.comm.round_mb(len(sel), self.strategy.needs_losses)
+        test_loss = test_acc = metrics = None
+        # absolute cadence keyed to the configured terminal round, so
+        # chunked rounds() calls evaluate on one contiguous schedule
+        if rnd % cfg.eval_every == 0 or rnd == cfg.rounds - 1:
+            test_loss, test_acc = self.evaluate()
+            metrics = self.eval_metrics()
+        self._round = rnd + 1
+        result = RoundResult(
+            round=rnd,
+            selected=tuple(int(i) for i in sel),
+            mean_selected_loss=_mean_loss(sel_losses),
+            comm_mb=float(self.comm_mb),
+            test_loss=test_loss,
+            test_acc=test_acc,
+            metrics=metrics,
+            params_version=rnd + 1,
+        )
+        self._record_history(result)
+        return result
+
     def rounds(
         self,
         n_rounds: int | None = None,
@@ -248,38 +296,11 @@ class Engine:
 
         ``n_rounds=None`` runs the rounds remaining to reach
         ``cfg.rounds``; pass an explicit count to run chunks."""
-        cfg = self.cfg
         if n_rounds is None:
-            n_rounds = max(cfg.rounds - self._round, 0)
+            n_rounds = max(self.cfg.rounds - self._round, 0)
         start = self._round
         for rnd in range(start, start + n_rounds):
-            losses = self.poll_losses(rnd)
-            sel = np.asarray(self.select(rnd, losses))
-            payload, sel_losses = self.local_train(rnd, sel)
-            self.aggregate(rnd, sel, payload)
-            del payload  # the (m, P) cohort: free it before evaluation and the next round
-            mean_loss = _mean_loss(sel_losses)
-            self.comm_mb += self.comm.round_mb(len(sel), self.strategy.needs_losses)
-
-            test_loss = test_acc = metrics = None
-            # absolute cadence keyed to the configured terminal round, so
-            # chunked rounds() calls evaluate on one contiguous schedule
-            if rnd % cfg.eval_every == 0 or rnd == cfg.rounds - 1:
-                test_loss, test_acc = self.evaluate()
-                metrics = self.eval_metrics()
-
-            self._round = rnd + 1
-            result = RoundResult(
-                round=rnd,
-                selected=tuple(int(i) for i in sel),
-                mean_selected_loss=mean_loss,
-                comm_mb=float(self.comm_mb),
-                test_loss=test_loss,
-                test_acc=test_acc,
-                metrics=metrics,
-                params_version=rnd + 1,
-            )
-            self._record_history(result)
+            result = self._finish_round(rnd, *self._round_step(rnd))
             if callback is not None:
                 callback(result)
             yield result
@@ -295,6 +316,25 @@ class Engine:
                     f"comm={r.comm_mb:.1f}MB"
                 )
         return self.history
+
+
+class MaskSelectionMixin:
+    """Selection of the mask-gated backends: the strategy's ``select_mask``
+    on the polled losses, any randomness drawn from ``self.rng``, the same
+    numpy stream ``HostEngine`` consumes, so a host run and a compiled run
+    of one config select in lockstep.  ``_check_mask_backend`` repeats
+    ``FLConfig``'s checks at engine build (for hand-built or mutated
+    configs)."""
+
+    def _check_mask_backend(self) -> None:
+        if not getattr(self.strategy, "supports_compiled_selection", False):
+            raise ValueError(mask_backend_strategy_error(self.cfg.strategy, self.backend))
+        if self.cfg.client_mode != "plain":
+            raise ValueError(mask_backend_client_mode_error(self.cfg.client_mode, self.backend))
+
+    def select_mask(self, rnd: int, losses: torch.Tensor) -> torch.Tensor:
+        """(K,) bool participation mask on the device."""
+        return self.strategy.select_mask(losses, self.rng)
 
 
 def rounds_to_accuracy(history: dict[str, list], target: float) -> int | None:

@@ -5,10 +5,12 @@ field for field the reference's ``repro.engine.config.FLConfig``, so one
 Strategies, aggregators, client modes and tasks resolve against the
 port's registries, which hold every name the reference registers; the
 LM task runs the models the port has (stablelm-3b, hymba-1.5b).
-Validation rejects, with a message naming the port, every value it does
-not implement yet: a backend other than ``host``, a non-zero
-``fuse_rounds`` or ``compress_bits``, and any ``systems``,
-``async_mode``, ``faults`` or ``population`` axis.
+``backend`` is ``"host"`` or ``"compiled"``; ``fuse_rounds > 0`` (the
+compiled backend's fused chunks) and ``compress_bits`` in [2, 8]
+(quantized cohort deltas) follow the reference's combination rules with
+its error texts.  Validation rejects, with a message naming the port,
+what it does not implement yet: ``backend="scaleout"``, and any
+``systems``, ``async_mode``, ``faults`` or ``population`` axis.
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ from typing import Any
 
 __all__ = ["FLConfig", "BACKENDS"]
 
-BACKENDS = ("host",)
+BACKENDS = ("host", "compiled")
+_MASK_BACKENDS = ("compiled",)  # selection enters the round as a mask
 _PARTITIONS = ("shards", "dirichlet")
 
 
@@ -26,6 +29,65 @@ def _unported(what: str, got: Any, supported: Any) -> ValueError:
     return ValueError(
         f"repro_torch does not implement {what}={got!r} yet (supported: "
         f"{supported}); the JAX package repro runs it"
+    )
+
+
+# The reference's backend-combination error texts, word for word, so a
+# config rejected by one package is rejected by the other with the same
+# message; ``MaskSelectionMixin._check_mask_backend`` and ``FusedEngine``
+# raise them again at engine build.
+def mask_backend_strategy_error(strategy: str, backend: str) -> str:
+    from repro_torch.engine.registry import mask_selection_strategies
+
+    return (
+        f"strategy {strategy!r} has no jit-compatible selection "
+        f"(select_mask_jax), required by backend={backend!r}; either use "
+        f"backend='host' or one of the strategies that support it: "
+        f"{mask_selection_strategies()}"
+    )
+
+
+def mask_backend_client_mode_error(client_mode: str, backend: str) -> str:
+    return (
+        f"backend={backend!r} supports client_mode='plain' only (got "
+        f"{client_mode!r}); per-client state for unselected clients has "
+        f"no scale-out analog"
+    )
+
+
+def fused_strategy_error(strategy: str) -> str:
+    from repro_torch.engine.registry import traced_selection_strategies
+
+    return (
+        f"fuse_rounds > 0 runs selection fully traced inside one scanned "
+        f"round chunk, which strategy {strategy!r} does not support "
+        f"(no select_mask_traced); set fuse_rounds=0 or use one of: "
+        f"{traced_selection_strategies()}"
+    )
+
+
+def fused_backend_error(backend: str) -> str:
+    return (
+        f"fuse_rounds > 0 is a compiled-backend execution mode (the round "
+        f"chunk is one jitted lax.scan); got backend={backend!r} — use "
+        f"backend='compiled' or set fuse_rounds=0"
+    )
+
+
+def fused_aggregator_error(aggregator: str) -> str:
+    return (
+        "fuse_rounds > 0 aggregates inside the scanned round chunk "
+        f"(mask-gated fedavg semantics); got aggregator={aggregator!r} — "
+        "use aggregator='fedavg' or set fuse_rounds=0"
+    )
+
+
+def compress_backend_error(backend: str, aggregator: str) -> str:
+    return (
+        "compress_bits > 0 quantizes cohort deltas inside the compiled "
+        "mask-gated fedavg aggregation; it requires backend='compiled' "
+        f"and aggregator='fedavg' (got backend={backend!r}, "
+        f"aggregator={aggregator!r})"
     )
 
 
@@ -51,11 +113,11 @@ class FLConfig:
     eval_every: int = 5
     seed: int = 0
     hidden: tuple[int, ...] = (200, 200)   # paper MLP (classification task)
-    backend: str = "host"
+    backend: str = "host"          # host | compiled
     task: str = "classification"
     task_kwargs: dict = field(default_factory=dict)
-    fuse_rounds: int = 0
-    compress_bits: int = 0
+    fuse_rounds: int = 0           # >0: fused round chunks (compiled only)
+    compress_bits: int = 0         # >0: quantized cohort-delta aggregation
     systems: Any = None
     async_mode: Any = None
     faults: Any = None
@@ -63,8 +125,10 @@ class FLConfig:
 
     def __post_init__(self) -> None:
         self.hidden = tuple(self.hidden)
-        if self.backend not in BACKENDS:
+        if self.backend == "scaleout":
             raise _unported("backend", self.backend, BACKENDS)
+        if self.backend not in BACKENDS:
+            raise ValueError(f"backend must be one of {BACKENDS}, got {self.backend!r}")
         if self.partition not in _PARTITIONS:
             raise ValueError(
                 f"partition must be one of {_PARTITIONS}, got {self.partition!r}"
@@ -97,9 +161,31 @@ class FLConfig:
         ):
             if name not in reg:
                 raise ValueError(f"unknown {reg.kind} {name!r}; available: {reg.names()}")
-        for name in ("fuse_rounds", "compress_bits"):
-            if getattr(self, name) != 0:
-                raise _unported(name, getattr(self, name), (0,))
+        # Mask-gated backends need a mask-producing selection and the
+        # plain client mode; fused chunks need a traced selection and the
+        # in-chunk fedavg; compression needs the compiled fedavg.
+        cls = STRATEGY_REGISTRY[self.strategy]
+        if self.backend in _MASK_BACKENDS:
+            if not getattr(cls, "supports_compiled_selection", False):
+                raise ValueError(mask_backend_strategy_error(self.strategy, self.backend))
+            if self.client_mode != "plain":
+                raise ValueError(mask_backend_client_mode_error(self.client_mode, self.backend))
+        if self.fuse_rounds < 0:
+            raise ValueError(f"fuse_rounds must be >= 0 (0 = off), got {self.fuse_rounds}")
+        if self.fuse_rounds > 0:
+            if self.backend != "compiled":
+                raise ValueError(fused_backend_error(self.backend))
+            if not getattr(cls, "supports_traced_selection", False):
+                raise ValueError(fused_strategy_error(self.strategy))
+            if self.aggregator != "fedavg":
+                raise ValueError(fused_aggregator_error(self.aggregator))
+        if self.compress_bits:
+            if not 2 <= self.compress_bits <= 8:
+                raise ValueError(
+                    f"compress_bits must be 0 (off) or in [2, 8], got {self.compress_bits}"
+                )
+            if self.backend != "compiled" or self.aggregator != "fedavg":
+                raise ValueError(compress_backend_error(self.backend, self.aggregator))
         for name in ("systems", "async_mode", "faults", "population"):
             if getattr(self, name) is not None:
                 raise _unported(name, getattr(self, name), (None,))

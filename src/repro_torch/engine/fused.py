@@ -1,0 +1,197 @@
+"""FusedEngine — chunks of rounds with no host read between them, ported
+from ``repro.engine.fused`` (DESIGN.md §8.6).
+
+``FLConfig.fuse_rounds > 0`` runs chunks of up to that many rounds of the
+compiled backend's round body,
+
+    poll → select_mask_traced → cohort gather + train → fedavg (K1)
+
+with the selection fully on the device: the strategy's
+``select_mask_traced`` takes its randomness as tensors that the engine's
+draws make.  A chunk asks for its rounds' draws at its start, in round
+order (poll r, minibatch rows r, selection noise r, poll r + 1, ...),
+the order the eager compiled loop asks for them, so for the strategies
+that are deterministic given the losses (``fedlecc``, ``lossonly``,
+``haccs``, ``fedcs``) a fused run selects what the eager compiled run
+selects, round for round.  Each round's mask and cohort losses stay on
+the device and are read once, at the chunk's end (without the systems
+and fault seams, which ``FLConfig`` rejects, the final mask is the
+mask).
+
+Chunk boundaries follow the reference's ``_chunk_len``: a chunk ends at
+the next ``eval_every`` round, at the configured terminal round and at
+the call's last round, so evaluation (on the host, after the chunk) sees
+the parameters the eager loop would, and chunked ``rounds()`` calls
+equal one contiguous call.
+
+On the card each distinct chunk length is captured once as a
+``torch.cuda.CUDAGraph`` and replayed (the reference compiles each length
+once): the first chunk of a length runs eagerly on a side stream — the
+warm-up that capture needs, and a real chunk — and is then captured; the
+later chunks of that length copy their draws into the graph's input
+buffers and replay it.  A graph's K1 launch happens at replay, so the
+kernel's wrapper counts it at capture (``masked_weighted_sum.captured``)
+and this engine counts the replays: ``graph_launches[L]`` K1 launches a
+replay of length L, ``graph_replays[L]`` replays.  If capture fails the
+run raises; it never falls back to eager chunks.  On the CPU the same
+body runs eagerly, chunk by chunk.
+
+State commits per chunk.  A replay overwrites the graph's output buffers,
+so ``engine.params`` is a copy of them after each chunk: a reference to
+``engine.params`` taken before a ``rounds()`` call keeps its values (the
+reference's donation instead invalidates such an alias).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Iterator
+
+import numpy as np
+import torch
+
+from repro_torch.engine.base import RoundResult
+from repro_torch.engine.compiled import CompiledEngine
+from repro_torch.engine.config import fused_aggregator_error, fused_strategy_error
+from repro_torch.kernels.aggregate import masked_weighted_sum
+
+__all__ = ["FusedEngine"]
+
+
+@dataclass
+class _Graph:
+    """A captured chunk: the graph, its input buffers and its outputs."""
+
+    graph: torch.cuda.CUDAGraph
+    params: torch.Tensor
+    poll: torch.Tensor | None
+    batch: torch.Tensor
+    noise: tuple[torch.Tensor, ...]
+    out: tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+    quant_error: torch.Tensor | None
+
+
+class FusedEngine(CompiledEngine):
+    """CompiledEngine semantics, chunk by chunk (captured on the card)."""
+
+    backend = "compiled"  # fused is an execution mode of the compiled backend
+
+    def __init__(self, cfg, train, test, n_classes: int, *, device="cuda", draws=None,
+                 partition_labels=None):
+        super().__init__(cfg, train, test, n_classes, device=device, draws=draws,
+                         partition_labels=partition_labels, cohort_gather=True)
+        if not getattr(self.strategy, "supports_traced_selection", False):
+            raise ValueError(fused_strategy_error(cfg.strategy))
+        if cfg.aggregator != "fedavg":
+            raise ValueError(fused_aggregator_error(cfg.aggregator))
+        self._graphs: dict[int, _Graph] = {}
+        self._side: torch.cuda.Stream | None = None
+        self.graph_launches: dict[int, int] = {}  # K1 launches a replay, by chunk length
+        self.graph_replays: dict[int, int] = {}
+
+    def _chunk_len(self, rnd: int, end: int) -> int:
+        """Rounds to fuse from absolute round ``rnd``: at most
+        ``fuse_rounds``, ending at the next ``eval_every`` round, the
+        configured terminal round or the call's last round ``end - 1``."""
+        cfg = self.cfg
+        ev = cfg.eval_every
+        next_eval = rnd if rnd % ev == 0 else (rnd // ev + 1) * ev
+        boundary = min(next_eval, end - 1)
+        if rnd <= cfg.rounds - 1:
+            boundary = min(boundary, cfg.rounds - 1)
+        return max(1, min(cfg.fuse_rounds, boundary - rnd + 1))
+
+    def _draw_chunk(self, rnd: int, length: int):
+        """The chunk's draws, round by round, stacked on a leading round
+        axis: poll rows (or None), minibatch rows, selection noise."""
+        rounds = [self._draw_round(r, noise=True) for r in range(rnd, rnd + length)]
+        poll = None if rounds[0]["poll"] is None else torch.stack([d["poll"] for d in rounds])
+        batch = torch.stack([d["batch"] for d in rounds])
+        noise = tuple(torch.stack(parts) for parts in zip(*(d["noise"] for d in rounds)))
+        return poll, batch, noise
+
+    def _chunk_body(self, rnd: int, length: int, params, poll, batch, noise):
+        """``length`` rounds on the device; returns (params, (L, K) masks,
+        (L, m) cohort losses)."""
+        masks, losses = [], []
+        for i in range(length):
+            noise_i = tuple(t[i] for t in noise)
+            params, mask, sel_losses = self._device_round(
+                rnd + i, params, None if poll is None else poll[i], batch[i],
+                lambda l, n=noise_i: self.strategy.select_mask_traced(l, n))
+            masks.append(mask)
+            losses.append(sel_losses)
+        return params, torch.stack(masks), torch.stack(losses)
+
+    def _capture(self, rnd: int, length: int, poll, batch, noise):
+        """Run the first chunk of ``length`` eagerly on a side stream, then
+        capture the chunk body with that chunk's tensors as the graph's
+        input buffers; returns the eager chunk's outputs."""
+        if self._side is None:
+            self._side = torch.cuda.Stream(self.device)
+        main = torch.cuda.current_stream(self.device)
+        params = self.params.clone()
+        self._side.wait_stream(main)
+        with torch.cuda.stream(self._side):
+            out = self._chunk_body(rnd, length, params, poll, batch, noise)
+        main.wait_stream(self._side)
+        eager_error = self._quant_error
+        graph = torch.cuda.CUDAGraph()
+        for gen in getattr(self.draws, "graph_generators", list)():
+            graph.register_generator_state(gen)
+        before = masked_weighted_sum.captured
+        with torch.cuda.graph(graph):
+            static_out = self._chunk_body(rnd, length, params, poll, batch, noise)
+        self.graph_launches[length] = masked_weighted_sum.captured - before
+        self.graph_replays[length] = 0
+        self._graphs[length] = _Graph(graph, params, poll, batch, noise, static_out,
+                                      self._quant_error)
+        self._quant_error = eager_error
+        return out
+
+    def _run_chunk(self, rnd: int, length: int):
+        poll, batch, noise = self._draw_chunk(rnd, length)
+        if self.device.type != "cuda":
+            return self._chunk_body(rnd, length, self.params, poll, batch, noise)
+        g = self._graphs.get(length)
+        if g is None:
+            return self._capture(rnd, length, poll, batch, noise)
+        g.params.copy_(self.params)
+        if poll is not None:
+            g.poll.copy_(poll)
+        g.batch.copy_(batch)
+        for buf, new in zip(g.noise, noise):
+            buf.copy_(new)
+        g.graph.replay()
+        self.graph_replays[length] += 1
+        self._quant_error = g.quant_error
+        params, masks, losses = g.out
+        return params.clone(), masks, losses
+
+    def replayed_launches(self) -> int:
+        """K1 launches made by graph replays so far."""
+        return sum(self.graph_launches[n] * r for n, r in self.graph_replays.items())
+
+    # -- the fused round loop ------------------------------------------
+    def rounds(self, n_rounds: int | None = None, callback=None) -> Iterator[RoundResult]:
+        """Stream one ``RoundResult`` a round, computed a chunk at a time;
+        the chunk's state is committed before its first round is
+        yielded."""
+        if n_rounds is None:
+            n_rounds = max(self.cfg.rounds - self._round, 0)
+        rnd, end = self._round, self._round + n_rounds
+        while rnd < end:
+            length = self._chunk_len(rnd, end)
+            self.params, masks, losses = self._run_chunk(rnd, length)
+            masks, losses = masks.cpu().numpy(), losses.cpu().numpy()
+            # evaluation-due rounds are chunk-final (_chunk_len), so each
+            # evaluates the chunk's committed parameters
+            results = []
+            for i in range(length):
+                sel = np.flatnonzero(masks[i])  # the cohort's selected rows come first
+                results.append(self._finish_round(rnd + i, sel, losses[i][: len(sel)]))
+            rnd += length
+            for result in results:
+                if callback is not None:
+                    callback(result)
+                yield result

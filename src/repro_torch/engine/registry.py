@@ -7,6 +7,12 @@ definition time by the ``register_*`` decorators (presets by
 ``repro_torch.engine.presets.register_preset``).
 Lookups lazily import the provider modules, so
 ``STRATEGY_REGISTRY["fedlecc"]`` works regardless of import order.
+
+A strategy's capability flags name the selection methods the compiled
+backend calls: ``supports_compiled_selection`` with ``select_mask`` and
+``supports_traced_selection`` with ``select_mask_traced`` (the
+reference's ``select_mask_jax`` and ``select_mask_traced``);
+``register_strategy`` rejects a class whose flags and methods disagree.
 """
 
 from __future__ import annotations
@@ -26,6 +32,8 @@ __all__ = [
     "register_aggregator",
     "register_client_mode",
     "register_task",
+    "mask_selection_strategies",
+    "traced_selection_strategies",
 ]
 
 # Modules whose import populates each registry (decorator side-effects).
@@ -110,7 +118,65 @@ CLIENT_MODE_REGISTRY = Registry("client_mode")
 TASK_REGISTRY = Registry("task")
 PRESET_REGISTRY = Registry("preset")
 
-register_strategy = STRATEGY_REGISTRY.register
+# The capability-flag <-> method pairs the compiled backend dispatches on.
+_CAPABILITY_PAIRS: tuple[tuple[str, str], ...] = (
+    ("supports_compiled_selection", "select_mask"),
+    ("supports_traced_selection", "select_mask_traced"),
+)
+
+
+def _validate_strategy_capabilities(obj: Any) -> None:
+    """A flag without its method would crash the first compiled or fused
+    round; a method defined in a class whose flag is False is dead code.
+    An inherited method under an explicit ``flag = False`` is the
+    sanctioned opt-out (``FedLECCAdaptive``), so only a class's own body
+    can contradict its flags."""
+    if not isinstance(obj, type):
+        return
+    for flag, method in _CAPABILITY_PAIRS:
+        enabled = bool(getattr(obj, flag, False))
+        defined = callable(getattr(obj, method, None))
+        if enabled and not defined:
+            raise TypeError(
+                f"strategy {obj.__name__!r} sets {flag} = True but defines "
+                f"no {method}(); the mask-gated backends would crash on "
+                f"their first round — define {method} or set the flag False"
+            )
+        if not enabled and method in vars(obj):
+            raise TypeError(
+                f"strategy {obj.__name__!r} defines {method}() in its own "
+                f"body but {flag} is False; the backends will never call "
+                f"it — set {flag} = True or drop the method"
+            )
+
+
+def register_strategy(name: str | None = None) -> Callable[[Any], Any]:
+    """``STRATEGY_REGISTRY.register`` plus the capability check, so a
+    strategy with mismatched flags fails when its class is defined."""
+    inner = STRATEGY_REGISTRY.register(name)
+
+    def deco(obj: Any) -> Any:
+        _validate_strategy_capabilities(obj)
+        return inner(obj)
+
+    return deco
+
+
+def mask_selection_strategies() -> list[str]:
+    """Strategies with a mask selection (``supports_compiled_selection``):
+    the ones ``backend="compiled"`` runs."""
+    return [n for n in STRATEGY_REGISTRY.names()
+            if getattr(STRATEGY_REGISTRY[n], "supports_compiled_selection", False)]
+
+
+def traced_selection_strategies() -> list[str]:
+    """Strategies whose selection runs inside a fused chunk with no host
+    read (``supports_traced_selection``): the requirement for
+    ``fuse_rounds > 0``."""
+    return [n for n in STRATEGY_REGISTRY.names()
+            if getattr(STRATEGY_REGISTRY[n], "supports_traced_selection", False)]
+
+
 register_aggregator = AGGREGATOR_REGISTRY.register
 register_client_mode = CLIENT_MODE_REGISTRY.register
 register_task = TASK_REGISTRY.register

@@ -59,6 +59,11 @@ class Task:
     def init_params(self, draws, train, n_classes: int):
         raise NotImplementedError
 
+    def layout(self, train, n_classes: int):
+        """Where each parameter sits in the flat (P,) vector
+        (``MLPLayout`` or ``TransformerLayout``)."""
+        raise NotImplementedError
+
     def build_fns(self, train, n_classes: int) -> tuple[Callable, Callable, Callable]:
         """``(apply_fn, loss_fn, metric_fn)``."""
         raise NotImplementedError
@@ -88,8 +93,11 @@ class ClassificationTask(Task):
     def init_params(self, draws, train, n_classes: int):
         return draws.init_params(self._sizes(train, n_classes))
 
+    def layout(self, train, n_classes: int) -> MLPLayout:
+        return MLPLayout(self._sizes(train, n_classes))
+
     def build_fns(self, train, n_classes: int):
-        layout = MLPLayout(self._sizes(train, n_classes))
+        layout = self.layout(train, n_classes)
 
         def apply_fn(params, x):
             return mlp_apply(layout.views(params), x)
@@ -163,6 +171,9 @@ class LMTask(Task):
                 f"vocab <= model vocab or override the model config"
             )
         return draws.init_params(self.model_cfg)
+
+    def layout(self, train, n_classes: int) -> TransformerLayout:
+        return TransformerLayout(self.model_cfg)
 
     def _chunk_sum(self, ctx, labels, per_chunk):
         """Sum ``per_chunk(logits_f32, yc)`` over sequence chunks of

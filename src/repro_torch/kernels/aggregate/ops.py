@@ -4,6 +4,14 @@ The port's counterpart of ``masked_weighted_sum_pallas``: one launch
 reduces a whole (M, N) cohort of flat parameter vectors, with no padding
 of N.  ``load_width`` picks the columns a thread (the width of its
 loads) from the cohort's address and row pitch.
+
+The launch makes no synchronising call, so it can be captured into a
+CUDA graph (``repro_torch.engine.fused``).  A captured launch runs at
+each replay, not when the wrapper is called: the wrapper counts it in
+``masked_weighted_sum.captured`` instead of ``.launches``, and whoever
+replays the graph counts the replays.  The graph keeps the address (and
+so the load width) of the cohort seen at capture; its replays reuse that
+buffer.
 """
 
 from __future__ import annotations
@@ -80,7 +88,9 @@ def masked_weighted_sum(stacked: torch.Tensor, weights: torch.Tensor) -> torch.T
     sum_m w_m * x_m, accumulated in fp32.
 
     CUDA tensors launch the kernel on the current stream (counted in
-    ``masked_weighted_sum.launches``); CPU tensors take the plain version."""
+    ``masked_weighted_sum.launches``, or ``.captured`` while the stream is
+    being captured into a CUDA graph); CPU tensors take the plain
+    version."""
     _check(stacked, weights)
     if stacked.device.type == "cpu":
         return masked_weighted_sum_ref(stacked, weights)
@@ -96,8 +106,12 @@ def masked_weighted_sum(stacked: torch.Tensor, weights: torch.Tensor) -> torch.T
     )
     if err != 0:
         raise RuntimeError(f"masked_weighted_sum kernel launch failed: cudaError {err}")
-    masked_weighted_sum.launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        masked_weighted_sum.captured += 1
+    else:
+        masked_weighted_sum.launches += 1
     return out
 
 
 masked_weighted_sum.launches = 0  # type: ignore[attr-defined]
+masked_weighted_sum.captured = 0  # type: ignore[attr-defined]

@@ -43,13 +43,34 @@ def _choice_rows(keys, mask, n):
     return jax.vmap(one)(keys, mask)
 
 
+def jax_selection_noise(key, kind, n_clients, n_clusters):
+    """What the reference's ``select_mask_traced`` of a strategy with
+    ``traced_noise == kind`` draws from ``key``, as the port's noise
+    tensors (CPU)."""
+    if kind is None:
+        return ()
+    if kind == "uniform":
+        return (torch.as_tensor(np.array(jax.random.uniform(key, (n_clients,)))),)
+    if kind == "gumbel":
+        return (torch.as_tensor(np.array(jax.random.gumbel(key, (n_clients,)))),)
+    k_cluster, k_client = jax.random.split(key)
+    return tuple(torch.as_tensor(np.array(jax.random.permutation(k, n)), dtype=torch.int64)
+                 for k, n in ((k_cluster, n_clusters), (k_client, n_clients)))
+
+
 class JaxReplayDraws:
     """The port's ``draws`` interface, drawing exactly what the reference
     ``Engine`` draws: ``PRNGKey(seed + 17)`` split 3 ways per round into
     (carry, poll, train); the poll splits its key K ways; training folds
-    the client id into the train key and splits it per step; the weights
-    come from ``init_mlp(PRNGKey(seed))``, or for a transformer spec (a
-    ``ModelConfig``) from ``init_transformer(PRNGKey(seed), cfg)``."""
+    the client id into the train key and splits it per step (for every
+    client in ``client_batch_indices``); the weights come from
+    ``init_mlp(PRNGKey(seed))``, or for a transformer spec (a
+    ``ModelConfig``) from ``init_transformer(PRNGKey(seed), cfg)``.  The
+    fused mode's selection noise comes from ``fold_in(k_poll, K)``
+    (uniform scores, Gumbel noise, or a cluster and a client permutation
+    from its two halves) and the quantization uniforms from
+    ``fold_in(k_train, K)``, split over the cohort's rows, one uniform
+    array a parameter leaf, as ``compressed_fedavg`` draws them."""
 
     def __init__(self, seed, device):
         self.seed, self.device = seed, torch.device(device)
@@ -81,10 +102,12 @@ class JaxReplayDraws:
                 fields["ssm"] = RefSSMConfig(**fields["ssm"])
             ref_cfg = RefModelConfig(**fields)
             params = init_transformer(jax.random.PRNGKey(self.seed), ref_cfg)
-            flat = transformer_params_from_jax(jax.tree.map(np.asarray, params), spec)
-            return flat.to(self.device)
-        params = init_mlp(jax.random.PRNGKey(self.seed), spec)
-        return params_from_jax(jax.tree.map(np.asarray, params)).to(self.device)
+            self._flatten = lambda tree: transformer_params_from_jax(tree, spec)
+        else:
+            params = init_mlp(jax.random.PRNGKey(self.seed), spec)
+            self._flatten = params_from_jax
+        self._template = params
+        return self._flatten(jax.tree.map(np.asarray, params)).to(self.device)
 
     def poll_indices(self, rnd, probs, n):
         mask = jnp.asarray((probs.cpu().numpy() > 0).astype(np.float32))
@@ -95,6 +118,25 @@ class JaxReplayDraws:
         mask = jnp.asarray((probs.cpu().numpy() > 0).astype(np.float32))
         idx = self._batch(self._keys(rnd)[1], jnp.asarray(clients, jnp.int32), mask, steps, batch)
         return self._to_torch(idx).transpose(0, 1).contiguous()  # (steps, m, batch)
+
+    def client_batch_indices(self, rnd, probs, steps, batch):
+        self._n_clients = probs.shape[0]
+        return self.batch_indices(rnd, np.arange(self._n_clients), probs, steps, batch)
+
+    def selection_noise(self, rnd, kind, n_clients, n_clusters):
+        key = jax.random.fold_in(self._keys(rnd)[0], n_clients)
+        return tuple(t.to(self.device) for t in jax_selection_noise(key, kind, n_clients,
+                                                                      n_clusters))
+
+    def quant_uniforms(self, rnd, m, start, stop):
+        cached = getattr(self, "_quant", None)
+        if cached is None or cached[0] != rnd:
+            keys = jax.random.split(jax.random.fold_in(self._keys(rnd)[1], self._n_clients), m)
+            rows = [self._flatten(jax.tree.map(
+                lambda leaf, k=k: np.asarray(jax.random.uniform(k, leaf.shape)), self._template))
+                for k in keys]
+            cached = self._quant = (rnd, torch.stack(rows).to(self.device))
+        return cached[1][:, start:stop].clone()
 
 
 def _run_both(data, **kw):

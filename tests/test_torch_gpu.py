@@ -230,6 +230,58 @@ def test_engine_on_card_matches_cpu(cuda):
         assert abs(a.test_acc - b.test_acc) <= 1.0 / len(test.y)
 
 
+def _fused_case(**kw):
+    train = make_classification(800, n_features=64, n_classes=10, seed=0)
+    test = make_classification(200, n_features=64, n_classes=10, seed=1)
+    # chunks of 3: round 0; rounds 1-3 run eagerly, then are captured; 4-6 and
+    # 7-9 replay the graph; 10
+    cfg = FLConfig(n_clients=12, m=4, rounds=11, strategy_kwargs={"J": 3}, hidden=(16,),
+                   eval_samples=16, eval_every=3, target_hd=0.8, seed=0, backend="compiled",
+                   **kw)
+    return cfg, train, test
+
+
+@pytest.mark.parametrize("compress_bits", [0, 8])
+def test_fused_replays_match_the_eager_rounds(cuda, compress_bits):
+    """The captured chunk's replays give the eager compiled rounds' selections
+    and parameters (the same draws; the same kernels, launched from a
+    graph), and the CPU run's selections; K1 launches once a round, counted
+    at replay: 1 + 3 eager launches, then 3 for each of 2 replays, and 1."""
+    cfg, train, test = _fused_case(fuse_rounds=3, compress_bits=compress_bits)
+    masked_weighted_sum.launches = masked_weighted_sum.captured = 0
+    fused = make_engine(cfg, train, test, 10)
+    res = list(fused.rounds())
+    assert fused.graph_replays == {1: 1, 3: 2} and fused.graph_launches == {1: 1, 3: 3}
+    assert masked_weighted_sum.captured == 4
+    assert masked_weighted_sum.launches == 1 + 3 and fused.replayed_launches() == 1 + 3 * 2
+    assert masked_weighted_sum.launches + fused.replayed_launches() == cfg.rounds
+    eager = make_engine(FLConfig.from_dict({**cfg.to_dict(), "fuse_rounds": 0}), train, test, 10)
+    res_eager = list(eager.rounds())
+    assert [r.selected for r in res] == [r.selected for r in res_eager]
+    np.testing.assert_allclose(fused.params.cpu().numpy(), eager.params.cpu().numpy(),
+                               atol=1e-5)
+    if compress_bits:
+        assert fused.last_quant_error == pytest.approx(eager.last_quant_error, rel=1e-4)
+    else:  # the CPU draws the same indices and noise; compression's uniforms come from the card
+        cpu = make_engine(cfg, train, test, 10, device="cpu")
+        assert [r.selected for r in cpu.rounds()] == [r.selected for r in res]
+        np.testing.assert_allclose(fused.params.cpu().numpy(), cpu.params.numpy(), atol=1e-4)
+
+
+def test_fused_params_survive_later_replays(cuda):
+    """A replay overwrites the graph's output buffers: ``engine.params`` is
+    a copy, so a reference held across later chunks keeps its values."""
+    cfg, train, test = _fused_case(fuse_rounds=3)
+    engine = make_engine(cfg, train, test, 10)
+    list(engine.rounds(4))                  # rounds 0-3: the capture
+    held, values = engine.params, engine.params.clone()
+    out = engine._graphs[3].out[0]
+    list(engine.rounds(3))                  # rounds 4-6: a replay
+    assert engine.graph_replays[3] == 1 and held.data_ptr() != out.data_ptr()
+    assert engine.params.data_ptr() != out.data_ptr()
+    assert torch.equal(held, values) and not torch.equal(engine.params, held)
+
+
 @pytest.mark.parametrize("b,s,h,kv,d,window,is_global,dtype", [
     (80, 64, 32, 32, 80, 0, 1.0, torch.float32),      # the LM path's local SGD
     (4, 2048, 32, 32, 80, 0, 1.0, torch.float32),

@@ -1,8 +1,9 @@
 """The port stands alone: nothing under ``src/repro_torch/`` and nothing in
 ``chip_smoke.py`` imports JAX or the reference package ``repro``; entry
-points default to the card and raise without one; the config accepts
-every registered strategy, aggregator and client mode and rejects what
-the port does not implement yet."""
+points default to the card and raise without one, the compiled and fused
+engines too; the config accepts every registered strategy, aggregator and
+client mode, validates the compiled backend's options as the reference
+does, and rejects what the port does not implement yet."""
 
 import ast
 from pathlib import Path
@@ -42,7 +43,8 @@ def test_port_file_list_is_complete():
                       "configs/hymba_1_5b.py", "models/ssm.py", "kernels/mamba_scan/__init__.py",
                       "kernels/mamba_scan/ops.py", "kernels/mamba_scan/ref.py",
                       "engine/client_modes.py", "engine/presets.py", "optim/fedmods.py",
-                      "data/pipeline.py"):
+                      "data/pipeline.py", "engine/compiled.py", "engine/fused.py",
+                      "federated/compression.py"):
         assert f"src/repro_torch/{lm_module}" in names
     assert len(names) > 20
 
@@ -60,6 +62,10 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
     cfg = FLConfig(n_clients=6, m=2, rounds=1, hidden=(8,), eval_samples=8, target_hd=0.5)
     with pytest.raises(RuntimeError, match="cuda"):
         make_engine(cfg, train, test, 4)
+    for kw in ({"backend": "compiled"}, {"backend": "compiled", "fuse_rounds": 2},
+               {"backend": "compiled", "fuse_rounds": 2, "compress_bits": 8}):
+        with pytest.raises(RuntimeError, match="cuda"):
+            make_engine(FLConfig(**{**cfg.to_dict(), **kw}), train, test, 4)
     lm_cfg = FLConfig(task="lm", n_clients=4, m=2, rounds=1, batch_size=2, eval_samples=2,
                       target_hd=0.5, task_kwargs={"model": "stablelm-3b", "hist_bins": 8,
                                                   "overrides": {"vocab": 16}})
@@ -78,14 +84,9 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("backend", "compiled"),
     ("task", "lm"),  # the LM task's default model, xlstm-125m, comes in a later slice
     ("backend", "scaleout"),
-    ("compress_bits", 4),
-    ("fuse_rounds", 1),
     ("population", {"n_shards": 4, "shards_per_round": 2}),
-    ("fuse_rounds", 4),
-    ("compress_bits", 8),
     ("systems", {"profile": "mobile_mix"}),
     ("async_mode", {"buffer_k": 2}),
     ("faults", {"models": ["nan"]}),
@@ -94,6 +95,26 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
 def test_config_rejects_unported_values(field, value):
     with pytest.raises(ValueError, match="repro_torch"):
         FLConfig(**{field: value})
+
+
+# Ported in the compiled backend's slice: alone, each builds (backend) or
+# fails the reference's combination rule (fused chunks and compression
+# need backend="compiled"), and on the compiled backend each builds.
+@pytest.mark.parametrize("field,value,alone", [
+    ("backend", "compiled", None),
+    ("compress_bits", 4, "compress_bits > 0 quantizes cohort deltas"),
+    ("fuse_rounds", 1, "fuse_rounds > 0 is a compiled-backend execution mode"),
+    ("fuse_rounds", 4, "fuse_rounds > 0 is a compiled-backend execution mode"),
+    ("compress_bits", 8, "compress_bits > 0 quantizes cohort deltas"),
+])
+def test_config_validates_compiled_backend_values(field, value, alone):
+    if alone is None:
+        assert getattr(FLConfig(**{field: value}), field) == value
+    else:
+        with pytest.raises(ValueError, match=alone):
+            FLConfig(**{field: value})
+    cfg = FLConfig(**{"backend": "compiled", field: value})
+    assert getattr(cfg, field) == value and FLConfig.from_dict(cfg.to_dict()) == cfg
 
 
 @pytest.mark.parametrize("field,value", [
