@@ -42,9 +42,12 @@ Phases, each printed on its own lines:
      three calls must equal one call; (d) must bill fewer MB than (c) and
      stay within 5e-3 of it after 3 rounds; (b) with ``cohort_gather=False``
      (every client trains, K1 reduces (100, P)) must equal (b) over 3
-     rounds.  Then ``torch.profiler`` over
-     one host round and one replayed chunk (busy ms, idle share, top
-     device operations);
+     rounds.  (a) and (b) must select the same clients every round and end
+     within 1e-5 (the draws are keyed by client, not by cohort).  Then
+     ``torch.profiler`` over one host round and one replayed chunk (busy
+     ms, idle share, top device operations).  ``memory_allocated`` is
+     printed before the phase, after it and after ``gc.collect()``, and
+     must come back within 16 MiB of its level before;
    - federated LM training on stablelm-3b at full width, cut from 32 to
      2 layers (P = 380,789,760), K = 100, m = 10, batch 8 of 64 tokens,
      3 rounds, with the flash-attention kernel forward (poll, local SGD,
@@ -52,17 +55,26 @@ Phases, each printed on its own lines:
    - federated LM training on hymba-1.5b at full width, cut from 32 to 6
      layers (P = 344,430,400), the same data recipe and settings, with the
      flash-attention kernel at hymba's shape and the selective-scan kernel,
-     each forward (poll, local SGD, evaluation) and backward (local SGD).
-5. agreement — a small configuration of each task and model, of every
+     each forward (poll, local SGD, evaluation) and backward (local SGD);
+   - federated LM training on xlstm-125m, the LM task's default model, at
+     full width and depth (12 layers, P = 119,827,296), the same data
+     recipe and settings: nine mLSTM and three sLSTM layers in plain
+     PyTorch, K2 at setup and K1 once a round on (10, P).
+5. agreement — a small configuration of each task and model (stablelm,
+   hymba, xlstm, and glm4, qwen3 and gemma3 reduced), of every
    classification preset and of fused compiled chunks, run on the CPU
    (plain versions, eager chunks) and on the card (kernels, captured
    chunks) from the same draws must select the same clients and reach the
-   same parameters.
+   same parameters; xlstm's training is chaotic (a relative change of
+   1e-6 of the weights moves the test loss by 1e-2 to 4e-2 within two
+   rounds: scripts/xlstm_sensitivity.py), so its card run starts each
+   round, of one local step, from the CPU run's parameters.
 6. kernel-only — each kernel's own device time a call, without the
-   wrapper's host work, at each of its phase-3 shapes: K1, K2 and the
-   selective scan, and beside K1 and K2 the device time of the kernels
-   that their library call launches (``torch.profiler``, median of 30
-   calls); last, so that no profiler session precedes a host-timed phase.
+   wrapper's host work, at each of its phase-3 shapes: K1, K2, the
+   flash-attention kernels (forward, dQ and dK/dV) and the selective
+   scan, and beside K1 and K2 the device time of the kernels that their
+   library call launches (``torch.profiler``, median of 30 calls); last,
+   so that no profiler session precedes a host-timed phase.
 
 Then the card's name and power limit again, one JSON line lists the
 kernels (K1's launches summed over every path above), and the last line
@@ -73,6 +85,7 @@ that holds this script without the repository's ``src/``.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import re
@@ -157,6 +170,10 @@ def _bound(n_bytes: float, n_ops: float, peak_ops: float = PEAK_FP32_PER_S) -> t
 
 # K1's and K2's kernels by name; every kernel that a library call launches
 FEDAVG_KERNEL = re.compile(r"fedavg_reduce_kernel")
+# K3's forward, dQ and dK/dV kernels (a word boundary keeps scan_fwd_kernel out)
+FLASH_FORWARD = re.compile(r"\bfwd_kernel\b")
+FLASH_DQ = re.compile(r"\bdq_kernel\b")
+FLASH_DKDV = re.compile(r"\bdkdv_kernel\b")
 STRIP_KERNEL = re.compile(r"hellinger_strip_kernel")
 ANY_KERNEL = re.compile("")
 
@@ -264,6 +281,16 @@ def _attention_work(shape, window, is_global, elem):
     return b * h * pairs, fwd, bwd
 
 
+def _flash_inputs(shape, dtype, device):
+    """K3's q, k, v and an output gradient at (B, S, H, KV, D), from a seed."""
+    import torch
+
+    b, s, h, kv, d = shape
+    g = torch.Generator().manual_seed(b * s + h * d + kv)
+    q, k, v = (torch.randn(b, s, n, d, generator=g).to(dtype).to(device) for n in (h, kv, kv))
+    return q, k, v, torch.randn(b, s, h, d, generator=g).to(dtype).to(device)
+
+
 def _check_flash(shape, dtype, window, is_global, device):
     """K3 at (B, S, H, KV, D): forward (O, L) and backward (dq, dk, dv)
     against the plain version and its autograd on the card, and times."""
@@ -277,9 +304,7 @@ def _check_flash(shape, dtype, window, is_global, device):
     )
 
     b, s, h, kv, d = shape
-    g = torch.Generator().manual_seed(b * s + h * d + kv)
-    q, k, v = (torch.randn(b, s, n, d, generator=g).to(dtype).to(device) for n in (h, kv, kv))
-    do = torch.randn(b, s, h, d, generator=g).to(dtype).to(device)
+    q, k, v, do = _flash_inputs(shape, dtype, device)
     o, lse = flash_attention_forward(q, k, v, window, is_global)
     dq, dk, dv = flash_attention_backward(q, k, v, o, lse, do, window, is_global)
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
@@ -477,6 +502,37 @@ def _scan_kernel_ms(rec, device) -> None:
     tag = {k: rec[k] for k in ("shape", "groups", "dtype", "checkpoints")}
     print(f"kernel mamba_scan kernel-only {json.dumps(tag)}: forward "
           f"{rec['forward']['kernel_ms']} ms, backward {rec['backward']['kernel_ms']} ms",
+          flush=True)
+
+
+def _flash_kernel_ms(rec, device) -> None:
+    """Adds ``kernel_ms`` to the forward and backward of a ``_check_flash``
+    record (the backward's the sum of its dQ and dK/dV kernels, each also
+    apart): K3's own device time a call, on the same inputs."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward,
+        flash_attention_forward,
+    )
+
+    dtype = getattr(torch, rec["dtype"])
+    window, is_global = rec["window"], rec["is_global"]
+    q, k, v, do = _flash_inputs(tuple(rec["shape"]), dtype, device)
+    o, lse = flash_attention_forward(q, k, v, window, is_global)
+    backward = lambda: flash_attention_backward(q, k, v, o, lse, do, window,  # noqa: E731
+                                                is_global)
+    rec["forward"]["kernel_ms"] = _kernel_ms(
+        lambda: flash_attention_forward(q, k, v, window, is_global), FLASH_FORWARD)
+    rec["backward"]["dq_kernel_ms"] = _kernel_ms(backward, FLASH_DQ)
+    rec["backward"]["dkdv_kernel_ms"] = _kernel_ms(backward, FLASH_DKDV)
+    rec["backward"]["kernel_ms"] = (rec["backward"]["dq_kernel_ms"]
+                                    + rec["backward"]["dkdv_kernel_ms"])
+    tag = {key: rec[key] for key in ("shape", "dtype", "window", "is_global")}
+    print(f"kernel flash_attention kernel-only {json.dumps(tag)}: forward (fwd_kernel) "
+          f"{rec['forward']['kernel_ms']} ms of {rec['forward']['ms']}, backward "
+          f"{rec['backward']['kernel_ms']} ms of {rec['backward']['ms']} (dq_kernel "
+          f"{rec['backward']['dq_kernel_ms']}, dkdv_kernel {rec['backward']['dkdv_kernel_ms']})",
           flush=True)
 
 
@@ -808,7 +864,7 @@ def _same_run(tag, a, b, atol):
 def _backends(device):
     """The paper's configuration for 150 rounds on the host backend, the
     compiled backend, its fused chunks and fused int8 uploads; then their
-    agreements, and a profile of a host round and of a replayed chunk.
+    agreements (host and compiled too), and a profile of a host round and of a replayed chunk.
     Returns K1's launches over the four runs."""
     import torch
 
@@ -823,6 +879,7 @@ def _backends(device):
     t = time.perf_counter()
     runs = {tag: _backend_run(device, tag, FLConfig(**paper, **kw), train, test)
             for tag, kw in BACKEND_RUNS.items()}
+    _same_run("fedlecc host vs compiled", runs["host"][1:], runs["compiled"][1:], PARITY_ATOL)
     _same_run("fedlecc compiled vs fused", runs["compiled"][1:], runs["fused"][1:], PARITY_ATOL)
     k1 = sum(rec["k1_launches"] for rec, _, _ in runs.values())
     if not runs["fused_int8"][0]["comm_mb"] < runs["fused"][0]["comm_mb"]:
@@ -938,6 +995,20 @@ HYMBA_MICRO = {"model": "hymba-1.5b", "hist_bins": 16,
                              "d_ff": 64, "vocab": 32, "loss_chunk": 16, "attn_chunk": 16,
                              "remat": False, "sliding_window": 8}}
 
+# xlstm at micro width, 4 layers ("MMMS": three mLSTM and one sLSTM); over
+# 128-token sequences the reduced config's chunk of 64 gives two chunks
+XLSTM_MICRO = {"model": "xlstm-125m", "hist_bins": 16,
+               "overrides": {"n_layers": 4, "d_model": 32, "vocab": 32, "loss_chunk": 16}}
+# the three dense configs, reduced (2 layers, d_model 256), over the 32-token
+# vocabulary of the agreement's streams; gemma3's window bites at S = 16
+DENSE_REDUCED = {
+    "glm4": {"model": "glm4-9b", "hist_bins": 16, "overrides": {"vocab": 32}},
+    "qwen3": {"model": "qwen3-14b", "hist_bins": 16, "overrides": {"vocab": 32}},
+    "gemma3": {"model": "gemma3-27b", "hist_bins": 16,
+               "overrides": {"vocab": 32, "sliding_window": 8}},
+}
+
+
 def _profiled(on: bool):
     """``torch.profiler`` over CPU and CUDA activity when ``on``."""
     import contextlib
@@ -1007,15 +1078,22 @@ def _lm_main_path(device, tag, model, n_layers, n_params, families):
                                            "overrides": {"n_layers": n_layers}, "hist_bins": 64},
                    n_clients=100, m=10, strategy="fedlecc", strategy_kwargs={"J": 3},
                    batch_size=8, eval_samples=4, eval_every=1, target_hd=0.9, rounds=3, seed=0)
-    mamba = (f", Mamba heads with N {full.ssm.d_state} and conv {full.ssm.conv_kernel}"
-             if full.block_type == "hymba" else "")
+    if full.block_type == "xlstm":
+        width = (f"d_model {full.d_model}, {full.ssm.n_heads} heads of "
+                 f"{full.d_model // full.ssm.n_heads}, pattern {full.layer_pattern} (mLSTM x 3, "
+                 f"sLSTM), chunk {full.ssm.chunk}, no MLP, vocab {vocab}")
+    else:
+        mamba = (f", Mamba heads with N {full.ssm.d_state} and conv {full.ssm.conv_kernel}"
+                 if full.block_type == "hymba" else "")
+        width = (f"d_model {full.d_model}, {full.n_heads} query heads of "
+                 f"{full.resolved_head_dim} on {full.n_kv_heads} kv heads, {full.mlp_activation} "
+                 f"d_ff {full.d_ff}{mamba}, vocab {vocab}")
     window = (f"; at S = {seq} the {full.sliding_window}-token window never bites (the kernel "
               "phase runs it at S = 2048)" if full.sliding_window >= seq else "")
-    print(f"{tag}: {model} at full width (d_model {full.d_model}, {full.n_heads} query heads of "
-          f"{full.resolved_head_dim} on {full.n_kv_heads} kv heads, {full.mlp_activation} d_ff "
-          f"{full.d_ff}{mamba}, vocab {vocab}); cut: n_layers {full.n_layers} -> {n_layers}, "
-          f"which one card's memory forces for the (10, P) cohort and its gradient{window}",
-          flush=True)
+    cut = ("no cut: full depth" if n_layers == full.n_layers else
+           f"cut: n_layers {full.n_layers} -> {n_layers}, which one card's memory forces for "
+           f"the (10, P) cohort and its gradient")
+    print(f"{tag}: {model} at full width ({width}); {cut}{window}", flush=True)
 
     for c in counters:
         c.launches = 0
@@ -1080,27 +1158,45 @@ def _lm_main_path(device, tag, model, n_layers, n_params, families):
     return launches
 
 
-def _lm_agreement(device, tag, task_kwargs):
+def _lm_agreement(device, tag, task_kwargs, seq=16, resync=False, max_steps=3):
     """An LM micro configuration on the CPU (plain versions) and on the card
-    (kernels) from the same draws."""
+    (kernels) from the same draws, over ``seq``-token sequences.  With
+    ``resync`` the card run starts each round from the CPU run's
+    parameters, so each round is held to the CPU on the same inputs, and
+    the perplexity within 1e-4 relative (for xlstm, whose training moves
+    fp32 noise further: ``scripts/xlstm_sensitivity.py``; it also takes one
+    local step a round, ``max_steps``, as within a round the second step
+    grows the card's difference from the CPU to 3e-5–7e-5); otherwise
+    within 1e-4."""
     import numpy as np
 
     from repro_torch.data import make_token_stream
     from repro_torch.engine import FLConfig, make_engine
 
-    train = make_token_stream(48, 16, 32, seed=0)
-    test = make_token_stream(16, 16, 32, seed=1)
+    train = make_token_stream(48, seq, 32, seed=0)
+    test = make_token_stream(16, seq, 32, seed=1)
     cfg = FLConfig(task="lm", task_kwargs=task_kwargs, n_clients=8, m=3, rounds=2,
                    strategy_kwargs={"J": 2}, batch_size=4, eval_samples=4, eval_every=1,
-                   target_hd=0.8, max_steps_cap=3, seed=0)
+                   target_hd=0.8, max_steps_cap=max_steps, seed=0)
     on_card = make_engine(cfg, train, test, 32, device=device)
     on_cpu = make_engine(cfg, train, test, 32, device="cpu")
-    res_card, res_cpu = list(on_card.rounds()), list(on_cpu.rounds())
+    it_card, it_cpu = on_card.rounds(), on_cpu.rounds()
+    res_card, res_cpu, diff = [], [], 0.0
+    for _ in range(cfg.rounds):
+        if resync:
+            on_card.params = on_cpu.params.to(device)
+        res_card.append(next(it_card))
+        res_cpu.append(next(it_cpu))
+        diff = max(diff, float(np.abs(on_card.params.cpu().numpy()
+                                      - on_cpu.params.numpy()).max()))
     sel_card, sel_cpu = [r.selected for r in res_card], [r.selected for r in res_cpu]
-    diff = float(np.abs(on_card.params.cpu().numpy() - on_cpu.params.numpy()).max())
-    ppl_diff = max(abs(a.metrics["ppl"] - b.metrics["ppl"]) for a, b in zip(res_card, res_cpu))
-    print(f"{tag} agreement: selected card={sel_card} cpu={sel_cpu} max |params diff|={diff:.3g} "
-          f"max |ppl diff|={ppl_diff:.3g} (tolerance 1e-4)", flush=True)
+    ppl_diff = max(abs(a.metrics["ppl"] - b.metrics["ppl"])
+                   / (b.metrics["ppl"] if resync else 1.0) for a, b in zip(res_card, res_cpu))
+    print(f"{tag} agreement{' (each round from the CPU parameters)' if resync else ''}: "
+          f"{on_cpu.task.model_cfg.name} {on_cpu.task.model_cfg.n_layers} layers, S = {seq}, "
+          f"selected card={sel_card} cpu={sel_cpu} max |params diff|={diff:.3g} "
+          f"max |ppl diff|{' / ppl' if resync else ''}={ppl_diff:.3g} (tolerance 1e-4)",
+          flush=True)
     if sel_card != sel_cpu:
         raise AssertionError(f"{tag}: card and CPU runs selected different clients")
     if not (diff <= 1e-4 and ppl_diff <= 1e-4):
@@ -1141,7 +1237,8 @@ def main() -> int:
     k2 = [_check_hellinger(s, device) for s in [(100, 100, 10), (100, 100, 64), (4096, 16384, 10)]]
     k1 = [_check_aggregate(s, dt, device)
           for s, dt in [((10, 199_210), torch.float32), ((10, 380_789_760), torch.float32),
-                        ((10, 344_430_400), torch.float32), ((64, 199_210), torch.bfloat16),
+                        ((10, 344_430_400), torch.float32), ((10, 119_827_296), torch.float32),
+                        ((64, 199_210), torch.bfloat16),
                         ((100, 199_210), torch.float32)]]  # cohort_gather=False: all K clients
     k3 = [_check_flash(s, dt, w, ig, device) for s, dt, w, ig in [
         ((80, 64, 32, 32, 80), torch.float32, 0, 1.0),     # local SGD: m x batch sequences
@@ -1180,21 +1277,38 @@ def main() -> int:
             re.compile(f"{SCAN_FORWARD.pattern}|{SCAN_BACKWARD.pattern}"))
     launches = _main_path(device)
     _comparison(device)
+    mib = lambda: torch.cuda.memory_allocated() / 2**20  # noqa: E731
+    before = mib()
+    print(f"memory: {before:.2f} MiB allocated before the backends phase", flush=True)
     backend_k1 = _backends(device)
+    after = mib()
+    gc.collect()
+    collected = mib()
+    print(f"memory: {after:.2f} MiB allocated after the backends phase, {collected:.2f} MiB "
+          f"after gc.collect() ({collected - before:+.2f} MiB against before; tolerance 16 MiB)",
+          flush=True)
+    if not collected - before <= 16:
+        raise AssertionError(f"the backends phase left {collected - before:.2f} MiB allocated")
     lm_launches = _lm_main_path(device, "lm", "stablelm-3b", 2, 380_789_760, (attention,))
     hymba_launches = _lm_main_path(device, "hymba", "hymba-1.5b", 6, 344_430_400,
                                    (attention, scan))
+    xlstm_launches = _lm_main_path(device, "xlstm", "xlstm-125m", 12, 119_827_296, ())
 
     # 5. small-input agreement with the CPU path
     _agreement(device)
     _lm_agreement(device, "lm", LM_MICRO)
     _lm_agreement(device, "hymba", HYMBA_MICRO)
+    _lm_agreement(device, "xlstm", XLSTM_MICRO, seq=128, resync=True, max_steps=1)
+    for tag, task_kwargs in DENSE_REDUCED.items():
+        _lm_agreement(device, tag, task_kwargs)
 
     # 6. the kernels' own device time, after every host-timed phase
     for rec in k1:
         _reduce_kernel_ms(rec, device)
     for rec in k2:
         _strip_kernel_ms(rec, device)
+    for rec in k3:
+        _flash_kernel_ms(rec, device)
     for rec in k4:
         _scan_kernel_ms(rec, device)
 
@@ -1210,7 +1324,8 @@ def main() -> int:
          "replaces": "src/repro/kernels/aggregate/kernel.py:29",
          "launches": (launches["masked_weighted_sum"] + backend_k1
                       + lm_launches["masked_weighted_sum"]
-                      + hymba_launches["masked_weighted_sum"]),
+                      + hymba_launches["masked_weighted_sum"]
+                      + xlstm_launches["masked_weighted_sum"]),
          "shape": k1[0]["shape"],
          **{k: k1[0][k] for k in keys + ("kernel_ms", "library_kernel_ms")}},
     ] + [
@@ -1218,7 +1333,7 @@ def main() -> int:
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:68",
          "launches": lm_launches[f"flash_attention_{direction}"], "shape": k3[0]["shape"],
-         **{k: k3[0][direction][k] for k in keys}}
+         **{k: k3[0][direction][k] for k in keys + ("kernel_ms",)}}
         for direction in ("forward", "backward")
     ] + [
         {"name": f"mamba_scan_{direction}", "route": "cuda",

@@ -1,4 +1,5 @@
-"""Architecture configs of the port (stablelm-3b and hymba-1.5b).
+"""Architecture configs of the port (stablelm-3b, hymba-1.5b, xlstm-125m,
+glm4-9b, qwen3-14b and gemma3-27b).
 
 ``get_config(name)`` returns the full configuration;
 ``get_config(name, reduced=True)`` the smoke-test variant (2 layers,

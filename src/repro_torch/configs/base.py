@@ -3,9 +3,10 @@
 Frozen dataclasses with the reference's field lists, so one config reads
 the same in both packages.  Each architecture registers itself from its
 own module under ``repro_torch.configs``; ``get_config`` imports them
-lazily.  The port registers what it runs: stablelm-3b (dense attention)
-and hymba-1.5b (attention in parallel with Mamba heads).  Any other name
-raises with the slice that brings it.
+lazily.  The port registers what it runs: stablelm-3b, glm4-9b,
+qwen3-14b and gemma3-27b (dense attention), hymba-1.5b (attention in
+parallel with Mamba heads) and xlstm-125m (mLSTM and sLSTM blocks).  Any
+other name raises with the slice that brings it.
 """
 
 from __future__ import annotations
@@ -147,17 +148,13 @@ class ModelConfig:
 
 _REGISTRY: dict[str, ModelConfig] = {}
 
-_ARCH_MODULES = ["stablelm_3b", "hymba_1_5b"]
+_ARCH_MODULES = ["stablelm_3b", "hymba_1_5b", "xlstm_125m", "glm4_9b", "qwen3_14b", "gemma3_27b"]
 
 # The reference's other architectures, each with the slice of the port that
 # brings the blocks it needs.
 _LATER = {
-    "xlstm-125m": "the next slice (xlstm: mLSTM and sLSTM blocks)",
     "dbrx-132b": "the MoE slice",
     "deepseek-v3-671b": "the MoE and MLA slices",
-    "glm4-9b": "a later slice (dense attention with its own options)",
-    "qwen3-14b": "a later slice (its registration: the dense block already runs its options)",
-    "gemma3-27b": "a later slice (its registration: the dense block already runs its options)",
     "musicgen-large": "a later slice (frame inputs)",
     "internvl2-1b": "a later slice (image-patch inputs)",
 }

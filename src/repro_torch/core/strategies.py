@@ -53,10 +53,11 @@ import torch
 from repro_torch.core.clustering import best_clustering, cluster_label_histograms
 from repro_torch.core.hellinger import hellinger_blocked
 from repro_torch.core.selection import fedlecc_select, fedlecc_select_mask, top_m_mask
-from repro_torch.engine.registry import register_strategy
+from repro_torch.engine.registry import STRATEGY_REGISTRY, register_strategy
 
 __all__ = [
     "SelectionStrategy",
+    "UniformRandom",
     "FedLECC",
     "PowerOfChoice",
     "HACCS",
@@ -66,17 +67,18 @@ __all__ = [
     "LossOnly",
     "ClusterRandom",
     "FedLECCAdaptive",
+    "STRATEGIES",
+    "get_strategy",
 ]
 
 _FLOAT_BYTES = 4
 
 
-@register_strategy("random")
 @dataclass
 class SelectionStrategy:
     """Extension base: shared setup state + uniform random ``select``
-    (top-m over host-drawn uniform scores), registered as ``random``: the
-    selection of FedAvg, FedProx, FedNova and FedDyn.
+    (top-m over host-drawn uniform scores); ``UniformRandom`` registers it
+    as ``random``, the selection of FedAvg, FedProx, FedNova and FedDyn.
 
     ``profile_latency`` is the systems layer's per-client round time in
     the reference; it stays ``None`` in the port, which has no systems
@@ -146,6 +148,14 @@ class SelectionStrategy:
     def extra_upload_bytes_per_round(self) -> float:
         # Loss scalars polled from all clients each round, if used.
         return float(self.K * _FLOAT_BYTES) if self.needs_losses else 0.0
+
+
+@register_strategy("random")
+@dataclass
+class UniformRandom(SelectionStrategy):
+    """Uniform random sampling: the base's top-m over uniform scores,
+    drawn host-side from ``rng`` (``select``, ``select_mask``) or taken
+    from the engine's draws (``select_mask_traced``)."""
 
 
 @register_strategy("fedlecc")
@@ -526,3 +536,11 @@ class FedLECCAdaptive(FedLECC):
         thr = means.min() + 0.5 * (means.max() - means.min())
         J = int((means >= thr).sum())
         return max(2, min(J, self.m, self.n_clusters))
+
+
+STRATEGIES = STRATEGY_REGISTRY
+
+
+def get_strategy(name: str, m: int, **kwargs) -> SelectionStrategy:
+    """Build a selection strategy by name via the engine registry."""
+    return STRATEGY_REGISTRY.build(name, m=m, **kwargs)

@@ -41,21 +41,70 @@ from typing import Any
 
 import torch
 
-from repro_torch.engine.base import rounds_to_accuracy
+from repro_torch.engine.base import Engine, MaskSelectionMixin, RoundResult, rounds_to_accuracy
+from repro_torch.engine.compiled import CompiledEngine
 from repro_torch.engine.config import BACKENDS, FLConfig
-from repro_torch.engine.presets import ExperimentPreset, get_preset, list_presets
-from repro_torch.engine.registry import mask_selection_strategies, traced_selection_strategies
+from repro_torch.engine.fused import FusedEngine
+from repro_torch.engine.host import HostEngine
+from repro_torch.engine.presets import (
+    ExperimentPreset,
+    get_preset,
+    list_presets,
+    register_preset,
+)
+from repro_torch.engine.registry import (
+    AGGREGATOR_REGISTRY,
+    CLIENT_MODE_REGISTRY,
+    PRESET_REGISTRY,
+    STRATEGY_REGISTRY,
+    TASK_REGISTRY,
+    Registry,
+    list_aggregators,
+    list_client_modes,
+    list_strategies,
+    list_tasks,
+    mask_selection_strategies,
+    register_aggregator,
+    register_client_mode,
+    register_strategy,
+    register_task,
+    traced_selection_strategies,
+)
+from repro_torch.engine.tasks import Task, build_task
 
 __all__ = [
     "BACKENDS",
-    "ExperimentPreset",
     "FLConfig",
+    "Registry",
+    "STRATEGY_REGISTRY",
+    "AGGREGATOR_REGISTRY",
+    "CLIENT_MODE_REGISTRY",
+    "TASK_REGISTRY",
+    "PRESET_REGISTRY",
+    "register_strategy",
+    "register_aggregator",
+    "register_client_mode",
+    "register_task",
+    "list_strategies",
+    "list_aggregators",
+    "list_client_modes",
+    "list_tasks",
+    "Task",
+    "build_task",
+    "Engine",
+    "MaskSelectionMixin",
+    "RoundResult",
+    "mask_selection_strategies",
+    "traced_selection_strategies",
+    "rounds_to_accuracy",
+    "HostEngine",
+    "CompiledEngine",
+    "FusedEngine",
+    "ExperimentPreset",
     "get_preset",
     "list_presets",
+    "register_preset",
     "make_engine",
-    "mask_selection_strategies",
-    "rounds_to_accuracy",
-    "traced_selection_strategies",
 ]
 
 
@@ -79,13 +128,7 @@ def make_engine(cfg: FLConfig, train, test, n_classes: int, *,
     if cfg.backend == "host":
         if not cohort_gather:
             raise ValueError("cohort_gather=False applies to backend='compiled'")
-        from repro_torch.engine.host import HostEngine
-
         return HostEngine(cfg, train, test, n_classes, **kw)
     if cfg.fuse_rounds > 0:
-        from repro_torch.engine.fused import FusedEngine
-
         return FusedEngine(cfg, train, test, n_classes, **kw)
-    from repro_torch.engine.compiled import CompiledEngine
-
     return CompiledEngine(cfg, train, test, n_classes, cohort_gather=cohort_gather, **kw)

@@ -46,10 +46,11 @@ from repro_torch.engine.config import (
     mask_backend_strategy_error,
 )
 from repro_torch.engine.draws import TorchDraws
-from repro_torch.engine.registry import STRATEGY_REGISTRY
+from repro_torch.engine.registry import STRATEGY_REGISTRY, mask_selection_strategies
 from repro_torch.engine.tasks import build_task
 
-__all__ = ["Engine", "MaskSelectionMixin", "RoundResult", "rounds_to_accuracy"]
+__all__ = ["Engine", "MaskSelectionMixin", "RoundResult", "mask_selection_strategies",
+           "rounds_to_accuracy"]
 
 
 def _mean_loss(sel_losses) -> float:
@@ -154,9 +155,11 @@ class Engine:
         self.xs = torch.from_numpy(xs).to(self.device)
         self.ys = torch.from_numpy(ys).to(self.device)
         # Row-sampling probabilities per client (validity mask normalized),
-        # kept on the host: the draws read them there.
+        # kept on the host; the draws build their row table from them once.
         mask_t = torch.from_numpy(mask)
         self.sample_probs = mask_t / torch.clamp(mask_t.sum(-1, keepdim=True), min=1e-9)
+        if hasattr(self.draws, "bind_rows"):
+            self.draws.bind_rows(self.sample_probs)
         self.test_x = torch.from_numpy(np.asarray(test.x)).to(self.device)
         self.test_y = torch.from_numpy(np.asarray(test.y)).to(self.device)
 

@@ -20,13 +20,12 @@ import torch
 from repro_torch.engine.registry import CLIENT_MODE_REGISTRY, register_client_mode
 from repro_torch.optim.fedmods import feddyn_grads, feddyn_update_state, fedprox_grads
 
-__all__ = ["ClientMode", "FedProxMode", "FedDynMode", "get_client_mode"]
+__all__ = ["ClientMode", "PlainMode", "FedProxMode", "FedDynMode", "get_client_mode"]
 
 
-@register_client_mode("plain")
 class ClientMode:
-    """Base, registered as ``plain``: unmodified local SGD (what FedAvg
-    and every selection-only method use)."""
+    """Base: unmodified local SGD (what FedAvg and every selection-only
+    method use)."""
 
     name = "plain"
     needs_h = False  # per-client correction state (FedDyn)?
@@ -39,6 +38,11 @@ class ClientMode:
 
     def update_client_state(self, h_sel, local_params_end, new_global, mu: float):
         return h_sel
+
+
+@register_client_mode("plain")
+class PlainMode(ClientMode):
+    name = "plain"
 
 
 @register_client_mode("fedprox")

@@ -40,10 +40,19 @@ State commits per chunk.  A replay overwrites the graph's output buffers,
 so ``engine.params`` is a copy of them after each chunk: a reference to
 ``engine.params`` taken before a ``rounds()`` call keeps its values (the
 reference's donation instead invalidates such an alias).
+
+Memory.  Every fused engine warms up and captures on one side stream a
+device (``_capture_stream``): cuBLAS keeps a workspace for each stream it
+has run on (64 MiB on an H100) until its workspaces are cleared, so a
+stream per engine kept 64 MiB per engine built.  ``close()`` (also reached
+from ``__del__``) drops the graphs and their buffers; when no fused engine
+holds a graph any more, it also returns cuBLAS's workspaces, which are
+made again at the next product.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Iterator
 
@@ -56,6 +65,15 @@ from repro_torch.engine.config import fused_aggregator_error, fused_strategy_err
 from repro_torch.kernels.aggregate import masked_weighted_sum
 
 __all__ = ["FusedEngine"]
+
+_holders = 0  # fused engines that hold captured graphs
+
+
+@functools.cache
+def _capture_stream(device: torch.device) -> torch.cuda.Stream:
+    """The side stream of every fused engine's warm-ups and captures on
+    ``device``."""
+    return torch.cuda.Stream(device)
 
 
 @dataclass
@@ -85,7 +103,6 @@ class FusedEngine(CompiledEngine):
         if cfg.aggregator != "fedavg":
             raise ValueError(fused_aggregator_error(cfg.aggregator))
         self._graphs: dict[int, _Graph] = {}
-        self._side: torch.cuda.Stream | None = None
         self.graph_launches: dict[int, int] = {}  # K1 launches a replay, by chunk length
         self.graph_replays: dict[int, int] = {}
 
@@ -127,23 +144,25 @@ class FusedEngine(CompiledEngine):
         """Run the first chunk of ``length`` eagerly on a side stream, then
         capture the chunk body with that chunk's tensors as the graph's
         input buffers; returns the eager chunk's outputs."""
-        if self._side is None:
-            self._side = torch.cuda.Stream(self.device)
+        global _holders
+        side = _capture_stream(self.device)
         main = torch.cuda.current_stream(self.device)
         params = self.params.clone()
-        self._side.wait_stream(main)
-        with torch.cuda.stream(self._side):
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
             out = self._chunk_body(rnd, length, params, poll, batch, noise)
-        main.wait_stream(self._side)
+        main.wait_stream(side)
         eager_error = self._quant_error
         graph = torch.cuda.CUDAGraph()
         for gen in getattr(self.draws, "graph_generators", list)():
             graph.register_generator_state(gen)
         before = masked_weighted_sum.captured
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, stream=side):
             static_out = self._chunk_body(rnd, length, params, poll, batch, noise)
         self.graph_launches[length] = masked_weighted_sum.captured - before
-        self.graph_replays[length] = 0
+        self.graph_replays.setdefault(length, 0)
+        if not self._graphs:
+            _holders += 1
         self._graphs[length] = _Graph(graph, params, poll, batch, noise, static_out,
                                       self._quant_error)
         self._quant_error = eager_error
@@ -167,6 +186,23 @@ class FusedEngine(CompiledEngine):
         self._quant_error = g.quant_error
         params, masks, losses = g.out
         return params.clone(), masks, losses
+
+    def close(self) -> None:
+        """Drop the captured graphs and their buffers; the last fused
+        engine to do so also returns cuBLAS's workspaces (module
+        docstring).  The engine captures again if it runs on."""
+        global _holders
+        if not self._graphs:
+            return
+        _capture_stream(self.device).synchronize()
+        self._graphs.clear()
+        _holders -= 1
+        if _holders == 0:
+            torch._C._cuda_clearCublasWorkspaces()
+
+    def __del__(self):
+        if getattr(self, "_graphs", None):
+            self.close()
 
     def replayed_launches(self) -> int:
         """K1 launches made by graph replays so far."""

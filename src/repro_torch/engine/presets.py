@@ -8,9 +8,8 @@ aggregator, task) plus their hyperparameters for one named method::
     cfg = get_preset("fedlecc").make_config(n_clients=100, rounds=150)
     engine = make_engine(cfg, train, test, n_classes=10)
 
-``fedlecc_lm`` is registered, but its model (xlstm-125m, the LM task's
-default) is not ported yet, so its ``make_config`` raises naming the
-slice that brings it.
+``fedlecc_lm`` runs the LM task on its default model, the reduced
+xlstm-125m, at d_model 64 and a 128-token vocabulary.
 """
 
 from __future__ import annotations

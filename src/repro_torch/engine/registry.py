@@ -32,6 +32,10 @@ __all__ = [
     "register_aggregator",
     "register_client_mode",
     "register_task",
+    "list_strategies",
+    "list_aggregators",
+    "list_client_modes",
+    "list_tasks",
     "mask_selection_strategies",
     "traced_selection_strategies",
 ]
@@ -160,6 +164,22 @@ def register_strategy(name: str | None = None) -> Callable[[Any], Any]:
         return inner(obj)
 
     return deco
+
+
+def list_strategies() -> list[str]:
+    return STRATEGY_REGISTRY.names()
+
+
+def list_aggregators() -> list[str]:
+    return AGGREGATOR_REGISTRY.names()
+
+
+def list_client_modes() -> list[str]:
+    return CLIENT_MODE_REGISTRY.names()
+
+
+def list_tasks() -> list[str]:
+    return TASK_REGISTRY.names()
 
 
 def mask_selection_strategies() -> list[str]:

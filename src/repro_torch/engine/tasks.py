@@ -112,7 +112,7 @@ class LMTask(Task):
     server clusters clients by token histograms.
 
     task_kwargs, as in the reference: ``model`` (registered config name;
-    default ``"xlstm-125m"``, which this slice of the port does not run),
+    default ``"xlstm-125m"``),
     ``reduced`` (default True), ``overrides`` (``ModelConfig`` fields
     applied after reduction; ``dtype`` defaults to float32) and
     ``hist_bins`` (default 64; tokens fold mod ``hist_bins``)."""

@@ -22,6 +22,7 @@ from repro_torch.kernels.aggregate import masked_weighted_sum
 
 __all__ = [
     "fedavg",
+    "weighted_delta",
     "fednova",
     "feddyn_server",
     "feddyn_update_h",
@@ -36,6 +37,14 @@ def fedavg(stacked: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """θ ← Σ_i w_i θ_i over the (m, P) cohort, accumulated in fp32
     (weights normalized ∝ N_i over the selected set)."""
     return masked_weighted_sum(stacked, weights).to(stacked.dtype)
+
+
+def weighted_delta(stacked: torch.Tensor, global_params: torch.Tensor,
+                   weights: torch.Tensor) -> torch.Tensor:
+    """Σ_i w_i (θ_i − θ_g), the update FedAvg applies, as Σ_i w_i θ_i −
+    (Σ_i w_i) θ_g: one kernel launch and no (m, P) temporary."""
+    w = weights.to(torch.float32)
+    return masked_weighted_sum(stacked, w) - w.sum() * global_params.to(torch.float32)
 
 
 def fednova(stacked: torch.Tensor, global_params: torch.Tensor, weights: torch.Tensor,

@@ -29,7 +29,13 @@ import torch
 
 from repro_torch.engine.client_modes import get_client_mode
 
-__all__ = ["local_train"]
+__all__ = ["client_loss", "local_train"]
+
+
+def client_loss(apply_fn: Callable, loss_fn: Callable, params, x, y, mask) -> torch.Tensor:
+    """Local empirical loss over the client's full (masked) dataset: what
+    each client reports to the server (Algorithm 1 line 3)."""
+    return loss_fn(apply_fn(params, x), y, mask)
 
 
 def local_train(

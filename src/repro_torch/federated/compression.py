@@ -14,17 +14,60 @@ The cohort is quantized in its own (m, P) buffer, stretch by stretch
 launch of the FedAvg reduce kernel (plain PyTorch on the CPU).  The
 uniforms of the rounding come from the caller, column block by column
 block (``Draws.quant_uniforms``), so a test can feed the reference's.
+
+``quantize_delta`` / ``dequantize_delta`` do the same for one flat delta
+(P,), leaf by leaf: int8 values and one fp32 scale a leaf
+(``QuantizedTree``).
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import torch
 
 from repro_torch.kernels.aggregate import masked_weighted_sum
 
-__all__ = ["compressed_fedavg"]
+__all__ = ["QuantizedTree", "quantize_delta", "dequantize_delta", "compressed_fedavg",
+           "bytes_per_param"]
+
+
+class QuantizedTree(NamedTuple):
+    q: torch.Tensor      # (P,) int8
+    scale: torch.Tensor  # (n_leaves,) fp32, one a leaf
+
+
+def bytes_per_param(bits: int = 8) -> float:
+    return bits / 8.0
+
+
+def quantize_delta(delta: torch.Tensor, uniforms: torch.Tensor,
+                   leaves: list[list[tuple[int, int]]], bits: int = 8) -> QuantizedTree:
+    """Symmetric quantization of a flat (P,) delta with a scale a leaf
+    (``leaf_segments``) and stochastic rounding: an element rounds up when
+    its (P,) uniform lies below its fraction."""
+    qmax = 2 ** (bits - 1) - 1
+    x = delta.to(torch.float32)
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    scales = []
+    for leaf in leaves:
+        cols = torch.cat([torch.arange(a, b, device=x.device) for a, b in leaf])
+        scale = torch.clamp(x[cols].abs().max(), min=1e-12) / qmax
+        y = x[cols] / scale
+        lo = torch.floor(y)
+        up = (uniforms[cols] < y - lo).to(torch.float32)
+        q[cols] = torch.clamp(lo + up, -qmax - 1, qmax).to(torch.int8)
+        scales.append(scale)
+    return QuantizedTree(q, torch.stack(scales))
+
+
+def dequantize_delta(qt: QuantizedTree, leaves: list[list[tuple[int, int]]]) -> torch.Tensor:
+    """The (P,) fp32 delta that ``qt`` encodes."""
+    out = qt.q.to(torch.float32)
+    for leaf, scale in zip(leaves, qt.scale):
+        for start, stop in leaf:
+            out[start:stop] *= scale
+    return out
 
 
 def compressed_fedavg(

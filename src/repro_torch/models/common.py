@@ -25,6 +25,7 @@ __all__ = [
     "activation",
     "rope_table",
     "apply_rope",
+    "he_init",
     "lecun_init",
     "linear",
     "per_client",
@@ -96,6 +97,14 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor,
     y1 = x0 * s + x1 * c
     y = torch.stack([y0, y1], dim=-1).flatten(-2).to(x.dtype)
     return torch.cat([y, xp], dim=-1)
+
+
+def he_init(generator: torch.Generator, shape: tuple[int, ...]) -> torch.Tensor:
+    """N(0, 2 / fan_in) fp32 weights drawn from ``generator`` on its device
+    (``fan_in`` is ``shape[-2]``)."""
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    w = torch.randn(shape, generator=generator, device=generator.device)
+    return w * math.sqrt(2.0 / fan_in)
 
 
 def lecun_init(generator: torch.Generator, shape: tuple[int, ...],

@@ -1,11 +1,17 @@
-"""Selective-SSM (Mamba) heads of hymba, ported from the Mamba half of
-``repro.models.ssm`` (the xLSTM half comes with the xlstm slice).
+"""Recurrent blocks, ported from ``repro.models.ssm``: the selective-SSM
+(Mamba) heads of hymba and the xLSTM blocks (mLSTM and sLSTM) of xlstm.
 
 - ``mamba_shapes`` / ``init_mamba`` — one block's parameters, in the
   reference's key order and with its distributions.
 - ``mamba_seq`` — the full-sequence block: input projection, depthwise
   causal conv, SiLU, discretisation, the selective scan, the SiLU gate and
   the output projection.
+- ``xlstm_shapes`` / ``init_xlstm`` — one xLSTM block's parameters (one
+  layout for mLSTM and sLSTM), in the reference's key order.
+- ``chunked_linear_scan`` — h_t = a_t h_{t-1} + b_t in chunks, a
+  Hillis–Steele scan inside each chunk with the reference's ``combine``.
+- ``mlstm_seq`` / ``slstm_seq`` — the two xLSTM cores over the full
+  sequence, with the reference's stabilisers.
 
 Weights arrive shared by the whole batch, x (..., S, d), or one set per
 client, x (m, B, S, d) with every leaf carrying a leading m axis, as
@@ -21,6 +27,12 @@ forward and backward; on CPU tensors its plain version.  The reference's
 associative scan; neither changes a number, and neither has a counterpart
 here.  ``mamba_seq`` returns the block output only: the state and
 conv-tail carry for decode come with the decode slice.
+
+The xLSTM cores have no TPU kernel in the reference and none here: their
+products are ``torch.matmul``.  They return the block output only; the
+recurrent state for decode (``mlstm_decode``, ``slstm_decode``) comes with
+the decode slice.  ``ssm.chunk`` is the mLSTM chunk and the sLSTM scan
+chunk, as in the reference.
 """
 
 from __future__ import annotations
@@ -31,9 +43,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.mamba_scan import mamba_scan
-from repro_torch.models.common import lecun_init, linear, per_client
+from repro_torch.models.common import lecun_init, linear, per_client, rms_norm
 
-__all__ = ["mamba_shapes", "init_mamba", "mamba_seq"]
+__all__ = ["mamba_shapes", "init_mamba", "mamba_seq", "chunked_linear_scan", "xlstm_shapes",
+           "init_xlstm", "mlstm_seq", "slstm_seq"]
+
+_NEG = -1e30  # the causal and initial-state fill: exp(_NEG - m) is 0, never NaN
 
 
 def mamba_shapes(cfg) -> dict[str, tuple[int, ...]]:
@@ -96,3 +111,152 @@ def mamba_seq(p, cfg, x: torch.Tensor) -> torch.Tensor:
                    bmat.reshape(rows, s, n), cmat.reshape(rows, s, n),
                    p["a_log"].contiguous(), p["d_skip"].contiguous())
     return linear(y.reshape(x_in.shape) * F.silu(z), p["w_out"])
+
+
+# ---------------------------------------------------------------------------
+# xLSTM: mLSTM (matrix memory) + sLSTM (scalar memory)
+# ---------------------------------------------------------------------------
+
+
+def xlstm_shapes(cfg) -> dict[str, tuple[int, ...]]:
+    """Parameter shapes of one xLSTM block, in the reference's key order."""
+    d, h = cfg.d_model, cfg.ssm.n_heads
+    return {"w_up": (d, 2 * d), "wq": (d, d), "wk": (d, d), "wv": (d, d), "w_if": (d, 2 * h),
+            "b_if": (2 * h,), "w_down": (d, d), "core_norm": (d,)}
+
+
+def init_xlstm(generator: torch.Generator, cfg) -> dict[str, torch.Tensor]:
+    """fp32 parameters drawn from ``generator`` on its device with the
+    reference's distributions: LeCun matrices, gate biases 0 (input) and 3
+    (forget), zero core-norm scale."""
+    shapes = xlstm_shapes(cfg)
+    dev = generator.device
+    h = cfg.ssm.n_heads
+    p = {name: lecun_init(generator, shapes[name])
+         for name in ("w_up", "wq", "wk", "wv", "w_if")}
+    p["b_if"] = torch.cat([torch.zeros(h, device=dev), torch.full((h,), 3.0, device=dev)])
+    p["w_down"] = lecun_init(generator, shapes["w_down"])
+    p["core_norm"] = torch.zeros(shapes["core_norm"], device=dev)
+    return {name: p[name] for name in shapes}
+
+
+def chunked_linear_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor, chunk: int):
+    """h_t = a_t h_{t-1} + b_t along axis 1; a broadcasts against b (B, S,
+    ...), h0 is (B, ...).  Returns (h_all (B, S, ...), h_final (B, ...)).
+
+    Inside a chunk a Hillis–Steele scan: log2(chunk) steps of the
+    reference's ``combine`` (earlier x, later y) -> (y_a x_a, y_a x_b +
+    y_b), each over the whole chunk; the chunks run in order, each starting
+    from the last state of the one before.  Nothing divides by a running
+    product of a, which underflows to 0 within a chunk."""
+    s = b.shape[1]
+    c = min(chunk, s)
+    if s % c:
+        raise ValueError(f"sequence length {s} is not a multiple of the scan chunk {c}")
+    a = a.reshape(*a.shape, *[1] * (b.ndim - a.ndim))
+    outs, h = [], h0
+    for start in range(0, s, c):
+        acc_a, acc_b = a[:, start:start + c], b[:, start:start + c]
+        step = 1
+        while step < c:
+            pad_a = torch.ones_like(acc_a[:, :step])
+            pad_b = torch.zeros_like(acc_b[:, :step])
+            prev_a = torch.cat([pad_a, acc_a[:, :-step]], dim=1)
+            prev_b = torch.cat([pad_b, acc_b[:, :-step]], dim=1)
+            acc_a, acc_b = acc_a * prev_a, acc_a * prev_b + acc_b
+            step *= 2
+        h_all = acc_a * h.unsqueeze(1) + acc_b
+        outs.append(h_all)
+        h = h_all[:, -1]
+    return torch.cat(outs, dim=1), h
+
+
+def _xlstm_proj(p, cfg, x):
+    """q, k (scaled by 1/sqrt(hd)), v (..., S, H, hd); the input and
+    forget-gate logits (..., S, H) in fp32 (the forget one as log f); the
+    output gate (..., S, d)."""
+    h = cfg.ssm.n_heads
+    hd = x.shape[-1] // h
+    core_in, out_gate = linear(x, p["w_up"]).chunk(2, dim=-1)
+    q = linear(core_in, p["wq"]).unflatten(-1, (h, hd))
+    k = linear(core_in, p["wk"]).unflatten(-1, (h, hd)) / math.sqrt(hd)
+    v = linear(core_in, p["wv"]).unflatten(-1, (h, hd))
+    gates = linear(core_in.to(torch.float32), p["w_if"]) + per_client(p["b_if"], core_in)
+    return q, k, v, gates[..., :h], F.logsigmoid(gates[..., h:]), out_gate
+
+
+def _xlstm_out(p, cfg, x, y, out_gate):
+    """The core's (N, S, H, hd) output back to x's shape, normed, gated and
+    projected down."""
+    y = y.reshape(x.shape).to(x.dtype)
+    y = rms_norm(y, per_client(p["core_norm"], y), cfg.norm_eps)
+    return linear(y * F.silu(out_gate), p["w_down"])
+
+
+def mlstm_seq(p, cfg, x: torch.Tensor) -> torch.Tensor:
+    """Chunkwise-parallel mLSTM over the full sequence, x (..., S, d) ->
+    (..., S, d), with the reference's stabilisers: the running maximum m of
+    the exponential-gate logits, ``_NEG`` as the causal fill, the
+    normaliser max(|n|, exp(-m)), and the state (C, n, m, F) carried from
+    chunk to chunk."""
+    s = x.shape[-2]
+    ck = min(cfg.ssm.chunk, s)
+    if s % ck:
+        raise ValueError(f"sequence length {s} is not a multiple of the mLSTM chunk {ck}")
+    q, k, v, i_log, f_log, out_gate = _xlstm_proj(p, cfg, x)
+    # the batch axes folded into one, heads first: (N, H, S, hd) and (N, H, S)
+    q, k, v = (t.reshape(-1, *t.shape[-3:]).transpose(1, 2).to(torch.float32) for t in (q, k, v))
+    i_log, f_log = (t.reshape(-1, s, t.shape[-1]).transpose(1, 2) for t in (i_log, f_log))
+    n_b, hh, _, hd = q.shape
+    big_f = torch.cumsum(f_log, dim=-1)
+    causal = torch.ones(ck, ck, dtype=torch.bool, device=x.device).tril()
+    c_state = q.new_zeros(n_b, hh, hd, hd)
+    n_state = q.new_zeros(n_b, hh, hd)
+    m_state = q.new_full((n_b, hh), _NEG)
+    f_prev = q.new_zeros(n_b, hh)
+    ys = []
+    for start in range(0, s, ck):
+        sl = slice(start, start + ck)
+        qb, kb, vb, fb, ib = q[:, :, sl], k[:, :, sl], v[:, :, sl], big_f[:, :, sl], i_log[:, :, sl]
+        # intra-chunk decay logits D_ij = F_i - F_j + i_j (j <= i)
+        lg = torch.where(causal, fb[..., :, None] - fb[..., None, :] + ib[..., None, :], _NEG)
+        lg_state = fb - f_prev[..., None] + m_state[..., None]    # (N, H, cq)
+        m_new = torch.maximum(lg.amax(-1), lg_state)
+        w = (qb @ kb.transpose(-1, -2)) * torch.exp(lg - m_new[..., None])
+        w_state = torch.exp(lg_state - m_new)
+        num = w @ vb + (qb @ c_state) * w_state[..., None]
+        den = torch.abs(w.sum(-1) + (qb @ n_state[..., None]).squeeze(-1) * w_state)
+        ys.append(num / torch.maximum(den, torch.exp(-m_new))[..., None])
+        if start + ck < s:  # the state at the chunk's end
+            f_end = fb[..., -1]
+            m_cand = f_end - f_prev + m_state
+            decay = f_end[..., None] - fb + ib                    # (N, H, ck)
+            m_end = torch.maximum(decay.amax(-1), m_cand)
+            wj = torch.exp(decay - m_end[..., None])[..., None] * kb
+            keep = torch.exp(m_cand - m_end)
+            c_state = keep[..., None, None] * c_state + wj.transpose(-1, -2) @ vb
+            n_state = keep[..., None] * n_state + wj.sum(-2)
+            m_state, f_prev = m_end, f_end
+    return _xlstm_out(p, cfg, x, torch.cat(ys, dim=2).transpose(1, 2), out_gate)
+
+
+def slstm_seq(p, cfg, x: torch.Tensor) -> torch.Tensor:
+    """sLSTM over the full sequence, x (..., S, d) -> (..., S, d): the
+    reference's linearised form (no h -> gate feedback), per-head scalar
+    memory with exponential gating.  The stabiliser m_t = max(f_t +
+    m_{t-1}, i_t), the reference's (max, +) scan, is computed in closed
+    form as F_t + cummax(i - F) with F = cumsum(log f); c and n are
+    chunked linear scans."""
+    s = x.shape[-2]
+    _, _, v, i_log, f_log, out_gate = _xlstm_proj(p, cfg, x)
+    z = torch.tanh(v.reshape(-1, *v.shape[-3:]).to(torch.float32))  # (N, S, H, hd)
+    i_log, f_log = i_log.reshape(-1, s, i_log.shape[-1]), f_log.reshape(-1, s, f_log.shape[-1])
+    big_f = torch.cumsum(f_log, dim=1)
+    m_run = big_f + torch.cummax(i_log - big_f, dim=1).values
+    m_prev = torch.cat([torch.full_like(m_run[:, :1], _NEG), m_run[:, :-1]], dim=1)
+    fp = torch.exp(f_log + m_prev - m_run)[..., None]             # (N, S, H, 1)
+    ip = torch.exp(i_log - m_run)[..., None]
+    c_all, _ = chunked_linear_scan(fp, ip * z, torch.zeros_like(z[:, 0]), cfg.ssm.chunk)
+    n_all, _ = chunked_linear_scan(fp, ip, torch.zeros_like(ip[:, 0]), cfg.ssm.chunk)
+    y = c_all / torch.clamp(torch.abs(n_all), min=1e-6)
+    return _xlstm_out(p, cfg, x, y, out_gate)

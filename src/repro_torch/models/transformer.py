@@ -1,16 +1,18 @@
 """Decoder stack, ported from ``repro.models.transformer`` over token
-inputs, with two block types: ``attn`` (pre-norm GQA attention plus
-pre-norm dense MLP) and ``hymba`` (attention in parallel with Mamba heads on
+inputs, with three block types: ``attn`` (pre-norm GQA attention plus
+pre-norm dense MLP), ``hymba`` (attention in parallel with Mamba heads on
 the same normed input, their outputs fused as the mean of per-branch
-RMS-normed outputs, then the MLP).
+RMS-normed outputs, then the MLP) and ``xlstm`` (a pre-norm mLSTM or sLSTM
+core as the layer's ``is_mlstm`` flag says, no MLP).
 
 Parameters live in one flat fp32 vector (P,), and a cohort of m client
 models is one (m, P) tensor, as for the MLP.  ``TransformerLayout`` gives
 the reference's parameter tree as views of either: ``{"layers": [{
 "norm1_scale", ..., "attn": {wq, wk, wv, wo}, "mlp": {w_up, w_down}}, ...],
 "final_norm_*", "embed", "head"}`` (a hymba layer adds ``"ssm": {...}``,
-``attn_out_norm`` and ``ssm_out_norm``), each leaf with the reference's shape
-behind the leading client axis, if any.  The views come from one
+``attn_out_norm`` and ``ssm_out_norm``; an xlstm layer is ``{"xlstm": {w_up,
+wq, wk, wv, w_if, b_if, w_down, core_norm}, "norm1"}``), each leaf with the
+reference's shape behind the leading client axis, if any.  The views come from one
 ``torch.split``, so the gradient of the flat vector is assembled by one
 concatenation rather than one full-size scatter per leaf.
 
@@ -19,9 +21,11 @@ batch (poll, evaluation), or tokens (m, B, S) with weights (m, P), one set
 per client (local SGD).  Client and batch axes fold into one batch axis for
 attention, which runs through the flash-attention kernel on the card, and
 into the rows of the selective-scan kernel for the Mamba heads.
-The reference's ``remat`` (``jax.checkpoint`` per layer) changes no
-number and is not mapped.  What the port does not run yet is rejected up
-front: the ``xlstm`` block, MoE, MLA, non-token inputs and the MTP head.
+The reference computes both xLSTM cores in every layer and keeps one with
+``jnp.where``; the port computes only the flagged one, which gives the
+same output and gradient.  The reference's ``remat`` (``jax.checkpoint``
+per layer) changes no number and is not mapped.  What the port does not
+run yet is rejected up front: MoE, MLA, non-token inputs and the MTP head.
 """
 
 from __future__ import annotations
@@ -52,10 +56,11 @@ __all__ = [
 def check_supported(cfg) -> None:
     """Raise for what the port does not run yet."""
     unsupported = [
-        (cfg.block_type not in ("attn", "hymba"),
-         f"block_type={cfg.block_type!r} (xlstm comes in a later slice)"),
+        (cfg.block_type not in ("attn", "hymba", "xlstm"), f"block_type={cfg.block_type!r}"),
         (cfg.block_type == "hymba" and (cfg.ssm is None or cfg.ssm.family != "mamba"),
          "a hymba block without a mamba SSM config"),
+        (cfg.block_type == "xlstm" and (cfg.ssm is None or cfg.ssm.family != "xlstm"),
+         "an xlstm block without an xlstm SSM config"),
         (cfg.moe is not None, "MoE layers"),
         (cfg.use_mla, "MLA attention"),
         (cfg.input_mode != "tokens", f"input_mode={cfg.input_mode!r}"),
@@ -99,14 +104,20 @@ def _mlp_shapes(cfg) -> dict[str, tuple[int, ...]]:
 class TransformerLayout:
     """Where each parameter of the reference's tree sits in the flat
     vector: layer by layer (norm1, attn, for hymba ssm, attn_out_norm and
-    ssm_out_norm, then norm2, mlp), then the final norm, the embedding and
-    the untied head."""
+    ssm_out_norm, then norm2, mlp; for xlstm the block, then norm1), then
+    the final norm, the embedding and the untied head."""
 
     def __init__(self, cfg):
         check_supported(cfg)
         self.cfg = cfg
         self.entries: list[tuple[tuple[str, ...], tuple[int, ...]]] = []
         for i in range(cfg.n_layers):
+            if cfg.block_type == "xlstm":
+                for name, shape in ssm_mod.xlstm_shapes(cfg).items():
+                    self.entries.append((("layers", i, "xlstm", name), shape))
+                for name, shape in _norm_shapes(cfg, "norm1").items():
+                    self.entries.append((("layers", i, name), shape))
+                continue
             for name, shape in _norm_shapes(cfg, "norm1").items():
                 self.entries.append((("layers", i, name), shape))
             for name, shape in gqa_shapes(cfg).items():
@@ -182,11 +193,16 @@ def init_transformer(generator: torch.Generator, cfg) -> torch.Tensor:
     device, with the reference's distributions: LeCun projections, unit
     LayerNorm scales (zero RMSNorm scales), zero biases, N(0, 0.02^2)
     embedding, LeCun head; a hymba layer's Mamba heads as ``init_mamba``
-    draws them and zero scales for its two output norms."""
+    draws them and zero scales for its two output norms; an xlstm layer's
+    block as ``init_xlstm`` draws it."""
     layout = TransformerLayout(cfg)
     dev = generator.device
     layers = []
     for _ in range(cfg.n_layers):
+        if cfg.block_type == "xlstm":
+            layers.append({"xlstm": ssm_mod.init_xlstm(generator, cfg),
+                           **_init_norm(cfg, "norm1", dev)})
+            continue
         layer = {**_init_norm(cfg, "norm1", dev), **_init_norm(cfg, "norm2", dev)}
         layer["attn"] = init_gqa(generator, cfg)
         if cfg.block_type == "hymba":
@@ -250,9 +266,13 @@ def _select_rope(tabs_l, tabs_g, is_global: float):
     return tabs_g if is_global > 0 else tabs_l
 
 
-def _apply_layer_seq(pl, cfg, x, is_global: float, tabs_l, tabs_g):
+def _apply_layer_seq(pl, cfg, x, flags: dict[str, float], tabs_l, tabs_g):
     """One layer over the full sequence: attention (in parallel with the
-    Mamba heads for hymba), then the MLP."""
+    Mamba heads for hymba), then the MLP; for xlstm the flagged core."""
+    if cfg.block_type == "xlstm":
+        core = ssm_mod.mlstm_seq if flags["is_mlstm"] > 0 else ssm_mod.slstm_seq
+        return x + core(pl["xlstm"], cfg, _norm(pl, cfg, x, "norm1"))
+    is_global = flags["is_global"]
     sin, cos = _select_rope(tabs_l, tabs_g, is_global)
     h = _norm(pl, cfg, x, "norm1")
     a_out = gqa_attention(pl["attn"], cfg, h, sin, cos, is_global)
@@ -272,8 +292,10 @@ def forward(params, cfg, tokens: torch.Tensor, layout: TransformerLayout | None 
         params = (layout or TransformerLayout(cfg)).views(params)
     x = embed_inputs(params, cfg, tokens)
     tabs_l, tabs_g = _rope_tables(cfg, x.shape[-2], x.device)
-    for pl, is_global in zip(params["layers"], layer_flags(cfg)["is_global"]):
-        x = _apply_layer_seq(pl, cfg, x, float(is_global), tabs_l, tabs_g)
+    flags = layer_flags(cfg)
+    for i, pl in enumerate(params["layers"]):
+        x = _apply_layer_seq(pl, cfg, x, {k: float(v[i]) for k, v in flags.items()},
+                             tabs_l, tabs_g)
     return _norm(params, cfg, x, "final_norm")
 
 

@@ -95,10 +95,35 @@ def test_hymba_config_matches_reference():
     assert port.source == "arXiv:2411.13676"
 
 
-@pytest.mark.parametrize("name", ["xlstm-125m", "dbrx-132b", "deepseek-v3-671b"])
+@pytest.mark.parametrize("name", ["musicgen-large", "dbrx-132b", "deepseek-v3-671b"])
 def test_unported_configs_name_their_slice(name):
     with pytest.raises(ValueError, match="repro_torch does not implement .* arrives in"):
         get_config(name)
+
+
+DENSE = ["glm4-9b", "qwen3-14b", "gemma3-27b"]
+
+
+@pytest.mark.parametrize("name", DENSE)
+def test_dense_config_matches_reference(name):
+    for reduced in (False, True):
+        assert dataclasses.asdict(get_config(name, reduced=reduced)) == dataclasses.asdict(
+            ref_get_config(name, reduced=reduced))
+
+
+@pytest.mark.parametrize("name", DENSE)
+def test_dense_reduced_forward_matches_reference(name):
+    """The reduced config (2 layers, d_model 256, vocab 512) in float32;
+    gemma3's pattern "LLLLLG" makes both layers windowed (64) at S = 128."""
+    ref_cfg = dataclasses.replace(ref_get_config(name, reduced=True), dtype="float32")
+    cfg = get_config(name, reduced=True)
+    ref_params = ref_init_transformer(jax.random.PRNGKey(0), ref_cfg)
+    flat = transformer_params_from_jax(jax.tree.map(np.asarray, ref_params), cfg)
+    toks = np.random.default_rng(1).integers(0, cfg.vocab, (2, 128)).astype(np.int32)
+    want = jax.jit(lambda p: ref_forward(p, ref_cfg, {"tokens": jnp.asarray(toks)})[0])(
+        ref_params)
+    got = forward(flat, cfg, _t(toks))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
 
 
 @pytest.mark.parametrize("args", [(48, 16, 32, 0), (64, 64, 50304, 1), (5, 9, 7, 3)])
@@ -355,8 +380,8 @@ def test_lm_task_loss_metric_and_ppl_match_reference(tasks, lm_data, micro, coho
 def test_lm_config_validation():
     cfg = FLConfig.from_dict(lm_fl_cfg().to_dict())
     assert cfg.task == "lm" and FLConfig.from_dict(cfg.to_dict()) == cfg
-    with pytest.raises(ValueError, match="xlstm-125m"):
-        FLConfig(task="lm")  # the reference's default model is not ported yet
+    # the reference's default model, xlstm-125m (tests/test_torch_xlstm.py runs it)
+    assert build_task(FLConfig(task="lm")).model_cfg.name == "xlstm-125m-reduced"
     with pytest.raises(ValueError, match="invalid task_kwargs"):
         FLConfig(task="lm", task_kwargs={"model": "stablelm-3b", "bogus": 1})
     with pytest.raises(ValueError, match="invalid task_kwargs"):

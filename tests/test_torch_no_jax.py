@@ -84,7 +84,7 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("task", "lm"),  # the LM task's default model, xlstm-125m, comes in a later slice
+    ("async_mode", {"dispatch": "sync"}),
     ("backend", "scaleout"),
     ("population", {"n_shards": 4, "shards_per_round": 2}),
     ("systems", {"profile": "mobile_mix"}),

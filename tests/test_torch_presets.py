@@ -1,9 +1,9 @@
 """Port parity for the named method presets and the batching pipeline:
 ``repro_torch.engine.presets`` registers the reference's presets with the
 same values, each classification preset's config round-trips into the
-reference's ``FLConfig`` unchanged, ``fedlecc_lm`` (xlstm-125m, not
-ported yet) raises naming its slice, and ``batch_iterator`` yields the
-reference's batches for a seed."""
+reference's ``FLConfig`` unchanged, ``fedlecc_lm`` (on xlstm-125m, the
+LM task's default model) builds the reference's config, and
+``batch_iterator`` yields the reference's batches for a seed."""
 
 import dataclasses
 
@@ -45,8 +45,10 @@ def test_preset_config_round_trips_into_the_reference(name):
 
 
 def test_lm_preset_raises_naming_its_slice():
-    with pytest.raises(ValueError, match="xlstm-125m.*next slice"):
-        get_preset("fedlecc_lm").make_config()
+    """Ported with xlstm-125m: the preset no longer raises; it builds the
+    reference's config (``tests/test_torch_xlstm.py`` runs a round)."""
+    cfg = get_preset("fedlecc_lm").make_config()
+    assert cfg.to_dict() == ref_get_preset("fedlecc_lm").make_config().to_dict()
 
 
 @pytest.mark.parametrize("n,batch,drop,epochs,seed", [(50, 8, True, 2, 0), (50, 8, False, 3, 1),
