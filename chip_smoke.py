@@ -12,7 +12,10 @@ Phases, each printed on its own lines:
 3. kernels — holds each kernel against its plain PyTorch version on the
    card and times the kernel, the plain version and one PyTorch library
    call computing the same function where one exists (median over 30
-   calls, CUDA events; 5 for the plain scan over 2048 steps).
+   calls, CUDA events; 5 for the plain scan over 2048 steps); K1 also at
+   the over-selected cohorts (13 and 16 rows, and xlstm's (13, P)), and
+   with a NaN row at weight > 0 and at weight 0 (the plain version's
+   result: NaN in every column).
 4. main paths, each driven through ``make_engine(...).rounds()`` with
    every kernel's launch count set to 0 just before and read just after:
    - the paper's experiment at full width (K = 100 clients, m = 10, MLP
@@ -48,6 +51,23 @@ Phases, each printed on its own lines:
      ms, idle share, top device operations).  ``memory_allocated`` is
      printed before the phase, after it and after ``gc.collect()``, and
      must come back within 16 MiB of its level before;
+   - ``systems:`` the paper's configuration (150 rounds, host backend)
+     under the grid of ``benchmarks/bench_systems.py``: ``mobile_mix``
+     devices with ``markov`` availability, no deadline against a deadline
+     at the profile's 60th percentile round time with over-selection 1.0,
+     1.3 and 1.6, for fedlecc, random, poc and haccs: one line a run
+     (simulated seconds, mean drops a round, median round, MB, K1 and K2
+     launches), then per strategy the simulated seconds, MB and rounds to
+     95 % of the lowest best accuracy; fedlecc at the deadline with 1.3 on
+     the compiled backend and in fused chunks of 5 must keep the host's
+     survivors, drops and bits;
+   - ``faults:`` the same configuration, fedlecc, under the grid of
+     ``benchmarks/bench_robustness.py``: ``sign_flip`` at 0, 5 and 20 %
+     with no defense, the validation gate, and the gate with the trimmed
+     mean (final and best accuracy, recovery against the fault-free run,
+     faulty updates, the most quarantined, median round); rate 0 must give
+     ``faults=None``'s bits, the compiled backend the host's survivors at
+     20 %, and fused chunks of 5 run the gate inside a captured graph;
    - federated LM training on stablelm-3b at full width, cut from 32 to
      2 layers (P = 380,789,760), K = 100, m = 10, batch 8 of 64 tokens,
      3 rounds, with the flash-attention kernel forward (poll, local SGD,
@@ -59,7 +79,11 @@ Phases, each printed on its own lines:
    - federated LM training on xlstm-125m, the LM task's default model, at
      full width and depth (12 layers, P = 119,827,296), the same data
      recipe and settings: nine mLSTM and three sLSTM layers in plain
-     PyTorch, K2 at setup and K1 once a round on (10, P).
+     PyTorch, K2 at setup and K1 once a round on (10, P); then the same
+     under both axes (``mobile_mix`` at its 60th percentile deadline,
+     over-selection 1.3 so K1 reduces (13, P); ``sign_flip`` and
+     ``nan_update`` at 20 % behind the gate), with the gate's norm pass
+     and clip timed alone at (13, P) under the profiler.
 5. agreement — a small configuration of each task and model (stablelm,
    hymba, xlstm, and glm4, qwen3 and gemma3 reduced), of every
    classification preset and of fused compiled chunks, run on the CPU
@@ -68,7 +92,9 @@ Phases, each printed on its own lines:
    same parameters; xlstm's training is chaotic (a relative change of
    1e-6 of the weights moves the test loss by 1e-2 to 4e-2 within two
    rounds: scripts/xlstm_sensitivity.py), so its card run starts each
-   round, of one local step, from the CPU run's parameters.
+   round, of one local step, from the CPU run's parameters; so does the
+   xlstm micro run under both axes, which must also drop and flag the
+   same clients.
 6. kernel-only — each kernel's own device time a call, without the
    wrapper's host work, at each of its phase-3 shapes: K1, K2, the
    flash-attention kernels (forward, dQ and dK/dV) and the selective
@@ -265,6 +291,29 @@ def _check_aggregate(shape, dtype, device):
     }
     print(f"kernel masked_weighted_sum {json.dumps(rec)}", flush=True)
     return rec
+
+
+def _check_aggregate_nan(device):
+    """K1 with a NaN row (an undefended ``nan_update``) at weight > 0 and at
+    weight 0, at the systems phase's (13, 199,210): the kernel gives its
+    plain version's result (NaN in every column: 0 · NaN = NaN)."""
+    import torch
+
+    from repro_torch.kernels.aggregate import masked_weighted_sum, masked_weighted_sum_ref
+
+    x, w = _aggregate_inputs((13, 199_210), torch.float32, device)
+    x[4] = float("nan")
+    for weight in (0.1, 0.0):
+        w[4] = weight
+        got, want = masked_weighted_sum(x, w), masked_weighted_sum_ref(x, w)
+        torch.cuda.synchronize()
+        same = torch.equal(torch.isnan(got), torch.isnan(want)) and torch.equal(
+            torch.nan_to_num(got), torch.nan_to_num(want))
+        print(f"kernel masked_weighted_sum with a NaN row at weight {weight}: the plain "
+              f"version's result {same}, NaN columns {int(torch.isnan(got).sum())} of "
+              f"{got.numel()}", flush=True)
+        if not same:
+            raise AssertionError(f"K1 with a NaN row at weight {weight} differs from plain")
 
 
 def _attention_work(shape, window, is_global, elem):
@@ -776,14 +825,15 @@ def _k1_launches(engine) -> int:
         engine.replayed_launches() if hasattr(engine, "replayed_launches") else 0)
 
 
-def _backend_run(device, tag, cfg, train, test):
+def _timed_run(device, cfg, train, test):
     """``cfg`` to its last round through ``make_engine(...).rounds()``, K1 and
     K2 counted from 0 over it, each step timed (a fused chunk's rounds
-    together); checks launches, replays, selections and learning; returns
-    (record, engine, results)."""
+    together); returns (engine, results, setup s, steps: (rounds, ms,
+    whether a graph replayed them), the median round's ms: a replayed
+    chunk's ms / its rounds when fused)."""
     import torch
 
-    from repro_torch.engine import make_engine, rounds_to_accuracy
+    from repro_torch.engine import make_engine
     from repro_torch.kernels.aggregate import masked_weighted_sum
     from repro_torch.kernels.hellinger import hellinger_strip
 
@@ -793,7 +843,7 @@ def _backend_run(device, tag, cfg, train, test):
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t
     fused = cfg.fuse_rounds > 0
-    results, steps = [], []  # steps: (rounds, ms, whether a graph replayed them)
+    results, steps = [], []
     it = engine.rounds()
     while len(results) < cfg.rounds:
         length = engine._chunk_len(len(results), cfg.rounds) if fused else 1
@@ -803,11 +853,25 @@ def _backend_run(device, tag, cfg, train, test):
             results.append(next(it))
         torch.cuda.synchronize()
         steps.append((length, (time.perf_counter() - t) * 1e3, replay))
-    timed = [ms / n for n, ms, replay in steps if replay or not fused]
+    median_ms = statistics.median(ms / n for n, ms, replay in steps if replay or not fused)
+    return engine, results, setup_s, steps, median_ms
+
+
+def _backend_run(device, tag, cfg, train, test):
+    """``cfg`` through ``_timed_run``; checks launches, replays, selections
+    and learning; returns (record, engine, results)."""
+    import torch
+
+    from repro_torch.engine import rounds_to_accuracy
+    from repro_torch.kernels.aggregate import masked_weighted_sum
+    from repro_torch.kernels.hellinger import hellinger_strip
+
+    engine, results, setup_s, steps, median_ms = _timed_run(device, cfg, train, test)
+    fused = cfg.fuse_rounds > 0
     last = results[-1]
     rec = {"tag": tag, "backend": cfg.backend, "fuse_rounds": cfg.fuse_rounds,
            "compress_bits": cfg.compress_bits, "rounds": len(results), "setup_s": setup_s,
-           "median_round_ms": statistics.median(timed), "final_test_acc": last.test_acc,
+           "median_round_ms": median_ms, "final_test_acc": last.test_acc,
            "rounds_to_50": rounds_to_accuracy(engine.history, 0.5), "comm_mb": last.comm_mb,
            "k1_launches": _k1_launches(engine), "k2_launches": hellinger_strip.launches}
     if fused:
@@ -846,14 +910,19 @@ def _backend_run(device, tag, cfg, train, test):
     return rec, engine, results
 
 
-def _same_run(tag, a, b, atol):
-    """Two runs (engine, results) select the same clients every round and
-    end within ``atol`` of each other's parameters."""
+# what two runs of the axes must agree on every round
+AXES_FIELDS = ("round", "selected", "n_dropped", "sim_time", "n_faulty", "n_quarantined")
+
+
+def _same_run(tag, a, b, atol, phase="backends", fields=("round", "selected")):
+    """Two runs (engine, results) agree on ``fields`` (the selections, and
+    with ``AXES_FIELDS`` the drops and fault counts) every round and end
+    within ``atol`` of each other's parameters."""
     (ea, ra), (eb, rb) = a, b
-    sel_a, sel_b = [r.selected for r in ra], [r.selected for r in rb]
+    same = [tuple(getattr(r, f) for f in fields) for r in ra] == [
+        tuple(getattr(r, f) for f in fields) for r in rb]
     diff = float((ea.params - eb.params).abs().max())
-    same = sel_a == sel_b and [r.round for r in ra] == [r.round for r in rb]
-    print(f"backends {tag}: {len(ra)} rounds, same selections every round: {same}, "
+    print(f"{phase} {tag}: {len(ra)} rounds, same selections every round: {same}, "
           f"max |params diff| {diff:.3g} (tolerance {atol})", flush=True)
     if not same:
         raise AssertionError(f"{tag}: the runs selected different clients")
@@ -953,6 +1022,261 @@ def _backends(device):
 
 
 
+# The systems and fault axes at the paper's configuration: the grids of
+# benchmarks/bench_systems.py (mobile_mix devices with markov availability,
+# no deadline against a deadline at the 60th percentile of the profile's
+# round times with over-selection 1.0 / 1.3 / 1.6) and
+# benchmarks/bench_robustness.py (sign_flip at 0 / 5 / 20 % against no
+# defense, the validation gate, and the gate with the trimmed mean)
+AXES_STRATEGIES = ("fedlecc", "random", "poc", "haccs")
+DEADLINE_PCT, OVER_SELECT = 60, (1.0, 1.3, 1.6)
+FAULT_RATES = (0.0, 0.05, 0.2)
+DEFENSES = {"none": {}, "validate": {"defense": "validate"},
+            "validate+trimmed_mean": {"defense": "validate", "aggregator": "trimmed_mean"}}
+
+
+def _mobile_mix(deadline_s, over_select):
+    """The systems config of ``benchmarks/bench_systems.py``."""
+    return dict(profile="mobile_mix", availability="markov",
+                availability_kwargs={"p_drop": 0.1, "p_join": 0.5}, jitter_sigma=0.2,
+                deadline_s=deadline_s, over_select=over_select)
+
+
+def _paper_data():
+    from repro_torch.data import make_classification
+
+    return make_classification(20_000, seed=0), make_classification(2_000, seed=1)
+
+
+PAPER = dict(n_clients=100, m=10, partition="shards", target_hd=0.9, batch_size=64, lr=0.005,
+             hidden=(200, 200), seed=0, rounds=150, eval_every=5)
+
+
+def _deadline(device, cfg, train, test, n_classes=10):
+    """The ``DEADLINE_PCT`` percentile of the profile's jitter-free round
+    times for ``cfg`` (a probe engine: the clock is fixed at construction)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.engine import FLConfig, make_engine
+
+    probe = make_engine(FLConfig(**{**cfg, "rounds": 1}), train, test, n_classes=n_classes,
+                        device=device)
+    deadline = float(np.percentile(probe._systems.clock.base_times(), DEADLINE_PCT))
+    del probe
+    torch.cuda.empty_cache()
+    return deadline
+
+
+def _axis_run(device, phase, tag, cfg, train, test):
+    """``cfg`` (with a systems or fault axis) through ``_timed_run``; checks
+    the survivors, the drop accounting, K1's and K2's launches and finite
+    parameters; returns (record, engine, results)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.hellinger import hellinger_strip
+
+    engine, results, setup_s, _, median_ms = _timed_run(device, cfg, train, test)
+    fused = cfg.fuse_rounds > 0
+    evaluated = [r for r in results if r.evaluated]
+    with_survivors = sum(1 for r in results if r.selected)
+    rec = {"tag": tag, "strategy": cfg.strategy, "aggregator": cfg.aggregator,
+           "backend": cfg.backend, "fuse_rounds": cfg.fuse_rounds, "m_eff": engine.m_eff,
+           "rounds": len(results), "setup_s": setup_s, "median_round_ms": median_ms,
+           "final_acc": evaluated[-1].test_acc, "best_acc": max(r.test_acc for r in evaluated),
+           "total_sim_s": results[-1].sim_clock, "comm_mb": results[-1].comm_mb,
+           "mean_dropped_per_round": float(np.mean([r.n_dropped for r in results])),
+           "total_faulty": sum(r.n_faulty for r in results),
+           "max_quarantined": max(r.n_quarantined for r in results),
+           "rounds_with_survivors": with_survivors,
+           "k1_launches": _k1_launches(engine), "k2_launches": hellinger_strip.launches}
+    if fused:
+        rec["graph_replays"] = engine.graph_replays
+    rec["evaluated"] = [(r.round, r.test_acc, r.sim_clock, r.comm_mb) for r in evaluated]
+    print(f"{phase}: {json.dumps({k: v for k, v in rec.items() if k != 'evaluated'})}",
+          flush=True)
+    want_k2 = 1 if cfg.strategy in HELLINGER_STRATEGIES else 0
+    reduces = cfg.aggregator in REDUCING_AGGREGATORS
+    if cfg.backend == "host":  # the survivors' rows; a flagged round is reduced again
+        k1_ok = (with_survivors <= rec["k1_launches"] <= 2 * cfg.rounds if reduces
+                 else rec["k1_launches"] == 0)
+        if cfg.faults is None:
+            k1_ok = rec["k1_launches"] == (with_survivors if reduces else 0)
+    else:  # every round's cohort, dropped and flagged rows at weight zero
+        k1_ok = rec["k1_launches"] == (cfg.rounds if reduces else 0)
+    if not k1_ok or rec["k2_launches"] != want_k2:
+        raise AssertionError(f"{tag}: K1/K2 launched {rec['k1_launches']}/{rec['k2_launches']} "
+                             f"times ({with_survivors} rounds with survivors)")
+    if fused and not any(engine.graph_replays.values()):
+        raise AssertionError(f"{tag}: no CUDA graph was replayed {engine.graph_replays}")
+    for r in results:
+        sel = list(r.selected)
+        if (sorted(set(sel)) != sel or len(sel) > engine.m_eff
+                or (sel and not 0 <= sel[0] <= sel[-1] < cfg.n_clients)
+                or len(sel) + r.n_dropped > engine.m_eff
+                or (cfg.faults is None and len(sel) + r.n_dropped != engine.m_eff)):
+            raise AssertionError(f"{tag} round {r.round}: bad survivors {sel} "
+                                 f"(dropped {r.n_dropped}, m_eff {engine.m_eff})")
+        if not math.isfinite(r.comm_mb) or not (r.sim_time >= 0 and r.n_faulty >= 0):
+            raise AssertionError(f"{tag} round {r.round}: bad metrics {r}")
+    if not (engine.params.is_cuda and torch.isfinite(engine.params).all()
+            and all(0.0 <= acc <= 1.0 for _, acc, _, _ in rec["evaluated"])):
+        raise AssertionError(f"{tag}: final parameters not finite or accuracy out of range")
+    return rec, engine, results
+
+
+def _time_to(rec, target):
+    """(rounds, simulated s, MB) at the first evaluated round reaching
+    ``target`` accuracy, or None."""
+    for rnd, acc, clock, mb in rec["evaluated"]:
+        if acc >= target:
+            return {"rounds": rnd + 1, "sim_s": clock, "mb": mb}
+    return None
+
+
+def _systems_phase(device):
+    """The systems grid on the host backend, 150 rounds a run, then fedlecc
+    at the deadline with over-selection 1.3 on the compiled backend and in
+    fused chunks of 5; returns K1's launches over the phase."""
+    from repro_torch.engine import FLConfig
+
+    train, test = _paper_data()
+    t = time.perf_counter()
+    deadline = _deadline(device, {**PAPER, "strategy": "random",
+                                  "systems": _mobile_mix(None, 1.0)}, train, test)
+    scenarios = {"no_deadline": _mobile_mix(None, 1.0)}
+    scenarios |= {f"deadline_p{DEADLINE_PCT}_os{o}": _mobile_mix(deadline, o)
+                  for o in OVER_SELECT}
+    print(f"systems: deadline {deadline:.3f} simulated s (the profile's {DEADLINE_PCT}th "
+          "percentile round time)", flush=True)
+    k1, runs = 0, {}
+    for strategy in AXES_STRATEGIES:
+        kw = {"strategy_kwargs": {"J": 3}} if strategy == "fedlecc" else {}
+        recs = {}
+        for name, systems in scenarios.items():
+            cfg = FLConfig(**PAPER, strategy=strategy, systems=systems, **kw)
+            rec, engine, results = _axis_run(device, "systems", f"{strategy} {name}", cfg,
+                                             train, test)
+            k1 += rec["k1_launches"]
+            recs[name] = rec
+            if strategy == "fedlecc" and name == f"deadline_p{DEADLINE_PCT}_os1.3":
+                runs["host"] = (engine, results)
+            del engine, results
+        target = 0.95 * min(rec["best_acc"] for rec in recs.values())
+        summary = {name: _time_to(rec, target) for name, rec in recs.items()}
+        print(f"systems {strategy} to {target:.4f} (95 % of the lowest best accuracy): "
+              f"{json.dumps(summary)}", flush=True)
+    cfg = FLConfig(**PAPER, strategy="fedlecc", strategy_kwargs={"J": 3},
+                   systems=scenarios[f"deadline_p{DEADLINE_PCT}_os1.3"])
+    for tag, kw in (("compiled", {"backend": "compiled"}),
+                    ("fused", {"backend": "compiled", "fuse_rounds": 5})):
+        rec, engine, results = _axis_run(device, "systems",
+                                         f"fedlecc deadline_p{DEADLINE_PCT}_os1.3 {tag}",
+                                         FLConfig(**{**cfg.to_dict(), **kw}), train, test)
+        k1 += rec["k1_launches"]
+        runs[tag] = (engine, results)
+    _same_run("fedlecc host vs compiled", runs["host"], runs["compiled"], PARITY_ATOL,
+              "systems", AXES_FIELDS)
+    _same_run("fedlecc compiled vs fused", runs["compiled"], runs["fused"], PARITY_ATOL,
+              "systems", AXES_FIELDS)
+    runs["fused"][0].close()
+    print(f"systems: phase in {time.perf_counter() - t:.1f} s", flush=True)
+    return k1
+
+
+def _faults_phase(device):
+    """The robustness grid on the host backend, fedlecc, 150 rounds a run;
+    rate 0 against ``faults=None``, host against compiled at 20 %, and fused
+    chunks of 5 (the gate inside a captured graph) at 0 and 20 %; returns
+    K1's launches over the phase."""
+    import torch
+
+    from repro_torch.engine import FLConfig
+
+    train, test = _paper_data()
+    base = dict(PAPER, strategy="fedlecc", strategy_kwargs={"J": 3})
+    t = time.perf_counter()
+    k1, recs, keep = 0, {}, {}
+    for rate in FAULT_RATES:
+        for name, kw in DEFENSES.items():
+            kw = dict(kw)
+            agg = kw.pop("aggregator", "fedavg")
+            cfg = FLConfig(**base, aggregator=agg,
+                           faults={"rate": rate, "models": ["sign_flip"], **kw})
+            rec, engine, results = _axis_run(device, "faults", f"sign_flip {rate} {name}", cfg,
+                                             train, test)
+            k1 += rec["k1_launches"]
+            recs[(rate, name)] = rec
+            if (rate, name) in ((0.0, "none"), (0.2, "validate")):
+                keep[(rate, name)] = (engine, results)
+            del engine, results
+    clean = recs[(0.0, "none")]["final_acc"]
+    for (rate, name), rec in recs.items():
+        print(f"faults: sign_flip {rate} {name}: final {rec['final_acc']:.4f} best "
+              f"{rec['best_acc']:.4f} recovery {rec['final_acc'] / clean:.4f} total faulty "
+              f"{rec['total_faulty']} max quarantined {rec['max_quarantined']} median round "
+              f"{rec['median_round_ms']:.3f} ms", flush=True)
+    rec, engine, results = _axis_run(device, "faults", "faults=None", FLConfig(**base), train,
+                                     test)
+    k1 += rec["k1_launches"]
+    e0, r0 = keep[(0.0, "none")]
+    same = (torch.equal(engine.params, e0.params)
+            and [r.selected for r in results] == [r.selected for r in r0]
+            and [r.comm_mb for r in results] == [r.comm_mb for r in r0])
+    print(f"faults: rate 0 against faults=None, {len(results)} rounds, the same bits: {same}",
+          flush=True)
+    if not same:
+        raise AssertionError("faults at rate 0 changed the run")
+    del engine, results, e0, r0
+    faulty = dict(base, faults={"rate": 0.2, "models": ["sign_flip"], "defense": "validate"})
+    rec, engine, results = _axis_run(device, "faults", "sign_flip 0.2 validate compiled",
+                                     FLConfig(**faulty, backend="compiled"), train, test)
+    k1 += rec["k1_launches"]
+    _same_run("sign_flip 0.2 validate host vs compiled", keep[(0.2, "validate")],
+              (engine, results), PARITY_ATOL, "faults", AXES_FIELDS)
+    del engine, results, keep
+    for tag, cfg in (("fused rate 0", dict(base, faults={"rate": 0.0})),
+                     ("fused sign_flip 0.2 validate", faulty)):
+        rec, engine, results = _axis_run(device, "faults", tag,
+                                         FLConfig(**cfg, backend="compiled", fuse_rounds=5),
+                                         train, test)
+        k1 += rec["k1_launches"]
+        engine.close()
+        del engine, results
+    print(f"faults: phase in {time.perf_counter() - t:.1f} s", flush=True)
+    return k1
+
+
+def _gate_kernel_ms(device, m, n_params):
+    """The validation gate's time a call at (m, P) fp32: its kernels' device
+    time under the profiler and the event-timed call, for the norm pass
+    (``update_norms``) and the whole gate (``validate_updates``: norms,
+    quantile, clip), with their byte bounds."""
+    import torch
+
+    from repro_torch.faults.defense import update_norms, validate_updates
+
+    g = torch.Generator(device=device).manual_seed(m)
+    fetched = torch.randn(n_params, generator=g, device=device)
+    stacked = fetched + 0.01 * torch.randn(m, n_params, generator=g, device=device)
+    valid = torch.ones(m, dtype=torch.bool, device=device)
+    norms = lambda: update_norms(stacked, fetched)  # noqa: E731
+    gate = lambda: validate_updates(stacked, fetched, valid, q=0.9, tol=3.0)  # noqa: E731
+    norms_ms, gate_ms = _kernel_ms(norms, ANY_KERNEL, calls=10), _kernel_ms(gate, ANY_KERNEL,
+                                                                            calls=10)
+    norms_event_ms, gate_event_ms = _median_ms(norms, calls=10), _median_ms(gate, calls=10)
+    del stacked, fetched
+    torch.cuda.empty_cache()
+    norm_bytes = 4 * (m + 1) * n_params           # the cohort and the fetched params, read
+    rec = {"shape": [m, n_params], "norms_ms": norms_ms, "clip_ms": gate_ms - norms_ms,
+           "gate_ms": gate_ms, "norms_event_ms": norms_event_ms, "gate_event_ms": gate_event_ms,
+           "norms_bound_ms": _bound(norm_bytes, 3 * m * n_params)[0],
+           "clip_bound_ms": _bound(4 * (2 * m + 1) * n_params, 3 * m * n_params)[0]}
+    print(f"xlstm systems+faults gate: {json.dumps(rec)}", flush=True)
+    return rec
+
+
 def _agreement(device):
     """Small configurations, FedLECC (J = 3) and every classification preset:
     CPU (plain versions) vs card (kernels), same draws."""
@@ -999,6 +1323,22 @@ HYMBA_MICRO = {"model": "hymba-1.5b", "hist_bins": 16,
 # 128-token sequences the reduced config's chunk of 64 gives two chunks
 XLSTM_MICRO = {"model": "xlstm-125m", "hist_bins": 16,
                "overrides": {"n_layers": 4, "d_model": 32, "vocab": 32, "loss_chunk": 16}}
+# the systems and fault axes of the xlstm leg: mobile_mix devices, a deadline
+# at the profile's 60th percentile round time, over-selection 1.3 (m_eff =
+# 13); sign_flip and nan_update at 20 % behind the validation gate (not
+# stale_replay: its cache would hold 100 x P fp32, 48 GB)
+XLSTM_FAULTS = {"rate": 0.2, "models": ["sign_flip", "nan_update"], "defense": "validate"}
+# the same axes at the agreement's micro size (8 clients, m = 3, m_eff = 4)
+XLSTM_MICRO_AXES = {"systems": _mobile_mix(None, 1.3), "faults": {**XLSTM_FAULTS, "rate": 0.5}}
+
+
+def _xlstm_axes(device, cfg_kwargs, train, test, vocab):
+    systems = _mobile_mix(None, 1.3)
+    systems["deadline_s"] = _deadline(device, {**cfg_kwargs, "systems": systems}, train, test,
+                                      n_classes=vocab)
+    return {"systems": systems, "faults": XLSTM_FAULTS}
+
+
 # the three dense configs, reduced (2 layers, d_model 256), over the 32-token
 # vocabulary of the agreement's streams; gemma3's window bites at S = 16
 DENSE_REDUCED = {
@@ -1050,13 +1390,15 @@ def _print_profile(prof, wall_s: float, tag: str, families, host_top: bool = Fal
     print(f"{tag} profile: {json.dumps(summary)}", flush=True)
 
 
-def _lm_main_path(device, tag, model, n_layers, n_params, families):
+def _lm_main_path(device, tag, model, n_layers, n_params, families, axes=None):
     """Federated LM training on ``model`` at full width, cut to ``n_layers``,
     3 rounds (the last under the profiler); returns the kernels' launch
     counts from this run.  ``families`` holds one (forward wrapper, backward
     wrapper, profile-name regex) for each kernel that the model runs in
     every layer: each launches forward layers x rounds x (poll + steps + 2
-    evaluations) times and backward layers x rounds x steps times."""
+    evaluations) times and backward layers x rounds x steps times.
+    ``axes(device, cfg_kwargs, train, test, vocab)`` gives the systems and
+    fault axes' ``FLConfig`` fields of the run."""
     import numpy as np
     import torch
 
@@ -1074,10 +1416,17 @@ def _lm_main_path(device, tag, model, n_layers, n_params, families):
     test = make_token_stream(64, seq, vocab, seed=1)
     print(f"{tag}: data {time.perf_counter() - t:.3f} s  train {train.x.shape} "
           f"test {test.x.shape} vocab {vocab}", flush=True)
-    cfg = FLConfig(task="lm", task_kwargs={"model": model, "reduced": False,
-                                           "overrides": {"n_layers": n_layers}, "hist_bins": 64},
-                   n_clients=100, m=10, strategy="fedlecc", strategy_kwargs={"J": 3},
-                   batch_size=8, eval_samples=4, eval_every=1, target_hd=0.9, rounds=3, seed=0)
+    cfg_kwargs = dict(task="lm", task_kwargs={"model": model, "reduced": False,
+                                              "overrides": {"n_layers": n_layers},
+                                              "hist_bins": 64},
+                      n_clients=100, m=10, strategy="fedlecc", strategy_kwargs={"J": 3},
+                      batch_size=8, eval_samples=4, eval_every=1, target_hd=0.9, rounds=3,
+                      seed=0)
+    if axes is not None:
+        cfg_kwargs |= axes(device, cfg_kwargs, train, test, vocab)
+        print(f"{tag}: systems {cfg_kwargs['systems']}, faults {cfg_kwargs['faults']}",
+              flush=True)
+    cfg = FLConfig(**cfg_kwargs)
     if full.block_type == "xlstm":
         width = (f"d_model {full.d_model}, {full.ssm.n_heads} heads of "
                  f"{full.d_model // full.ssm.n_heads}, pattern {full.layer_pattern} (mLSTM x 3, "
@@ -1118,9 +1467,11 @@ def _lm_main_path(device, tag, model, n_layers, n_params, families):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
         results.append(r)
+        extra = (f" dropped={r.n_dropped} faulty={r.n_faulty} quarantined={r.n_quarantined} "
+                 f"sim_time={r.sim_time:.3f} s" if axes is not None else "")
         print(f"{tag}: round {r.round} selected={list(r.selected)} test_loss={r.test_loss:.4f} "
               f"next_token_acc={r.test_acc:.4f} ppl={r.metrics['ppl']:.2f} "
-              f"train_loss={r.mean_selected_loss:.4f} comm={r.comm_mb:.1f} MB "
+              f"train_loss={r.mean_selected_loss:.4f} comm={r.comm_mb:.1f} MB{extra} "
               f"wall={wall:.3f} s{' (under the profiler)' if last else ''} "
               f"peak={torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
         if last:
@@ -1143,22 +1494,27 @@ def _lm_main_path(device, tag, model, n_layers, n_params, families):
                              f"{mc.n_layers} layers")
     for r in results:
         sel = list(r.selected)
-        if len(sel) != cfg.m or sorted(set(sel)) != sel or not 0 <= sel[0] <= sel[-1] < cfg.n_clients:
+        if (len(sel) > engine.m_eff or (axes is None and len(sel) != cfg.m)
+                or sorted(set(sel)) != sel
+                or (sel and not 0 <= sel[0] <= sel[-1] < cfg.n_clients)):
             raise AssertionError(f"round {r.round}: bad selection {sel}")
         ppl = r.metrics["ppl"]
         if not (math.isfinite(r.test_loss) and 0.0 <= r.test_acc <= 1.0 and math.isfinite(ppl)
-                and ppl > 1.0 and math.isfinite(r.mean_selected_loss)):
+                and ppl > 1.0 and (math.isfinite(r.mean_selected_loss) or not sel)):
             raise AssertionError(f"round {r.round}: bad metrics {r}")
         if not abs(math.log(ppl) - np.float32(r.test_loss)) < 1e-3:  # ppl = exp(mean NLL)
             raise AssertionError(f"round {r.round}: ppl {ppl} is not exp(test_loss {r.test_loss})")
-    if not (engine.params.is_cuda and torch.isfinite(engine.params).all()):
+    finite = bool(torch.isfinite(engine.params).all())
+    if axes is not None:
+        print(f"{tag}: every param finite after the last round: {finite}", flush=True)
+    if not (engine.params.is_cuda and finite):
         raise AssertionError(f"final {tag} parameters are not a finite CUDA tensor")
     del engine, it
     torch.cuda.empty_cache()
     return launches
 
 
-def _lm_agreement(device, tag, task_kwargs, seq=16, resync=False, max_steps=3):
+def _lm_agreement(device, tag, task_kwargs, seq=16, resync=False, max_steps=3, axes=None):
     """An LM micro configuration on the CPU (plain versions) and on the card
     (kernels) from the same draws, over ``seq``-token sequences.  With
     ``resync`` the card run starts each round from the CPU run's
@@ -1167,7 +1523,8 @@ def _lm_agreement(device, tag, task_kwargs, seq=16, resync=False, max_steps=3):
     fp32 noise further: ``scripts/xlstm_sensitivity.py``; it also takes one
     local step a round, ``max_steps``, as within a round the second step
     grows the card's difference from the CPU to 3e-5–7e-5); otherwise
-    within 1e-4."""
+    within 1e-4.  ``axes`` adds the systems and fault axes' ``FLConfig``
+    fields; the runs then also drop and flag the same clients."""
     import numpy as np
 
     from repro_torch.data import make_token_stream
@@ -1177,7 +1534,7 @@ def _lm_agreement(device, tag, task_kwargs, seq=16, resync=False, max_steps=3):
     test = make_token_stream(16, seq, 32, seed=1)
     cfg = FLConfig(task="lm", task_kwargs=task_kwargs, n_clients=8, m=3, rounds=2,
                    strategy_kwargs={"J": 2}, batch_size=4, eval_samples=4, eval_every=1,
-                   target_hd=0.8, max_steps_cap=max_steps, seed=0)
+                   target_hd=0.8, max_steps_cap=max_steps, seed=0, **(axes or {}))
     on_card = make_engine(cfg, train, test, 32, device=device)
     on_cpu = make_engine(cfg, train, test, 32, device="cpu")
     it_card, it_cpu = on_card.rounds(), on_cpu.rounds()
@@ -1189,7 +1546,9 @@ def _lm_agreement(device, tag, task_kwargs, seq=16, resync=False, max_steps=3):
         res_cpu.append(next(it_cpu))
         diff = max(diff, float(np.abs(on_card.params.cpu().numpy()
                                       - on_cpu.params.numpy()).max()))
-    sel_card, sel_cpu = [r.selected for r in res_card], [r.selected for r in res_cpu]
+    fields = ("selected", "n_dropped", "n_faulty", "n_quarantined")
+    sel_card = [tuple(getattr(r, f) for f in fields) if axes else r.selected for r in res_card]
+    sel_cpu = [tuple(getattr(r, f) for f in fields) if axes else r.selected for r in res_cpu]
     ppl_diff = max(abs(a.metrics["ppl"] - b.metrics["ppl"])
                    / (b.metrics["ppl"] if resync else 1.0) for a, b in zip(res_card, res_cpu))
     print(f"{tag} agreement{' (each round from the CPU parameters)' if resync else ''}: "
@@ -1239,7 +1598,12 @@ def main() -> int:
           for s, dt in [((10, 199_210), torch.float32), ((10, 380_789_760), torch.float32),
                         ((10, 344_430_400), torch.float32), ((10, 119_827_296), torch.float32),
                         ((64, 199_210), torch.bfloat16),
-                        ((100, 199_210), torch.float32)]]  # cohort_gather=False: all K clients
+                        ((100, 199_210), torch.float32),   # cohort_gather=False: all K clients
+                        # over-selection 1.3 / 1.6: the systems phase's cohorts, and
+                        # xlstm's (13, P) one
+                        ((13, 199_210), torch.float32), ((16, 199_210), torch.float32),
+                        ((13, 119_827_296), torch.float32)]]
+    _check_aggregate_nan(device)
     k3 = [_check_flash(s, dt, w, ig, device) for s, dt, w, ig in [
         ((80, 64, 32, 32, 80), torch.float32, 0, 1.0),     # local SGD: m x batch sequences
         ((80, 64, 32, 32, 80), torch.bfloat16, 0, 1.0),
@@ -1289,16 +1653,23 @@ def main() -> int:
           flush=True)
     if not collected - before <= 16:
         raise AssertionError(f"the backends phase left {collected - before:.2f} MiB allocated")
+    systems_k1 = _systems_phase(device)
+    faults_k1 = _faults_phase(device)
     lm_launches = _lm_main_path(device, "lm", "stablelm-3b", 2, 380_789_760, (attention,))
     hymba_launches = _lm_main_path(device, "hymba", "hymba-1.5b", 6, 344_430_400,
                                    (attention, scan))
     xlstm_launches = _lm_main_path(device, "xlstm", "xlstm-125m", 12, 119_827_296, ())
+    xlstm_axes_launches = _lm_main_path(device, "xlstm systems+faults", "xlstm-125m", 12,
+                                        119_827_296, (), axes=_xlstm_axes)
+    _gate_kernel_ms(device, 13, 119_827_296)
 
     # 5. small-input agreement with the CPU path
     _agreement(device)
     _lm_agreement(device, "lm", LM_MICRO)
     _lm_agreement(device, "hymba", HYMBA_MICRO)
     _lm_agreement(device, "xlstm", XLSTM_MICRO, seq=128, resync=True, max_steps=1)
+    _lm_agreement(device, "xlstm systems+faults", XLSTM_MICRO, seq=128, resync=True,
+                  max_steps=1, axes=XLSTM_MICRO_AXES)
     for tag, task_kwargs in DENSE_REDUCED.items():
         _lm_agreement(device, tag, task_kwargs)
 
@@ -1322,8 +1693,9 @@ def main() -> int:
         {"name": "masked_weighted_sum", "route": "cuda",
          "source": "src/repro_torch/csrc/fedavg_reduce.cu",
          "replaces": "src/repro/kernels/aggregate/kernel.py:29",
-         "launches": (launches["masked_weighted_sum"] + backend_k1
+         "launches": (launches["masked_weighted_sum"] + backend_k1 + systems_k1 + faults_k1
                       + lm_launches["masked_weighted_sum"]
+                      + xlstm_axes_launches["masked_weighted_sum"]
                       + hymba_launches["masked_weighted_sum"]
                       + xlstm_launches["masked_weighted_sum"]),
          "shape": k1[0]["shape"],

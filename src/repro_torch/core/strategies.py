@@ -80,10 +80,11 @@ class SelectionStrategy:
     (top-m over host-drawn uniform scores); ``UniformRandom`` registers it
     as ``random``, the selection of FedAvg, FedProx, FedNova and FedDyn.
 
-    ``profile_latency`` is the systems layer's per-client round time in
-    the reference; it stays ``None`` in the port, which has no systems
-    axis yet, so ``haccs`` and ``fedcs`` take their fallbacks.  ``device``
-    is where the masks are built (set by ``setup``)."""
+    ``profile_latency`` is the systems layer's per-client expected round
+    time (``SystemsRuntime.latency_hint``, passed to ``setup`` as
+    ``latency``); without a systems config it is ``None`` and ``haccs``
+    and ``fedcs`` take their fallbacks.  ``device`` is where the masks are
+    built (set by ``setup``)."""
 
     m: int
     name: str = "random"
@@ -98,9 +99,11 @@ class SelectionStrategy:
     device: torch.device = field(default=torch.device("cpu"), init=False)
 
     def setup(self, hists: np.ndarray, client_sizes: np.ndarray, seed: int = 0,
-              *, device: str | torch.device = "cuda") -> None:
+              latency: np.ndarray | None = None, *,
+              device: str | torch.device = "cuda") -> None:
         self.K = len(client_sizes)
         self.client_sizes = np.asarray(client_sizes)
+        self.profile_latency = None if latency is None else np.asarray(latency, np.float64)
         self.device = torch.device(device)
 
     @staticmethod
@@ -180,8 +183,9 @@ class FedLECC(SelectionStrategy):
     n_clusters: int = field(default=0, init=False)
     cluster_method: str = field(default="optics", init=False)
 
-    def setup(self, hists, client_sizes, seed: int = 0, *, device="cuda") -> None:
-        super().setup(hists, client_sizes, seed, device=device)
+    def setup(self, hists, client_sizes, seed: int = 0, latency=None, *,
+              device="cuda") -> None:
+        super().setup(hists, client_sizes, seed, latency, device=device)
         if self.cluster == "auto":
             d = hellinger_blocked(np.asarray(hists), device=device)
             self.labels, self.cluster_method = best_clustering(
@@ -227,8 +231,9 @@ class PowerOfChoice(SelectionStrategy):
     needs_losses: bool = True
     traced_noise = "gumbel"
 
-    def setup(self, hists, client_sizes, seed: int = 0, *, device="cuda") -> None:
-        super().setup(hists, client_sizes, seed, device=device)
+    def setup(self, hists, client_sizes, seed: int = 0, latency=None, *,
+              device="cuda") -> None:
+        super().setup(hists, client_sizes, seed, latency, device=device)
         p = torch.as_tensor(self.client_sizes / self.client_sizes.sum(), dtype=torch.float32,
                             device=self.device)
         self._log_p = torch.log(torch.clamp(p, min=1e-30))
@@ -284,8 +289,9 @@ class HACCS(SelectionStrategy):
     latency: np.ndarray | None = field(default=None, init=False)
     n_clusters: int = field(default=0, init=False)
 
-    def setup(self, hists, client_sizes, seed: int = 0, *, device="cuda") -> None:
-        super().setup(hists, client_sizes, seed, device=device)
+    def setup(self, hists, client_sizes, seed: int = 0, latency=None, *,
+              device="cuda") -> None:
+        super().setup(hists, client_sizes, seed, latency, device=device)
         self.labels, _ = cluster_label_histograms(
             hists, min_samples=self.min_samples, device=device
         )
@@ -344,8 +350,9 @@ class FedCS(SelectionStrategy):
     name: str = "fedcs"
     traced_noise = None
 
-    def setup(self, hists, client_sizes, seed: int = 0, *, device="cuda") -> None:
-        super().setup(hists, client_sizes, seed, device=device)
+    def setup(self, hists, client_sizes, seed: int = 0, latency=None, *,
+              device="cuda") -> None:
+        super().setup(hists, client_sizes, seed, latency, device=device)
         self._scores_t = torch.as_tensor(self._scores(), device=self.device)
 
     def _scores(self) -> np.ndarray:
@@ -377,8 +384,9 @@ class FedCLS(SelectionStrategy):
     supports_traced_selection = False
     presence: np.ndarray | None = field(default=None, init=False)
 
-    def setup(self, hists, client_sizes, seed: int = 0, *, device="cuda") -> None:
-        super().setup(hists, client_sizes, seed, device=device)
+    def setup(self, hists, client_sizes, seed: int = 0, latency=None, *,
+              device="cuda") -> None:
+        super().setup(hists, client_sizes, seed, latency, device=device)
         h = np.asarray(hists, np.float64)
         h = h / np.maximum(h.sum(1, keepdims=True), 1e-12)
         self.presence = (h >= self.presence_threshold).astype(np.int64)  # (K, C)
@@ -425,8 +433,9 @@ class FedCor(SelectionStrategy):
     supports_traced_selection = False
     Kmat: np.ndarray | None = field(default=None, init=False)
 
-    def setup(self, hists, client_sizes, seed: int = 0, *, device="cuda") -> None:
-        super().setup(hists, client_sizes, seed, device=device)
+    def setup(self, hists, client_sizes, seed: int = 0, latency=None, *,
+              device="cuda") -> None:
+        super().setup(hists, client_sizes, seed, latency, device=device)
         d = hellinger_blocked(np.asarray(hists), device=device)
         self.Kmat = np.exp(-(d**2) / (2 * self.length_scale**2))
 

@@ -1,7 +1,10 @@
 """repro_torch.engine — the federated engine API of the port.
 
 - ``config``      — ``FLConfig``, field for field the reference's, with
-                    validation that rejects what the port lacks
+                    validation that rejects what the port lacks;
+                    ``SystemsConfig`` (``repro_torch.systems``) and
+                    ``FaultConfig`` (``repro_torch.faults``) are its
+                    systems and fault axes
 - ``registry``    — strategy / aggregator / client-mode / task / preset
                     registries
 - ``base``        — ``Engine`` round protocol, ``RoundResult`` and
@@ -71,10 +74,14 @@ from repro_torch.engine.registry import (
     traced_selection_strategies,
 )
 from repro_torch.engine.tasks import Task, build_task
+from repro_torch.faults.config import FaultConfig
+from repro_torch.systems.config import SystemsConfig
 
 __all__ = [
     "BACKENDS",
     "FLConfig",
+    "SystemsConfig",
+    "FaultConfig",
     "Registry",
     "STRATEGY_REGISTRY",
     "AGGREGATOR_REGISTRY",

@@ -1,14 +1,17 @@
 """The federated engine's shared state and round protocol, ported from
-``repro.engine.base`` (this slice: the lock-step loop with no systems,
-faults, population, async or checkpoint seams — ``FLConfig`` rejects
-those axes up front).
+``repro.engine.base`` (the lock-step loop with the systems and fault axes;
+no population, async or checkpoint seams — ``FLConfig`` rejects those
+axes up front).
 
 ``Engine`` owns the non-IID partition, the packed client tensors on the
 device, the selection strategy, the aggregator, the client mode (with
-FedDyn's (K, P) per-client state) and the comm ledger, and
-drives one canonical round loop:
+FedDyn's (K, P) per-client state), the comm ledger and, when configured,
+the ``SystemsRuntime`` (availability, deadlines, over-selection, the
+simulated clock) and the ``FaultRuntime`` (injection, the validation gate,
+quarantine), and drives one canonical round loop:
 
-    poll_losses → select → local_train → aggregate → evaluate
+    poll_losses → gate → select → local_train → [outcome, faults] →
+    aggregate → evaluate
 
 ``HostEngine`` (``repro_torch.engine.host``) implements ``select`` /
 ``local_train`` / ``aggregate``; ``CompiledEngine``
@@ -17,18 +20,19 @@ on the device, its selection a mask (``MaskSelectionMixin``), and
 ``FusedEngine`` (``repro_torch.engine.fused``) runs chunks of such rounds
 with no host read between them.  ``rounds()`` yields one frozen
 ``RoundResult`` per round; ``run()`` drains it into the history dict.
-Every random draw goes through ``self.draws``
-(``repro_torch.engine.draws``).
+Every random draw of the model's training goes through ``self.draws``
+(``repro_torch.engine.draws``); the axes draw on their own numpy streams.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Iterator
+from typing import Any, Callable, Iterator, NamedTuple
 
 import numpy as np
 import torch
 
+from repro_torch.convert import leaf_segments
 from repro_torch.core.comm_model import CommModel, count_params
 from repro_torch.data.partition import (
     calibrate_alpha,
@@ -71,10 +75,21 @@ class RoundResult:
       to and including this round.
     - ``test_loss``/``test_acc`` — global-model evaluation on the held-out
       set; ``None`` on rounds skipped by the ``eval_every`` cadence.
+    - ``sim_time``/``sim_clock`` — simulated wall-clock seconds of this
+      round / cumulative since round 0, from the systems axis; 0.0
+      without one.
+    - ``n_dropped``          — dispatched-but-not-aggregated clients this
+      round (offline at dispatch, or past the deadline); ``selected``
+      lists the *survivors*, whose updates were aggregated.
     - ``metrics``            — the task's extra held-out metrics on
       evaluated rounds (the LM task's ``ppl`` and ``ppl_per_cluster``);
-      ``None`` otherwise.
+      ``None`` otherwise.  Energy-tracking runs add the round's battery
+      spend (``energy_mah``, ``energy_total_mah``, ``n_depleted``) on
+      every round.
     - ``params_version``     — server params version after this round.
+    - ``n_faulty``/``n_quarantined`` — the fault axis: arrived updates that
+      carried an injected fault this round, and clients serving a
+      quarantine after it; 0 without a fault config.
     """
 
     round: int
@@ -83,12 +98,35 @@ class RoundResult:
     comm_mb: float
     test_loss: float | None = None
     test_acc: float | None = None
+    sim_time: float = 0.0
+    sim_clock: float = 0.0
+    n_dropped: int = 0
     metrics: dict | None = None
     params_version: int = 0
+    n_faulty: int = 0
+    n_quarantined: int = 0
 
     @property
     def evaluated(self) -> bool:
         return self.test_acc is not None
+
+
+class _Step(NamedTuple):
+    """What one round did, before billing and evaluation: the dispatched
+    cohort, the survivors (aggregated) and their local losses, and the
+    axes' accounting (``n_reached``: dispatched and online, who paid the
+    download; ``uploaded``: the upload count the ledger bills, None
+    without an axis)."""
+
+    dispatched: np.ndarray
+    survivors: np.ndarray
+    losses: np.ndarray
+    n_reached: int
+    uploaded: float | None = None
+    sim_time: float = 0.0
+    n_dropped: int = 0
+    n_faulty: int = 0
+    n_quarantined: int = 0
 
 
 class Engine:
@@ -172,9 +210,30 @@ class Engine:
         self.taus = np.maximum(taus, 1)
         self.max_steps = int(min(cfg.max_steps_cap, self.taus.max()))
 
+        # --- systems axis (device profiles, the simulated clock, the
+        # deadline): the strategy dispatches the over-selected cohort m_eff
+        # and the deadline policy drops stragglers down to the survivors ---
+        self._systems: Any = None  # SystemsRuntime with a systems config
+        self.m_eff = cfg.m
+        if cfg.systems is not None:
+            from repro_torch.systems.runtime import SystemsRuntime
+
+            self._systems = SystemsRuntime(
+                cfg.systems, n_clients=cfg.n_clients,
+                steps=np.minimum(self.taus, self.max_steps), n_params=self.n_params,
+                upload_bytes_per_param=cfg.compress_bits / 8.0 if cfg.compress_bits else 4.0,
+                seed=cfg.seed,
+            )
+            self.m_eff = cfg.systems.m_effective(cfg.m, cfg.n_clients)
+        self.sim_clock = 0.0
+
         # --- pluggable components, via the registries ---
-        self.strategy = STRATEGY_REGISTRY.build(cfg.strategy, m=cfg.m, **cfg.strategy_kwargs)
-        self.strategy.setup(self.hists, self.sizes, seed=cfg.seed, device=self.device)
+        self.strategy = STRATEGY_REGISTRY.build(cfg.strategy, m=self.m_eff,
+                                                **cfg.strategy_kwargs)
+        self.strategy.setup(
+            self.hists, self.sizes, seed=cfg.seed,
+            latency=None if self._systems is None else self._systems.latency_hint(),
+            device=self.device)
         self.aggregator = get_aggregator(cfg.aggregator, cfg)
         self.agg_state = self.aggregator.init_state(self.params)
         # FedDyn's h_i: (K, P) fp32 on the device — 80 MB at the paper's
@@ -188,6 +247,18 @@ class Engine:
             upload_bytes_per_param=cfg.compress_bits / 8.0 if cfg.compress_bits else None,
         )
         self.comm_mb = self.comm.one_time_mb(self.strategy.needs_histograms)
+
+        # --- fault axis: injection on its own numpy stream, the validation
+        # gate and the quarantine ledger ---
+        self._faults: Any = None  # FaultRuntime with a fault config
+        if cfg.faults is not None:
+            from repro_torch.faults.runtime import FaultRuntime
+
+            self._faults = FaultRuntime(
+                cfg.faults, n_clients=cfg.n_clients, seed=cfg.seed,
+                params_template=self.params,
+                leaves=leaf_segments(self.task.layout(train, n_classes)),
+            )
 
         self._apply_fn, self._loss_fn, self._metric_fn = self.task.build_fns(train, n_classes)
         self._eval_extra = self.task.build_eval_extra(test, n_classes)
@@ -221,12 +292,17 @@ class Engine:
 
     def local_train(self, rnd: int, sel: np.ndarray):
         """Run local training.  Returns ``(payload, sel_losses)``:
-        ``payload`` is threaded into ``aggregate``, ``sel_losses`` is a
+        ``payload`` is a tuple whose first item is the (len(sel), P)
+        trained cohort, threaded into ``aggregate``; ``sel_losses`` is a
         (len(sel),) array of local training losses."""
         raise NotImplementedError
 
-    def aggregate(self, rnd: int, sel: np.ndarray, payload) -> None:
-        """Fold the payload into ``self.params`` (and any server state)."""
+    def aggregate(self, rnd: int, sel: np.ndarray, payload,
+                  survivors: np.ndarray | None = None) -> None:
+        """Fold the payload into ``self.params`` (and any server state).
+        ``survivors`` (a subset of ``sel``, with an axis active) restricts
+        it to the updates that arrived and passed the gate; ``None``:
+        everyone arrived."""
         raise NotImplementedError
 
     def evaluate(self) -> tuple[float, float]:
@@ -253,39 +329,135 @@ class Engine:
         self.history["comm_mb"].append(r.comm_mb)
         self.history["mean_selected_loss"].append(r.mean_selected_loss)
         self.history["selected"].append(list(r.selected))
+        # the axes' keys appear only when the axis is active
+        if self._systems is not None:
+            self.history.setdefault("sim_clock", []).append(r.sim_clock)
+            self.history.setdefault("n_dropped", []).append(r.n_dropped)
+        if self._faults is not None:
+            self.history.setdefault("n_faulty", []).append(r.n_faulty)
+            self.history.setdefault("n_quarantined", []).append(r.n_quarantined)
         for k, v in (r.metrics or {}).items():
             self.history.setdefault(k, []).append(v)
 
+    # -- the admission gate (systems availability, fault quarantine) ----
+    def _selection_gate(self, rnd: int) -> np.ndarray | None:
+        """(K,) bool admission gate for round ``rnd`` — systems
+        availability ∧ fault-ledger health; ``None`` when ungated."""
+        gate: np.ndarray | None = None
+        if self._systems is not None:
+            gate = np.asarray(self._systems.available(rnd), bool)
+        if self._faults is not None:
+            admit = self._faults.health.admitted(rnd)
+            gate = admit if gate is None else gate & admit
+        return gate
+
+    def _gated_losses(self, rnd: int, losses: np.ndarray) -> np.ndarray:
+        """The admission gate applied to the polled losses as ``-inf`` —
+        the one place where offline or quarantined clients leave
+        selection."""
+        gate = self._selection_gate(rnd)
+        if gate is None:
+            return losses
+        return np.where(gate, losses, -np.inf).astype(np.float32)
+
+    def _aggregate_state(self, sel: np.ndarray) -> tuple:
+        """What ``aggregate`` changes, for the optimistic aggregation's
+        undo: ``params`` and ``agg_state`` are rebound (their old tensors
+        are a complete snapshot), FedDyn's per-client rows are written in
+        place (copied here)."""
+        h_rows = None
+        if self.client_mode.needs_h:
+            h_rows = self.h_clients[torch.as_tensor(sel, device=self.device)].clone()
+        return self.params, self.agg_state, sel, h_rows
+
+    def _restore_aggregate_state(self, saved: tuple) -> None:
+        self.params, self.agg_state, sel, h_rows = saved
+        if h_rows is not None:
+            self.h_clients[torch.as_tensor(sel, device=self.device)] = h_rows
+
     # -- the canonical round loop --------------------------------------
-    def _round_step(self, rnd: int) -> tuple[np.ndarray, np.ndarray]:
-        """One round through the hooks; returns the sorted participants and
-        their local training losses."""
-        losses = self.poll_losses(rnd)
+    def _round_step(self, rnd: int) -> _Step:
+        """One round through the hooks, with the reference's systems and
+        fault seams: the gate before selection, the deadline outcome of the
+        dispatched cohort, injection and the validation gate on the
+        arrived uploads, and an optimistic aggregation that is redone over
+        the true survivors on a round whose gate flags someone."""
+        losses = self._gated_losses(rnd, self.poll_losses(rnd))
         sel = np.asarray(self.select(rnd, losses))
         payload, sel_losses = self.local_train(rnd, sel)
-        self.aggregate(rnd, sel, payload)
-        return sel, sel_losses  # the (m, P) payload is freed here, before evaluation
+        if self._systems is None and self._faults is None:
+            self.aggregate(rnd, sel, payload)
+            return _Step(sel, sel, sel_losses, len(sel))
+        surv, n_reached, sim_time, n_dropped = sel, len(sel), 0.0, 0
+        if self._systems is not None:
+            out = self._systems.outcome(rnd, sel)
+            surv, n_reached = out.survivors, out.n_reached
+            sim_time, n_dropped = out.sim_time, out.n_dropped
+        uploaded, n_faulty, n_quarantined = float(len(surv)), 0, 0
+        if self._faults is not None:
+            # quarantined clients picked anyway (loss-blind strategies) are
+            # dropped like stragglers, before their update reaches the server
+            surv = np.asarray(surv, np.int64)
+            surv = surv[self._faults.health.admitted(rnd)[surv]]
+            arrived = np.isin(sel, surv)
+            injected, pending = self._faults.process_begin(rnd, sel, arrived, payload[0],
+                                                           self.params)
+            payload = (injected,) + tuple(payload[1:])
+            # aggregate as if the gate flags nobody (true on honest rounds),
+            # so the aggregation is queued before the verdict is read; on a
+            # flagged round, undo and redo over the true survivors
+            optimistic = sel[arrived]
+            saved = self._aggregate_state(sel)
+            self.aggregate(rnd, sel, payload, survivors=optimistic)
+            info = self._faults.process_finish(pending)
+            surv = info.survivors
+            if len(surv) != len(optimistic):
+                self._restore_aggregate_state(saved)
+                self.aggregate(rnd, sel, payload, survivors=surv)
+            uploaded, n_faulty, n_quarantined = info.uploaded, info.n_faulty, info.n_quarantined
+        else:
+            self.aggregate(rnd, sel, payload, survivors=surv)
+        keep = np.isin(sel, surv)  # the server observes the survivors' losses only
+        return _Step(sel, np.asarray(surv, np.int64), np.asarray(sel_losses)[keep], n_reached,
+                     uploaded, sim_time, n_dropped, n_faulty, n_quarantined)
 
-    def _finish_round(self, rnd: int, sel: np.ndarray, sel_losses) -> RoundResult:
-        """Bill round ``rnd``, evaluate it when due and record it."""
+    def _finish_round(self, rnd: int, step: _Step) -> RoundResult:
+        """Bill round ``rnd``, advance the simulated clock and the battery
+        ledger, evaluate the round when due and record it."""
         cfg = self.cfg
-        self.comm_mb += self.comm.round_mb(len(sel), self.strategy.needs_losses)
+        if step.uploaded is None:
+            self.comm_mb += self.comm.round_mb(len(step.dispatched), self.strategy.needs_losses)
+        else:
+            self.comm_mb += self.comm.round_mb(step.n_reached, self.strategy.needs_losses,
+                                               m_uploaded=step.uploaded)
+        if self._systems is not None:
+            self.sim_clock += step.sim_time
+        energy = None
+        if self._systems is not None and self._systems.tracks_energy:
+            energy = self._systems.spend_energy(rnd, step.dispatched)
         test_loss = test_acc = metrics = None
         # absolute cadence keyed to the configured terminal round, so
         # chunked rounds() calls evaluate on one contiguous schedule
         if rnd % cfg.eval_every == 0 or rnd == cfg.rounds - 1:
             test_loss, test_acc = self.evaluate()
             metrics = self.eval_metrics()
+        if energy is not None:
+            metrics = {**(metrics or {}), **energy}
         self._round = rnd + 1
         result = RoundResult(
             round=rnd,
-            selected=tuple(int(i) for i in sel),
-            mean_selected_loss=_mean_loss(sel_losses),
+            selected=tuple(int(i) for i in step.survivors),
+            mean_selected_loss=_mean_loss(step.losses),
             comm_mb=float(self.comm_mb),
             test_loss=test_loss,
             test_acc=test_acc,
+            sim_time=float(step.sim_time),
+            sim_clock=float(self.sim_clock),
+            n_dropped=int(step.n_dropped),
             metrics=metrics,
             params_version=rnd + 1,
+            n_faulty=int(step.n_faulty),
+            n_quarantined=int(step.n_quarantined),
         )
         self._record_history(result)
         return result
@@ -303,7 +475,7 @@ class Engine:
             n_rounds = max(self.cfg.rounds - self._round, 0)
         start = self._round
         for rnd in range(start, start + n_rounds):
-            result = self._finish_round(rnd, *self._round_step(rnd))
+            result = self._finish_round(rnd, self._round_step(rnd))
             if callback is not None:
                 callback(result)
             yield result

@@ -19,6 +19,17 @@ the device with no host read; the mask and the cohort's losses are read
 once, at its end.  ``FusedEngine`` (``repro_torch.engine.fused``) runs
 the same round body chunk after chunk.
 
+With the systems or fault axis, the round takes the reference's
+exogenous inputs as (K,) tensors (``_exogenous``: availability, deadline
+arrival, admission, the fault decisions): offline and quarantined
+clients enter selection as ``-inf`` losses, the cohort is the
+over-selected ``m_eff``, faults are injected into the arrived rows and
+the validation gate runs on the device; dispatched clients that are
+dropped or flagged keep their slot at weight exactly zero, and a round
+with no survivor keeps the parameters.  The host reads the round's
+masks once and does the accounting (``_device_step``: the health ledger,
+the systems outcome, the ledger's bytes).
+
 ``compress_bits > 0`` replaces fedavg with ``compressed_fedavg``
 (``repro_torch.federated.compression``): the cohort's deltas are
 quantized with stochastic rounding in the cohort's own buffer and
@@ -40,7 +51,7 @@ import torch
 
 from repro_torch.convert import leaf_segments
 from repro_torch.core.selection import cohort_indices, selection_weights
-from repro_torch.engine.base import Engine, MaskSelectionMixin
+from repro_torch.engine.base import Engine, MaskSelectionMixin, _Step
 from repro_torch.federated.client import local_train
 from repro_torch.federated.compression import compressed_fedavg
 
@@ -85,55 +96,149 @@ class CompiledEngine(MaskSelectionMixin, Engine):
                 getattr(self.strategy, "n_clusters", 0))
         return out
 
+    def _exogenous(self, rnd: int) -> dict[str, np.ndarray]:
+        """Round ``rnd``'s inputs from the axes, host-side numpy (the
+        reference's fused scan inputs): availability and deadline arrival
+        (systems), admission and the fault decisions ``fkind`` / ``fu``
+        (faults).  Empty without an axis."""
+        ext = {}
+        if self._systems is not None:
+            ext["avail"] = np.asarray(self._systems.available(rnd), bool)
+            ext["arrived"] = np.asarray(self._systems.arrived(rnd), bool)
+        if self._faults is not None:
+            ext["admit"] = self._faults.health.admitted(rnd)
+            ext["fkind"], ext["fu"] = self._faults.decide(rnd)
+        return ext
+
     def _device_round(self, rnd: int, params: torch.Tensor, poll: torch.Tensor | None,
                       batch: torch.Tensor,
-                      select: Callable[[torch.Tensor], torch.Tensor]):
+                      select: Callable[[torch.Tensor], torch.Tensor],
+                      ext: dict[str, torch.Tensor] | None = None):
         """One round with no host read (unless ``select`` makes one):
-        returns (new params, (K,) mask, (m,) cohort training losses)."""
+        returns (new params, (K,) dispatched mask, (K,) survivors
+        ``final``, (K,) arrivals before the gate's flags, (m_eff,) cohort
+        training losses).  ``ext`` holds ``_exogenous``'s inputs as (K,)
+        tensors on the device: the admission gate makes offline and
+        quarantined clients ``-inf`` before selection; dispatched clients
+        offline or past the deadline, quarantined or flagged by the
+        validation gate keep their cohort slot at aggregation weight
+        exactly zero; faults are injected into arrived rows only; a round
+        with no survivor leaves the parameters (and the aggregator's
+        state) as they were."""
         cfg = self.cfg
+        ext = ext or {}
         if poll is not None:
             losses = self._poll(params, poll)
         else:
             losses = torch.zeros(cfg.n_clients, dtype=torch.float32, device=self.device)
+        gate = None
+        if "avail" in ext:
+            gate = ext["avail"]
+        if "admit" in ext:
+            gate = ext["admit"] if gate is None else gate & ext["admit"]
+        if gate is not None:
+            losses = torch.where(gate, losses, -torch.inf)
         mask = select(losses)
-        idx = cohort_indices(mask, cfg.m)
+        final = mask
+        if "avail" in ext:
+            final = final & ext["avail"] & ext["arrived"]
+        if "admit" in ext:
+            final = final & ext["admit"]
+        arrivals = final  # the updates that reach the server, before the gate
+        idx = cohort_indices(mask, self.m_eff)
         if self.cohort_gather:
-            xs, ys, rows, taus = self.xs[idx], self.ys[idx], batch[:, idx], self._taus_t[idx]
+            rows = idx
+            xs, ys, batch_rows, taus = self.xs[idx], self.ys[idx], batch[:, idx], self._taus_t[idx]
         else:
-            xs, ys, rows, taus = self.xs, self.ys, batch, self._taus_t
+            rows = torch.arange(cfg.n_clients, device=self.device)
+            xs, ys, batch_rows, taus = self.xs, self.ys, batch, self._taus_t
         stacked, train_losses = local_train(
-            self._apply_fn, self._loss_fn, params, xs, ys, rows, taus,
+            self._apply_fn, self._loss_fn, params, xs, ys, batch_rows, taus,
             lr=cfg.lr, max_steps=self.max_steps,
         )
-        new = self._aggregate(rnd, params, stacked, selection_weights(mask, self._sizes_t), idx)
-        return new, mask, (train_losses if self.cohort_gather else train_losses[idx])
+        if self._faults is not None:
+            arrived_rows = arrivals[rows]
+            kind_rows = torch.where(arrived_rows, ext["fkind"][rows], -1)
+            stacked = self._faults.inject(stacked, params, rows, kind_rows, ext["fu"][rows],
+                                          arrived_rows)
+            if self._faults.defended:
+                stacked, flagged_rows, _ = self._faults.validate_traced(stacked, params,
+                                                                        arrived_rows)
+                flagged = torch.zeros(cfg.n_clients, dtype=torch.int32, device=self.device)
+                flagged = flagged.scatter_reduce(0, rows, flagged_rows.to(torch.int32), "amax")
+                final = final & (flagged == 0)
+        w_full = selection_weights(final, self._sizes_t)
+        any_up = final.any() if ext else None
+        n_selected = final.sum() if ext else self.m_eff
+        new = self._aggregate(rnd, params, stacked, w_full, idx, n_selected, any_up)
+        return new, mask, final, arrivals, (train_losses if self.cohort_gather
+                                            else train_losses[idx])
 
     def _aggregate(self, rnd: int, params: torch.Tensor, stacked: torch.Tensor,
-                   w_full: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+                   w_full: torch.Tensor, idx: torch.Tensor, n_selected,
+                   any_up: torch.Tensor | None = None) -> torch.Tensor:
+        """The round's aggregation; with ``any_up`` (a (0-dim) bool tensor:
+        did anyone's update survive?) a round without survivors keeps the
+        parameters, the aggregator's state and the last quantization
+        error — the all-zero weight vector would zero the parameters."""
         cfg = self.cfg
+
+        def guard(new, old):
+            return new if any_up is None or old is None else torch.where(any_up, new, old)
+
         if cfg.compress_bits:
             # quantization models the cohort's upload: reduce the m rows
             cohort = stacked if self.cohort_gather else stacked[idx]
-            new, self._quant_error = compressed_fedavg(
+            new, err = compressed_fedavg(
                 cohort, params, w_full[idx],
                 lambda start, stop: self.draws.quant_uniforms(rnd, cohort.shape[0], start, stop),
                 self._leaves, bits=cfg.compress_bits,
             )
-            return new
+            self._quant_error = guard(err, self._quant_error)
+            return guard(new, params)
         if self.cohort_gather:
             w, taus = w_full[idx], self._taus_t[idx]
         else:
             w, taus = w_full, self._taus_t
         taus = taus.to(torch.float32)
         new = self.aggregator.aggregate(stacked, params, w, taus, self.agg_state,
-                                        n_selected=cfg.m)
-        self.agg_state = self.aggregator.update_state(self.agg_state, stacked, params, w,
-                                                      n_selected=cfg.m)
-        return new
+                                        n_selected=n_selected)
+        state = self.aggregator.update_state(self.agg_state, stacked, params, w,
+                                             n_selected=n_selected)
+        self.agg_state = guard(state, self.agg_state)
+        return guard(new, params)
 
-    def _round_step(self, rnd: int) -> tuple[np.ndarray, np.ndarray]:
+    def _device_step(self, rnd: int, mask: np.ndarray, final: np.ndarray,
+                     arrivals: np.ndarray, losses: np.ndarray, ext: dict) -> _Step:
+        """The host's accounting of a device round from its (K,) masks and
+        (m_eff,) cohort losses: the health ledger's record (arrivals and
+        flags), the fault counts and upload fractions from the round's
+        decisions, the systems outcome of the dispatched cohort (the same
+        core as the host backend's), and the survivors' losses."""
+        sel, surv = np.flatnonzero(mask), np.flatnonzero(final)
+        sel_losses = losses[: len(sel)]  # the cohort's selected rows come first
+        if not ext:
+            return _Step(sel, sel, sel_losses, len(sel))
+        n_reached, sim_time, n_dropped = len(sel), 0.0, 0
+        uploaded, n_faulty, n_quarantined = float(len(surv)), 0, 0
+        if self._faults is not None:
+            arr = np.flatnonzero(arrivals)
+            self._faults.health.record(rnd, arr, np.flatnonzero(arrivals & ~final))
+            kind = np.where(arrivals, ext["fkind"], -1)
+            n_faulty = int((kind >= 0).sum())
+            n_quarantined = self._faults.health.n_quarantined(rnd)
+            uploaded = float(self._faults.upload_fractions(kind[arr], ext["fu"][arr]).sum())
+        if self._systems is not None:
+            out = self._systems.outcome(rnd, sel)
+            n_reached, sim_time, n_dropped = out.n_reached, out.sim_time, out.n_dropped
+        return _Step(sel, surv, sel_losses[final[sel]], n_reached, uploaded, sim_time,
+                     n_dropped, n_faulty, n_quarantined)
+
+    def _round_step(self, rnd: int) -> _Step:
         d = self._draw_round(rnd)
-        self.params, mask, sel_losses = self._device_round(
-            rnd, self.params, d["poll"], d["batch"], lambda losses: self.select_mask(rnd, losses))
-        sel = np.flatnonzero(mask.cpu().numpy())
-        return sel, sel_losses.cpu().numpy()[: len(sel)]  # the cohort's selected rows come first
+        ext = self._exogenous(rnd)
+        ext_t = {k: torch.as_tensor(v, device=self.device) for k, v in ext.items()}
+        self.params, *outs = self._device_round(
+            rnd, self.params, d["poll"], d["batch"], lambda losses: self.select_mask(rnd, losses),
+            ext_t)
+        return self._device_step(rnd, *(t.cpu().numpy() for t in outs), ext)

@@ -4,13 +4,15 @@ field for field the reference's ``repro.engine.config.FLConfig``, so one
 
 Strategies, aggregators, client modes and tasks resolve against the
 port's registries, which hold every name the reference registers; the
-LM task runs the models the port has (stablelm-3b, hymba-1.5b).
-``backend`` is ``"host"`` or ``"compiled"``; ``fuse_rounds > 0`` (the
-compiled backend's fused chunks) and ``compress_bits`` in [2, 8]
-(quantized cohort deltas) follow the reference's combination rules with
-its error texts.  Validation rejects, with a message naming the port,
-what it does not implement yet: ``backend="scaleout"``, and any
-``systems``, ``async_mode``, ``faults`` or ``population`` axis.
+LM task runs the models the port has.  ``backend`` is ``"host"`` or
+``"compiled"``; ``fuse_rounds > 0`` (the compiled backend's fused chunks)
+and ``compress_bits`` in [2, 8] (quantized cohort deltas) follow the
+reference's combination rules with its error texts, as do ``systems``
+(a ``SystemsConfig`` or its dict form) and ``faults`` (a ``FaultConfig``
+or its dict form): ``stale_replay`` and ``track_energy`` are rejected with
+``fuse_rounds > 0``.  Validation rejects, with a message naming the port,
+what it does not implement yet: ``backend="scaleout"`` and the
+``async_mode`` and ``population`` axes.
 """
 
 from __future__ import annotations
@@ -82,6 +84,22 @@ def fused_aggregator_error(aggregator: str) -> str:
     )
 
 
+def stale_fused_error() -> str:
+    return (
+        "fault model 'stale_replay' replays from a host-side cross-round "
+        "cache, which the fused scan chunk cannot consult; set "
+        "fuse_rounds=0 or drop 'stale_replay' from FaultConfig.models"
+    )
+
+
+def energy_mode_error(what: str) -> str:
+    return (
+        "SystemsConfig.track_energy accounts battery spend from each "
+        "round's dispatched cohort on the host-side round loop, which "
+        f"{what} cannot consult; disable track_energy or drop {what}"
+    )
+
+
 def compress_backend_error(backend: str, aggregator: str) -> str:
     return (
         "compress_bits > 0 quantizes cohort deltas inside the compiled "
@@ -118,9 +136,9 @@ class FLConfig:
     task_kwargs: dict = field(default_factory=dict)
     fuse_rounds: int = 0           # >0: fused round chunks (compiled only)
     compress_bits: int = 0         # >0: quantized cohort-delta aggregation
-    systems: Any = None
+    systems: Any = None            # SystemsConfig | dict | None (repro_torch.systems)
     async_mode: Any = None
-    faults: Any = None
+    faults: Any = None             # FaultConfig | dict | None (repro_torch.faults)
     population: Any = None
 
     def __post_init__(self) -> None:
@@ -186,9 +204,29 @@ class FLConfig:
                 )
             if self.backend != "compiled" or self.aggregator != "fedavg":
                 raise ValueError(compress_backend_error(self.backend, self.aggregator))
-        for name in ("systems", "async_mode", "faults", "population"):
+        for name in ("async_mode", "population"):
             if getattr(self, name) is not None:
                 raise _unported(name, getattr(self, name), (None,))
+        # The systems and fault axes: the dict form (from_dict, JSON)
+        # becomes the validated config object, which checks names and
+        # ranges itself.
+        from repro_torch.faults.config import FaultConfig
+        from repro_torch.systems.config import SystemsConfig
+
+        for name, kind in (("systems", SystemsConfig), ("faults", FaultConfig)):
+            value = getattr(self, name)
+            if isinstance(value, dict):
+                setattr(self, name, kind.from_dict(value))
+            elif value is not None and not isinstance(value, kind):
+                raise ValueError(
+                    f"{name} must be a {kind.__name__}, its dict form, or None; got "
+                    f"{type(value).__name__}"
+                )
+        if self.faults is not None and self.fuse_rounds > 0 \
+                and "stale_replay" in self.faults.models:
+            raise ValueError(stale_fused_error())
+        if self.systems is not None and self.systems.track_energy and self.fuse_rounds > 0:
+            raise ValueError(energy_mode_error("fuse_rounds > 0"))
         # Components validate their kwargs when built (cheap: no state).
         from repro_torch.engine.aggregators import get_aggregator
         from repro_torch.engine.tasks import build_task

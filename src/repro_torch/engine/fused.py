@@ -13,10 +13,18 @@ order (poll r, minibatch rows r, selection noise r, poll r + 1, ...),
 the order the eager compiled loop asks for them, so for the strategies
 that are deterministic given the losses (``fedlecc``, ``lossonly``,
 ``haccs``, ``fedcs``) a fused run selects what the eager compiled run
-selects, round for round.  Each round's mask and cohort losses stay on
-the device and are read once, at the chunk's end (without the systems
-and fault seams, which ``FLConfig`` rejects, the final mask is the
-mask).
+selects, round for round.  Each round's masks and cohort losses stay on
+the device and are read once, at the chunk's end.
+
+The systems and fault axes enter a chunk as the reference's exogenous
+(L, K) inputs, made on the host at the chunk's start: availability and
+deadline arrival, admission (the health ledger read at the chunk's start,
+so a client flagged mid-chunk starts its quarantine at the next chunk, the
+reference's chunk-granular lag) and the fault decisions.  Each round of
+the body gates the losses, keeps the survivors ``final``, injects faults
+into the arrived rows, runs the validation gate and zeroes the flagged
+rows' weights, all with no host read; after the chunk the health ledger
+replays the rounds' arrivals and flags.
 
 Chunk boundaries follow the reference's ``_chunk_len``: a chunk ends at
 the next ``eval_every`` round, at the configured terminal round and at
@@ -85,7 +93,8 @@ class _Graph:
     poll: torch.Tensor | None
     batch: torch.Tensor
     noise: tuple[torch.Tensor, ...]
-    out: tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+    ext: dict[str, torch.Tensor]
+    out: tuple[torch.Tensor, ...]
     quant_error: torch.Tensor | None
 
 
@@ -120,27 +129,32 @@ class FusedEngine(CompiledEngine):
 
     def _draw_chunk(self, rnd: int, length: int):
         """The chunk's draws, round by round, stacked on a leading round
-        axis: poll rows (or None), minibatch rows, selection noise."""
+        axis: poll rows (or None), minibatch rows, selection noise; and
+        the axes' (L, K) inputs, on the host and on the device."""
         rounds = [self._draw_round(r, noise=True) for r in range(rnd, rnd + length)]
         poll = None if rounds[0]["poll"] is None else torch.stack([d["poll"] for d in rounds])
         batch = torch.stack([d["batch"] for d in rounds])
         noise = tuple(torch.stack(parts) for parts in zip(*(d["noise"] for d in rounds)))
-        return poll, batch, noise
+        exts = [self._exogenous(r) for r in range(rnd, rnd + length)]
+        ext = {k: np.stack([e[k] for e in exts]) for k in exts[0]}
+        ext_t = {k: torch.as_tensor(v, device=self.device) for k, v in ext.items()}
+        return poll, batch, noise, ext, ext_t
 
-    def _chunk_body(self, rnd: int, length: int, params, poll, batch, noise):
-        """``length`` rounds on the device; returns (params, (L, K) masks,
-        (L, m) cohort losses)."""
-        masks, losses = [], []
+    def _chunk_body(self, rnd: int, length: int, params, poll, batch, noise, ext):
+        """``length`` rounds on the device; returns (params, (L, K)
+        dispatched masks, (L, K) survivors, (L, K) arrivals, (L, m) cohort
+        losses)."""
+        outs = []
         for i in range(length):
             noise_i = tuple(t[i] for t in noise)
-            params, mask, sel_losses = self._device_round(
+            params, *out = self._device_round(
                 rnd + i, params, None if poll is None else poll[i], batch[i],
-                lambda l, n=noise_i: self.strategy.select_mask_traced(l, n))
-            masks.append(mask)
-            losses.append(sel_losses)
-        return params, torch.stack(masks), torch.stack(losses)
+                lambda l, n=noise_i: self.strategy.select_mask_traced(l, n),
+                {k: v[i] for k, v in ext.items()})
+            outs.append(out)
+        return (params,) + tuple(torch.stack(parts) for parts in zip(*outs))
 
-    def _capture(self, rnd: int, length: int, poll, batch, noise):
+    def _capture(self, rnd: int, length: int, poll, batch, noise, ext):
         """Run the first chunk of ``length`` eagerly on a side stream, then
         capture the chunk body with that chunk's tensors as the graph's
         input buffers; returns the eager chunk's outputs."""
@@ -150,7 +164,7 @@ class FusedEngine(CompiledEngine):
         params = self.params.clone()
         side.wait_stream(main)
         with torch.cuda.stream(side):
-            out = self._chunk_body(rnd, length, params, poll, batch, noise)
+            out = self._chunk_body(rnd, length, params, poll, batch, noise, ext)
         main.wait_stream(side)
         eager_error = self._quant_error
         graph = torch.cuda.CUDAGraph()
@@ -158,34 +172,38 @@ class FusedEngine(CompiledEngine):
             graph.register_generator_state(gen)
         before = masked_weighted_sum.captured
         with torch.cuda.graph(graph, stream=side):
-            static_out = self._chunk_body(rnd, length, params, poll, batch, noise)
+            static_out = self._chunk_body(rnd, length, params, poll, batch, noise, ext)
         self.graph_launches[length] = masked_weighted_sum.captured - before
         self.graph_replays.setdefault(length, 0)
         if not self._graphs:
             _holders += 1
-        self._graphs[length] = _Graph(graph, params, poll, batch, noise, static_out,
+        self._graphs[length] = _Graph(graph, params, poll, batch, noise, ext, static_out,
                                       self._quant_error)
         self._quant_error = eager_error
         return out
 
     def _run_chunk(self, rnd: int, length: int):
-        poll, batch, noise = self._draw_chunk(rnd, length)
+        """The chunk's outputs (``_chunk_body``'s) and its host-side axis
+        inputs."""
+        poll, batch, noise, ext, ext_t = self._draw_chunk(rnd, length)
         if self.device.type != "cuda":
-            return self._chunk_body(rnd, length, self.params, poll, batch, noise)
+            return self._chunk_body(rnd, length, self.params, poll, batch, noise, ext_t), ext
         g = self._graphs.get(length)
         if g is None:
-            return self._capture(rnd, length, poll, batch, noise)
+            return self._capture(rnd, length, poll, batch, noise, ext_t), ext
         g.params.copy_(self.params)
         if poll is not None:
             g.poll.copy_(poll)
         g.batch.copy_(batch)
         for buf, new in zip(g.noise, noise):
             buf.copy_(new)
+        for k, new in ext_t.items():
+            g.ext[k].copy_(new)
         g.graph.replay()
         self.graph_replays[length] += 1
         self._quant_error = g.quant_error
-        params, masks, losses = g.out
-        return params.clone(), masks, losses
+        params, *outs = g.out
+        return (params.clone(), *outs), ext
 
     def close(self) -> None:
         """Drop the captured graphs and their buffers; the last fused
@@ -218,14 +236,16 @@ class FusedEngine(CompiledEngine):
         rnd, end = self._round, self._round + n_rounds
         while rnd < end:
             length = self._chunk_len(rnd, end)
-            self.params, masks, losses = self._run_chunk(rnd, length)
-            masks, losses = masks.cpu().numpy(), losses.cpu().numpy()
+            (self.params, *outs), ext = self._run_chunk(rnd, length)
+            masks, finals, arrivals, losses = (t.cpu().numpy() for t in outs)
             # evaluation-due rounds are chunk-final (_chunk_len), so each
-            # evaluates the chunk's committed parameters
+            # evaluates the chunk's committed parameters; the health ledger
+            # replays the chunk's rounds in order
             results = []
             for i in range(length):
-                sel = np.flatnonzero(masks[i])  # the cohort's selected rows come first
-                results.append(self._finish_round(rnd + i, sel, losses[i][: len(sel)]))
+                step = self._device_step(rnd + i, masks[i], finals[i], arrivals[i], losses[i],
+                                         {k: v[i] for k, v in ext.items()})
+                results.append(self._finish_round(rnd + i, step))
             rnd += length
             for result in results:
                 if callback is not None:

@@ -5,7 +5,8 @@ Selection is host-side numpy (K scalars per round); local training runs
 the selected cohort as one (m, P) tensor on the engine's device
 (``repro_torch.federated.client.local_train``); aggregation reduces that
 tensor with the registered aggregator (FedAvg, FedNova, FedDyn: one
-launch of the FedAvg reduce kernel on the card).  Under FedDyn's client
+launch of the FedAvg reduce kernel on the card), over the survivors'
+rows when the systems or fault axis dropped someone.  Under FedDyn's client
 mode the cohort's rows of the (K, P) ``h_clients`` go to local training
 and come back updated against the *new* global params, as in the
 reference's ``HostEngine.aggregate``.
@@ -44,8 +45,20 @@ class HostEngine(Engine):
         )
         return (stacked, h_sel), local_losses.cpu().numpy()
 
-    def aggregate(self, rnd: int, sel: np.ndarray, payload) -> None:
+    def aggregate(self, rnd: int, sel: np.ndarray, payload,
+                  survivors: np.ndarray | None = None) -> None:
         stacked, h_sel = payload
+        if survivors is not None and len(survivors) != len(sel):
+            # only the surviving uploads reach the server: reduce their rows,
+            # reweighted over them (the dropped clients trained, but nothing
+            # arrived); nobody uploaded — the global model stands still
+            if len(survivors) == 0:
+                return
+            keep = np.flatnonzero(np.isin(sel, survivors))
+            rows = torch.as_tensor(keep, device=self.device)
+            stacked = stacked[rows]
+            h_sel = None if h_sel is None else h_sel[rows]
+            sel = np.asarray(sel)[keep]
         w = self.sizes[sel] / self.sizes[sel].sum()
         w_t = torch.as_tensor(w, dtype=torch.float32, device=self.device)
         taus_t = torch.as_tensor(self.taus[sel], dtype=torch.float32, device=self.device)

@@ -270,6 +270,57 @@ def test_fused_replays_match_the_eager_rounds(cuda, compress_bits):
         np.testing.assert_allclose(fused.params.cpu().numpy(), cpu.params.numpy(), atol=1e-4)
 
 
+@pytest.mark.parametrize("m,n", [(13, 199_210), (10, 4099), (3, 600_003)])
+@pytest.mark.parametrize("nan_weight", [0.0, 0.25])
+def test_aggregate_kernel_with_nan_rows_matches_plain(cuda, m, n, nan_weight):
+    """A NaN row (the fault axis's undefended ``nan_update``) at weight > 0
+    makes every column NaN; at weight 0 the plain version's 0 · NaN = NaN
+    too: the kernel gives the plain version's result either way."""
+    g = torch.Generator().manual_seed(m * n)
+    x = torch.randn(m, n, generator=g)
+    x[1] = float("nan")
+    x[m - 1, : n // 2] = float("inf")
+    w = torch.rand(m, generator=g)
+    w[1] = nan_weight
+    w = (w / w.sum()).to(cuda)
+    x = x.to(cuda)
+    before = masked_weighted_sum.launches
+    got = masked_weighted_sum(x, w)
+    want = masked_weighted_sum_ref(x, w)
+    torch.cuda.synchronize()
+    assert masked_weighted_sum.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    assert torch.isnan(got).all()
+
+
+def test_fused_with_systems_and_faults_on_card_matches_cpu(cuda):
+    """The fused chunk with both axes (availability, deadline,
+    over-selection, injection, the validation gate and quarantine inside a
+    captured graph) on the card against the same run on the CPU: the same
+    survivors, drops and fault counts every round, params within 1e-4."""
+    cfg, train, test = _fused_case(
+        fuse_rounds=3,
+        systems={"profile": "zipf_compute", "availability": "markov",
+                 "availability_kwargs": {"p_drop": 0.4, "p_join": 0.4}, "deadline_s": 2.0,
+                 "over_select": 1.5, "jitter_sigma": 0.1},
+        faults={"rate": 0.3, "models": ["sign_flip", "nan_update", "truncated_upload"],
+                "defense": "validate"})
+    masked_weighted_sum.launches = masked_weighted_sum.captured = 0
+    fused = make_engine(cfg, train, test, 10)
+    res = list(fused.rounds())
+    assert fused.graph_replays == {1: 1, 3: 2}
+    assert masked_weighted_sum.launches + fused.replayed_launches() == cfg.rounds
+    cpu = make_engine(cfg, train, test, 10, device="cpu")
+    res_cpu = list(cpu.rounds())
+    for a, b in zip(res, res_cpu, strict=True):
+        assert (a.selected, a.n_dropped, a.sim_time, a.n_faulty, a.n_quarantined) == (
+            b.selected, b.n_dropped, b.sim_time, b.n_faulty, b.n_quarantined), a.round
+        assert a.comm_mb == pytest.approx(b.comm_mb)
+    assert sum(r.n_faulty for r in res) > 0 and sum(r.n_dropped for r in res) > 0
+    assert torch.isfinite(fused.params).all()
+    np.testing.assert_allclose(fused.params.cpu().numpy(), cpu.params.numpy(), atol=1e-4)
+
+
 def test_fused_params_survive_later_replays(cuda):
     """A replay overwrites the graph's output buffers: ``engine.params`` is
     a copy, so a reference held across later chunks keeps its values."""

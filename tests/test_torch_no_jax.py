@@ -3,7 +3,8 @@
 points default to the card and raise without one, the compiled and fused
 engines too; the config accepts every registered strategy, aggregator and
 client mode, validates the compiled backend's options as the reference
-does, and rejects what the port does not implement yet."""
+does, takes the systems and fault axes under the reference's rules and
+error texts, and rejects what the port does not implement yet."""
 
 import ast
 from pathlib import Path
@@ -44,7 +45,10 @@ def test_port_file_list_is_complete():
                       "kernels/mamba_scan/ops.py", "kernels/mamba_scan/ref.py",
                       "engine/client_modes.py", "engine/presets.py", "optim/fedmods.py",
                       "data/pipeline.py", "engine/compiled.py", "engine/fused.py",
-                      "federated/compression.py"):
+                      "federated/compression.py", "systems/config.py",
+                      "systems/profiles.py", "systems/clock.py", "systems/runtime.py",
+                      "faults/config.py", "faults/health.py", "faults/models.py",
+                      "faults/defense.py", "faults/runtime.py"):
         assert f"src/repro_torch/{lm_module}" in names
     assert len(names) > 20
 
@@ -63,7 +67,9 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         make_engine(cfg, train, test, 4)
     for kw in ({"backend": "compiled"}, {"backend": "compiled", "fuse_rounds": 2},
-               {"backend": "compiled", "fuse_rounds": 2, "compress_bits": 8}):
+               {"backend": "compiled", "fuse_rounds": 2, "compress_bits": 8},
+               {"systems": {"profile": "mobile_mix", "over_select": 1.5},
+                "faults": {"rate": 0.2, "defense": "validate"}}):
         with pytest.raises(RuntimeError, match="cuda"):
             make_engine(FLConfig(**{**cfg.to_dict(), **kw}), train, test, 4)
     lm_cfg = FLConfig(task="lm", n_clients=4, m=2, rounds=1, batch_size=2, eval_samples=2,
@@ -87,9 +93,9 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
     ("async_mode", {"dispatch": "sync"}),
     ("backend", "scaleout"),
     ("population", {"n_shards": 4, "shards_per_round": 2}),
-    ("systems", {"profile": "mobile_mix"}),
+    ("async_mode", {"buffer_k": 4, "concurrency": 8}),
     ("async_mode", {"buffer_k": 2}),
-    ("faults", {"models": ["nan"]}),
+    ("population", {"n_shards": 8}),
     ("population", {"n_shards": 2}),
 ])
 def test_config_rejects_unported_values(field, value):
@@ -115,6 +121,31 @@ def test_config_validates_compiled_backend_values(field, value, alone):
             FLConfig(**{field: value})
     cfg = FLConfig(**{"backend": "compiled", field: value})
     assert getattr(cfg, field) == value and FLConfig.from_dict(cfg.to_dict()) == cfg
+
+
+def test_config_takes_the_systems_and_fault_axes_under_the_reference_rules():
+    from repro_torch.engine import FaultConfig, SystemsConfig
+
+    cfg = FLConfig(systems={"profile": "mobile_mix", "deadline_s": 30.0, "over_select": 1.3},
+                   faults={"rate": 0.2, "models": "sign_flip", "defense": "validate"})
+    assert isinstance(cfg.systems, SystemsConfig) and isinstance(cfg.faults, FaultConfig)
+    assert FLConfig.from_dict(cfg.to_dict()) == cfg
+    assert FLConfig.from_dict(FLConfig().to_dict()).systems is None
+    with pytest.raises(ValueError, match="systems must be"):
+        FLConfig(systems=42)
+    with pytest.raises(ValueError, match="faults must be"):
+        FLConfig(faults="sign_flip")
+    with pytest.raises(ValueError, match="unknown fault model"):
+        FLConfig(faults={"models": ["nan"]})
+    with pytest.raises(ValueError, match="stale_replay"):
+        FLConfig(backend="compiled", fuse_rounds=2,
+                 faults={"rate": 0.1, "models": ["stale_replay"]})
+    with pytest.raises(ValueError, match="track_energy"):
+        FLConfig(backend="compiled", fuse_rounds=2, systems={"track_energy": True})
+    for kw in ({"backend": "compiled", "faults": {"models": ["stale_replay"]},
+                "systems": {"track_energy": True}},
+               {"backend": "compiled", "fuse_rounds": 2, "faults": {"models": ["sign_flip"]}}):
+        assert FLConfig(**kw).faults is not None
 
 
 @pytest.mark.parametrize("field,value", [

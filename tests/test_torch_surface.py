@@ -28,7 +28,7 @@ from repro_torch.models.mlp import MLPLayout  # noqa: E402
 
 # Names of the reference that the port does not offer yet, by module, each
 # with the ROADMAP item (or the reason) that keeps it out.
-_AXES = "the runtime axes (systems, faults, checkpoint, async, population)"
+_AXES = "the runtime axes still to port (checkpoint, async, population)"
 UNPORTED = {
     "repro.configs": {"INPUT_SHAPES": "frame and image inputs",
                       "InputShape": "frame and image inputs"},
@@ -39,8 +39,7 @@ UNPORTED = {
                                                    "fedlecc_select_mask"},
     "repro.engine": {
         "ScaleoutEngine": "scaleout", "make_scaleout_round": "scaleout",
-        "SystemsConfig": _AXES, "PopulationConfig": _AXES, "FaultConfig": _AXES,
-        "AsyncConfig": _AXES, "AsyncHostEngine": _AXES, "AsyncCompiledEngine": _AXES,
+        "PopulationConfig": _AXES, "AsyncConfig": _AXES, "AsyncHostEngine": _AXES, "AsyncCompiledEngine": _AXES,
         "CheckpointPolicy": _AXES, "Checkpointer": _AXES, "JsonlTracker": _AXES,
         "MetricsTracker": _AXES},
     "repro.engine.compiled": {"make_scaleout_round": "scaleout"},
@@ -116,7 +115,11 @@ def test_every_reference_name_with_a_port_counterpart_imports_from_the_same_path
     assert not stale, f"ported names still listed as unported: {stale}"
     assert set(UNPORTED) <= seen
     assert {"repro.engine", "repro.core", "repro.models", "repro.optim",
-            "repro.federated"} <= seen
+            "repro.federated", "repro.systems", "repro.faults"} <= seen
+    for package in ("systems", "faults"):
+        ref = importlib.import_module(f"repro.{package}")
+        modules = {m.name for m in pkgutil.walk_packages(ref.__path__, f"repro.{package}.")}
+        assert modules <= seen, f"repro.{package} modules without a port: {modules - seen}"
 
 
 def test_engine_exports_and_lists():
