@@ -13,7 +13,8 @@ Phases, each printed on its own lines:
    card and times the kernel, the plain version and one PyTorch library
    call computing the same function where one exists (median over 30
    calls, CUDA events; 5 for the plain scan over 2048 steps); K1 also at
-   the over-selected cohorts (13 and 16 rows, and xlstm's (13, P)), and
+   the over-selected cohorts (13 and 16 rows, and xlstm's (13, P)), at the
+   async runtime's kept deltas (5 rows, classification and xlstm), and
    with a NaN row at weight > 0 and at weight 0 (the plain version's
    result: NaN in every column).
 4. main paths, each driven through ``make_engine(...).rounds()`` with
@@ -68,6 +69,25 @@ Phases, each printed on its own lines:
      faulty updates, the most quarantined, median round); rate 0 must give
      ``faults=None``'s bits, the compiled backend the host's survivors at
      20 %, and fused chunks of 5 run the gate inside a captured graph;
+   - ``async:`` the same configuration under ``benchmarks/bench_systems.py
+     --async``'s cells (``mobile_mix`` + ``markov``; lock-step without a
+     deadline and at the 60th-percentile deadline with over-selection 1.3;
+     FedBuff-style async with buffer 5 over twice the rounds and with
+     buffer 10, 20 clients in flight, discount (1 + s)^-0.5) for fedlecc,
+     random and fedcs on the host backend (final and best accuracy,
+     simulated s and MB to 95 % of the lowest best accuracy, params
+     version, staleness, median step, K1 once a step that applies an
+     update); fedlecc's buffer-5 run on the compiled backend keeps the
+     host's survivors, versions and staleness every step; ``dispatch=
+     "sync"`` gives the lock-step engine's bits; buffer 5 under
+     ``sign_flip`` at 20 % behind the validation gate;
+   - ``checkpoint:`` ``benchmarks/bench_checkpoint.py``'s rows (40 rounds,
+     a save every round, the last 3 kept, a JSONL tracker) on host,
+     compiled and fused chunks of 2: bare and checkpointed s a round, save
+     and restore s, MB; a kill at round 20 resumes to the uninterrupted
+     run's bits, as does an engine that captured its graphs and restores an
+     older file; then the buffer-5 async run killed mid-buffer on host and
+     compiled resumes to the same bits;
    - federated LM training on stablelm-3b at full width, cut from 32 to
      2 layers (P = 380,789,760), K = 100, m = 10, batch 8 of 64 tokens,
      3 rounds, with the flash-attention kernel forward (poll, local SGD,
@@ -83,7 +103,10 @@ Phases, each printed on its own lines:
      under both axes (``mobile_mix`` at its 60th percentile deadline,
      over-selection 1.3 so K1 reduces (13, P); ``sign_flip`` and
      ``nan_update`` at 20 % behind the gate), with the gate's norm pass
-     and clip timed alone at (13, P) under the profiler.
+     and clip timed alone at (13, P) under the profiler; one save and one
+     restore of its lock-step engine are timed; then 4 steps of the
+     buffer-5 async runtime (20 in flight, K1 on (5, P)), printing each
+     step's staleness, version, in-flight rows and peak memory.
 5. agreement — a small configuration of each task and model (stablelm,
    hymba, xlstm, and glm4, qwen3 and gemma3 reduced), of every
    classification preset and of fused compiled chunks, run on the CPU
@@ -94,13 +117,20 @@ Phases, each printed on its own lines:
    rounds: scripts/xlstm_sensitivity.py), so its card run starts each
    round, of one local step, from the CPU run's parameters; so does the
    xlstm micro run under both axes, which must also drop and flag the
-   same clients.
+   same clients; and an async micro run (host, compiled, host under
+   faults), which must dispatch, aggregate and version the same way.
 6. kernel-only — each kernel's own device time a call, without the
    wrapper's host work, at each of its phase-3 shapes: K1, K2, the
    flash-attention kernels (forward, dQ and dK/dV) and the selective
    scan, and beside K1 and K2 the device time of the kernels that their
    library call launches (``torch.profiler``, median of 30 calls); last,
-   so that no profiler session precedes a host-timed phase.
+   so that no profiler session precedes a host-timed phase.  Each reading
+   prints the launches the profiler recorded: every matched kernel must
+   have recorded exactly its launches a call (the wrapper's counter) times
+   the calls, or a whole multiple of the calls for a library call, else
+   the window is profiled again and then the run fails; and no reading
+   may lie below its bound, except an L2-resident one below the HBM byte
+   bound.
 
 Then the card's name and power limit again, one JSON line lists the
 kernels (K1's launches summed over every path above), and the last line
@@ -132,7 +162,8 @@ PEAK_3XTF32_PER_S = 495e12 / 3
 # SM description) x 132 SMs x the 1.98 GHz boost clock of the SXM part
 PEAK_SFU_PER_S = 16 * 132 * 1.98e9
 TIMED_CALLS = 30
-PROFILE_ATTEMPTS = 3
+PROFILE_ATTEMPTS = 10
+L2_BYTES = 50 * 2**20        # H100 SXM L2: inputs this small stay resident between calls
 
 
 def _median_ms(fn, calls: int = TIMED_CALLS, warmup: int = 3) -> float:
@@ -153,40 +184,89 @@ def _median_ms(fn, calls: int = TIMED_CALLS, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def _kernel_ms(fn, names, calls: int = TIMED_CALLS) -> float:
-    """Device time a call of the kernels whose names match ``names``: for
-    each such kernel the median of its launches in ``calls`` calls under
-    ``torch.profiler`` (after one warm-up call) times its launches a call,
-    summed over the kernels.  The kernels alone, without the wrapper's host
-    work (checks, allocations, the ctypes call) that the event-timed ``ms``
-    includes."""
+def _kernel_ms(fn, names, calls: int = TIMED_CALLS, counter=None) -> tuple[float, int]:
+    """Device time a call of the kernels whose names match ``names``, and the
+    launches of them that the profiler recorded: for each such kernel the
+    median of its launches in ``calls`` calls under ``torch.profiler``
+    (after one warm-up call) times its launches a call, summed over the
+    kernels.  The kernels alone, without the wrapper's host work (checks,
+    allocations, the ctypes call) that the event-timed ``ms`` includes.
+
+    ``counter`` is the wrapper that ``fn`` calls (its ``launches`` count):
+    the warm-up call gives its launches a call, and every matched kernel
+    must have recorded exactly ``calls`` times that many.  Without one (a
+    library call) every matched kernel must have recorded a whole multiple
+    of ``calls``.  The profiler loses launches at the start of a tracing
+    session, so each session traces a first window of ``calls`` calls that
+    it discards (a warm-up step of its schedule) and records the second.
+    A window that still recorded another count is profiled again after a
+    pause, up to ``PROFILE_ATTEMPTS`` times (sessions that record nothing
+    at all come two in a row), and then the run fails: a reading is never
+    scaled by the share of the launches that was recorded."""
     import torch
 
+    before = None if counter is None else counter.launches
     fn()
     torch.cuda.synchronize()
-    # torch.profiler now and then records no device event at all in a
-    # session although the kernels ran (phase 3 checked them); such a
-    # window is profiled again, up to PROFILE_ATTEMPTS times in all.
+    per_call = None if counter is None else counter.launches - before
+    if per_call == 0:
+        raise AssertionError(f"{names.pattern}: the wrapper launched nothing in a call")
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    schedule = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
-        with _profiled(True) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts, schedule=schedule) as prof:
+            for _ in range(2):  # the warm-up window, then the recorded one
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
         per_kernel: dict[str, list[float]] = {}
         seen = set()
         for e in prof.events():
-            if e.device_type.name == "CUDA":
+            # the schedule's step marker is a device-side annotation, not a kernel
+            if e.device_type.name == "CUDA" and not e.name.startswith("ProfilerStep"):
                 seen.add(e.name[:80])
                 if names.search(e.name):
                     per_kernel.setdefault(e.name, []).append(e.time_range.elapsed_us())
-        if seen or attempt == PROFILE_ATTEMPTS:
-            break
-        print(f"kernel-only: the profiler recorded no device event in attempt {attempt} of "
-              f"{PROFILE_ATTEMPTS} for {names.pattern}; profiling the window again", flush=True)
-    if not per_kernel:
-        raise AssertionError(f"the profiler recorded no kernel matching {names.pattern}; "
-                             f"device events: {sorted(seen)}")
-    return sum(statistics.median(v) * len(v) / calls for v in per_kernel.values()) / 1e3
+        counts = {k: len(v) for k, v in per_kernel.items()}
+        if per_call is not None:
+            whole = bool(counts) and all(n == calls * per_call for n in counts.values())
+        else:
+            whole = bool(counts) and all(n % calls == 0 for n in counts.values())
+        if whole:
+            recorded = sum(counts.values())
+            PROFILE_TRIES.append((names.pattern, attempt))
+            return sum(statistics.median(v) * (len(v) // calls)
+                       for v in per_kernel.values()) / 1e3, recorded
+        want = (f"{calls} x {per_call} a kernel" if per_call is not None
+                else f"a whole multiple of {calls} a kernel")
+        print(f"kernel-only: attempt {attempt} of {PROFILE_ATTEMPTS} for {names.pattern} "
+              f"recorded {sorted(counts.values())} launches of {len(counts)} kernels ({want} "
+              f"expected; {len(seen)} device event names); profiling the window again",
+              flush=True)
+        time.sleep(0.5)
+    raise AssertionError(f"the profiler did not record every launch of {names.pattern} in "
+                         f"{PROFILE_ATTEMPTS} attempts: {counts}; device events: {sorted(seen)}")
+
+
+BELOW_BOUND: list[str] = []  # phase 6's readings below their bound; the run fails after it
+PROFILE_TRIES: list[tuple[str, int]] = []  # (kernel names, profiling attempts) a reading
+
+
+def _not_below_bound(tag: str, kernel_ms: float, bound_ms: float,
+                     n_bytes: float | None = None) -> None:
+    """A kernel-only reading below the card's bound is a measurement fault
+    (recorded in ``BELOW_BOUND``), except where the inputs (``n_bytes``) fit
+    in the L2, which serves them faster than the HBM rate the byte bound
+    assumes."""
+    if kernel_ms >= bound_ms:
+        return
+    if n_bytes is not None and n_bytes <= L2_BYTES:
+        print(f"kernel-only {tag}: {kernel_ms} ms below the HBM byte bound {bound_ms} ms; its "
+              f"{n_bytes / 2**20:.1f} MiB of inputs stay in the L2 between calls", flush=True)
+        return
+    print(f"kernel-only {tag}: {kernel_ms} ms is BELOW its bound {bound_ms} ms", flush=True)
+    BELOW_BOUND.append(f"{tag}: {kernel_ms} < {bound_ms}")
 
 
 def _bound(n_bytes: float, n_ops: float, peak_ops: float = PEAK_FP32_PER_S) -> tuple[float, str]:
@@ -544,14 +624,20 @@ def _scan_kernel_ms(rec, device) -> None:
     dtype = getattr(torch, rec["dtype"])
     inputs, dy = _scan_inputs(tuple(rec["shape"]), rec["groups"], dtype, device)
     _, ckpt = mamba_scan_forward(*inputs, checkpoints=True)
-    rec["forward"]["kernel_ms"] = _kernel_ms(
-        lambda: mamba_scan_forward(*inputs, checkpoints=rec["checkpoints"]), SCAN_FORWARD)
-    rec["backward"]["kernel_ms"] = _kernel_ms(
-        lambda: mamba_scan_backward(*inputs, ckpt, dy), SCAN_BACKWARD)
+    rec["forward"]["kernel_ms"], fwd_n = _kernel_ms(
+        lambda: mamba_scan_forward(*inputs, checkpoints=rec["checkpoints"]), SCAN_FORWARD,
+        counter=mamba_scan_forward)
+    rec["backward"]["kernel_ms"], bwd_n = _kernel_ms(
+        lambda: mamba_scan_backward(*inputs, ckpt, dy), SCAN_BACKWARD,
+        counter=mamba_scan_backward)
     tag = {k: rec[k] for k in ("shape", "groups", "dtype", "checkpoints")}
     print(f"kernel mamba_scan kernel-only {json.dumps(tag)}: forward "
-          f"{rec['forward']['kernel_ms']} ms, backward {rec['backward']['kernel_ms']} ms",
+          f"{rec['forward']['kernel_ms']} ms ({fwd_n} launches recorded in {TIMED_CALLS} "
+          f"calls), backward {rec['backward']['kernel_ms']} ms ({bwd_n} recorded)",
           flush=True)
+    for direction in ("forward", "backward"):
+        _not_below_bound(f"mamba_scan {direction} {tag}", rec[direction]["kernel_ms"],
+                         rec[direction]["bound_ms"])
 
 
 def _flash_kernel_ms(rec, device) -> None:
@@ -571,18 +657,25 @@ def _flash_kernel_ms(rec, device) -> None:
     o, lse = flash_attention_forward(q, k, v, window, is_global)
     backward = lambda: flash_attention_backward(q, k, v, o, lse, do, window,  # noqa: E731
                                                 is_global)
-    rec["forward"]["kernel_ms"] = _kernel_ms(
-        lambda: flash_attention_forward(q, k, v, window, is_global), FLASH_FORWARD)
-    rec["backward"]["dq_kernel_ms"] = _kernel_ms(backward, FLASH_DQ)
-    rec["backward"]["dkdv_kernel_ms"] = _kernel_ms(backward, FLASH_DKDV)
+    rec["forward"]["kernel_ms"], fwd_n = _kernel_ms(
+        lambda: flash_attention_forward(q, k, v, window, is_global), FLASH_FORWARD,
+        counter=flash_attention_forward)
+    rec["backward"]["dq_kernel_ms"], dq_n = _kernel_ms(backward, FLASH_DQ,
+                                                       counter=flash_attention_backward)
+    rec["backward"]["dkdv_kernel_ms"], dkdv_n = _kernel_ms(backward, FLASH_DKDV,
+                                                           counter=flash_attention_backward)
     rec["backward"]["kernel_ms"] = (rec["backward"]["dq_kernel_ms"]
                                     + rec["backward"]["dkdv_kernel_ms"])
     tag = {key: rec[key] for key in ("shape", "dtype", "window", "is_global")}
     print(f"kernel flash_attention kernel-only {json.dumps(tag)}: forward (fwd_kernel) "
-          f"{rec['forward']['kernel_ms']} ms of {rec['forward']['ms']}, backward "
-          f"{rec['backward']['kernel_ms']} ms of {rec['backward']['ms']} (dq_kernel "
-          f"{rec['backward']['dq_kernel_ms']}, dkdv_kernel {rec['backward']['dkdv_kernel_ms']})",
+          f"{rec['forward']['kernel_ms']} ms of {rec['forward']['ms']} ({fwd_n} launches "
+          f"recorded in {TIMED_CALLS} calls), backward {rec['backward']['kernel_ms']} ms of "
+          f"{rec['backward']['ms']} (dq_kernel {rec['backward']['dq_kernel_ms']}, {dq_n} "
+          f"recorded; dkdv_kernel {rec['backward']['dkdv_kernel_ms']}, {dkdv_n} recorded)",
           flush=True)
+    for direction in ("forward", "backward"):
+        _not_below_bound(f"flash_attention {direction} {tag}", rec[direction]["kernel_ms"],
+                         rec[direction]["bound_ms"])
 
 
 def _reduce_kernel_ms(rec, device) -> None:
@@ -595,9 +688,13 @@ def _reduce_kernel_ms(rec, device) -> None:
 
     x, w = _aggregate_inputs(tuple(rec["shape"]), getattr(torch, rec["dtype"]), device)
     w_lib = w.to(x.dtype)
-    rec["kernel_ms"] = _kernel_ms(lambda: masked_weighted_sum(x, w), FEDAVG_KERNEL)
-    rec["library_kernel_ms"] = _kernel_ms(lambda: w_lib @ x, ANY_KERNEL)
+    rec["kernel_ms"], rec["kernel_recorded"] = _kernel_ms(
+        lambda: masked_weighted_sum(x, w), FEDAVG_KERNEL, counter=masked_weighted_sum)
+    rec["library_kernel_ms"], rec["library_recorded"] = _kernel_ms(lambda: w_lib @ x,
+                                                                   ANY_KERNEL)
     _print_kernel_only("masked_weighted_sum", {k: rec[k] for k in ("shape", "dtype")}, rec)
+    _not_below_bound(f"masked_weighted_sum {rec['shape']} {rec['dtype']}", rec["kernel_ms"],
+                     rec["bound_ms"], x.numel() * x.element_size() + 4 * (w.numel() + x.shape[1]))
     del x, w, w_lib
     torch.cuda.empty_cache()
 
@@ -609,9 +706,14 @@ def _strip_kernel_ms(rec, device) -> None:
     from repro_torch.kernels.hellinger import hellinger_strip
 
     rb, r = _strip_inputs(tuple(rec["shape"]), device)
-    rec["kernel_ms"] = _kernel_ms(lambda: hellinger_strip(rb, r), STRIP_KERNEL)
-    rec["library_kernel_ms"] = _kernel_ms(lambda: _strip_library(rb, r), ANY_KERNEL)
+    rec["kernel_ms"], rec["kernel_recorded"] = _kernel_ms(
+        lambda: hellinger_strip(rb, r), STRIP_KERNEL, counter=hellinger_strip)
+    rec["library_kernel_ms"], rec["library_recorded"] = _kernel_ms(
+        lambda: _strip_library(rb, r), ANY_KERNEL)
     _print_kernel_only("hellinger_strip", {"shape": rec["shape"]}, rec)
+    b, k, c = rec["shape"]
+    _not_below_bound(f"hellinger_strip {rec['shape']}", rec["kernel_ms"], rec["bound_ms"],
+                     4 * (b * c + k * c + b * k))
 
 
 def _print_kernel_only(name, tag, rec) -> None:
@@ -619,9 +721,11 @@ def _print_kernel_only(name, tag, rec) -> None:
     and the share of the wrapper's event-timed ``ms`` (phase 3) that is host
     work; negative where this phase's kernel time exceeds phase 3's ``ms``."""
     rec["host_share"] = 1 - rec["kernel_ms"] / rec["ms"]
-    print(f"kernel {name} kernel-only {json.dumps(tag)}: kernel {rec['kernel_ms']} ms, "
-          f"library {rec['library_kernel_ms']} ms, host share of the wrapper's "
-          f"{rec['ms']} ms {rec['host_share']:.3f}", flush=True)
+    print(f"kernel {name} kernel-only {json.dumps(tag)}: kernel {rec['kernel_ms']} ms "
+          f"({rec['kernel_recorded']} launches recorded in {TIMED_CALLS} calls), library "
+          f"{rec['library_kernel_ms']} ms ({rec['library_recorded']} kernel launches "
+          f"recorded), bound {rec['bound_ms']} ms, host share of the wrapper's {rec['ms']} ms "
+          f"{rec['host_share']:.3f}", flush=True)
 
 
 def _main_path(device):
@@ -1248,6 +1352,372 @@ def _faults_phase(device):
     return k1
 
 
+# bench_systems.py --async at the paper's configuration: the strategies, the
+# discount and the in-flight target of its async cells (2 m)
+ASYNC_STRATEGIES = ("fedlecc", "random", "fedcs")
+ASYNC_MODE = dict(staleness="polynomial", staleness_kwargs={"a": 0.5}, concurrency=20)
+ASYNC_K5 = dict(ASYNC_MODE, buffer_k=5)
+
+
+def _async_scenarios(deadline):
+    """bench_systems.py --async's cells at m = 10, as (name, systems,
+    async_mode, rounds): async steps pop 5 (or 10) arrivals, so async_k5
+    runs twice the rounds."""
+    rounds = PAPER["rounds"]
+    return [("sync_no_deadline", _mobile_mix(None, 1.0), None, rounds),
+            (f"sync_deadline_p{DEADLINE_PCT}_os1.3", _mobile_mix(deadline, 1.3), None, rounds),
+            ("async_k5", _mobile_mix(None, 1.0), ASYNC_K5, 2 * rounds),
+            ("async_k10", _mobile_mix(None, 1.0), dict(ASYNC_MODE, buffer_k=10), rounds)]
+
+
+def _async_run(device, tag, cfg, train, test):
+    """``cfg`` through ``make_engine(...).rounds()``, each step timed, K1 and
+    K2 counted from 0; checks K1 (once a step that applies an update: the
+    final params version under async; a round with survivors under the
+    lock-step host loop), versions, the event clock and finite parameters;
+    returns (record, engine, results)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.engine import make_engine
+    from repro_torch.kernels.aggregate import masked_weighted_sum
+    from repro_torch.kernels.hellinger import hellinger_strip
+
+    hellinger_strip.launches = masked_weighted_sum.launches = 0
+    t = time.perf_counter()
+    engine = make_engine(cfg, train, test, n_classes=10, device=device)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+    results, walls = [], []
+    for r in _timed(engine.rounds(), walls):
+        results.append(r)
+    evaluated = [r for r in results if r.evaluated]
+    asynchronous = cfg.async_mode is not None and cfg.async_mode.dispatch == "async"
+    updates = sum(1 for r in results if r.selected)
+    rec = {"tag": tag, "strategy": cfg.strategy, "backend": cfg.backend,
+           "async_mode": cfg.to_dict()["async_mode"], "faults": cfg.to_dict()["faults"],
+           "rounds": len(results), "setup_s": setup_s,
+           "median_step_ms": statistics.median(walls) * 1e3,
+           "final_acc": evaluated[-1].test_acc, "best_acc": max(r.test_acc for r in evaluated),
+           "total_sim_s": results[-1].sim_clock, "comm_mb": results[-1].comm_mb,
+           "final_params_version": results[-1].params_version,
+           "mean_staleness": float(np.mean([r.staleness for r in results])),
+           "max_staleness": max(r.staleness for r in results),
+           "steps_with_update": updates, "total_dropped": sum(r.n_dropped for r in results),
+           "total_faulty": sum(r.n_faulty for r in results),
+           "max_quarantined": max(r.n_quarantined for r in results),
+           "k1_launches": masked_weighted_sum.launches, "k2_launches": hellinger_strip.launches}
+    rec["evaluated"] = [(r.round, r.test_acc, r.sim_clock, r.comm_mb) for r in evaluated]
+    print(f"async: {json.dumps({k: v for k, v in rec.items() if k != 'evaluated'})}",
+          flush=True)
+    want_k1 = results[-1].params_version if asynchronous else updates
+    want_k2 = 1 if cfg.strategy in HELLINGER_STRATEGIES else 0
+    if (rec["k1_launches"], rec["k2_launches"]) != (want_k1, want_k2):
+        raise AssertionError(f"{tag}: K1/K2 launched {rec['k1_launches']}/{rec['k2_launches']} "
+                             f"times; expected {want_k1}/{want_k2}")
+    clock, version = 0.0, 0
+    for r in results:
+        sel = list(r.selected)
+        bump = 1 if (sel or not asynchronous) else 0
+        if (sorted(set(sel)) != sel or (sel and not 0 <= sel[0] <= sel[-1] < cfg.n_clients)
+                or r.sim_clock < clock or r.params_version != version + bump
+                or (asynchronous and len(sel) + r.n_dropped > cfg.async_mode.buffer_k)
+                or not math.isfinite(r.comm_mb)):
+            raise AssertionError(f"{tag} step {r.round}: bad step {r}")
+        clock, version = r.sim_clock, r.params_version
+    if asynchronous and not 0 < version <= len(results):
+        raise AssertionError(f"{tag}: params version {version} after {len(results)} steps")
+    if not (engine.params.is_cuda and torch.isfinite(engine.params).all()):
+        raise AssertionError(f"{tag}: final parameters not a finite CUDA tensor")
+    return rec, engine, results
+
+
+def _timed(it, walls):
+    """The items of ``it``, appending each one's wall seconds (the card
+    synchronised) to ``walls``."""
+    import torch
+
+    while True:
+        t = time.perf_counter()
+        r = next(it, None)
+        if r is None:
+            return
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        yield r
+
+
+ASYNC_FIELDS = ("round", "selected", "params_version", "staleness", "n_dropped", "sim_time",
+                "n_faulty", "n_quarantined")
+
+
+def _async_phase(device):
+    """The ``--async`` sweep of bench_systems.py on the host backend, then
+    fedlecc's async_k5 on the compiled backend against the host's,
+    ``dispatch="sync"`` against the lock-step engine at the same bits, and
+    async_k5 under sign_flip at 20 % behind the validation gate; returns
+    K1's launches over the phase."""
+    import torch
+
+    from repro_torch.engine import FLConfig
+
+    train, test = _paper_data()
+    t = time.perf_counter()
+    deadline = _deadline(device, {**PAPER, "strategy": "random",
+                                  "systems": _mobile_mix(None, 1.0)}, train, test)
+    scenarios = _async_scenarios(deadline)
+    print(f"async: deadline {deadline:.3f} simulated s; cells {[s[0] for s in scenarios]}; "
+          f"async discount (1 + s)^-0.5, concurrency {ASYNC_MODE['concurrency']}", flush=True)
+    k1, keep = 0, {}
+    for strategy in ASYNC_STRATEGIES:
+        kw = {"strategy_kwargs": {"J": 3}} if strategy == "fedlecc" else {}
+        recs = {}
+        for name, systems, async_mode, rounds in scenarios:
+            cfg = FLConfig(**{**PAPER, "rounds": rounds}, strategy=strategy, systems=systems,
+                           async_mode=async_mode, **kw)
+            rec, engine, results = _async_run(device, f"{strategy} {name}", cfg, train, test)
+            k1 += rec["k1_launches"]
+            recs[name] = rec
+            if strategy == "fedlecc" and name in ("async_k5", scenarios[1][0]):
+                keep[name] = (engine, results)
+            del engine, results
+        target = 0.95 * min(rec["best_acc"] for rec in recs.values())
+        summary = {name: _time_to(rec, target) for name, rec in recs.items()}
+        print(f"async {strategy} to {target:.4f} (95 % of the lowest best accuracy): "
+              f"{json.dumps(summary)}", flush=True)
+    fedlecc = dict(PAPER, strategy="fedlecc", strategy_kwargs={"J": 3})
+    rec, engine, results = _async_run(
+        device, "fedlecc async_k5 compiled",
+        FLConfig(**{**fedlecc, "rounds": 2 * PAPER["rounds"]}, backend="compiled",
+                 systems=_mobile_mix(None, 1.0), async_mode=ASYNC_K5), train, test)
+    k1 += rec["k1_launches"]
+    _same_run("fedlecc async_k5 host vs compiled", keep["async_k5"], (engine, results),
+              PARITY_ATOL, "async", ASYNC_FIELDS)
+    del engine, results, keep["async_k5"]
+    rec, engine, results = _async_run(
+        device, "fedlecc dispatch=sync", FLConfig(**fedlecc, systems=scenarios[1][1],
+                                                  async_mode={"dispatch": "sync"}), train, test)
+    k1 += rec["k1_launches"]
+    lock, lock_results = keep.pop(scenarios[1][0])
+    same = (torch.equal(engine.params, lock.params)
+            and [(r.selected, r.comm_mb, r.sim_clock, r.n_dropped) for r in results]
+            == [(r.selected, r.comm_mb, r.sim_clock, r.n_dropped) for r in lock_results])
+    print(f"async: dispatch=\"sync\" against the lock-step engine, {len(results)} rounds, the "
+          f"same bits: {same}", flush=True)
+    if not same:
+        raise AssertionError("dispatch='sync' differs from the lock-step engine")
+    del engine, results, lock, lock_results
+    rec, engine, results = _async_run(
+        device, "fedlecc async_k5 sign_flip 0.2 validate",
+        FLConfig(**{**fedlecc, "rounds": 2 * PAPER["rounds"]}, systems=_mobile_mix(None, 1.0),
+                 async_mode=ASYNC_K5,
+                 faults={"rate": 0.2, "models": ["sign_flip"], "defense": "validate"}),
+        train, test)
+    k1 += rec["k1_launches"]
+    if rec["total_faulty"] == 0:
+        raise AssertionError("async_k5 at sign_flip 20 %: no faulty upload arrived")
+    del engine, results
+    torch.cuda.empty_cache()
+    print(f"async: phase in {time.perf_counter() - t:.1f} s", flush=True)
+    return k1
+
+
+CKPT_ROUNDS = 40
+
+
+def _replayed(engine) -> int:
+    """K1 launches made by a fused engine's graph replays (0 otherwise)."""
+    return engine.replayed_launches() if hasattr(engine, "replayed_launches") else 0
+CKPT_BACKENDS = {"host": {}, "compiled": {"backend": "compiled"},
+                 "fused": {"backend": "compiled", "fuse_rounds": 2}}
+
+
+def _checkpoint_phase(device):
+    """benchmarks/bench_checkpoint.py's rows at the paper's configuration
+    (fedlecc J = 3, 40 rounds, a save every round, the last 3 kept, a JSONL
+    tracker) on host, compiled and fused chunks of 2: bare and checkpointed
+    s a round, one save, one restore, the file's MB, and a kill at round 20
+    resumed to the uninterrupted run's bits; a fused engine that captured its
+    graphs restores an older checkpoint and reruns to the same bits; then an
+    async_k5 run killed mid-buffer on host and on compiled, resumed to the
+    same bits.  Files go under build/ and are removed; returns K1's
+    launches over the phase."""
+    import shutil
+
+    import torch
+
+    from repro_torch.checkpoint import Checkpointer, CheckpointPolicy, JsonlTracker, read_jsonl
+    from repro_torch.engine import FLConfig, make_engine
+    from repro_torch.kernels.aggregate import masked_weighted_sum
+
+    train, test = _paper_data()
+    work = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    masked_weighted_sum.launches = 0
+    replayed = 0
+    base = dict(PAPER, strategy="fedlecc", strategy_kwargs={"J": 3}, rounds=CKPT_ROUNDS,
+                eval_every=2)
+    policy = CheckpointPolicy(every_rounds=1, keep_last=3)
+    half = CKPT_ROUNDS // 2
+
+    def mk(cfg, **kw):
+        return make_engine(cfg, train, test, n_classes=10, device=device, **kw)
+
+    def run(engine, n=None):
+        t = time.perf_counter()
+        out = list(engine.rounds(n))
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    for name, kw in CKPT_BACKENDS.items():
+        cfg = FLConfig(**base, **kw)
+        ckdir = work / name
+        bare = mk(cfg)
+        _, bare_s = run(bare)
+        replayed += _replayed(bare)
+        del bare
+        tracked = mk(cfg, checkpointer=Checkpointer(str(ckdir / "full"), policy),
+                     tracker=JsonlTracker(str(ckdir / "full.jsonl")))
+        full, ckpt_s = run(tracked)
+        tracked.close_trackers()
+        ckpt_mb = Path(tracked.checkpointer.latest()).stat().st_size / 1e6
+        t = time.perf_counter()
+        tracked.save(str(ckdir / "probe.ckpt"))
+        save_s = time.perf_counter() - t
+        # the kill: half the run, abandoned after its save
+        killed = mk(cfg, checkpointer=Checkpointer(str(ckdir / "run"), policy),
+                    tracker=JsonlTracker(str(ckdir / "run.jsonl")))
+        it = killed.rounds()
+        pre = [next(it) for _ in range(half)]
+        it.close()
+        killed.close_trackers()
+        mid, older = str(ckdir / "mid.ckpt"), str(ckdir / "older.ckpt")
+        shutil.copy(killed.checkpointer.latest(), mid)  # the next round is ``half``
+        shutil.copy(ckdir / "run" / f"round_{half - 2:08d}.ckpt", older)
+        t = time.perf_counter()
+        resumed = mk(cfg, resume=str(ckdir / "run"),
+                     checkpointer=Checkpointer(str(ckdir / "run"), policy),
+                     tracker=JsonlTracker(str(ckdir / "run.jsonl")))
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t
+        t = time.perf_counter()
+        resumed.restore(mid)  # the same state again: the restore alone, timed
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        post, _ = run(resumed)
+        resumed.close_trackers()
+        rows = read_jsonl(str(ckdir / "run.jsonl"))
+        delta = float((resumed.params - tracked.params).abs().max())
+        same = [r.selected for r in pre + post] == [r.selected for r in full]
+        # an engine that ran ``half`` rounds (and, fused, captured its graphs)
+        # restores an older checkpoint and runs on to the same bits
+        killed.checkpointer = Checkpointer(str(ckdir / "again"), policy)
+        killed.trackers = []
+        killed.restore(older)
+        again, _ = run(killed)
+        again_same = (torch.equal(killed.params, tracked.params)
+                      and [r.selected for r in again] == [r.selected for r in full[half - 2:]])
+        replayed += sum(_replayed(e) for e in (tracked, resumed, killed))
+        rec = {"backend": name, "rounds": CKPT_ROUNDS,
+               "bare_s_per_round": bare_s / CKPT_ROUNDS,
+               "ckpt_s_per_round": ckpt_s / CKPT_ROUNDS,
+               "overhead_pct": 100.0 * (ckpt_s - bare_s) / bare_s, "save_s": save_s,
+               "restore_s": restore_s, "resume_s (build + restore)": resume_s,
+               "ckpt_mb": ckpt_mb, "resume_round": len(pre),
+               "resume_params_max_abs_delta": delta, "resume_selections_identical": same,
+               "jsonl_rows": len(rows), "restore_after_capture_identical": again_same}
+        print(f"checkpoint: {json.dumps(rec)}", flush=True)
+        if not (delta == 0.0 and same and again_same and len(rows) == CKPT_ROUNDS):
+            raise AssertionError(f"checkpoint {name}: the resumed run is not the uninterrupted "
+                                 f"one ({rec})")
+        for e in (tracked, resumed, killed):
+            if hasattr(e, "close"):
+                e.close()
+        del tracked, resumed, killed, it
+    k1 = masked_weighted_sum.launches + replayed
+    masked_weighted_sum.launches = 0
+    fedlecc = dict(PAPER, strategy="fedlecc", strategy_kwargs={"J": 3}, rounds=20,
+                   systems=_mobile_mix(None, 1.0), async_mode=ASYNC_K5)
+    for backend in ("host", "compiled"):
+        cfg = FLConfig(**fedlecc, backend=backend)
+        ref = mk(cfg)
+        ref_results = list(ref.rounds())
+        killed = mk(cfg)
+        it = killed.rounds()
+        pre = [next(it) for _ in range(10)]
+        it.close()
+        path = str(work / f"async_{backend}.ckpt")
+        t = time.perf_counter()
+        killed.save(path)
+        save_s = time.perf_counter() - t
+        resumed = mk(cfg)
+        t = time.perf_counter()
+        resumed.restore(path)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        post = list(resumed.rounds())
+        same = ([tuple(getattr(r, f) for f in ASYNC_FIELDS + ("sim_clock", "comm_mb"))
+                 for r in pre + post]
+                == [tuple(getattr(r, f) for f in ASYNC_FIELDS + ("sim_clock", "comm_mb"))
+                    for r in ref_results])
+        delta = float((resumed.params - ref.params).abs().max())
+        rec = {"backend": backend, "async": "async_k5", "steps": 20, "killed_at": 10,
+               "in_flight_at_kill": killed._n_inflight(), "groups_at_kill": len(killed._ledger),
+               "save_s": save_s, "restore_s": restore_s,
+               "ckpt_mb": Path(path).stat().st_size / 1e6, "steps_identical": same,
+               "params_max_abs_delta": delta}
+        print(f"checkpoint: {json.dumps(rec)}", flush=True)
+        if not (killed._n_inflight() > 0 and same and delta == 0.0):
+            raise AssertionError(f"checkpoint async {backend}: the resumed run is not the "
+                                 f"uninterrupted one ({rec})")
+        del ref, killed, resumed, it
+    k1 += masked_weighted_sum.launches
+    shutil.rmtree(work)
+    torch.cuda.empty_cache()
+    print(f"checkpoint: phase in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return k1
+
+
+def _async_agreement(device):
+    """An async micro configuration (12 clients, m = 4, buffer 3, 8 in
+    flight, mobile_mix) on the CPU (plain versions) and on the card (K1),
+    from the same draws: the same survivors, versions, staleness and drops
+    every step, params within 1e-4; on host, compiled, and on host under
+    sign_flip and nan_update at 30 % behind the gate."""
+    import numpy as np
+
+    from repro_torch.data import make_classification
+    from repro_torch.engine import FLConfig, make_engine
+
+    train = make_classification(800, n_features=64, n_classes=10, seed=0)
+    test = make_classification(200, n_features=64, n_classes=10, seed=1)
+    small = dict(n_clients=12, m=4, rounds=8, hidden=(16,), eval_samples=16, eval_every=2,
+                 target_hd=0.8, seed=0, strategy_kwargs={"J": 3},
+                 systems=dict(_mobile_mix(None, 1.0), jitter_sigma=0.1),
+                 async_mode={"buffer_k": 3, "concurrency": 8, "staleness": "polynomial"})
+    faults = {"rate": 0.3, "models": ["sign_flip", "nan_update"], "defense": "validate"}
+    for tag, kw in (("host", {}), ("compiled", {"backend": "compiled"}),
+                    ("host faults", {"faults": faults})):
+        cfg = FLConfig(**small, **kw)
+        on_card = make_engine(cfg, train, test, 10, device=device)
+        on_cpu = make_engine(cfg, train, test, 10, device="cpu")
+        res_card, res_cpu = list(on_card.rounds()), list(on_cpu.rounds())
+        steps = [[tuple(getattr(r, f) for f in ASYNC_FIELDS) for r in res]
+                 for res in (res_card, res_cpu)]
+        diff = float(np.abs(on_card.params.cpu().numpy() - on_cpu.params.numpy()).max())
+        print(f"async agreement {tag}: {len(res_card)} steps, {on_card._dispatches} dispatches "
+              f"on the card and {on_cpu._dispatches} on the CPU, the same survivors, versions, "
+              f"staleness and drops every step: {steps[0] == steps[1]}, versions "
+              f"{[r.params_version for r in res_card]}, max |params diff| {diff:.3g} "
+              f"(tolerance 1e-4)", flush=True)
+        if steps[0] != steps[1] or on_card._dispatches != on_cpu._dispatches:
+            raise AssertionError(f"async {tag}: card and CPU steps differ")
+        if not diff <= 1e-4:
+            raise AssertionError(f"async {tag}: card and CPU parameters differ by {diff} > 1e-4")
+
+
 def _gate_kernel_ms(device, m, n_params):
     """The validation gate's time a call at (m, P) fp32: its kernels' device
     time under the profiler and the event-timed call, for the norm pass
@@ -1263,14 +1733,15 @@ def _gate_kernel_ms(device, m, n_params):
     valid = torch.ones(m, dtype=torch.bool, device=device)
     norms = lambda: update_norms(stacked, fetched)  # noqa: E731
     gate = lambda: validate_updates(stacked, fetched, valid, q=0.9, tol=3.0)  # noqa: E731
-    norms_ms, gate_ms = _kernel_ms(norms, ANY_KERNEL, calls=10), _kernel_ms(gate, ANY_KERNEL,
-                                                                            calls=10)
+    (norms_ms, norms_n), (gate_ms, gate_n) = (_kernel_ms(norms, ANY_KERNEL, calls=10),
+                                              _kernel_ms(gate, ANY_KERNEL, calls=10))
     norms_event_ms, gate_event_ms = _median_ms(norms, calls=10), _median_ms(gate, calls=10)
     del stacked, fetched
     torch.cuda.empty_cache()
     norm_bytes = 4 * (m + 1) * n_params           # the cohort and the fetched params, read
     rec = {"shape": [m, n_params], "norms_ms": norms_ms, "clip_ms": gate_ms - norms_ms,
            "gate_ms": gate_ms, "norms_event_ms": norms_event_ms, "gate_event_ms": gate_event_ms,
+           "norms_recorded": norms_n, "gate_recorded": gate_n,
            "norms_bound_ms": _bound(norm_bytes, 3 * m * n_params)[0],
            "clip_bound_ms": _bound(4 * (2 * m + 1) * n_params, 3 * m * n_params)[0]}
     print(f"xlstm systems+faults gate: {json.dumps(rec)}", flush=True)
@@ -1332,6 +1803,18 @@ XLSTM_FAULTS = {"rate": 0.2, "models": ["sign_flip", "nan_update"], "defense": "
 XLSTM_MICRO_AXES = {"systems": _mobile_mix(None, 1.3), "faults": {**XLSTM_FAULTS, "rate": 0.5}}
 
 
+def _xlstm_async(device, cfg_kwargs, train, test, vocab):
+    """async_k5 of the ``async:`` phase under mobile_mix, 4 steps, with no
+    fault axis: each step pops 5 arrivals and dispatches cohorts of up to 10
+    while 20 fit in flight.  Under the step-1 params, one client's first
+    batch drives layer 0's mLSTM running max m to -407: exp(-m) overflows
+    there, where the reference's gradient (and the port's before
+    ``repro_torch.models.ssm._exp_floor``) is NaN and makes the params NaN
+    (``scripts/mlstm_overflow.py`` reads both from that client's layer-0
+    input).  The run's parameters must stay finite."""
+    return {"systems": _mobile_mix(None, 1.0), "async_mode": ASYNC_K5, "rounds": 4}
+
+
 def _xlstm_axes(device, cfg_kwargs, train, test, vocab):
     systems = _mobile_mix(None, 1.3)
     systems["deadline_s"] = _deadline(device, {**cfg_kwargs, "systems": systems}, train, test,
@@ -1390,15 +1873,18 @@ def _print_profile(prof, wall_s: float, tag: str, families, host_top: bool = Fal
     print(f"{tag} profile: {json.dumps(summary)}", flush=True)
 
 
-def _lm_main_path(device, tag, model, n_layers, n_params, families, axes=None):
+def _lm_main_path(device, tag, model, n_layers, n_params, families, axes=None,
+                  save_probe=False):
     """Federated LM training on ``model`` at full width, cut to ``n_layers``,
     3 rounds (the last under the profiler); returns the kernels' launch
     counts from this run.  ``families`` holds one (forward wrapper, backward
     wrapper, profile-name regex) for each kernel that the model runs in
     every layer: each launches forward layers x rounds x (poll + steps + 2
     evaluations) times and backward layers x rounds x steps times.
-    ``axes(device, cfg_kwargs, train, test, vocab)`` gives the systems and
-    fault axes' ``FLConfig`` fields of the run."""
+    ``axes(device, cfg_kwargs, train, test, vocab)`` gives ``FLConfig`` fields
+    of the run (the systems and fault axes, the async runtime and its step
+    count).  With ``save_probe`` one save and one restore of the engine are
+    timed after the last round (files under build/, removed)."""
     import numpy as np
     import torch
 
@@ -1423,9 +1909,9 @@ def _lm_main_path(device, tag, model, n_layers, n_params, families, axes=None):
                       batch_size=8, eval_samples=4, eval_every=1, target_hd=0.9, rounds=3,
                       seed=0)
     if axes is not None:
-        cfg_kwargs |= axes(device, cfg_kwargs, train, test, vocab)
-        print(f"{tag}: systems {cfg_kwargs['systems']}, faults {cfg_kwargs['faults']}",
-              flush=True)
+        extra = axes(device, cfg_kwargs, train, test, vocab)
+        cfg_kwargs |= extra
+        print(f"{tag}: {', '.join(f'{k} {v}' for k, v in extra.items())}", flush=True)
     cfg = FLConfig(**cfg_kwargs)
     if full.block_type == "xlstm":
         width = (f"d_model {full.d_model}, {full.ssm.n_heads} heads of "
@@ -1469,6 +1955,10 @@ def _lm_main_path(device, tag, model, n_layers, n_params, families, axes=None):
         results.append(r)
         extra = (f" dropped={r.n_dropped} faulty={r.n_faulty} quarantined={r.n_quarantined} "
                  f"sim_time={r.sim_time:.3f} s" if axes is not None else "")
+        if cfg.async_mode is not None:
+            extra += (f" staleness={r.staleness:.3f} version={r.params_version} "
+                      f"in_flight={engine._n_inflight()} ledger_rows="
+                      f"{sum(g.stacked.shape[0] for g in engine._ledger)}")
         print(f"{tag}: round {r.round} selected={list(r.selected)} test_loss={r.test_loss:.4f} "
               f"next_token_acc={r.test_acc:.4f} ppl={r.metrics['ppl']:.2f} "
               f"train_loss={r.mean_selected_loss:.4f} comm={r.comm_mb:.1f} MB{extra} "
@@ -1483,6 +1973,10 @@ def _lm_main_path(device, tag, model, n_layers, n_params, families, axes=None):
             mc.n_layers * cfg.rounds * engine.max_steps)
     if any(v == 0 for v in launches.values()):
         raise AssertionError(f"a kernel of the {tag} path never launched: {launches}")
+    if cfg.async_mode is not None and \
+            launches["masked_weighted_sum"] != results[-1].params_version:
+        raise AssertionError(f"{tag}: K1 launched {launches['masked_weighted_sum']} times for "
+                             f"{results[-1].params_version} applied updates")
     for fwd, bwd, _ in families:
         got = (fwd.launches, bwd.launches)
         if got != want:
@@ -1509,9 +2003,43 @@ def _lm_main_path(device, tag, model, n_layers, n_params, families, axes=None):
         print(f"{tag}: every param finite after the last round: {finite}", flush=True)
     if not (engine.params.is_cuda and finite):
         raise AssertionError(f"final {tag} parameters are not a finite CUDA tensor")
+    if save_probe:
+        _save_probe(tag, engine)
+    if cfg.async_mode is not None:
+        rows = sum(g.stacked.shape[0] for g in engine._ledger)
+        row_mb = 4 * engine.n_params / 1e6
+        print(f"{tag}: the async ledger is not saved at this size: its checkpoint would hold "
+              f"{rows} in-flight rows of {row_mb:.1f} MB, at least "
+              f"{row_mb * (rows + 1) / 1e3:.1f} GB with the params", flush=True)
     del engine, it
     torch.cuda.empty_cache()
     return launches
+
+
+def _save_probe(tag, engine):
+    """One timed save and one timed restore of ``engine`` (a file under
+    build/, removed); the restored params must be the saved bits."""
+    import torch
+
+    path = ROOT / "build" / "chip_smoke_probe.ckpt"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    before = engine.params.clone()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    engine.save(str(path))
+    save_s = time.perf_counter() - t
+    engine.params = torch.zeros_like(before)
+    t = time.perf_counter()
+    engine.restore(str(path))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    same = torch.equal(engine.params, before)
+    mb = path.stat().st_size / 1e6
+    path.unlink()
+    print(f"{tag} checkpoint: save {save_s:.3f} s, restore {restore_s:.3f} s, {mb:.1f} MB "
+          f"(P = {engine.n_params}), restored params the saved bits: {same}", flush=True)
+    if not same:
+        raise AssertionError(f"{tag}: a restore did not give back the saved params")
 
 
 def _lm_agreement(device, tag, task_kwargs, seq=16, resync=False, max_steps=3, axes=None):
@@ -1602,7 +2130,9 @@ def main() -> int:
                         # over-selection 1.3 / 1.6: the systems phase's cohorts, and
                         # xlstm's (13, P) one
                         ((13, 199_210), torch.float32), ((16, 199_210), torch.float32),
-                        ((13, 119_827_296), torch.float32)]]
+                        ((13, 119_827_296), torch.float32),
+                        # the async runtime's kept deltas: buffer_k = 5 rows
+                        ((5, 199_210), torch.float32), ((5, 119_827_296), torch.float32)]]
     _check_aggregate_nan(device)
     k3 = [_check_flash(s, dt, w, ig, device) for s, dt, w, ig in [
         ((80, 64, 32, 32, 80), torch.float32, 0, 1.0),     # local SGD: m x batch sequences
@@ -1655,13 +2185,18 @@ def main() -> int:
         raise AssertionError(f"the backends phase left {collected - before:.2f} MiB allocated")
     systems_k1 = _systems_phase(device)
     faults_k1 = _faults_phase(device)
+    async_k1 = _async_phase(device)
+    checkpoint_k1 = _checkpoint_phase(device)
     lm_launches = _lm_main_path(device, "lm", "stablelm-3b", 2, 380_789_760, (attention,))
     hymba_launches = _lm_main_path(device, "hymba", "hymba-1.5b", 6, 344_430_400,
                                    (attention, scan))
-    xlstm_launches = _lm_main_path(device, "xlstm", "xlstm-125m", 12, 119_827_296, ())
+    xlstm_launches = _lm_main_path(device, "xlstm", "xlstm-125m", 12, 119_827_296, (),
+                                   save_probe=True)
     xlstm_axes_launches = _lm_main_path(device, "xlstm systems+faults", "xlstm-125m", 12,
                                         119_827_296, (), axes=_xlstm_axes)
     _gate_kernel_ms(device, 13, 119_827_296)
+    xlstm_async_launches = _lm_main_path(device, "xlstm async", "xlstm-125m", 12, 119_827_296,
+                                         (), axes=_xlstm_async)
 
     # 5. small-input agreement with the CPU path
     _agreement(device)
@@ -1670,6 +2205,7 @@ def main() -> int:
     _lm_agreement(device, "xlstm", XLSTM_MICRO, seq=128, resync=True, max_steps=1)
     _lm_agreement(device, "xlstm systems+faults", XLSTM_MICRO, seq=128, resync=True,
                   max_steps=1, axes=XLSTM_MICRO_AXES)
+    _async_agreement(device)
     for tag, task_kwargs in DENSE_REDUCED.items():
         _lm_agreement(device, tag, task_kwargs)
 
@@ -1682,6 +2218,12 @@ def main() -> int:
         _flash_kernel_ms(rec, device)
     for rec in k4:
         _scan_kernel_ms(rec, device)
+    retried = [t for t in PROFILE_TRIES if t[1] > 1]
+    print(f"kernel-only: {len(PROFILE_TRIES)} readings, {len(retried)} of them profiled more "
+          f"than once; attempts a reading {json.dumps([n for _, n in PROFILE_TRIES])}; retried "
+          f"{json.dumps(retried)}", flush=True)
+    if BELOW_BOUND:
+        raise AssertionError(f"kernel-only readings below their bound: {BELOW_BOUND}")
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
@@ -1694,6 +2236,7 @@ def main() -> int:
          "source": "src/repro_torch/csrc/fedavg_reduce.cu",
          "replaces": "src/repro/kernels/aggregate/kernel.py:29",
          "launches": (launches["masked_weighted_sum"] + backend_k1 + systems_k1 + faults_k1
+                      + async_k1 + checkpoint_k1 + xlstm_async_launches["masked_weighted_sum"]
                       + lm_launches["masked_weighted_sum"]
                       + xlstm_axes_launches["masked_weighted_sum"]
                       + hymba_launches["masked_weighted_sum"]

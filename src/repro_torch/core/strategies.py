@@ -152,6 +152,27 @@ class SelectionStrategy:
         # Loss scalars polled from all clients each round, if used.
         return float(self.K * _FLOAT_BYTES) if self.needs_losses else 0.0
 
+    # -- checkpoint contract -------------------------------------------
+    # Every strategy's setup state (cluster labels, latency, kernel
+    # matrices, presence traces, the device tensors built from them) is a
+    # function of (hists, sizes, seed, latency), rebuilt when the engine is
+    # built, and no strategy changes it in ``select``; per-round randomness
+    # is the engine's numpy rng, which the engine checkpoints.  A strategy
+    # that keeps state from round to round overrides both hooks; the
+    # structure of ``state_dict()`` is the restore's ``like`` tree.
+    def state_dict(self) -> dict:
+        """Array-valued per-round strategy state to checkpoint ({} for a
+        strategy with none, the default)."""
+        return {}
+
+    def load_state_dict(self, state: dict) -> None:
+        if state:
+            raise ValueError(
+                f"strategy {self.name!r} is stateless but the checkpoint carries strategy "
+                f"state keys {sorted(state)} — override load_state_dict in the strategy "
+                f"that wrote them"
+            )
+
 
 @register_strategy("random")
 @dataclass

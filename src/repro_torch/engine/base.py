@@ -1,7 +1,7 @@
 """The federated engine's shared state and round protocol, ported from
-``repro.engine.base`` (the lock-step loop with the systems and fault axes;
-no population, async or checkpoint seams — ``FLConfig`` rejects those
-axes up front).
+``repro.engine.base`` (the lock-step loop with the systems and fault axes,
+and the checkpoint and emission seams; no population seam — ``FLConfig``
+rejects that axis up front).
 
 ``Engine`` owns the non-IID partition, the packed client tensors on the
 device, the selection strategy, the aggregator, the client mode (with
@@ -18,14 +18,29 @@ quarantine), and drives one canonical round loop:
 (``repro_torch.engine.compiled``) replaces the whole round step with one
 on the device, its selection a mask (``MaskSelectionMixin``), and
 ``FusedEngine`` (``repro_torch.engine.fused``) runs chunks of such rounds
-with no host read between them.  ``rounds()`` yields one frozen
-``RoundResult`` per round; ``run()`` drains it into the history dict.
+with no host read between them; ``AsyncHostEngine`` and
+``AsyncCompiledEngine`` (``repro_torch.engine.async_engine``) drive the
+hooks from an event loop.  ``rounds()`` yields one frozen ``RoundResult``
+per round; ``run()`` drains it into the history dict.
+
 Every random draw of the model's training goes through ``self.draws``
-(``repro_torch.engine.draws``); the axes draw on their own numpy streams.
+(``repro_torch.engine.draws``), keyed by a *draw index*: the round in the
+lock-step loop, the dispatch count under the async runtime (the
+reference's one key split a dispatch); the axes draw on their own numpy
+streams, keyed by the round (the async step).
+
+Each committed round goes through ``_emit``: history, callback, trackers
+(``self.trackers``), then the checkpoint policy (``self.checkpointer``).
+``save`` / ``restore`` write and read the whole round carry
+(``repro_torch.checkpoint``): the params, the aggregator's state, FedDyn's
+per-client state, the draws' state, the numpy selection stream, the
+ledger, the clock, the history, the axes' state and the config's
+fingerprint, which ``restore`` checks.
 """
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass
 from typing import Any, Callable, Iterator, NamedTuple
 
@@ -86,7 +101,12 @@ class RoundResult:
       ``None`` otherwise.  Energy-tracking runs add the round's battery
       spend (``energy_mah``, ``energy_total_mah``, ``n_depleted``) on
       every round.
-    - ``params_version``     — server params version after this round.
+    - ``staleness``          — mean staleness (in params versions) of the
+      updates aggregated this round: 0.0 on the lock-step engines, > 0
+      only under the async runtime.
+    - ``params_version``     — server params version after this round (the
+      lock-step engines: round + 1; the async runtime's lags the step
+      whenever a step's buffer was empty or fully stale).
     - ``n_faulty``/``n_quarantined`` — the fault axis: arrived updates that
       carried an injected fault this round, and clients serving a
       quarantine after it; 0 without a fault config.
@@ -102,6 +122,7 @@ class RoundResult:
     sim_clock: float = 0.0
     n_dropped: int = 0
     metrics: dict | None = None
+    staleness: float = 0.0
     params_version: int = 0
     n_faulty: int = 0
     n_quarantined: int = 0
@@ -267,15 +288,19 @@ class Engine:
             "round": [], "test_acc": [], "test_loss": [], "comm_mb": [],
             "mean_selected_loss": [], "selected": [],
         }
+        # the emission seams: trackers get every committed RoundResult; a
+        # Checkpointer here is consulted after each round
+        self.trackers: list[Any] = []
+        self.checkpointer: Any = None
 
     # -- hooks (backend contract) --------------------------------------
-    def poll_losses(self, rnd: int) -> np.ndarray:
+    def poll_losses(self, d: int) -> np.ndarray:
         """(K,) subsampled local empirical loss of the *global* model on
-        every client (Algorithm 1 lines 2–4); zeros when the strategy
-        never polls."""
+        every client (Algorithm 1 lines 2–4), its rows from draw index
+        ``d``; zeros when the strategy never polls."""
         if not self.strategy.needs_losses:
             return np.zeros(self.cfg.n_clients, np.float32)
-        idx = self.draws.poll_indices(rnd, self.sample_probs, self.cfg.eval_samples)
+        idx = self.draws.poll_indices(d, self.sample_probs, self.cfg.eval_samples)
         return self._poll(self.params, idx).cpu().numpy()
 
     def _poll(self, params: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -290,8 +315,9 @@ class Engine:
         """Sorted indices of this round's participants."""
         raise NotImplementedError
 
-    def local_train(self, rnd: int, sel: np.ndarray):
-        """Run local training.  Returns ``(payload, sel_losses)``:
+    def local_train(self, d: int, sel: np.ndarray):
+        """Run local training of the clients ``sel``, their minibatch rows
+        from draw index ``d``.  Returns ``(payload, sel_losses)``:
         ``payload`` is a tuple whose first item is the (len(sel), P)
         trained cohort, threaded into ``aggregate``; ``sel_losses`` is a
         (len(sel),) array of local training losses."""
@@ -339,6 +365,135 @@ class Engine:
         for k, v in (r.metrics or {}).items():
             self.history.setdefault(k, []).append(v)
 
+    def _emit(self, result: RoundResult, callback: Callable[[RoundResult], None] | None,
+              allow_save: bool = True) -> None:
+        """What follows a committed round, in durability order: history row,
+        callback, trackers, checkpoint policy.  The engine's state is
+        already committed, so a checkpoint taken here resumes *after* this
+        round; trackers log before the save (at-least-once delivery).
+        ``allow_save`` is the fused chunk's gate: its state commits per
+        chunk, so only a chunk's last round may save."""
+        self._record_history(result)
+        if callback is not None:
+            callback(result)
+        for t in self.trackers:
+            t.log_round(result)
+        if allow_save and self.checkpointer is not None:
+            self.checkpointer.maybe_save(self, result.round)
+
+    def close_trackers(self) -> None:
+        for t in self.trackers:
+            t.close()
+
+    # -- checkpoint / restore ------------------------------------------
+    _STATE_VERSION = 1
+
+    def _state_pytree(self) -> dict:
+        """The array-valued round carry, the checkpoint's tree (its
+        structure is the restore's ``like``): params, the aggregator's
+        state (FedDyn's h), the per-client state (FedDyn's h_i), the
+        draws' state (where the draws have one), the strategy's state, and
+        stale_replay's cache where it is configured."""
+        state = {
+            "params": self.params,
+            "agg_state": self.agg_state,
+            "h_clients": self.h_clients,
+            "strategy": self.strategy.state_dict(),
+        }
+        if hasattr(self.draws, "state"):
+            state["draws"] = self.draws.state()
+        if self._faults is not None and self._faults.has_stale:
+            state["fault_stale"] = self._faults.stale_state()
+        return state
+
+    def _config_fingerprint(self) -> dict:
+        from repro_torch.checkpoint.tracker import _to_builtin
+
+        return _to_builtin(self.cfg.to_dict())
+
+    def save(self, path: str) -> None:
+        """Write the whole round carry to ``path`` (atomic and fsync'd,
+        ``repro_torch.checkpoint.serializer``): the state tree, the scalar
+        carry (``_round``, ``comm_mb``, ``sim_clock``), the numpy selection
+        stream's bit-generator state (as JSON: PCG64 holds 128-bit
+        integers), the history, the systems state and the ``FLConfig``
+        fingerprint that ``restore`` checks."""
+        from repro_torch.checkpoint.serializer import save_checkpoint
+        from repro_torch.checkpoint.tracker import _to_builtin
+
+        meta: dict[str, Any] = {
+            "state_version": self._STATE_VERSION,
+            "backend": self.backend,
+            "round": int(self._round),
+            "comm_mb": float(self.comm_mb),
+            "sim_clock": float(self.sim_clock),
+            "rng_state": json.dumps(self.rng.bit_generator.state),
+            "history": _to_builtin(self.history),
+            "config": self._config_fingerprint(),
+        }
+        if self._systems is not None:
+            meta["systems"] = self._systems.state_dict()
+        meta.update(self._extra_meta())
+        save_checkpoint(path, self._state_pytree(), meta=meta)
+
+    def _extra_meta(self) -> dict:
+        """Extra JSON meta of an execution mode or backend (the async
+        runtime's ledger structure, the compiled backend's last
+        quantization error); the base's is the fault axis's health ledger,
+        so a run killed mid-quarantine resumes bit-identically."""
+        meta: dict[str, Any] = {}
+        if self._faults is not None:
+            meta["faults"] = self._faults.meta_state()
+        return meta
+
+    def restore(self, path: str) -> dict:
+        """Install a checkpoint written by ``save``.  The engine must be
+        freshly built from the *same* ``FLConfig`` (its fingerprint is
+        compared; a mismatch is rejected — resuming into another config
+        would silently change the experiment).  Returns the meta."""
+        from repro_torch.checkpoint.serializer import load_checkpoint
+
+        state, meta = load_checkpoint(path, like=self._state_pytree(), device=self.device)
+        if meta.get("state_version") != self._STATE_VERSION:
+            raise ValueError(
+                f"engine checkpoint state_version {meta.get('state_version')!r} unsupported "
+                f"(expected {self._STATE_VERSION}) — was {path!r} written by Engine.save?"
+            )
+        want, got = self._config_fingerprint(), meta.get("config") or {}
+        if got != want:
+            diff = [k for k in sorted(set(want) | set(got)) if got.get(k) != want.get(k)]
+            raise ValueError(
+                f"checkpoint config does not match this engine's FLConfig (differing "
+                f"fields: {diff}) — resuming would change the experiment; rebuild the "
+                f"engine with the original config"
+            )
+        self._install_state(state, meta)
+        return meta
+
+    def _install_state(self, state: dict, meta: dict) -> None:
+        """Install a verified checkpoint's arrays and scalar carry (split
+        from ``restore`` so execution modes extend it: the async runtime
+        adds its in-flight ledger).  Tensors are new, so nothing that held
+        the old ones (a fused engine's captured graphs copy ``params`` in
+        at each chunk) sees a change."""
+        self.params = state["params"]
+        self.agg_state = state["agg_state"]
+        self.h_clients = state["h_clients"]
+        if "draws" in state:
+            self.draws.load_state(state["draws"])
+        self.strategy.load_state_dict(state["strategy"])
+        self._round = int(meta["round"])
+        self.comm_mb = float(meta["comm_mb"])
+        self.sim_clock = float(meta["sim_clock"])
+        self.rng.bit_generator.state = json.loads(meta["rng_state"])
+        self.history = {k: list(v) for k, v in meta["history"].items()}
+        if self._systems is not None:
+            self._systems.load_state_dict(meta.get("systems", {}))
+        if self._faults is not None:
+            self._faults.load_meta_state(meta["faults"])
+            if self._faults.has_stale:
+                self._faults.load_stale_state(state["fault_stale"])
+
     # -- the admission gate (systems availability, fault quarantine) ----
     def _selection_gate(self, rnd: int) -> np.ndarray | None:
         """(K,) bool admission gate for round ``rnd`` — systems
@@ -351,11 +506,15 @@ class Engine:
             gate = admit if gate is None else gate & admit
         return gate
 
-    def _gated_losses(self, rnd: int, losses: np.ndarray) -> np.ndarray:
+    def _gated_losses(self, rnd: int, losses: np.ndarray,
+                      extra_gate: np.ndarray | None = None) -> np.ndarray:
         """The admission gate applied to the polled losses as ``-inf`` —
         the one place where offline or quarantined clients leave
-        selection."""
+        selection.  ``extra_gate`` is a caller's AND (the async runtime's
+        not-in-flight mask)."""
         gate = self._selection_gate(rnd)
+        if extra_gate is not None:
+            gate = extra_gate if gate is None else gate & extra_gate
         if gate is None:
             return losses
         return np.where(gate, losses, -np.inf).astype(np.float32)
@@ -423,7 +582,7 @@ class Engine:
 
     def _finish_round(self, rnd: int, step: _Step) -> RoundResult:
         """Bill round ``rnd``, advance the simulated clock and the battery
-        ledger, evaluate the round when due and record it."""
+        ledger, evaluate the round when due and commit it (``_round``)."""
         cfg = self.cfg
         if step.uploaded is None:
             self.comm_mb += self.comm.round_mb(len(step.dispatched), self.strategy.needs_losses)
@@ -459,7 +618,6 @@ class Engine:
             n_faulty=int(step.n_faulty),
             n_quarantined=int(step.n_quarantined),
         )
-        self._record_history(result)
         return result
 
     def rounds(
@@ -476,8 +634,7 @@ class Engine:
         start = self._round
         for rnd in range(start, start + n_rounds):
             result = self._finish_round(rnd, self._round_step(rnd))
-            if callback is not None:
-                callback(result)
+            self._emit(result, callback)
             yield result
 
     def run(self, rounds: int | None = None, log_every: int = 0) -> dict[str, list]:

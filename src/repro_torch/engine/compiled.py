@@ -17,7 +17,12 @@ K1 reduces the (K, P) stack with zero weights outside the mask.
 The whole round — poll, selection, training, aggregation — is queued on
 the device with no host read; the mask and the cohort's losses are read
 once, at its end.  ``FusedEngine`` (``repro_torch.engine.fused``) runs
-the same round body chunk after chunk.
+the same round body chunk after chunk.  The round's pieces are also
+hooks, as the reference's compiled backend offers them to its async
+runtime (``repro_torch.engine.async_engine``): ``poll_losses`` (the poll
+on the device, read back), ``select`` (the mask from ``self.rng``, as
+``select_mask``) and ``local_train`` (the gathered cohort's training,
+``_train_cohort``, which the round body runs too).
 
 With the systems or fault axis, the round takes the reference's
 exogenous inputs as (K,) tensors (``_exogenous``: availability, deadline
@@ -40,6 +45,10 @@ As in the reference, the strategy must have a mask selection
 (``supports_compiled_selection``) and ``client_mode`` must be
 ``"plain"``; ``FLConfig`` rejects anything else up front and the engine
 checks again.
+
+Beyond the base's round carry, a checkpoint holds the last quantization
+error (``compress_bits``); the health ledger, which each round replays
+from the device's masks, is the base's.
 """
 
 from __future__ import annotations
@@ -148,14 +157,13 @@ class CompiledEngine(MaskSelectionMixin, Engine):
         idx = cohort_indices(mask, self.m_eff)
         if self.cohort_gather:
             rows = idx
-            xs, ys, batch_rows, taus = self.xs[idx], self.ys[idx], batch[:, idx], self._taus_t[idx]
+            stacked, train_losses = self._train_cohort(params, idx, batch)
         else:
             rows = torch.arange(cfg.n_clients, device=self.device)
-            xs, ys, batch_rows, taus = self.xs, self.ys, batch, self._taus_t
-        stacked, train_losses = local_train(
-            self._apply_fn, self._loss_fn, params, xs, ys, batch_rows, taus,
-            lr=cfg.lr, max_steps=self.max_steps,
-        )
+            stacked, train_losses = local_train(
+                self._apply_fn, self._loss_fn, params, self.xs, self.ys, batch, self._taus_t,
+                lr=cfg.lr, max_steps=self.max_steps,
+            )
         if self._faults is not None:
             arrived_rows = arrivals[rows]
             kind_rows = torch.where(arrived_rows, ext["fkind"][rows], -1)
@@ -173,6 +181,43 @@ class CompiledEngine(MaskSelectionMixin, Engine):
         new = self._aggregate(rnd, params, stacked, w_full, idx, n_selected, any_up)
         return new, mask, final, arrivals, (train_losses if self.cohort_gather
                                             else train_losses[idx])
+
+    def _train_cohort(self, params: torch.Tensor, idx: torch.Tensor, batch: torch.Tensor):
+        """Local training of the gathered cohort ``idx`` (a tensor of client
+        indices), its minibatch rows gathered from every client's ``batch``
+        (steps, K, batch): the (len(idx), P) trained cohort and its losses."""
+        return local_train(
+            self._apply_fn, self._loss_fn, params, self.xs[idx], self.ys[idx], batch[:, idx],
+            self._taus_t[idx], lr=self.cfg.lr, max_steps=self.max_steps,
+        )
+
+    # -- the round's pieces as hooks (the async runtime's dispatch) ------
+    def select(self, rnd: int, losses: np.ndarray) -> np.ndarray:
+        """Sorted indices of the mask ``select_mask`` draws on ``losses``."""
+        mask = self.select_mask(rnd, torch.as_tensor(losses, device=self.device))
+        return np.flatnonzero(mask.cpu().numpy())
+
+    def local_train(self, d: int, sel: np.ndarray):
+        """The gathered cohort ``sel``'s training from draw index ``d``:
+        ``((stacked,), losses)``, as the host backend's hook returns."""
+        batch = self.draws.client_batch_indices(d, self.sample_probs, self.max_steps,
+                                                self.cfg.batch_size)
+        idx = torch.as_tensor(np.asarray(sel, np.int64), device=self.device)
+        stacked, losses = self._train_cohort(self.params, idx, batch)
+        return (stacked,), losses.cpu().numpy()
+
+    def _extra_meta(self) -> dict:
+        meta = super()._extra_meta()
+        if self.cfg.compress_bits:
+            meta["quant_error"] = self.last_quant_error
+        return meta
+
+    def _install_state(self, state: dict, meta: dict) -> None:
+        super()._install_state(state, meta)
+        if self.cfg.compress_bits:
+            err = meta["quant_error"]
+            self._quant_error = None if err is None else torch.tensor(
+                err, dtype=torch.float32, device=self.device)
 
     def _aggregate(self, rnd: int, params: torch.Tensor, stacked: torch.Tensor,
                    w_full: torch.Tensor, idx: torch.Tensor, n_selected,

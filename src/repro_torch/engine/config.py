@@ -10,9 +10,10 @@ and ``compress_bits`` in [2, 8] (quantized cohort deltas) follow the
 reference's combination rules with its error texts, as do ``systems``
 (a ``SystemsConfig`` or its dict form) and ``faults`` (a ``FaultConfig``
 or its dict form): ``stale_replay`` and ``track_energy`` are rejected with
-``fuse_rounds > 0``.  Validation rejects, with a message naming the port,
-what it does not implement yet: ``backend="scaleout"`` and the
-``async_mode`` and ``population`` axes.
+``fuse_rounds > 0``; ``async_mode`` (an ``AsyncConfig`` or its dict form)
+under ``validate_async_combination``.  Validation rejects, with a message
+naming the port, what it does not implement yet: ``backend="scaleout"``
+and the ``population`` axis.
 """
 
 from __future__ import annotations
@@ -137,7 +138,7 @@ class FLConfig:
     fuse_rounds: int = 0           # >0: fused round chunks (compiled only)
     compress_bits: int = 0         # >0: quantized cohort-delta aggregation
     systems: Any = None            # SystemsConfig | dict | None (repro_torch.systems)
-    async_mode: Any = None
+    async_mode: Any = None         # AsyncConfig | dict | None (repro_torch.engine.async_config)
     faults: Any = None             # FaultConfig | dict | None (repro_torch.faults)
     population: Any = None
 
@@ -204,9 +205,8 @@ class FLConfig:
                 )
             if self.backend != "compiled" or self.aggregator != "fedavg":
                 raise ValueError(compress_backend_error(self.backend, self.aggregator))
-        for name in ("async_mode", "population"):
-            if getattr(self, name) is not None:
-                raise _unported(name, getattr(self, name), (None,))
+        if self.population is not None:
+            raise _unported("population", self.population, (None,))
         # The systems and fault axes: the dict form (from_dict, JSON)
         # becomes the validated config object, which checks names and
         # ranges itself.
@@ -222,11 +222,28 @@ class FLConfig:
                     f"{name} must be a {kind.__name__}, its dict form, or None; got "
                     f"{type(value).__name__}"
                 )
+        # The async runtime: the dict form becomes a validated AsyncConfig,
+        # then the reference's cross-field rules (backend, fused chunks,
+        # aggregator, client mode, systems, deadline, buffer and concurrency).
+        if self.async_mode is not None:
+            from repro_torch.engine.async_config import AsyncConfig, validate_async_combination
+
+            if isinstance(self.async_mode, dict):
+                self.async_mode = AsyncConfig.from_dict(self.async_mode)
+            elif not isinstance(self.async_mode, AsyncConfig):
+                raise ValueError(
+                    f"async_mode must be an AsyncConfig, its dict form, or None; got "
+                    f"{type(self.async_mode).__name__}"
+                )
+            validate_async_combination(self)
         if self.faults is not None and self.fuse_rounds > 0 \
                 and "stale_replay" in self.faults.models:
             raise ValueError(stale_fused_error())
-        if self.systems is not None and self.systems.track_energy and self.fuse_rounds > 0:
-            raise ValueError(energy_mode_error("fuse_rounds > 0"))
+        if self.systems is not None and self.systems.track_energy:
+            if self.fuse_rounds > 0:
+                raise ValueError(energy_mode_error("fuse_rounds > 0"))
+            if self.async_mode is not None:
+                raise ValueError(energy_mode_error("async_mode"))
         # Components validate their kwargs when built (cheap: no state).
         from repro_torch.engine.aggregators import get_aggregator
         from repro_torch.engine.tasks import build_task

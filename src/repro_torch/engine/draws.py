@@ -31,7 +31,10 @@ are the counterparts of the reference's ``jax.random`` call sites:
 
 ``probs`` rows are the clients' validity masks normalized to sum 1;
 indices are drawn with replacement.  An engine calls ``bind_rows(probs)``
-once at setup when its draws have that method.  ``TorchDraws`` is the
+once at setup when its draws have that method, and checkpoints
+``state()`` (restored by ``load_state``) when they have that one.  The
+``rnd`` of these methods is a draw index: the round, or the dispatch
+count under the async runtime.  ``TorchDraws`` is the
 default.  A test can pass any object with these methods to
 ``make_engine(..., draws=...)``; the parity tests pass one that replays
 the reference's JAX key chain, which makes rounds comparable draw for
@@ -198,3 +201,12 @@ class TorchDraws:
     def graph_generators(self) -> list[torch.Generator]:
         """The generators on the device that a round body draws from."""
         return [self._quant]
+
+    def state(self) -> torch.Tensor:
+        """What the draws carry from round to round, for a checkpoint: the
+        quantization generator's state (a CPU uint8 tensor).  The counter
+        hashes carry nothing, and the initial weights are drawn once."""
+        return self._quant.get_state()
+
+    def load_state(self, state: torch.Tensor) -> None:
+        self._quant.set_state(state.to("cpu"))

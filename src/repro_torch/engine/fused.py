@@ -27,10 +27,13 @@ rows' weights, all with no host read; after the chunk the health ledger
 replays the rounds' arrivals and flags.
 
 Chunk boundaries follow the reference's ``_chunk_len``: a chunk ends at
-the next ``eval_every`` round, at the configured terminal round and at
-the call's last round, so evaluation (on the host, after the chunk) sees
-the parameters the eager loop would, and chunked ``rounds()`` calls
-equal one contiguous call.
+the next ``eval_every`` round, at the configured terminal round, at the
+call's last round and at the checkpointer's next round-triggered save
+point, so evaluation (on the host, after the chunk) sees the parameters
+the eager loop would, chunked ``rounds()`` calls equal one contiguous
+call, and a save fires on committed chunk-boundary state (only a chunk's
+last round may save).  A run resumed from a save point replays the same
+chunk pattern.
 
 On the card each distinct chunk length is captured once as a
 ``torch.cuda.CUDAGraph`` and replayed (the reference compiles each length
@@ -47,7 +50,10 @@ body runs eagerly, chunk by chunk.
 State commits per chunk.  A replay overwrites the graph's output buffers,
 so ``engine.params`` is a copy of them after each chunk: a reference to
 ``engine.params`` taken before a ``rounds()`` call keeps its values (the
-reference's donation instead invalidates such an alias).
+reference's donation instead invalidates such an alias).  For the same
+reason a ``restore`` only rebinds ``engine.params`` (and the axes'
+state): each chunk copies ``engine.params`` into its graph's input
+buffer, so the graphs captured before a restore stay valid.
 
 Memory.  Every fused engine warms up and captures on one side stream a
 device (``_capture_stream``): cuBLAS keeps a workspace for each stream it
@@ -118,13 +124,17 @@ class FusedEngine(CompiledEngine):
     def _chunk_len(self, rnd: int, end: int) -> int:
         """Rounds to fuse from absolute round ``rnd``: at most
         ``fuse_rounds``, ending at the next ``eval_every`` round, the
-        configured terminal round or the call's last round ``end - 1``."""
+        configured terminal round, the call's last round ``end - 1`` or the
+        checkpointer's next round-triggered save point."""
         cfg = self.cfg
         ev = cfg.eval_every
         next_eval = rnd if rnd % ev == 0 else (rnd // ev + 1) * ev
         boundary = min(next_eval, end - 1)
         if rnd <= cfg.rounds - 1:
             boundary = min(boundary, cfg.rounds - 1)
+        if self.checkpointer is not None and self.checkpointer.policy.every_rounds is not None:
+            n = self.checkpointer.policy.every_rounds
+            boundary = min(boundary, (rnd // n + 1) * n - 1)  # min r >= rnd, (r + 1) % n == 0
         return max(1, min(cfg.fuse_rounds, boundary - rnd + 1))
 
     def _draw_chunk(self, rnd: int, length: int):
@@ -247,7 +257,8 @@ class FusedEngine(CompiledEngine):
                                          {k: v[i] for k, v in ext.items()})
                 results.append(self._finish_round(rnd + i, step))
             rnd += length
-            for result in results:
-                if callback is not None:
-                    callback(result)
+            for i, result in enumerate(results):
+                # the committed state is the chunk's end: only its last
+                # round may save (``_chunk_len`` ends chunks at save points)
+                self._emit(result, callback, allow_save=i == length - 1)
                 yield result

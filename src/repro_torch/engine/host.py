@@ -9,7 +9,8 @@ launch of the FedAvg reduce kernel on the card), over the survivors'
 rows when the systems or fault axis dropped someone.  Under FedDyn's client
 mode the cohort's rows of the (K, P) ``h_clients`` go to local training
 and come back updated against the *new* global params, as in the
-reference's ``HostEngine.aggregate``.
+reference's ``HostEngine.aggregate``.  The backend carries nothing from
+round to round beyond the base's checkpointed state.
 """
 
 from __future__ import annotations
@@ -29,10 +30,10 @@ class HostEngine(Engine):
     def select(self, rnd: int, losses: np.ndarray) -> np.ndarray:
         return self.strategy.select(rnd, losses, self.rng)
 
-    def local_train(self, rnd: int, sel: np.ndarray):
+    def local_train(self, d: int, sel: np.ndarray):
         sel_t = torch.as_tensor(sel, device=self.device)
         bidx = self.draws.batch_indices(
-            rnd, sel, self.sample_probs[torch.as_tensor(sel)], self.max_steps,
+            d, sel, self.sample_probs[torch.as_tensor(sel)], self.max_steps,
             self.cfg.batch_size,
         )
         h_sel = self.h_clients[sel_t] if self.client_mode.needs_h else None

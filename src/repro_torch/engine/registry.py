@@ -2,8 +2,9 @@
 the port needs (stdlib only).
 
 One ``Registry`` per axis of an experiment — strategies, aggregators,
-client modes, tasks and the named presets that pin all four — filled at
-definition time by the ``register_*`` decorators (presets by
+client modes, tasks, the named presets that pin all four, and the async
+runtime's staleness discounts — filled at definition time by the
+``register_*`` decorators (presets by
 ``repro_torch.engine.presets.register_preset``).
 Lookups lazily import the provider modules, so
 ``STRATEGY_REGISTRY["fedlecc"]`` works regardless of import order.
@@ -28,14 +29,17 @@ __all__ = [
     "CLIENT_MODE_REGISTRY",
     "TASK_REGISTRY",
     "PRESET_REGISTRY",
+    "STALENESS_REGISTRY",
     "register_strategy",
     "register_aggregator",
     "register_client_mode",
     "register_task",
+    "register_staleness",
     "list_strategies",
     "list_aggregators",
     "list_client_modes",
     "list_tasks",
+    "list_staleness_discounts",
     "mask_selection_strategies",
     "traced_selection_strategies",
 ]
@@ -47,6 +51,7 @@ _PROVIDERS: dict[str, tuple[str, ...]] = {
     "client_mode": ("repro_torch.engine.client_modes",),
     "task": ("repro_torch.engine.tasks",),
     "preset": ("repro_torch.engine.presets",),
+    "staleness": ("repro_torch.engine.async_config",),
 }
 
 
@@ -121,6 +126,7 @@ AGGREGATOR_REGISTRY = Registry("aggregator")
 CLIENT_MODE_REGISTRY = Registry("client_mode")
 TASK_REGISTRY = Registry("task")
 PRESET_REGISTRY = Registry("preset")
+STALENESS_REGISTRY = Registry("staleness")
 
 # The capability-flag <-> method pairs the compiled backend dispatches on.
 _CAPABILITY_PAIRS: tuple[tuple[str, str], ...] = (
@@ -200,3 +206,8 @@ def traced_selection_strategies() -> list[str]:
 register_aggregator = AGGREGATOR_REGISTRY.register
 register_client_mode = CLIENT_MODE_REGISTRY.register
 register_task = TASK_REGISTRY.register
+register_staleness = STALENESS_REGISTRY.register
+
+
+def list_staleness_discounts() -> list[str]:
+    return STALENESS_REGISTRY.names()

@@ -193,12 +193,28 @@ def _xlstm_out(p, cfg, x, y, out_gate):
     return linear(y * F.silu(out_gate), p["w_down"])
 
 
+def _exp_floor(m: torch.Tensor) -> torch.Tensor:
+    """exp(-m), the mLSTM normaliser's floor, with the reference's values
+    and a finite gradient where it overflows.
+
+    Where every gate logit up to a position lies below -log(FLT_MAX)
+    (about -88.7), exp(-m) is inf in fp32 and the output there is num / inf
+    = 0, as in the reference.  Its true gradient is num exp(m), below fp32's
+    range, but exp's backward multiplies the zero cotangent by the inf
+    result and gives NaN, which the reference's ``jnp.exp(-m_new)`` does too.
+    Here those positions take exp(0) on the differentiated branch, so they
+    pass 0 back; every other position's value and gradient are exp's own."""
+    over = torch.isinf(torch.exp(-m.detach()))
+    return torch.where(over, torch.inf, torch.exp(torch.where(over, 0.0, -m)))
+
+
 def mlstm_seq(p, cfg, x: torch.Tensor) -> torch.Tensor:
     """Chunkwise-parallel mLSTM over the full sequence, x (..., S, d) ->
     (..., S, d), with the reference's stabilisers: the running maximum m of
     the exponential-gate logits, ``_NEG`` as the causal fill, the
     normaliser max(|n|, exp(-m)), and the state (C, n, m, F) carried from
-    chunk to chunk."""
+    chunk to chunk.  One departure: where exp(-m) overflows, the gradient
+    is 0, not the reference's NaN (``_exp_floor``)."""
     s = x.shape[-2]
     ck = min(cfg.ssm.chunk, s)
     if s % ck:
@@ -226,7 +242,7 @@ def mlstm_seq(p, cfg, x: torch.Tensor) -> torch.Tensor:
         w_state = torch.exp(lg_state - m_new)
         num = w @ vb + (qb @ c_state) * w_state[..., None]
         den = torch.abs(w.sum(-1) + (qb @ n_state[..., None]).squeeze(-1) * w_state)
-        ys.append(num / torch.maximum(den, torch.exp(-m_new))[..., None])
+        ys.append(num / torch.maximum(den, _exp_floor(m_new))[..., None])
         if start + ck < s:  # the state at the chunk's end
             f_end = fb[..., -1]
             m_cand = f_end - f_prev + m_state

@@ -627,3 +627,90 @@ def test_xlstm_micro_round_on_card_matches_cpu(cuda):
     ppl = res_cpu[0].metrics["ppl"]
     assert abs(res_gpu[0].metrics["ppl"] - ppl) <= 1e-4 * ppl
     np.testing.assert_allclose(gpu.params.cpu().numpy(), cpu.params.numpy(), atol=1e-4)
+
+
+def _async_case(**kw):
+    train = make_classification(800, n_features=64, n_classes=10, seed=0)
+    test = make_classification(200, n_features=64, n_classes=10, seed=1)
+    cfg = FLConfig(n_clients=12, m=4, rounds=8, hidden=(16,), eval_samples=16, eval_every=2,
+                   target_hd=0.8, seed=0, strategy_kwargs={"J": 3},
+                   systems={"profile": "mobile_mix", "availability": "markov",
+                            "jitter_sigma": 0.1},
+                   async_mode={"buffer_k": 3, "concurrency": 8, "staleness": "polynomial"},
+                   **kw)
+    return cfg, train, test
+
+
+@pytest.mark.parametrize("backend", ["host", "compiled"])
+def test_async_engine_on_card_launches_k1_per_update_and_matches_cpu(cuda, backend):
+    """The async runtime on the card: K1 once a step that applies an update
+    (the final params version), over at most buffer_k kept deltas; the same
+    survivors, versions and staleness as on the CPU from the same draws,
+    params within 1e-4."""
+    cfg, train, test = _async_case(backend=backend)
+    k1 = masked_weighted_sum.launches
+    gpu = make_engine(cfg, train, test, 10)
+    res_gpu = list(gpu.rounds())
+    assert masked_weighted_sum.launches - k1 == res_gpu[-1].params_version > 0
+    cpu = make_engine(cfg, train, test, 10, device="cpu")
+    res_cpu = list(cpu.rounds())
+    fields = ("selected", "params_version", "staleness", "n_dropped", "sim_time")
+    assert [tuple(getattr(r, f) for f in fields) for r in res_gpu] == \
+        [tuple(getattr(r, f) for f in fields) for r in res_cpu]
+    np.testing.assert_allclose(gpu.params.cpu().numpy(), cpu.params.numpy(), atol=1e-4)
+
+
+def test_async_kill_and_resume_on_card_is_bit_identical(cuda, tmp_path):
+    """A run killed mid-buffer on the card resumes to the uninterrupted
+    run's bits: the ledger's rows load back onto the card."""
+    cfg, train, test = _async_case()
+    ref = make_engine(cfg, train, test, 10)
+    ref_res = list(ref.rounds())
+    killed = make_engine(cfg, train, test, 10)
+    it = killed.rounds()
+    pre = [next(it) for _ in range(4)]
+    it.close()
+    assert killed._n_inflight() > 0
+    killed.save(str(tmp_path / "a.ckpt"))
+    resumed = make_engine(cfg, train, test, 10)
+    resumed.restore(str(tmp_path / "a.ckpt"))
+    assert all(g.stacked.is_cuda for g in resumed._ledger)
+    post = list(resumed.rounds())
+    assert [(r.selected, r.params_version, r.sim_clock) for r in pre + post] == \
+        [(r.selected, r.params_version, r.sim_clock) for r in ref_res]
+    assert torch.equal(resumed.params, ref.params)
+
+
+@pytest.mark.parametrize("compress_bits", [0, 8])
+def test_fused_engine_restores_after_capturing_its_graphs(cuda, tmp_path, compress_bits):
+    """A fused engine that has captured and replayed its chunk graphs
+    restores an older checkpoint and reruns to the uninterrupted run's bits:
+    each chunk copies ``engine.params`` into its graph's input buffer, and
+    the quantization generator, registered with the graphs, takes its saved
+    state."""
+    from repro_torch.checkpoint import Checkpointer, CheckpointPolicy
+
+    cfg, train, test = _fused_case()
+    cfg = FLConfig.from_dict({**cfg.to_dict(), "backend": "compiled", "fuse_rounds": 2,
+                              "rounds": 8, "eval_every": 100, "compress_bits": compress_bits})
+    engine = make_engine(cfg, train, test, 10, checkpointer=Checkpointer(
+        str(tmp_path / "ck"), CheckpointPolicy(every_rounds=2)))
+    full = list(engine.rounds())
+    assert sum(engine.graph_replays.values()) > 0
+    want = engine.params.clone()
+    engine.restore(str(tmp_path / "ck" / "round_00000004.ckpt"))
+    again = list(engine.rounds())
+    assert [r.selected for r in again] == [r.selected for r in full[4:]]
+    assert torch.equal(engine.params, want)
+    engine.close()
+
+
+def test_serializer_loads_tensors_onto_the_card(cuda, tmp_path):
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+
+    x = torch.randn(3, 1000, device="cuda")
+    save_checkpoint(str(tmp_path / "x.ckpt"), {"x": x, "g": torch.Generator("cuda").get_state()})
+    out, _ = load_checkpoint(str(tmp_path / "x.ckpt"),
+                             like={"x": torch.empty(3, 1000, device="meta"),
+                                   "g": torch.zeros(16, dtype=torch.uint8)}, device="cuda")
+    assert out["x"].is_cuda and torch.equal(out["x"], x)

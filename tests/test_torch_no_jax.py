@@ -1,10 +1,12 @@
 """The port stands alone: nothing under ``src/repro_torch/`` and nothing in
 ``chip_smoke.py`` imports JAX or the reference package ``repro``; entry
 points default to the card and raise without one, the compiled and fused
-engines too; the config accepts every registered strategy, aggregator and
-client mode, validates the compiled backend's options as the reference
-does, takes the systems and fault axes under the reference's rules and
-error texts, and rejects what the port does not implement yet."""
+engines too, and the async engines; the config accepts every registered
+strategy, aggregator and client mode, validates the compiled backend's
+options as the reference does, takes the systems and fault axes and the
+async runtime under the reference's rules and error texts, and rejects
+what the port does not implement yet (``backend="scaleout"`` and the
+population axis)."""
 
 import ast
 from pathlib import Path
@@ -48,7 +50,10 @@ def test_port_file_list_is_complete():
                       "federated/compression.py", "systems/config.py",
                       "systems/profiles.py", "systems/clock.py", "systems/runtime.py",
                       "faults/config.py", "faults/health.py", "faults/models.py",
-                      "faults/defense.py", "faults/runtime.py"):
+                      "faults/defense.py", "faults/runtime.py", "checkpoint/__init__.py",
+                      "checkpoint/serializer.py", "checkpoint/policy.py",
+                      "checkpoint/tracker.py", "engine/async_config.py",
+                      "engine/async_engine.py"):
         assert f"src/repro_torch/{lm_module}" in names
     assert len(names) > 20
 
@@ -69,7 +74,10 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
     for kw in ({"backend": "compiled"}, {"backend": "compiled", "fuse_rounds": 2},
                {"backend": "compiled", "fuse_rounds": 2, "compress_bits": 8},
                {"systems": {"profile": "mobile_mix", "over_select": 1.5},
-                "faults": {"rate": 0.2, "defense": "validate"}}):
+                "faults": {"rate": 0.2, "defense": "validate"}},
+               {"systems": {"profile": "mobile_mix"}, "async_mode": {"buffer_k": 2}},
+               {"backend": "compiled", "systems": {"profile": "mobile_mix"},
+                "async_mode": {"buffer_k": 2}}):
         with pytest.raises(RuntimeError, match="cuda"):
             make_engine(FLConfig(**{**cfg.to_dict(), **kw}), train, test, 4)
     lm_cfg = FLConfig(task="lm", n_clients=4, m=2, rounds=1, batch_size=2, eval_samples=2,
@@ -99,6 +107,13 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
     ("population", {"n_shards": 2}),
 ])
 def test_config_rejects_unported_values(field, value):
+    if field == "async_mode":
+        # ported: these values lack the systems axis, which the reference's
+        # own rule requires of the async runtime
+        with pytest.raises(ValueError, match="async_mode needs the systems axis"):
+            FLConfig(**{field: value})
+        assert FLConfig(**{field: value, "systems": {}}).async_mode is not None
+        return
     with pytest.raises(ValueError, match="repro_torch"):
         FLConfig(**{field: value})
 

@@ -28,7 +28,7 @@ from repro_torch.models.mlp import MLPLayout  # noqa: E402
 
 # Names of the reference that the port does not offer yet, by module, each
 # with the ROADMAP item (or the reason) that keeps it out.
-_AXES = "the runtime axes still to port (checkpoint, async, population)"
+_AXES = "the population axis, the next runtime axis to port (ROADMAP §1 item 6)"
 UNPORTED = {
     "repro.configs": {"INPUT_SHAPES": "frame and image inputs",
                       "InputShape": "frame and image inputs"},
@@ -39,12 +39,8 @@ UNPORTED = {
                                                    "fedlecc_select_mask"},
     "repro.engine": {
         "ScaleoutEngine": "scaleout", "make_scaleout_round": "scaleout",
-        "PopulationConfig": _AXES, "AsyncConfig": _AXES, "AsyncHostEngine": _AXES, "AsyncCompiledEngine": _AXES,
-        "CheckpointPolicy": _AXES, "Checkpointer": _AXES, "JsonlTracker": _AXES,
-        "MetricsTracker": _AXES},
+        "PopulationConfig": _AXES},
     "repro.engine.compiled": {"make_scaleout_round": "scaleout"},
-    "repro.engine.registry": {"STALENESS_REGISTRY": _AXES, "register_staleness": _AXES,
-                              "list_staleness_discounts": _AXES},
     "repro.federated": {"FederatedSimulation": "the deprecated simulation shim"},
     "repro.kernels": {n: "the Pallas entry points; the port's kernels have their own"
                       for n in ("hellinger_matrix_pallas", "hellinger_strip_pallas",
@@ -115,8 +111,9 @@ def test_every_reference_name_with_a_port_counterpart_imports_from_the_same_path
     assert not stale, f"ported names still listed as unported: {stale}"
     assert set(UNPORTED) <= seen
     assert {"repro.engine", "repro.core", "repro.models", "repro.optim",
-            "repro.federated", "repro.systems", "repro.faults"} <= seen
-    for package in ("systems", "faults"):
+            "repro.federated", "repro.systems", "repro.faults", "repro.checkpoint",
+            "repro.engine.async_config", "repro.engine.async_engine"} <= seen
+    for package in ("systems", "faults", "checkpoint"):
         ref = importlib.import_module(f"repro.{package}")
         modules = {m.name for m in pkgutil.walk_packages(ref.__path__, f"repro.{package}.")}
         assert modules <= seen, f"repro.{package} modules without a port: {modules - seen}"
@@ -128,6 +125,7 @@ def test_engine_exports_and_lists():
 
     for n in ("list_strategies", "list_aggregators", "list_client_modes", "list_tasks"):
         assert getattr(engine, n)() == getattr(ref_registry, n)(), n
+    assert engine.registry.list_staleness_discounts() == ref_registry.list_staleness_discounts()
     assert type(engine.get_preset("fedavg")).__name__ == "ExperimentPreset"
     from repro_torch.core import get_strategy
     from repro_torch.core.strategies import UniformRandom

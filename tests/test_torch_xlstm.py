@@ -165,6 +165,41 @@ def test_xlstm_cores_and_gradients_match_reference(core, chunk):
         _close(torch.zeros_like(p[k]) if g is None else g, want_dp[k], 1e-4)
 
 
+@pytest.mark.parametrize("chunk", [8, 32])
+def test_mlstm_normaliser_overflow_keeps_the_gradient_finite(chunk):
+    """Head 0's input-gate bias at -120 puts every running max m below
+    -log(FLT_MAX): exp(-m) is inf, head 0's output num / inf = 0, and the
+    reference's gradient is NaN (0 x inf in exp's backward).  The port gives
+    the reference's output there, and the gradient that the reference gives
+    with the bias at -80, where exp(-m) stays finite and head 0's output
+    and gradient are below 1e-30."""
+    ref_cfg, cfg = _cfgs(chunk)
+    base = ref_ssm.init_xlstm(jax.random.PRNGKey(chunk), ref_cfg)
+    x, dy = _block_inputs(chunk)
+
+    def ref_run(bias):
+        p = {**base, "b_if": base["b_if"].at[0].set(bias)}
+        out, vjp = jax.vjp(jax.jit(lambda pp, xx: ref_ssm.mlstm_seq(pp, ref_cfg, xx)[0]),
+                           p, jnp.asarray(x))
+        return p, out, vjp(jnp.asarray(dy))
+
+    over_p, over_out, (over_dp, over_dx) = ref_run(-120.0)
+    _, near_out, (near_dp, near_dx) = ref_run(-80.0)
+    assert np.isnan(over_dx).any() and np.isnan(over_dp["b_if"]).any()
+    assert np.isfinite(near_dx).all() and all(np.isfinite(v).all() for v in near_dp.values())
+    names = list(ssm.xlstm_shapes(cfg))
+    p = {k: _t(over_p[k]).requires_grad_(True) for k in names}
+    xt = _t(x).requires_grad_(True)
+    got = ssm.mlstm_seq(p, cfg, xt)
+    _close(got.detach(), over_out, 1e-5)
+    _close(got.detach(), near_out, 1e-5)
+    grads = torch.autograd.grad(got, [xt] + [p[k] for k in names], _t(dy))
+    assert all(torch.isfinite(g).all() for g in grads)
+    _close(grads[0], near_dx, 1e-4)
+    for k, g in zip(names, grads[1:]):
+        _close(g, near_dp[k], 1e-4)
+
+
 def test_xlstm_cores_take_per_client_weights():
     _, cfg = _cfgs()
     gen = torch.Generator().manual_seed(0)
