@@ -16,7 +16,8 @@ Phases, each printed on its own lines:
    the over-selected cohorts (13 and 16 rows, and xlstm's (13, P)), at the
    async runtime's kept deltas (5 rows, classification and xlstm), and
    with a NaN row at weight > 0 and at weight 0 (the plain version's
-   result: NaN in every column).
+   result: NaN in every column); K2 also at the population phase's shapes
+   ((1, 3906), (61, 3906) and (4096, 10^4), C = 10).
 4. main paths, each driven through ``make_engine(...).rounds()`` with
    every kernel's launch count set to 0 just before and read just after:
    - the paper's experiment at full width (K = 100 clients, m = 10, MLP
@@ -88,6 +89,21 @@ Phases, each printed on its own lines:
      run's bits, as does an engine that captured its graphs and restores an
      older file; then the buffer-5 async run killed mid-buffer on host and
      compiled resumes to the same bits;
+   - ``population:`` ``benchmarks/bench_population.py``'s rows: its
+     training rows (fedlecc J = 5, hidden (64,), m = 32, batch 16, 2 local
+     epochs, lr 0.05, target HD 0.8, 30 rounds) at K = 10^3 (15 shards)
+     and 10^4 (156 shards: K2's blocked build over every client is three
+     4096-row strips), flat against population with 4 resident shards
+     (accuracy, MB, median round, setup, resident clients, gather MB a
+     round, the stack's MB, each run's peak device memory), the population
+     run on the compiled backend at 10^3 keeping the host's selections
+     within 1e-5; one shard against flat on the paper's configuration
+     (fedlecc, random and lossonly on host and compiled, 150 rounds: the
+     same selections and parameter bits); the selection-only rows at K =
+     10^3 to 10^6 (store and hierarchy build, K2 launches, the round's
+     selection ms; 3,906 shards clustered by k-medoids at 10^6; no shard
+     materialized) and ``hellinger_blocked`` at K = 10^4, its pinned
+     double-buffered copy against the pageable copy it replaced;
    - federated LM training on stablelm-3b at full width, cut from 32 to
      2 layers (P = 380,789,760), K = 100, m = 10, batch 8 of 64 tokens,
      3 rounds, with the flash-attention kernel forward (poll, local SGD,
@@ -1680,6 +1696,303 @@ def _checkpoint_phase(device):
     return k1
 
 
+# benchmarks/bench_population.py's geometry: shards of 256 clients (the
+# training rows: 64), 4 resident a round, J = 3 at the shard level, m = 32
+POP_SHARD_SIZE, POP_RESIDENT, POP_J, POP_M = 256, 4, 3, 32
+POP_TRAIN_ROUNDS, POP_SELECT_ROUNDS = 30, 40
+POP_SELECT_KS = (1_000, 10_000, 100_000, 1_000_000)
+
+
+def _pop_cfg(k, population, **kw):
+    """bench_population.py's ``training_row`` config at K = ``k``."""
+    from repro_torch.engine import FLConfig
+
+    return FLConfig(n_clients=k, m=POP_M, rounds=POP_TRAIN_ROUNDS, seed=0, strategy="fedlecc",
+                    strategy_kwargs={"J": 5}, hidden=(64,), eval_samples=16,
+                    eval_every=max(POP_TRAIN_ROUNDS // 4, 1), target_hd=0.8, batch_size=16,
+                    local_epochs=2, lr=0.05, population=population, **kw)
+
+
+def _pop_training_run(device, tag, cfg, train, test):
+    """``cfg`` through ``make_engine(...).rounds()`` from an emptied allocator
+    with its peak reset, K1 and K2 counted from 0 over it and each round
+    timed; counts the dispatched clients outside the round's resident
+    shards (Algorithm 1 takes a top cluster's ``-inf`` members when it has
+    fewer than ``ceil(m / J)`` resident ones, as the reference does); checks
+    K1 once a round, K2 at setup and finite parameters; returns (record,
+    engine, results)."""
+    import torch
+
+    from repro_torch.engine import make_engine
+    from repro_torch.kernels.aggregate import masked_weighted_sum
+    from repro_torch.kernels.hellinger import hellinger_strip
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    hellinger_strip.launches = masked_weighted_sum.launches = 0
+    t = time.perf_counter()
+    engine = make_engine(cfg, train, test, n_classes=10, device=device)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+    results, walls, outside = [], [], 0
+    it = engine.rounds()
+    for _ in range(cfg.rounds):
+        t = time.perf_counter()
+        results.append(next(it))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+        if engine._pop_members is not None:
+            outside += len(set(results[-1].selected) - set(engine._pop_members.tolist()))
+    evaluated = [r for r in results if r.evaluated]
+    rec = {"tag": tag, "backend": cfg.backend, "setup_s": setup_s,
+           "median_round_ms": statistics.median(walls), "final_acc": evaluated[-1].test_acc,
+           "best_acc": max(r.test_acc for r in evaluated), "comm_mb": results[-1].comm_mb,
+           "k1_launches": _k1_launches(engine), "k2_launches": hellinger_strip.launches,
+           "allocated_before_mib": base / 2**20,
+           "max_allocated_mib": torch.cuda.max_memory_allocated() / 2**20}
+    store = engine._store
+    if store is not None:  # one client's packed rows: features, labels, mask
+        rb = sum(a[:1].nbytes for a in (store._xs, store._ys, store._mask))
+        resident = len(engine._pop_members)
+        rec |= {"resident_clients": resident, "row_bytes": rb,
+                "gather_mb_per_round": (resident + POP_M) * rb / 2**20,
+                "flat_stack_mb": cfg.n_clients * rb / 2**20,
+                "shard_clusters": engine._population.n_shard_clusters,
+                "dispatched_outside_residents": outside}
+    print(f"population: training K={cfg.n_clients} {json.dumps(rec)}", flush=True)
+    if rec["k1_launches"] != cfg.rounds or rec["k2_launches"] < 1:
+        raise AssertionError(f"{tag}: K1/K2 launched {rec['k1_launches']}/{rec['k2_launches']}")
+    for r in results:
+        sel = list(r.selected)
+        if len(sel) != POP_M or sorted(set(sel)) != sel or not math.isfinite(r.comm_mb):
+            raise AssertionError(f"{tag} round {r.round}: bad selection {sel}")
+    if not (engine.params.is_cuda and torch.isfinite(engine.params).all()
+            and all(0.0 <= r.test_acc <= 1.0 for r in evaluated)):
+        raise AssertionError(f"{tag}: final parameters not finite or accuracy out of range")
+    return rec, engine, results
+
+
+def _pop_training(device, k):
+    """bench_population.py's ``training_row`` at K = ``k``: flat against
+    population (``k // 64`` shards, 4 resident), fedlecc J = 5, 30 rounds,
+    each with its peak device memory; at K = 10^3 also the population run on
+    the compiled backend, which must keep the host's selections and end
+    within ``PARITY_ATOL``.  Returns (K1, K2) launches."""
+    from repro_torch.data import make_classification
+
+    n_shards = max(8, k // 64)
+    t = time.perf_counter()
+    train = make_classification(32 * k, n_features=64, n_classes=10, seed=0)
+    test = make_classification(1_000, n_features=64, n_classes=10, seed=1)
+    print(f"population: K={k} data {time.perf_counter() - t:.3f} s  train {train.x.shape}",
+          flush=True)
+    population = {"n_shards": n_shards, "shards_per_round": min(POP_RESIDENT, n_shards),
+                  "j_shards": POP_J}
+    k1 = k2 = 0
+    recs, runs = {}, {}
+    for tag, pop, kw in (("flat", None, {}), ("population", population, {}),
+                         ("population compiled", population, {"backend": "compiled"})):
+        if kw and k != 1_000:
+            continue
+        rec, engine, results = _pop_training_run(device, tag, _pop_cfg(k, pop, **kw), train,
+                                                 test)
+        recs[tag] = rec
+        k1, k2 = k1 + rec["k1_launches"], k2 + rec["k2_launches"]
+        if pop is None:
+            flat_stack_mb = (engine.xs.nbytes + engine.ys.nbytes) / 2**20
+        else:
+            runs[tag] = (engine, results)
+        del engine, results
+    if "population compiled" in runs:
+        _same_run(f"K={k} population host vs compiled", runs["population"],
+                  runs["population compiled"], PARITY_ATOL, "population")
+    summary = {"K": k, "n_shards": n_shards,
+               "acc_gap": abs(recs["flat"]["final_acc"] - recs["population"]["final_acc"]),
+               "flat_device_stack_mb": flat_stack_mb,
+               "max_allocated_mib": {t: r["max_allocated_mib"] for t, r in recs.items()}}
+    print(f"population: training K={k} summary {json.dumps(summary)}", flush=True)
+    return k1, k2
+
+
+def _pop_one_shard(device):
+    """One shard against the flat engine on the paper's configuration (K =
+    100, m = 10, 150 rounds): fedlecc, random and lossonly on host and
+    compiled must select the same clients and reach the same parameter bits.
+    Returns (K1, K2) launches."""
+    import torch
+
+    from repro_torch.engine import FLConfig
+    from repro_torch.kernels.hellinger import hellinger_strip
+
+    train, test = _paper_data()
+    k1 = k2 = 0
+    for strategy, skw in (("fedlecc", {"J": 3}), ("random", {}), ("lossonly", {})):
+        for backend in ("host", "compiled"):
+            runs = {}
+            for tag, pop in (("flat", None), ("one shard", {"n_shards": 1})):
+                cfg = FLConfig(**PAPER, strategy=strategy, strategy_kwargs=skw,
+                               backend=backend, population=pop)
+                engine, results, _, _, median_ms = _timed_run(device, cfg, train, test)
+                k1 += _k1_launches(engine)
+                k2 += hellinger_strip.launches
+                runs[tag] = (engine, results, median_ms)
+            (ea, ra, ma), (eb, rb, mb) = runs["flat"], runs["one shard"]
+            same = [r.selected for r in ra] == [r.selected for r in rb]
+            bits = torch.equal(ea.params, eb.params)
+            print(f"population one shard vs flat {strategy} {backend}: {len(ra)} rounds, same "
+                  f"selections every round: {same}, same parameter bits: {bits}, median round "
+                  f"{ma:.3f} ms flat, {mb:.3f} ms one shard, final acc {ra[-1].test_acc}",
+                  flush=True)
+            if not (same and bits and [r.comm_mb for r in ra] == [r.comm_mb for r in rb]):
+                raise AssertionError(f"one shard differs from flat: {strategy} {backend}")
+            del runs, ea, eb
+    return k1, k2
+
+
+def _pop_selection_row(device, k):
+    """bench_population.py's ``selection_row`` at K = ``k``: a
+    ``ShardedStore`` of 256-client shards (summaries only), the hierarchy
+    (OPTICS up to 2048 shards, k-medoids beyond: K2 on the card), then 40
+    rounds of the selection loop with simulated member losses.  No shard
+    may materialize.  Returns the record."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.hellinger import hellinger_strip
+    from repro_torch.population import (
+        HierarchicalSelector,
+        PopulationConfig,
+        ShardedStore,
+        SyntheticShardLoader,
+    )
+
+    n_shards = max(POP_RESIDENT, k // POP_SHARD_SIZE)
+    n_feat, n_max = 64, 16
+    t = time.perf_counter()
+    store = ShardedStore(SyntheticShardLoader(seed=0, n_features=n_feat, n_classes=10,
+                                              samples=(8, n_max)),
+                         n_clients=k, n_shards=n_shards, device=device)
+    t_store = time.perf_counter() - t
+    cfg = PopulationConfig(n_shards=n_shards, shards_per_round=min(POP_RESIDENT, n_shards),
+                           j_shards=POP_J)
+    hellinger_strip.launches = 0
+    t = time.perf_counter()
+    sel = HierarchicalSelector(cfg, store, seed=0, needs_losses=True)
+    torch.cuda.synchronize()
+    t_selector = time.perf_counter() - t
+    k2 = hellinger_strip.launches
+    rng = np.random.default_rng(0)
+    times, resident = [], 0
+    for rnd in range(POP_SELECT_ROUNDS):
+        t = time.perf_counter()
+        _, members = sel.begin_round(rnd)
+        member_losses = rng.random(len(members)).astype(np.float32)
+        losses = np.full(k, -np.inf, np.float32)
+        losses[members] = member_losses
+        sel.observe(losses)
+        cohort = sel.select_cohort(member_losses, m=POP_M)
+        times.append((time.perf_counter() - t) * 1e3)
+        resident = len(members)
+        if len(cohort) != min(POP_M, resident):
+            raise AssertionError(f"K={k} round {rnd}: cohort of {len(cohort)}")
+    rb = n_max * (n_feat * 4 + 4 + 4)
+    rec = {"K": k, "n_shards": n_shards, "resident_clients": resident,
+           "cluster_algo": "optics" if n_shards <= 2048 else "kmedoids",
+           "shard_clusters": sel.n_shard_clusters, "t_store_build_s": t_store,
+           "t_selector_build_s": t_selector, "round_select_ms_mean": statistics.mean(times),
+           "round_select_ms_median": statistics.median(times), "k2_launches": k2,
+           "gather_mb_per_round": (resident + POP_M) * rb / 2**20,
+           "flat_stack_mb": k * rb / 2**20, "dense_hd_matrix_mb": k * k * 4 / 2**20,
+           "materialized_shards": len(store.materialized_shards()),
+           "explored_shards": int(np.isfinite(sel.estimates).sum())}
+    print(f"population: selection {json.dumps(rec)}", flush=True)
+    if rec["materialized_shards"] != 0 or (n_shards > 1 and k2 == 0):
+        raise AssertionError(f"K={k}: {rec['materialized_shards']} shards materialized, "
+                             f"K2 launched {k2} times")
+    return rec
+
+
+def _pop_blocked_build(device, k=10_000, repeats=3):
+    """``hellinger_blocked`` at K = ``k`` (three 4096-row strips): its wall
+    time with the double-buffered pinned copy against the single pageable
+    copy a strip it replaced (the same strips, copied straight into the
+    host matrix), and the strips' kernel time alone (CUDA events); the two
+    must give the same bits."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.hellinger import _sqrt_rows, hellinger_blocked
+    from repro_torch.kernels.hellinger import hellinger_strip
+
+    h = np.random.default_rng(k).dirichlet(np.ones(10) * 0.5, size=k)
+    block = 4096
+    r = torch.from_numpy(_sqrt_rows(h)).to(device)
+    strips = [(i0, min(i0 + block, k)) for i0 in range(0, k, block)]
+
+    def pageable():
+        out = np.empty((k, k), np.float32)
+        host = torch.from_numpy(out)
+        for i0, i1 in strips:
+            host[i0:i1].copy_(hellinger_strip(r[i0:i1], r))
+        np.fill_diagonal(out, 0.0)
+        return out
+
+    def wall(fn):
+        times = []
+        for _ in range(repeats):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(times), out
+
+    pinned = lambda: hellinger_blocked(h, block=block, device=device)  # noqa: E731
+    wall(pinned)  # the pinned buffers' first allocation
+    before_ms, want = wall(pageable)
+    after_ms, got = wall(pinned)
+    before2_ms, _ = wall(pageable)
+    after2_ms, _ = wall(pinned)
+    kernel_ms = _median_ms(lambda: [hellinger_strip(r[i0:i1], r) for i0, i1 in strips],
+                           calls=repeats, warmup=1)
+    same = bool(np.array_equal(got, want))
+    rec = {"K": k, "block": block, "strips": len(strips),
+           "pageable_wall_ms": [before_ms, before2_ms], "pinned_wall_ms": [after_ms, after2_ms],
+           "k2_ms": kernel_ms, "pageable_copy_ms": before_ms - kernel_ms,
+           "pinned_copy_ms": after_ms - kernel_ms, "same_bits": same}
+    print(f"population: blocked build {json.dumps(rec)}", flush=True)
+    if not same:
+        raise AssertionError("the pinned blocked build differs from the pageable one")
+
+
+def _population_phase(device):
+    """benchmarks/bench_population.py's rows through the port on the card:
+    the training rows at K = 10^3 and 10^4 (flat against population, with
+    host against compiled at 10^3), one shard against flat on the paper's
+    configuration, the selection-only rows at K = 10^3 to 10^6 and the
+    blocked build's copy at K = 10^4.  Returns K1's and K2's launches over
+    the phase's engine runs and selector builds."""
+    t = time.perf_counter()
+    k1 = k2 = 0
+    for k in (1_000, 10_000):
+        a, b = _pop_training(device, k)
+        k1, k2 = k1 + a, k2 + b
+    a, b = _pop_one_shard(device)
+    k1, k2 = k1 + a, k2 + b
+    rows = [_pop_selection_row(device, k) for k in POP_SELECT_KS]
+    k2 += sum(r["k2_launches"] for r in rows)
+    if rows[-1]["cluster_algo"] != "kmedoids":
+        raise AssertionError("K = 10^6 should cluster its shards with k-medoids")
+    _pop_blocked_build(device)
+    launches = {"hellinger_strip": k2, "masked_weighted_sum": k1}
+    print(f"population: launches {json.dumps(launches)}; phase in "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    return launches
+
+
 def _async_agreement(device):
     """An async micro configuration (12 clients, m = 4, buffer 3, 8 in
     flight, mobile_mix) on the CPU (plain versions) and on the card (K1),
@@ -2121,7 +2434,12 @@ def main() -> int:
           f"({', '.join(sorted(libs))}) into {build.BUILD_DIR.relative_to(ROOT)}", flush=True)
 
     # 3. kernels against their plain versions
-    k2 = [_check_hellinger(s, device) for s in [(100, 100, 10), (100, 100, 64), (4096, 16384, 10)]]
+    k2 = [_check_hellinger(s, device) for s in [
+        (100, 100, 10), (100, 100, 64), (4096, 16384, 10),
+        # the population phase's: k-medoids over 3906 shard summaries (a
+        # mean-histogram query, the 61-medoid panel) and a 4096-row strip
+        # of the blocked build at K = 10^4
+        (1, 3906, 10), (61, 3906, 10), (4096, 10_000, 10)]]
     k1 = [_check_aggregate(s, dt, device)
           for s, dt in [((10, 199_210), torch.float32), ((10, 380_789_760), torch.float32),
                         ((10, 344_430_400), torch.float32), ((10, 119_827_296), torch.float32),
@@ -2187,6 +2505,7 @@ def main() -> int:
     faults_k1 = _faults_phase(device)
     async_k1 = _async_phase(device)
     checkpoint_k1 = _checkpoint_phase(device)
+    population = _population_phase(device)
     lm_launches = _lm_main_path(device, "lm", "stablelm-3b", 2, 380_789_760, (attention,))
     hymba_launches = _lm_main_path(device, "hymba", "hymba-1.5b", 6, 344_430_400,
                                    (attention, scan))
@@ -2230,13 +2549,15 @@ def main() -> int:
         {"name": "hellinger_strip", "route": "cuda",
          "source": "src/repro_torch/csrc/hellinger_strip.cu",
          "replaces": "src/repro/kernels/hellinger/kernel.py:38",
-         "launches": launches["hellinger_strip"], "shape": k2[0]["shape"],
+         "launches": launches["hellinger_strip"] + population["hellinger_strip"],
+         "shape": k2[0]["shape"],
          **{k: k2[0][k] for k in keys + ("kernel_ms", "library_kernel_ms")}},
         {"name": "masked_weighted_sum", "route": "cuda",
          "source": "src/repro_torch/csrc/fedavg_reduce.cu",
          "replaces": "src/repro/kernels/aggregate/kernel.py:29",
          "launches": (launches["masked_weighted_sum"] + backend_k1 + systems_k1 + faults_k1
-                      + async_k1 + checkpoint_k1 + xlstm_async_launches["masked_weighted_sum"]
+                      + async_k1 + checkpoint_k1 + population["masked_weighted_sum"]
+                      + xlstm_async_launches["masked_weighted_sum"]
                       + lm_launches["masked_weighted_sum"]
                       + xlstm_axes_launches["masked_weighted_sum"]
                       + hymba_launches["masked_weighted_sum"]

@@ -19,6 +19,10 @@ host (``hellinger_blocked`` returns it there).
     k-medoids fallback that fedlecc's ``cluster="auto"`` sweeps when the
     OPTICS silhouette is poor; numpy on the same float32 matrix, with the
     reference's seeded draws, so the labels are identical.
+- ``kmedoids_hists`` — k-medoids over distances computed on demand, one
+    Hellinger strip (``hellinger_rows``, the strip kernel on the card) at a
+    time, never forming the K x K matrix: the population hierarchy's
+    clustering past OPTICS's shard limit.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core.hellinger import hellinger_blocked
+from repro_torch.core.hellinger import hellinger_blocked, hellinger_rows
 
 __all__ = [
     "OpticsResult",
@@ -36,6 +40,7 @@ __all__ = [
     "extract_clusters",
     "cluster_label_histograms",
     "kmedoids",
+    "kmedoids_hists",
     "best_clustering",
     "silhouette_score",
 ]
@@ -161,6 +166,56 @@ def kmedoids(dist: np.ndarray, k: int, seed: int = 0, iters: int = 25) -> np.nda
             break
         medoids = new
     return np.argmin(dist[:, medoids], axis=1).astype(np.int64)
+
+
+def kmedoids_hists(
+    hists: np.ndarray, k: int, seed: int = 0, iters: int = 25, *,
+    device: str | torch.device = "cuda",
+) -> np.ndarray:
+    """k-medoids over Hellinger distances computed on demand from the
+    histograms — O(K·k) memory, never forming the K x K matrix.
+
+    ``kmedoids``'s seeding (k-means++-style on the squared distance to the
+    nearest chosen medoid, from ``np.random.default_rng(seed)``), but each
+    distance column comes from a ``hellinger_rows`` strip on ``device``
+    against the current medoid panel.  One departure from PAM, the
+    reference's: the medoid update picks the member nearest the cluster's
+    mean histogram (O(|cluster|·C)) instead of minimizing the
+    within-cluster distance sum (O(|cluster|²))."""
+    return _kmedoids_hists(hists, k, seed, iters,
+                           lambda rows, h: hellinger_rows(rows, h, device=device))
+
+
+def _kmedoids_hists(hists, k: int, seed: int, iters: int, rows_fn) -> np.ndarray:
+    """``kmedoids_hists`` with its strip function ``rows_fn(rows, hists)
+    -> (B, K) float32`` given, so a test can hand it another package's
+    strips."""
+    h = np.asarray(hists, np.float32)
+    rng = np.random.default_rng(seed)
+    n = h.shape[0]
+    k = max(1, min(int(k), n))
+    medoids = [int(rng.integers(n))]
+    d_near = rows_fn(h[medoids[-1:]], h)[0].astype(np.float64)
+    for _ in range(k - 1):
+        p = d_near**2
+        p = p / p.sum() if p.sum() > 0 else np.full(n, 1.0 / n)
+        nxt = int(rng.choice(n, p=p))
+        medoids.append(nxt)
+        d_near = np.minimum(d_near, rows_fn(h[nxt : nxt + 1], h)[0])
+    med = np.array(medoids)
+    for _ in range(iters):
+        labels = np.argmin(rows_fn(h[med], h), axis=0)
+        new = med.copy()
+        for c in range(k):
+            members = np.where(labels == c)[0]
+            if members.size == 0:
+                continue
+            mean_h = h[members].mean(axis=0, keepdims=True)
+            new[c] = members[int(np.argmin(rows_fn(mean_h, h[members])[0]))]
+        if np.array_equal(new, med):
+            break
+        med = new
+    return np.argmin(rows_fn(h[med], h), axis=0).astype(np.int64)
 
 
 def best_clustering(

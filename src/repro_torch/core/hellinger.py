@@ -11,8 +11,11 @@ K x K matrix with one fp32 matrix product on the input's device (numpy
 inputs run on the CPU, as the partition calibration does).
 ``hellinger_blocked`` assembles the same matrix from (block, K) strips,
 each computed by the Hellinger strip kernel when the panel lies on CUDA
-(``repro_torch.kernels.hellinger``, plain PyTorch on the CPU) and copied
-straight into the host output buffer, so device memory stays O(K·block).
+(``repro_torch.kernels.hellinger``, plain PyTorch on the CPU), so device
+memory stays O(K·block); on the card the strips leave through two pinned
+staging buffers on a copy stream, double-buffered, so a strip's copy to
+the host overlaps the next strip's kernel and the previous strip's move
+into the output.
 """
 
 from __future__ import annotations
@@ -124,10 +127,12 @@ def hellinger_blocked(
 
     The sqrt-histogram panel goes to ``device`` once; each strip is one
     Hellinger strip kernel launch there (the plain version on the CPU),
-    copied straight into the host output, so peak device memory is
-    O(K·block).  The K x K float32 host result still gets allocated; past
-    the dense budget (``set_dense_budget_bytes``) a ``ResourceWarning``
-    says so."""
+    so peak device memory is O(K·block).  On the card each strip leaves
+    through a pinned staging buffer (``_copy_out_pinned``); on the CPU it
+    is copied straight into the output.  Every entry is its strip
+    element's bits, whatever ``block``.  The K x K float32 host result
+    still gets allocated; past the dense budget
+    (``set_dense_budget_bytes``) a ``ResourceWarning`` says so."""
     h = np.atleast_2d(np.asarray(hists, np.float32))
     k = h.shape[0]
     if block < 1:
@@ -136,12 +141,49 @@ def hellinger_blocked(
     _warn_if_over_budget(k, budget_bytes)
     r = torch.from_numpy(_sqrt_rows(h)).to(dev)
     out = np.empty((k, k), np.float32)
-    host = torch.from_numpy(out)
-    for i0 in range(0, k, block):
-        i1 = min(i0 + block, k)
-        host[i0:i1].copy_(hellinger_strip(r[i0:i1], r))
+    strips = [(i0, min(i0 + block, k)) for i0 in range(0, k, block)]
+    if dev.type == "cuda":
+        _copy_out_pinned(r, strips, out)
+    else:
+        host = torch.from_numpy(out)
+        for i0, i1 in strips:
+            host[i0:i1].copy_(hellinger_strip(r[i0:i1], r))
     np.fill_diagonal(out, 0.0)
     return out
+
+
+def _copy_out_pinned(r: torch.Tensor, strips: list[tuple[int, int]], out: np.ndarray) -> None:
+    """The strips of ``r`` (on CUDA) into ``out`` through two pinned
+    (block, K) staging buffers: strip i's kernel runs on the current
+    stream, its copy into buffer i % 2 on a copy stream that waits for it,
+    and the host then moves strip i - 1 out of the other buffer while
+    strip i's copy (and strip i + 1's kernel) run.  A buffer is refilled
+    only after the host has moved its last strip out."""
+    k = r.shape[0]
+    rows = max(i1 - i0 for i0, i1 in strips)
+    n_buf = min(2, len(strips))
+    stage = [torch.empty((rows, k), dtype=torch.float32, pin_memory=True) for _ in range(n_buf)]
+    host = torch.from_numpy(out)
+    compute = torch.cuda.current_stream(r.device)
+    copy = torch.cuda.Stream(r.device)
+    done: list[torch.cuda.Event | None] = [None] * n_buf
+
+    def move_out(i: int) -> None:
+        i0, i1 = strips[i]
+        done[i % n_buf].synchronize()
+        host[i0:i1].copy_(stage[i % n_buf][: i1 - i0])
+
+    for i, (i0, i1) in enumerate(strips):
+        strip = hellinger_strip(r[i0:i1], r)
+        copy.wait_stream(compute)
+        with torch.cuda.stream(copy):
+            stage[i % n_buf][: i1 - i0].copy_(strip, non_blocking=True)
+            done[i % n_buf] = torch.cuda.Event()
+            done[i % n_buf].record(copy)
+        strip.record_stream(copy)
+        if i > 0:
+            move_out(i - 1)
+    move_out(len(strips) - 1)
 
 
 def average_hd(hists) -> torch.Tensor:

@@ -4,7 +4,8 @@
                     validation that rejects what the port lacks;
                     ``SystemsConfig`` (``repro_torch.systems``) and
                     ``FaultConfig`` (``repro_torch.faults``) are its
-                    systems and fault axes
+                    systems and fault axes, ``PopulationConfig``
+                    (``repro_torch.population``) its population axis
 - ``registry``    — strategy / aggregator / client-mode / task / preset
                     registries
 - ``base``        — ``Engine`` round protocol, ``RoundResult`` and
@@ -102,6 +103,7 @@ from repro_torch.engine.registry import (
 )
 from repro_torch.engine.tasks import Task, build_task
 from repro_torch.faults.config import FaultConfig
+from repro_torch.population.config import PopulationConfig
 from repro_torch.systems.config import SystemsConfig
 
 __all__ = [
@@ -109,6 +111,7 @@ __all__ = [
     "FLConfig",
     "SystemsConfig",
     "FaultConfig",
+    "PopulationConfig",
     "Registry",
     "STRATEGY_REGISTRY",
     "AGGREGATOR_REGISTRY",

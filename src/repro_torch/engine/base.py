@@ -1,17 +1,21 @@
 """The federated engine's shared state and round protocol, ported from
-``repro.engine.base`` (the lock-step loop with the systems and fault axes,
-and the checkpoint and emission seams; no population seam — ``FLConfig``
-rejects that axis up front).
+``repro.engine.base`` (the lock-step loop with the systems, fault and
+population axes, and the checkpoint and emission seams).
 
 ``Engine`` owns the non-IID partition, the packed client tensors on the
 device, the selection strategy, the aggregator, the client mode (with
 FedDyn's (K, P) per-client state), the comm ledger and, when configured,
 the ``SystemsRuntime`` (availability, deadlines, over-selection, the
-simulated clock) and the ``FaultRuntime`` (injection, the validation gate,
-quarantine), and drives one canonical round loop:
+simulated clock), the ``FaultRuntime`` (injection, the validation gate,
+quarantine) and the population axis: the packed stacks then stay on the
+host in an ``InMemoryStore`` (``repro_torch.population``), the device
+holds only (K,) vectors, and a ``HierarchicalSelector`` picks each
+round's resident shards, whose members alone are polled (their rows
+gathered from the store), admitted to selection and billed.  One
+canonical round loop:
 
-    poll_losses → gate → select → local_train → [outcome, faults] →
-    aggregate → evaluate
+    [resident shards] → poll_losses → [observe] → gate → select →
+    local_train → [outcome, faults] → aggregate → evaluate
 
 ``HostEngine`` (``repro_torch.engine.host``) implements ``select`` /
 ``local_train`` / ``aggregate``; ``CompiledEngine``
@@ -34,8 +38,9 @@ Each committed round goes through ``_emit``: history, callback, trackers
 ``save`` / ``restore`` write and read the whole round carry
 (``repro_torch.checkpoint``): the params, the aggregator's state, FedDyn's
 per-client state, the draws' state, the numpy selection stream, the
-ledger, the clock, the history, the axes' state and the config's
-fingerprint, which ``restore`` checks.
+ledger, the clock, the history, the axes' state (the population's: its
+shard loss estimates) and the config's fingerprint, which ``restore``
+checks.
 """
 
 from __future__ import annotations
@@ -211,13 +216,27 @@ class Engine:
         self.hists = self.task.client_features(train, self.client_idx, n_classes)
         xs, ys, mask = pack_clients(train.x, train.y, self.client_idx)
         self.sizes = np.array([len(ix) for ix in self.client_idx])
-        self.xs = torch.from_numpy(xs).to(self.device)
-        self.ys = torch.from_numpy(ys).to(self.device)
+        # --- population axis: the packed stacks stay on the host behind a
+        # ClientStore, and only the rows a round touches (the resident
+        # shards' poll rows, the dispatched cohort) reach the device ---
+        self._store: Any = None       # InMemoryStore with a population
+        self._population: Any = None  # HierarchicalSelector, built after the strategy
+        self._pop_members: np.ndarray | None = None  # this round's residents
+        if cfg.population is not None:
+            from repro_torch.population.store import InMemoryStore
+
+            self._store = InMemoryStore(xs, ys, mask, self.sizes, np.asarray(self.hists),
+                                        n_shards=cfg.population.n_shards, device=self.device)
+            self.xs = self.ys = None
+        else:
+            self.xs = torch.from_numpy(xs).to(self.device)
+            self.ys = torch.from_numpy(ys).to(self.device)
         # Row-sampling probabilities per client (validity mask normalized),
-        # kept on the host; the draws build their row table from them once.
+        # kept on the host; without a population the draws build their row
+        # table from them once, with one from the rows each draw is given.
         mask_t = torch.from_numpy(mask)
         self.sample_probs = mask_t / torch.clamp(mask_t.sum(-1, keepdim=True), min=1e-9)
-        if hasattr(self.draws, "bind_rows"):
+        if cfg.population is None and hasattr(self.draws, "bind_rows"):
             self.draws.bind_rows(self.sample_probs)
         self.test_x = torch.from_numpy(np.asarray(test.x)).to(self.device)
         self.test_y = torch.from_numpy(np.asarray(test.y)).to(self.device)
@@ -255,6 +274,24 @@ class Engine:
             self.hists, self.sizes, seed=cfg.seed,
             latency=None if self._systems is None else self._systems.latency_hint(),
             device=self.device)
+        # --- hierarchical shard selection: after the strategy, whose
+        # needs_losses decides whether shards rank by their polled loss
+        # estimates or by the loss-blind stream ---
+        if cfg.population is not None:
+            from repro_torch.population.hierarchy import HierarchicalSelector
+
+            self._population = HierarchicalSelector(
+                cfg.population, self._store, seed=cfg.seed,
+                needs_losses=self.strategy.needs_losses)
+            shard_sizes = np.sort([len(self._store.shard_members(s))
+                                   for s in range(cfg.population.n_shards)])
+            worst = int(shard_sizes[:cfg.population.shards_per_round].sum())
+            if worst < self.m_eff:
+                raise ValueError(
+                    f"population.shards_per_round={cfg.population.shards_per_round} resident "
+                    f"shards can hold as few as {worst} clients but the round needs "
+                    f"m_eff={self.m_eff} — raise shards_per_round or lower n_shards/m"
+                )
         self.aggregator = get_aggregator(cfg.aggregator, cfg)
         self.agg_state = self.aggregator.init_state(self.params)
         # FedDyn's h_i: (K, P) fp32 on the device — 80 MB at the paper's
@@ -297,19 +334,39 @@ class Engine:
     def poll_losses(self, d: int) -> np.ndarray:
         """(K,) subsampled local empirical loss of the *global* model on
         every client (Algorithm 1 lines 2–4), its rows from draw index
-        ``d``; zeros when the strategy never polls."""
+        ``d``; zeros when the strategy never polls.  With a population
+        only the round's resident members are polled (the others stay 0
+        here and are gated to ``-inf`` before selection)."""
+        out = np.zeros(self.cfg.n_clients, np.float32)
         if not self.strategy.needs_losses:
-            return np.zeros(self.cfg.n_clients, np.float32)
+            return out
+        if self._population is not None:
+            members = self._pop_members
+            out[members] = self._poll_members(self.params, d, members).cpu().numpy()
+            return out
         idx = self.draws.poll_indices(d, self.sample_probs, self.cfg.eval_samples)
         return self._poll(self.params, idx).cpu().numpy()
 
-    def _poll(self, params: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-        """(K,) losses of ``params`` on each client's (K, n) sampled rows
-        ``idx``, on the device."""
-        rows = torch.arange(self.cfg.n_clients, device=self.device)[:, None]
+    def _poll(self, params: torch.Tensor, idx: torch.Tensor, xs: torch.Tensor | None = None,
+              ys: torch.Tensor | None = None) -> torch.Tensor:
+        """(n,) losses of ``params`` on each client's sampled rows ``idx``
+        (n, eval_samples) of ``xs`` / ``ys`` (default: every client's device
+        stacks), on the device."""
+        xs = self.xs if xs is None else xs
+        ys = self.ys if ys is None else ys
+        rows = torch.arange(idx.shape[0], device=self.device)[:, None]
         with torch.no_grad():
-            out = self._apply_fn(params, self.xs[rows, idx])
-            return self._loss_fn(out, self.ys[rows, idx], None)
+            out = self._apply_fn(params, xs[rows, idx])
+            return self._loss_fn(out, ys[rows, idx], None)
+
+    def _poll_members(self, params: torch.Tensor, d: int, members: np.ndarray) -> torch.Tensor:
+        """(len(members),) polled losses of the resident ``members``, their
+        rows gathered from the store and sampled as the flat poll samples
+        them (the draws are keyed by global client id)."""
+        xs, ys, _ = self._store.gather(members)
+        idx = self.draws.poll_indices(d, self.sample_probs[torch.as_tensor(members)],
+                                      self.cfg.eval_samples, clients=members)
+        return self._poll(params, idx, xs, ys)
 
     def select(self, rnd: int, losses: np.ndarray) -> np.ndarray:
         """Sorted indices of this round's participants."""
@@ -433,6 +490,8 @@ class Engine:
         }
         if self._systems is not None:
             meta["systems"] = self._systems.state_dict()
+        if self._population is not None:
+            meta["population"] = self._population.state_dict()
         meta.update(self._extra_meta())
         save_checkpoint(path, self._state_pytree(), meta=meta)
 
@@ -493,6 +552,8 @@ class Engine:
             self._faults.load_meta_state(meta["faults"])
             if self._faults.has_stale:
                 self._faults.load_stale_state(state["fault_stale"])
+        if self._population is not None:
+            self._population.load_state_dict(meta["population"])
 
     # -- the admission gate (systems availability, fault quarantine) ----
     def _selection_gate(self, rnd: int) -> np.ndarray | None:
@@ -534,14 +595,30 @@ class Engine:
         if h_rows is not None:
             self.h_clients[torch.as_tensor(sel, device=self.device)] = h_rows
 
+    def _begin_population_round(self, rnd: int) -> np.ndarray | None:
+        """Pick round ``rnd``'s resident shards (they bound what is polled
+        and gathered) and return the (K,) resident mask; ``None`` without
+        a population."""
+        if self._population is None:
+            return None
+        _, self._pop_members = self._population.begin_round(rnd)
+        return self._population.resident_mask()
+
     # -- the canonical round loop --------------------------------------
     def _round_step(self, rnd: int) -> _Step:
-        """One round through the hooks, with the reference's systems and
-        fault seams: the gate before selection, the deadline outcome of the
-        dispatched cohort, injection and the validation gate on the
-        arrived uploads, and an optimistic aggregation that is redone over
-        the true survivors on a round whose gate flags someone."""
-        losses = self._gated_losses(rnd, self.poll_losses(rnd))
+        """One round through the hooks, with the reference's systems, fault
+        and population seams: the resident shards before the poll, their
+        raw polled losses into the shard estimates, the gate (offline,
+        quarantined and non-resident clients) before selection, the
+        deadline outcome of the dispatched cohort, injection and the
+        validation gate on the arrived uploads, and an optimistic
+        aggregation that is redone over the true survivors on a round
+        whose gate flags someone."""
+        resident = self._begin_population_round(rnd)
+        losses = self.poll_losses(rnd)
+        if self._population is not None:
+            self._population.observe(losses)
+        losses = self._gated_losses(rnd, losses, extra_gate=resident)
         sel = np.asarray(self.select(rnd, losses))
         payload, sel_losses = self.local_train(rnd, sel)
         if self._systems is None and self._faults is None:
@@ -584,11 +661,14 @@ class Engine:
         """Bill round ``rnd``, advance the simulated clock and the battery
         ledger, evaluate the round when due and commit it (``_round``)."""
         cfg = self.cfg
+        # a population polls only the resident members: the rest are free
+        n_polled = None if self._pop_members is None else len(self._pop_members)
         if step.uploaded is None:
-            self.comm_mb += self.comm.round_mb(len(step.dispatched), self.strategy.needs_losses)
+            self.comm_mb += self.comm.round_mb(len(step.dispatched), self.strategy.needs_losses,
+                                               n_polled=n_polled)
         else:
             self.comm_mb += self.comm.round_mb(step.n_reached, self.strategy.needs_losses,
-                                               m_uploaded=step.uploaded)
+                                               m_uploaded=step.uploaded, n_polled=n_polled)
         if self._systems is not None:
             self.sim_clock += step.sim_time
         energy = None

@@ -35,6 +35,18 @@ with no survivor keeps the parameters.  The host reads the round's
 masks once and does the accounting (``_device_step``: the health ledger,
 the systems outcome, the ledger's bytes).
 
+With a population the cohort's rows live in the host store, so the round
+cannot stay on the device from end to end; ``_population_round_step``
+splits it at the cohort: the resident members are polled from their
+gathered rows and scattered into a (K,) loss vector, the resident mask
+joins the admission gate, the mask is selected on the device and read
+once with the cohort (and the residents' losses, for the shard
+estimates); the cohort is gathered from the store, its minibatch rows
+drawn for it alone (``draws.batch_indices``), and the rest of the round
+— faults, the gate, ``_aggregate`` with ``selection_weights`` of the
+mask — is the flat round's, so one shard gives the flat engine's bits.
+``cohort_gather=False`` is refused there: no stack lives on the device.
+
 ``compress_bits > 0`` replaces fedavg with ``compressed_fedavg``
 (``repro_torch.federated.compression``): the cohort's deltas are
 quantized with stochastic rounding in the cohort's own buffer and
@@ -72,6 +84,13 @@ class CompiledEngine(MaskSelectionMixin, Engine):
 
     def __init__(self, cfg, train, test, n_classes: int, *, device="cuda", draws=None,
                  partition_labels=None, cohort_gather: bool = True):
+        if cfg.population is not None and not cohort_gather:
+            raise ValueError(
+                "FLConfig.population keeps the client stacks host-side, so "
+                "the legacy every-client-trains path (cohort_gather=False) "
+                "has nothing device-resident to train on — use "
+                "cohort_gather=True or set population=None"
+            )
         super().__init__(cfg, train, test, n_classes, device=device, draws=draws,
                          partition_labels=partition_labels)
         self._check_mask_backend()
@@ -140,20 +159,7 @@ class CompiledEngine(MaskSelectionMixin, Engine):
             losses = self._poll(params, poll)
         else:
             losses = torch.zeros(cfg.n_clients, dtype=torch.float32, device=self.device)
-        gate = None
-        if "avail" in ext:
-            gate = ext["avail"]
-        if "admit" in ext:
-            gate = ext["admit"] if gate is None else gate & ext["admit"]
-        if gate is not None:
-            losses = torch.where(gate, losses, -torch.inf)
-        mask = select(losses)
-        final = mask
-        if "avail" in ext:
-            final = final & ext["avail"] & ext["arrived"]
-        if "admit" in ext:
-            final = final & ext["admit"]
-        arrivals = final  # the updates that reach the server, before the gate
+        mask, final = self._gate_select(losses, select, ext)
         idx = cohort_indices(mask, self.m_eff)
         if self.cohort_gather:
             rows = idx
@@ -164,6 +170,39 @@ class CompiledEngine(MaskSelectionMixin, Engine):
                 self._apply_fn, self._loss_fn, params, self.xs, self.ys, batch, self._taus_t,
                 lr=cfg.lr, max_steps=self.max_steps,
             )
+        new, final, arrivals = self._device_tail(rnd, params, stacked, rows, idx, final, ext)
+        return new, mask, final, arrivals, (train_losses if self.cohort_gather
+                                            else train_losses[idx])
+
+    def _gate_select(self, losses: torch.Tensor, select: Callable[[torch.Tensor], torch.Tensor],
+                     ext: dict[str, torch.Tensor], resident: torch.Tensor | None = None):
+        """The admission gate (availability, admission and, with a
+        population, residency) as ``-inf`` losses, then ``select``:
+        returns the (K,) dispatched mask and the (K,) clients whose update
+        reaches the server (online, in time, admitted)."""
+        gate = resident
+        for key in ("avail", "admit"):
+            if key in ext:
+                gate = ext[key] if gate is None else gate & ext[key]
+        if gate is not None:
+            losses = torch.where(gate, losses, -torch.inf)
+        mask = select(losses)
+        final = mask
+        if "avail" in ext:
+            final = final & ext["avail"] & ext["arrived"]
+        if "admit" in ext:
+            final = final & ext["admit"]
+        return mask, final
+
+    def _device_tail(self, rnd: int, params: torch.Tensor, stacked: torch.Tensor,
+                     rows: torch.Tensor, idx: torch.Tensor, final: torch.Tensor,
+                     ext: dict[str, torch.Tensor]):
+        """The round after training: faults injected into the arrived
+        ``rows`` of ``stacked`` and the validation gate, then ``_aggregate``
+        over the survivors; returns (new params, (K,) survivors, (K,)
+        arrivals before the gate's flags)."""
+        cfg = self.cfg
+        arrivals = final  # the updates that reach the server, before the gate
         if self._faults is not None:
             arrived_rows = arrivals[rows]
             kind_rows = torch.where(arrived_rows, ext["fkind"][rows], -1)
@@ -178,9 +217,8 @@ class CompiledEngine(MaskSelectionMixin, Engine):
         w_full = selection_weights(final, self._sizes_t)
         any_up = final.any() if ext else None
         n_selected = final.sum() if ext else self.m_eff
-        new = self._aggregate(rnd, params, stacked, w_full, idx, n_selected, any_up)
-        return new, mask, final, arrivals, (train_losses if self.cohort_gather
-                                            else train_losses[idx])
+        return self._aggregate(rnd, params, stacked, w_full, idx, n_selected, any_up), \
+            final, arrivals
 
     def _train_cohort(self, params: torch.Tensor, idx: torch.Tensor, batch: torch.Tensor):
         """Local training of the gathered cohort ``idx`` (a tensor of client
@@ -189,6 +227,19 @@ class CompiledEngine(MaskSelectionMixin, Engine):
         return local_train(
             self._apply_fn, self._loss_fn, params, self.xs[idx], self.ys[idx], batch[:, idx],
             self._taus_t[idx], lr=self.cfg.lr, max_steps=self.max_steps,
+        )
+
+    def _train_store_cohort(self, params: torch.Tensor, d: int, sel: np.ndarray):
+        """Local training of the cohort ``sel`` (host client indices) from
+        draw index ``d``, its rows gathered from the population's store and
+        its minibatch rows drawn for it alone."""
+        xs, ys, _ = self._store.gather(sel)
+        bidx = self.draws.batch_indices(d, sel, self.sample_probs[torch.as_tensor(sel)],
+                                        self.max_steps, self.cfg.batch_size)
+        return local_train(
+            self._apply_fn, self._loss_fn, params, xs, ys, bidx,
+            self._taus_t[torch.as_tensor(sel, device=self.device)], lr=self.cfg.lr,
+            max_steps=self.max_steps,
         )
 
     # -- the round's pieces as hooks (the async runtime's dispatch) ------
@@ -279,7 +330,39 @@ class CompiledEngine(MaskSelectionMixin, Engine):
         return _Step(sel, surv, sel_losses[final[sel]], n_reached, uploaded, sim_time,
                      n_dropped, n_faulty, n_quarantined)
 
+    def _population_round_step(self, rnd: int) -> _Step:
+        """The round under a population, split at the cohort (the module
+        docstring): one host read between selection and training."""
+        cfg = self.cfg
+        resident = torch.as_tensor(self._begin_population_round(rnd), device=self.device)
+        members = self._pop_members
+        ext = self._exogenous(rnd)
+        ext_t = {k: torch.as_tensor(v, device=self.device) for k, v in ext.items()}
+        params = self.params
+        losses = torch.zeros(cfg.n_clients, dtype=torch.float32, device=self.device)
+        polled = None
+        if self.strategy.needs_losses:
+            polled = self._poll_members(params, rnd, members)
+            losses[torch.as_tensor(members, device=self.device)] = polled
+        mask, final = self._gate_select(losses, lambda ls: self.select_mask(rnd, ls), ext_t,
+                                        resident)
+        idx = cohort_indices(mask, self.m_eff)
+        sel = idx.cpu().numpy()
+        if polled is not None:
+            # the residents' raw losses into the shard estimates (the next
+            # round's shard ranking; this round's selection is made)
+            raw = np.zeros(cfg.n_clients, np.float32)
+            raw[members] = polled.cpu().numpy()
+            self._population.observe(raw)
+        stacked, train_losses = self._train_store_cohort(params, rnd, sel)
+        self.params, final, arrivals = self._device_tail(rnd, params, stacked, idx, idx, final,
+                                                         ext_t)
+        return self._device_step(
+            rnd, *(t.cpu().numpy() for t in (mask, final, arrivals, train_losses)), ext)
+
     def _round_step(self, rnd: int) -> _Step:
+        if self._population is not None:
+            return self._population_round_step(rnd)
         d = self._draw_round(rnd)
         ext = self._exogenous(rnd)
         ext_t = {k: torch.as_tensor(v, device=self.device) for k, v in ext.items()}

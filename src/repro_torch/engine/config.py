@@ -11,9 +11,11 @@ reference's combination rules with its error texts, as do ``systems``
 (a ``SystemsConfig`` or its dict form) and ``faults`` (a ``FaultConfig``
 or its dict form): ``stale_replay`` and ``track_energy`` are rejected with
 ``fuse_rounds > 0``; ``async_mode`` (an ``AsyncConfig`` or its dict form)
-under ``validate_async_combination``.  Validation rejects, with a message
-naming the port, what it does not implement yet: ``backend="scaleout"``
-and the ``population`` axis.
+under ``validate_async_combination``; ``population`` (a
+``PopulationConfig`` or its dict form) on ``host`` and ``compiled`` only,
+without fused chunks, the async runtime or a per-client state, and with
+no more shards than clients.  Validation rejects, with a message naming
+the port, what it does not implement yet: ``backend="scaleout"``.
 """
 
 from __future__ import annotations
@@ -93,6 +95,41 @@ def stale_fused_error() -> str:
     )
 
 
+def population_backend_error(backend: str) -> str:
+    return (
+        "FLConfig.population gathers per-round cohorts from a host-side "
+        "client store (DESIGN.md §15), which the mesh-resident scaleout "
+        f"round cannot consult; backend={backend!r} has no store seam — "
+        "use backend='host' or 'compiled', or set population=None"
+    )
+
+
+def population_fused_error() -> str:
+    return (
+        "FLConfig.population picks resident shards host-side each round "
+        "(the shard-level Algorithm 1), which the fused scan chunk cannot "
+        "consult mid-scan; set fuse_rounds=0 or population=None"
+    )
+
+
+def population_async_error() -> str:
+    return (
+        "FLConfig.population assumes the lock-step round loop (resident "
+        "shards are chosen per aggregation round); the async runtime's "
+        "event clock has no round-resident notion yet — set "
+        "async_mode=None or population=None"
+    )
+
+
+def population_client_mode_error(client_mode: str) -> str:
+    return (
+        "FLConfig.population keeps per-round state cohort-proportional; "
+        f"client_mode={client_mode!r} carries a per-client params-shaped "
+        "state array (O(K·P), population-proportional by construction) — "
+        "use client_mode='plain' or set population=None"
+    )
+
+
 def energy_mode_error(what: str) -> str:
     return (
         "SystemsConfig.track_energy accounts battery spend from each "
@@ -140,11 +177,13 @@ class FLConfig:
     systems: Any = None            # SystemsConfig | dict | None (repro_torch.systems)
     async_mode: Any = None         # AsyncConfig | dict | None (repro_torch.engine.async_config)
     faults: Any = None             # FaultConfig | dict | None (repro_torch.faults)
-    population: Any = None
+    population: Any = None         # PopulationConfig | dict | None (repro_torch.population)
 
     def __post_init__(self) -> None:
         self.hidden = tuple(self.hidden)
         if self.backend == "scaleout":
+            if self.population is not None:
+                raise ValueError(population_backend_error(self.backend))
             raise _unported("backend", self.backend, BACKENDS)
         if self.backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, got {self.backend!r}")
@@ -205,8 +244,6 @@ class FLConfig:
                 )
             if self.backend != "compiled" or self.aggregator != "fedavg":
                 raise ValueError(compress_backend_error(self.backend, self.aggregator))
-        if self.population is not None:
-            raise _unported("population", self.population, (None,))
         # The systems and fault axes: the dict form (from_dict, JSON)
         # becomes the validated config object, which checks names and
         # ranges itself.
@@ -239,6 +276,31 @@ class FLConfig:
         if self.faults is not None and self.fuse_rounds > 0 \
                 and "stale_replay" in self.faults.models:
             raise ValueError(stale_fused_error())
+        # The population axis: the dict form becomes a validated
+        # PopulationConfig; the client store and the resident-shard pick
+        # live on the lock-step host round loop, which fused chunks and the
+        # async runtime cannot consult.
+        if self.population is not None:
+            from repro_torch.population.config import PopulationConfig
+
+            if isinstance(self.population, dict):
+                self.population = PopulationConfig.from_dict(self.population)
+            elif not isinstance(self.population, PopulationConfig):
+                raise ValueError(
+                    f"population must be a PopulationConfig, its dict form, or None; got "
+                    f"{type(self.population).__name__}"
+                )
+            if self.fuse_rounds > 0:
+                raise ValueError(population_fused_error())
+            if self.async_mode is not None:
+                raise ValueError(population_async_error())
+            if self.client_mode != "plain":
+                raise ValueError(population_client_mode_error(self.client_mode))
+            if self.population.n_shards > self.n_clients:
+                raise ValueError(
+                    f"population.n_shards={self.population.n_shards} exceeds "
+                    f"n_clients={self.n_clients}"
+                )
         if self.systems is not None and self.systems.track_energy:
             if self.fuse_rounds > 0:
                 raise ValueError(energy_mode_error("fuse_rounds > 0"))

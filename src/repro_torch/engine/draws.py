@@ -7,8 +7,12 @@ are the counterparts of the reference's ``jax.random`` call sites:
   model the task names by ``spec``: the MLP's layer sizes (a tuple,
   ``repro.models.mlp.init_mlp``) or a transformer's ``ModelConfig``
   (``repro.models.transformer.init_transformer``);
-- ``poll_indices(rnd, probs, n)`` -> (K, n) int64 sample indices per
-  client for the loss poll (``Engine._poll_losses`` in the reference);
+- ``poll_indices(rnd, probs, n, clients=None)`` -> (K, n) int64 sample
+  indices per client for the loss poll (``Engine._poll_losses`` in the
+  reference); with ``clients`` (global client ids, the population
+  axis's resident members) the poll of just those clients, ``probs``
+  being their rows, each client's indices the ones the flat poll draws
+  for it (the reference's ``_poll_subset``);
 - ``batch_indices(rnd, clients, probs, steps, batch)`` -> (steps, m,
   batch) int64 minibatch indices per step and client (``local_train``'s
   ``_sample_batch`` with the per-client ``fold_in``);
@@ -30,8 +34,10 @@ are the counterparts of the reference's ``jax.random`` call sites:
   block in increasing order.
 
 ``probs`` rows are the clients' validity masks normalized to sum 1;
-indices are drawn with replacement.  An engine calls ``bind_rows(probs)``
-once at setup when its draws have that method, and checkpoints
+indices are drawn with replacement.  An engine without a population
+calls ``bind_rows(probs)`` once at setup when its draws have that method
+(with one, the rows passed to each draw build its table, so the device
+holds no (K, N_max) table), and checkpoints
 ``state()`` (restored by ``load_state``) when they have that one.  The
 ``rnd`` of these methods is a draw index: the round, or the dispatch
 count under the async runtime.  ``TorchDraws`` is the
@@ -156,8 +162,13 @@ class TorchDraws:
         idx = (_lsr(h, 32) * counts[:, None]) >> 32
         return torch.gather(table, 1, idx)
 
-    def poll_indices(self, rnd: int, probs: torch.Tensor, n: int) -> torch.Tensor:
-        clients = torch.arange(probs.shape[0], device=self.device)
+    def poll_indices(self, rnd: int, probs: torch.Tensor, n: int,
+                     clients: np.ndarray | None = None) -> torch.Tensor:
+        if clients is None:
+            clients = torch.arange(probs.shape[0], device=self.device)
+        else:
+            clients = torch.as_tensor(np.asarray(clients), dtype=torch.int64,
+                                      device=self.device)
         return self._draw_rows(rnd, POLL, clients, probs, n)
 
     def _batch_rows(self, rnd: int, clients: torch.Tensor, probs: torch.Tensor, steps: int,

@@ -2,7 +2,8 @@
 ``repro.engine.host``.
 
 Selection is host-side numpy (K scalars per round); local training runs
-the selected cohort as one (m, P) tensor on the engine's device
+the selected cohort as one (m, P) tensor on the engine's device (with a
+population, its rows gathered from the host store)
 (``repro_torch.federated.client.local_train``); aggregation reduces that
 tensor with the registered aggregator (FedAvg, FedNova, FedDyn: one
 launch of the FedAvg reduce kernel on the card), over the survivors'
@@ -37,9 +38,13 @@ class HostEngine(Engine):
             self.cfg.batch_size,
         )
         h_sel = self.h_clients[sel_t] if self.client_mode.needs_h else None
+        if self._store is not None:
+            # a population's cohort rows come from the host store
+            xs, ys, _ = self._store.gather(sel)
+        else:
+            xs, ys = self.xs[sel_t], self.ys[sel_t]
         stacked, local_losses = local_train(
-            self._apply_fn, self._loss_fn, self.params,
-            self.xs[sel_t], self.ys[sel_t], bidx,
+            self._apply_fn, self._loss_fn, self.params, xs, ys, bidx,
             torch.as_tensor(self.taus[sel], device=self.device),
             lr=self.cfg.lr, max_steps=self.max_steps,
             mode=self.cfg.client_mode, mu=self.cfg.mu, h_state=h_sel,

@@ -70,10 +70,14 @@ class JaxReplayDraws:
     (uniform scores, Gumbel noise, or a cluster and a client permutation
     from its two halves) and the quantization uniforms from
     ``fold_in(k_train, K)``, split over the cohort's rows, one uniform
-    array a parameter leaf, as ``compressed_fedavg`` draws them."""
+    array a parameter leaf, as ``compressed_fedavg`` draws them.  A
+    population's poll of the resident ``clients`` takes their keys from
+    the same K-way split (the reference's ``_poll_subset``), so the
+    draws need ``n_clients``."""
 
-    def __init__(self, seed, device):
+    def __init__(self, seed, device, n_clients=None):
         self.seed, self.device = seed, torch.device(device)
+        self.n_clients = n_clients
         self._key = jax.random.PRNGKey(seed + 17)
         self._round_keys = []
         self._poll = jax.jit(_choice_rows, static_argnums=2)
@@ -109,9 +113,12 @@ class JaxReplayDraws:
         self._template = params
         return self._flatten(jax.tree.map(np.asarray, params)).to(self.device)
 
-    def poll_indices(self, rnd, probs, n):
+    def poll_indices(self, rnd, probs, n, clients=None):
         mask = jnp.asarray((probs.cpu().numpy() > 0).astype(np.float32))
-        keys = jax.random.split(self._keys(rnd)[0], mask.shape[0])
+        if clients is None:
+            keys = jax.random.split(self._keys(rnd)[0], mask.shape[0])
+        else:
+            keys = jax.random.split(self._keys(rnd)[0], self.n_clients)[np.asarray(clients)]
         return self._to_torch(self._poll(keys, mask, n))
 
     def batch_indices(self, rnd, clients, probs, steps, batch):

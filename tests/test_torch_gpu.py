@@ -13,7 +13,8 @@ the plain version's matrix products, so they agree within 2e-5 in fp32
 and 1e-2 in bf16 (one rounding to 8 mantissa bits), relative to max(1,
 max |plain|); they use no atomics, so two runs give the same bits.  So do the
 selective-scan kernels, which sum over N, channels, rows and steps in
-another order than the plain version's loop."""
+another order than the plain version's loop.  A population engine holds
+no per-client stack on the card."""
 
 import numpy as np
 import pytest
@@ -714,3 +715,49 @@ def test_serializer_loads_tensors_onto_the_card(cuda, tmp_path):
                              like={"x": torch.empty(3, 1000, device="meta"),
                                    "g": torch.zeros(16, dtype=torch.uint8)}, device="cuda")
     assert out["x"].is_cuda and torch.equal(out["x"], x)
+
+
+def _engine_bytes(cfg, train, test):
+    """Device bytes an engine for ``cfg`` holds after construction, and the
+    engine."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    engine = make_engine(cfg, train, test, 10)
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated() - before, engine
+
+
+def test_population_engine_holds_less_device_memory_than_flat(cuda):
+    """At K = 10^4 a population engine keeps the packed stacks on the host:
+    after construction it holds at least the flat engine's stacks (less 1
+    MiB) fewer device bytes, and it still trains, on the card."""
+    k = 10_000
+    train = make_classification(16 * k, n_features=64, n_classes=10, seed=0)
+    test = make_classification(500, n_features=64, n_classes=10, seed=1)
+    cfg = FLConfig(n_clients=k, m=32, rounds=2, strategy="random", hidden=(64,),
+                   eval_samples=8, target_hd=0.8, batch_size=16, local_epochs=2, lr=0.05)
+    flat_bytes, flat = _engine_bytes(cfg, train, test)
+    stack = flat.xs.nbytes + flat.ys.nbytes
+    del flat
+    pop_cfg = FLConfig.from_dict({**cfg.to_dict(), "population": {
+        "n_shards": k // 64, "shards_per_round": 4, "j_shards": 3}})
+    pop_bytes, engine = _engine_bytes(pop_cfg, train, test)
+    assert engine.xs is None and engine.draws._rows is None
+    assert flat_bytes - pop_bytes >= stack - 2**20, (flat_bytes, pop_bytes, stack)
+    for r in engine.rounds():
+        assert len(r.selected) == 32 and set(r.selected) <= set(engine._pop_members.tolist())
+    assert engine.params.is_cuda and torch.isfinite(engine.params).all()
+
+
+@pytest.mark.parametrize("k,block", [(1000, 7), (5000, 1024)])
+def test_hellinger_blocked_pinned_copy_is_the_single_strip_build(cuda, k, block):
+    """The double-buffered pinned copy-out gives the one-strip matrix bit for
+    bit, and launches the strip kernel once a strip."""
+    h = np.random.default_rng(k).dirichlet(np.ones(10) * 0.5, size=k)
+    before = hellinger_strip.launches
+    got = hellinger_blocked(h, block=block, device=cuda)
+    assert hellinger_strip.launches == before + -(-k // block)
+    np.testing.assert_array_equal(got, hellinger_blocked(h, block=k, device=cuda))

@@ -124,3 +124,11 @@ def test_strip_wrapper_checks_and_cpu_path():
         hellinger_strip(r.t(), r.t())
     with pytest.raises(ValueError):
         port.hellinger_blocked(_hists(8, 4), block=0, device="cpu")
+
+
+@pytest.mark.parametrize("k,c", SHAPES + [(1000, 10)])
+def test_hellinger_blocked_is_the_single_strip_build_bit_for_bit(k, c):
+    # every entry is its strip element's bits, however the rows are cut
+    h = _hists(k, c)
+    np.testing.assert_array_equal(port.hellinger_blocked(h, block=7, device="cpu"),
+                                  port.hellinger_blocked(h, block=k, device="cpu"))

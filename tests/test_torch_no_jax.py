@@ -4,9 +4,9 @@ points default to the card and raise without one, the compiled and fused
 engines too, and the async engines; the config accepts every registered
 strategy, aggregator and client mode, validates the compiled backend's
 options as the reference does, takes the systems and fault axes and the
-async runtime under the reference's rules and error texts, and rejects
-what the port does not implement yet (``backend="scaleout"`` and the
-population axis)."""
+async runtime and the population axis under the reference's rules and
+error texts, and rejects what the port does not implement yet
+(``backend="scaleout"``)."""
 
 import ast
 from pathlib import Path
@@ -53,7 +53,9 @@ def test_port_file_list_is_complete():
                       "faults/defense.py", "faults/runtime.py", "checkpoint/__init__.py",
                       "checkpoint/serializer.py", "checkpoint/policy.py",
                       "checkpoint/tracker.py", "engine/async_config.py",
-                      "engine/async_engine.py"):
+                      "engine/async_engine.py", "population/__init__.py",
+                      "population/config.py", "population/store.py",
+                      "population/hierarchy.py"):
         assert f"src/repro_torch/{lm_module}" in names
     assert len(names) > 20
 
@@ -113,6 +115,17 @@ def test_config_rejects_unported_values(field, value):
         with pytest.raises(ValueError, match="async_mode needs the systems axis"):
             FLConfig(**{field: value})
         assert FLConfig(**{field: value, "systems": {}}).async_mode is not None
+        return
+    if field == "population":
+        # ported: the dict form becomes a PopulationConfig and round-trips;
+        # fused chunks still refuse it, as the reference's rule does
+        from repro_torch.engine import PopulationConfig
+
+        cfg = FLConfig(**{field: value})
+        assert cfg.population == PopulationConfig(**value)
+        assert FLConfig.from_dict(cfg.to_dict()) == cfg
+        with pytest.raises(ValueError, match="population"):
+            FLConfig(**{field: value, "backend": "compiled", "fuse_rounds": 2})
         return
     with pytest.raises(ValueError, match="repro_torch"):
         FLConfig(**{field: value})

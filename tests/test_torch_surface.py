@@ -28,18 +28,15 @@ from repro_torch.models.mlp import MLPLayout  # noqa: E402
 
 # Names of the reference that the port does not offer yet, by module, each
 # with the ROADMAP item (or the reason) that keeps it out.
-_AXES = "the population axis, the next runtime axis to port (ROADMAP §1 item 6)"
 UNPORTED = {
     "repro.configs": {"INPUT_SHAPES": "frame and image inputs",
                       "InputShape": "frame and image inputs"},
     "repro.configs.base": {"INPUT_SHAPES": "frame and image inputs",
                            "InputShape": "frame and image inputs"},
-    "repro.core.clustering": {"kmedoids_hists": "population"},
     "repro.core.selection": {"fedlecc_select_jax": "a jax entry point; the port's is "
                                                    "fedlecc_select_mask"},
     "repro.engine": {
-        "ScaleoutEngine": "scaleout", "make_scaleout_round": "scaleout",
-        "PopulationConfig": _AXES},
+        "ScaleoutEngine": "scaleout", "make_scaleout_round": "scaleout"},
     "repro.engine.compiled": {"make_scaleout_round": "scaleout"},
     "repro.federated": {"FederatedSimulation": "the deprecated simulation shim"},
     "repro.kernels": {n: "the Pallas entry points; the port's kernels have their own"
@@ -112,8 +109,9 @@ def test_every_reference_name_with_a_port_counterpart_imports_from_the_same_path
     assert set(UNPORTED) <= seen
     assert {"repro.engine", "repro.core", "repro.models", "repro.optim",
             "repro.federated", "repro.systems", "repro.faults", "repro.checkpoint",
-            "repro.engine.async_config", "repro.engine.async_engine"} <= seen
-    for package in ("systems", "faults", "checkpoint"):
+            "repro.engine.async_config", "repro.engine.async_engine",
+            "repro.population"} <= seen
+    for package in ("systems", "faults", "checkpoint", "population"):
         ref = importlib.import_module(f"repro.{package}")
         modules = {m.name for m in pkgutil.walk_packages(ref.__path__, f"repro.{package}.")}
         assert modules <= seen, f"repro.{package} modules without a port: {modules - seen}"
