@@ -17,7 +17,12 @@ Phases, each printed on its own lines:
    async runtime's kept deltas (5 rows, classification and xlstm), and
    with a NaN row at weight > 0 and at weight 0 (the plain version's
    result: NaN in every column); K2 also at the population phase's shapes
-   ((1, 3906), (61, 3906) and (4096, 10^4), C = 10).
+   ((1, 3906), (61, 3906) and (4096, 10^4), C = 10); K3 in bf16 at the
+   serving prefill's shapes (4, S, 32, 80) stablelm, (4, S, 25 / 5 kv, 64)
+   hymba with its 1024 window, (4, S, 40 / 8 kv, 128) qwen3, S = 128 and
+   1280, with ``scaled_dot_product_attention(enable_gqa=True)`` as the
+   library; K4 with its final-state output at hymba's prefill, (4, 128 /
+   1280, 1600, 16) fp32.
 4. main paths, each driven through ``make_engine(...).rounds()`` with
    every kernel's launch count set to 0 just before and read just after:
    - the paper's experiment at full width (K = 100 clients, m = 10, MLP
@@ -122,7 +127,21 @@ Phases, each printed on its own lines:
      and clip timed alone at (13, P) under the profiler; one save and one
      restore of its lock-step engine are timed; then 4 steps of the
      buffer-5 async runtime (20 in flight, K1 on (5, P)), printing each
-     step's staleness, version, in-flight rows and peak memory.
+     step's staleness, version, in-flight rows and peak memory;
+   - ``serve:`` the serving path in bf16 at full size: stablelm-3b,
+     hymba-1.5b, xlstm-125m and qwen3-14b, and glm4-9b and gemma3-27b at
+     full width cut to 4 and 6 layers (gemma3's sixth layer is its first
+     global one), each serving 8 requests (4 prompts of 128 tokens, 4 of
+     1280) through ``BatchScheduler`` (max_batch 4, max_new 32): prefill
+     ms a group, decode ms a step and tok/s beside the weight-read bound,
+     peak memory, after one uncounted warm-up group; K3 must launch
+     attention layers x groups times and K4 hymba layers x groups (forward
+     only); decode(prefill(x[:-1]), x[-1]) must equal forward(x) at the
+     last position within 2e-2 x (max |logit| + 1) on the same weights in
+     fp32, and its bf16 drift is printed beside it; then each family's
+     reduced config (fp32) on the CPU and on the card from the same
+     weights: the same greedy tokens, the prefill's logits and cache
+     within 1e-4.
 5. agreement — a small configuration of each task and model (stablelm,
    hymba, xlstm, and glm4, qwen3 and gemma3 reduced), of every
    classification preset and of fused compiled chunks, run on the CPU
@@ -514,15 +533,16 @@ def _check_flash(shape, dtype, window, is_global, device):
     return rec
 
 
-def _mamba_work(shape, groups, elem):
+def _mamba_work(shape, groups, elem, final_state=False):
     """(forward bytes, backward bytes, (b, t, d, n) elements) of K4 at
-    (B, S, D, N): each input read once, each output written once.  The
-    state checkpoints that the forward keeps for the backward are this
+    (B, S, D, N): each input read once, each output written once (with
+    ``final_state`` also the (B, D, N) fp32 state after the last step).
+    The state checkpoints that the forward keeps for the backward are this
     design's choice, not the function's, and are not counted."""
     b, s, d, n = shape
     seq, state = b * s * d * elem, b * s * n * elem
     weights = 4 * groups * d * (n + 1)
-    fwd = 2 * seq + 2 * state + weights + seq                              # x, dt, Bm, Cm, w -> y
+    fwd = 2 * seq + 2 * state + weights + seq + (4 * b * d * n if final_state else 0)
     bwd = 3 * seq + 2 * state + weights + 2 * seq + 2 * state + weights    # ..., dy -> six grads
     return fwd, bwd, b * s * d * n
 
@@ -561,11 +581,12 @@ def _scan_inputs(shape, groups, dtype, device):
     return (x, dt, bm, cm, a_log, d_skip), dy
 
 
-def _check_mamba(shape, groups, dtype, checkpoints, device):
+def _check_mamba(shape, groups, dtype, checkpoints, device, final_state=False):
     """K4 at (B, S, D, N) with ``groups`` weight sets (0: shared (D, N)
     weights): forward y, with and without checkpoints, and backward (all
     six gradients) against the plain version and its autograd on the card,
-    and times."""
+    and times; with ``final_state`` also the forward's state after the last
+    step (the serving prefill's call: no checkpoints), timed so."""
     import torch
 
     from repro_torch.kernels.mamba_scan import (
@@ -579,9 +600,11 @@ def _check_mamba(shape, groups, dtype, checkpoints, device):
     x = inputs[0]
     y, ckpt = mamba_scan_forward(*inputs, checkpoints=True)
     y_no_ckpt = mamba_scan_forward(*inputs)   # as the poll and the evaluations call it
+    y_fin, h_fin = mamba_scan_forward(*inputs, final_state=True)   # as a prefill calls it
     grads = mamba_scan_backward(*inputs, ckpt, dy)
     leaves = [t.detach().requires_grad_(True) for t in inputs]
     y_ref = mamba_scan_ref(*leaves)
+    _, h_ref = mamba_scan_ref(*inputs, final_state=True)
     grads_ref = torch.autograd.grad(y_ref, leaves, dy, retain_graph=True)
     torch.cuda.synchronize()
 
@@ -591,8 +614,10 @@ def _check_mamba(shape, groups, dtype, checkpoints, device):
     # sequence gradients to 8 bits of mantissa.  Relative to max(1, max |plain|).
     tol = 2e-5 if dtype == torch.float32 else 1e-2
     errs, limits = {}, {}
-    names = ("y", "y_no_ckpt", "dx", "ddt", "dbmat", "dcmat", "da_log", "dd_skip")
-    for name, got, want in zip(names, (y, y_no_ckpt, *grads), (y_ref, y_ref, *grads_ref)):
+    names = ("y", "y_no_ckpt", "y_final_state", "h_final", "dx", "ddt", "dbmat", "dcmat",
+             "da_log", "dd_skip")
+    for name, got, want in zip(names, (y, y_no_ckpt, y_fin, h_fin, *grads),
+                               (y_ref, y_ref, y_ref, h_ref, *grads_ref)):
         if got.shape != want.shape or got.dtype != want.dtype or not torch.isfinite(got).all():
             raise AssertionError(f"mamba_scan {shape} {dtype} {name}: bad output "
                                  f"{tuple(got.shape)} {got.dtype}")
@@ -601,24 +626,27 @@ def _check_mamba(shape, groups, dtype, checkpoints, device):
     tag = f"{list(shape)} groups={groups} {str(dtype).replace('torch.', '')}"
     if any(errs[k] > limits[k] for k in errs):
         raise AssertionError(f"mamba_scan {tag}: max |err| {errs} above {limits}")
-    fwd_bytes, bwd_bytes, elements = _mamba_work(shape, max(groups, 1), x.element_size())
+    fwd_bytes, bwd_bytes, elements = _mamba_work(shape, max(groups, 1), x.element_size(),
+                                                 final_state)
     # per (b, t, d, n): forward 1 exp and 5 flops (dt A, the state update and
     # the C contraction); backward at least 1 exp and 16 flops (the state
     # recurrence again, then the reverse one and its six gradient terms)
     fwd_bound = _scan_bound(fwd_bytes, elements, 5, 1)
     bwd_bound = _scan_bound(bwd_bytes, elements, 16, 1)
     plain_calls, plain_warmup = (5, 1) if s > 1024 else (TIMED_CALLS, 3)
-    forward = lambda: mamba_scan_forward(*inputs, checkpoints=checkpoints)  # noqa: E731
+    forward = lambda: mamba_scan_forward(*inputs, checkpoints=checkpoints,  # noqa: E731
+                                         final_state=final_state)
     backward = lambda: mamba_scan_backward(*inputs, ckpt, dy)  # noqa: E731
     rec = {"shape": list(shape), "groups": groups, "dtype": str(dtype).replace("torch.", ""),
-           "checkpoints": checkpoints, "errors": errs, "tolerance": tol,
+           "checkpoints": checkpoints, "final_state": final_state, "errors": errs,
+           "tolerance": tol,
            "forward": {
-               "max_abs_err": max(errs["y"], errs["y_no_ckpt"]),
+               "max_abs_err": max(errs[k] for k in names[:4]),
                "ms": _median_ms(forward),
                "plain_ms": _median_ms(lambda: mamba_scan_ref(*inputs), plain_calls, plain_warmup),
                "library_ms": None, "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1]},
            "backward": {
-               "max_abs_err": max(errs[k] for k in names[2:]),
+               "max_abs_err": max(errs[k] for k in names[4:]),
                "ms": _median_ms(backward),
                "plain_ms": _median_ms(lambda: torch.autograd.grad(y_ref, leaves, dy,
                                                                   retain_graph=True),
@@ -641,12 +669,13 @@ def _scan_kernel_ms(rec, device) -> None:
     inputs, dy = _scan_inputs(tuple(rec["shape"]), rec["groups"], dtype, device)
     _, ckpt = mamba_scan_forward(*inputs, checkpoints=True)
     rec["forward"]["kernel_ms"], fwd_n = _kernel_ms(
-        lambda: mamba_scan_forward(*inputs, checkpoints=rec["checkpoints"]), SCAN_FORWARD,
-        counter=mamba_scan_forward)
+        lambda: mamba_scan_forward(*inputs, checkpoints=rec["checkpoints"],
+                                   final_state=rec["final_state"]),
+        SCAN_FORWARD, counter=mamba_scan_forward)
     rec["backward"]["kernel_ms"], bwd_n = _kernel_ms(
         lambda: mamba_scan_backward(*inputs, ckpt, dy), SCAN_BACKWARD,
         counter=mamba_scan_backward)
-    tag = {k: rec[k] for k in ("shape", "groups", "dtype", "checkpoints")}
+    tag = {k: rec[k] for k in ("shape", "groups", "dtype", "checkpoints", "final_state")}
     print(f"kernel mamba_scan kernel-only {json.dumps(tag)}: forward "
           f"{rec['forward']['kernel_ms']} ms ({fwd_n} launches recorded in {TIMED_CALLS} "
           f"calls), backward {rec['backward']['kernel_ms']} ms ({bwd_n} recorded)",
@@ -2404,6 +2433,203 @@ def _lm_agreement(device, tag, task_kwargs, seq=16, resync=False, max_steps=3, a
                              "> 1e-4")
 
 
+SERVE_FULL = ("stablelm-3b", "hymba-1.5b", "xlstm-125m", "qwen3-14b")
+# at full width, cut in depth: gemma3's first global layer (pattern LLLLLG)
+# is its sixth, so 6 layers bring its dual RoPE theta into decode
+SERVE_CUT = {"glm4-9b": 4, "gemma3-27b": 6}
+SERVE_PROMPTS = (128, 1280)  # 4 requests each; 1280 is past the 1024-token windows
+SERVE_BATCH, SERVE_NEW = 4, 32
+SERVE_REDUCED_TOL = 1e-4     # card vs CPU at fp32 (K3 as 3xTF32, sums in another order)
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_to(v, device) for v in tree)
+    return tree.to(device)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
+
+
+def _serve_model(device, model, n_layers=None):
+    """``model`` at full width in its config's dtype (bf16), cut to
+    ``n_layers`` if given, serving 8 requests (4 prompts of 128 tokens, 4
+    of 1280, from ``dummy_batch``'s seed 0) through ``BatchScheduler``
+    with ``max_batch`` 4 and ``max_new`` 32, after one uncounted group of
+    4 x 16 tokens that takes the libraries' first-call costs; then decode(prefill(x[:-1]),
+    x[-1]) against forward(x) at the last position.  Returns the kernels'
+    launches from the scheduler's run alone, which must be attention
+    layers x groups (K3) and hymba layers x groups (K4), forward only.
+    The prefill -> decode contract is held, at the reference's 2e-2 x (max
+    |logit| + 1), on the same weights in fp32 (the reference's own test is
+    an fp32 one); the bf16 figure is printed beside it: bf16 rounding
+    grows through the layers past that tolerance for hymba and xlstm, in
+    the reference too (``scripts/bf16_decode_drift.py``)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.inputs import dummy_batch
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward,
+        flash_attention_forward,
+    )
+    from repro_torch.kernels.mamba_scan import mamba_scan_backward, mamba_scan_forward
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import BatchScheduler
+
+    counters = (flash_attention_forward, flash_attention_backward, mamba_scan_forward,
+                mamba_scan_backward)
+    cfg = get_config(model)
+    cut = "full depth"
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        cut = f"n_layers {get_config(model).n_layers} -> {n_layers}"
+    tag = f"serve {model}"
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = tf.init_params(torch.Generator(device).manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    n_params = sum(t.numel() for t in _leaves(params))
+    param_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    rows = dummy_batch(cfg, 2 * SERVE_BATCH, max(SERVE_PROMPTS), seed=0)["tokens"].numpy()
+    prompts = [row[:SERVE_PROMPTS[i // SERVE_BATCH]] for i, row in enumerate(rows)]
+    warm = BatchScheduler(cfg, params, max_batch=SERVE_BATCH, max_new=2)
+    for p in prompts[:SERVE_BATCH]:   # one short group first: the libraries' first calls
+        warm.submit(p[:16])
+    warm.run()
+    sched = BatchScheduler(cfg, params, max_batch=SERVE_BATCH, max_new=SERVE_NEW)
+    ids = [sched.submit(p) for p in prompts]
+    for c in counters:
+        c.launches = 0
+    t = time.perf_counter()
+    done = sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = {c.__name__: c.launches for c in counters}
+    groups = len(sched.groups)
+    attn_layers = 0 if cfg.block_type == "xlstm" else cfg.n_layers
+    mamba_layers = cfg.n_layers if cfg.block_type == "hymba" else 0
+    want = {"flash_attention_forward": attn_layers * groups, "flash_attention_backward": 0,
+            "mamba_scan_forward": mamba_layers * groups, "mamba_scan_backward": 0}
+    outs = [sched.result(i) for i in ids]
+    ok = done == len(prompts) and all(o.shape == (SERVE_NEW,) and 0 <= o.min() and
+                                      o.max() < cfg.vocab for o in outs)
+    weight_bound_ms = param_bytes / PEAK_BYTES_PER_S * 1e3
+    print(f"{tag}: {cfg.dtype}, {cut}, {cfg.n_layers} layers, {n_params} params "
+          f"({param_bytes / 1e9:.3f} GB), init {init_s:.3f} s; {len(prompts)} requests "
+          f"({SERVE_BATCH} x {SERVE_PROMPTS[0]}, {SERVE_BATCH} x {SERVE_PROMPTS[1]} tokens), "
+          f"max_batch {SERVE_BATCH}, max_new {SERVE_NEW}: {groups} groups in {wall:.3f} s, "
+          f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    for g in sched.groups:
+        step_ms = g["decode_s"] / max(g["decode_steps"], 1) * 1e3
+        print(f"{tag}: group prompt {g['prompt_len']} x {g['rows']} rows: prefill "
+              f"{g['prefill_s'] * 1e3:.3f} ms, decode {g['decode_steps']} steps "
+              f"{step_ms:.3f} ms a step ({g['rows'] * g['decode_steps'] / g['decode_s']:.1f} "
+              f"tok/s; the weight-read bound {weight_bound_ms:.3f} ms a step)", flush=True)
+    print(f"{tag}: launches {json.dumps(launches)} (expected {json.dumps(want)})", flush=True)
+    if launches != want or not ok:
+        raise AssertionError(f"{tag}: launches {launches} (expected {want}), outputs ok {ok}")
+
+    x = torch.from_numpy(np.stack(prompts[:SERVE_BATCH])).to(device)
+    drift = _decode_vs_forward(cfg, params, x)
+    del params, sched, warm
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    exact = _decode_vs_forward(cfg32, tf.init_params(torch.Generator(device).manual_seed(0),
+                                                     cfg32), x)
+    print(f"{tag}: decode(prefill(x[:-1]), x[-1]) vs forward(x) at S = {x.shape[1]}, max |err| "
+          f"/ (max |logit| + 1): float32 (the same weights before their bf16 rounding) "
+          f"{exact[0]:.4g}, held to 2e-2; bfloat16 {drift[0]:.4g}, reported (bf16 rounding "
+          f"amplified through the layers: scripts/bf16_decode_drift.py)", flush=True)
+    if not (exact[1] and drift[1] and exact[0] <= 2e-2):
+        raise AssertionError(f"{tag}: prefill -> decode differs from forward: fp32 {exact}, "
+                             f"bf16 {drift}")
+    return launches
+
+
+def _decode_vs_forward(cfg, params, x):
+    """(max |decode(prefill(x[:-1]), x[-1]) - forward(x)[-1]| / (max |logit|
+    + 1), both finite) for prompts x (B, S) on the parameters' device."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+
+    s = x.shape[1]
+    with torch.no_grad():
+        full = tf._logits(params, cfg, tf.forward(params, cfg, x)[:, -1]).float()
+        _, cache = tf.prefill(params, cfg, {"tokens": x[:, :-1]}, s + 4)
+        got = tf.decode_step(params, cfg, {"token": x[:, -1:]}, cache, s - 1)[0].float()
+    err = (got - full).abs().max().item() / (full.abs().max().item() + 1.0)
+    return err, bool(torch.isfinite(got).all() and torch.isfinite(full).all())
+
+
+def _serve_agreement(device, model):
+    """The reduced config (fp32) on the CPU and on the card from the same
+    parameters: ``BatchScheduler``'s greedy tokens equal, the prefill's
+    logits and cache within ``SERVE_REDUCED_TOL`` relative."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import BatchScheduler
+
+    cfg = get_config(model, reduced=True)
+    params = tf.init_params(torch.Generator().manual_seed(0), cfg)
+    on_card = _tree_to(params, device)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in (16, 16, 128, 128)]
+    outs = []
+    for p in (params, on_card):
+        sched = BatchScheduler(cfg, p, max_batch=2, max_new=8)
+        ids = [sched.submit(t) for t in prompts]
+        sched.run()
+        outs.append([sched.result(i) for i in ids])
+    same = all(np.array_equal(a, b) for a, b in zip(*outs))
+    tokens = torch.from_numpy(np.stack(prompts[2:]).astype(np.int32))
+    want, want_cache = tf.prefill(params, cfg, {"tokens": tokens}, 136)
+    got, got_cache = tf.prefill(on_card, cfg, {"tokens": tokens.to(device)}, 136)
+    err = max((g.cpu().float() - w.float()).abs().max().item()
+              / max(1.0, w.float().abs().max().item())
+              for g, w in zip([got] + _leaves(got_cache), [want] + _leaves(want_cache)))
+    print(f"serve agreement {cfg.name}: {cfg.n_layers} layers, {cfg.dtype}, tokens card == cpu: "
+          f"{same}, max relative |diff| of the prefill's logits and cache {err:.3g} "
+          f"(tolerance {SERVE_REDUCED_TOL})", flush=True)
+    if not (same and err <= SERVE_REDUCED_TOL):
+        raise AssertionError(f"serve agreement {cfg.name}: tokens equal {same}, diff {err}")
+
+
+def _serve_phase(device):
+    """The serving path: each full-size model, then the reduced configs of
+    every served family on the card and the CPU.  Returns K3's and K4's
+    forward launches over the scheduler runs."""
+    t = time.perf_counter()
+    total = {"flash_attention_forward": 0, "mamba_scan_forward": 0}
+    for model, n_layers in [*((m, None) for m in SERVE_FULL), *SERVE_CUT.items()]:
+        launches = _serve_model(device, model, n_layers)
+        for k in total:
+            total[k] += launches[k]
+    for model in (*SERVE_FULL, *SERVE_CUT):
+        _serve_agreement(device, model)
+    print(f"serve: launches {json.dumps(total)}; phase in {time.perf_counter() - t:.1f} s",
+          flush=True)
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -2461,14 +2687,22 @@ def main() -> int:
         ((2, 1024, 8, 2, 128), torch.float32, 256, 0.0),   # GQA, sliding window
         ((80, 64, 25, 5, 64), torch.float32, 1024, 0.0),   # hymba's local SGD (GQA group 5)
         ((4, 2048, 25, 5, 64), torch.float32, 1024, 0.0),  # hymba's window where it bites
+        # the serving prefill in bf16: stablelm, hymba (local layers), qwen3
+        *(((4, s, h, kv, d), torch.bfloat16, w, ig) for s in SERVE_PROMPTS
+          for h, kv, d, w, ig in ((32, 32, 80, 0, 1.0), (25, 5, 64, 1024, 0.0),
+                                  (40, 8, 128, 0, 1.0))),
     ]]
-    k4 = [_check_mamba(s, g, dt, ck, device) for s, g, dt, ck in [
-        ((80, 64, 1600, 16), 10, torch.float32, True),     # hymba's local SGD: 10 clients
-        ((400, 64, 1600, 16), 0, torch.float32, False),    # the poll: shared weights
-        ((64, 64, 1600, 16), 0, torch.float32, False),     # the evaluations: shared weights
-        ((4, 2048, 1600, 16), 0, torch.float32, True),
-        ((4, 2048, 1600, 16), 0, torch.bfloat16, True),
-        ((3, 100, 130, 16), 0, torch.float32, True),       # ragged D and S
+    k4 = [_check_mamba(s, g, dt, ck, device, fin) for s, g, dt, ck, fin in [
+        ((80, 64, 1600, 16), 10, torch.float32, True, False),   # hymba's local SGD: 10 clients
+        ((400, 64, 1600, 16), 0, torch.float32, False, False),  # the poll: shared weights
+        ((64, 64, 1600, 16), 0, torch.float32, False, False),   # the evaluations
+        ((4, 2048, 1600, 16), 0, torch.float32, True, False),
+        ((4, 2048, 1600, 16), 0, torch.bfloat16, True, False),
+        ((3, 100, 130, 16), 0, torch.float32, True, False),     # ragged D and S
+        # the serving prefill: fp32 inputs (a bf16 model discretises in fp32)
+        # and the final state
+        ((4, 128, 1600, 16), 0, torch.float32, False, True),
+        ((4, 1280, 1600, 16), 0, torch.float32, False, True),
     ]]
     print("kernels: hellinger_strip, masked_weighted_sum, flash_attention and mamba_scan "
           "(forward and backward) passed at every shape above", flush=True)
@@ -2516,6 +2750,7 @@ def main() -> int:
     _gate_kernel_ms(device, 13, 119_827_296)
     xlstm_async_launches = _lm_main_path(device, "xlstm async", "xlstm-125m", 12, 119_827_296,
                                          (), axes=_xlstm_async)
+    serve_launches = _serve_phase(device)
 
     # 5. small-input agreement with the CPU path
     _agreement(device)
@@ -2568,14 +2803,16 @@ def main() -> int:
         {"name": f"flash_attention_{direction}", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:68",
-         "launches": lm_launches[f"flash_attention_{direction}"], "shape": k3[0]["shape"],
+         "launches": lm_launches[f"flash_attention_{direction}"]
+         + serve_launches.get(f"flash_attention_{direction}", 0), "shape": k3[0]["shape"],
          **{k: k3[0][direction][k] for k in keys + ("kernel_ms",)}}
         for direction in ("forward", "backward")
     ] + [
         {"name": f"mamba_scan_{direction}", "route": "cuda",
          "source": "src/repro_torch/csrc/mamba_scan.cu",
          "replaces": "src/repro/kernels/mamba_scan/kernel.py:69",
-         "launches": hymba_launches[f"mamba_scan_{direction}"], "shape": k4[0]["shape"],
+         "launches": hymba_launches[f"mamba_scan_{direction}"]
+         + serve_launches.get(f"mamba_scan_{direction}", 0), "shape": k4[0]["shape"],
          **{k: k4[0][direction][k] for k in keys + ("kernel_ms",)}}
         for direction in ("forward", "backward")
     ]

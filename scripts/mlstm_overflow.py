@@ -142,7 +142,7 @@ def check(path: str) -> None:
         try:
             p = {k: torch.from_numpy(v).requires_grad_(True) for k, v in params.items()}
             xt = torch.from_numpy(x).requires_grad_(True)
-            y = ssm.mlstm_seq(p, cfg, xt)
+            y = ssm.mlstm_seq(p, cfg, xt)[0]
             names = list(p)
             grads = torch.autograd.grad(y, [xt] + [p[k] for k in names], torch.from_numpy(dy))
         finally:

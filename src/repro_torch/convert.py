@@ -7,6 +7,13 @@ as one flat fp32 vector (P,), laid out by ``MLPLayout`` or
 ``TransformerLayout``.  Arrays cross as numpy, so this module needs
 neither JAX nor the reference package.  ``leaf_segments`` says which
 stretches of the flat vector make up each of the reference's leaves.
+
+For serving, ``serving_params_from_jax`` carries the reference's
+parameter tree over in the config's dtype (a bf16 tree too: each leaf
+crosses as float32 numpy, which holds every bf16 value exactly, and is
+cast back leaf by leaf), and ``cache_from_jax`` / ``cache_to_numpy``
+carry a decode cache both ways, so both packages decode from the same
+weights and state.
 """
 
 from __future__ import annotations
@@ -15,10 +22,11 @@ import numpy as np
 import torch
 
 from repro_torch.models.mlp import MLPLayout
-from repro_torch.models.transformer import TransformerLayout
+from repro_torch.models.transformer import TransformerLayout, cast_params
 
 __all__ = ["leaf_segments", "params_from_jax", "params_to_numpy",
-           "transformer_params_from_jax", "transformer_params_to_numpy"]
+           "transformer_params_from_jax", "transformer_params_to_numpy",
+           "serving_params_from_jax", "cache_from_jax", "cache_to_numpy"]
 
 
 def params_from_jax(params) -> torch.Tensor:
@@ -57,6 +65,42 @@ def transformer_params_from_jax(tree, cfg) -> torch.Tensor:
     ]
     ported = _map_tree(lambda a: torch.from_numpy(np.array(a, np.float32)), ported)
     return TransformerLayout(cfg).flatten(ported)
+
+
+def _f32(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, np.float32))
+
+
+def serving_params_from_jax(tree, cfg) -> dict:
+    """The reference's transformer tree (array-like leaves of any float
+    type, layer leaves stacked on a leading axis) -> the port's serving
+    tree (``init_params``'s layout: a list of layer dicts) on the CPU, each
+    leaf in the type the reference gives it in a ``cfg.dtype`` model."""
+    ported = {k: _f32(v) for k, v in tree.items() if k != "layers"}
+    ported["layers"] = [_map_tree(lambda a, i=i: _f32(a[i]), tree["layers"])
+                        for i in range(cfg.n_layers)]
+    return cast_params(ported, getattr(torch, cfg.dtype))
+
+
+def cache_from_jax(cache, cfg) -> dict:
+    """A reference decode cache (array-like leaves; xlstm states as
+    tuples) -> the port's, on the CPU: k and v in ``cfg.dtype``, the
+    recurrent states fp32."""
+    def one(name, a):
+        return _f32(a).to(getattr(torch, cfg.dtype) if name in ("k", "v") else torch.float32)
+
+    return {k: tuple(one(k, a) for a in v) if isinstance(v, (tuple, list)) else one(k, v)
+            for k, v in cache.items()}
+
+
+def cache_to_numpy(cache) -> dict:
+    """The port's decode cache -> float32 numpy arrays in the same
+    structure (tuples stay tuples)."""
+    def one(t):
+        return t.detach().to("cpu", torch.float32).numpy()
+
+    return {k: tuple(one(t) for t in v) if isinstance(v, tuple) else one(v)
+            for k, v in cache.items()}
 
 
 def transformer_params_to_numpy(flat: torch.Tensor, cfg) -> dict:

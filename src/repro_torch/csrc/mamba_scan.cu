@@ -56,7 +56,10 @@
 //   scan_fwd_kernel   32-step tiles.  When a gradient is wanted it also
 //                     writes the state before every kChunk-th step, ckpt (B,
 //                     ceil(S / kChunk), D, N) fp32, never the full (B, S, D,
-//                     N) state.
+//                     N) state.  On request it writes the state after the
+//                     last step, h_fin (B, D, N) fp32, which the TPU kernel
+//                     keeps in its VMEM scratch at the last time block: the
+//                     Mamba state that a prefill hands to decode.
 //   scan_bwd_kernel   the same threads walk the 8-step chunks from the last,
 //                     one chunk a tile: recompute the chunk's states from its
 //                     checkpoint into registers (8 steps x 4 states, the loop
@@ -345,7 +348,7 @@ __global__ void __launch_bounds__(kThreads, kFwdBlocks)
 scan_fwd_kernel(const T* __restrict__ x, const T* __restrict__ dt, const T* __restrict__ bm,
                 const T* __restrict__ cm, const float* __restrict__ a_log,
                 const float* __restrict__ d_skip, T* __restrict__ y, float* __restrict__ ckpt,
-                Dims p) {
+                float* __restrict__ h_fin, Dims p) {
   // sx holds a tile of x, then, step by step as x is consumed, of y
   __shared__ __align__(16) T sx[2][kTile * kRow<T>], sdt[2][kTile * kRow<T>];
   __shared__ __align__(16) float sb[2][kTile * kN], sc[2][kTile * kN];
@@ -422,6 +425,8 @@ scan_fwd_kernel(const T* __restrict__ x, const T* __restrict__ dt, const T* __re
     __syncthreads();  // the tile of y is complete
     unstage_seq<T, kTile, VEC>(y, sx[cur], row0, t0, d0, p);
   }
+  if (h_fin != nullptr && live)  // the state after the last step
+    store_states(h_fin + ((int64_t)b * p.d + d) * p.n, h, k0, p);
 }
 
 // One butterfly level of the reduce-scatter over a warp's 8 channels: lanes
@@ -678,13 +683,13 @@ dim3 scan_grid(const Dims& p) { return dim3((p.d + kChannels - 1) / kChannels, p
 
 template <typename T>
 cudaError_t forward(Dims p, const void* x, const void* dt, const void* bm, const void* cm,
-                    const float* a_log, const float* d_skip, void* y, float* ckpt,
+                    const float* a_log, const float* d_skip, void* y, float* ckpt, float* h_fin,
                     cudaStream_t st) {
-  p.st4 = p.n % kPer == 0 && aligned16({ckpt});
+  p.st4 = p.n % kPer == 0 && aligned16({ckpt, h_fin});
   auto kernel =
       vec_rows<T>(p, {x, dt, y}) ? scan_fwd_kernel<T, true> : scan_fwd_kernel<T, false>;
   kernel<<<scan_grid(p), kThreads, 0, st>>>((const T*)x, (const T*)dt, (const T*)bm,
-                                            (const T*)cm, a_log, d_skip, (T*)y, ckpt, p);
+                                            (const T*)cm, a_log, d_skip, (T*)y, ckpt, h_fin, p);
   return cudaGetLastError();
 }
 
@@ -730,18 +735,20 @@ cudaError_t backward(Dims p, const void* x, const void* dt, const void* bm, cons
 extern "C" int mamba_scan_chunk() { return kChunk; }
 extern "C" int mamba_scan_block() { return kChannels; }
 
-// y = scan(x, dt, Bm, Cm, a_log, d_skip); ckpt may be null (no gradient).
+// y = scan(x, dt, Bm, Cm, a_log, d_skip); ckpt may be null (no gradient), and
+// so may h_fin (B, D, N) fp32, the state after the last step (a decode cache).
 extern "C" int mamba_scan_fwd(int dtype, const void* x, const void* dt, const void* bm,
                               const void* cm, const float* a_log, const float* d_skip, void* y,
-                              float* ckpt, const int64_t* dims, int device,
+                              float* ckpt, float* h_fin, const int64_t* dims, int device,
                               cudaStream_t stream) {
   Dims p;
   if (!make_dims(dims, &p) || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   return (int)(dtype == 0
-                   ? forward<float>(p, x, dt, bm, cm, a_log, d_skip, y, ckpt, stream)
-                   : forward<__nv_bfloat16>(p, x, dt, bm, cm, a_log, d_skip, y, ckpt, stream));
+                   ? forward<float>(p, x, dt, bm, cm, a_log, d_skip, y, ckpt, h_fin, stream)
+                   : forward<__nv_bfloat16>(p, x, dt, bm, cm, a_log, d_skip, y, ckpt, h_fin,
+                                            stream));
 }
 
 // (dx, ddt, dBm, dCm, da_log, dd_skip) from dy and the forward's checkpoints.

@@ -13,5 +13,6 @@
 
 A wrapper launches its CUDA kernel for CUDA tensors and takes the plain
 PyTorch version (``ref.py``) only for CPU tensors.  Each wrapper counts its
-kernel launches in its ``launches`` attribute.
+kernel launches in its ``launches`` attribute, and a launch recorded into a
+CUDA graph in its ``captured`` attribute (``build.count_launch``).
 """

@@ -22,7 +22,7 @@ import functools
 import torch
 
 from repro_torch.kernels.aggregate.ref import masked_weighted_sum_ref
-from repro_torch.kernels.build import load
+from repro_torch.kernels.build import count_launch, load
 
 __all__ = ["load_width", "masked_weighted_sum"]
 
@@ -106,10 +106,7 @@ def masked_weighted_sum(stacked: torch.Tensor, weights: torch.Tensor) -> torch.T
     )
     if err != 0:
         raise RuntimeError(f"masked_weighted_sum kernel launch failed: cudaError {err}")
-    if torch.cuda.is_current_stream_capturing():
-        masked_weighted_sum.captured += 1
-    else:
-        masked_weighted_sum.launches += 1
+    count_launch(masked_weighted_sum)
     return out
 
 

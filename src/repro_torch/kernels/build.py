@@ -28,7 +28,7 @@ import subprocess
 import sys
 from pathlib import Path
 
-__all__ = ["SOURCES", "BUILD_DIR", "build", "load", "ptxas_report"]
+__all__ = ["SOURCES", "BUILD_DIR", "build", "load", "ptxas_report", "count_launch"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -148,6 +148,19 @@ def ptxas_report(name: str) -> list[dict]:
             kernel, spills = None, (0, 0)
     return rows
 
+
+
+def count_launch(wrapper) -> None:
+    """Count one launch of ``wrapper``'s kernel: in ``wrapper.captured``
+    while the current stream is being captured into a CUDA graph (the
+    launch then runs at each replay, not now, and whoever replays the graph
+    counts the replays), else in ``wrapper.launches``."""
+    import torch
+
+    if torch.cuda.is_current_stream_capturing():
+        wrapper.captured += 1
+    else:
+        wrapper.launches += 1
 
 if __name__ == "__main__":
     for source in sys.argv[1:] or SOURCES:

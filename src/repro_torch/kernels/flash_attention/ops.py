@@ -8,7 +8,8 @@ GQA repeat).  ``flash_attention`` is differentiable: on CUDA tensors a
 O and the row log-sum-exp L) and, for the gradient,
 ``flash_attention_backward`` (one launch of the dQ kernel, which also
 writes delta = rowsum(dO * O), then one of the dK/dV kernel).  Each of the
-two counts its launches in its ``launches`` attribute.  The kernels
+two counts its launches in its ``launches`` attribute, or in ``captured``
+for a launch recorded into a CUDA graph.  The kernels
 multiply on the tensor cores (bf16, or fp32 as 3xTF32) and read q, k and
 v through their strides, which must be 1 on D: a CUDA tensor with another
 stride raises, it is never copied.  CPU tensors take the plain version
@@ -22,7 +23,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels.build import load
+from repro_torch.kernels.build import count_launch, load
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 __all__ = ["flash_attention", "flash_attention_forward", "flash_attention_backward"]
@@ -92,7 +93,7 @@ def flash_attention_forward(q, k, v, window: int = 0, is_global: float = 1.0):
               lse.data_ptr(), dims, strides, int(window), int(is_global > 0),
               q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "flash_attention forward")
-    flash_attention_forward.launches += 1
+    count_launch(flash_attention_forward)
     return o, lse
 
 
@@ -117,12 +118,13 @@ def flash_attention_backward(q, k, v, o, lse, grad_out, window: int = 0, is_glob
               dk.data_ptr(), dv.data_ptr(), dims, strides, int(window), int(is_global > 0),
               q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "flash_attention backward")
-    flash_attention_backward.launches += 1
+    count_launch(flash_attention_backward)
     return dq, dk, dv
 
 
-flash_attention_forward.launches = 0   # type: ignore[attr-defined]
-flash_attention_backward.launches = 0  # type: ignore[attr-defined]
+for _wrapper in (flash_attention_forward, flash_attention_backward):
+    _wrapper.launches = 0  # type: ignore[attr-defined]
+    _wrapper.captured = 0  # type: ignore[attr-defined]
 
 
 class _FlashAttention(torch.autograd.Function):

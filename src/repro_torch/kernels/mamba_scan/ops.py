@@ -9,9 +9,12 @@ gradient a ``torch.autograd.Function`` runs ``mamba_scan_forward`` with
 state checkpoints (one launch) and, for the gradient,
 ``mamba_scan_backward`` (one launch of the reverse scan, then the second
 pass that sums its partials).  Without a gradient the forward writes no
-checkpoints.  Each of the two counts its launches in its ``launches``
-attribute.  CPU tensors take the plain version (``ref.py``) and its
-autograd.
+checkpoints.  On request the forward also writes the state after the
+last step (``final_state``): the Mamba state that a prefill hands to
+decode.  Each of the two counts its launches in its ``launches``
+attribute, or in ``captured`` for a launch recorded into a CUDA graph,
+which runs at each replay rather than when the wrapper is called.  CPU
+tensors take the plain version (``ref.py``) and its autograd.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels.build import load
+from repro_torch.kernels.build import count_launch, load
 from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
 
 __all__ = ["mamba_scan", "mamba_scan_forward", "mamba_scan_backward"]
@@ -36,7 +39,7 @@ def _kernels():
     """(forward, backward, (chunk, block)) from the library."""
     lib = load("mamba_scan")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.mamba_scan_fwd.argtypes = [i32] + [ptr] * 9 + [i32, ptr]
+    lib.mamba_scan_fwd.argtypes = [i32] + [ptr] * 10 + [i32, ptr]
     lib.mamba_scan_bwd.argtypes = [i32] + [ptr] * 18 + [i32, ptr]
     lib.mamba_scan_fwd.restype = lib.mamba_scan_bwd.restype = i32
     layout = (lib.mamba_scan_chunk(), lib.mamba_scan_block())
@@ -86,11 +89,14 @@ def _call_args(x):
     return x.device.index, torch.cuda.current_stream(x.device).cuda_stream
 
 
-def mamba_scan_forward(x, dt, bmat, cmat, a_log, d_skip, checkpoints: bool = False):
+def mamba_scan_forward(x, dt, bmat, cmat, a_log, d_skip, checkpoints: bool = False,
+                       final_state: bool = False):
     """CUDA inputs -> y (B, S, D) in x's type: one launch of the forward
-    kernel.  With ``checkpoints`` it returns (y, ckpt), ckpt the fp32 state
+    kernel.  With ``checkpoints`` it also returns ckpt, the fp32 state
     before every chunk-th step, (B, ceil(S / chunk), D, N), which
-    ``mamba_scan_backward`` needs."""
+    ``mamba_scan_backward`` needs; with ``final_state`` the fp32 state after
+    the last step, (B, D, N).  The result is y alone, or the tuple (y,
+    ckpt?, h_final?) of what was asked for."""
     groups = _check(x, dt, bmat, cmat, a_log, d_skip)
     if not x.is_cuda:
         raise ValueError("mamba_scan_forward launches the kernel: pass CUDA tensors")
@@ -98,15 +104,18 @@ def mamba_scan_forward(x, dt, bmat, cmat, a_log, d_skip, checkpoints: bool = Fal
     b, s, d = x.shape
     n = bmat.shape[2]
     y = torch.empty_like(x)
-    ckpt = (torch.empty((b, -(-s // chunk), d, n), dtype=torch.float32, device=x.device)
-            if checkpoints else None)
+    f32 = {"dtype": torch.float32, "device": x.device}
+    ckpt = torch.empty((b, -(-s // chunk), d, n), **f32) if checkpoints else None
+    h_fin = torch.empty((b, d, n), **f32) if final_state else None
     dims = (ctypes.c_int64 * 5)(b, s, d, n, groups)
     err = fwd(_DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), bmat.data_ptr(), cmat.data_ptr(),
               a_log.data_ptr(), d_skip.data_ptr(), y.data_ptr(),
-              ckpt.data_ptr() if checkpoints else None, dims, *_call_args(x))
+              ckpt.data_ptr() if checkpoints else None,
+              h_fin.data_ptr() if final_state else None, dims, *_call_args(x))
     _raise_on(err, "mamba_scan forward")
-    mamba_scan_forward.launches += 1
-    return (y, ckpt) if checkpoints else y
+    count_launch(mamba_scan_forward)
+    outs = (y,) + ((ckpt,) if checkpoints else ()) + ((h_fin,) if final_state else ())
+    return outs if len(outs) > 1 else y
 
 
 def mamba_scan_backward(x, dt, bmat, cmat, a_log, d_skip, ckpt, grad_y):
@@ -135,35 +144,43 @@ def mamba_scan_backward(x, dt, bmat, cmat, a_log, d_skip, ckpt, grad_y):
         x, dt, bmat, cmat, a_log, d_skip, ckpt, grad_y, dx, ddt, dbmat, dcmat, da_log, dd_skip,
         part_bc, part_a, part_d)), dims, *_call_args(x))
     _raise_on(err, "mamba_scan backward")
-    mamba_scan_backward.launches += 1
+    count_launch(mamba_scan_backward)
     return dx, ddt, dbmat, dcmat, da_log, dd_skip
 
 
-mamba_scan_forward.launches = 0   # type: ignore[attr-defined]
-mamba_scan_backward.launches = 0  # type: ignore[attr-defined]
+for _wrapper in (mamba_scan_forward, mamba_scan_backward):
+    _wrapper.launches = 0  # type: ignore[attr-defined]
+    _wrapper.captured = 0  # type: ignore[attr-defined]
 
 
 class _MambaScan(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, dt, bmat, cmat, a_log, d_skip):
-        y, ckpt = mamba_scan_forward(x, dt, bmat, cmat, a_log, d_skip, checkpoints=True)
-        ctx.save_for_backward(x, dt, bmat, cmat, a_log, d_skip, ckpt)
-        return y
+    def forward(ctx, x, dt, bmat, cmat, a_log, d_skip, final_state):
+        outs = mamba_scan_forward(x, dt, bmat, cmat, a_log, d_skip, checkpoints=True,
+                                  final_state=final_state)
+        ctx.save_for_backward(x, dt, bmat, cmat, a_log, d_skip, outs[1])
+        if not final_state:
+            return outs[0]
+        ctx.mark_non_differentiable(outs[2])
+        return outs[0], outs[2]
 
     @staticmethod
-    def backward(ctx, grad_y):
-        return mamba_scan_backward(*ctx.saved_tensors, grad_y)
+    def backward(ctx, grad_y, *_):
+        return *mamba_scan_backward(*ctx.saved_tensors, grad_y), None
 
 
 def mamba_scan(x: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
-               a_log: torch.Tensor, d_skip: torch.Tensor) -> torch.Tensor:
+               a_log: torch.Tensor, d_skip: torch.Tensor, final_state: bool = False):
     """Selective scan y (B, S, D) in x's type, differentiable in all six
     inputs.  CUDA tensors run the kernels (the forward, and under autograd
-    the backward); CPU tensors the plain version."""
+    the backward); CPU tensors the plain version.  With ``final_state`` it
+    returns (y, h_final), h_final the fp32 state after the last step (B,
+    D, N) from the same forward launch; on CUDA tensors no gradient flows
+    back through h_final."""
     _check(x, dt, bmat, cmat, a_log, d_skip)
-    if x.device.type == "cpu":
-        return mamba_scan_ref(x, dt, bmat, cmat, a_log, d_skip)
     inputs = (x, dt, bmat, cmat, a_log, d_skip)
+    if x.device.type == "cpu":
+        return mamba_scan_ref(*inputs, final_state=final_state)
     if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
-        return _MambaScan.apply(*inputs)
-    return mamba_scan_forward(*inputs)
+        return _MambaScan.apply(*inputs, final_state)
+    return mamba_scan_forward(*inputs, final_state=final_state)

@@ -5,7 +5,8 @@ The recurrence of ``mamba_scan_ref`` in the JAX package's
 (B, D, N) in fp32, then y = h . C + D x, cast back to x's type.  The
 weights a_log and d_skip are shared, (D, N) and (D,), or one set per
 group of rows, (G, D, N) and (G, D), row b reading group b // (B / G), as
-the kernel takes them.  Its autograd is the gradient oracle and the CPU
+the kernel takes them.  On request it also returns the state after the
+last step, as the kernel's forward writes it for decode.  Its autograd is the gradient oracle and the CPU
 path's gradient.
 """
 
@@ -24,9 +25,10 @@ def _per_row(w: torch.Tensor, rows: int, ndim: int) -> torch.Tensor:
 
 
 def mamba_scan_ref(x: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
-                   a_log: torch.Tensor, d_skip: torch.Tensor) -> torch.Tensor:
+                   a_log: torch.Tensor, d_skip: torch.Tensor, final_state: bool = False):
     """x, dt (B, S, D); bmat, cmat (B, S, N); a_log (D, N) or (G, D, N);
-    d_skip (D,) or (G, D) -> y (B, S, D) in x's type."""
+    d_skip (D,) or (G, D) -> y (B, S, D) in x's type; with ``final_state``
+    (y, h), h the fp32 state after the last step (B, D, N)."""
     b, s, _ = x.shape
     a_cont = -torch.exp(_per_row(a_log.to(torch.float32), b, 2))          # (B or 1, D, N)
     xf, dtf = x.to(torch.float32), dt.to(torch.float32)
@@ -38,4 +40,4 @@ def mamba_scan_ref(x: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor, cmat: 
         h = a_t * h + (dtf[:, t] * xf[:, t])[:, :, None] * bf[:, t, None, :]
         ys.append((h * cf[:, t, None, :]).sum(-1))
     y = torch.stack(ys, dim=1) + xf * _per_row(d_skip.to(torch.float32), b, 1)[:, None, :]
-    return y.to(x.dtype)
+    return (y.to(x.dtype), h) if final_state else y.to(x.dtype)

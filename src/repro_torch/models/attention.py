@@ -1,5 +1,6 @@
-"""Attention, ported from ``repro.models.attention`` (this slice: GQA with
-qk-norm, partial RoPE and the sliding window; MLA and decode come later).
+"""Attention, ported from ``repro.models.attention``: GQA with qk-norm,
+partial RoPE and the sliding window, full sequence and decode (MLA comes
+later).
 
 - ``naive_attention`` — materialises S x S scores; the oracle, as in the
   reference.
@@ -9,7 +10,15 @@ qk-norm, partial RoPE and the sliding window; MLA and decode come later).
   take the kernel's plain version.  The reference's chunk sizes belong to
   its JAX scan and have no counterpart here.
 - ``gqa_attention`` — the full-sequence GQA module on ``init_gqa``'s
-  parameters, shared by the batch or one set per client.
+  parameters, shared by the batch or one set per client; it also returns
+  the rotated k and v, a prefill's decode cache.
+- ``decode_attention`` — one query position against a KV cache: fp32
+  scores over the whole cache, masked past ``pos`` and by the window, in
+  plain PyTorch (the reference computes it in ``jnp``, outside any Pallas
+  kernel).
+- ``gqa_decode`` — one token of the GQA module: its k and v are written
+  into the cache at ``pos`` in place (nothing is traced or donated here,
+  so no copy of the cache is made), then ``decode_attention``.
 
 Sliding-window blending: layer heterogeneity enters through the scalar
 ``is_global`` flag, as in the reference.
@@ -24,7 +33,8 @@ import torch
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.common import apply_rope, lecun_init, linear, rms_norm
 
-__all__ = ["init_gqa", "gqa_shapes", "gqa_attention", "naive_attention", "flash_attention"]
+__all__ = ["init_gqa", "gqa_shapes", "gqa_attention", "gqa_decode", "naive_attention",
+           "flash_attention", "decode_attention"]
 
 _NEG = -1e30
 
@@ -101,10 +111,40 @@ def _head_vec(scale: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return scale.repeat_interleave(t.shape[0] // m, dim=0)[:, None, None, :]
 
 
-def gqa_attention(p, cfg, x, sin, cos, is_global=1.0) -> torch.Tensor:
-    """Full sequence (training, poll and evaluation): x (..., S, d) with
-    weights shared, or x (m, B, S, d) with weights one set per client ->
-    (..., S, d)."""
+def gqa_attention(p, cfg, x, sin, cos, is_global=1.0):
+    """Full sequence (training, poll, evaluation and prefill): x (..., S, d)
+    with weights shared, or x (m, B, S, d) with weights one set per client
+    -> (out (..., S, d), (k, v) (..., S, KV, hd)), k rotated as the cache
+    holds it."""
     q, k, v = _project_qkv(p, cfg, x, sin, cos)
     o = flash_attention(q, k, v, cfg.sliding_window, is_global)
-    return linear(o.reshape(*x.shape[:-1], -1), p["wo"])
+    kv_shape = (*x.shape[:-1], *k.shape[-2:])
+    return linear(o.reshape(*x.shape[:-1], -1), p["wo"]), (k.reshape(kv_shape),
+                                                            v.reshape(kv_shape))
+
+
+def decode_attention(q, k_cache, v_cache, pos: int, window: int = 0,
+                     is_global=1.0) -> torch.Tensor:
+    """One-token attention: q (B, 1, H, D) against the cache (B, S, KV, D)
+    whose entries past ``pos`` are invalid -> (B, 1, H, D) in q's type."""
+    b, _, h, d = q.shape
+    s, kv = k_cache.shape[1], k_cache.shape[2]
+    qg = q.reshape(b, kv, h // kv, d).to(torch.float32)
+    scores = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.to(torch.float32)) / math.sqrt(d)
+    kpos = torch.arange(s, device=q.device)
+    probs = torch.softmax(scores + _mask_val(pos, kpos, window, is_global), dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", probs, v_cache.to(torch.float32))
+    return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+def gqa_decode(p, cfg, x, sin_pos, cos_pos, cache, pos: int, is_global=1.0):
+    """One token: x (B, 1, d), the one-row RoPE tables of position ``pos``
+    and ``cache`` = (k_cache, v_cache) (B, S_max, KV, hd) -> (out (B, 1,
+    d), cache), the token's k and v written into the cache at ``pos`` in
+    place."""
+    k_cache, v_cache = cache
+    q, k_new, v_new = _project_qkv(p, cfg, x, sin_pos, cos_pos)
+    k_cache[:, pos] = k_new[:, 0].to(k_cache.dtype)
+    v_cache[:, pos] = v_new[:, 0].to(v_cache.dtype)
+    o = decode_attention(q, k_cache, v_cache, pos, cfg.sliding_window, is_global)
+    return linear(o.reshape(x.shape[0], 1, -1), p["wo"]), (k_cache, v_cache)

@@ -68,14 +68,21 @@ def activation(name: str, x: torch.Tensor, gate: torch.Tensor | None = None) -> 
 
 
 def rope_table(seq_len: int, dim: int, theta: float, device=None,
-               dtype: torch.dtype = torch.float32) -> tuple[torch.Tensor, torch.Tensor]:
-    """(seq_len, dim / 2) sin and cos tables."""
+               dtype: torch.dtype = torch.float32,
+               positions: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(seq_len, dim / 2) sin and cos tables; with ``positions`` (decode)
+    the table's row at that position, (1, dim / 2), cut from the whole
+    table as the reference's ``dynamic_slice`` cuts it."""
     if dim % 2:
         raise ValueError(f"rope dim must be even, got {dim}")
     freqs = 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim))
     t = torch.arange(seq_len, dtype=torch.float32, device=device)
     ang = torch.outer(t, freqs)
-    return torch.sin(ang).to(dtype), torch.cos(ang).to(dtype)
+    sin, cos = torch.sin(ang).to(dtype), torch.cos(ang).to(dtype)
+    if positions is not None:
+        row = slice(int(positions), int(positions) + 1)
+        sin, cos = sin[row], cos[row]
+    return sin, cos
 
 
 def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor,

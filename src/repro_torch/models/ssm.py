@@ -5,34 +5,42 @@
   reference's key order and with its distributions.
 - ``mamba_seq`` — the full-sequence block: input projection, depthwise
   causal conv, SiLU, discretisation, the selective scan, the SiLU gate and
-  the output projection.
+  the output projection; it also returns the state after the last step
+  and the conv tail, the decode cache a prefill hands on.
+- ``mamba_decode`` — one token of the same block from that state and tail.
 - ``xlstm_shapes`` / ``init_xlstm`` — one xLSTM block's parameters (one
   layout for mLSTM and sLSTM), in the reference's key order.
 - ``chunked_linear_scan`` — h_t = a_t h_{t-1} + b_t in chunks, a
   Hillis–Steele scan inside each chunk with the reference's ``combine``.
 - ``mlstm_seq`` / ``slstm_seq`` — the two xLSTM cores over the full
-  sequence, with the reference's stabilisers.
+  sequence, with the reference's stabilisers; each also returns its
+  recurrent state after the last step, (C, n, m) and (c, n, m).
+- ``mlstm_decode`` / ``slstm_decode`` — one token of each core from that
+  state, the reference's O(1) recurrent forms.
 
 Weights arrive shared by the whole batch, x (..., S, d), or one set per
 client, x (m, B, S, d) with every leaf carrying a leading m axis, as
 ``linear`` / ``per_client`` in ``models/common.py`` take them.
 
 The discretisation computes only dt = softplus(x w_dt + b_dt), B = x w_b
-and C = x w_c, (..., S, D) and (..., S, N); the (B, S, D, N) decay and
+and C = x w_c, (..., S, D) and (..., S, N), in fp32 whatever the model's
+type, as the reference's ``_ssm_coeffs`` does (so a bf16 model feeds the
+scan fp32 inputs, and casts y back after it); the (B, S, D, N) decay and
 drive of the reference's ``_ssm_coeffs`` are never built: the scan
 (``repro_torch.kernels.mamba_scan``) discretises inside its own time loop,
 as the TPU kernel does.  On CUDA tensors it runs the hand-written kernel,
 forward and backward; on CPU tensors its plain version.  The reference's
 ``ssm.fuse_contraction`` and ``ssm.chunk`` choose the layout of its JAX
 associative scan; neither changes a number, and neither has a counterpart
-here.  ``mamba_seq`` returns the block output only: the state and
-conv-tail carry for decode come with the decode slice.
+here.  The scan kernel writes the final state in the same launch.  The
+decode steps are plain PyTorch, as the reference's are ``jnp``.  A
+sequence form starts from the zero state (the reference's optional
+``state`` and ``conv_tail`` inputs are not ported: its prefill never
+passes them).
 
 The xLSTM cores have no TPU kernel in the reference and none here: their
-products are ``torch.matmul``.  They return the block output only; the
-recurrent state for decode (``mlstm_decode``, ``slstm_decode``) comes with
-the decode slice.  ``ssm.chunk`` is the mLSTM chunk and the sLSTM scan
-chunk, as in the reference.
+products are ``torch.matmul``.  ``ssm.chunk`` is the mLSTM chunk and the
+sLSTM scan chunk, as in the reference.
 """
 
 from __future__ import annotations
@@ -45,8 +53,9 @@ import torch.nn.functional as F
 from repro_torch.kernels.mamba_scan import mamba_scan
 from repro_torch.models.common import lecun_init, linear, per_client, rms_norm
 
-__all__ = ["mamba_shapes", "init_mamba", "mamba_seq", "chunked_linear_scan", "xlstm_shapes",
-           "init_xlstm", "mlstm_seq", "slstm_seq"]
+__all__ = ["mamba_shapes", "init_mamba", "mamba_seq", "mamba_decode", "chunked_linear_scan",
+           "xlstm_shapes", "init_xlstm", "mlstm_seq", "mlstm_decode", "slstm_seq",
+           "slstm_decode"]
 
 _NEG = -1e30  # the causal and initial-state fill: exp(_NEG - m) is 0, never NaN
 
@@ -94,23 +103,52 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _discretize(p, x_in: torch.Tensor):
-    """(dt (..., S, D), B (..., S, N), C (..., S, N))."""
-    dt = F.softplus(x_in * per_client(p["w_dt"], x_in) + per_client(p["b_dt"], x_in))
-    return dt, linear(x_in, p["w_b"]), linear(x_in, p["w_c"])
+    """(x, dt (..., S, D), B (..., S, N), C (..., S, N)), all fp32."""
+    xf = x_in.to(torch.float32)
+    dt = F.softplus(xf * per_client(p["w_dt"], xf) + per_client(p["b_dt"], xf))
+    return (xf, dt, linear(xf, p["w_b"].to(torch.float32)),
+            linear(xf, p["w_c"].to(torch.float32)))
 
 
-def mamba_seq(p, cfg, x: torch.Tensor) -> torch.Tensor:
-    """Full-sequence selective SSM: x (..., S, d) -> (..., S, d)."""
-    s = x.shape[-2]
+def _conv_tail(ext: torch.Tensor, k: int) -> torch.Tensor:
+    """The last k - 1 conv inputs (..., k - 1, D), fp32: the decode cache."""
+    return ext[..., ext.shape[-2] - (k - 1):, :].to(torch.float32)
+
+
+def mamba_seq(p, cfg, x: torch.Tensor):
+    """Full-sequence selective SSM: x (..., S, d) -> (out (..., S, d),
+    (h (..., D, N), conv_tail (..., k - 1, D))), the state after the last
+    step and the last k - 1 conv inputs (zero-padded in front where S < k -
+    1), both fp32."""
+    s, k = x.shape[-2], cfg.ssm.conv_kernel
     raw, z = linear(x, p["w_in"]).chunk(2, dim=-1)
     x_in = F.silu(_causal_conv(raw, p["conv_w"]))
-    dt, bmat, cmat = _discretize(p, x_in)
+    xf, dt, bmat, cmat = _discretize(p, x_in)
     d_in, n = x_in.shape[-1], bmat.shape[-1]
     rows = math.prod(x_in.shape[:-2])
-    y = mamba_scan(x_in.reshape(rows, s, d_in), dt.reshape(rows, s, d_in),
-                   bmat.reshape(rows, s, n), cmat.reshape(rows, s, n),
-                   p["a_log"].contiguous(), p["d_skip"].contiguous())
-    return linear(y.reshape(x_in.shape) * F.silu(z), p["w_out"])
+    y, h = mamba_scan(xf.reshape(rows, s, d_in), dt.reshape(rows, s, d_in),
+                      bmat.reshape(rows, s, n), cmat.reshape(rows, s, n),
+                      p["a_log"].contiguous(), p["d_skip"].contiguous(), final_state=True)
+    out = linear(y.reshape(x_in.shape).to(x.dtype) * F.silu(z), p["w_out"])
+    tail = _conv_tail(F.pad(raw, (0, 0, k - 1, 0)), k)
+    return out, (h.reshape(*x_in.shape[:-2], d_in, n), tail)
+
+
+def mamba_decode(p, cfg, x: torch.Tensor, state: torch.Tensor, conv_tail: torch.Tensor):
+    """One token: x (B, 1, d), state (B, D, N) and conv_tail (B, k - 1, D)
+    fp32 -> (out (B, 1, d), (state, conv_tail) after it), with the
+    reference's arithmetic and order (fp32 discretisation, h = a h + b)."""
+    k = cfg.ssm.conv_kernel
+    raw, z = linear(x, p["w_in"]).chunk(2, dim=-1)
+    ext = torch.cat([conv_tail.to(raw.dtype), raw], dim=-2)
+    x_in = F.silu(_causal_conv(ext, p["conv_w"])[..., -1:, :])
+    xf, dt, bmat, cmat = _discretize(p, x_in)
+    xf, dt, bmat, cmat = xf[..., 0, :], dt[..., 0, :], bmat[..., 0, :], cmat[..., 0, :]
+    a = torch.exp(dt[..., None] * -torch.exp(p["a_log"]))                 # (B, D, N)
+    h = a * state + dt[..., None] * bmat[..., None, :] * xf[..., None]
+    y = (h * cmat[..., None, :]).sum(-1) + xf * p["d_skip"]
+    out = linear(y[..., None, :].to(x.dtype) * F.silu(z), p["w_out"])
+    return out, (h, _conv_tail(ext, k))
 
 
 # ---------------------------------------------------------------------------
@@ -208,13 +246,14 @@ def _exp_floor(m: torch.Tensor) -> torch.Tensor:
     return torch.where(over, torch.inf, torch.exp(torch.where(over, 0.0, -m)))
 
 
-def mlstm_seq(p, cfg, x: torch.Tensor) -> torch.Tensor:
+def mlstm_seq(p, cfg, x: torch.Tensor):
     """Chunkwise-parallel mLSTM over the full sequence, x (..., S, d) ->
-    (..., S, d), with the reference's stabilisers: the running maximum m of
-    the exponential-gate logits, ``_NEG`` as the causal fill, the
-    normaliser max(|n|, exp(-m)), and the state (C, n, m, F) carried from
-    chunk to chunk.  One departure: where exp(-m) overflows, the gradient
-    is 0, not the reference's NaN (``_exp_floor``)."""
+    (out (..., S, d), (C (..., H, hd, hd), n (..., H, hd), m (..., H))),
+    the state after the last step, fp32, with the reference's stabilisers:
+    the running maximum m of the exponential-gate logits, ``_NEG`` as the
+    causal fill, the normaliser max(|n|, exp(-m)), and the state (C, n, m,
+    F) carried from chunk to chunk.  One departure: where exp(-m)
+    overflows, the gradient is 0, not the reference's NaN (``_exp_floor``)."""
     s = x.shape[-2]
     ck = min(cfg.ssm.chunk, s)
     if s % ck:
@@ -243,26 +282,51 @@ def mlstm_seq(p, cfg, x: torch.Tensor) -> torch.Tensor:
         num = w @ vb + (qb @ c_state) * w_state[..., None]
         den = torch.abs(w.sum(-1) + (qb @ n_state[..., None]).squeeze(-1) * w_state)
         ys.append(num / torch.maximum(den, _exp_floor(m_new))[..., None])
-        if start + ck < s:  # the state at the chunk's end
-            f_end = fb[..., -1]
-            m_cand = f_end - f_prev + m_state
-            decay = f_end[..., None] - fb + ib                    # (N, H, ck)
-            m_end = torch.maximum(decay.amax(-1), m_cand)
-            wj = torch.exp(decay - m_end[..., None])[..., None] * kb
-            keep = torch.exp(m_cand - m_end)
-            c_state = keep[..., None, None] * c_state + wj.transpose(-1, -2) @ vb
-            n_state = keep[..., None] * n_state + wj.sum(-2)
-            m_state, f_prev = m_end, f_end
-    return _xlstm_out(p, cfg, x, torch.cat(ys, dim=2).transpose(1, 2), out_gate)
+        # the state at the chunk's end
+        f_end = fb[..., -1]
+        m_cand = f_end - f_prev + m_state
+        decay = f_end[..., None] - fb + ib                        # (N, H, ck)
+        m_end = torch.maximum(decay.amax(-1), m_cand)
+        wj = torch.exp(decay - m_end[..., None])[..., None] * kb
+        keep = torch.exp(m_cand - m_end)
+        c_state = keep[..., None, None] * c_state + wj.transpose(-1, -2) @ vb
+        n_state = keep[..., None] * n_state + wj.sum(-2)
+        m_state, f_prev = m_end, f_end
+    lead = x.shape[:-2]
+    out = _xlstm_out(p, cfg, x, torch.cat(ys, dim=2).transpose(1, 2), out_gate)
+    return out, (c_state.reshape(*lead, hh, hd, hd), n_state.reshape(*lead, hh, hd),
+                 m_state.reshape(*lead, hh))
 
 
-def slstm_seq(p, cfg, x: torch.Tensor) -> torch.Tensor:
-    """sLSTM over the full sequence, x (..., S, d) -> (..., S, d): the
-    reference's linearised form (no h -> gate feedback), per-head scalar
-    memory with exponential gating.  The stabiliser m_t = max(f_t +
-    m_{t-1}, i_t), the reference's (max, +) scan, is computed in closed
-    form as F_t + cummax(i - F) with F = cumsum(log f); c and n are
-    chunked linear scans."""
+def mlstm_decode(p, cfg, x: torch.Tensor, state):
+    """One token of the mLSTM, x (B, 1, d), from its state (C, n, m) ->
+    (out (B, 1, d), the state after it): the reference's recurrent form,
+    with ``_exp_floor`` for the normaliser's exp(-m) as in ``mlstm_seq``."""
+    q, k, v, i_log, f_log, out_gate = _xlstm_proj(p, cfg, x)
+    c_state, n_state, m_state = state
+    i1, f1 = i_log[:, 0], f_log[:, 0]                             # (B, H)
+    m_new = torch.maximum(f1 + m_state, i1)
+    fp = torch.exp(f1 + m_state - m_new)
+    ip = torch.exp(i1 - m_new)
+    qf, kf, vf = (t[:, 0].to(torch.float32) for t in (q, k, v))   # (B, H, hd)
+    c_state = fp[..., None, None] * c_state + ip[..., None, None] * (kf[..., :, None]
+                                                                     * vf[..., None, :])
+    n_state = fp[..., None] * n_state + ip[..., None] * kf
+    num = (qf[..., None, :] @ c_state)[..., 0, :]
+    den = torch.abs((qf * n_state).sum(-1))
+    y = num / torch.maximum(den, _exp_floor(m_new))[..., None]
+    return _xlstm_out(p, cfg, x, y, out_gate), (c_state, n_state, m_new)
+
+
+def slstm_seq(p, cfg, x: torch.Tensor):
+    """sLSTM over the full sequence, x (..., S, d) -> (out (..., S, d), (c
+    (..., H, hd), n (..., H, hd), m (..., H))), the state after the last
+    step, fp32: the reference's linearised form (no h -> gate feedback),
+    per-head scalar memory with exponential gating.  The stabiliser m_t =
+    max(f_t + m_{t-1}, i_t), the reference's (max, +) scan, is computed in
+    closed form as F_t + cummax(i - F) with F = cumsum(log f); c and n are
+    chunked linear scans (n the same for every dim of a head, broadcast to
+    hd as the reference keeps it)."""
     s = x.shape[-2]
     _, _, v, i_log, f_log, out_gate = _xlstm_proj(p, cfg, x)
     z = torch.tanh(v.reshape(-1, *v.shape[-3:]).to(torch.float32))  # (N, S, H, hd)
@@ -272,7 +336,26 @@ def slstm_seq(p, cfg, x: torch.Tensor) -> torch.Tensor:
     m_prev = torch.cat([torch.full_like(m_run[:, :1], _NEG), m_run[:, :-1]], dim=1)
     fp = torch.exp(f_log + m_prev - m_run)[..., None]             # (N, S, H, 1)
     ip = torch.exp(i_log - m_run)[..., None]
-    c_all, _ = chunked_linear_scan(fp, ip * z, torch.zeros_like(z[:, 0]), cfg.ssm.chunk)
-    n_all, _ = chunked_linear_scan(fp, ip, torch.zeros_like(ip[:, 0]), cfg.ssm.chunk)
+    c_all, c_fin = chunked_linear_scan(fp, ip * z, torch.zeros_like(z[:, 0]), cfg.ssm.chunk)
+    n_all, n_fin = chunked_linear_scan(fp, ip, torch.zeros_like(ip[:, 0]), cfg.ssm.chunk)
     y = c_all / torch.clamp(torch.abs(n_all), min=1e-6)
-    return _xlstm_out(p, cfg, x, y, out_gate)
+    lead, hh, hd = x.shape[:-2], z.shape[-2], z.shape[-1]
+    return _xlstm_out(p, cfg, x, y, out_gate), (
+        c_fin.reshape(*lead, hh, hd), n_fin.expand(-1, hh, hd).reshape(*lead, hh, hd),
+        m_run[:, -1].reshape(*lead, hh))
+
+
+def slstm_decode(p, cfg, x: torch.Tensor, state):
+    """One token of the sLSTM, x (B, 1, d), from its state (c, n, m) ->
+    (out (B, 1, d), the state after it): the reference's recurrent form."""
+    _, _, v, i_log, f_log, out_gate = _xlstm_proj(p, cfg, x)
+    z = torch.tanh(v[:, 0].to(torch.float32))                    # (B, H, hd)
+    c_state, n_state, m_state = state
+    i1, f1 = i_log[:, 0], f_log[:, 0]
+    m_new = torch.maximum(f1 + m_state, i1)
+    fp = torch.exp(f1 + m_state - m_new)[..., None]
+    ip = torch.exp(i1 - m_new)[..., None]
+    c_state = fp * c_state + ip * z
+    n_state = fp * n_state + ip
+    y = c_state / torch.clamp(torch.abs(n_state), min=1e-6)
+    return _xlstm_out(p, cfg, x, y, out_gate), (c_state, n_state, m_new)

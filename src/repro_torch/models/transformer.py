@@ -26,6 +26,18 @@ The reference computes both xLSTM cores in every layer and keeps one with
 same output and gradient.  The reference's ``remat`` (``jax.checkpoint``
 per layer) changes no number and is not mapped.  What the port does not
 run yet is rejected up front: MoE, MLA, non-token inputs and the MTP head.
+
+Serving (``init_params``, ``init_cache``, ``prefill``, ``decode_step``)
+runs the model in the config's dtype, bf16 at full size as the reference
+serves it: ``init_params`` builds the parameter tree leaf by leaf, the
+norm scales, the Mamba heads' ``a_log``, ``w_dt``, ``b_dt``, ``d_skip`` and
+the xLSTM gate weights in fp32 and every other leaf in ``cfg.dtype``, as
+the reference's init keeps them (never the flat fp32 vector, which for
+qwen3-14b would need 59 GB beside the 29.5 GB tree).  The cache has the
+reference's stacked (L, B, ...) layout; ``decode_step`` writes each
+layer's new entries into it in place.  For xlstm only the flagged core's
+state is computed and advanced; the other keeps its ``init_cache`` value,
+which is what the reference's ``jnp.where`` selection leaves there.
 """
 
 from __future__ import annotations
@@ -35,7 +47,7 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.models.attention import gqa_attention, gqa_shapes, init_gqa
+from repro_torch.models.attention import gqa_attention, gqa_decode, gqa_shapes, init_gqa
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (
     activation,
@@ -48,13 +60,16 @@ from repro_torch.models.common import (
 )
 
 __all__ = [
-    "TransformerLayout", "check_supported", "layer_flags", "init_transformer",
-    "embed_inputs", "forward", "output_head",
+    "TransformerLayout", "check_supported", "layer_flags", "init_transformer", "init_params",
+    "cast_params", "embed_inputs", "forward", "output_head", "init_cache", "prefill",
+    "decode_step",
 ]
 
-
-def check_supported(cfg) -> None:
-    """Raise for what the port does not run yet."""
+def check_supported(cfg, inference: bool = False) -> None:
+    """Raise for what the port does not run yet: training (the flat fp32
+    layout) takes float32 configs, serving (``inference``) float32 and
+    bfloat16."""
+    dtypes = ("float32", "bfloat16") if inference else ("float32",)
     unsupported = [
         (cfg.block_type not in ("attn", "hymba", "xlstm"), f"block_type={cfg.block_type!r}"),
         (cfg.block_type == "hymba" and (cfg.ssm is None or cfg.ssm.family != "mamba"),
@@ -65,7 +80,9 @@ def check_supported(cfg) -> None:
         (cfg.use_mla, "MLA attention"),
         (cfg.input_mode != "tokens", f"input_mode={cfg.input_mode!r}"),
         (cfg.mtp, "the MTP head"),
-        (cfg.dtype != "float32", f"dtype={cfg.dtype!r} (the port trains in float32)"),
+        (cfg.dtype not in dtypes,
+         f"dtype={cfg.dtype!r} (the port serves float32 and bfloat16)" if inference else
+         f"dtype={cfg.dtype!r} for training (the port trains in float32; it serves bfloat16)"),
     ]
     for bad, what in unsupported:
         if bad:
@@ -188,6 +205,51 @@ def _init_mlp(generator, cfg) -> dict:
     return p
 
 
+def _keeps_fp32(name: str, leaf: torch.Tensor) -> bool:
+    """Whether the reference keeps this leaf in fp32 in a model of another
+    dtype: every vector (norm scales and biases, the Mamba heads' dt weight
+    and bias and skip, the xLSTM gate bias), ``a_log`` and the xLSTM gate
+    weights ``w_if``."""
+    return leaf.ndim == 1 or name in ("a_log", "w_if")
+
+
+def cast_params(tree, dtype: torch.dtype):
+    """A parameter tree (or subtree) with each leaf in the type the
+    reference gives it in a model of ``dtype``; leaves already of that type
+    are kept, not copied."""
+    if isinstance(tree, list):
+        return [cast_params(v, dtype) for v in tree]
+    return {k: cast_params(v, dtype) if isinstance(v, (dict, list))
+            else v if _keeps_fp32(k, v) else v.to(dtype) for k, v in tree.items()}
+
+
+def _init_tree(generator: torch.Generator, cfg, dtype: torch.dtype) -> dict:
+    """The parameter tree drawn from ``generator`` on its device with the
+    reference's distributions, each module cast to ``dtype`` (by
+    ``cast_params``) as soon as it is drawn."""
+    dev = generator.device
+    layers = []
+    for _ in range(cfg.n_layers):
+        if cfg.block_type == "xlstm":
+            layers.append({"xlstm": cast_params(ssm_mod.init_xlstm(generator, cfg), dtype),
+                           **_init_norm(cfg, "norm1", dev)})
+            continue
+        layer = {**_init_norm(cfg, "norm1", dev), **_init_norm(cfg, "norm2", dev)}
+        layer["attn"] = cast_params(init_gqa(generator, cfg), dtype)
+        if cfg.block_type == "hymba":
+            layer["ssm"] = cast_params(ssm_mod.init_mamba(generator, cfg), dtype)
+            layer["attn_out_norm"] = torch.zeros(cfg.d_model, device=dev)
+            layer["ssm_out_norm"] = torch.zeros(cfg.d_model, device=dev)
+        layer["mlp"] = cast_params(_init_mlp(generator, cfg), dtype)
+        layers.append(layer)
+    tree = {"layers": layers, **_init_norm(cfg, "final_norm", dev)}
+    tree["embed"] = (torch.randn((cfg.vocab, cfg.d_model), generator=generator, device=dev)
+                     * 0.02).to(dtype)
+    if not cfg.tie_embeddings:
+        tree["head"] = lecun_init(generator, (cfg.d_model, cfg.vocab)).to(dtype)
+    return tree
+
+
 def init_transformer(generator: torch.Generator, cfg) -> torch.Tensor:
     """Flat (P,) fp32 initial parameters drawn from ``generator`` on its
     device, with the reference's distributions: LeCun projections, unit
@@ -196,26 +258,16 @@ def init_transformer(generator: torch.Generator, cfg) -> torch.Tensor:
     draws them and zero scales for its two output norms; an xlstm layer's
     block as ``init_xlstm`` draws it."""
     layout = TransformerLayout(cfg)
-    dev = generator.device
-    layers = []
-    for _ in range(cfg.n_layers):
-        if cfg.block_type == "xlstm":
-            layers.append({"xlstm": ssm_mod.init_xlstm(generator, cfg),
-                           **_init_norm(cfg, "norm1", dev)})
-            continue
-        layer = {**_init_norm(cfg, "norm1", dev), **_init_norm(cfg, "norm2", dev)}
-        layer["attn"] = init_gqa(generator, cfg)
-        if cfg.block_type == "hymba":
-            layer["ssm"] = ssm_mod.init_mamba(generator, cfg)
-            layer["attn_out_norm"] = torch.zeros(cfg.d_model, device=dev)
-            layer["ssm_out_norm"] = torch.zeros(cfg.d_model, device=dev)
-        layer["mlp"] = _init_mlp(generator, cfg)
-        layers.append(layer)
-    tree = {"layers": layers, **_init_norm(cfg, "final_norm", dev)}
-    tree["embed"] = torch.randn((cfg.vocab, cfg.d_model), generator=generator, device=dev) * 0.02
-    if not cfg.tie_embeddings:
-        tree["head"] = lecun_init(generator, (cfg.d_model, cfg.vocab))
-    return layout.flatten(tree)
+    return layout.flatten(_init_tree(generator, cfg, torch.float32))
+
+
+def init_params(generator: torch.Generator, cfg) -> dict:
+    """The serving parameter tree in ``cfg.dtype``, drawn as
+    ``init_transformer`` draws the flat vector (the same numbers, in the
+    same order) and cast module by module, the reference's fp32 leaves kept
+    in fp32."""
+    check_supported(cfg, inference=True)
+    return _init_tree(generator, cfg, getattr(torch, cfg.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -238,7 +290,9 @@ def _mlp(p, cfg, x):
 
 def embed_inputs(params, cfg, tokens: torch.Tensor) -> torch.Tensor:
     """Token ids (..., S) -> (..., S, d); with per-client tables (m, V, d)
-    the tokens are (m, B, S) and client i reads its own table."""
+    the tokens are (m, B, S) and client i reads its own table.  A tied
+    embedding scales by sqrt(d) rounded to the table's type, as the
+    reference does."""
     table = params["embed"]
     if table.ndim == 2:
         x = table[tokens.long()]
@@ -246,19 +300,20 @@ def embed_inputs(params, cfg, tokens: torch.Tensor) -> torch.Tensor:
         rows = torch.arange(table.shape[0], device=tokens.device)
         x = table[rows.view(-1, *([1] * (tokens.ndim - 1))), tokens.long()]
     if cfg.tie_embeddings:
-        x = x * math.sqrt(cfg.d_model)
+        x = x * torch.tensor(math.sqrt(cfg.d_model)).to(x.dtype)
     return x
 
 
-def _rope_tables(cfg, seq_len, device):
-    """Two (S, rot / 2) table pairs (local theta, global theta)."""
+def _rope_tables(cfg, seq_len, device, positions: int | None = None):
+    """Two (S, rot / 2) table pairs (local theta, global theta); with
+    ``positions`` (decode) each table's row at that position."""
     dim = int(cfg.resolved_head_dim * cfg.rope_fraction)
     dim -= dim % 2
     if dim == 0:
         dim = 2
-    tabs_l = rope_table(seq_len, dim, cfg.rope_theta, device)
-    tabs_g = rope_table(seq_len, dim, cfg.rope_theta_global, device) if cfg.rope_theta_global \
-        else tabs_l
+    tabs_l = rope_table(seq_len, dim, cfg.rope_theta, device, positions=positions)
+    tabs_g = (rope_table(seq_len, dim, cfg.rope_theta_global, device, positions=positions)
+              if cfg.rope_theta_global else tabs_l)
     return tabs_l, tabs_g
 
 
@@ -266,40 +321,162 @@ def _select_rope(tabs_l, tabs_g, is_global: float):
     return tabs_g if is_global > 0 else tabs_l
 
 
+def _flags_at(flags, i: int) -> dict[str, float]:
+    return {k: float(v[i]) for k, v in flags.items()}
+
+
 def _apply_layer_seq(pl, cfg, x, flags: dict[str, float], tabs_l, tabs_g):
     """One layer over the full sequence: attention (in parallel with the
-    Mamba heads for hymba), then the MLP; for xlstm the flagged core."""
+    Mamba heads for hymba), then the MLP; for xlstm the flagged core.
+    Returns (x, the layer's decode cache entries)."""
     if cfg.block_type == "xlstm":
-        core = ssm_mod.mlstm_seq if flags["is_mlstm"] > 0 else ssm_mod.slstm_seq
-        return x + core(pl["xlstm"], cfg, _norm(pl, cfg, x, "norm1"))
+        name = "mlstm" if flags["is_mlstm"] > 0 else "slstm"
+        out, state = getattr(ssm_mod, f"{name}_seq")(pl["xlstm"], cfg, _norm(pl, cfg, x, "norm1"))
+        return x + out, {name: state}
     is_global = flags["is_global"]
     sin, cos = _select_rope(tabs_l, tabs_g, is_global)
     h = _norm(pl, cfg, x, "norm1")
-    a_out = gqa_attention(pl["attn"], cfg, h, sin, cos, is_global)
+    a_out, (k, v) = gqa_attention(pl["attn"], cfg, h, sin, cos, is_global)
+    cache = {"k": k, "v": v}
     if cfg.block_type == "hymba":
-        s_out = ssm_mod.mamba_seq(pl["ssm"], cfg, h)
-        a_out = 0.5 * (rms_norm(a_out, per_client(pl["attn_out_norm"], a_out), cfg.norm_eps)
-                       + rms_norm(s_out, per_client(pl["ssm_out_norm"], s_out), cfg.norm_eps))
+        s_out, (cache["ssm_h"], cache["conv"]) = ssm_mod.mamba_seq(pl["ssm"], cfg, h)
+        a_out = _hymba_fuse(pl, cfg, a_out, s_out)
     x = x + a_out
     h2 = _norm(pl, cfg, x, "norm2")
-    return x + _mlp(pl["mlp"], cfg, h2)
+    return x + _mlp(pl["mlp"], cfg, h2), cache
 
 
-def forward(params, cfg, tokens: torch.Tensor, layout: TransformerLayout | None = None):
+def _hymba_fuse(pl, cfg, a_out, s_out):
+    """The mean of the attention and Mamba outputs, each RMS-normed."""
+    return 0.5 * (rms_norm(a_out, per_client(pl["attn_out_norm"], a_out), cfg.norm_eps)
+                  + rms_norm(s_out, per_client(pl["ssm_out_norm"], s_out), cfg.norm_eps))
+
+
+def forward(params, cfg, tokens: torch.Tensor, layout: TransformerLayout | None = None,
+            collect_cache: bool = False):
     """Hidden states after the final norm, (..., S, d).  ``params`` is the
-    flat (P,) or (m, P) vector (cut by ``layout``) or its tree of views."""
+    flat (P,) or (m, P) vector (cut by ``layout``) or its tree of views.
+    With ``collect_cache`` it returns (hidden, one dict of decode cache
+    entries a layer)."""
     if isinstance(params, torch.Tensor):
         params = (layout or TransformerLayout(cfg)).views(params)
     x = embed_inputs(params, cfg, tokens)
     tabs_l, tabs_g = _rope_tables(cfg, x.shape[-2], x.device)
     flags = layer_flags(cfg)
+    caches = []
     for i, pl in enumerate(params["layers"]):
-        x = _apply_layer_seq(pl, cfg, x, {k: float(v[i]) for k, v in flags.items()},
-                             tabs_l, tabs_g)
-    return _norm(params, cfg, x, "final_norm")
+        x, cache = _apply_layer_seq(pl, cfg, x, _flags_at(flags, i), tabs_l, tabs_g)
+        if collect_cache:
+            caches.append(cache)
+    h = _norm(params, cfg, x, "final_norm")
+    return (h, caches) if collect_cache else h
 
 
 def output_head(params, cfg) -> torch.Tensor:
     """The (d, V) output projection, (m, d, V) per client: the tied
     embedding's transpose or the separate head."""
     return params["embed"].transpose(-1, -2) if cfg.tie_embeddings else params["head"]
+
+
+def _logits(params, cfg, h: torch.Tensor) -> torch.Tensor:
+    """h (..., d) -> logits (..., V) in the model's type."""
+    return h @ output_head(params, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Serving: cache init, prefill, decode
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg, batch_size: int, max_len: int, device=None) -> dict:
+    """The stacked (L-leading) decode cache: k and v (L, B, max_len, KV,
+    hd) in ``cfg.dtype``, with hymba's Mamba state ``ssm_h`` (L, B, D, N)
+    and conv tail ``conv`` (L, B, k - 1, D); for xlstm the mLSTM state (C
+    (L, B, H, hd, hd), n (L, B, H, hd), m (L, B, H)) and the sLSTM state
+    (c, n (L, B, H, hd), m (L, B, H)).  States are fp32, m starts at
+    -1e30, everything else at 0."""
+    check_supported(cfg, inference=True)
+    n_layers, d = cfg.n_layers, cfg.d_model
+    f32 = {"dtype": torch.float32, "device": device}
+    if cfg.block_type == "xlstm":
+        hh = cfg.ssm.n_heads
+        hd = d // hh
+        lead = (n_layers, batch_size, hh)
+        return {
+            "mlstm": (torch.zeros(*lead, hd, hd, **f32), torch.zeros(*lead, hd, **f32),
+                      torch.full(lead, ssm_mod._NEG, **f32)),
+            "slstm": (torch.zeros(*lead, hd, **f32), torch.zeros(*lead, hd, **f32),
+                      torch.full(lead, ssm_mod._NEG, **f32)),
+        }
+    kv_shape = (n_layers, batch_size, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    dt = {"dtype": getattr(torch, cfg.dtype), "device": device}
+    cache = {"k": torch.zeros(kv_shape, **dt), "v": torch.zeros(kv_shape, **dt)}
+    if cfg.block_type == "hymba":
+        cache["ssm_h"] = torch.zeros(n_layers, batch_size, d, cfg.ssm.d_state, **f32)
+        cache["conv"] = torch.zeros(n_layers, batch_size, cfg.ssm.conv_kernel - 1, d, **f32)
+    return cache
+
+
+@torch.no_grad()
+def prefill(params, cfg, batch: dict, max_len: int):
+    """Run the prompt ``batch["tokens"]`` (B, S) through the parameter tree
+    -> (the last position's logits (B, V), the cache with the prompt's
+    entries at positions [0, S), room up to ``max_len``)."""
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    if s > max_len:
+        raise ValueError(f"a prompt of {s} tokens does not fit a cache of {max_len}")
+    h, caches = forward(params, cfg, tokens, collect_cache=True)
+    logits = _logits(params, cfg, h[:, -1])
+    cache = init_cache(cfg, b, max_len, device=h.device)
+    for i, entries in enumerate(caches):
+        for name, value in entries.items():
+            if name in ("k", "v"):
+                cache[name][i, :, :s] = value
+            elif name in ("mlstm", "slstm"):
+                for dst, src in zip(cache[name], value):
+                    dst[i] = src
+            else:
+                cache[name][i] = value
+    return logits, cache
+
+
+def _apply_layer_decode(pl, cfg, x, flags: dict[str, float], tabs_l, tabs_g, cache: dict,
+                        i: int, pos: int):
+    """One layer, one token; layer ``i``'s cache entries advance in place."""
+    if cfg.block_type == "xlstm":
+        name = "mlstm" if flags["is_mlstm"] > 0 else "slstm"
+        state = tuple(t[i] for t in cache[name])
+        out, new = getattr(ssm_mod, f"{name}_decode")(pl["xlstm"], cfg,
+                                                      _norm(pl, cfg, x, "norm1"), state)
+        for dst, src in zip(state, new):
+            dst.copy_(src)
+        return x + out
+    is_global = flags["is_global"]
+    sin, cos = _select_rope(tabs_l, tabs_g, is_global)
+    h = _norm(pl, cfg, x, "norm1")
+    a_out, _ = gqa_decode(pl["attn"], cfg, h, sin, cos, (cache["k"][i], cache["v"][i]), pos,
+                          is_global)
+    if cfg.block_type == "hymba":
+        s_out, (cache["ssm_h"][i], cache["conv"][i]) = ssm_mod.mamba_decode(
+            pl["ssm"], cfg, h, cache["ssm_h"][i], cache["conv"][i])
+        a_out = _hymba_fuse(pl, cfg, a_out, s_out)
+    x = x + a_out
+    return x + _mlp(pl["mlp"], cfg, _norm(pl, cfg, x, "norm2"))
+
+
+@torch.no_grad()
+def decode_step(params, cfg, batch: dict, cache: dict, pos: int):
+    """One greedy-decode step: ``batch["token"]`` (B, 1) at position
+    ``pos`` -> (logits (B, V), cache), the cache advanced in place."""
+    x = embed_inputs(params, cfg, batch["token"])
+    pos = int(pos)
+    tabs_l = tabs_g = None
+    if cfg.block_type != "xlstm":
+        tabs_l, tabs_g = _rope_tables(cfg, cache["k"].shape[2], x.device, positions=pos)
+    flags = layer_flags(cfg)
+    for i, pl in enumerate(params["layers"]):
+        x = _apply_layer_decode(pl, cfg, x, _flags_at(flags, i), tabs_l, tabs_g, cache,
+                                i, pos)
+    x = _norm(params, cfg, x, "final_norm")
+    return _logits(params, cfg, x[:, 0]), cache

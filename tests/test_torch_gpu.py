@@ -761,3 +761,93 @@ def test_hellinger_blocked_pinned_copy_is_the_single_strip_build(cuda, k, block)
     got = hellinger_blocked(h, block=block, device=cuda)
     assert hellinger_strip.launches == before + -(-k // block)
     np.testing.assert_array_equal(got, hellinger_blocked(h, block=k, device=cuda))
+
+
+@pytest.mark.parametrize("b,s,d,n,groups,dtype", [
+    (4, 128, 1600, 16, 0, torch.float32),   # hymba's serving prefill
+    (4, 1280, 1600, 16, 0, torch.float32),
+    (4, 100, 130, 5, 2, torch.float32),     # ragged D and S, a partly filled lane, groups
+    (2, 37, 70, 16, 0, torch.bfloat16),
+])
+def test_mamba_scan_final_state_matches_plain(cuda, b, s, d, n, groups, dtype):
+    """The forward's final-state output is the plain version's state after
+    the last step, within the scan's fp32 tolerance, in the same launch as
+    y (with and without checkpoints), and y is unchanged by it."""
+    inputs = _scan_inputs(b, s, d, n, groups, dtype, cuda, b * s + n)
+    before = mamba_scan_forward.launches
+    y, h = mamba_scan_forward(*inputs, final_state=True)
+    y2, ckpt, h2 = mamba_scan_forward(*inputs, checkpoints=True, final_state=True)
+    torch.cuda.synchronize()
+    assert mamba_scan_forward.launches == before + 2
+    y_ref, h_ref = mamba_scan_ref(*inputs, final_state=True)
+    assert h.shape == (b, d, n) and h.dtype == torch.float32 and ckpt.shape[0] == b
+    assert torch.equal(y, mamba_scan_forward(*inputs)) and torch.equal(y, y2)
+    assert torch.equal(h, h2)
+    assert (h - h_ref).abs().max().item() <= 2e-5 * max(1.0, h_ref.abs().max().item())
+    tol = 2e-5 if dtype == torch.float32 else 1e-2
+    assert (y.float() - y_ref.float()).abs().max().item() <= tol * max(
+        1.0, y_ref.float().abs().max().item())
+
+
+def test_k3_and_k4_count_captured_launches_apart(cuda):
+    """A launch recorded into a CUDA graph counts in ``captured``, not in
+    ``launches``, as K1's does; replays count nowhere."""
+    q, k, v = (torch.randn(2, 64, h, 32, device=cuda) for h in (4, 2, 2))
+    inputs = _scan_inputs(2, 40, 64, 16, 0, torch.float32, cuda, 3)
+    flash_attention_forward(q, k, v)
+    mamba_scan_forward(*inputs, final_state=True)   # warm up outside the capture
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    counts = lambda: (flash_attention_forward.launches, flash_attention_forward.captured,  # noqa: E731
+                      mamba_scan_forward.launches, mamba_scan_forward.captured)
+    before = counts()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream), torch.cuda.graph(graph, stream=stream):
+        o, _ = flash_attention_forward(q, k, v)
+        y, h = mamba_scan_forward(*inputs, final_state=True)
+    torch.cuda.current_stream().wait_stream(stream)
+    assert counts() == (before[0], before[1] + 1, before[2], before[3] + 1)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert counts() == (before[0], before[1] + 1, before[2], before[3] + 1)
+    torch.testing.assert_close(o, attention_ref(q, k, v)[0], atol=2e-5, rtol=0)
+    torch.testing.assert_close(h, mamba_scan_ref(*inputs, final_state=True)[1], atol=2e-5, rtol=0)
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_to(v, device) for v in tree)
+    return tree.to(device)
+
+
+@pytest.mark.parametrize("model", ["qwen3-14b", "stablelm-3b", "hymba-1.5b", "xlstm-125m",
+                                   "gemma3-27b", "glm4-9b"])
+def test_reduced_serving_on_card_matches_cpu(cuda, model):
+    """``BatchScheduler`` on the reduced config (fp32): the card (K3, and K4
+    for hymba, in the prefill) gives the CPU's greedy tokens, and the
+    prefill's logits and cache within 1e-4 relative."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params, prefill
+    from repro_torch.serving import BatchScheduler
+
+    cfg = get_config(model, reduced=True)
+    params = init_params(torch.Generator().manual_seed(0), cfg)
+    on_card = _tree_to(params, cuda)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in (16, 16, 128)]  # 128: past the window
+    outs = []
+    for p in (params, on_card):
+        sched = BatchScheduler(cfg, p, max_batch=2, max_new=6)
+        ids = [sched.submit(t) for t in prompts]
+        sched.run()
+        outs.append([sched.result(i) for i in ids])
+    for cpu_tokens, card_tokens in zip(*outs):
+        np.testing.assert_array_equal(card_tokens, cpu_tokens)
+    tokens = torch.from_numpy(np.stack(prompts[:2]).astype(np.int32))
+    want, want_cache = prefill(params, cfg, {"tokens": tokens}, 24)
+    got, got_cache = prefill(on_card, cfg, {"tokens": tokens.to(cuda)}, 24)
+    flat = lambda c: [t for v in c.values() for t in (v if isinstance(v, tuple) else (v,))]  # noqa: E731
+    for g, w in [(got, want), *zip(flat(got_cache), flat(want_cache))]:
+        assert (g.cpu() - w).abs().max().item() <= 1e-4 * max(1.0, w.abs().max().item())

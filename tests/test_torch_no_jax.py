@@ -55,7 +55,8 @@ def test_port_file_list_is_complete():
                       "checkpoint/tracker.py", "engine/async_config.py",
                       "engine/async_engine.py", "population/__init__.py",
                       "population/config.py", "population/store.py",
-                      "population/hierarchy.py"):
+                      "population/hierarchy.py", "configs/inputs.py", "serving/__init__.py",
+                      "serving/scheduler.py", "launch/__init__.py", "launch/serve.py"):
         assert f"src/repro_torch/{lm_module}" in names
     assert len(names) > 20
 

@@ -155,7 +155,7 @@ def test_xlstm_cores_and_gradients_match_reference(core, chunk):
     names = list(ssm.xlstm_shapes(cfg))
     p = {k: _t(ref_p[k]).requires_grad_(True) for k in names}
     xt = _t(x).requires_grad_(True)
-    got = getattr(ssm, core)(p, cfg, xt)
+    got = getattr(ssm, core)(p, cfg, xt)[0]
     assert torch.isfinite(got).all()
     _close(got.detach(), want, 1e-5)
     # sLSTM reads neither wq nor wk: no gradient, zeros in the reference
@@ -190,7 +190,7 @@ def test_mlstm_normaliser_overflow_keeps_the_gradient_finite(chunk):
     names = list(ssm.xlstm_shapes(cfg))
     p = {k: _t(over_p[k]).requires_grad_(True) for k in names}
     xt = _t(x).requires_grad_(True)
-    got = ssm.mlstm_seq(p, cfg, xt)
+    got = ssm.mlstm_seq(p, cfg, xt)[0]
     _close(got.detach(), over_out, 1e-5)
     _close(got.detach(), near_out, 1e-5)
     grads = torch.autograd.grad(got, [xt] + [p[k] for k in names], _t(dy))
@@ -207,9 +207,9 @@ def test_xlstm_cores_take_per_client_weights():
     cohort = {k: torch.stack([b[k] for b in blocks]) for k in blocks[0]}
     x = torch.randn(3, B, S, D, generator=gen)
     for core in (ssm.mlstm_seq, ssm.slstm_seq):
-        got = core(cohort, cfg, x)
+        got = core(cohort, cfg, x)[0]
         for i in range(3):
-            torch.testing.assert_close(got[i], core(blocks[i], cfg, x[i]), atol=1e-5, rtol=0)
+            torch.testing.assert_close(got[i], core(blocks[i], cfg, x[i])[0], atol=1e-5, rtol=0)
 
 
 # ---------------------------------------------------------------------------
