@@ -19,10 +19,14 @@ Phases, each printed on its own lines:
    result: NaN in every column); K2 also at the population phase's shapes
    ((1, 3906), (61, 3906) and (4096, 10^4), C = 10); K3 in bf16 at the
    serving prefill's shapes (4, S, 32, 80) stablelm, (4, S, 25 / 5 kv, 64)
-   hymba with its 1024 window, (4, S, 40 / 8 kv, 128) qwen3, S = 128 and
-   1280, with ``scaled_dot_product_attention(enable_gqa=True)`` as the
-   library; K4 with its final-state output at hymba's prefill, (4, 128 /
-   1280, 1600, 16) fp32.
+   hymba with its 1024 window, (4, S, 40 / 8 kv, 128) qwen3 and (4, S, 128,
+   192) deepseek-v3's MLA (q and k of 128 + 64 dims, the DMAX-256
+   template), S = 128 and 1280, with a D = 192 backward at (2, 256, 16, 192),
+   and at the training launcher's (8, 128, 32, 80) stablelm and (8, 128, 25 /
+   5 kv, 64) hymba, with ``scaled_dot_product_attention(enable_gqa=True)``
+   as the library; K4 with its final-state output at hymba's prefill, (4,
+   128 / 1280, 1600, 16) fp32, and with its checkpoints at the launcher's
+   (8, 128, 1600, 16).
 4. main paths, each driven through ``make_engine(...).rounds()`` with
    every kernel's launch count set to 0 just before and read just after:
    - the paper's experiment at full width (K = 100 clients, m = 10, MLP
@@ -129,9 +133,11 @@ Phases, each printed on its own lines:
      buffer-5 async runtime (20 in flight, K1 on (5, P)), printing each
      step's staleness, version, in-flight rows and peak memory;
    - ``serve:`` the serving path in bf16 at full size: stablelm-3b,
-     hymba-1.5b, xlstm-125m and qwen3-14b, and glm4-9b and gemma3-27b at
-     full width cut to 4 and 6 layers (gemma3's sixth layer is its first
-     global one), each serving 8 requests (4 prompts of 128 tokens, 4 of
+     hymba-1.5b, xlstm-125m and qwen3-14b, and glm4-9b, gemma3-27b,
+     dbrx-132b and deepseek-v3-671b at full width cut to 4, 6, 2 and 1
+     layers (gemma3's sixth layer is its first global one; dbrx's MoE walks
+     its 16 experts, deepseek's MLA prefill runs K3 at D = 192 and its MoE
+     walks 256 experts and a shared one), each serving 8 requests (4 prompts of 128 tokens, 4 of
      1280) through ``BatchScheduler`` (max_batch 4, max_new 32): prefill
      ms a group, decode ms a step and tok/s beside the weight-read bound,
      peak memory, after one uncounted warm-up group; K3 must launch
@@ -141,7 +147,17 @@ Phases, each printed on its own lines:
      fp32, and its bf16 drift is printed beside it; then each family's
      reduced config (fp32) on the CPU and on the card from the same
      weights: the same greedy tokens, the prefill's logits and cache
-     within 1e-4.
+     within 1e-4;
+   - ``train:`` the training launcher (``repro_torch.launch.train``'s
+     ``make_train_step`` and optimizer: chunked CE, clip to norm 1, AdamW
+     with fp32 moments) on stablelm-3b (32 layers), hymba-1.5b (32) and
+     xlstm-125m (12) at full size in bf16, batch 8 of 128 tokens, 6 steps:
+     the parameters, each step's ms beside the least a step could take
+     (6 P tokens at the bf16 rate plus AdamW's bytes), tokens/s, peak
+     memory and the losses (finite, not constant); K3 must launch 32
+     times forward and 32 backward a step on stablelm and hymba, K4 as
+     often on hymba; then xlstm's ``--ckpt`` after 3 steps and ``--resume``
+     to 6 against 6 uninterrupted steps, within 1e-2 relative.
 5. agreement — a small configuration of each task and model (stablelm,
    hymba, xlstm, and glm4, qwen3 and gemma3 reduced), of every
    classification preset and of fused compiled chunks, run on the CPU
@@ -153,7 +169,10 @@ Phases, each printed on its own lines:
    round, of one local step, from the CPU run's parameters; so does the
    xlstm micro run under both axes, which must also drop and flag the
    same clients; and an async micro run (host, compiled, host under
-   faults), which must dispatch, aggregate and version the same way.
+   faults), which must dispatch, aggregate and version the same way; and 3
+   launcher steps of the reduced stablelm, hymba, xlstm, dbrx and deepseek
+   (with its MTP head) configs, losses within 1e-4 relative and parameters
+   within 2e-4.
 6. kernel-only — each kernel's own device time a call, without the
    wrapper's host work, at each of its phase-3 shapes: K1, K2, the
    flash-attention kernels (forward, dQ and dK/dV) and the selective
@@ -2433,10 +2452,231 @@ def _lm_agreement(device, tag, task_kwargs, seq=16, resync=False, max_steps=3, a
                              "> 1e-4")
 
 
+# the training launcher at full size in bf16: each model with the kernels it
+# runs in every layer, forward and backward
+TRAIN_MODELS = {"stablelm-3b": ("flash_attention",),
+                "hymba-1.5b": ("flash_attention", "mamba_scan"),
+                "xlstm-125m": ()}
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 128, 6
+# the least traffic of AdamW a parameter and step: the bf16 weight read and
+# written (4 B), the bf16 gradient read (2), the fp32 m and v read and
+# written (16)
+ADAMW_BYTES_PER_PARAM = 22
+# a resumed run against an uninterrupted one on the card: the same steps,
+# but the embedding's backward may add its rows in another order
+TRAIN_RESUME_TOL = 1e-2
+# the reduced configs (fp32) on the card against the CPU over 3 launcher
+# steps: the loss within 1e-4 relative (K3 as 3xTF32, sums in another
+# order); the parameters within 2e-4, since AdamW moves an element by about
+# the learning rate either way where its gradient is within rounding of
+# zero (3e-5 + 6e-5 in steps 1 and 2 of the warmup; step 0's rate is 0)
+TRAIN_REDUCED = ("stablelm-3b", "hymba-1.5b", "xlstm-125m", "dbrx-132b", "deepseek-v3-671b")
+TRAIN_AGREE_LOSS_TOL, TRAIN_AGREE_PARAM_TOL = 1e-4, 2e-4
+
+
+def _train_model(device, model, families):
+    """The training launcher's step (``make_train_step`` with
+    ``make_optimizer(3e-4, 6)``) on ``model`` at full size in its config's
+    dtype (bf16), batch 8 of 128 tokens from ``make_token_stream``, 6 steps:
+    prints the parameters, each step's ms beside the least time a step could
+    take (6 P tokens at the bf16 rate plus AdamW's bytes at HBM rate), the
+    first step's and the median of the other five, tokens/s, peak memory and
+    every loss (finite and not constant), and holds K3's and K4's launches
+    to layers x steps each way; then one more step (the first batch again)
+    under ``torch.profiler``: the device's busy and idle shares, the
+    kernels' shares, the top kernels and host operations.  Returns the
+    launches of the 6 steps."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_token_stream
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward,
+        flash_attention_forward,
+    )
+    from repro_torch.kernels.mamba_scan import mamba_scan_backward, mamba_scan_forward
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as tf
+
+    counters = (flash_attention_forward, flash_attention_backward, mamba_scan_forward,
+                mamba_scan_backward)
+    cfg = get_config(model)
+    tag = f"train {model}"
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = tf.init_params(torch.Generator(device).manual_seed(0), cfg)
+    n_params = sum(t.numel() for t in _leaves(params))
+    opt = train.make_optimizer(3e-4, TRAIN_STEPS)
+    state = opt.init(params)
+    step = train.make_train_step(cfg, opt)
+    data = make_token_stream(TRAIN_STEPS * TRAIN_BATCH, TRAIN_SEQ, cfg.vocab, seed=0)
+    tokens = torch.from_numpy(data.x).to(device)
+    labels = torch.from_numpy(data.y).to(device)
+    for c in counters:
+        c.launches = 0
+    step_ms, losses = [], []
+    for i in range(TRAIN_STEPS):
+        sl = slice(i * TRAIN_BATCH, (i + 1) * TRAIN_BATCH)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, state, loss, _ = step(params, state, {"tokens": tokens[sl], "labels": labels[sl]})
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    launches = {c.__name__: c.launches for c in counters}
+    want = {c.__name__: (cfg.n_layers * TRAIN_STEPS
+                         if c.__name__.rsplit("_", 1)[0] in families else 0) for c in counters}
+    n_tokens = TRAIN_BATCH * TRAIN_SEQ
+    bound_ms = (6 * n_params * n_tokens / PEAK_BF16_PER_S
+                + ADAMW_BYTES_PER_PARAM * n_params / PEAK_BYTES_PER_S) * 1e3
+    rest = statistics.median(step_ms[1:])
+    print(f"{tag}: {cfg.dtype}, {cfg.n_layers} layers, {n_params} params, batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens, {TRAIN_STEPS} steps: first step {step_ms[0]:.3f} ms, median of "
+          f"the other {TRAIN_STEPS - 1} {rest:.3f} ms ({n_tokens / rest * 1e3:.1f} tokens/s; the "
+          f"least a step could take {bound_ms:.3f} ms: 6 P tokens at {PEAK_BF16_PER_S:.3g} FLOP/s "
+          f"+ {ADAMW_BYTES_PER_PARAM} B a parameter at {PEAK_BYTES_PER_S:.3g} B/s), peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    print(f"{tag}: step ms {json.dumps([round(t, 3) for t in step_ms])}, losses "
+          f"{json.dumps(losses)}", flush=True)
+    print(f"{tag}: launches {json.dumps(launches)} (expected {json.dumps(want)})", flush=True)
+    if launches != want:
+        raise AssertionError(f"{tag}: launches {launches}, expected {want}")
+    if not (all(math.isfinite(x) for x in losses) and len(set(losses)) > 1):
+        raise AssertionError(f"{tag}: losses {losses} not finite or constant")
+    kinds = {"flash_attention": (flash_attention_forward, flash_attention_backward,
+                                 re.compile(r"\b(?:fwd|dq|dkdv)_kernel\b")),
+             "mamba_scan": (mamba_scan_forward, mamba_scan_backward,
+                            re.compile(f"{SCAN_FORWARD.pattern}|{SCAN_BACKWARD.pattern}"))}
+    sl = slice(0, TRAIN_BATCH)
+    with _profiled(True) as prof:
+        t = time.perf_counter()
+        params, state, loss, _ = step(params, state, {"tokens": tokens[sl], "labels": labels[sl]})
+        float(loss)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    _print_profile(prof, wall, tag, [kinds[f] for f in families], host_top=True)
+    del params, state
+    return launches
+
+
+def _train_resume(device):
+    """``--resume``: xlstm-125m at full size for 3 of the launcher's 6 steps
+    (its own pieces, on the 6-step run's data and schedule), saved with
+    meta {"arch", "step": 3}, then ``main([... "--steps", "6", "--resume",
+    file])`` against an uninterrupted ``main([... "--steps", "6",
+    "--ckpt", file])``: the largest parameter and state difference,
+    relative to max(1, max |uninterrupted|), within ``TRAIN_RESUME_TOL``.
+    Files under build/, removed."""
+    import torch
+
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_token_stream
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as tf
+
+    work = ROOT / "build" / "chip_smoke_train"
+    work.mkdir(parents=True, exist_ok=True)
+    args = ["--arch", "xlstm-125m", "--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_BATCH),
+            "--seq", str(TRAIN_SEQ), "--log-every", "1"]
+    try:
+        t = time.perf_counter()
+        want = train.main(args + ["--ckpt", str(work / "full.ckpt")])
+        full_s = time.perf_counter() - t
+        cfg = get_config("xlstm-125m")
+        params = tf.init_params(torch.Generator(device).manual_seed(0), cfg)
+        opt = train.make_optimizer(3e-4, TRAIN_STEPS)
+        state = opt.init(params)
+        step = train.make_train_step(cfg, opt)
+        data = make_token_stream(TRAIN_STEPS * TRAIN_BATCH, TRAIN_SEQ, cfg.vocab, seed=0)
+        for i in range(TRAIN_STEPS // 2):
+            sl = slice(i * TRAIN_BATCH, (i + 1) * TRAIN_BATCH)
+            batch = {"tokens": torch.from_numpy(data.x[sl]).to(device),
+                     "labels": torch.from_numpy(data.y[sl]).to(device)}
+            params, state, _, _ = step(params, state, batch)
+        part = work / "part.ckpt"
+        save_checkpoint(str(part), (params, state), meta={"arch": cfg.name,
+                                                          "step": TRAIN_STEPS // 2})
+        t = time.perf_counter()
+        got = train.main(args + ["--resume", str(part)])
+        resume_s = time.perf_counter() - t
+    finally:
+        for f in work.glob("*"):
+            f.unlink()
+        work.rmdir()
+    diff = max((a.float() - b.float()).abs().max().item()
+               / max(1.0, b.float().abs().max().item())
+               for a, b in zip(_leaves(got), _leaves(want)))
+    same = all(torch.equal(a, b) for a, b in zip(_leaves(got), _leaves(want)))
+    print(f"train resume xlstm-125m: {TRAIN_STEPS // 2} steps, --ckpt, --resume to step "
+          f"{TRAIN_STEPS} ({resume_s:.3f} s) against {TRAIN_STEPS} uninterrupted steps "
+          f"({full_s:.3f} s): bit-identical {same}, max relative |diff| {diff:.3g} (tolerance "
+          f"{TRAIN_RESUME_TOL})", flush=True)
+    if not diff <= TRAIN_RESUME_TOL:
+        raise AssertionError(f"train resume: resumed run differs by {diff}")
+
+
+def _train_agreement(device):
+    """3 launcher steps of each reduced config (fp32; deepseek with its MTP
+    head) on the CPU (plain versions) and on the card (kernels) from the
+    same parameters and batches (2 x 64 tokens): each step's loss and the
+    final parameters within ``TRAIN_AGREE_LOSS_TOL`` / ``TRAIN_AGREE_PARAM_TOL``."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_token_stream
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as tf
+
+    for model in TRAIN_REDUCED:
+        cfg = get_config(model, reduced=True)
+        data = make_token_stream(3 * 2, 64, cfg.vocab, seed=0)
+        runs = []
+        for dev in (torch.device("cpu"), device):
+            params = _tree_to(tf.init_params(torch.Generator().manual_seed(0), cfg), dev)
+            opt = train.make_optimizer(3e-4, 3)
+            state = opt.init(params)
+            step = train.make_train_step(cfg, opt)
+            losses = []
+            for i in range(3):
+                batch = {"tokens": torch.from_numpy(data.x[2 * i:2 * i + 2]).to(dev),
+                         "labels": torch.from_numpy(data.y[2 * i:2 * i + 2]).to(dev)}
+                params, state, loss, _ = step(params, state, batch)
+                losses.append(float(loss))
+            runs.append((losses, [t.cpu() for t in _leaves(params)]))
+        (cpu_l, cpu_p), (card_l, card_p) = runs
+        loss_diff = max(abs(a - b) / b for a, b in zip(card_l, cpu_l))
+        param_diff = max((a - b).abs().max().item() for a, b in zip(card_p, cpu_p))
+        print(f"train agreement {cfg.name}: {cfg.n_layers} layers, mtp {cfg.mtp}, losses card "
+              f"{json.dumps(card_l)} cpu {json.dumps(cpu_l)}, max relative |loss diff| "
+              f"{loss_diff:.3g} (tolerance {TRAIN_AGREE_LOSS_TOL}), max |params diff| "
+              f"{param_diff:.3g} (tolerance {TRAIN_AGREE_PARAM_TOL})", flush=True)
+        if not (loss_diff <= TRAIN_AGREE_LOSS_TOL and param_diff <= TRAIN_AGREE_PARAM_TOL):
+            raise AssertionError(f"train agreement {cfg.name}: loss {loss_diff}, params "
+                                 f"{param_diff}")
+
+
+def _train_phase(device):
+    """The training launcher: each full-size model, then the checkpoint
+    round trip.  Returns K3's and K4's launches over the models' runs."""
+    t = time.perf_counter()
+    total: dict[str, int] = {}
+    for model, families in TRAIN_MODELS.items():
+        for k, n in _train_model(device, model, families).items():
+            total[k] = total.get(k, 0) + n
+    _train_resume(device)
+    print(f"train: launches {json.dumps(total)}; phase in {time.perf_counter() - t:.1f} s",
+          flush=True)
+    return total
+
+
 SERVE_FULL = ("stablelm-3b", "hymba-1.5b", "xlstm-125m", "qwen3-14b")
 # at full width, cut in depth: gemma3's first global layer (pattern LLLLLG)
-# is its sixth, so 6 layers bring its dual RoPE theta into decode
-SERVE_CUT = {"glm4-9b": 4, "gemma3-27b": 6}
+# is its sixth, so 6 layers bring its dual RoPE theta into decode; dbrx-132b
+# (MoE, 16 experts) in 2 layers is 7.8 B parameters, deepseek-v3-671b (MLA,
+# 256 experts and a shared one) in 1 layer 13.4 B
+SERVE_CUT = {"glm4-9b": 4, "gemma3-27b": 6, "dbrx-132b": 2, "deepseek-v3-671b": 1}
 SERVE_PROMPTS = (128, 1280)  # 4 requests each; 1280 is past the 1024-token windows
 SERVE_BATCH, SERVE_NEW = 4, 32
 SERVE_REDUCED_TOL = 1e-4     # card vs CPU at fp32 (K3 as 3xTF32, sums in another order)
@@ -2687,10 +2927,15 @@ def main() -> int:
         ((2, 1024, 8, 2, 128), torch.float32, 256, 0.0),   # GQA, sliding window
         ((80, 64, 25, 5, 64), torch.float32, 1024, 0.0),   # hymba's local SGD (GQA group 5)
         ((4, 2048, 25, 5, 64), torch.float32, 1024, 0.0),  # hymba's window where it bites
-        # the serving prefill in bf16: stablelm, hymba (local layers), qwen3
+        # the serving prefill in bf16: stablelm, hymba (local layers), qwen3,
+        # and deepseek-v3's MLA at D = 128 + 64 (the DMAX-256 template)
         *(((4, s, h, kv, d), torch.bfloat16, w, ig) for s in SERVE_PROMPTS
           for h, kv, d, w, ig in ((32, 32, 80, 0, 1.0), (25, 5, 64, 1024, 0.0),
-                                  (40, 8, 128, 0, 1.0))),
+                                  (40, 8, 128, 0, 1.0), (128, 128, 192, 0, 1.0))),
+        ((2, 256, 16, 16, 192), torch.bfloat16, 0, 1.0),   # D = 192 backward
+        # the training launcher in bf16: stablelm, hymba (local layers)
+        ((8, 128, 32, 32, 80), torch.bfloat16, 0, 1.0),
+        ((8, 128, 25, 5, 64), torch.bfloat16, 1024, 0.0),
     ]]
     k4 = [_check_mamba(s, g, dt, ck, device, fin) for s, g, dt, ck, fin in [
         ((80, 64, 1600, 16), 10, torch.float32, True, False),   # hymba's local SGD: 10 clients
@@ -2703,6 +2948,8 @@ def main() -> int:
         # and the final state
         ((4, 128, 1600, 16), 0, torch.float32, False, True),
         ((4, 1280, 1600, 16), 0, torch.float32, False, True),
+        # the training launcher on hymba: batch 8 of 128, checkpoints kept
+        ((8, 128, 1600, 16), 0, torch.float32, True, False),
     ]]
     print("kernels: hellinger_strip, masked_weighted_sum, flash_attention and mamba_scan "
           "(forward and backward) passed at every shape above", flush=True)
@@ -2751,6 +2998,7 @@ def main() -> int:
     xlstm_async_launches = _lm_main_path(device, "xlstm async", "xlstm-125m", 12, 119_827_296,
                                          (), axes=_xlstm_async)
     serve_launches = _serve_phase(device)
+    train_launches = _train_phase(device)
 
     # 5. small-input agreement with the CPU path
     _agreement(device)
@@ -2762,6 +3010,7 @@ def main() -> int:
     _async_agreement(device)
     for tag, task_kwargs in DENSE_REDUCED.items():
         _lm_agreement(device, tag, task_kwargs)
+    _train_agreement(device)
 
     # 6. the kernels' own device time, after every host-timed phase
     for rec in k1:
@@ -2804,7 +3053,8 @@ def main() -> int:
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:68",
          "launches": lm_launches[f"flash_attention_{direction}"]
-         + serve_launches.get(f"flash_attention_{direction}", 0), "shape": k3[0]["shape"],
+         + serve_launches.get(f"flash_attention_{direction}", 0)
+         + train_launches[f"flash_attention_{direction}"], "shape": k3[0]["shape"],
          **{k: k3[0][direction][k] for k in keys + ("kernel_ms",)}}
         for direction in ("forward", "backward")
     ] + [
@@ -2812,7 +3062,8 @@ def main() -> int:
          "source": "src/repro_torch/csrc/mamba_scan.cu",
          "replaces": "src/repro/kernels/mamba_scan/kernel.py:69",
          "launches": hymba_launches[f"mamba_scan_{direction}"]
-         + serve_launches.get(f"mamba_scan_{direction}", 0), "shape": k4[0]["shape"],
+         + serve_launches.get(f"mamba_scan_{direction}", 0)
+         + train_launches[f"mamba_scan_{direction}"], "shape": k4[0]["shape"],
          **{k: k4[0][direction][k] for k in keys + ("kernel_ms",)}}
         for direction in ("forward", "backward")
     ]

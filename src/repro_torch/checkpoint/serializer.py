@@ -130,8 +130,9 @@ def _unflatten(like: Any, leaves: list) -> Any:
             return None
         if _is_leaf(node):
             return next(it)
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
+        if isinstance(node, dict):  # leaves are stored in sorted key order
+            built = {k: build(node[k]) for k in sorted(node)}
+            return {k: built[k] for k in node}
         built = [build(v) for v in node]
         return built if isinstance(node, list) else tuple(built)
 

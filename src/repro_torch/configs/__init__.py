@@ -1,5 +1,5 @@
 """Architecture configs of the port (stablelm-3b, hymba-1.5b, xlstm-125m,
-glm4-9b, qwen3-14b and gemma3-27b).
+glm4-9b, qwen3-14b, gemma3-27b, dbrx-132b and deepseek-v3-671b).
 
 ``get_config(name)`` returns the full configuration;
 ``get_config(name, reduced=True)`` the smoke-test variant (2 layers,

@@ -5,8 +5,9 @@ the same in both packages.  Each architecture registers itself from its
 own module under ``repro_torch.configs``; ``get_config`` imports them
 lazily.  The port registers what it runs: stablelm-3b, glm4-9b,
 qwen3-14b and gemma3-27b (dense attention), hymba-1.5b (attention in
-parallel with Mamba heads) and xlstm-125m (mLSTM and sLSTM blocks).  Any
-other name raises with the slice that brings it.
+parallel with Mamba heads), xlstm-125m (mLSTM and sLSTM blocks),
+dbrx-132b (MoE) and deepseek-v3-671b (MLA, MoE with a shared expert, the
+MTP head).  Any other name raises with the slice that brings it.
 """
 
 from __future__ import annotations
@@ -148,13 +149,12 @@ class ModelConfig:
 
 _REGISTRY: dict[str, ModelConfig] = {}
 
-_ARCH_MODULES = ["stablelm_3b", "hymba_1_5b", "xlstm_125m", "glm4_9b", "qwen3_14b", "gemma3_27b"]
+_ARCH_MODULES = ["stablelm_3b", "hymba_1_5b", "xlstm_125m", "glm4_9b", "qwen3_14b", "gemma3_27b",
+                 "dbrx_132b", "deepseek_v3_671b"]
 
 # The reference's other architectures, each with the slice of the port that
 # brings the blocks it needs.
 _LATER = {
-    "dbrx-132b": "the MoE slice",
-    "deepseek-v3-671b": "the MoE and MLA slices",
     "musicgen-large": "a later slice (frame inputs)",
     "internvl2-1b": "a later slice (image-patch inputs)",
 }

@@ -23,13 +23,14 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.data.partition import label_histograms
 from repro_torch.engine.registry import TASK_REGISTRY, register_task
-from repro_torch.models.common import linear
 from repro_torch.models.mlp import MLPLayout, accuracy, cross_entropy_loss, mlp_apply
 from repro_torch.models.transformer import (
     TransformerLayout,
     check_supported,
+    chunked_logits_sum,
     forward,
     output_head,
+    token_nll,
 )
 
 __all__ = ["Task", "ClassificationTask", "LMTask", "build_task"]
@@ -177,24 +178,13 @@ class LMTask(Task):
 
     def _chunk_sum(self, ctx, labels, per_chunk):
         """Sum ``per_chunk(logits_f32, yc)`` over sequence chunks of
-        ``loss_chunk``, so the logits never exist for the whole sequence
-        at once.  Returns (sum, S)."""
-        h, head = ctx
-        s = h.shape[-2]
-        c = min(self.model_cfg.loss_chunk, s)
-        if s % c:
-            raise ValueError(f"seq_len {s} must be a multiple of loss_chunk {c}")
-        tot = 0.0
-        for i in range(s // c):
-            logits = linear(h[..., i * c:(i + 1) * c, :], head).to(torch.float32)
-            tot = tot + per_chunk(logits, labels[..., i * c:(i + 1) * c])
-        return tot, s
-
-    @staticmethod
-    def _nll(logits, yc):
-        """Next-token NLL per position, (..., B, c)."""
-        gold = torch.gather(logits, -1, yc.to(torch.int64).unsqueeze(-1)).squeeze(-1)
-        return torch.logsumexp(logits, dim=-1) - gold
+        ``loss_chunk`` (``chunked_logits_sum``, which ``loss_fn`` shares),
+        so the logits never exist for the whole sequence at once.  Returns
+        (sum, S)."""
+        h, head = ctx[:2]
+        tot = chunked_logits_sum(h, head, self.model_cfg.loss_chunk,
+                                 lambda lg, lo, hi: per_chunk(lg, labels[..., lo:hi]))
+        return tot, h.shape[-2]
 
     def build_fns(self, train, n_classes: int):
         mc = self.model_cfg
@@ -202,18 +192,25 @@ class LMTask(Task):
 
         def lm_apply(params, x):
             """Hidden states after the final norm and the output head (the
-            "logits context"; logits are never (B, S, V) at once)."""
+            "logits context"; logits are never (B, S, V) at once), plus the
+            MoE router's aux loss (0 for dense models)."""
             tree = layout.views(params)
-            return forward(tree, mc, x), output_head(tree, mc)
+            h, aux = forward(tree, mc, x, with_aux=True)
+            return h, output_head(tree, mc), aux
 
         def lm_loss(ctx, labels, weights=None):
             """Mean next-token CE over the batch and sequence axes of labels
-            (..., B, S); ``weights`` are optional per-sequence weights."""
+            (..., B, S); ``weights`` are optional per-sequence weights.  An
+            MoE model adds ``router_aux_weight`` x its aux loss, as
+            ``loss_fn`` does."""
             w = (torch.ones(labels.shape[:-1], dtype=torch.float32, device=labels.device)
                  if weights is None else weights.to(torch.float32))
             tot, s = self._chunk_sum(
-                ctx, labels, lambda lg, yc: (self._nll(lg, yc) * w[..., None]).sum((-2, -1)))
-            return tot / torch.clamp(w.sum(-1) * s, min=1e-9)
+                ctx, labels, lambda lg, yc: (token_nll(lg, yc) * w[..., None]).sum((-2, -1)))
+            loss = tot / torch.clamp(w.sum(-1) * s, min=1e-9)
+            if mc.moe:
+                loss = loss + mc.moe.router_aux_weight * ctx[2]
+            return loss
 
         def lm_metric(ctx, labels):
             """Next-token accuracy (the ``test_acc`` slot)."""
@@ -236,7 +233,7 @@ class LMTask(Task):
             with torch.no_grad():
                 tree = layout.views(params)
                 ctx = (forward(tree, mc, test_x), output_head(tree, mc))
-                tot, s = self._chunk_sum(ctx, test_y, lambda lg, yc: self._nll(lg, yc).sum(-1))
+                tot, s = self._chunk_sum(ctx, test_y, lambda lg, yc: token_nll(lg, yc).sum(-1))
                 nll = (tot / s).cpu().numpy()
             out = {"ppl": float(np.exp(nll.mean()))}
             out["ppl_per_cluster"] = {

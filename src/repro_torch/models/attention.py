@@ -1,6 +1,6 @@
 """Attention, ported from ``repro.models.attention``: GQA with qk-norm,
-partial RoPE and the sliding window, full sequence and decode (MLA comes
-later).
+partial RoPE and the sliding window, and deepseek-v3's MLA, each over the
+full sequence and for decode.
 
 - ``naive_attention`` — materialises S x S scores; the oracle, as in the
   reference.
@@ -20,6 +20,16 @@ later).
   into the cache at ``pos`` in place (nothing is traced or donated here,
   so no copy of the cache is made), then ``decode_attention``.
 
+- ``init_mla`` / ``mla_attention`` / ``mla_decode`` — multi-head latent
+  attention: low-rank q and kv projections with a decoupled rotary key
+  shared by the heads.  The full sequence materialises per-head keys and
+  values from the latent and runs the flash-attention kernel on q and k of
+  nope + rope dims, the values zero-padded from ``v_head_dim`` to that
+  width (the kernel, as the TPU one, takes one D for q, k and v) and the
+  output cut back; the padded columns add nothing to the scores and come
+  out zero.  The decode step is the reference's absorbed form: fp32 scores
+  against the (latent, k_rope) cache directly, in plain PyTorch.
+
 Sliding-window blending: layer heterogeneity enters through the scalar
 ``is_global`` flag, as in the reference.
 """
@@ -29,12 +39,14 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.common import apply_rope, lecun_init, linear, rms_norm
+from repro_torch.models.common import apply_rope, lecun_init, linear, per_client, rms_norm
 
-__all__ = ["init_gqa", "gqa_shapes", "gqa_attention", "gqa_decode", "naive_attention",
-           "flash_attention", "decode_attention"]
+__all__ = ["init_gqa", "gqa_shapes", "gqa_attention", "gqa_decode", "init_mla", "mla_shapes",
+           "mla_attention", "mla_decode", "naive_attention", "flash_attention",
+           "decode_attention"]
 
 _NEG = -1e30
 
@@ -148,3 +160,96 @@ def gqa_decode(p, cfg, x, sin_pos, cos_pos, cache, pos: int, is_global=1.0):
     v_cache[:, pos] = v_new[:, 0].to(v_cache.dtype)
     o = decode_attention(q, k_cache, v_cache, pos, cfg.sliding_window, is_global)
     return linear(o.reshape(x.shape[0], 1, -1), p["wo"]), (k_cache, v_cache)
+
+
+# ---------------------------------------------------------------------------
+# MLA (deepseek-v3)
+# ---------------------------------------------------------------------------
+
+
+def mla_shapes(cfg) -> dict[str, tuple[int, ...]]:
+    """Parameter shapes of one MLA block, in the reference's order."""
+    d, h = cfg.d_model, cfg.n_heads
+    rq, rkv = cfg.q_lora_rank, cfg.kv_lora_rank
+    nope, rope, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    return {"wq_a": (d, rq), "q_norm": (rq,), "wq_b": (rq, h * (nope + rope)),
+            "wkv_a": (d, rkv + rope), "kv_norm": (rkv,), "wkv_b": (rkv, h * (nope + vd)),
+            "wo": (h * vd, d)}
+
+
+def init_mla(generator: torch.Generator, cfg) -> dict[str, torch.Tensor]:
+    """LeCun-initialised projections (``wo`` with fan-in H * v_head_dim),
+    zero norm scales; fp32, drawn from ``generator``."""
+    p = {}
+    for name, shape in mla_shapes(cfg).items():
+        if len(shape) == 1:
+            p[name] = torch.zeros(shape, device=generator.device)
+        else:
+            p[name] = lecun_init(generator, shape, fan_in=shape[0])
+    return p
+
+
+def _mla_qkv_latent(p, cfg, x, sin, cos):
+    """The shared front: x (..., S, d) -> q_nope (N, S, H, nope), rotated
+    q_rope (N, S, H, rope), the normed latent (..., S, kv_lora_rank) and
+    the rotated shared k_rope (..., S, rope); N folds the leading axes."""
+    s = x.shape[-2]
+    h, nope, rope = cfg.n_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    qa = linear(x, p["wq_a"])
+    q = linear(rms_norm(qa, per_client(p["q_norm"], qa), cfg.norm_eps), p["wq_b"])
+    q = q.reshape(-1, s, h, nope + rope)
+    q_nope, q_rope = q[..., :nope], apply_rope(q[..., nope:], sin, cos)
+    kv_a = linear(x, p["wkv_a"])
+    lat = kv_a[..., : cfg.kv_lora_rank]
+    latent = rms_norm(lat, per_client(p["kv_norm"], lat), cfg.norm_eps)
+    k_rope = apply_rope(kv_a[..., cfg.kv_lora_rank:].unsqueeze(-2), sin, cos).squeeze(-2)
+    return q_nope, q_rope, latent, k_rope
+
+
+def mla_attention(p, cfg, x, sin, cos, is_global=1.0):
+    """Full sequence (training and prefill): x (..., S, d) -> (out (..., S,
+    d), (latent (..., S, kv_lora_rank), k_rope (..., S, rope))), the
+    compressed decode cache."""
+    s = x.shape[-2]
+    h = cfg.n_heads
+    nope, rope, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    if vd > nope + rope:
+        raise ValueError(f"v_head_dim {vd} exceeds the q/k head width {nope + rope}")
+    q_nope, q_rope, latent, k_rope = _mla_qkv_latent(p, cfg, x, sin, cos)
+    kvb = linear(latent, p["wkv_b"]).reshape(-1, s, h, nope + vd)
+    k_nope, v = kvb[..., :nope], kvb[..., nope:]
+    n = k_nope.shape[0]
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    k_full = torch.cat([k_nope, k_rope.reshape(n, s, 1, rope).expand(n, s, h, rope)], dim=-1)
+    v_full = F.pad(v, (0, nope + rope - vd))
+    o = flash_attention(q_full, k_full, v_full, cfg.sliding_window, is_global)[..., :vd]
+    return linear(o.reshape(*x.shape[:-1], h * vd), p["wo"]), (latent, k_rope)
+
+
+def mla_decode(p, cfg, x, sin_pos, cos_pos, cache, pos: int, is_global=1.0):
+    """Absorbed-matmul decode of one token: x (B, 1, d) and ``cache`` =
+    (latent (B, S_max, kv_lora_rank), k_rope (B, S_max, rope)) -> (out
+    (B, 1, d), cache), the token's latent and k_rope written into the cache
+    at ``pos`` in place.  The scores are taken against the latent cache
+    with ``wkv_b``'s key half absorbed into q, in fp32."""
+    b = x.shape[0]
+    h = cfg.n_heads
+    nope, rope, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    rkv = cfg.kv_lora_rank
+    latent_c, krope_c = cache
+    q_nope, q_rope, latent_new, krope_new = _mla_qkv_latent(p, cfg, x, sin_pos, cos_pos)
+    latent_c[:, pos] = latent_new[:, 0].to(latent_c.dtype)
+    krope_c[:, pos] = krope_new[:, 0].to(krope_c.dtype)
+    f32 = torch.float32
+    wkv_b = p["wkv_b"].reshape(rkv, h, nope + vd).to(f32)
+    wk, wv = wkv_b[..., :nope], wkv_b[..., nope:]
+    q_lat = torch.einsum("bhn,rhn->bhr", q_nope[:, 0].to(f32), wk)
+    lat = latent_c.to(f32)
+    s_lat = torch.einsum("bhr,bsr->bhs", q_lat, lat)
+    s_rope = torch.einsum("bhr,bsr->bhs", q_rope[:, 0].to(f32), krope_c.to(f32))
+    scores = (s_lat + s_rope) / math.sqrt(nope + rope)
+    kpos = torch.arange(latent_c.shape[1], device=x.device)
+    probs = torch.softmax(scores + _mask_val(pos, kpos, cfg.sliding_window, is_global), dim=-1)
+    ctx = torch.einsum("bhs,bsr->bhr", probs, lat)
+    o = torch.einsum("bhr,rhv->bhv", ctx, wv)
+    return linear(o.reshape(b, 1, h * vd).to(x.dtype), p["wo"]), (latent_c, krope_c)

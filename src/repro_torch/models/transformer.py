@@ -1,9 +1,9 @@
 """Decoder stack, ported from ``repro.models.transformer`` over token
-inputs, with three block types: ``attn`` (pre-norm GQA attention plus
-pre-norm dense MLP), ``hymba`` (attention in parallel with Mamba heads on
-the same normed input, their outputs fused as the mean of per-branch
-RMS-normed outputs, then the MLP) and ``xlstm`` (a pre-norm mLSTM or sLSTM
-core as the layer's ``is_mlstm`` flag says, no MLP).
+inputs, with three block types: ``attn`` (pre-norm GQA or MLA attention
+plus a pre-norm dense or MoE MLP), ``hymba`` (attention in parallel with
+Mamba heads on the same normed input, their outputs fused as the mean of
+per-branch RMS-normed outputs, then the MLP) and ``xlstm`` (a pre-norm
+mLSTM or sLSTM core as the layer's ``is_mlstm`` flag says, no MLP).
 
 Parameters live in one flat fp32 vector (P,), and a cohort of m client
 models is one (m, P) tensor, as for the MLP.  ``TransformerLayout`` gives
@@ -11,7 +11,9 @@ the reference's parameter tree as views of either: ``{"layers": [{
 "norm1_scale", ..., "attn": {wq, wk, wv, wo}, "mlp": {w_up, w_down}}, ...],
 "final_norm_*", "embed", "head"}`` (a hymba layer adds ``"ssm": {...}``,
 ``attn_out_norm`` and ``ssm_out_norm``; an xlstm layer is ``{"xlstm": {w_up,
-wq, wk, wv, w_if, b_if, w_down, core_norm}, "norm1"}``), each leaf with the
+wq, wk, wv, w_if, b_if, w_down, core_norm}, "norm1"}``; an MLA layer's
+``"attn"`` is ``init_mla``'s, an MoE layer's ``"mlp"`` is ``init_moe``'s; the
+MTP head adds ``mtp_proj`` and ``mtp_norm``), each leaf with the
 reference's shape behind the leading client axis, if any.  The views come from one
 ``torch.split``, so the gradient of the flat vector is assembled by one
 concatenation rather than one full-size scatter per leaf.
@@ -24,18 +26,30 @@ into the rows of the selective-scan kernel for the Mamba heads.
 The reference computes both xLSTM cores in every layer and keeps one with
 ``jnp.where``; the port computes only the flagged one, which gives the
 same output and gradient.  The reference's ``remat`` (``jax.checkpoint``
-per layer) changes no number and is not mapped.  What the port does not
-run yet is rejected up front: MoE, MLA, non-token inputs and the MTP head.
+per layer) changes no number and is not mapped.  An MoE layer runs
+``moe_dense`` (what the reference runs without a device mesh) and
+returns its router's load-balance loss; ``forward(..., with_aux=True)``
+returns the layers' mean of it, which ``loss_fn`` and the LM task weight
+by ``router_aux_weight``.  What the port does not run yet is rejected up
+front: non-token inputs.
 
-Serving (``init_params``, ``init_cache``, ``prefill``, ``decode_step``)
-runs the model in the config's dtype, bf16 at full size as the reference
-serves it: ``init_params`` builds the parameter tree leaf by leaf, the
-norm scales, the Mamba heads' ``a_log``, ``w_dt``, ``b_dt``, ``d_skip`` and
-the xLSTM gate weights in fp32 and every other leaf in ``cfg.dtype``, as
-the reference's init keeps them (never the flat fp32 vector, which for
-qwen3-14b would need 59 GB beside the 29.5 GB tree).  The cache has the
-reference's stacked (L, B, ...) layout; ``decode_step`` writes each
-layer's new entries into it in place.  For xlstm only the flagged core's
+``loss_fn`` is the training launcher's loss on the parameter tree: the
+next-token cross-entropy over sequence chunks of ``loss_chunk``, each
+chunk's logits in fp32 (``chunked_logits_sum``, which the LM task shares),
+plus the MoE aux term and, with ``cfg.mtp``, the MTP head's weighted
+cross-entropy against the labels shifted by one more position.
+
+Serving (``init_params``, ``init_cache``, ``prefill``, ``decode_step``) and
+the training launcher run the model in the config's dtype, bf16 at full
+size as the reference trains and serves it: ``init_params`` builds the
+parameter tree leaf by leaf, the norm scales, the Mamba heads' ``a_log``,
+``w_dt``, ``b_dt``, ``d_skip``, the xLSTM gate weights and the MoE router in
+fp32 and every other leaf in ``cfg.dtype``, as the reference's init keeps
+them (never the flat fp32 vector, which for qwen3-14b would need 59 GB
+beside the 29.5 GB tree).  The cache has the reference's stacked (L, B,
+...) layout (MLA: the latent and the shared rotary key, not per-head keys
+and values); ``decode_step`` writes each layer's new entries into it in
+place.  For xlstm only the flagged core's
 state is computed and advanced; the other keeps its ``init_cache`` value,
 which is what the reference's ``jnp.where`` selection leaves there.
 """
@@ -47,8 +61,18 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.models.attention import gqa_attention, gqa_decode, gqa_shapes, init_gqa
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.attention import (
+    gqa_attention,
+    gqa_decode,
+    gqa_shapes,
+    init_gqa,
+    init_mla,
+    mla_attention,
+    mla_decode,
+    mla_shapes,
+)
 from repro_torch.models.common import (
     activation,
     layer_norm,
@@ -61,28 +85,27 @@ from repro_torch.models.common import (
 
 __all__ = [
     "TransformerLayout", "check_supported", "layer_flags", "init_transformer", "init_params",
-    "cast_params", "embed_inputs", "forward", "output_head", "init_cache", "prefill",
-    "decode_step",
+    "cast_params", "embed_inputs", "forward", "output_head", "chunked_logits_sum", "token_nll",
+    "loss_fn", "init_cache", "prefill", "decode_step",
 ]
 
-def check_supported(cfg, inference: bool = False) -> None:
-    """Raise for what the port does not run yet: training (the flat fp32
-    layout) takes float32 configs, serving (``inference``) float32 and
-    bfloat16."""
-    dtypes = ("float32", "bfloat16") if inference else ("float32",)
+
+def check_supported(cfg, tree: bool = False) -> None:
+    """Raise for what the port does not run yet: the flat fp32 layout
+    (federated training) takes float32 configs, the parameter tree
+    (``tree``: the training launcher and serving) float32 and bfloat16."""
+    dtypes = ("float32", "bfloat16") if tree else ("float32",)
     unsupported = [
         (cfg.block_type not in ("attn", "hymba", "xlstm"), f"block_type={cfg.block_type!r}"),
         (cfg.block_type == "hymba" and (cfg.ssm is None or cfg.ssm.family != "mamba"),
          "a hymba block without a mamba SSM config"),
         (cfg.block_type == "xlstm" and (cfg.ssm is None or cfg.ssm.family != "xlstm"),
          "an xlstm block without an xlstm SSM config"),
-        (cfg.moe is not None, "MoE layers"),
-        (cfg.use_mla, "MLA attention"),
         (cfg.input_mode != "tokens", f"input_mode={cfg.input_mode!r}"),
-        (cfg.mtp, "the MTP head"),
         (cfg.dtype not in dtypes,
-         f"dtype={cfg.dtype!r} (the port serves float32 and bfloat16)" if inference else
-         f"dtype={cfg.dtype!r} for training (the port trains in float32; it serves bfloat16)"),
+         f"dtype={cfg.dtype!r} (the parameter tree takes float32 and bfloat16)" if tree else
+         f"dtype={cfg.dtype!r} for federated training (the flat layout trains in float32; "
+         f"the launcher and serving take bfloat16 on the parameter tree)"),
     ]
     for bad, what in unsupported:
         if bad:
@@ -118,11 +141,19 @@ def _mlp_shapes(cfg) -> dict[str, tuple[int, ...]]:
     return shapes
 
 
+def _attn_shapes(cfg) -> dict[str, tuple[int, ...]]:
+    return mla_shapes(cfg) if cfg.use_mla else gqa_shapes(cfg)
+
+
+def _ffn_shapes(cfg) -> dict[str, tuple[int, ...]]:
+    return moe_mod.moe_shapes(cfg) if cfg.moe else _mlp_shapes(cfg)
+
+
 class TransformerLayout:
     """Where each parameter of the reference's tree sits in the flat
     vector: layer by layer (norm1, attn, for hymba ssm, attn_out_norm and
     ssm_out_norm, then norm2, mlp; for xlstm the block, then norm1), then
-    the final norm, the embedding and the untied head."""
+    the final norm, the embedding, the untied head and the MTP head."""
 
     def __init__(self, cfg):
         check_supported(cfg)
@@ -137,7 +168,7 @@ class TransformerLayout:
                 continue
             for name, shape in _norm_shapes(cfg, "norm1").items():
                 self.entries.append((("layers", i, name), shape))
-            for name, shape in gqa_shapes(cfg).items():
+            for name, shape in _attn_shapes(cfg).items():
                 self.entries.append((("layers", i, "attn", name), shape))
             if cfg.block_type == "hymba":
                 for name, shape in ssm_mod.mamba_shapes(cfg).items():
@@ -146,13 +177,16 @@ class TransformerLayout:
                     self.entries.append((("layers", i, name), (cfg.d_model,)))
             for name, shape in _norm_shapes(cfg, "norm2").items():
                 self.entries.append((("layers", i, name), shape))
-            for name, shape in _mlp_shapes(cfg).items():
+            for name, shape in _ffn_shapes(cfg).items():
                 self.entries.append((("layers", i, "mlp", name), shape))
         for name, shape in _norm_shapes(cfg, "final_norm").items():
             self.entries.append(((name,), shape))
         self.entries.append((("embed",), (cfg.vocab, cfg.d_model)))
         if not cfg.tie_embeddings:
             self.entries.append((("head",), (cfg.d_model, cfg.vocab)))
+        if cfg.mtp:
+            self.entries.append((("mtp_proj",), (cfg.d_model, cfg.d_model)))
+            self.entries.append((("mtp_norm",), (cfg.d_model,)))
         self.sizes = [math.prod(shape) for _, shape in self.entries]
         self.n_params = sum(self.sizes)
 
@@ -208,9 +242,9 @@ def _init_mlp(generator, cfg) -> dict:
 def _keeps_fp32(name: str, leaf: torch.Tensor) -> bool:
     """Whether the reference keeps this leaf in fp32 in a model of another
     dtype: every vector (norm scales and biases, the Mamba heads' dt weight
-    and bias and skip, the xLSTM gate bias), ``a_log`` and the xLSTM gate
-    weights ``w_if``."""
-    return leaf.ndim == 1 or name in ("a_log", "w_if")
+    and bias and skip, the xLSTM gate bias), ``a_log``, the xLSTM gate
+    weights ``w_if`` and the MoE router."""
+    return leaf.ndim == 1 or name in ("a_log", "w_if", "router")
 
 
 def cast_params(tree, dtype: torch.dtype):
@@ -226,7 +260,7 @@ def cast_params(tree, dtype: torch.dtype):
 def _init_tree(generator: torch.Generator, cfg, dtype: torch.dtype) -> dict:
     """The parameter tree drawn from ``generator`` on its device with the
     reference's distributions, each module cast to ``dtype`` (by
-    ``cast_params``) as soon as it is drawn."""
+    ``cast_params``) as soon as it is drawn, an MoE block leaf by leaf."""
     dev = generator.device
     layers = []
     for _ in range(cfg.n_layers):
@@ -235,18 +269,23 @@ def _init_tree(generator: torch.Generator, cfg, dtype: torch.dtype) -> dict:
                            **_init_norm(cfg, "norm1", dev)})
             continue
         layer = {**_init_norm(cfg, "norm1", dev), **_init_norm(cfg, "norm2", dev)}
-        layer["attn"] = cast_params(init_gqa(generator, cfg), dtype)
+        layer["attn"] = cast_params((init_mla if cfg.use_mla else init_gqa)(generator, cfg),
+                                    dtype)
         if cfg.block_type == "hymba":
             layer["ssm"] = cast_params(ssm_mod.init_mamba(generator, cfg), dtype)
             layer["attn_out_norm"] = torch.zeros(cfg.d_model, device=dev)
             layer["ssm_out_norm"] = torch.zeros(cfg.d_model, device=dev)
-        layer["mlp"] = cast_params(_init_mlp(generator, cfg), dtype)
+        layer["mlp"] = (moe_mod.init_moe(generator, cfg, dtype) if cfg.moe
+                        else cast_params(_init_mlp(generator, cfg), dtype))
         layers.append(layer)
     tree = {"layers": layers, **_init_norm(cfg, "final_norm", dev)}
     tree["embed"] = (torch.randn((cfg.vocab, cfg.d_model), generator=generator, device=dev)
                      * 0.02).to(dtype)
     if not cfg.tie_embeddings:
         tree["head"] = lecun_init(generator, (cfg.d_model, cfg.vocab)).to(dtype)
+    if cfg.mtp:
+        tree["mtp_proj"] = lecun_init(generator, (cfg.d_model, cfg.d_model)).to(dtype)
+        tree["mtp_norm"] = torch.zeros(cfg.d_model, device=dev)
     return tree
 
 
@@ -256,17 +295,18 @@ def init_transformer(generator: torch.Generator, cfg) -> torch.Tensor:
     LayerNorm scales (zero RMSNorm scales), zero biases, N(0, 0.02^2)
     embedding, LeCun head; a hymba layer's Mamba heads as ``init_mamba``
     draws them and zero scales for its two output norms; an xlstm layer's
-    block as ``init_xlstm`` draws it."""
+    block as ``init_xlstm`` draws it; MLA, MoE and the MTP head as
+    ``init_mla``, ``init_moe`` and the reference draw them."""
     layout = TransformerLayout(cfg)
     return layout.flatten(_init_tree(generator, cfg, torch.float32))
 
 
 def init_params(generator: torch.Generator, cfg) -> dict:
-    """The serving parameter tree in ``cfg.dtype``, drawn as
-    ``init_transformer`` draws the flat vector (the same numbers, in the
-    same order) and cast module by module, the reference's fp32 leaves kept
-    in fp32."""
-    check_supported(cfg, inference=True)
+    """The parameter tree in ``cfg.dtype`` (the training launcher's and
+    serving's), drawn as ``init_transformer`` draws the flat vector (the
+    same numbers, in the same order) and cast module by module, the
+    reference's fp32 leaves kept in fp32."""
+    check_supported(cfg, tree=True)
     return _init_tree(generator, cfg, getattr(torch, cfg.dtype))
 
 
@@ -288,6 +328,13 @@ def _mlp(p, cfg, x):
     return linear(h, p["w_down"])
 
 
+def _ffn(p, cfg, x):
+    """The layer's MLP: (out, the router's aux loss), 0.0 for a dense one."""
+    if cfg.moe:
+        return moe_mod.moe_dense(p, cfg, x)
+    return _mlp(p, cfg, x), 0.0
+
+
 def embed_inputs(params, cfg, tokens: torch.Tensor) -> torch.Tensor:
     """Token ids (..., S) -> (..., S, d); with per-client tables (m, V, d)
     the tokens are (m, B, S) and client i reads its own table.  A tied
@@ -306,9 +353,13 @@ def embed_inputs(params, cfg, tokens: torch.Tensor) -> torch.Tensor:
 
 def _rope_tables(cfg, seq_len, device, positions: int | None = None):
     """Two (S, rot / 2) table pairs (local theta, global theta); with
-    ``positions`` (decode) each table's row at that position."""
-    dim = int(cfg.resolved_head_dim * cfg.rope_fraction)
-    dim -= dim % 2
+    ``positions`` (decode) each table's row at that position.  MLA rotates
+    its ``qk_rope_head_dim`` dims."""
+    if cfg.use_mla:
+        dim = cfg.qk_rope_head_dim
+    else:
+        dim = int(cfg.resolved_head_dim * cfg.rope_fraction)
+        dim -= dim % 2
     if dim == 0:
         dim = 2
     tabs_l = rope_table(seq_len, dim, cfg.rope_theta, device, positions=positions)
@@ -328,22 +379,27 @@ def _flags_at(flags, i: int) -> dict[str, float]:
 def _apply_layer_seq(pl, cfg, x, flags: dict[str, float], tabs_l, tabs_g):
     """One layer over the full sequence: attention (in parallel with the
     Mamba heads for hymba), then the MLP; for xlstm the flagged core.
-    Returns (x, the layer's decode cache entries)."""
+    Returns (x, the router's aux loss (0.0 without MoE), the layer's decode
+    cache entries)."""
     if cfg.block_type == "xlstm":
         name = "mlstm" if flags["is_mlstm"] > 0 else "slstm"
         out, state = getattr(ssm_mod, f"{name}_seq")(pl["xlstm"], cfg, _norm(pl, cfg, x, "norm1"))
-        return x + out, {name: state}
+        return x + out, 0.0, {name: state}
     is_global = flags["is_global"]
     sin, cos = _select_rope(tabs_l, tabs_g, is_global)
     h = _norm(pl, cfg, x, "norm1")
-    a_out, (k, v) = gqa_attention(pl["attn"], cfg, h, sin, cos, is_global)
-    cache = {"k": k, "v": v}
+    if cfg.use_mla:
+        a_out, (latent, k_rope) = mla_attention(pl["attn"], cfg, h, sin, cos, is_global)
+        cache = {"latent": latent, "k_rope": k_rope}
+    else:
+        a_out, (k, v) = gqa_attention(pl["attn"], cfg, h, sin, cos, is_global)
+        cache = {"k": k, "v": v}
     if cfg.block_type == "hymba":
         s_out, (cache["ssm_h"], cache["conv"]) = ssm_mod.mamba_seq(pl["ssm"], cfg, h)
         a_out = _hymba_fuse(pl, cfg, a_out, s_out)
     x = x + a_out
-    h2 = _norm(pl, cfg, x, "norm2")
-    return x + _mlp(pl["mlp"], cfg, h2), cache
+    m_out, aux = _ffn(pl["mlp"], cfg, _norm(pl, cfg, x, "norm2"))
+    return x + m_out, aux, cache
 
 
 def _hymba_fuse(pl, cfg, a_out, s_out):
@@ -353,23 +409,33 @@ def _hymba_fuse(pl, cfg, a_out, s_out):
 
 
 def forward(params, cfg, tokens: torch.Tensor, layout: TransformerLayout | None = None,
-            collect_cache: bool = False):
+            collect_cache: bool = False, with_aux: bool = False):
     """Hidden states after the final norm, (..., S, d).  ``params`` is the
     flat (P,) or (m, P) vector (cut by ``layout``) or its tree of views.
-    With ``collect_cache`` it returns (hidden, one dict of decode cache
-    entries a layer)."""
+    With ``with_aux`` it also returns the MoE router's aux loss, the mean
+    over the layers (fp32: one per client with per-client weights, else
+    one per leading group of (B, S) tokens; a 0-d zero without MoE), as the
+    reference's forward does; with ``collect_cache`` one dict of decode
+    cache entries a layer, last: (hidden[, aux][, caches])."""
     if isinstance(params, torch.Tensor):
         params = (layout or TransformerLayout(cfg)).views(params)
     x = embed_inputs(params, cfg, tokens)
     tabs_l, tabs_g = _rope_tables(cfg, x.shape[-2], x.device)
     flags = layer_flags(cfg)
-    caches = []
+    caches, aux = [], 0.0
     for i, pl in enumerate(params["layers"]):
-        x, cache = _apply_layer_seq(pl, cfg, x, _flags_at(flags, i), tabs_l, tabs_g)
+        x, layer_aux, cache = _apply_layer_seq(pl, cfg, x, _flags_at(flags, i), tabs_l, tabs_g)
+        aux = aux + layer_aux
         if collect_cache:
             caches.append(cache)
     h = _norm(params, cfg, x, "final_norm")
-    return (h, caches) if collect_cache else h
+    out = (h,)
+    if with_aux:
+        aux = aux if isinstance(aux, torch.Tensor) else torch.zeros((), device=h.device)
+        out += (aux / cfg.n_layers,)
+    if collect_cache:
+        out += (caches,)
+    return out if len(out) > 1 else h
 
 
 def output_head(params, cfg) -> torch.Tensor:
@@ -384,18 +450,78 @@ def _logits(params, cfg, h: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Loss (sequence-chunked cross-entropy)
+# ---------------------------------------------------------------------------
+
+
+def chunked_logits_sum(h: torch.Tensor, head: torch.Tensor, chunk: int, per_chunk):
+    """The sum of ``per_chunk(logits, lo, hi)`` over the sequence chunks
+    [lo, hi) of ``chunk`` positions (or the whole sequence if shorter):
+    h (..., S, d) times the head (d, V), or (m, d, V) per client with h
+    (m, ..., S, d), one chunk at a time in fp32, so that the (..., S, V)
+    logits never exist at once."""
+    s = h.shape[-2]
+    c = min(chunk, s)
+    if s % c:
+        raise ValueError(f"seq_len {s} must be a multiple of loss_chunk {c}")
+    tot = 0.0
+    for lo in range(0, s, c):
+        tot = tot + per_chunk(linear(h[..., lo:lo + c, :], head).to(torch.float32), lo, lo + c)
+    return tot
+
+
+def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Next-token NLL per position: fp32 logits (..., c, V) and labels
+    (..., c) -> (..., c)."""
+    gold = torch.gather(logits, -1, labels.to(torch.int64).unsqueeze(-1)).squeeze(-1)
+    return torch.logsumexp(logits, dim=-1) - gold
+
+
+def loss_fn(params, cfg, batch: dict):
+    """The mean next-token cross-entropy of ``batch`` ({"tokens", "labels"}
+    (B, S)) under the parameter tree, plus ``router_aux_weight`` x the MoE
+    aux loss and, with ``cfg.mtp``, ``mtp_weight`` x the MTP head's
+    cross-entropy: rms_norm(h @ mtp_proj, mtp_norm) against the labels
+    shifted one more position, the last position masked.  Returns (loss,
+    {"ce", "aux"[, "mtp_ce"]})."""
+    labels = batch["labels"]
+    h, aux = forward(params, cfg, batch["tokens"], with_aux=True)
+    head = output_head(params, cfg)
+    s = h.shape[-2]
+    tot = chunked_logits_sum(h, head, cfg.loss_chunk,
+                             lambda lg, lo, hi: token_nll(lg, labels[..., lo:hi]).sum())
+    ce = tot / max(labels.numel(), 1)
+    loss = ce
+    metrics = {"ce": ce, "aux": aux}
+    if cfg.moe:
+        loss = loss + cfg.moe.router_aux_weight * aux
+    if cfg.mtp:
+        h_mtp = rms_norm(h @ params["mtp_proj"], params["mtp_norm"], cfg.norm_eps)
+        y2 = torch.roll(labels, -1, dims=-1)
+        m2 = (torch.arange(s, device=h.device) < s - 1).to(torch.float32)
+        tot2 = chunked_logits_sum(
+            h_mtp, head, cfg.loss_chunk,
+            lambda lg, lo, hi: (token_nll(lg, y2[..., lo:hi]) * m2[lo:hi]).sum())
+        mtp_ce = tot2 / max(labels.numel() // s * (s - 1), 1)
+        loss = loss + cfg.mtp_weight * mtp_ce
+        metrics["mtp_ce"] = mtp_ce
+    return loss, metrics
+
+
+# ---------------------------------------------------------------------------
 # Serving: cache init, prefill, decode
 # ---------------------------------------------------------------------------
 
 
 def init_cache(cfg, batch_size: int, max_len: int, device=None) -> dict:
     """The stacked (L-leading) decode cache: k and v (L, B, max_len, KV,
-    hd) in ``cfg.dtype``, with hymba's Mamba state ``ssm_h`` (L, B, D, N)
-    and conv tail ``conv`` (L, B, k - 1, D); for xlstm the mLSTM state (C
-    (L, B, H, hd, hd), n (L, B, H, hd), m (L, B, H)) and the sLSTM state
-    (c, n (L, B, H, hd), m (L, B, H)).  States are fp32, m starts at
-    -1e30, everything else at 0."""
-    check_supported(cfg, inference=True)
+    hd) in ``cfg.dtype`` (MLA: ``latent`` (L, B, max_len, kv_lora_rank) and
+    ``k_rope`` (L, B, max_len, qk_rope_head_dim)), with hymba's Mamba
+    state ``ssm_h`` (L, B, D, N) and conv tail ``conv`` (L, B, k - 1, D);
+    for xlstm the mLSTM state (C (L, B, H, hd, hd), n (L, B, H, hd), m (L,
+    B, H)) and the sLSTM state (c, n (L, B, H, hd), m (L, B, H)).  States
+    are fp32, m starts at -1e30, everything else at 0."""
+    check_supported(cfg, tree=True)
     n_layers, d = cfg.n_layers, cfg.d_model
     f32 = {"dtype": torch.float32, "device": device}
     if cfg.block_type == "xlstm":
@@ -408,9 +534,14 @@ def init_cache(cfg, batch_size: int, max_len: int, device=None) -> dict:
             "slstm": (torch.zeros(*lead, hd, **f32), torch.zeros(*lead, hd, **f32),
                       torch.full(lead, ssm_mod._NEG, **f32)),
         }
-    kv_shape = (n_layers, batch_size, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
     dt = {"dtype": getattr(torch, cfg.dtype), "device": device}
-    cache = {"k": torch.zeros(kv_shape, **dt), "v": torch.zeros(kv_shape, **dt)}
+    seq = (n_layers, batch_size, max_len)
+    if cfg.use_mla:
+        cache = {"latent": torch.zeros(*seq, cfg.kv_lora_rank, **dt),
+                 "k_rope": torch.zeros(*seq, cfg.qk_rope_head_dim, **dt)}
+    else:
+        kv_shape = (*seq, cfg.n_kv_heads, cfg.resolved_head_dim)
+        cache = {"k": torch.zeros(kv_shape, **dt), "v": torch.zeros(kv_shape, **dt)}
     if cfg.block_type == "hymba":
         cache["ssm_h"] = torch.zeros(n_layers, batch_size, d, cfg.ssm.d_state, **f32)
         cache["conv"] = torch.zeros(n_layers, batch_size, cfg.ssm.conv_kernel - 1, d, **f32)
@@ -431,7 +562,7 @@ def prefill(params, cfg, batch: dict, max_len: int):
     cache = init_cache(cfg, b, max_len, device=h.device)
     for i, entries in enumerate(caches):
         for name, value in entries.items():
-            if name in ("k", "v"):
+            if name in ("k", "v", "latent", "k_rope"):
                 cache[name][i, :, :s] = value
             elif name in ("mlstm", "slstm"):
                 for dst, src in zip(cache[name], value):
@@ -455,14 +586,18 @@ def _apply_layer_decode(pl, cfg, x, flags: dict[str, float], tabs_l, tabs_g, cac
     is_global = flags["is_global"]
     sin, cos = _select_rope(tabs_l, tabs_g, is_global)
     h = _norm(pl, cfg, x, "norm1")
-    a_out, _ = gqa_decode(pl["attn"], cfg, h, sin, cos, (cache["k"][i], cache["v"][i]), pos,
-                          is_global)
+    if cfg.use_mla:
+        a_out, _ = mla_decode(pl["attn"], cfg, h, sin, cos,
+                              (cache["latent"][i], cache["k_rope"][i]), pos, is_global)
+    else:
+        a_out, _ = gqa_decode(pl["attn"], cfg, h, sin, cos, (cache["k"][i], cache["v"][i]),
+                              pos, is_global)
     if cfg.block_type == "hymba":
         s_out, (cache["ssm_h"][i], cache["conv"][i]) = ssm_mod.mamba_decode(
             pl["ssm"], cfg, h, cache["ssm_h"][i], cache["conv"][i])
         a_out = _hymba_fuse(pl, cfg, a_out, s_out)
     x = x + a_out
-    return x + _mlp(pl["mlp"], cfg, _norm(pl, cfg, x, "norm2"))
+    return x + _ffn(pl["mlp"], cfg, _norm(pl, cfg, x, "norm2"))[0]  # decode drops the aux
 
 
 @torch.no_grad()
@@ -473,7 +608,8 @@ def decode_step(params, cfg, batch: dict, cache: dict, pos: int):
     pos = int(pos)
     tabs_l = tabs_g = None
     if cfg.block_type != "xlstm":
-        tabs_l, tabs_g = _rope_tables(cfg, cache["k"].shape[2], x.device, positions=pos)
+        max_len = cache["latent" if cfg.use_mla else "k"].shape[2]
+        tabs_l, tabs_g = _rope_tables(cfg, max_len, x.device, positions=pos)
     flags = layer_flags(cfg)
     for i, pl in enumerate(params["layers"]):
         x = _apply_layer_decode(pl, cfg, x, _flags_at(flags, i), tabs_l, tabs_g, cache,

@@ -50,7 +50,7 @@ class BatchScheduler:
                  eos_id: int | None = None):
         if cfg.input_mode != "tokens":
             raise ValueError("BatchScheduler serves token-input archs")
-        check_supported(cfg, inference=True)
+        check_supported(cfg, tree=True)
         self.cfg = cfg
         self.params = params
         self.device = params["embed"].device

@@ -22,6 +22,7 @@ import jax.numpy as jnp  # noqa: E402
 from conftest import fl_cfg  # noqa: E402
 
 from repro.configs import ModelConfig as RefModelConfig  # noqa: E402
+from repro.configs import MoEConfig as RefMoEConfig  # noqa: E402
 from repro.configs import SSMConfig as RefSSMConfig  # noqa: E402
 from repro.engine import make_engine as ref_make_engine  # noqa: E402
 from repro.models.mlp import init_mlp  # noqa: E402
@@ -104,6 +105,8 @@ class JaxReplayDraws:
             fields = dataclasses.asdict(spec)  # nested configs become dicts: rebuild them
             if spec.ssm is not None:
                 fields["ssm"] = RefSSMConfig(**fields["ssm"])
+            if spec.moe is not None:
+                fields["moe"] = RefMoEConfig(**fields["moe"])
             ref_cfg = RefModelConfig(**fields)
             params = init_transformer(jax.random.PRNGKey(self.seed), ref_cfg)
             self._flatten = lambda tree: transformer_params_from_jax(tree, spec)

@@ -359,6 +359,48 @@ def test_flash_attention_kernels_match_plain(cuda, b, s, h, kv, d, window, is_gl
     _check_flash_against_plain(q, k, v, do, window, is_global)
 
 
+@pytest.mark.parametrize("b,s,h,kv", [
+    (4, 128, 128, 128),     # deepseek-v3's MLA prefill: 128 + 64 dims for q and k
+    (2, 256, 16, 16),       # and a backward through the whole DMAX-256 template
+    (2, 70, 4, 4),          # ragged S
+])
+def test_flash_attention_d192_bf16_matches_plain(cuda, b, s, h, kv):
+    """D = 192 in bf16, the DMAX-256 template, as MLA runs it: its values
+    zero-padded from 128 dims, so the last 64 columns of O come out zero."""
+    g = torch.Generator().manual_seed(b * s + h)
+    q, k = (torch.randn(b, s, n, 192, generator=g).to(torch.bfloat16).to(cuda) for n in (h, kv))
+    v = torch.nn.functional.pad(torch.randn(b, s, kv, 128, generator=g), (0, 64))
+    v = v.to(torch.bfloat16).to(cuda)
+    do = torch.randn(b, s, h, 192, generator=g).to(torch.bfloat16).to(cuda)
+    _check_flash_against_plain(q, k, v, do, 0, 1.0)
+    o, _ = flash_attention_forward(q, k, v)
+    assert not o[..., 128:].any()
+
+
+def test_mla_attention_on_card_matches_cpu(cuda):
+    """deepseek-v3's reduced MLA block in fp32 through K3 (padded values)
+    against the plain version on the CPU, output and gradients."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention
+    from repro_torch.models.common import rope_table
+
+    cfg = get_config("deepseek-v3-671b", reduced=True)
+    p = attention.init_mla(torch.Generator().manual_seed(0), cfg)
+    x = torch.randn(2, 96, cfg.d_model, generator=torch.Generator().manual_seed(1))
+    outs = []
+    for dev in ("cpu", cuda):
+        leaves = {k: v.to(dev).requires_grad_(True) for k, v in p.items()}
+        xd = x.to(dev).requires_grad_(True)
+        sin, cos = rope_table(96, cfg.qk_rope_head_dim, cfg.rope_theta, dev)
+        before = flash_attention_forward.launches
+        out, _ = attention.mla_attention(leaves, cfg, xd, sin, cos)
+        grads = torch.autograd.grad(out.square().sum(), [xd, *leaves.values()])
+        assert flash_attention_forward.launches == before + (dev == cuda)
+        outs.append([out.detach().cpu(), *(gr.cpu() for gr in grads)])
+    for a, b in zip(*outs):
+        assert (a - b).abs().max().item() <= 1e-4 * max(1.0, b.abs().max().item())
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_reads_fused_qkv_views(cuda, dtype):
     """q, k and v as strided views of one (B, S, H + 2 KV, D) tensor."""

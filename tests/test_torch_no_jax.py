@@ -56,7 +56,9 @@ def test_port_file_list_is_complete():
                       "engine/async_engine.py", "population/__init__.py",
                       "population/config.py", "population/store.py",
                       "population/hierarchy.py", "configs/inputs.py", "serving/__init__.py",
-                      "serving/scheduler.py", "launch/__init__.py", "launch/serve.py"):
+                      "serving/scheduler.py", "launch/__init__.py", "launch/serve.py",
+                      "launch/train.py", "optim/optimizers.py", "optim/schedules.py",
+                      "models/moe.py", "configs/dbrx_132b.py", "configs/deepseek_v3_671b.py"):
         assert f"src/repro_torch/{lm_module}" in names
     assert len(names) > 20
 

@@ -56,22 +56,19 @@ UNPORTED = {
     "repro.kernels.mamba_scan.ops": {"mamba_scan_pallas": "Pallas"},
     "repro.configs.inputs": {"input_specs": "jax ShapeDtypeStruct specs (the dry runs)",
                              "decode_specs": "jax ShapeDtypeStruct specs (the dry runs)"},
-    "repro.models.attention": {
-        "gqa_specs": "sharding specs", "mla_specs": "sharding specs",
-        "init_mla": "MLA", "mla_attention": "MLA", "mla_decode": "MLA"},
+    "repro.models.attention": {"gqa_specs": "sharding specs", "mla_specs": "sharding specs"},
+    "repro.models.moe": {
+        "moe_specs": "sharding specs",
+        "moe_capacity": "scaleout: the reference runs them only under a mesh",
+        "moe_capacity_sharded": "scaleout: the reference runs them only under a mesh"},
     "repro.models.ssm": {"mamba_specs": "sharding specs", "xlstm_specs": "sharding specs"},
-    "repro.models.transformer": {"transformer_specs": "sharding specs",
-                                 "loss_fn": "the training launcher (the LM task has its own)"},
-    "repro.optim": {n: "the training launcher's optimizers and schedules"
-                    for n in ("Optimizer", "sgd", "adamw", "chain", "clip_by_global_norm",
-                              "constant", "warmup_cosine")},
+    "repro.models.transformer": {"transformer_specs": "sharding specs"},
 }
 
 
 # Modules of the reference without a port module, each with the item (or
 # the reason) that keeps it out; every other module of these packages has one.
 UNPORTED_MODULES = {
-    "repro.launch.train": "ROADMAP: launch/train.py with repro/optim",
     "repro.launch.dryrun": "reference-only: XLA dry runs on a virtual TPU mesh",
     "repro.launch.mesh": "ROADMAP: scaleout (the one-H100 analog of a device mesh)",
 }
@@ -117,7 +114,8 @@ def test_every_reference_name_with_a_port_counterpart_imports_from_the_same_path
             "repro.federated", "repro.systems", "repro.faults", "repro.checkpoint",
             "repro.engine.async_config", "repro.engine.async_engine",
             "repro.population", "repro.serving", "repro.serving.scheduler",
-            "repro.launch.serve", "repro.configs.inputs"} <= seen
+            "repro.launch.serve", "repro.configs.inputs", "repro.launch.train",
+            "repro.optim.optimizers", "repro.optim.schedules", "repro.models.moe"} <= seen
     for package in ("systems", "faults", "checkpoint", "population", "serving", "launch"):
         ref = importlib.import_module(f"repro.{package}")
         modules = {m.name for m in pkgutil.walk_packages(ref.__path__, f"repro.{package}.")}
