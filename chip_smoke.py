@@ -22,6 +22,8 @@ Phases, each printed on its own lines:
    hymba with its 1024 window, (4, S, 40 / 8 kv, 128) qwen3 and (4, S, 128,
    192) deepseek-v3's MLA (q and k of 128 + 64 dims, the DMAX-256
    template), S = 128 and 1280, with a D = 192 backward at (2, 256, 16, 192),
+   at the frame and patch prompts' (4, 128 / 1280, 32, 64) musicgen-large
+   and (4, 384 / 1280, 14 / 2 kv, 64) internvl2-1b (a GQA group of 7),
    and at the training launcher's (8, 128, 32, 80) stablelm and (8, 128, 25 /
    5 kv, 64) hymba, with ``scaled_dot_product_attention(enable_gqa=True)``
    as the library; K4 with its final-state output at hymba's prefill, (4,
@@ -144,10 +146,16 @@ Phases, each printed on its own lines:
      attention layers x groups times and K4 hymba layers x groups (forward
      only); decode(prefill(x[:-1]), x[-1]) must equal forward(x) at the
      last position within 2e-2 x (max |logit| + 1) on the same weights in
-     fp32, and its bf16 drift is printed beside it; then each family's
-     reduced config (fp32) on the CPU and on the card from the same
-     weights: the same greedy tokens, the prefill's logits and cache
-     within 1e-4;
+     fp32, and its bf16 drift is printed beside it; then musicgen-large
+     (frame inputs) and internvl2-1b (256 image patches before the tokens)
+     at full size in bf16 through ``repro_torch.launch.serve``'s entry
+     point, 4 prompts of 128 and of 1280 frames, of 384 and of 1280
+     positions, 32 new tokens each: prefill ms, decode ms a step beside
+     the weight-read bound, peak memory, K3 once a layer a prefill, and
+     the same prefill -> decode contract on a frame or patch prompt; then
+     each family's reduced config (fp32, the two modal ones too) on the
+     CPU and on the card from the same weights: the same greedy tokens,
+     the prefill's logits and cache within 1e-4;
    - ``train:`` the training launcher (``repro_torch.launch.train``'s
      ``make_train_step`` and optimizer: chunked CE, clip to norm 1, AdamW
      with fp32 moments) on stablelm-3b (32 layers), hymba-1.5b (32) and
@@ -157,7 +165,18 @@ Phases, each printed on its own lines:
      memory and the losses (finite, not constant); K3 must launch 32
      times forward and 32 backward a step on stablelm and hymba, K4 as
      often on hymba; then xlstm's ``--ckpt`` after 3 steps and ``--resume``
-     to 6 against 6 uninterrupted steps, within 1e-2 relative.
+     to 6 against 6 uninterrupted steps, within 1e-2 relative;
+   - ``scaleout:`` the scaleout backend in a world of one process (every
+     pod on this card, so the all-reduce and all-gather are the identity:
+     the collectives run in ``tests/test_torch_scaleout.py``'s world of
+     two CPU processes under gloo): the paper's configuration (fedlecc
+     J = 3) for 30 rounds on ``backend="scaleout"`` (K1 once a round over
+     the (100, P) stack), host and compiled with ``cohort_gather=False``,
+     the same selections every round and parameters within 1e-5; then
+     ``make_federated_round`` on stablelm-3b at full size in bf16, one
+     pod, 4 local SGD steps of 8 x 128 tokens, with compress_bits 0 and 8
+     (ms a round, loss, peak memory; K1 once a leaf, K3 once a layer a
+     step each way; int8 within half a quantization step of exact).
 5. agreement — a small configuration of each task and model (stablelm,
    hymba, xlstm, and glm4, qwen3 and gemma3 reduced), of every
    classification preset and of fused compiled chunks, run on the CPU
@@ -184,7 +203,9 @@ Phases, each printed on its own lines:
    the calls, or a whole multiple of the calls for a library call, else
    the window is profiled again and then the run fails; and no reading
    may lie below its bound, except an L2-resident one below the HBM byte
-   bound.
+   bound.  It runs in a fresh process of this script (``--kernel-only``,
+   on the libraries phase 2 built): late in the long process the
+   profiler once lost a fixed share of every window's launches.
 
 Then the card's name and power limit again, one JSON line lists the
 kernels (K1's launches summed over every path above), and the last line
@@ -195,6 +216,7 @@ that holds this script without the repository's ``src/``.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -2712,8 +2734,6 @@ def _serve_model(device, model, n_layers=None):
     an fp32 one); the bf16 figure is printed beside it: bf16 rounding
     grows through the layers past that tolerance for hymba and xlstm, in
     the reference too (``scripts/bf16_decode_drift.py``)."""
-    import dataclasses
-
     import numpy as np
     import torch
 
@@ -2853,21 +2873,390 @@ def _serve_agreement(device, model):
         raise AssertionError(f"serve agreement {cfg.name}: tokens equal {same}, diff {err}")
 
 
+# musicgen-large's frame prompts; internvl2-1b's count its 256 patches: 128
+# or 1024 tokens after them
+MODAL_PROMPTS = {"musicgen-large": (128, 1280), "internvl2-1b": (384, 1280)}
+
+
+def _modal_argv(model, prompt_len, gen):
+    return ["--arch", model, "--batch", str(SERVE_BATCH), "--prompt-len", str(prompt_len),
+            "--gen", str(gen), "--seed", "0"]
+
+
+def _serve_modal(device, model):
+    """``model`` (frame or image-patch inputs) at full size in bf16 through
+    ``repro_torch.launch.serve``'s entry point: 4 prompts of each length in
+    ``MODAL_PROMPTS`` (``dummy_batch``'s frames or patches and tokens,
+    seed 0), 32 new tokens each (a frames model feeding back the sampled
+    code's embedding), after one uncounted short run; then
+    decode(prefill(x[:-1]), x[-1]) against forward(x) at full size, held
+    in fp32 and printed in bf16.  K3 must launch once a layer in each
+    prefill and nowhere else; returns its forward launches."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.inputs import dummy_batch
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward,
+        flash_attention_forward,
+    )
+    from repro_torch.kernels.mamba_scan import mamba_scan_backward, mamba_scan_forward
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tf
+
+    counters = (flash_attention_forward, flash_attention_backward, mamba_scan_forward,
+                mamba_scan_backward)
+    cfg = get_config(model)
+    tag = f"serve {model}"
+    serve.run(_modal_argv(model, cfg.n_patches + 16, 2))   # the libraries' first calls
+    total = 0
+    for prompt_len in MODAL_PROMPTS[model]:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            c.launches = 0
+        gen, st = serve.run(_modal_argv(model, prompt_len, SERVE_NEW))
+        torch.cuda.synchronize()
+        launches = {c.__name__: c.launches for c in counters}
+        want = {"flash_attention_forward": cfg.n_layers, "flash_attention_backward": 0,
+                "mamba_scan_forward": 0, "mamba_scan_backward": 0}
+        step_ms = st["decode_s"] / st["decode_steps"] * 1e3
+        bound_ms = st["param_bytes"] / PEAK_BYTES_PER_S * 1e3
+        ok = tuple(gen.shape) == (SERVE_BATCH, SERVE_NEW) and 0 <= int(gen.min()) and \
+            int(gen.max()) < cfg.vocab
+        print(f"{tag}: {cfg.dtype}, full depth ({cfg.n_layers} layers), {st['n_params']} params "
+              f"({st['param_bytes'] / 1e9:.3f} GB), input_mode {cfg.input_mode}; prompt "
+              f"{SERVE_BATCH} x {prompt_len} positions"
+              + (f" ({cfg.n_patches} patches + {prompt_len - cfg.n_patches} tokens)"
+                 if cfg.input_mode == "vlm" else "")
+              + f": prefill {st['prefill_s'] * 1e3:.3f} ms, decode {st['decode_steps']} steps "
+              f"{step_ms:.3f} ms a step ({SERVE_BATCH * st['decode_steps'] / st['decode_s']:.1f} "
+              f"tok/s; the weight-read bound {bound_ms:.3f} ms a step), peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+              f"{json.dumps(launches)} (expected {json.dumps(want)})", flush=True)
+        if launches != want or not ok:
+            raise AssertionError(f"{tag}: launches {launches} (expected {want}), outputs ok {ok}")
+        total += launches["flash_attention_forward"]
+
+    seq = cfg.n_patches + SERVE_PROMPTS[0]
+    gc.collect()
+    torch.cuda.empty_cache()
+    drift = _modal_decode_vs_forward(cfg, tf.init_params(
+        torch.Generator(device).manual_seed(0), cfg), dummy_batch(cfg, SERVE_BATCH, seq), device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    exact = _modal_decode_vs_forward(cfg32, tf.init_params(
+        torch.Generator(device).manual_seed(0), cfg32), dummy_batch(cfg32, SERVE_BATCH, seq),
+        device)
+    print(f"{tag}: decode(prefill(x[:-1]), x[-1]) vs forward(x) at S = {seq}, max |err| / (max "
+          f"|logit| + 1): float32 (the same weights before their bf16 rounding) {exact[0]:.4g}, "
+          f"held to 2e-2; bfloat16 {drift[0]:.4g}, reported", flush=True)
+    if not (exact[1] and drift[1] and exact[0] <= 2e-2):
+        raise AssertionError(f"{tag}: prefill -> decode differs from forward: fp32 {exact}, "
+                             f"bf16 {drift}")
+    return total
+
+
+def _modal_decode_vs_forward(cfg, params, batch, device):
+    """``_decode_vs_forward`` for a frame or patch prompt ``batch``: the
+    last frame (or the last token after the patches) decoded from the
+    prefill of the others, against the full forward's last position."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+
+    batch = {k: v.to(device) for k, v in batch.items() if k != "labels"}
+    if cfg.input_mode == "frames":
+        head, last = {"frames": batch["frames"][:, :-1]}, {"frame": batch["frames"][:, -1:]}
+    else:
+        head = {"patches": batch["patches"], "tokens": batch["tokens"][:, :-1]}
+        last = {"token": batch["tokens"][:, -1:]}
+    with torch.no_grad():
+        x, _ = tf.embed_inputs(params, cfg, batch)
+        s = x.shape[1]
+        full = tf._logits(params, cfg, tf.forward(params, cfg, x)[:, -1]).float()
+        del x
+        _, cache = tf.prefill(params, cfg, head, s + 4)
+        got = tf.decode_step(params, cfg, last, cache, s - 1)[0].float()
+    err = (got - full).abs().max().item() / (full.abs().max().item() + 1.0)
+    return err, bool(torch.isfinite(got).all() and torch.isfinite(full).all())
+
+
+def _serve_modal_agreement(device, model):
+    """The reduced config (fp32) on the CPU and on the card from the same
+    parameters and prompt (64 positions; internvl2's 8 patches first):
+    the prefill's logits and cache within ``SERVE_REDUCED_TOL`` relative,
+    and 8 greedy decode steps give the same tokens."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.inputs import dummy_batch
+    from repro_torch.models import transformer as tf
+
+    cfg = get_config(model, reduced=True)
+    params = tf.init_params(torch.Generator().manual_seed(0), cfg)
+    batch = {k: v for k, v in dummy_batch(cfg, 2, 64, seed=1).items() if k != "labels"}
+    runs = []
+    for dev in (torch.device("cpu"), device):
+        p = _tree_to(params, dev)
+        logits, cache = tf.prefill(p, cfg, _tree_to(batch, dev), 72)
+        # copies: decode_step advances the cache in place (on the CPU too)
+        first = [t.cpu().clone() for t in [logits, *_leaves(cache)]]
+        toks = [logits.argmax(-1)]
+        for pos in range(64, 72):
+            tok = toks[-1][:, None]
+            step = ({"frame": p["embed"][tok[:, 0]][:, None, :]} if cfg.input_mode == "frames"
+                    else {"token": tok.to(torch.int32)})
+            logits, cache = tf.decode_step(p, cfg, step, cache, pos)
+            toks.append(logits.argmax(-1))
+        runs.append((first, torch.stack(toks).cpu()))
+    (want, want_toks), (got, got_toks) = runs
+    err = max((g.float() - w.float()).abs().max().item() / max(1.0, w.float().abs().max().item())
+              for g, w in zip(got, want))
+    same = torch.equal(got_toks, want_toks)
+    print(f"serve agreement {cfg.name}: {cfg.n_layers} layers, {cfg.dtype}, {cfg.input_mode} "
+          f"inputs, 8 decoded tokens card == cpu: {same}, max relative |diff| of the prefill's "
+          f"logits and cache {err:.3g} (tolerance {SERVE_REDUCED_TOL})", flush=True)
+    if not (same and err <= SERVE_REDUCED_TOL):
+        raise AssertionError(f"serve agreement {cfg.name}: tokens equal {same}, diff {err}")
+
+
 def _serve_phase(device):
-    """The serving path: each full-size model, then the reduced configs of
-    every served family on the card and the CPU.  Returns K3's and K4's
-    forward launches over the scheduler runs."""
+    """The serving path: each full-size model, the frame and patch models
+    through ``launch.serve``, then the reduced configs of every served
+    family on the card and the CPU.  Returns K3's and K4's forward
+    launches over the scheduler and launcher runs."""
     t = time.perf_counter()
     total = {"flash_attention_forward": 0, "mamba_scan_forward": 0}
     for model, n_layers in [*((m, None) for m in SERVE_FULL), *SERVE_CUT.items()]:
         launches = _serve_model(device, model, n_layers)
         for k in total:
             total[k] += launches[k]
+    for model in MODAL_PROMPTS:
+        total["flash_attention_forward"] += _serve_modal(device, model)
     for model in (*SERVE_FULL, *SERVE_CUT):
         _serve_agreement(device, model)
+    for model in MODAL_PROMPTS:
+        _serve_modal_agreement(device, model)
     print(f"serve: launches {json.dumps(total)}; phase in {time.perf_counter() - t:.1f} s",
           flush=True)
     return total
+
+
+SCALEOUT_ROUNDS = 30
+# the scaleout backend and the two rounds it must equal: host, and compiled
+# with every client training (cohort_gather=False), as scaleout trains them
+SCALEOUT_RUNS = {"scaleout": ({"backend": "scaleout"}, {}), "host": ({}, {}),
+                 "compiled cohort_gather=False": ({"backend": "compiled"},
+                                                  {"cohort_gather": False})}
+ROUND_MODEL, ROUND_BATCH, ROUND_SEQ, ROUND_STEPS, ROUND_LR = "stablelm-3b", 8, 128, 4, 0.05
+
+
+def _scaleout_engines(device):
+    """The paper's configuration (K = 100, m = 10, fedlecc J = 3) for
+    ``SCALEOUT_ROUNDS`` rounds on ``backend="scaleout"`` in a world of one
+    (every pod in this process: K1 once a round over the (100, P) stack),
+    on host and on compiled with ``cohort_gather=False``: one line each
+    (setup, median round, accuracy, MB, K1 and K2 launches); the three
+    must select the same clients every round and end within 1e-5.
+    Returns K1's and K2's launches over the three runs."""
+    import torch
+
+    from repro_torch.engine import FLConfig, make_engine
+    from repro_torch.kernels.aggregate import masked_weighted_sum
+    from repro_torch.kernels.hellinger import hellinger_strip
+
+    train, test = _paper_data()
+    runs, k1, k2 = {}, 0, 0
+    for tag, (kw, engine_kw) in SCALEOUT_RUNS.items():
+        cfg = FLConfig(**(PAPER | {"rounds": SCALEOUT_ROUNDS, "strategy": "fedlecc",
+                                   "strategy_kwargs": {"J": 3}} | kw))
+        hellinger_strip.launches = masked_weighted_sum.launches = 0
+        t = time.perf_counter()
+        engine = make_engine(cfg, train, test, n_classes=10, device=device, **engine_kw)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t
+        results, ms = [], []
+        it = engine.rounds()
+        for _ in range(cfg.rounds):
+            t = time.perf_counter()
+            results.append(next(it))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        rec = {"tag": tag, "backend": cfg.backend, "rounds": len(results), "setup_s": setup_s,
+               "median_round_ms": statistics.median(ms), "final_test_acc": results[-1].test_acc,
+               "comm_mb": results[-1].comm_mb, "k1_launches": masked_weighted_sum.launches,
+               "k2_launches": hellinger_strip.launches}
+        if tag == "scaleout":
+            rec |= {"n_pods": engine.n_pods, "world": engine.mesh.world}
+        print(f"scaleout: {json.dumps(rec)}", flush=True)
+        if (rec["k1_launches"], rec["k2_launches"]) != (cfg.rounds, 1):
+            raise AssertionError(f"scaleout {tag}: K1/K2 launched {rec['k1_launches']}/"
+                                 f"{rec['k2_launches']} times; expected {cfg.rounds}/1")
+        if not (engine.params.is_cuda and torch.isfinite(engine.params).all()):
+            raise AssertionError(f"scaleout {tag}: final parameters not finite")
+        k1, k2 = k1 + rec["k1_launches"], k2 + rec["k2_launches"]
+        runs[tag] = (engine, results)
+    for tag in ("host", "compiled cohort_gather=False"):
+        _same_run(f"fedlecc scaleout vs {tag}", runs["scaleout"], runs[tag], PARITY_ATOL,
+                  phase="scaleout")
+    return k1, k2
+
+
+def _scaleout_round(device):
+    """``make_federated_round`` on ``ROUND_MODEL`` at full size in bf16,
+    one pod (a world of one), ``ROUND_STEPS`` local SGD steps on a batch of
+    ``ROUND_BATCH`` x ``ROUND_SEQ`` tokens, with compress_bits 0 and 8,
+    two rounds each from the same start: ms a round, the loss, peak
+    memory; K1 once a leaf a round, K3 once a layer a step forward and
+    backward; the int8 round within half a quantization step a leaf (plus
+    bf16 rounding) of the exact one.  Returns the launches."""
+    import torch
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.inputs import dummy_batch
+    from repro_torch.federated.scaleout import make_federated_round, stack_for_clients
+    from repro_torch.kernels.aggregate import masked_weighted_sum
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward,
+        flash_attention_forward,
+    )
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.transformer import init_params
+
+    counters = (masked_weighted_sum, flash_attention_forward, flash_attention_backward)
+    cfg = get_config(ROUND_MODEL)
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = init_params(torch.Generator(device).manual_seed(0), cfg)
+    start = stack_for_clients(params, 1)
+    leaves = tree_leaves(params)
+    batch = {k: v[None].to(device) for k, v in dummy_batch(cfg, ROUND_BATCH, ROUND_SEQ,
+                                                           seed=0).items()}
+    weights = torch.ones(1, device=device)
+    mesh = make_host_mesh(pod=1)
+    want = {"masked_weighted_sum": len(leaves),
+            "flash_attention_forward": cfg.n_layers * ROUND_STEPS,
+            "flash_attention_backward": cfg.n_layers * ROUND_STEPS}
+    total = dict.fromkeys(want, 0)
+    out = {}
+    for bits in (0, 8):
+        fn = make_federated_round(cfg, mesh, lr=ROUND_LR, local_steps=ROUND_STEPS,
+                                  compress_bits=bits)
+        ms = []
+        for _ in range(2):
+            out.pop(bits, None)
+            gc.collect()
+            torch.cuda.reset_peak_memory_stats()
+            for c in counters:
+                c.launches = 0
+            t = time.perf_counter()
+            new, losses = fn(start, batch, weights)
+            loss = losses.tolist()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+            launches = {c.__name__: c.launches for c in counters}
+            for k in total:
+                total[k] += launches[k]
+            out[bits] = [t[0] for t in tree_leaves(new)]
+            del new
+            if launches != want or not all(math.isfinite(x) for x in loss):
+                raise AssertionError(f"scaleout round compress_bits={bits}: launches {launches} "
+                                     f"(expected {want}), losses {loss}")
+        print(f"scaleout round: {ROUND_MODEL} {cfg.dtype} full size ({cfg.n_layers} layers, "
+              f"{sum(t.numel() for t in leaves)} params, {len(leaves)} leaves), 1 pod, "
+              f"{ROUND_STEPS} local steps of {ROUND_BATCH} x {ROUND_SEQ} tokens, lr {ROUND_LR}, "
+              f"compress_bits {bits}: {ms[1]:.3f} ms a round (first {ms[0]:.3f} ms), loss "
+              f"{loss[0]:.6g}, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+              f"launches a round {json.dumps(launches)}", flush=True)
+    worst = 0.0
+    for exact, q8, s0 in zip(out[0], out[8], leaves):
+        exact, q8, s0 = exact.float(), q8.float(), s0.float()
+        step = (exact - s0).abs().max().item() / 127
+        limit = 0.5 * step + 2**-6 * exact.abs().max().item()
+        err = (q8 - exact).abs().max().item()
+        worst = max(worst, err / limit if limit else 0.0)
+        if err > limit:
+            raise AssertionError(f"scaleout round: int8 differs from exact by {err} > {limit}")
+    print(f"scaleout round: compress_bits 8 vs 0, the largest |diff| / (half a quantization step "
+          f"+ bf16 rounding) over the leaves {worst:.4g} (held to 1)", flush=True)
+    return total
+
+
+def _scaleout_phase(device):
+    """The scaleout backend in a world of one on the card; returns the
+    launches of K1, K2 and K3 (forward, backward) in it."""
+    t = time.perf_counter()
+    print("scaleout: a world of one process on one card: the engine's and the round's "
+          "all-reduce and all-gather are the identity here, so this phase does not exercise "
+          "the collectives; tests/test_torch_scaleout.py runs a world of two CPU processes "
+          "under gloo", flush=True)
+    k1, k2 = _scaleout_engines(device)
+    launches = _scaleout_round(device)
+    launches["masked_weighted_sum"] += k1
+    launches["hellinger_strip"] = k2
+    print(f"scaleout: launches {json.dumps(launches)}; phase in "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    return launches
+
+
+def _kernel_only(records) -> None:
+    """Phase 6 on ``records`` ({"k1", "k2", "k3", "k4"}: phase 3's records
+    of each kernel), each record updated in place."""
+    import torch
+
+    device = torch.device("cuda", 0)
+    for rec in records["k1"]:
+        _reduce_kernel_ms(rec, device)
+    for rec in records["k2"]:
+        _strip_kernel_ms(rec, device)
+    for rec in records["k3"]:
+        _flash_kernel_ms(rec, device)
+    for rec in records["k4"]:
+        _scan_kernel_ms(rec, device)
+
+
+KERNEL_ONLY_IN, KERNEL_ONLY_OUT = ROOT / "build" / "kernel_only_in.json", \
+    ROOT / "build" / "kernel_only_out.json"
+
+
+def _kernel_only_phase(records) -> None:
+    """Phase 6 in a fresh process of this script (``--kernel-only``), which
+    loads the libraries phase 2 built: late in a long process, after the
+    other phases' profiler sessions, one run's sessions recorded 22 of 30
+    launches in every attempt, where a fresh process records all 30 at
+    its first.  The records, the profiling attempts and the readings
+    below their bound come back through a JSON file."""
+    KERNEL_ONLY_IN.write_text(json.dumps(records))
+    KERNEL_ONLY_OUT.unlink(missing_ok=True)
+    sys.stdout.flush()
+    subprocess.run([sys.executable, str(Path(__file__).resolve()), "--kernel-only"],
+                   check=True, timeout=900)
+    out = json.loads(KERNEL_ONLY_OUT.read_text())
+    for key, recs in records.items():
+        recs[:] = out["records"][key]
+    PROFILE_TRIES.extend(tuple(t) for t in out["tries"])
+    BELOW_BOUND.extend(out["below"])
+
+
+def _kernel_only_child() -> int:
+    """The ``--kernel-only`` process: phase 6 on ``KERNEL_ONLY_IN``'s
+    records, written to ``KERNEL_ONLY_OUT``."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.device import pin_fp32_matmul
+
+    torch.cuda.set_device(0)
+    pin_fp32_matmul()
+    records = json.loads(KERNEL_ONLY_IN.read_text())
+    _kernel_only(records)
+    KERNEL_ONLY_OUT.write_text(json.dumps({"records": records, "tries": PROFILE_TRIES,
+                                           "below": BELOW_BOUND}))
+    return 0
 
 
 def main() -> int:
@@ -2933,6 +3322,11 @@ def main() -> int:
           for h, kv, d, w, ig in ((32, 32, 80, 0, 1.0), (25, 5, 64, 1024, 0.0),
                                   (40, 8, 128, 0, 1.0), (128, 128, 192, 0, 1.0))),
         ((2, 256, 16, 16, 192), torch.bfloat16, 0, 1.0),   # D = 192 backward
+        # the frame and patch prompts in bf16: musicgen-large (MHA, D = 64)
+        # and internvl2-1b (GQA group 7), at both of each model's lengths
+        *(((4, s, h, kv, 64), torch.bfloat16, 0, 1.0) for model, (h, kv) in
+          (("musicgen-large", (32, 32)), ("internvl2-1b", (14, 2)))
+          for s in MODAL_PROMPTS[model]),
         # the training launcher in bf16: stablelm, hymba (local layers)
         ((8, 128, 32, 32, 80), torch.bfloat16, 0, 1.0),
         ((8, 128, 25, 5, 64), torch.bfloat16, 1024, 0.0),
@@ -2999,6 +3393,7 @@ def main() -> int:
                                          (), axes=_xlstm_async)
     serve_launches = _serve_phase(device)
     train_launches = _train_phase(device)
+    scaleout_launches = _scaleout_phase(device)
 
     # 5. small-input agreement with the CPU path
     _agreement(device)
@@ -3013,14 +3408,7 @@ def main() -> int:
     _train_agreement(device)
 
     # 6. the kernels' own device time, after every host-timed phase
-    for rec in k1:
-        _reduce_kernel_ms(rec, device)
-    for rec in k2:
-        _strip_kernel_ms(rec, device)
-    for rec in k3:
-        _flash_kernel_ms(rec, device)
-    for rec in k4:
-        _scan_kernel_ms(rec, device)
+    _kernel_only_phase({"k1": k1, "k2": k2, "k3": k3, "k4": k4})
     retried = [t for t in PROFILE_TRIES if t[1] > 1]
     print(f"kernel-only: {len(PROFILE_TRIES)} readings, {len(retried)} of them profiled more "
           f"than once; attempts a reading {json.dumps([n for _, n in PROFILE_TRIES])}; retried "
@@ -3033,7 +3421,8 @@ def main() -> int:
         {"name": "hellinger_strip", "route": "cuda",
          "source": "src/repro_torch/csrc/hellinger_strip.cu",
          "replaces": "src/repro/kernels/hellinger/kernel.py:38",
-         "launches": launches["hellinger_strip"] + population["hellinger_strip"],
+         "launches": (launches["hellinger_strip"] + population["hellinger_strip"]
+                      + scaleout_launches["hellinger_strip"]),
          "shape": k2[0]["shape"],
          **{k: k2[0][k] for k in keys + ("kernel_ms", "library_kernel_ms")}},
         {"name": "masked_weighted_sum", "route": "cuda",
@@ -3045,7 +3434,8 @@ def main() -> int:
                       + lm_launches["masked_weighted_sum"]
                       + xlstm_axes_launches["masked_weighted_sum"]
                       + hymba_launches["masked_weighted_sum"]
-                      + xlstm_launches["masked_weighted_sum"]),
+                      + xlstm_launches["masked_weighted_sum"]
+                      + scaleout_launches["masked_weighted_sum"]),
          "shape": k1[0]["shape"],
          **{k: k1[0][k] for k in keys + ("kernel_ms", "library_kernel_ms")}},
     ] + [
@@ -3054,7 +3444,8 @@ def main() -> int:
          "replaces": "src/repro/kernels/flash_attention/kernel.py:68",
          "launches": lm_launches[f"flash_attention_{direction}"]
          + serve_launches.get(f"flash_attention_{direction}", 0)
-         + train_launches[f"flash_attention_{direction}"], "shape": k3[0]["shape"],
+         + train_launches[f"flash_attention_{direction}"]
+         + scaleout_launches[f"flash_attention_{direction}"], "shape": k3[0]["shape"],
          **{k: k3[0][direction][k] for k in keys + ("kernel_ms",)}}
         for direction in ("forward", "backward")
     ] + [
@@ -3075,4 +3466,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(_kernel_only_child() if sys.argv[1:] == ["--kernel-only"] else main())

@@ -3,22 +3,28 @@
 Frozen dataclasses with the reference's field lists, so one config reads
 the same in both packages.  Each architecture registers itself from its
 own module under ``repro_torch.configs``; ``get_config`` imports them
-lazily.  The port registers what it runs: stablelm-3b, glm4-9b,
-qwen3-14b and gemma3-27b (dense attention), hymba-1.5b (attention in
-parallel with Mamba heads), xlstm-125m (mLSTM and sLSTM blocks),
-dbrx-132b (MoE) and deepseek-v3-671b (MLA, MoE with a shared expert, the
-MTP head).  Any other name raises with the slice that brings it.
+lazily.  The port registers all ten of the reference's architectures:
+stablelm-3b, glm4-9b, qwen3-14b and gemma3-27b (dense attention),
+hymba-1.5b (attention in parallel with Mamba heads), xlstm-125m (mLSTM
+and sLSTM blocks), dbrx-132b (MoE), deepseek-v3-671b (MLA, MoE with a
+shared expert, the MTP head), musicgen-large (frame inputs) and
+internvl2-1b (image patches in front of the text tokens).
+``InputShape`` and ``INPUT_SHAPES`` are the reference's named input
+shapes.
 """
 
 from __future__ import annotations
 
 import importlib
 from dataclasses import dataclass, replace
+from typing import NamedTuple
 
 __all__ = [
     "MoEConfig",
     "SSMConfig",
     "ModelConfig",
+    "InputShape",
+    "INPUT_SHAPES",
     "register_config",
     "get_config",
     "list_configs",
@@ -147,17 +153,24 @@ class ModelConfig:
         )
 
 
+class InputShape(NamedTuple):
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+INPUT_SHAPES: dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
 _REGISTRY: dict[str, ModelConfig] = {}
 
 _ARCH_MODULES = ["stablelm_3b", "hymba_1_5b", "xlstm_125m", "glm4_9b", "qwen3_14b", "gemma3_27b",
-                 "dbrx_132b", "deepseek_v3_671b"]
-
-# The reference's other architectures, each with the slice of the port that
-# brings the blocks it needs.
-_LATER = {
-    "musicgen-large": "a later slice (frame inputs)",
-    "internvl2-1b": "a later slice (image-patch inputs)",
-}
+                 "dbrx_132b", "deepseek_v3_671b", "musicgen_large", "internvl2_1b"]
 
 
 def register_config(cfg: ModelConfig) -> ModelConfig:
@@ -174,11 +187,6 @@ def get_config(name: str, reduced: bool = False) -> ModelConfig:
     if name not in _REGISTRY:
         _load_all()
     if name not in _REGISTRY:
-        if name in _LATER:
-            raise ValueError(
-                f"repro_torch does not implement model {name!r} yet; it arrives in "
-                f"{_LATER[name]} (the JAX package repro runs it; ported: {sorted(_REGISTRY)})"
-            )
         raise KeyError(f"unknown config {name!r}; available: {sorted(_REGISTRY)}")
     cfg = _REGISTRY[name]
     return cfg.reduced() if reduced else cfg

@@ -1,12 +1,14 @@
-"""Input construction, ported from ``repro.configs.inputs`` for token
-inputs: ``dummy_batch`` and ``dummy_decode_batch`` draw the same numbers
-as the reference from the same numpy seed, as int32 CPU tensors (the
-caller moves them to its device).
+"""Input construction, ported from ``repro.configs.inputs``:
+``dummy_batch`` and ``dummy_decode_batch`` draw the same numbers as the
+reference from the same numpy seed, in the same order (the frames or
+patches, then the tokens, then the labels), as CPU tensors (the caller
+moves them to its device): tokens and labels int32, frames and patches
+in ``cfg.dtype``, rounded from the float64 normals through float32 as the
+reference's ``jnp.asarray`` rounds them.
 
 Not ported (``UNPORTED`` says why): the reference's ``ShapeDtypeStruct``
 specs for its dry runs (``input_specs``, ``decode_specs``), which are
-jax objects, and frame and image-patch inputs (musicgen-large,
-internvl2-1b), whose models the port does not register yet.
+jax objects.
 """
 
 from __future__ import annotations
@@ -23,37 +25,50 @@ __all__ = ["dummy_batch", "dummy_decode_batch", "long_context_variant"]
 UNPORTED = {
     "input_specs": "jax ShapeDtypeStruct specs for the reference's dry runs",
     "decode_specs": "jax ShapeDtypeStruct specs for the reference's dry runs",
-    "frames": "frame inputs (musicgen-large): no such model in the port yet",
-    "vlm": "image-patch inputs (internvl2-1b): no such model in the port yet",
 }
 
 
-def _tokens_only(cfg: ModelConfig) -> None:
-    if cfg.input_mode != "tokens":
-        raise ValueError(f"repro_torch builds token inputs only; {cfg.name!r} has "
-                         f"input_mode={cfg.input_mode!r} ({UNPORTED.get(cfg.input_mode)})")
+def _normal(rng: np.random.Generator, shape, cfg: ModelConfig) -> torch.Tensor:
+    """N(0, 1) draws in ``cfg.dtype``: float64 -> float32 -> the dtype."""
+    x = torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32))
+    return x.to(getattr(torch, cfg.dtype))
+
+
+def _ints(rng: np.random.Generator, high: int, shape) -> torch.Tensor:
+    return torch.from_numpy(rng.integers(0, high, shape).astype(np.int32))
 
 
 def dummy_batch(cfg: ModelConfig, batch_size: int, seq_len: int,
                 seed: int = 0) -> dict[str, torch.Tensor]:
-    """A random token batch {"tokens", "labels"} (B, S) int32, drawn as the
-    reference draws it from ``np.random.default_rng(seed)``."""
-    _tokens_only(cfg)
+    """A random batch drawn as the reference draws it from
+    ``np.random.default_rng(seed)``: {"tokens"} (B, S) for token models,
+    {"frames"} (B, S, d) for frame models, {"patches"} (B, n_patches, d)
+    and {"tokens"} (B, S - n_patches) for vlm models; always "labels"
+    (B, S)."""
     rng = np.random.default_rng(seed)
-    tokens = rng.integers(0, cfg.vocab, (batch_size, seq_len))
-    labels = rng.integers(0, cfg.vocab, (batch_size, seq_len))
-    return {"tokens": torch.from_numpy(tokens.astype(np.int32)),
-            "labels": torch.from_numpy(labels.astype(np.int32))}
+    if cfg.input_mode == "tokens":
+        batch = {"tokens": _ints(rng, cfg.vocab, (batch_size, seq_len))}
+    elif cfg.input_mode == "frames":
+        batch = {"frames": _normal(rng, (batch_size, seq_len, cfg.d_model), cfg)}
+    elif cfg.input_mode == "vlm":
+        p = cfg.n_patches
+        batch = {"patches": _normal(rng, (batch_size, p, cfg.d_model), cfg),
+                 "tokens": _ints(rng, cfg.vocab, (batch_size, seq_len - p))}
+    else:
+        raise ValueError(f"unknown input_mode {cfg.input_mode!r}")
+    batch["labels"] = _ints(rng, cfg.vocab, (batch_size, seq_len))
+    return batch
 
 
 def dummy_decode_batch(cfg: ModelConfig, batch_size: int,
                        seed: int = 0) -> dict[str, torch.Tensor]:
-    """One random token a sequence, {"token": (B, 1) int32}, as the
-    reference draws it."""
-    _tokens_only(cfg)
+    """One random input a sequence, as the reference draws it: {"frame":
+    (B, 1, d)} in ``cfg.dtype`` for frame models, else {"token": (B, 1)
+    int32}."""
     rng = np.random.default_rng(seed)
-    return {"token": torch.from_numpy(rng.integers(0, cfg.vocab, (batch_size, 1))
-                                      .astype(np.int32))}
+    if cfg.input_mode == "frames":
+        return {"frame": _normal(rng, (batch_size, 1, cfg.d_model), cfg)}
+    return {"token": _ints(rng, cfg.vocab, (batch_size, 1))}
 
 
 def long_context_variant(cfg: ModelConfig) -> ModelConfig:

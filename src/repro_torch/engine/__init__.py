@@ -18,6 +18,12 @@
 - ``fused``       — ``FusedEngine``: chunks of compiled rounds, each
                     length captured once as a CUDA graph on the card
                     (``fuse_rounds > 0``)
+- ``scaleout``    — ``ScaleoutEngine``: the clients blocked over the pods
+                    of a ``repro_torch.launch.mesh.Mesh`` (processes of
+                    a ``torch.distributed`` group), every client trains,
+                    the mask-weighted K1 sum over each process's block
+                    meets in an all-reduce (``backend="scaleout"``); and
+                    ``make_scaleout_round``, the transformer round
 - ``async_config``— ``AsyncConfig`` (``FLConfig.async_mode``), the
                     staleness discounts and weights
 - ``async_engine``— ``AsyncHostEngine`` / ``AsyncCompiledEngine``:
@@ -77,6 +83,7 @@ from repro_torch.engine.compiled import CompiledEngine
 from repro_torch.engine.config import BACKENDS, FLConfig
 from repro_torch.engine.fused import FusedEngine
 from repro_torch.engine.host import HostEngine
+from repro_torch.engine.scaleout import ScaleoutEngine, make_scaleout_round
 from repro_torch.engine.presets import (
     ExperimentPreset,
     get_preset,
@@ -137,6 +144,8 @@ __all__ = [
     "HostEngine",
     "CompiledEngine",
     "FusedEngine",
+    "ScaleoutEngine",
+    "make_scaleout_round",
     "ExperimentPreset",
     "get_preset",
     "list_presets",
@@ -154,13 +163,16 @@ __all__ = [
 
 def make_engine(cfg: FLConfig, train, test, n_classes: int, *,
                 device: str | torch.device = "cuda", draws: Any = None,
-                partition_labels=None, cohort_gather: bool = True,
+                partition_labels=None, cohort_gather: bool = True, mesh=None,
                 resume: str | None = None, checkpointer: Checkpointer | str | None = None,
                 tracker: MetricsTracker | list | None = None):
     """Build the engine for ``cfg`` on ``device`` (default ``"cuda"``; raises
     without a card unless the caller passes ``"cpu"``): ``HostEngine`` for
     ``backend="host"``, ``CompiledEngine`` for ``"compiled"``,
-    ``FusedEngine`` for ``"compiled"`` with ``fuse_rounds > 0``, and
+    ``FusedEngine`` for ``"compiled"`` with ``fuse_rounds > 0``,
+    ``ScaleoutEngine`` for ``"scaleout"`` (``mesh=``: a
+    ``repro_torch.launch.mesh.Mesh`` with a ``pod`` axis in place of the
+    default, one pod a process of the default process group), and
     ``AsyncHostEngine`` / ``AsyncCompiledEngine`` with ``cfg.async_mode``.
     ``train``/``test`` are the task's datasets (features and labels for
     ``task="classification"``, token and next-token sequences for
@@ -185,8 +197,10 @@ def make_engine(cfg: FLConfig, train, test, n_classes: int, *,
     - ``tracker=``      — a ``MetricsTracker`` (or a list of them) added to
       ``engine.trackers``; every streamed ``RoundResult`` is logged."""
     kw = dict(device=device, draws=draws, partition_labels=partition_labels)
-    if cfg.backend == "host" and not cohort_gather:
+    if cfg.backend != "compiled" and not cohort_gather:
         raise ValueError("cohort_gather=False applies to backend='compiled'")
+    if mesh is not None and cfg.backend != "scaleout":
+        raise ValueError("mesh= applies to backend='scaleout'")
     if cfg.async_mode is not None:
         if cfg.backend == "compiled":
             engine = AsyncCompiledEngine(cfg, train, test, n_classes,
@@ -195,6 +209,8 @@ def make_engine(cfg: FLConfig, train, test, n_classes: int, *,
             engine = AsyncHostEngine(cfg, train, test, n_classes, **kw)
     elif cfg.backend == "host":
         engine = HostEngine(cfg, train, test, n_classes, **kw)
+    elif cfg.backend == "scaleout":
+        engine = ScaleoutEngine(cfg, train, test, n_classes, mesh=mesh, **kw)
     elif cfg.fuse_rounds > 0:
         engine = FusedEngine(cfg, train, test, n_classes, **kw)
     else:

@@ -17,8 +17,9 @@ canonical round loop:
     [resident shards] → poll_losses → [observe] → gate → select →
     local_train → [outcome, faults] → aggregate → evaluate
 
-``HostEngine`` (``repro_torch.engine.host``) implements ``select`` /
-``local_train`` / ``aggregate``; ``CompiledEngine``
+``HostEngine`` (``repro_torch.engine.host``) and ``ScaleoutEngine``
+(``repro_torch.engine.scaleout``) implement ``select`` / ``local_train`` /
+``aggregate``; ``CompiledEngine``
 (``repro_torch.engine.compiled``) replaces the whole round step with one
 on the device, its selection a mask (``MaskSelectionMixin``), and
 ``FusedEngine`` (``repro_torch.engine.fused``) runs chunks of such rounds
@@ -66,6 +67,7 @@ from repro_torch.engine.aggregators import get_aggregator
 from repro_torch.engine.client_modes import get_client_mode
 from repro_torch.engine.config import (
     FLConfig,
+    mask_backend_aggregator_error,
     mask_backend_client_mode_error,
     mask_backend_strategy_error,
 )
@@ -738,15 +740,26 @@ class MaskSelectionMixin:
     ``FLConfig``'s checks at engine build (for hand-built or mutated
     configs)."""
 
+    # backends whose aggregation is the weighted sum itself (scaleout) run
+    # fedavg only
+    requires_fedavg_aggregator = False
+
     def _check_mask_backend(self) -> None:
         if not getattr(self.strategy, "supports_compiled_selection", False):
             raise ValueError(mask_backend_strategy_error(self.cfg.strategy, self.backend))
         if self.cfg.client_mode != "plain":
             raise ValueError(mask_backend_client_mode_error(self.cfg.client_mode, self.backend))
+        if self.requires_fedavg_aggregator and self.cfg.aggregator != "fedavg":
+            raise ValueError(mask_backend_aggregator_error(self.cfg.aggregator))
 
     def select_mask(self, rnd: int, losses: torch.Tensor) -> torch.Tensor:
         """(K,) bool participation mask on the device."""
         return self.strategy.select_mask(losses, self.rng)
+
+    def select(self, rnd: int, losses: np.ndarray) -> np.ndarray:
+        """Sorted indices of the mask ``select_mask`` draws on ``losses``."""
+        mask = self.select_mask(rnd, torch.as_tensor(losses, device=self.device))
+        return np.flatnonzero(mask.cpu().numpy())
 
 
 def rounds_to_accuracy(history: dict[str, list], target: float) -> int | None:

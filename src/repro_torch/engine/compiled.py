@@ -12,7 +12,9 @@ clients and aggregates the cohort with the cohort slice of the weights:
 one launch of the FedAvg reduce kernel (K1) for ``fedavg``, ``fednova``
 and ``feddyn``, the sorts for ``trimmed_mean`` and ``coordinate_median``.
 ``cohort_gather=False`` keeps the legacy path: every client trains and
-K1 reduces the (K, P) stack with zero weights outside the mask.
+K1 reduces the (K, P) stack with zero weights outside the mask, which is
+the scaleout backend's round in a world of one.  ``make_scaleout_round``
+is re-exported from ``repro_torch.engine.scaleout``.
 
 The whole round — poll, selection, training, aggregation — is queued on
 the device with no host read; the mask and the cohort's losses are read
@@ -20,9 +22,9 @@ once, at its end.  ``FusedEngine`` (``repro_torch.engine.fused``) runs
 the same round body chunk after chunk.  The round's pieces are also
 hooks, as the reference's compiled backend offers them to its async
 runtime (``repro_torch.engine.async_engine``): ``poll_losses`` (the poll
-on the device, read back), ``select`` (the mask from ``self.rng``, as
-``select_mask``) and ``local_train`` (the gathered cohort's training,
-``_train_cohort``, which the round body runs too).
+on the device, read back), ``select`` (``MaskSelectionMixin``'s: the mask
+from ``self.rng``, as ``select_mask``) and ``local_train`` (the gathered
+cohort's training, ``_train_cohort``, which the round body runs too).
 
 With the systems or fault axis, the round takes the reference's
 exogenous inputs as (K,) tensors (``_exogenous``: availability, deadline
@@ -73,10 +75,11 @@ import torch
 from repro_torch.convert import leaf_segments
 from repro_torch.core.selection import cohort_indices, selection_weights
 from repro_torch.engine.base import Engine, MaskSelectionMixin, _Step
+from repro_torch.engine.scaleout import make_scaleout_round  # the reference's re-export
 from repro_torch.federated.client import local_train
 from repro_torch.federated.compression import compressed_fedavg
 
-__all__ = ["CompiledEngine"]
+__all__ = ["CompiledEngine", "make_scaleout_round"]
 
 
 class CompiledEngine(MaskSelectionMixin, Engine):
@@ -242,12 +245,8 @@ class CompiledEngine(MaskSelectionMixin, Engine):
             max_steps=self.max_steps,
         )
 
-    # -- the round's pieces as hooks (the async runtime's dispatch) ------
-    def select(self, rnd: int, losses: np.ndarray) -> np.ndarray:
-        """Sorted indices of the mask ``select_mask`` draws on ``losses``."""
-        mask = self.select_mask(rnd, torch.as_tensor(losses, device=self.device))
-        return np.flatnonzero(mask.cpu().numpy())
-
+    # -- the round's pieces as hooks (the async runtime's dispatch; select
+    # is MaskSelectionMixin's) ------------------------------------------
     def local_train(self, d: int, sel: np.ndarray):
         """The gathered cohort ``sel``'s training from draw index ``d``:
         ``((stacked,), losses)``, as the host backend's hook returns."""

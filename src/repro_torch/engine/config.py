@@ -4,8 +4,9 @@ field for field the reference's ``repro.engine.config.FLConfig``, so one
 
 Strategies, aggregators, client modes and tasks resolve against the
 port's registries, which hold every name the reference registers; the
-LM task runs the models the port has.  ``backend`` is ``"host"`` or
-``"compiled"``; ``fuse_rounds > 0`` (the compiled backend's fused chunks)
+LM task runs the models the port has.  ``backend`` is ``"host"``,
+``"compiled"`` or ``"scaleout"`` (fedavg only, no fault, population or
+async axis); ``fuse_rounds > 0`` (the compiled backend's fused chunks)
 and ``compress_bits`` in [2, 8] (quantized cohort deltas) follow the
 reference's combination rules with its error texts, as do ``systems``
 (a ``SystemsConfig`` or its dict form) and ``faults`` (a ``FaultConfig``
@@ -14,8 +15,7 @@ or its dict form): ``stale_replay`` and ``track_energy`` are rejected with
 under ``validate_async_combination``; ``population`` (a
 ``PopulationConfig`` or its dict form) on ``host`` and ``compiled`` only,
 without fused chunks, the async runtime or a per-client state, and with
-no more shards than clients.  Validation rejects, with a message naming
-the port, what it does not implement yet: ``backend="scaleout"``.
+no more shards than clients.
 """
 
 from __future__ import annotations
@@ -25,16 +25,9 @@ from typing import Any
 
 __all__ = ["FLConfig", "BACKENDS"]
 
-BACKENDS = ("host", "compiled")
-_MASK_BACKENDS = ("compiled",)  # selection enters the round as a mask
+BACKENDS = ("host", "compiled", "scaleout")
+_MASK_BACKENDS = ("compiled", "scaleout")  # selection enters the round as a mask
 _PARTITIONS = ("shards", "dirichlet")
-
-
-def _unported(what: str, got: Any, supported: Any) -> ValueError:
-    return ValueError(
-        f"repro_torch does not implement {what}={got!r} yet (supported: "
-        f"{supported}); the JAX package repro runs it"
-    )
 
 
 # The reference's backend-combination error texts, word for word, so a
@@ -57,6 +50,14 @@ def mask_backend_client_mode_error(client_mode: str, backend: str) -> str:
         f"backend={backend!r} supports client_mode='plain' only (got "
         f"{client_mode!r}); per-client state for unselected clients has "
         f"no scale-out analog"
+    )
+
+
+def mask_backend_aggregator_error(aggregator: str) -> str:
+    return (
+        "backend='scaleout' aggregates inside the mesh round as the "
+        f"mask-gated psum (fedavg semantics); got aggregator={aggregator!r} "
+        "— use backend='host' or 'compiled' for other server rules"
     )
 
 
@@ -84,6 +85,15 @@ def fused_aggregator_error(aggregator: str) -> str:
         "fuse_rounds > 0 aggregates inside the scanned round chunk "
         f"(mask-gated fedavg semantics); got aggregator={aggregator!r} — "
         "use aggregator='fedavg' or set fuse_rounds=0"
+    )
+
+
+def faults_backend_error(backend: str) -> str:
+    return (
+        "FLConfig.faults injects and screens client updates through the "
+        "host/compiled round paths (eager, fused, and async); "
+        f"backend={backend!r} has no fault seam — use backend='host' or "
+        "'compiled', or set faults=None"
     )
 
 
@@ -169,7 +179,7 @@ class FLConfig:
     eval_every: int = 5
     seed: int = 0
     hidden: tuple[int, ...] = (200, 200)   # paper MLP (classification task)
-    backend: str = "host"          # host | compiled
+    backend: str = "host"          # host | compiled | scaleout
     task: str = "classification"
     task_kwargs: dict = field(default_factory=dict)
     fuse_rounds: int = 0           # >0: fused round chunks (compiled only)
@@ -181,10 +191,6 @@ class FLConfig:
 
     def __post_init__(self) -> None:
         self.hidden = tuple(self.hidden)
-        if self.backend == "scaleout":
-            if self.population is not None:
-                raise ValueError(population_backend_error(self.backend))
-            raise _unported("backend", self.backend, BACKENDS)
         if self.backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, got {self.backend!r}")
         if self.partition not in _PARTITIONS:
@@ -220,14 +226,17 @@ class FLConfig:
             if name not in reg:
                 raise ValueError(f"unknown {reg.kind} {name!r}; available: {reg.names()}")
         # Mask-gated backends need a mask-producing selection and the
-        # plain client mode; fused chunks need a traced selection and the
-        # in-chunk fedavg; compression needs the compiled fedavg.
+        # plain client mode, and scaleout's weighted sum is fedavg; fused
+        # chunks need a traced selection and the in-chunk fedavg;
+        # compression needs the compiled fedavg.
         cls = STRATEGY_REGISTRY[self.strategy]
         if self.backend in _MASK_BACKENDS:
             if not getattr(cls, "supports_compiled_selection", False):
                 raise ValueError(mask_backend_strategy_error(self.strategy, self.backend))
             if self.client_mode != "plain":
                 raise ValueError(mask_backend_client_mode_error(self.client_mode, self.backend))
+        if self.backend == "scaleout" and self.aggregator != "fedavg":
+            raise ValueError(mask_backend_aggregator_error(self.aggregator))
         if self.fuse_rounds < 0:
             raise ValueError(f"fuse_rounds must be >= 0 (0 = off), got {self.fuse_rounds}")
         if self.fuse_rounds > 0:
@@ -273,9 +282,11 @@ class FLConfig:
                     f"{type(self.async_mode).__name__}"
                 )
             validate_async_combination(self)
-        if self.faults is not None and self.fuse_rounds > 0 \
-                and "stale_replay" in self.faults.models:
-            raise ValueError(stale_fused_error())
+        if self.faults is not None:
+            if self.backend not in ("host", "compiled"):
+                raise ValueError(faults_backend_error(self.backend))
+            if self.fuse_rounds > 0 and "stale_replay" in self.faults.models:
+                raise ValueError(stale_fused_error())
         # The population axis: the dict form becomes a validated
         # PopulationConfig; the client store and the resident-shard pick
         # live on the lock-step host round loop, which fused chunks and the
@@ -290,6 +301,8 @@ class FLConfig:
                     f"population must be a PopulationConfig, its dict form, or None; got "
                     f"{type(self.population).__name__}"
                 )
+            if self.backend not in ("host", "compiled"):
+                raise ValueError(population_backend_error(self.backend))
             if self.fuse_rounds > 0:
                 raise ValueError(population_fused_error())
             if self.async_mode is not None:

@@ -1,5 +1,5 @@
-"""Decoder stack, ported from ``repro.models.transformer`` over token
-inputs, with three block types: ``attn`` (pre-norm GQA or MLA attention
+"""Decoder stack, ported from ``repro.models.transformer``, with three
+block types: ``attn`` (pre-norm GQA or MLA attention
 plus a pre-norm dense or MoE MLP), ``hymba`` (attention in parallel with
 Mamba heads on the same normed input, their outputs fused as the mean of
 per-branch RMS-normed outputs, then the MLP) and ``xlstm`` (a pre-norm
@@ -20,9 +20,11 @@ concatenation rather than one full-size scatter per leaf.
 
 ``forward`` takes tokens (..., S) with weights (P,) shared by the whole
 batch (poll, evaluation), or tokens (m, B, S) with weights (m, P), one set
-per client (local SGD).  Client and batch axes fold into one batch axis for
-attention, which runs through the flash-attention kernel on the card, and
-into the rows of the selective-scan kernel for the Mamba heads.
+per client (local SGD); or the embedded inputs (..., S, d) that
+``embed_inputs`` makes of a batch dict.  Client and batch axes fold into
+one batch axis for attention, which runs through the flash-attention
+kernel on the card, and into the rows of the selective-scan kernel for
+the Mamba heads.
 The reference computes both xLSTM cores in every layer and keeps one with
 ``jnp.where``; the port computes only the flagged one, which gives the
 same output and gradient.  The reference's ``remat`` (``jax.checkpoint``
@@ -30,14 +32,25 @@ per layer) changes no number and is not mapped.  An MoE layer runs
 ``moe_dense`` (what the reference runs without a device mesh) and
 returns its router's load-balance loss; ``forward(..., with_aux=True)``
 returns the layers' mean of it, which ``loss_fn`` and the LM task weight
-by ``router_aux_weight``.  What the port does not run yet is rejected up
-front: non-token inputs.
+by ``router_aux_weight``.
+
+Inputs come in the reference's three modes (``cfg.input_mode``):
+``tokens``; ``frames`` (musicgen-large: precomputed frame embeddings at
+d_model, RMS-normed by the fp32 ``frame_norm`` leaf whatever the blocks'
+norm, the ``embed`` table kept as the output code table that decoding
+feeds back); ``vlm`` (internvl2-1b: ``n_patches`` patch embeddings in
+front of the text tokens' embeddings, the loss masked to the text
+positions).  ``embed_inputs`` turns a batch dict into (x, loss mask or
+None).  The flat fp32 layout of federated training takes token inputs
+only, as the reference's LM task does; the parameter tree (the launcher
+and serving) takes all three.
 
 ``loss_fn`` is the training launcher's loss on the parameter tree: the
-next-token cross-entropy over sequence chunks of ``loss_chunk``, each
-chunk's logits in fp32 (``chunked_logits_sum``, which the LM task shares),
-plus the MoE aux term and, with ``cfg.mtp``, the MTP head's weighted
-cross-entropy against the labels shifted by one more position.
+next-token cross-entropy over sequence chunks of ``loss_chunk``, weighted
+by the loss mask and divided by its sum, each chunk's logits in fp32
+(``chunked_logits_sum``, which the LM task shares), plus the MoE aux term
+and, with ``cfg.mtp``, the MTP head's weighted cross-entropy against the
+labels shifted by one more position.
 
 Serving (``init_params``, ``init_cache``, ``prefill``, ``decode_step``) and
 the training launcher run the model in the config's dtype, bf16 at full
@@ -91,9 +104,16 @@ __all__ = [
 
 
 def check_supported(cfg, tree: bool = False) -> None:
-    """Raise for what the port does not run yet: the flat fp32 layout
-    (federated training) takes float32 configs, the parameter tree
-    (``tree``: the training launcher and serving) float32 and bfloat16."""
+    """Raise for what the port does not run: the flat fp32 layout
+    (federated training) takes float32 configs with token inputs, the
+    parameter tree (``tree``: the training launcher and serving) float32
+    and bfloat16 and every input mode."""
+    if not tree and cfg.input_mode != "tokens":
+        raise ValueError(
+            f"repro_torch's flat transformer layout (federated training) takes token inputs "
+            f"only, as the reference's LM task does; model {cfg.name!r} has "
+            f"input_mode={cfg.input_mode!r} (the parameter tree of the launcher and serving "
+            f"takes it)")
     dtypes = ("float32", "bfloat16") if tree else ("float32",)
     unsupported = [
         (cfg.block_type not in ("attn", "hymba", "xlstm"), f"block_type={cfg.block_type!r}"),
@@ -101,7 +121,7 @@ def check_supported(cfg, tree: bool = False) -> None:
          "a hymba block without a mamba SSM config"),
         (cfg.block_type == "xlstm" and (cfg.ssm is None or cfg.ssm.family != "xlstm"),
          "an xlstm block without an xlstm SSM config"),
-        (cfg.input_mode != "tokens", f"input_mode={cfg.input_mode!r}"),
+        (cfg.input_mode not in ("tokens", "frames", "vlm"), f"input_mode={cfg.input_mode!r}"),
         (cfg.dtype not in dtypes,
          f"dtype={cfg.dtype!r} (the parameter tree takes float32 and bfloat16)" if tree else
          f"dtype={cfg.dtype!r} for federated training (the flat layout trains in float32; "
@@ -279,6 +299,8 @@ def _init_tree(generator: torch.Generator, cfg, dtype: torch.dtype) -> dict:
                         else cast_params(_init_mlp(generator, cfg), dtype))
         layers.append(layer)
     tree = {"layers": layers, **_init_norm(cfg, "final_norm", dev)}
+    if cfg.input_mode == "frames":
+        tree["frame_norm"] = torch.zeros(cfg.d_model, device=dev)
     tree["embed"] = (torch.randn((cfg.vocab, cfg.d_model), generator=generator, device=dev)
                      * 0.02).to(dtype)
     if not cfg.tie_embeddings:
@@ -305,7 +327,8 @@ def init_params(generator: torch.Generator, cfg) -> dict:
     """The parameter tree in ``cfg.dtype`` (the training launcher's and
     serving's), drawn as ``init_transformer`` draws the flat vector (the
     same numbers, in the same order) and cast module by module, the
-    reference's fp32 leaves kept in fp32."""
+    reference's fp32 leaves kept in fp32; a frames model adds the zero
+    fp32 ``frame_norm`` and keeps ``embed`` as its output code table."""
     check_supported(cfg, tree=True)
     return _init_tree(generator, cfg, getattr(torch, cfg.dtype))
 
@@ -335,7 +358,7 @@ def _ffn(p, cfg, x):
     return _mlp(p, cfg, x), 0.0
 
 
-def embed_inputs(params, cfg, tokens: torch.Tensor) -> torch.Tensor:
+def _embed_tokens(params, cfg, tokens: torch.Tensor) -> torch.Tensor:
     """Token ids (..., S) -> (..., S, d); with per-client tables (m, V, d)
     the tokens are (m, B, S) and client i reads its own table.  A tied
     embedding scales by sqrt(d) rounded to the table's type, as the
@@ -349,6 +372,38 @@ def embed_inputs(params, cfg, tokens: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
         x = x * torch.tensor(math.sqrt(cfg.d_model)).to(x.dtype)
     return x
+
+
+def _embed_frames(params, cfg, frames: torch.Tensor) -> torch.Tensor:
+    """Frame embeddings (..., S, d) in the model's dtype, RMS-normed by
+    ``frame_norm`` (an RMS norm whatever ``cfg.norm`` is, as in the
+    reference)."""
+    return rms_norm(frames.to(getattr(torch, cfg.dtype)), params["frame_norm"], cfg.norm_eps)
+
+
+def embed_inputs(params, cfg, batch: dict) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """A batch dict -> (x (B, S, d), the loss mask (B, S) fp32, or None
+    where every position counts), as the reference's ``embed_inputs``:
+
+    - tokens: {"tokens": (B, S) int}
+    - frames: {"frames": (B, S, d)}
+    - vlm:    {"patches": (B, n_patches, d), "tokens": (B, S - n_patches)},
+      the patches cast to the table's type in front of the tokens'
+      embeddings; the mask is 0 over the patches and 1 after them.
+    """
+    if cfg.input_mode == "tokens":
+        return _embed_tokens(params, cfg, batch["tokens"]), None
+    if cfg.input_mode == "frames":
+        return _embed_frames(params, cfg, batch["frames"]), None
+    if cfg.input_mode == "vlm":
+        table = params["embed"]
+        tok = table[batch["tokens"].long()]
+        x = torch.cat([batch["patches"].to(tok.dtype), tok], dim=1)
+        b, s = x.shape[:2]
+        mask = torch.ones(b, s, dtype=torch.float32, device=x.device)
+        mask[:, :cfg.n_patches] = 0.0
+        return x, mask
+    raise ValueError(cfg.input_mode)
 
 
 def _rope_tables(cfg, seq_len, device, positions: int | None = None):
@@ -408,10 +463,12 @@ def _hymba_fuse(pl, cfg, a_out, s_out):
                   + rms_norm(s_out, per_client(pl["ssm_out_norm"], s_out), cfg.norm_eps))
 
 
-def forward(params, cfg, tokens: torch.Tensor, layout: TransformerLayout | None = None,
+def forward(params, cfg, inputs: torch.Tensor, layout: TransformerLayout | None = None,
             collect_cache: bool = False, with_aux: bool = False):
     """Hidden states after the final norm, (..., S, d).  ``params`` is the
-    flat (P,) or (m, P) vector (cut by ``layout``) or its tree of views.
+    flat (P,) or (m, P) vector (cut by ``layout``) or its tree of views;
+    ``inputs`` the token ids (..., S) or, floating point, the embedded
+    inputs (..., S, d) (``embed_inputs``).
     With ``with_aux`` it also returns the MoE router's aux loss, the mean
     over the layers (fp32: one per client with per-client weights, else
     one per leading group of (B, S) tokens; a 0-d zero without MoE), as the
@@ -419,7 +476,7 @@ def forward(params, cfg, tokens: torch.Tensor, layout: TransformerLayout | None 
     cache entries a layer, last: (hidden[, aux][, caches])."""
     if isinstance(params, torch.Tensor):
         params = (layout or TransformerLayout(cfg)).views(params)
-    x = embed_inputs(params, cfg, tokens)
+    x = inputs if inputs.is_floating_point() else _embed_tokens(params, cfg, inputs)
     tabs_l, tabs_g = _rope_tables(cfg, x.shape[-2], x.device)
     flags = layer_flags(cfg)
     caches, aux = [], 0.0
@@ -477,20 +534,31 @@ def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return torch.logsumexp(logits, dim=-1) - gold
 
 
+def _masked_ce(h, head, cfg, labels, mask):
+    """sum(NLL x mask) / max(sum(mask), 1) over sequence chunks."""
+    tot = chunked_logits_sum(
+        h, head, cfg.loss_chunk,
+        lambda lg, lo, hi: (token_nll(lg, labels[..., lo:hi]) * mask[..., lo:hi]).sum())
+    return tot / torch.clamp(mask.sum(), min=1.0)
+
+
 def loss_fn(params, cfg, batch: dict):
-    """The mean next-token cross-entropy of ``batch`` ({"tokens", "labels"}
-    (B, S)) under the parameter tree, plus ``router_aux_weight`` x the MoE
-    aux loss and, with ``cfg.mtp``, ``mtp_weight`` x the MTP head's
-    cross-entropy: rms_norm(h @ mtp_proj, mtp_norm) against the labels
-    shifted one more position, the last position masked.  Returns (loss,
-    {"ce", "aux"[, "mtp_ce"]})."""
+    """The mean next-token cross-entropy of ``batch`` (``embed_inputs``'s
+    dict and "labels" (B, S)) under the parameter tree, each position
+    weighted by the loss mask (vlm: the text positions) and divided by the
+    mask's sum; plus ``router_aux_weight`` x the MoE aux loss and, with
+    ``cfg.mtp``, ``mtp_weight`` x the MTP head's cross-entropy:
+    rms_norm(h @ mtp_proj, mtp_norm) against the labels shifted one more
+    position, the last position masked too.  Returns (loss, {"ce",
+    "aux"[, "mtp_ce"]})."""
     labels = batch["labels"]
-    h, aux = forward(params, cfg, batch["tokens"], with_aux=True)
+    x, mask = embed_inputs(params, cfg, batch)
+    h, aux = forward(params, cfg, x, with_aux=True)
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32, device=h.device)
     head = output_head(params, cfg)
     s = h.shape[-2]
-    tot = chunked_logits_sum(h, head, cfg.loss_chunk,
-                             lambda lg, lo, hi: token_nll(lg, labels[..., lo:hi]).sum())
-    ce = tot / max(labels.numel(), 1)
+    ce = _masked_ce(h, head, cfg, labels, mask)
     loss = ce
     metrics = {"ce": ce, "aux": aux}
     if cfg.moe:
@@ -498,11 +566,8 @@ def loss_fn(params, cfg, batch: dict):
     if cfg.mtp:
         h_mtp = rms_norm(h @ params["mtp_proj"], params["mtp_norm"], cfg.norm_eps)
         y2 = torch.roll(labels, -1, dims=-1)
-        m2 = (torch.arange(s, device=h.device) < s - 1).to(torch.float32)
-        tot2 = chunked_logits_sum(
-            h_mtp, head, cfg.loss_chunk,
-            lambda lg, lo, hi: (token_nll(lg, y2[..., lo:hi]) * m2[lo:hi]).sum())
-        mtp_ce = tot2 / max(labels.numel() // s * (s - 1), 1)
+        m2 = mask * (torch.arange(s, device=h.device) < s - 1).to(torch.float32)
+        mtp_ce = _masked_ce(h_mtp, head, cfg, y2, m2)
         loss = loss + cfg.mtp_weight * mtp_ce
         metrics["mtp_ce"] = mtp_ce
     return loss, metrics
@@ -550,14 +615,16 @@ def init_cache(cfg, batch_size: int, max_len: int, device=None) -> dict:
 
 @torch.no_grad()
 def prefill(params, cfg, batch: dict, max_len: int):
-    """Run the prompt ``batch["tokens"]`` (B, S) through the parameter tree
-    -> (the last position's logits (B, V), the cache with the prompt's
-    entries at positions [0, S), room up to ``max_len``)."""
-    tokens = batch["tokens"]
-    b, s = tokens.shape
+    """Run the prompt ``batch`` (``embed_inputs``'s dict; a "labels" entry
+    is ignored) through the parameter tree -> (the last position's logits
+    (B, V), the cache with the prompt's entries at positions [0, S), room
+    up to ``max_len``).  S is the embedded sequence's length: for vlm the
+    patches and the tokens."""
+    x, _ = embed_inputs(params, cfg, batch)
+    b, s = x.shape[:2]
     if s > max_len:
-        raise ValueError(f"a prompt of {s} tokens does not fit a cache of {max_len}")
-    h, caches = forward(params, cfg, tokens, collect_cache=True)
+        raise ValueError(f"a prompt of {s} positions does not fit a cache of {max_len}")
+    h, caches = forward(params, cfg, x, collect_cache=True)
     logits = _logits(params, cfg, h[:, -1])
     cache = init_cache(cfg, b, max_len, device=h.device)
     for i, entries in enumerate(caches):
@@ -602,9 +669,14 @@ def _apply_layer_decode(pl, cfg, x, flags: dict[str, float], tabs_l, tabs_g, cac
 
 @torch.no_grad()
 def decode_step(params, cfg, batch: dict, cache: dict, pos: int):
-    """One greedy-decode step: ``batch["token"]`` (B, 1) at position
-    ``pos`` -> (logits (B, V), cache), the cache advanced in place."""
-    x = embed_inputs(params, cfg, batch["token"])
+    """One greedy-decode step: ``batch["token"]`` (B, 1) (a frames model:
+    ``batch["frame"]`` (B, 1, d), RMS-normed as the prompt's frames) at
+    position ``pos`` -> (logits (B, V), cache), the cache advanced in
+    place."""
+    if cfg.input_mode == "frames":
+        x = _embed_frames(params, cfg, batch["frame"])
+    else:
+        x = _embed_tokens(params, cfg, batch["token"])
     pos = int(pos)
     tabs_l = tabs_g = None
     if cfg.block_type != "xlstm":

@@ -8,7 +8,8 @@ classification task (3 rounds) and the micro LM (``lm_fl_cfg``, 2
 rounds), and for every aggregator; it must also equal the port's own host
 run.  The legacy ``cohort_gather=False`` path must equal the gathered
 one.  Config errors must read as the reference's, message for message,
-and ``backend="scaleout"`` stays rejected as not ported."""
+and ``backend="scaleout"`` (``tests/test_torch_scaleout.py``) builds as the
+reference's does."""
 
 import numpy as np
 import pytest
@@ -129,8 +130,10 @@ def test_valid_compiled_configs_round_trip():
 
 
 def test_scaleout_stays_unported():
-    with pytest.raises(ValueError, match="repro_torch does not implement backend='scaleout'"):
-        FLConfig(backend="scaleout")
+    # ported in the scaleout slice: the config builds as the reference's does
+    cfg = FLConfig(backend="scaleout")
+    assert cfg.to_dict() == RefFLConfig(backend="scaleout").to_dict()
+    assert FLConfig.from_dict(cfg.to_dict()) == cfg
 
 
 def test_engine_checks_the_mask_backend_again(data):

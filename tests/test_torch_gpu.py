@@ -893,3 +893,66 @@ def test_reduced_serving_on_card_matches_cpu(cuda, model):
     flat = lambda c: [t for v in c.values() for t in (v if isinstance(v, tuple) else (v,))]  # noqa: E731
     for g, w in [(got, want), *zip(flat(got_cache), flat(want_cache))]:
         assert (g.cpu() - w).abs().max().item() <= 1e-4 * max(1.0, w.abs().max().item())
+
+
+@pytest.mark.parametrize("b,s,h,kv", [
+    (4, 128, 32, 32), (4, 1280, 32, 32),   # musicgen-large's prefill
+    (4, 384, 14, 2), (4, 1280, 14, 2),     # internvl2-1b's: a GQA group of 7
+])
+def test_flash_attention_modal_prefill_shapes_match_plain(cuda, b, s, h, kv):
+    g = torch.Generator().manual_seed(b * s + h)
+    q, k, v = (torch.randn(b, s, n, 64, generator=g).to(torch.bfloat16).to(cuda)
+               for n in (h, kv, kv))
+    do = torch.randn(b, s, h, 64, generator=g).to(torch.bfloat16).to(cuda)
+    _check_flash_against_plain(q, k, v, do, 0, 1.0)
+
+
+@pytest.mark.parametrize("model", ["musicgen-large", "internvl2-1b"])
+def test_reduced_modal_serving_on_card_matches_cpu(cuda, model):
+    """Frame and patch prompts on the reduced config (fp32): the card's
+    prefill logits and cache within 1e-4 relative of the CPU's, and three
+    greedy decode steps (a frames model feeding back the code's embedding)
+    give the CPU's tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.inputs import dummy_batch
+    from repro_torch.models.transformer import decode_step, init_params, prefill
+
+    cfg = get_config(model, reduced=True)
+    params = init_params(torch.Generator().manual_seed(0), cfg)
+    batch = {k: v for k, v in dummy_batch(cfg, 2, 64, seed=1).items() if k != "labels"}
+    runs = []
+    for dev in ("cpu", cuda):
+        p = _tree_to(params, dev)
+        logits, cache = prefill(p, cfg, _tree_to(batch, dev), 72)
+        # copies: decode_step advances the cache in place (on the CPU too)
+        first = (logits.cpu().clone(), {k: v.cpu().clone() for k, v in cache.items()})
+        toks = [logits.argmax(-1)]
+        for pos in range(64, 67):
+            tok = toks[-1][:, None]
+            step = ({"frame": p["embed"][tok[:, 0]][:, None, :]} if cfg.input_mode == "frames"
+                    else {"token": tok.to(torch.int32)})
+            logits, cache = decode_step(p, cfg, step, cache, pos)
+            toks.append(logits.argmax(-1))
+        runs.append((first, torch.stack(toks).cpu()))
+    (want, want_cache), want_toks = runs[0]
+    (got, got_cache), got_toks = runs[1]
+    for g, w in [(got, want), *((got_cache[k], want_cache[k]) for k in want_cache)]:
+        assert (g - w).abs().max().item() <= 1e-4 * max(1.0, w.abs().max().item())
+    assert torch.equal(got_toks, want_toks)
+
+
+def test_scaleout_engine_on_card_matches_cpu(cuda):
+    """The scaleout backend in a world of one: the card (K1 once a round
+    over the (K, P) stack) selects as the CPU does and lands within 1e-5."""
+    train = make_classification(800, n_features=64, n_classes=10, seed=0)
+    test = make_classification(200, n_features=64, n_classes=10, seed=1)
+    cfg = FLConfig(backend="scaleout", n_clients=12, m=4, rounds=3, hidden=(16,),
+                   eval_samples=16, eval_every=1, target_hd=0.8, strategy_kwargs={"J": 3})
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        before = masked_weighted_sum.launches
+        eng = make_engine(cfg, train, test, 10, device=dev)
+        runs[dev] = ([r.selected for r in eng.rounds()], eng.params.cpu(),
+                     masked_weighted_sum.launches - before)
+    assert runs["cuda"][0] == runs["cpu"][0] and runs["cuda"][2] == 3 and runs["cpu"][2] == 0
+    torch.testing.assert_close(runs["cuda"][1], runs["cpu"][1], atol=1e-5, rtol=0)

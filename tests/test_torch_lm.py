@@ -97,8 +97,12 @@ def test_hymba_config_matches_reference():
 
 @pytest.mark.parametrize("name", ["musicgen-large", "internvl2-1b"])
 def test_unported_configs_name_their_slice(name):
-    with pytest.raises(ValueError, match="repro_torch does not implement .* arrives in"):
-        get_config(name)
+    # the frame and image-patch slice registers both: the reference's values
+    for reduced in (False, True):
+        assert dataclasses.asdict(get_config(name, reduced=reduced)) == dataclasses.asdict(
+            ref_get_config(name, reduced=reduced))
+    with pytest.raises(KeyError, match="unknown config"):
+        get_config(name + "-nope")
 
 
 DENSE = ["glm4-9b", "qwen3-14b", "gemma3-27b"]

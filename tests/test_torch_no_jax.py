@@ -5,8 +5,8 @@ engines too, and the async engines; the config accepts every registered
 strategy, aggregator and client mode, validates the compiled backend's
 options as the reference does, takes the systems and fault axes and the
 async runtime and the population axis under the reference's rules and
-error texts, and rejects what the port does not implement yet
-(``backend="scaleout"``)."""
+error texts, and takes ``backend="scaleout"``, whose engine defaults to
+the card too."""
 
 import ast
 from pathlib import Path
@@ -58,7 +58,9 @@ def test_port_file_list_is_complete():
                       "population/hierarchy.py", "configs/inputs.py", "serving/__init__.py",
                       "serving/scheduler.py", "launch/__init__.py", "launch/serve.py",
                       "launch/train.py", "optim/optimizers.py", "optim/schedules.py",
-                      "models/moe.py", "configs/dbrx_132b.py", "configs/deepseek_v3_671b.py"):
+                      "models/moe.py", "configs/dbrx_132b.py", "configs/deepseek_v3_671b.py",
+                      "configs/musicgen_large.py", "configs/internvl2_1b.py", "launch/mesh.py",
+                      "federated/scaleout.py", "engine/scaleout.py"):
         assert f"src/repro_torch/{lm_module}" in names
     assert len(names) > 20
 
@@ -82,7 +84,8 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
                 "faults": {"rate": 0.2, "defense": "validate"}},
                {"systems": {"profile": "mobile_mix"}, "async_mode": {"buffer_k": 2}},
                {"backend": "compiled", "systems": {"profile": "mobile_mix"},
-                "async_mode": {"buffer_k": 2}}):
+                "async_mode": {"buffer_k": 2}},
+               {"backend": "scaleout"}):
         with pytest.raises(RuntimeError, match="cuda"):
             make_engine(FLConfig(**{**cfg.to_dict(), **kw}), train, test, 4)
     lm_cfg = FLConfig(task="lm", n_clients=4, m=2, rounds=1, batch_size=2, eval_samples=2,
@@ -130,8 +133,12 @@ def test_config_rejects_unported_values(field, value):
         with pytest.raises(ValueError, match="population"):
             FLConfig(**{field: value, "backend": "compiled", "fuse_rounds": 2})
         return
-    with pytest.raises(ValueError, match="repro_torch"):
-        FLConfig(**{field: value})
+    # ported: the scaleout backend builds, and refuses the population axis
+    # as the reference does
+    cfg = FLConfig(**{field: value})
+    assert cfg.backend == value and FLConfig.from_dict(cfg.to_dict()) == cfg
+    with pytest.raises(ValueError, match="population"):
+        FLConfig(**{field: value, "population": {"n_shards": 2}})
 
 
 # Ported in the compiled backend's slice: alone, each builds (backend) or

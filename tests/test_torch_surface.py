@@ -29,15 +29,8 @@ from repro_torch.models.mlp import MLPLayout  # noqa: E402
 # Names of the reference that the port does not offer yet, by module, each
 # with the ROADMAP item (or the reason) that keeps it out.
 UNPORTED = {
-    "repro.configs": {"INPUT_SHAPES": "frame and image inputs",
-                      "InputShape": "frame and image inputs"},
-    "repro.configs.base": {"INPUT_SHAPES": "frame and image inputs",
-                           "InputShape": "frame and image inputs"},
     "repro.core.selection": {"fedlecc_select_jax": "a jax entry point; the port's is "
                                                    "fedlecc_select_mask"},
-    "repro.engine": {
-        "ScaleoutEngine": "scaleout", "make_scaleout_round": "scaleout"},
-    "repro.engine.compiled": {"make_scaleout_round": "scaleout"},
     "repro.federated": {"FederatedSimulation": "the deprecated simulation shim"},
     "repro.kernels": {n: "the Pallas entry points; the port's kernels have their own"
                       for n in ("hellinger_matrix_pallas", "hellinger_strip_pallas",
@@ -59,8 +52,10 @@ UNPORTED = {
     "repro.models.attention": {"gqa_specs": "sharding specs", "mla_specs": "sharding specs"},
     "repro.models.moe": {
         "moe_specs": "sharding specs",
-        "moe_capacity": "scaleout: the reference runs them only under a mesh",
-        "moe_capacity_sharded": "scaleout: the reference runs them only under a mesh"},
+        "moe_capacity": "expert parallelism: the reference runs it only when a mesh is "
+                        "passed to the forward (dry runs, sharded forwards), never in the "
+                        "scaleout round; the port has no model axis",
+        "moe_capacity_sharded": "expert parallelism under a mesh, as moe_capacity"},
     "repro.models.ssm": {"mamba_specs": "sharding specs", "xlstm_specs": "sharding specs"},
     "repro.models.transformer": {"transformer_specs": "sharding specs"},
 }
@@ -70,7 +65,6 @@ UNPORTED = {
 # the reason) that keeps it out; every other module of these packages has one.
 UNPORTED_MODULES = {
     "repro.launch.dryrun": "reference-only: XLA dry runs on a virtual TPU mesh",
-    "repro.launch.mesh": "ROADMAP: scaleout (the one-H100 analog of a device mesh)",
 }
 
 
@@ -115,7 +109,9 @@ def test_every_reference_name_with_a_port_counterpart_imports_from_the_same_path
             "repro.engine.async_config", "repro.engine.async_engine",
             "repro.population", "repro.serving", "repro.serving.scheduler",
             "repro.launch.serve", "repro.configs.inputs", "repro.launch.train",
-            "repro.optim.optimizers", "repro.optim.schedules", "repro.models.moe"} <= seen
+            "repro.optim.optimizers", "repro.optim.schedules", "repro.models.moe",
+            "repro.launch.mesh", "repro.engine.scaleout", "repro.federated.scaleout",
+            "repro.configs.musicgen_large", "repro.configs.internvl2_1b"} <= seen
     for package in ("systems", "faults", "checkpoint", "population", "serving", "launch"):
         ref = importlib.import_module(f"repro.{package}")
         modules = {m.name for m in pkgutil.walk_packages(ref.__path__, f"repro.{package}.")}
