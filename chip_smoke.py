@@ -21,11 +21,13 @@ Phases, each printed on its own lines:
    serving prefill's shapes (4, S, 32, 80) stablelm, (4, S, 25 / 5 kv, 64)
    hymba with its 1024 window, (4, S, 40 / 8 kv, 128) qwen3 and (4, S, 128,
    192) deepseek-v3's MLA (q and k of 128 + 64 dims, the DMAX-256
-   template), S = 128 and 1280, with a D = 192 backward at (2, 256, 16, 192),
+   template) and (4, S, 48 / 8 kv, 128) dbrx-132b, S = 128 and 1280, with
+   a D = 192 backward at (2, 256, 16, 192),
    at the frame and patch prompts' (4, 128 / 1280, 32, 64) musicgen-large
    and (4, 384 / 1280, 14 / 2 kv, 64) internvl2-1b (a GQA group of 7),
-   and at the training launcher's (8, 128, 32, 80) stablelm and (8, 128, 25 /
-   5 kv, 64) hymba, with ``scaled_dot_product_attention(enable_gqa=True)``
+   and at the training launcher's (8, 128, 32, 80) stablelm, (8, 128, 25 /
+   5 kv, 64) hymba and (8, 128, 48 / 8 kv, 128) dbrx-132b (the first D =
+   128 backward on a path), with ``scaled_dot_product_attention(enable_gqa=True)``
    as the library; K4 with its final-state output at hymba's prefill, (4,
    128 / 1280, 1600, 16) fp32, and with its checkpoints at the launcher's
    (8, 128, 1600, 16).
@@ -156,6 +158,26 @@ Phases, each printed on its own lines:
      each family's reduced config (fp32, the two modal ones too) on the
      CPU and on the card from the same weights: the same greedy tokens,
      the prefill's logits and cache within 1e-4;
+   - ``moe mesh:`` the MoE's capacity dispatch under a mesh of one
+     (``make_host_mesh()``: a world of one, so its sums are the identity;
+     the collectives run in ``tests/test_torch_mesh.py``'s world of four
+     CPU processes under gloo): dbrx-132b (2 layers) and deepseek-v3-671b
+     (1 layer) at full width in bf16, ``prefill`` of 4 prompts of 128 and
+     of 1280 tokens and 31 ``decode_step`` calls each with ``mesh=``:
+     prefill ms, decode ms a step against the weight-read bound, peak,
+     beside the ``serve:`` phase's dense numbers, and the share of (token,
+     slot) assignments dropped (at decode cap = 1 of 4 tokens, as in the
+     reference); K3 once a layer a prefill; with capacity factor E / top_k
+     (cap >= tokens) the capacity prefill's logits equal the dense
+     prefill's within 2e-2 x (max |logit| + 1), and fp32
+     decode(prefill(x[:-1]), x[-1]) equals forward(x) under the mesh
+     within it; the reduced configs under the mesh on the CPU and on the
+     card (the same greedy tokens, logits within 1e-4; 3 launcher steps
+     within the agreement's tolerances); and the launcher's step under the
+     mesh on dbrx-132b at full width, 1 layer, the vocabulary cut from
+     100352 to 8192 (the full one would take the step's memory past 80 GB),
+     batch 8 of 128, 3 AdamW steps (ms, losses, peak; K3 once a step each
+     way);
    - ``train:`` the training launcher (``repro_torch.launch.train``'s
      ``make_train_step`` and optimizer: chunked CE, clip to norm 1, AdamW
      with fp32 moments) on stablelm-3b (32 layers), hymba-1.5b (32) and
@@ -208,7 +230,8 @@ Phases, each printed on its own lines:
    profiler once lost a fixed share of every window's launches.
 
 Then the card's name and power limit again, one JSON line lists the
-kernels (K1's launches summed over every path above), and the last line
+kernels (K1's launches summed over every path above; K3's backward also
+at the dbrx-132b step's shape, with that step's launches), and the last line
 is ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
 before that line; so does a machine with no CUDA device, and a directory
 that holds this script without the repository's ``src/``.
@@ -238,6 +261,9 @@ PEAK_3XTF32_PER_S = 495e12 / 3
 # SM description) x 132 SMs x the 1.98 GHz boost clock of the SXM part
 PEAK_SFU_PER_S = 16 * 132 * 1.98e9
 TIMED_CALLS = 30
+# the card's name and power limit (nvidia-smi), set by main(), printed beside
+# the MoE phase's numbers
+SMI = ""
 PROFILE_ATTEMPTS = 10
 L2_BYTES = 50 * 2**20        # H100 SXM L2: inputs this small stay resident between calls
 
@@ -2639,11 +2665,12 @@ def _train_resume(device):
         raise AssertionError(f"train resume: resumed run differs by {diff}")
 
 
-def _train_agreement(device):
+def _train_agreement(device, models=TRAIN_REDUCED, mesh=None, tag="train agreement"):
     """3 launcher steps of each reduced config (fp32; deepseek with its MTP
     head) on the CPU (plain versions) and on the card (kernels) from the
     same parameters and batches (2 x 64 tokens): each step's loss and the
-    final parameters within ``TRAIN_AGREE_LOSS_TOL`` / ``TRAIN_AGREE_PARAM_TOL``."""
+    final parameters within ``TRAIN_AGREE_LOSS_TOL`` / ``TRAIN_AGREE_PARAM_TOL``.
+    With ``mesh``, the MoE configs' capacity dispatch under it."""
     import torch
 
     from repro_torch.configs import get_config
@@ -2651,15 +2678,17 @@ def _train_agreement(device):
     from repro_torch.launch import train
     from repro_torch.models import transformer as tf
 
-    for model in TRAIN_REDUCED:
+    for model in models:
         cfg = get_config(model, reduced=True)
+        if mesh is not None:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, impl="capacity"))
         data = make_token_stream(3 * 2, 64, cfg.vocab, seed=0)
         runs = []
         for dev in (torch.device("cpu"), device):
             params = _tree_to(tf.init_params(torch.Generator().manual_seed(0), cfg), dev)
             opt = train.make_optimizer(3e-4, 3)
             state = opt.init(params)
-            step = train.make_train_step(cfg, opt)
+            step = train.make_train_step(cfg, opt, mesh=mesh)
             losses = []
             for i in range(3):
                 batch = {"tokens": torch.from_numpy(data.x[2 * i:2 * i + 2]).to(dev),
@@ -2670,12 +2699,12 @@ def _train_agreement(device):
         (cpu_l, cpu_p), (card_l, card_p) = runs
         loss_diff = max(abs(a - b) / b for a, b in zip(card_l, cpu_l))
         param_diff = max((a - b).abs().max().item() for a, b in zip(card_p, cpu_p))
-        print(f"train agreement {cfg.name}: {cfg.n_layers} layers, mtp {cfg.mtp}, losses card "
+        print(f"{tag} {cfg.name}: {cfg.n_layers} layers, mtp {cfg.mtp}, losses card "
               f"{json.dumps(card_l)} cpu {json.dumps(cpu_l)}, max relative |loss diff| "
               f"{loss_diff:.3g} (tolerance {TRAIN_AGREE_LOSS_TOL}), max |params diff| "
               f"{param_diff:.3g} (tolerance {TRAIN_AGREE_PARAM_TOL})", flush=True)
         if not (loss_diff <= TRAIN_AGREE_LOSS_TOL and param_diff <= TRAIN_AGREE_PARAM_TOL):
-            raise AssertionError(f"train agreement {cfg.name}: loss {loss_diff}, params "
+            raise AssertionError(f"{tag} {cfg.name}: loss {loss_diff}, params "
                                  f"{param_diff}")
 
 
@@ -2702,6 +2731,9 @@ SERVE_CUT = {"glm4-9b": 4, "gemma3-27b": 6, "dbrx-132b": 2, "deepseek-v3-671b": 
 SERVE_PROMPTS = (128, 1280)  # 4 requests each; 1280 is past the 1024-token windows
 SERVE_BATCH, SERVE_NEW = 4, 32
 SERVE_REDUCED_TOL = 1e-4     # card vs CPU at fp32 (K3 as 3xTF32, sums in another order)
+# the scheduler's prefill ms and decode ms a step of each prompt length, and
+# the peak, of each full-size model (``_serve_model``), for the MoE phase
+SERVE_TIMES: dict[str, dict] = {}
 
 
 def _tree_to(tree, device):
@@ -2793,8 +2825,10 @@ def _serve_model(device, model, n_layers=None):
           f"({SERVE_BATCH} x {SERVE_PROMPTS[0]}, {SERVE_BATCH} x {SERVE_PROMPTS[1]} tokens), "
           f"max_batch {SERVE_BATCH}, max_new {SERVE_NEW}: {groups} groups in {wall:.3f} s, "
           f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    SERVE_TIMES[model] = {"peak_gib": torch.cuda.max_memory_allocated() / 2**30}
     for g in sched.groups:
         step_ms = g["decode_s"] / max(g["decode_steps"], 1) * 1e3
+        SERVE_TIMES[model][g["prompt_len"]] = (g["prefill_s"] * 1e3, step_ms)
         print(f"{tag}: group prompt {g['prompt_len']} x {g['rows']} rows: prefill "
               f"{g['prefill_s'] * 1e3:.3f} ms, decode {g['decode_steps']} steps "
               f"{step_ms:.3f} ms a step ({g['rows'] * g['decode_steps'] / g['decode_s']:.1f} "
@@ -2821,18 +2855,20 @@ def _serve_model(device, model, n_layers=None):
     return launches
 
 
-def _decode_vs_forward(cfg, params, x):
+def _decode_vs_forward(cfg, params, x, mesh=None):
     """(max |decode(prefill(x[:-1]), x[-1]) - forward(x)[-1]| / (max |logit|
-    + 1), both finite) for prompts x (B, S) on the parameters' device."""
+    + 1), both finite) for prompts x (B, S) on the parameters' device,
+    under ``mesh`` if given."""
     import torch
 
     from repro_torch.models import transformer as tf
 
     s = x.shape[1]
     with torch.no_grad():
-        full = tf._logits(params, cfg, tf.forward(params, cfg, x)[:, -1]).float()
-        _, cache = tf.prefill(params, cfg, {"tokens": x[:, :-1]}, s + 4)
-        got = tf.decode_step(params, cfg, {"token": x[:, -1:]}, cache, s - 1)[0].float()
+        full = tf._logits(params, cfg, tf.forward(params, cfg, x, mesh=mesh)[:, -1]).float()
+        _, cache = tf.prefill(params, cfg, {"tokens": x[:, :-1]}, s + 4, mesh=mesh)
+        got = tf.decode_step(params, cfg, {"token": x[:, -1:]}, cache, s - 1,
+                             mesh=mesh)[0].float()
     err = (got - full).abs().max().item() / (full.abs().max().item() + 1.0)
     return err, bool(torch.isfinite(got).all() and torch.isfinite(full).all())
 
@@ -3043,6 +3079,294 @@ def _serve_phase(device):
     print(f"serve: launches {json.dumps(total)}; phase in {time.perf_counter() - t:.1f} s",
           flush=True)
     return total
+
+
+# the MoE configs on the capacity path under a mesh of one (``make_host_mesh()``:
+# a world of one, so the collectives are the identity), cut as ``SERVE_CUT``
+MOE_MESH_MODELS = ("dbrx-132b", "deepseek-v3-671b")
+# the launcher's step on dbrx-132b at full width, 1 layer: its 4.49 B parameters
+# take 12 B each (bf16 weights and gradients, fp32 AdamW moments, 53.9 GB) and
+# the step's clipped gradients, updates and the expert leaves' fp32 AdamW
+# temporaries about 35 GB more, past the card's 80 GB; the vocabulary is cut
+# from 100352 to 8192 (the embedding and head from 1.23 B parameters to 0.10 B)
+MOE_TRAIN_VOCAB, MOE_TRAIN_STEPS = 8192, 3
+DBRX_STEP_SHAPE = (8, 128, 48, 8, 128)   # K3 in its step: (B, S, H, KV, D)
+
+
+def _drop_counts(counts):
+    """A wrapper of ``moe.moe_capacity`` that adds each call's (token,
+    slot) assignments to its local experts and the kept ones to
+    ``counts`` [assigned, kept], from the same router and dispatch."""
+    from repro_torch.models import moe as moe_mod
+
+    plain = moe_mod.moe_capacity
+
+    def counting(p, cfg, x2d, expert_offset=0, n_local_experts=None, include_shared=True,
+                 grad_sync=None):
+        e_loc = n_local_experts or cfg.moe.n_experts
+        ids, w, _ = moe_mod._router(p, cfg, x2d)
+        local = ids - expert_offset
+        kept = moe_mod.dispatch(ids, w, moe_mod.capacity(cfg, x2d.shape[0]), expert_offset,
+                                e_loc)[2]
+        counts[0] += int(((local >= 0) & (local < e_loc)).sum())
+        counts[1] += int(kept.sum())
+        return plain(p, cfg, x2d, expert_offset, n_local_experts, include_shared, grad_sync)
+
+    return plain, counting
+
+
+def _moe_mesh_serve(device, model, mesh):
+    """``model`` at full width in bf16, cut to ``SERVE_CUT``'s depth, on the
+    capacity path: ``prefill`` of 4 prompts of 128 and of 1280 tokens and
+    31 greedy ``decode_step`` calls each, under ``mesh``; the prefill ms,
+    decode ms a step against the weight-read bound and peak beside the
+    ``serve:`` phase's dense numbers; then the same calls again through a
+    counting wrapper for the share of (token, slot) assignments dropped
+    (prefill and decode apart).  Then the no-drop check (capacity factor E
+    / top_k, so cap >= tokens): the capacity prefill's logits against the
+    dense prefill's at 4 x 128 in bf16, and fp32 decode(prefill(x[:-1]),
+    x[-1]) against forward(x) under the mesh, both within 2e-2 x (max
+    |logit| + 1).  Returns K3's forward launches of the timed run."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.inputs import dummy_batch
+    from repro_torch.kernels.flash_attention import flash_attention_forward
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tf
+
+    cfg = dataclasses.replace(get_config(model), n_layers=SERVE_CUT[model])
+    mc = cfg.moe
+    tag = model
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = tf.init_params(torch.Generator(device).manual_seed(0), cfg)
+    param_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    bound_ms = param_bytes / PEAK_BYTES_PER_S * 1e3
+    rows = dummy_batch(cfg, 2 * SERVE_BATCH, max(SERVE_PROMPTS), seed=0)["tokens"]
+    prompts = {n: rows[i * SERVE_BATCH:(i + 1) * SERVE_BATCH, :n].to(device)
+               for i, n in enumerate(SERVE_PROMPTS)}
+
+    def prefill(x):
+        return tf.prefill(params, cfg, {"tokens": x}, x.shape[1] + SERVE_NEW, mesh=mesh)
+
+    def decode(logits, cache, pos):
+        """31 greedy steps from ``pos``: ms a step."""
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tok = logits.argmax(-1, keepdim=True)
+        for i in range(SERVE_NEW - 1):
+            logits, cache = tf.decode_step(params, cfg, {"token": tok}, cache, pos + i,
+                                           mesh=mesh)
+            tok = logits.argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / (SERVE_NEW - 1) * 1e3
+
+    def serve(x):
+        return decode(*prefill(x), x.shape[1])
+
+    serve(prompts[SERVE_PROMPTS[0]][:, :16])          # the libraries' first calls
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention_forward.launches = 0
+    times = {}
+    for n, x in prompts.items():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        prefill(x)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t) * 1e3
+        times[n] = (prefill_ms, serve(x))
+    launches = flash_attention_forward.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = 2 * cfg.n_layers * len(SERVE_PROMPTS)    # the timed prefills and serve()'s
+    dense = SERVE_TIMES[model]
+    print(f"moe mesh: {SMI}; {tag}: bfloat16, n_layers {get_config(model).n_layers} -> "
+          f"{cfg.n_layers}, {sum(t.numel() for t in _leaves(params))} params "
+          f"({param_bytes / 1e9:.3f} GB), capacity dispatch under a mesh of "
+          f"{mesh.shape} (E {mc.n_experts}, top-{mc.top_k}, capacity factor "
+          f"{mc.capacity_factor}); peak {peak:.2f} GiB (dense, serve: phase "
+          f"{dense['peak_gib']:.2f} GiB)", flush=True)
+    for n, (prefill_ms, step_ms) in times.items():
+        cap_p, cap_d = moe_mod.capacity(cfg, SERVE_BATCH * n), moe_mod.capacity(cfg, SERVE_BATCH)
+        print(f"moe mesh: {SMI}; {tag}: prompt {n} x {SERVE_BATCH} rows: prefill "
+              f"{prefill_ms:.3f} ms (cap {cap_p} rows an expert; dense, serve: phase "
+              f"{dense[n][0]:.3f} ms), decode {SERVE_NEW - 1} steps {step_ms:.3f} ms a step "
+              f"(cap {cap_d}; dense {dense[n][1]:.3f} ms; the weight-read bound "
+              f"{bound_ms:.3f} ms a step)", flush=True)
+    print(f"moe mesh: {tag}: K3 launches {launches} (expected {want})", flush=True)
+    if launches != want:
+        raise AssertionError(f"{tag}: K3 launched {launches} times, expected {want}")
+
+    plain, counting = _drop_counts(counts := [0, 0])
+    moe_mod.moe_capacity = counting
+    try:
+        shares = {}
+        for n, x in prompts.items():
+            counts[:] = [0, 0]
+            logits, cache = prefill(x)
+            pre = counts[:]
+            counts[:] = [0, 0]
+            decode(logits, cache, n)
+            shares[n] = ((pre[0] - pre[1]) / pre[0], (counts[0] - counts[1]) / counts[0])
+    finally:
+        moe_mod.moe_capacity = plain
+    for n, (pre, dec) in shares.items():
+        print(f"moe mesh: {tag}: prompt {n}: share of (token, slot) assignments dropped "
+              f"{pre:.6f} in the prefill, {dec:.6f} over the decode steps (at decode cap = "
+              f"{moe_mod.capacity(cfg, SERVE_BATCH)} of {SERVE_BATCH} tokens, as in the "
+              f"reference)", flush=True)
+
+    x = prompts[SERVE_PROMPTS[0]]
+    nodrop = dataclasses.replace(cfg, moe=dataclasses.replace(
+        mc, capacity_factor=mc.n_experts / mc.top_k))
+    with torch.no_grad():
+        dense_logits = tf.prefill(params, cfg, {"tokens": x}, x.shape[1])[0].float()
+        cap_logits = tf.prefill(params, nodrop, {"tokens": x}, x.shape[1], mesh=mesh)[0].float()
+    err = (cap_logits - dense_logits).abs().max().item() / (dense_logits.abs().max().item() + 1)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    nodrop32 = dataclasses.replace(nodrop, dtype="float32")
+    exact = _decode_vs_forward(nodrop32, tf.init_params(torch.Generator(device).manual_seed(0),
+                                                        nodrop32), x, mesh)
+    print(f"moe mesh: {tag}: no drop (capacity factor {nodrop.moe.capacity_factor:g}): the "
+          f"capacity prefill's bf16 logits against the dense prefill's at {SERVE_BATCH} x "
+          f"{x.shape[1]}, max |err| / (max |logit| + 1) {err:.4g}, held to 2e-2; fp32 "
+          f"decode(prefill(x[:-1]), x[-1]) vs forward(x) under the mesh {exact[0]:.4g}, held "
+          f"to 2e-2", flush=True)
+    if not (bool(torch.isfinite(cap_logits).all()) and err <= 2e-2 and exact[1]
+            and exact[0] <= 2e-2):
+        raise AssertionError(f"{tag}: no-drop capacity {err}, fp32 contract {exact}")
+    return launches
+
+
+def _moe_mesh_agreement(device, mesh):
+    """The reduced dbrx and deepseek (fp32, ``impl="capacity"``) under
+    ``mesh`` on the CPU and on the card from the same weights: 2 prompts
+    of 16 tokens, prefill and 8 greedy decode steps: the same tokens, the
+    prefill's logits and cache and each step's logits within
+    ``SERVE_REDUCED_TOL`` relative."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+
+    for model in MOE_MESH_MODELS:
+        cfg = get_config(model, reduced=True)
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, impl="capacity"))
+        params = tf.init_params(torch.Generator().manual_seed(0), cfg)
+        x = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 16)))
+        runs = []
+        for dev, p in ((torch.device("cpu"), params), (device, _tree_to(params, device))):
+            logits, cache = tf.prefill(p, cfg, {"tokens": x.to(dev)}, 24, mesh=mesh)
+            # copies: decode advances the cache in place, and .cpu() of a CPU
+            # tensor is the tensor itself
+            outs, toks = [logits.cpu()] + [t.cpu().clone() for t in _leaves(cache)], []
+            tok = logits.argmax(-1, keepdim=True)
+            for i in range(8):
+                toks.append(tok.cpu())
+                logits, cache = tf.decode_step(p, cfg, {"token": tok}, cache, 16 + i, mesh=mesh)
+                outs.append(logits.cpu())
+                tok = logits.argmax(-1, keepdim=True)
+            runs.append((outs, torch.cat(toks, 1)))
+        (cpu_o, cpu_t), (card_o, card_t) = runs
+        same = torch.equal(cpu_t, card_t)
+        err = max((a.float() - b.float()).abs().max().item() / max(1.0, b.float().abs().max().item())
+                  for a, b in zip(card_o, cpu_o))
+        print(f"moe mesh agreement {cfg.name}: capacity under {mesh.shape}, tokens card == cpu: "
+              f"{same}, max relative |diff| of the logits and the prefill's cache {err:.3g} "
+              f"(tolerance {SERVE_REDUCED_TOL})", flush=True)
+        if not (same and err <= SERVE_REDUCED_TOL):
+            raise AssertionError(f"moe mesh agreement {cfg.name}: tokens {same}, diff {err}")
+
+
+def _moe_mesh_train(device, mesh):
+    """The launcher's step (``make_train_step(..., mesh=)``, clip + AdamW
+    with ``make_optimizer(3e-4, 3)``) on dbrx-132b at full width, 1 layer,
+    the vocabulary cut to ``MOE_TRAIN_VOCAB``, bf16, batch 8 of 128 tokens,
+    3 steps on the capacity path: each step's ms, the losses (finite, not
+    constant), the peak; K3 once a step each way.  Returns K3's launches."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_token_stream
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward,
+        flash_attention_forward,
+    )
+    from repro_torch.launch import train
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tf
+
+    full = get_config("dbrx-132b")
+    cfg = dataclasses.replace(full, n_layers=1, vocab=MOE_TRAIN_VOCAB)
+    tag = "train dbrx-132b"
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = tf.init_params(torch.Generator(device).manual_seed(0), cfg)
+    n_params = sum(t.numel() for t in _leaves(params))
+    full_params = n_params + 2 * (full.vocab - cfg.vocab) * cfg.d_model
+    opt = train.make_optimizer(3e-4, MOE_TRAIN_STEPS)
+    state = opt.init(params)
+    step = train.make_train_step(cfg, opt, mesh=mesh)
+    data = make_token_stream(MOE_TRAIN_STEPS * TRAIN_BATCH, TRAIN_SEQ, cfg.vocab, seed=0)
+    tokens, labels = (torch.from_numpy(a).to(device) for a in (data.x, data.y))
+    flash_attention_forward.launches = flash_attention_backward.launches = 0
+    step_ms, losses = [], []
+    for i in range(MOE_TRAIN_STEPS):
+        sl = slice(i * TRAIN_BATCH, (i + 1) * TRAIN_BATCH)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, state, loss, _ = step(params, state, {"tokens": tokens[sl], "labels": labels[sl]})
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    launches = {"flash_attention_forward": flash_attention_forward.launches,
+                "flash_attention_backward": flash_attention_backward.launches}
+    want = {k: cfg.n_layers * MOE_TRAIN_STEPS for k in launches}
+    print(f"moe mesh: {SMI}; {tag}: bfloat16, 1 layer, vocab {full.vocab} -> {cfg.vocab} "
+          f"(at the full vocabulary {full_params} params need {12 * full_params / 1e9:.1f} GB "
+          f"for weights, gradients and AdamW's moments before the step's temporaries), "
+          f"{n_params} params, batch {TRAIN_BATCH} x {TRAIN_SEQ} tokens (cap "
+          f"{moe_mod.capacity(cfg, TRAIN_BATCH * TRAIN_SEQ)} rows an expert), "
+          f"{MOE_TRAIN_STEPS} steps under {mesh.shape}: step ms "
+          f"{json.dumps([round(t, 3) for t in step_ms])}, losses {json.dumps(losses)}, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; K3 launches "
+          f"{json.dumps(launches)} (expected {json.dumps(want)})", flush=True)
+    if launches != want:
+        raise AssertionError(f"{tag}: launches {launches}, expected {want}")
+    if not (all(math.isfinite(x) for x in losses) and len(set(losses)) > 1):
+        raise AssertionError(f"{tag}: losses {losses} not finite or constant")
+    del params, state
+    return launches
+
+
+def _moe_mesh_phase(device):
+    """The MoE's capacity path under a mesh of one: serving dbrx-132b and
+    deepseek-v3-671b, the card against the CPU on their reduced configs
+    (serving, and 3 launcher steps within the ``TRAIN_AGREE_*``
+    tolerances), and the dbrx training run.  Returns K3's launches, and
+    under "train_backward" its backward launches in the dbrx step."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t = time.perf_counter()
+    mesh = make_host_mesh()
+    print(f"moe mesh: a mesh of one process on one card ({mesh.shape}): the capacity "
+          f"dispatch's sums over the mesh are the identity here; tests/test_torch_mesh.py "
+          f"runs the four branches in a world of four CPU processes under gloo", flush=True)
+    total = {"flash_attention_forward": 0, "flash_attention_backward": 0}
+    for model in MOE_MESH_MODELS:
+        total["flash_attention_forward"] += _moe_mesh_serve(device, model, mesh)
+    _moe_mesh_agreement(device, mesh)
+    _train_agreement(device, MOE_MESH_MODELS, mesh=mesh, tag="moe mesh train agreement")
+    train = _moe_mesh_train(device, mesh)
+    for k, n in train.items():
+        total[k] += n
+    print(f"moe mesh: launches {json.dumps(total)}; phase in {time.perf_counter() - t:.1f} s",
+          flush=True)
+    return total | {"train_backward": train["flash_attention_backward"]}
 
 
 SCALEOUT_ROUNDS = 30
@@ -3274,9 +3598,10 @@ def main() -> int:
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     pin_fp32_matmul()
-    smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
-                         check=True).stdout.strip()
+    global SMI
+    smi = SMI = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+                                "--format=csv,noheader"], capture_output=True, text=True,
+                               timeout=60, check=True).stdout.strip()
     print(smi, flush=True)
     name = torch.cuda.get_device_name(0)
     print(f"device: {name}  torch {torch.__version__}  cuda {torch.version.cuda}  "
@@ -3322,6 +3647,10 @@ def main() -> int:
           for h, kv, d, w, ig in ((32, 32, 80, 0, 1.0), (25, 5, 64, 1024, 0.0),
                                   (40, 8, 128, 0, 1.0), (128, 128, 192, 0, 1.0))),
         ((2, 256, 16, 16, 192), torch.bfloat16, 0, 1.0),   # D = 192 backward
+        # dbrx-132b's prefill (GQA 48 / 8 kv, D = 128) on the capacity path, and
+        # its launcher step, the first D = 128 backward on a path
+        *(((4, s, 48, 8, 128), torch.bfloat16, 0, 1.0) for s in SERVE_PROMPTS),
+        (DBRX_STEP_SHAPE, torch.bfloat16, 0, 1.0),
         # the frame and patch prompts in bf16: musicgen-large (MHA, D = 64)
         # and internvl2-1b (GQA group 7), at both of each model's lengths
         *(((4, s, h, kv, 64), torch.bfloat16, 0, 1.0) for model, (h, kv) in
@@ -3392,6 +3721,7 @@ def main() -> int:
     xlstm_async_launches = _lm_main_path(device, "xlstm async", "xlstm-125m", 12, 119_827_296,
                                          (), axes=_xlstm_async)
     serve_launches = _serve_phase(device)
+    moe_mesh_launches = _moe_mesh_phase(device)
     train_launches = _train_phase(device)
     scaleout_launches = _scaleout_phase(device)
 
@@ -3444,10 +3774,19 @@ def main() -> int:
          "replaces": "src/repro/kernels/flash_attention/kernel.py:68",
          "launches": lm_launches[f"flash_attention_{direction}"]
          + serve_launches.get(f"flash_attention_{direction}", 0)
+         + moe_mesh_launches[f"flash_attention_{direction}"]
          + train_launches[f"flash_attention_{direction}"]
          + scaleout_launches[f"flash_attention_{direction}"], "shape": k3[0]["shape"],
          **{k: k3[0][direction][k] for k in keys + ("kernel_ms",)}}
         for direction in ("forward", "backward")
+    ] + [
+        # K3's backward at the dbrx step's shape, launched by that step alone
+        {"name": "flash_attention_backward_d128", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:68",
+         "launches": moe_mesh_launches["train_backward"], "shape": rec["shape"],
+         **{k: rec["backward"][k] for k in keys + ("kernel_ms",)}}
+        for rec in k3 if tuple(rec["shape"]) == DBRX_STEP_SHAPE
     ] + [
         {"name": f"mamba_scan_{direction}", "route": "cuda",
          "source": "src/repro_torch/csrc/mamba_scan.cu",

@@ -6,9 +6,10 @@ moves them to its device): tokens and labels int32, frames and patches
 in ``cfg.dtype``, rounded from the float64 normals through float32 as the
 reference's ``jnp.asarray`` rounds them.
 
-Not ported (``UNPORTED`` says why): the reference's ``ShapeDtypeStruct``
-specs for its dry runs (``input_specs``, ``decode_specs``), which are
-jax objects.
+``input_specs`` and ``decode_specs`` are the shapes and types of a batch
+at one of ``INPUT_SHAPES`` without its data: tensors on the ``meta``
+device, the port's counterpart of the reference's ``ShapeDtypeStruct``s
+(frames and patches bf16, tokens and labels int32, as the reference's).
 """
 
 from __future__ import annotations
@@ -18,14 +19,46 @@ from dataclasses import replace
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import INPUT_SHAPES, InputShape, ModelConfig
 
-__all__ = ["dummy_batch", "dummy_decode_batch", "long_context_variant"]
+__all__ = ["input_specs", "dummy_batch", "decode_specs", "dummy_decode_batch",
+           "long_context_variant"]
 
-UNPORTED = {
-    "input_specs": "jax ShapeDtypeStruct specs for the reference's dry runs",
-    "decode_specs": "jax ShapeDtypeStruct specs for the reference's dry runs",
-}
+
+def _f(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape | str) -> dict[str, torch.Tensor]:
+    """A full-sequence batch (train or prefill) as ``meta`` tensors:
+    {"tokens"} (B, S), {"frames"} (B, S, d), or {"patches"} (B, n_patches,
+    d) and {"tokens"} (B, S - n_patches); "labels" (B, S) for a train
+    shape.  Decode shapes take ``decode_specs``."""
+    if isinstance(shape, str):
+        shape = INPUT_SHAPES[shape]
+    b, s = shape.global_batch, shape.seq_len
+    if cfg.input_mode == "tokens":
+        batch = {"tokens": _f((b, s), torch.int32)}
+    elif cfg.input_mode == "frames":
+        batch = {"frames": _f((b, s, cfg.d_model), torch.bfloat16)}
+    else:
+        p = cfg.n_patches
+        batch = {"patches": _f((b, p, cfg.d_model), torch.bfloat16),
+                 "tokens": _f((b, s - p), torch.int32)}
+    if shape.kind == "train":
+        batch["labels"] = _f((b, s), torch.int32)
+    return batch
+
+
+def decode_specs(cfg: ModelConfig, shape: InputShape | str) -> dict[str, torch.Tensor]:
+    """The one-token decode step's input as ``meta`` tensors: {"frame"}
+    (B, 1, d) for frame models, else {"token"} (B, 1)."""
+    if isinstance(shape, str):
+        shape = INPUT_SHAPES[shape]
+    b = shape.global_batch
+    if cfg.input_mode == "frames":
+        return {"frame": _f((b, 1, cfg.d_model), torch.bfloat16)}
+    return {"token": _f((b, 1), torch.int32)}
 
 
 def _normal(rng: np.random.Generator, shape, cfg: ModelConfig) -> torch.Tensor:

@@ -56,6 +56,7 @@ class ScaleoutEngine(MaskSelectionMixin, Engine):
                 f"{tuple(self.mesh.shape)} — build it with "
                 f"make_host_mesh(pod=...) or make_production_mesh(multi_pod=True)"
             )
+        self.mesh.require_pods_only("the scaleout backend")
         self.n_pods = int(self.mesh.shape["pod"])
         if cfg.n_clients % self.n_pods:
             raise ValueError(

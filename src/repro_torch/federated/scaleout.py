@@ -51,6 +51,7 @@ def make_federated_round(cfg, mesh, lr: float, local_steps: int = 4, compress_bi
     if "pod" not in mesh.shape:
         raise ValueError(f"the federated round needs a mesh with a 'pod' (client) axis; got "
                          f"{mesh.shape}")
+    mesh.require_pods_only("the federated round")
     if compress_bits and not 2 <= compress_bits <= 8:
         raise ValueError(f"compress_bits must be 0 (off) or in [2, 8], got {compress_bits}")
     n_pods, n_local = mesh.shape["pod"], len(mesh.pods)

@@ -1,14 +1,27 @@
-"""The port's analog of ``repro.launch.mesh``: the federated ``pod`` axis
-over ``torch.distributed`` processes.
+"""The port's analog of ``repro.launch.mesh``: the ``pod``, ``data`` and
+``model`` axes over ``torch.distributed`` processes.
 
 The reference lays a TPU pod's chips out as (data, model) or (pod, data,
-model) and uses the ``pod`` axis as the client axis of the scale-out
-round.  The port has no tensor or data parallelism inside a client, so a
-``Mesh`` here is only that client axis: ``pod`` pods blocked over the
-processes of the default process group, each process holding ``pod /
-world`` consecutive pods.  Without an initialised process
-group the world is this one process, which holds every pod.  A
-``data`` or ``model`` axis larger than 1 raises.
+model); the ``pod`` axis is the client axis of the scale-out round, and
+the MoE's expert parallelism (``models.transformer._run_moe``) reduces
+over all axes, over ``model``, or over the data axes (every axis but
+``model``).  A ``Mesh`` here is one of two layouts:
+
+- **a grid** (``data`` or ``model`` larger than 1): the world has exactly
+  pod x data x model processes (pod counted as 1 without a ``pod`` axis),
+  one device each, and rank r sits at the coordinates of r in row-major
+  order over ("pod", "data", "model"), as ``jax.make_mesh`` lays out host
+  devices.  One process subgroup is made for each combination of axes
+  that ``_run_moe`` reduces over; every rank makes every group, in the
+  same order, as ``dist.new_group`` requires.
+- **pods blocked over the world** (``data = model = 1``): the scale-out
+  round's layout, ``pod`` pods over the processes of the default process
+  group, each process holding ``pod / world`` consecutive pods (the world
+  may be smaller than ``pod``).  Only the ``pod`` axis spans processes;
+  a reduction over axes without it is the identity.
+
+Without an initialised process group the world is this one process: a
+grid of one device (``data = model = 1``, the card's), or every pod.
 
 The collectives run on the process group as it was initialised: its
 backend must be the one the tensors' device calls for (``backend_for``:
@@ -16,6 +29,15 @@ NCCL for CUDA tensors, gloo for CPU tensors), else they raise; the port
 never swaps one for the other.  ``init_process_group`` is left to the
 caller, with an explicit address, world size and rank (nothing on a
 one-host machine announces a cluster).
+
+Every rank of a grid computes the same replicated values and holds the
+whole parameter tree; the reductions carry gradients so that each rank's
+backward ends with the whole gradient: ``all_reduce_sum`` (the ``psum``
+of partial outputs: the cotangent, replicated, passes to each rank's part
+unchanged), ``all_reduce_mean`` (the ``pmean``), ``all_gather`` (each
+rank's piece takes its slice of the cotangent) and ``grad_sum`` (the
+identity forward, whose backward sums the partial gradients of a
+replicated value that each rank used for its own part).
 """
 
 from __future__ import annotations
@@ -37,25 +59,118 @@ def backend_for(device: torch.device | str) -> str:
 
 
 class Mesh:
-    """``pod`` federated pods over the processes of the default process
-    group (``group``; None without one, a world of this process alone).
+    """The (pod, data, model) axes over the processes of the default
+    process group (``group``; None without one, a world of this process
+    alone).
 
-    ``shape`` reads like the reference mesh's ({"pod": n} and the unit
-    ``data`` and ``model`` axes; no ``pod`` key for a mesh without one);
+    ``shape`` reads like the reference mesh's ({"pod": n} when there is a
+    pod axis, then "data" and "model"), ``axis_names`` are its keys;
     ``world`` and ``rank`` are the group's; ``pods`` is the range of pods
-    this process holds."""
+    this process holds; ``coords`` the rank's index on each axis (None for
+    pods blocked several to a process)."""
 
-    def __init__(self, pod: int = 0):
+    def __init__(self, pod: int = 0, data: int = 1, model: int = 1):
         initialised = dist.is_available() and dist.is_initialized()
         self.group = dist.group.WORLD if initialised else None
         self.world = dist.get_world_size() if initialised else 1
         self.rank = dist.get_rank() if initialised else 0
-        self.shape = ({"pod": pod} if pod else {}) | {"data": 1, "model": 1}
+        self.shape = ({"pod": pod} if pod else {}) | {"data": data, "model": model}
+        self.axis_names = tuple(self.shape)
+        self.grid = data * model > 1
+        self._groups: dict[frozenset, object] = {}
+        if self.grid:
+            if self.world != self.size():
+                raise ValueError(f"a mesh of {self.shape} names {self.size()} processes, one "
+                                 f"device each; this world has {self.world}")
+            self.coords = self._coords_of(self.rank)
+            at = self.coords.get("pod", 0)
+            self.pods = range(at, at + 1) if pod else range(0)
+            self._make_groups()
+            return
         if pod and pod % self.world:
             raise ValueError(f"a mesh of {pod} pods cannot be blocked evenly over a world of "
                              f"{self.world} processes")
         per = pod // self.world
         self.pods = range(self.rank * per, (self.rank + 1) * per)
+        # one pod a process, or none (each process its own one-device mesh)
+        self.coords = None if per > 1 else self._coords_of(self.rank * per)
+
+    def require_pods_only(self, what: str) -> None:
+        """Raise unless the mesh's data and model axes are 1: ``what`` (the
+        scale-out round) runs its pods over the world, one replica each,
+        and has no data or model axis yet (ROADMAP.md item 8)."""
+        if self.grid:
+            raise ValueError(
+                f"{what} takes a mesh of pods only (data = model = 1); got {self.shape}: the "
+                f"scale-out round with a data or model axis is not ported yet (ROADMAP.md "
+                f"item 8)")
+
+    # -- axes and groups ----------------------------------------------------
+
+    def _axes(self, axes) -> tuple[str, ...]:
+        if axes is None:
+            return self.axis_names
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        unknown = [a for a in axes if a not in self.shape]
+        if unknown:
+            raise ValueError(f"axes {unknown} are not on the mesh {self.shape}")
+        return axes
+
+    def _coords_of(self, rank: int) -> dict[str, int]:
+        """``rank``'s index on each axis, row-major over ``axis_names``."""
+        coords = {}
+        for name in reversed(self.axis_names):
+            rank, coords[name] = divmod(rank, self.shape[name])
+        return {name: coords[name] for name in self.axis_names}
+
+    def _make_groups(self) -> None:
+        """One subgroup for each set of axes that the MoE reduces over
+        (all axes, ``model``, the data axes), made on every rank in the
+        same order; a set whose group would be one process gets none."""
+        backend = dist.get_backend()
+        names = self.axis_names
+        for axes in (names, ("model",), tuple(a for a in names if a != "model")):
+            if self.size(axes) == 1:
+                continue
+            members: dict[tuple, list[int]] = {}
+            for r in range(self.world):
+                c = self._coords_of(r)
+                members.setdefault(tuple(c[a] for a in names if a not in axes), []).append(r)
+            for ranks in members.values():   # the same order on every rank
+                g = dist.new_group(ranks, backend=backend)
+                if self.rank in ranks:
+                    self._groups[frozenset(axes)] = g
+
+    def size(self, axes=None) -> int:
+        """The number of devices on ``axes`` (all axes for None)."""
+        return math.prod(self.shape[a] for a in self._axes(axes))
+
+    def axis_index(self, name: str) -> int:
+        """This process's index on axis ``name`` (``jax.lax.axis_index``)."""
+        if self.coords is None:
+            raise ValueError(f"a process holds {len(self.pods)} pods of {self.shape}; it has "
+                             f"no single index on {name!r}")
+        return self.coords[self._axes(name)[0]]
+
+    def index(self, axes) -> int:
+        """The row-major index of this process over ``axes``."""
+        idx = 0
+        for a in self._axes(axes):
+            idx = idx * self.shape[a] + self.axis_index(a)
+        return idx
+
+    def _group(self, axes):
+        """The process group over ``axes``, or None where it is this process
+        alone (the reduction is then the identity)."""
+        axes = self._axes(axes)
+        if self.grid:
+            if self.size(axes) == 1:
+                return None
+            if frozenset(axes) not in self._groups:
+                raise ValueError(f"the mesh has no process group over {axes}: it makes one "
+                                 f"for all axes, 'model' and the data axes")
+            return self._groups[frozenset(axes)]
+        return self.group if "pod" in axes and self.world > 1 else None
 
     def _check(self, t: torch.Tensor) -> None:
         backend = dist.get_backend(self.group)
@@ -64,41 +179,103 @@ class Mesh:
                 f"the process group's backend is {backend!r} but {t.device.type} tensors need "
                 f"{backend_for(t.device)!r}; initialise the group for the tensors' device")
 
-    def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
-        """``t`` summed over the processes, in place (``t`` itself in a
-        world of one)."""
-        if self.world > 1:
-            self._check(t)
-            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
-        return t
+    # -- collectives ----------------------------------------------------------
 
-    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
-        """Each process's ``t`` (n, ...) concatenated in rank order on
-        axis 0 (``t`` itself in a world of one)."""
-        if self.world == 1:
+    def all_reduce_sum(self, t: torch.Tensor, axes=None) -> torch.Tensor:
+        """``t`` summed over the processes of ``axes`` (all axes for None;
+        for pods blocked over the world, over the world): in place, ``t``
+        itself, where ``t`` takes no gradient, else a new tensor whose
+        backward passes the cotangent through.  The identity where the
+        axes hold one process."""
+        group = self._group(axes)
+        if group is None:
             return t
         self._check(t)
-        t = t.contiguous()
-        parts = [torch.empty_like(t) for _ in range(self.world)]
-        dist.all_gather(parts, t, group=self.group)
-        return torch.cat(parts)
+        if t.requires_grad:
+            return _SumForward.apply(t, group)
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+        return t
+
+    def all_reduce_mean(self, t: torch.Tensor, axes=None) -> torch.Tensor:
+        """``all_reduce_sum`` divided by the number of devices on ``axes``
+        (the ``pmean``)."""
+        if self._group(axes) is None:
+            return t
+        return self.all_reduce_sum(t.clone(), axes) / self.size(axes)
+
+    def grad_sum(self, t: torch.Tensor, axes=None) -> torch.Tensor:
+        """``t`` itself forward; backward, its gradient summed over the
+        processes of ``axes``: for a replicated value that each process
+        uses for its own part of a sum."""
+        group = self._group(axes)
+        if group is None or not t.requires_grad:
+            return t
+        self._check(t)
+        return _SumBackward.apply(t, group)
+
+    def all_gather(self, t: torch.Tensor, axes=None, dim: int = 0) -> torch.Tensor:
+        """Each process's ``t`` concatenated on ``dim`` in the row-major
+        order of ``axes`` (all axes for None; for pods blocked over the
+        world, the ranks' order); ``t`` itself where the axes hold one
+        process.  Backward, each process's piece takes its slice."""
+        group = self._group(axes)
+        if group is None:
+            return t
+        self._check(t)
+        return _Gather.apply(t.contiguous(), group, dim)
+
+
+class _SumForward(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        out = t.clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _SumBackward(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+        return g, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, dim):
+        n, ctx.dim = dist.get_world_size(group), dim
+        ctx.rank, ctx.size = dist.get_rank(group), t.shape[dim]
+        parts = [torch.empty_like(t) for _ in range(n)]
+        dist.all_gather(parts, t, group=group)
+        return torch.cat(parts, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.rank * ctx.size, ctx.size), None, None
 
 
 def make_host_mesh(data: int = 1, model: int = 1, pod: int = 0) -> Mesh:
-    """A mesh of ``pod`` pods (none for ``pod=0``) over the processes of
-    the default process group (or this process alone)."""
-    if data != 1 or model != 1:
-        raise ValueError(f"repro_torch's mesh has no data or model axis larger than 1 (got "
-                         f"data={data}, model={model}): the port has no tensor or data "
-                         f"parallelism inside a client; use pod= for the client axis")
-    return Mesh(pod)
+    """A mesh over the processes of the default process group (or this
+    process alone): with a ``data`` or ``model`` axis larger than 1, a grid
+    that raises unless the world has pod x data x model processes; else
+    ``pod`` pods (none for ``pod=0``) blocked over the world."""
+    return Mesh(pod, data, model)
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     """The reference's production layout (data 16 x model 16, and pod 2
-    with ``multi_pod``), which needs that many devices and a model axis:
-    raises where the world has fewer devices, and else for the model axis
-    the port lacks."""
+    with ``multi_pod``): raises where the world has fewer processes than
+    its 256 or 512 devices."""
     shape = _PRODUCTION[multi_pod]
     need = math.prod(shape.values())
     have = Mesh().world

@@ -37,20 +37,23 @@ from repro_torch.optim.optimizers import apply_updates
 __all__ = ["make_train_step", "make_optimizer", "main"]
 
 
-def make_train_step(cfg, optimizer):
+def make_train_step(cfg, optimizer, mesh=None):
     """``step(params, opt_state, batch) -> (params, opt_state, loss,
-    metrics)``: ``loss_fn`` and its gradient with respect to every leaf of
-    the parameter tree (each gradient in its leaf's type), the optimizer's
-    update and ``apply_updates``.  The optimizer state advances in place
-    and the parameters come back as a new tree, as the reference's step
-    donates both; pass each step the previous step's outputs."""
+    metrics)``: ``loss_fn`` (under ``mesh``, the MoE's device mesh, if
+    given) and its gradient with respect to every leaf of the parameter
+    tree (each gradient in its leaf's type), the optimizer's update and
+    ``apply_updates``.  The optimizer state advances in place and the
+    parameters come back as a new tree, as the reference's step donates
+    both; pass each step the previous step's outputs.  Under a mesh of
+    several processes each passes the same batch and ends with the same
+    gradient, so their trees stay equal."""
     check_supported(cfg, tree=True)
 
     def step(params, opt_state, batch):
         leaves, spec = tree_flatten(params)
         leaves = [p.detach().requires_grad_(True) for p in leaves]
         params = tree_unflatten(leaves, spec)
-        loss, metrics = loss_fn(params, cfg, batch)
+        loss, metrics = loss_fn(params, cfg, batch, mesh)
         # a leaf the step does not reach (an xLSTM layer runs one of its two
         # cores) gets a zero gradient, as the reference's where-selection
         # gives it

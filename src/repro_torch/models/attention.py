@@ -44,9 +44,9 @@ import torch.nn.functional as F
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.common import apply_rope, lecun_init, linear, per_client, rms_norm
 
-__all__ = ["init_gqa", "gqa_shapes", "gqa_attention", "gqa_decode", "init_mla", "mla_shapes",
-           "mla_attention", "mla_decode", "naive_attention", "flash_attention",
-           "decode_attention"]
+__all__ = ["init_gqa", "gqa_shapes", "gqa_specs", "gqa_attention", "gqa_decode", "init_mla",
+           "mla_shapes", "mla_specs", "mla_attention", "mla_decode", "naive_attention",
+           "flash_attention", "decode_attention"]
 
 _NEG = -1e30
 
@@ -85,6 +85,16 @@ def gqa_shapes(cfg) -> dict[str, tuple[int, ...]]:
         shapes["q_norm"] = (hd,)
         shapes["k_norm"] = (hd,)
     return shapes
+
+
+def gqa_specs(cfg) -> dict:
+    """The logical axes of each leaf of ``init_gqa``'s tree."""
+    s = {"wq": ("embed", "heads"), "wk": ("embed", "heads"), "wv": ("embed", "heads"),
+         "wo": ("heads", "embed")}
+    if cfg.qk_norm:
+        s["q_norm"] = (None,)
+        s["k_norm"] = (None,)
+    return s
 
 
 def init_gqa(generator: torch.Generator, cfg) -> dict[str, torch.Tensor]:
@@ -175,6 +185,13 @@ def mla_shapes(cfg) -> dict[str, tuple[int, ...]]:
     return {"wq_a": (d, rq), "q_norm": (rq,), "wq_b": (rq, h * (nope + rope)),
             "wkv_a": (d, rkv + rope), "kv_norm": (rkv,), "wkv_b": (rkv, h * (nope + vd)),
             "wo": (h * vd, d)}
+
+
+def mla_specs(cfg) -> dict:
+    """The logical axes of each leaf of ``init_mla``'s tree."""
+    return {"wq_a": ("embed", "q_lora"), "q_norm": (None,), "wq_b": ("q_lora", "heads"),
+            "wkv_a": ("embed", None), "kv_norm": (None,), "wkv_b": ("kv_lora", "heads"),
+            "wo": ("heads", "embed")}
 
 
 def init_mla(generator: torch.Generator, cfg) -> dict[str, torch.Tensor]:

@@ -1,5 +1,5 @@
 """Mixture of experts: shared plus routed top-k experts, ported from
-``repro.models.moe`` (its dense path).
+``repro.models.moe``.
 
 - ``init_moe`` — the router (fp32, as the reference keeps it), the routed
   experts' ``w_gate``, ``w_up`` (E, d, fe) and ``w_down`` (E, fe, d), and
@@ -7,30 +7,49 @@
   ``shared_down`` (fs, d), fs = n_shared x fe.  Each leaf is cast to the
   model's type as soon as it is drawn, so that at full width no two fp32
   expert tensors coexist (deepseek-v3's are 15 GB each).
-- ``_router`` — fp32 logits and softmax, top-k, the k weights
+- ``_router`` — fp32 logits and softmax, top-k (equal probabilities
+  taken in expert order, as ``jax.lax.top_k`` takes them), the k weights
   renormalised to sum to 1, and the Switch load-balance loss E x sum_e
   f_e p_e, with f_e the share of the (token, slot) assignments that go to
   expert e and p_e the mean router probability of e.
 - ``moe_dense`` — every expert runs on every token and the outputs are
   combined with the router weights: exact, no token is dropped.  It is
-  what the reference runs whenever it has no device mesh, which the
-  one-card port never has.  The experts are walked in blocks, as many a
+  what the reference runs whenever it has no device mesh, or
+  ``impl="dense"``.  The experts are walked in blocks, as many a
   block as keep its activations within ``_BLOCK_BYTES``, so that the
   (E, T, d) outputs never exist at once
   (deepseek-v3 prefilling 4 x 1280 tokens would need 18.8 GB for them);
   the blocks' combined outputs are summed in fp32 and cast to the
   model's type once, where the reference sums the E products in one
   contraction.
+- ``moe_capacity`` — the capacity dispatch over a range of experts, as
+  the reference computes it under a device mesh: each expert takes at
+  most ``capacity(cfg, t)`` of the (token, slot) assignments of the t
+  tokens, the highest-weight first (a stable sort on local expert + (1 -
+  weight), in fp32), the rest dropped; the kept rows are gathered into
+  (E_loc, cap, d), run through the experts' FFN as batched matrix
+  products, weighted by their router weights and added back to their
+  tokens.  The reference adds in the model's type, in no fixed order
+  (XLA's scatter); the port adds the weighted rows in fp32 (``index_add``,
+  atomic and unordered on the card) and casts once, so a bf16 output is
+  within one bf16 rounding of the exact sum and an fp32 one within fp32
+  rounding of any order.  Gradients flow through the gathered
+  activations and the kept router weights, not through the sort.
+- ``moe_capacity_sharded`` — the block the reference runs inside
+  ``shard_map``: the local experts of the ``mesh_axis`` index, the partial
+  outputs summed over that axis (``Mesh.all_reduce_sum``), then the
+  shared expert once.
+- ``moe_specs`` — the logical axes of each leaf, as the reference names
+  them.
 
 Weights are shared by the batch, or carry a leading client axis m (one
-set per client), as the rest of the model's.  The router statistics, and
+set per client, as the rest of the model's) in ``moe_dense`` only: the
+capacity paths take one model's weights and tokens (T, d), as the
+reference's do under a mesh.  In ``moe_dense`` the router statistics, and
 so the aux loss, reduce over a group's tokens: the (B, S) tokens of each
 client with per-client weights (x (m, B, S, d) -> aux (m,)); with shared
 weights, the last two axes before d (x (..., B, S, d) -> aux (...)), as
 the reference's per-client ``vmap`` of the loss sees them.
-
-The capacity dispatch (``moe_capacity``, ``moe_capacity_sharded``) runs in
-the reference only under a device mesh, and is not ported.
 """
 
 from __future__ import annotations
@@ -39,7 +58,8 @@ import torch
 
 from repro_torch.models.common import activation, lecun_init, linear
 
-__all__ = ["init_moe", "moe_dense"]
+__all__ = ["init_moe", "moe_specs", "moe_dense", "capacity", "dispatch", "moe_capacity",
+           "moe_capacity_sharded"]
 
 # the bytes a block of experts may take for its (T, fe) activations and
 # (T, d) outputs in ``moe_dense``
@@ -69,13 +89,30 @@ def init_moe(generator: torch.Generator, cfg, dtype: torch.dtype = torch.float32
     return p
 
 
+def moe_specs(cfg) -> dict:
+    """The logical axes of each leaf of ``init_moe``'s tree."""
+    s = {
+        "router": ("embed", None),
+        "w_gate": ("experts", "embed", "expert_ff"),
+        "w_up": ("experts", "embed", "expert_ff"),
+        "w_down": ("experts", "expert_ff", "embed"),
+    }
+    if cfg.moe.n_shared:
+        s["shared_gate"] = ("embed", "ffn")
+        s["shared_up"] = ("embed", "ffn")
+        s["shared_down"] = ("ffn", "embed")
+    return s
+
+
 def _router(p, cfg, x2d: torch.Tensor):
     """x2d (..., T, d) -> top-k (ids (..., T, k) int64, weights fp32 (...,
     T, k), aux fp32 (...))."""
     mc = cfg.moe
     logits = linear(x2d.to(torch.float32), p["router"])          # (..., T, E)
     probs = torch.softmax(logits, dim=-1)
-    w, ids = torch.topk(probs, mc.top_k, dim=-1)
+    # top-k with equal probabilities in expert order, as jax.lax.top_k
+    w, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    w, ids = w[..., :mc.top_k], ids[..., :mc.top_k]
     w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)      # renormalise over k
     e, t = mc.n_experts, x2d.shape[-2]
     flat = ids.flatten(-2)
@@ -132,3 +169,105 @@ def moe_dense(p, cfg, x: torch.Tensor):
     if mc.n_shared:
         out = out + _shared_expert(p, cfg, x2d)
     return out.reshape(x.shape), aux
+
+
+def capacity(cfg, t: int) -> int:
+    """The rows each expert takes of ``t`` tokens' assignments: t x top_k x
+    capacity_factor / n_experts, rounded half to even (Python's ``round``,
+    as the reference computes it), at least 1."""
+    mc = cfg.moe
+    return int(max(1, round(t * mc.top_k * mc.capacity_factor / mc.n_experts)))
+
+
+def dispatch(ids: torch.Tensor, w: torch.Tensor, cap: int, expert_offset: int, e_loc: int):
+    """The capacity dispatch's slots: router ids and weights (T, k) ->
+    (tok_of_slot, w_of_slot, slot_valid), each (e_loc x cap,): slot e x cap
+    + j holds the j-th kept assignment of local expert e (token 0 and
+    weight 0 where it is empty).  Each expert keeps its ``cap`` assignments
+    of highest weight, ties in (token, slot) order: a stable sort on
+    local expert + (1 - weight) in fp32, as the reference's."""
+    t, k = ids.shape
+    dev = ids.device
+    flat_ids = ids.reshape(-1)                                   # (T k,)
+    flat_w = w.reshape(-1)
+    flat_tok = torch.arange(t, device=dev).repeat_interleave(k)
+    local = flat_ids - expert_offset
+    mine = (local >= 0) & (local < e_loc)
+    local = torch.where(mine, local, e_loc)                      # sentinel bucket
+    # by (local expert, -weight), stable: the lowest weights drop on overflow
+    key = (local.to(torch.float32) + (1.0 - flat_w)).detach()
+    order = torch.argsort(key, stable=True)
+    s_local = local[order]
+    s_tok = flat_tok[order]
+    s_w = torch.where(mine, flat_w, 0.0)[order]
+    npos = s_local.shape[0]
+    pos = torch.arange(npos, device=dev)
+    first = torch.full((e_loc + 1,), npos, dtype=torch.int64, device=dev).scatter_reduce(
+        0, s_local, pos, "amin", include_self=True)
+    pos_in_seg = pos - first[s_local]
+    valid = (pos_in_seg < cap) & (s_local < e_loc)
+    slot = torch.where(valid, s_local * cap + pos_in_seg, e_loc * cap)
+    stream_of_slot = torch.full((e_loc * cap + 1,), npos, dtype=torch.int64,
+                                device=dev).scatter_reduce(
+        0, slot, pos, "amin", include_self=True)[:-1]
+    slot_valid = stream_of_slot < npos
+    stream_idx = torch.clamp(stream_of_slot, max=npos - 1)
+    tok_of_slot = torch.where(slot_valid, s_tok[stream_idx], 0)
+    w_of_slot = torch.where(slot_valid, s_w[stream_idx], 0.0)
+    return tok_of_slot, w_of_slot, slot_valid
+
+
+def moe_capacity(p, cfg, x2d: torch.Tensor, expert_offset: int = 0,
+                 n_local_experts: int | None = None, include_shared: bool = True,
+                 grad_sync=None):
+    """Capacity dispatch over the experts [offset, offset + E_loc) of
+    ``p``'s ``w_gate`` / ``w_up`` / ``w_down`` (E_loc, ...); the router
+    runs on every expert.  x2d (T, d) -> (the partial output (T, d) in
+    x2d's type, which the caller sums over the processes holding the other
+    experts; the aux loss fp32, the same on each).
+
+    ``grad_sync`` (for the mesh's callers) is applied to the activations
+    and router weights that the dispatch uses, and completes their
+    gradients over the processes whose partial outputs are summed
+    (``Mesh.grad_sum``); the router's own use of x2d and its aux loss are
+    replicated and take no such sum."""
+    mc = cfg.moe
+    if p["router"].ndim != 2 or x2d.ndim != 2:
+        raise ValueError("the capacity dispatch takes one model's weights and tokens (T, d); "
+                         "per-client weights run moe_dense")
+    t, d = x2d.shape
+    e_loc = n_local_experts or mc.n_experts
+    ids, w, aux = _router(p, cfg, x2d)
+    xd = x2d
+    if grad_sync is not None:
+        xd, w = grad_sync(x2d), grad_sync(w)
+    cap = capacity(cfg, t)
+    tok_of_slot, w_of_slot, _ = dispatch(ids, w, cap, expert_offset, e_loc)
+    xe = xd.index_select(0, tok_of_slot).reshape(e_loc, cap, d)
+    ye = _expert_ffn_all(p, cfg, xe)
+    contrib = ye.reshape(-1, d) * w_of_slot[:, None].to(ye.dtype)
+    out = torch.zeros(t, d, dtype=torch.float32, device=x2d.device).index_add(
+        0, tok_of_slot, contrib.to(torch.float32)).to(ye.dtype)
+    if include_shared and mc.n_shared:
+        out = out + _shared_expert(p, cfg, x2d)
+    return out, aux
+
+
+def moe_capacity_sharded(p, cfg, x: torch.Tensor, mesh, mesh_axis: str = "model"):
+    """The reference's ``shard_map`` block: ``p``'s ``w_*`` are this
+    process's slice of the experts on ``mesh_axis`` (the router and the
+    shared expert whole), x (B_loc, S, d) its tokens.  The routed partial
+    outputs are summed over ``mesh_axis``, then the shared expert is added
+    once (every process of the axis holds the same tokens).  Returns (out
+    (B_loc, S, d), aux)."""
+    b, s, d = x.shape
+    e_loc = p["w_gate"].shape[0]
+    idx = mesh.axis_index(mesh_axis)
+    x2d = x.reshape(-1, d)
+    out2d, aux = moe_capacity(p, cfg, x2d, expert_offset=idx * e_loc, n_local_experts=e_loc,
+                              include_shared=False,
+                              grad_sync=lambda t: mesh.grad_sum(t, mesh_axis))
+    out2d = mesh.all_reduce_sum(out2d, mesh_axis)
+    if cfg.moe.n_shared:
+        out2d = out2d + _shared_expert(p, cfg, x2d)
+    return out2d.reshape(b, s, d), aux

@@ -53,9 +53,9 @@ import torch.nn.functional as F
 from repro_torch.kernels.mamba_scan import mamba_scan
 from repro_torch.models.common import lecun_init, linear, per_client, rms_norm
 
-__all__ = ["mamba_shapes", "init_mamba", "mamba_seq", "mamba_decode", "chunked_linear_scan",
-           "xlstm_shapes", "init_xlstm", "mlstm_seq", "mlstm_decode", "slstm_seq",
-           "slstm_decode"]
+__all__ = ["mamba_shapes", "mamba_specs", "init_mamba", "mamba_seq", "mamba_decode",
+           "chunked_linear_scan", "xlstm_shapes", "xlstm_specs", "init_xlstm", "mlstm_seq",
+           "mlstm_decode", "slstm_seq", "slstm_decode"]
 
 _NEG = -1e30  # the causal and initial-state fill: exp(_NEG - m) is 0, never NaN
 
@@ -68,6 +68,13 @@ def mamba_shapes(cfg) -> dict[str, tuple[int, ...]]:
     return {"w_in": (d, 2 * d_in), "conv_w": (k, d_in), "a_log": (d_in, n), "w_dt": (d_in,),
             "b_dt": (d_in,), "w_b": (d_in, n), "w_c": (d_in, n), "d_skip": (d_in,),
             "w_out": (d_in, d)}
+
+
+def mamba_specs(cfg) -> dict:
+    """The logical axes of each leaf of ``init_mamba``'s tree."""
+    return {"w_in": ("embed", "ffn"), "conv_w": (None, "ffn"), "a_log": ("ffn", "state"),
+            "w_dt": ("ffn",), "b_dt": ("ffn",), "w_b": ("ffn", "state"),
+            "w_c": ("ffn", "state"), "d_skip": ("ffn",), "w_out": ("ffn", "embed")}
 
 
 def init_mamba(generator: torch.Generator, cfg) -> dict[str, torch.Tensor]:
@@ -161,6 +168,13 @@ def xlstm_shapes(cfg) -> dict[str, tuple[int, ...]]:
     d, h = cfg.d_model, cfg.ssm.n_heads
     return {"w_up": (d, 2 * d), "wq": (d, d), "wk": (d, d), "wv": (d, d), "w_if": (d, 2 * h),
             "b_if": (2 * h,), "w_down": (d, d), "core_norm": (d,)}
+
+
+def xlstm_specs(cfg) -> dict:
+    """The logical axes of each leaf of ``init_xlstm``'s tree."""
+    return {"w_up": ("embed", "ffn"), "wq": ("embed", "heads"), "wk": ("embed", "heads"),
+            "wv": ("embed", "heads"), "w_if": ("embed", None), "b_if": (None,),
+            "w_down": ("heads", "embed"), "core_norm": (None,)}
 
 
 def init_xlstm(generator: torch.Generator, cfg) -> dict[str, torch.Tensor]:

@@ -28,11 +28,23 @@ the Mamba heads.
 The reference computes both xLSTM cores in every layer and keeps one with
 ``jnp.where``; the port computes only the flagged one, which gives the
 same output and gradient.  The reference's ``remat`` (``jax.checkpoint``
-per layer) changes no number and is not mapped.  An MoE layer runs
-``moe_dense`` (what the reference runs without a device mesh) and
-returns its router's load-balance loss; ``forward(..., with_aux=True)``
-returns the layers' mean of it, which ``loss_fn`` and the LM task weight
-by ``router_aux_weight``.
+per layer) changes no number and is not mapped.  An MoE layer returns its
+router's load-balance loss; ``forward(..., with_aux=True)`` returns the
+layers' mean of it, which ``loss_fn`` and the LM task weight by
+``router_aux_weight``.
+
+``mesh`` (a ``repro_torch.launch.mesh.Mesh``, None by default) is threaded
+through ``forward``, ``loss_fn``, ``prefill`` and ``decode_step`` as in the
+reference: without one, or with ``cfg.moe.impl == "dense"``, an MoE layer
+runs ``moe_dense``; with one and ``impl == "capacity"`` it runs
+``_run_moe``'s capacity dispatch, expert-parallel over the mesh's
+processes, each of which holds the whole parameter tree and the same
+tokens and takes its experts as views.  Per-client weights do not take a
+mesh.  The reference's ``_act_constraint`` and ``_cache_constraint`` are
+layout hints to XLA that change no value, and have no counterpart here.
+``transformer_specs`` and ``cache_specs`` name each leaf's logical axes
+with the reference's structure (the layers stacked under one "layers"
+axis, where the port's tree keeps a list of layers).
 
 Inputs come in the reference's three modes (``cfg.input_mode``):
 ``tokens``; ``frames`` (musicgen-large: precomputed frame embeddings at
@@ -80,11 +92,13 @@ from repro_torch.models.attention import (
     gqa_attention,
     gqa_decode,
     gqa_shapes,
+    gqa_specs,
     init_gqa,
     init_mla,
     mla_attention,
     mla_decode,
     mla_shapes,
+    mla_specs,
 )
 from repro_torch.models.common import (
     activation,
@@ -98,8 +112,9 @@ from repro_torch.models.common import (
 
 __all__ = [
     "TransformerLayout", "check_supported", "layer_flags", "init_transformer", "init_params",
-    "cast_params", "embed_inputs", "forward", "output_head", "chunked_logits_sum", "token_nll",
-    "loss_fn", "init_cache", "prefill", "decode_step",
+    "transformer_specs", "cast_params", "embed_inputs", "forward", "output_head",
+    "chunked_logits_sum", "token_nll", "loss_fn", "init_cache", "cache_specs", "prefill",
+    "decode_step",
 ]
 
 
@@ -239,6 +254,85 @@ class TransformerLayout:
 
 
 # ---------------------------------------------------------------------------
+# Logical-axis specs
+# ---------------------------------------------------------------------------
+
+
+def _norm_specs(cfg, name) -> dict:
+    if cfg.norm == "layernorm":
+        return {name + "_scale": (None,), name + "_bias": (None,)}
+    return {name: (None,)}
+
+
+def _mlp_specs(cfg) -> dict:
+    s = {"w_up": ("embed", "ffn"), "w_down": ("ffn", "embed")}
+    if cfg.mlp_activation in ("swiglu", "geglu"):
+        s["w_gate"] = ("embed", "ffn")
+    return s
+
+
+def _layer_specs(cfg) -> dict:
+    if cfg.block_type == "xlstm":
+        return {"xlstm": ssm_mod.xlstm_specs(cfg), **_norm_specs(cfg, "norm1")}
+    s = {**_norm_specs(cfg, "norm1"), **_norm_specs(cfg, "norm2")}
+    s["attn"] = mla_specs(cfg) if cfg.use_mla else gqa_specs(cfg)
+    if cfg.block_type == "hymba":
+        s["ssm"] = ssm_mod.mamba_specs(cfg)
+        s["attn_out_norm"] = (None,)
+        s["ssm_out_norm"] = (None,)
+    s["mlp"] = moe_mod.moe_specs(cfg) if cfg.moe else _mlp_specs(cfg)
+    return s
+
+
+def _stacked(tree):
+    if isinstance(tree, dict):
+        return {k: _stacked(v) for k, v in tree.items()}
+    return ("layers",) + tuple(tree)
+
+
+def transformer_specs(cfg) -> dict:
+    """The logical axes of every leaf, the reference's tree: one layer's
+    axes behind a leading "layers" axis under "layers" (each of the
+    port's per-layer dicts has that layer's leaves, the same keys), then
+    the final norm, "embed", a frames model's "frame_norm", the untied
+    "head" and the MTP head."""
+    s = {"layers": _stacked(_layer_specs(cfg)), **_norm_specs(cfg, "final_norm")}
+    s["embed"] = ("vocab", "embed")
+    if cfg.input_mode not in ("tokens", "vlm"):
+        s["frame_norm"] = (None,)
+    if not cfg.tie_embeddings:
+        s["head"] = ("embed", "vocab")
+    if cfg.mtp:
+        s["mtp_proj"] = ("embed", "embed2")
+        s["mtp_norm"] = (None,)
+    return s
+
+
+def cache_specs(cfg) -> dict:
+    """The logical axes of ``init_cache``'s leaves (the xLSTM states as
+    lists, as the reference's are, so that a tree walk stops at the axis
+    tuples)."""
+    if cfg.block_type == "xlstm":
+        return {
+            "mlstm": [("layers", "batch", None, None, None), ("layers", "batch", None, None),
+                      ("layers", "batch", None)],
+            "slstm": [("layers", "batch", None, None), ("layers", "batch", None, None),
+                      ("layers", "batch", None)],
+        }
+    s: dict = {}
+    if cfg.use_mla:
+        s["latent"] = ("layers", "batch", "seq", None)
+        s["k_rope"] = ("layers", "batch", "seq", None)
+    else:
+        s["k"] = ("layers", "batch", "seq", "kv_heads", None)
+        s["v"] = ("layers", "batch", "seq", "kv_heads", None)
+    if cfg.block_type == "hymba":
+        s["ssm_h"] = ("layers", "batch", None, None)
+        s["conv"] = ("layers", "batch", None, None)
+    return s
+
+
+# ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
 
@@ -351,11 +445,119 @@ def _mlp(p, cfg, x):
     return linear(h, p["w_down"])
 
 
-def _ffn(p, cfg, x):
+def _ffn(p, cfg, x, mesh=None):
     """The layer's MLP: (out, the router's aux loss), 0.0 for a dense one."""
     if cfg.moe:
-        return moe_mod.moe_dense(p, cfg, x)
+        return _run_moe(p, cfg, x, mesh)
     return _mlp(p, cfg, x), 0.0
+
+
+# the most tokens for which the reference keeps the experts apart over every
+# axis (or over model with their columns over the data axes) and replicates
+# the tokens
+_EP_TOKENS = 8192
+
+
+def _local_experts(p, mesh, sync_axes, lo: int, n: int, cols=None) -> dict:
+    """``p`` with its expert weights cut to experts [lo, lo + n) (and, with
+    ``cols`` (c0, nc), to expert-FFN columns [c0, c0 + nc)) as views; the
+    whole weights' gradients are summed over ``sync_axes`` first, so each
+    process ends its backward with every slice's."""
+    out = dict(p)
+    for k in ("w_gate", "w_up", "w_down"):
+        w = mesh.grad_sum(p[k], sync_axes).narrow(0, lo, n)
+        if cols is not None:
+            w = w.narrow(1 if k == "w_down" else 2, *cols)
+        out[k] = w
+    return out
+
+
+def _ep_block(p, pl, cfg, x2d, mesh, lo: int, e_loc: int):
+    """Rules 1 and 2: the capacity dispatch over this process's experts
+    ``pl`` (from expert ``lo``, ``e_loc`` of them) on every token, the
+    partial outputs summed over every axis, then ``p``'s shared expert."""
+    all_axes = mesh.axis_names
+    out2d, aux = moe_mod.moe_capacity(
+        pl, cfg, x2d, expert_offset=lo, n_local_experts=e_loc, include_shared=False,
+        grad_sync=lambda t: mesh.grad_sum(t, all_axes))
+    out2d = mesh.all_reduce_sum(out2d, all_axes)
+    if cfg.moe.n_shared:
+        out2d = out2d + moe_mod._shared_expert(p, cfg, x2d)
+    return out2d, aux
+
+
+def _run_moe(p, cfg, x, mesh):
+    """The reference's ``_run_moe``: ``moe_dense`` without a mesh or with
+    ``impl="dense"``; else the capacity dispatch over the mesh's processes
+    by the reference's four rules, in its order (n_dev devices, T = B x S
+    tokens):
+
+    1. T <= 8192 and n_dev | E: E / n_dev experts a process over every
+       axis, the tokens replicated, the partial outputs summed over every
+       axis;
+    2. T <= 8192, model | E and (n_dev / model) | d_expert: E / model
+       experts a process over ``model``, their FFN columns split over the
+       data axes, the partial outputs summed over every axis;
+    3. model does not divide E: ``moe_capacity`` on every process alike;
+    4. else ``moe_capacity_sharded`` over ``model``, the batch split over
+       the data axes (replicated where they do not divide B) and gathered
+       after, the aux loss averaged over them.
+
+    Every process holds the whole tree and all B tokens; each block sees
+    the tokens the reference's block sees, since the capacity depends on
+    their count.  Under autograd every process ends with the whole
+    gradient: each value used for a part that is summed over processes
+    sums its gradient over them (``Mesh.grad_sum``).  x (B, S, d) -> (out,
+    aux)."""
+    if cfg.moe.impl == "dense" or mesh is None:
+        return moe_mod.moe_dense(p, cfg, x)
+    if p["router"].ndim != 2 or x.ndim != 3:
+        raise ValueError("the MoE under a mesh takes one model's weights and x (B, S, d); "
+                         "per-client weights run without a mesh")
+    if mesh.coords is None:
+        raise ValueError(f"the MoE under a mesh needs one process a device; this process "
+                         f"holds {len(mesh.pods)} pods of {mesh.shape}")
+    mc = cfg.moe
+    all_axes = mesh.axis_names
+    n_dev, model = mesh.size(), mesh.shape["model"]
+    dp_all = tuple(a for a in all_axes if a != "model")
+    b, s, d = x.shape
+    x2d = x.reshape(-1, d)
+    if b * s <= _EP_TOKENS and mc.n_experts % n_dev == 0:
+        # 1: experts over every axis
+        e_loc = mc.n_experts // n_dev
+        lo = mesh.index(all_axes) * e_loc
+        out2d, aux = _ep_block(p, _local_experts(p, mesh, all_axes, lo, e_loc), cfg, x2d, mesh,
+                               lo, e_loc)
+        return out2d.reshape(b, s, d), aux
+    if b * s <= _EP_TOKENS and mc.n_experts % model == 0 \
+            and mc.d_expert % (n_dev // model) == 0:
+        # 2: experts over model, their FFN columns over the data axes
+        e_loc, fe = mc.n_experts // model, mc.d_expert // (n_dev // model)
+        lo = mesh.axis_index("model") * e_loc
+        pl = _local_experts(p, mesh, all_axes, lo, e_loc, (mesh.index(dp_all) * fe, fe))
+        out2d, aux = _ep_block(p, pl, cfg, x2d, mesh, lo, e_loc)
+        return out2d.reshape(b, s, d), aux
+    if mc.n_experts % model:                # 3: replicated
+        out, aux = moe_mod.moe_capacity(p, cfg, x2d)
+        return out.reshape(x.shape), aux
+    # 4: experts over model, tokens over the data axes
+    dp = dp_all if b % mesh.size(dp_all) == 0 else ()
+    e_loc = mc.n_experts // model
+    pl = _local_experts(p, mesh, ("model",) + dp, mesh.axis_index("model") * e_loc, e_loc)
+    if dp:
+        # this process's piece of the batch uses the router and the shared
+        # expert for that piece only: their gradients sum over the data axes
+        for k in ("router", "shared_gate", "shared_up", "shared_down"):
+            if k in pl:
+                pl[k] = mesh.grad_sum(pl[k], dp)
+        b_loc = b // mesh.size(dp)
+        x = mesh.grad_sum(x, dp).narrow(0, mesh.index(dp) * b_loc, b_loc)
+    out, aux = moe_mod.moe_capacity_sharded(pl, cfg, x, mesh, mesh_axis="model")
+    if dp:
+        aux = mesh.all_reduce_mean(aux, dp)
+        out = mesh.all_gather(out, dp, dim=0)
+    return out, aux
 
 
 def _embed_tokens(params, cfg, tokens: torch.Tensor) -> torch.Tensor:
@@ -431,7 +633,7 @@ def _flags_at(flags, i: int) -> dict[str, float]:
     return {k: float(v[i]) for k, v in flags.items()}
 
 
-def _apply_layer_seq(pl, cfg, x, flags: dict[str, float], tabs_l, tabs_g):
+def _apply_layer_seq(pl, cfg, x, flags: dict[str, float], tabs_l, tabs_g, mesh=None):
     """One layer over the full sequence: attention (in parallel with the
     Mamba heads for hymba), then the MLP; for xlstm the flagged core.
     Returns (x, the router's aux loss (0.0 without MoE), the layer's decode
@@ -453,7 +655,7 @@ def _apply_layer_seq(pl, cfg, x, flags: dict[str, float], tabs_l, tabs_g):
         s_out, (cache["ssm_h"], cache["conv"]) = ssm_mod.mamba_seq(pl["ssm"], cfg, h)
         a_out = _hymba_fuse(pl, cfg, a_out, s_out)
     x = x + a_out
-    m_out, aux = _ffn(pl["mlp"], cfg, _norm(pl, cfg, x, "norm2"))
+    m_out, aux = _ffn(pl["mlp"], cfg, _norm(pl, cfg, x, "norm2"), mesh)
     return x + m_out, aux, cache
 
 
@@ -464,7 +666,7 @@ def _hymba_fuse(pl, cfg, a_out, s_out):
 
 
 def forward(params, cfg, inputs: torch.Tensor, layout: TransformerLayout | None = None,
-            collect_cache: bool = False, with_aux: bool = False):
+            collect_cache: bool = False, with_aux: bool = False, mesh=None):
     """Hidden states after the final norm, (..., S, d).  ``params`` is the
     flat (P,) or (m, P) vector (cut by ``layout``) or its tree of views;
     ``inputs`` the token ids (..., S) or, floating point, the embedded
@@ -473,15 +675,20 @@ def forward(params, cfg, inputs: torch.Tensor, layout: TransformerLayout | None 
     over the layers (fp32: one per client with per-client weights, else
     one per leading group of (B, S) tokens; a 0-d zero without MoE), as the
     reference's forward does; with ``collect_cache`` one dict of decode
-    cache entries a layer, last: (hidden[, aux][, caches])."""
+    cache entries a layer, last: (hidden[, aux][, caches]).  ``mesh``:
+    the MoE's device mesh (one model's weights and (B, S) inputs only)."""
     if isinstance(params, torch.Tensor):
         params = (layout or TransformerLayout(cfg)).views(params)
+    if mesh is not None and params["embed"].ndim != 2:
+        raise ValueError("per-client weights take no mesh: the reference never combines "
+                         "them")
     x = inputs if inputs.is_floating_point() else _embed_tokens(params, cfg, inputs)
     tabs_l, tabs_g = _rope_tables(cfg, x.shape[-2], x.device)
     flags = layer_flags(cfg)
     caches, aux = [], 0.0
     for i, pl in enumerate(params["layers"]):
-        x, layer_aux, cache = _apply_layer_seq(pl, cfg, x, _flags_at(flags, i), tabs_l, tabs_g)
+        x, layer_aux, cache = _apply_layer_seq(pl, cfg, x, _flags_at(flags, i), tabs_l, tabs_g,
+                                               mesh)
         aux = aux + layer_aux
         if collect_cache:
             caches.append(cache)
@@ -542,7 +749,7 @@ def _masked_ce(h, head, cfg, labels, mask):
     return tot / torch.clamp(mask.sum(), min=1.0)
 
 
-def loss_fn(params, cfg, batch: dict):
+def loss_fn(params, cfg, batch: dict, mesh=None):
     """The mean next-token cross-entropy of ``batch`` (``embed_inputs``'s
     dict and "labels" (B, S)) under the parameter tree, each position
     weighted by the loss mask (vlm: the text positions) and divided by the
@@ -553,7 +760,7 @@ def loss_fn(params, cfg, batch: dict):
     "aux"[, "mtp_ce"]})."""
     labels = batch["labels"]
     x, mask = embed_inputs(params, cfg, batch)
-    h, aux = forward(params, cfg, x, with_aux=True)
+    h, aux = forward(params, cfg, x, with_aux=True, mesh=mesh)
     if mask is None:
         mask = torch.ones(labels.shape, dtype=torch.float32, device=h.device)
     head = output_head(params, cfg)
@@ -614,7 +821,7 @@ def init_cache(cfg, batch_size: int, max_len: int, device=None) -> dict:
 
 
 @torch.no_grad()
-def prefill(params, cfg, batch: dict, max_len: int):
+def prefill(params, cfg, batch: dict, max_len: int, mesh=None):
     """Run the prompt ``batch`` (``embed_inputs``'s dict; a "labels" entry
     is ignored) through the parameter tree -> (the last position's logits
     (B, V), the cache with the prompt's entries at positions [0, S), room
@@ -624,7 +831,7 @@ def prefill(params, cfg, batch: dict, max_len: int):
     b, s = x.shape[:2]
     if s > max_len:
         raise ValueError(f"a prompt of {s} positions does not fit a cache of {max_len}")
-    h, caches = forward(params, cfg, x, collect_cache=True)
+    h, caches = forward(params, cfg, x, collect_cache=True, mesh=mesh)
     logits = _logits(params, cfg, h[:, -1])
     cache = init_cache(cfg, b, max_len, device=h.device)
     for i, entries in enumerate(caches):
@@ -640,7 +847,7 @@ def prefill(params, cfg, batch: dict, max_len: int):
 
 
 def _apply_layer_decode(pl, cfg, x, flags: dict[str, float], tabs_l, tabs_g, cache: dict,
-                        i: int, pos: int):
+                        i: int, pos: int, mesh=None):
     """One layer, one token; layer ``i``'s cache entries advance in place."""
     if cfg.block_type == "xlstm":
         name = "mlstm" if flags["is_mlstm"] > 0 else "slstm"
@@ -664,11 +871,11 @@ def _apply_layer_decode(pl, cfg, x, flags: dict[str, float], tabs_l, tabs_g, cac
             pl["ssm"], cfg, h, cache["ssm_h"][i], cache["conv"][i])
         a_out = _hymba_fuse(pl, cfg, a_out, s_out)
     x = x + a_out
-    return x + _ffn(pl["mlp"], cfg, _norm(pl, cfg, x, "norm2"))[0]  # decode drops the aux
+    return x + _ffn(pl["mlp"], cfg, _norm(pl, cfg, x, "norm2"), mesh)[0]  # decode drops the aux
 
 
 @torch.no_grad()
-def decode_step(params, cfg, batch: dict, cache: dict, pos: int):
+def decode_step(params, cfg, batch: dict, cache: dict, pos: int, mesh=None):
     """One greedy-decode step: ``batch["token"]`` (B, 1) (a frames model:
     ``batch["frame"]`` (B, 1, d), RMS-normed as the prompt's frames) at
     position ``pos`` -> (logits (B, V), cache), the cache advanced in
@@ -685,6 +892,6 @@ def decode_step(params, cfg, batch: dict, cache: dict, pos: int):
     flags = layer_flags(cfg)
     for i, pl in enumerate(params["layers"]):
         x = _apply_layer_decode(pl, cfg, x, _flags_at(flags, i), tabs_l, tabs_g, cache,
-                                i, pos)
+                                i, pos, mesh)
     x = _norm(params, cfg, x, "final_norm")
     return _logits(params, cfg, x[:, 0]), cache

@@ -200,10 +200,20 @@ def test_mesh_axes_and_refusals():
     assert mesh.pods == range(0, 3) and "pod" not in make_host_mesh().shape
     t = torch.arange(4.0)
     assert mesh.all_reduce_sum(t) is t and mesh.all_gather(t) is t
-    with pytest.raises(ValueError, match="no tensor or data parallelism"):
+    # a data or model axis names one process a device: this world has one
+    with pytest.raises(ValueError, match="names 2 processes, one device each; this world has 1"):
         make_host_mesh(data=2)
-    with pytest.raises(ValueError, match="no tensor or data parallelism"):
+    with pytest.raises(ValueError, match="names 4 processes, one device each; this world has 1"):
         make_host_mesh(model=2, pod=2)
+    one = make_host_mesh(1, 1)   # the card's: a grid of one device
+    assert one.coords == {"data": 0, "model": 0} and one.index(("data", "model")) == 0
+    assert one.all_reduce_mean(t, "model") is t and one.grad_sum(t) is t
+    # the scale-out round refuses a data or model axis (ROADMAP.md item 8):
+    # the pods-only check, on a mesh whose grid the world cannot hold
+    grid = Mesh.__new__(Mesh)
+    grid.grid, grid.shape = True, {"pod": 2, "data": 2, "model": 1}
+    with pytest.raises(ValueError, match="mesh of pods only .*ROADMAP.md item 8"):
+        grid.require_pods_only("the federated round")
     for multi_pod in (False, True):
         with pytest.raises(RuntimeError, match="names (256|512) devices; this world has 1"):
             make_production_mesh(multi_pod=multi_pod)

@@ -47,17 +47,6 @@ UNPORTED = {
     "repro.kernels.hellinger.ref": {"hellinger_matrix_ref": "the Pallas matrix path"},
     "repro.kernels.mamba_scan": {"mamba_scan_pallas": "Pallas"},
     "repro.kernels.mamba_scan.ops": {"mamba_scan_pallas": "Pallas"},
-    "repro.configs.inputs": {"input_specs": "jax ShapeDtypeStruct specs (the dry runs)",
-                             "decode_specs": "jax ShapeDtypeStruct specs (the dry runs)"},
-    "repro.models.attention": {"gqa_specs": "sharding specs", "mla_specs": "sharding specs"},
-    "repro.models.moe": {
-        "moe_specs": "sharding specs",
-        "moe_capacity": "expert parallelism: the reference runs it only when a mesh is "
-                        "passed to the forward (dry runs, sharded forwards), never in the "
-                        "scaleout round; the port has no model axis",
-        "moe_capacity_sharded": "expert parallelism under a mesh, as moe_capacity"},
-    "repro.models.ssm": {"mamba_specs": "sharding specs", "xlstm_specs": "sharding specs"},
-    "repro.models.transformer": {"transformer_specs": "sharding specs"},
 }
 
 
@@ -111,7 +100,7 @@ def test_every_reference_name_with_a_port_counterpart_imports_from_the_same_path
             "repro.launch.serve", "repro.configs.inputs", "repro.launch.train",
             "repro.optim.optimizers", "repro.optim.schedules", "repro.models.moe",
             "repro.launch.mesh", "repro.engine.scaleout", "repro.federated.scaleout",
-            "repro.configs.musicgen_large", "repro.configs.internvl2_1b"} <= seen
+            "repro.configs.musicgen_large", "repro.configs.internvl2_1b", "repro.sharding"} <= seen
     for package in ("systems", "faults", "checkpoint", "population", "serving", "launch"):
         ref = importlib.import_module(f"repro.{package}")
         modules = {m.name for m in pkgutil.walk_packages(ref.__path__, f"repro.{package}.")}
