@@ -22,7 +22,8 @@ Phases, each printed on its own lines:
    hymba with its 1024 window, (4, S, 40 / 8 kv, 128) qwen3 and (4, S, 128,
    192) deepseek-v3's MLA (q and k of 128 + 64 dims, the DMAX-256
    template) and (4, S, 48 / 8 kv, 128) dbrx-132b, S = 128 and 1280, with
-   a D = 192 backward at (2, 256, 16, 192),
+   a D = 192 backward at (2, 256, 16, 192), gemma3-27b's (4, 1280, 32 /
+   16 kv, 128) local (window 1024) and global,
    at the frame and patch prompts' (4, 128 / 1280, 32, 64) musicgen-large
    and (4, 384 / 1280, 14 / 2 kv, 64) internvl2-1b (a GQA group of 7),
    and at the training launcher's (8, 128, 32, 80) stablelm, (8, 128, 25 /
@@ -198,7 +199,21 @@ Phases, each printed on its own lines:
      ``make_federated_round`` on stablelm-3b at full size in bf16, one
      pod, 4 local SGD steps of 8 x 128 tokens, with compress_bits 0 and 8
      (ms a round, loss, peak memory; K1 once a leaf, K3 once a layer a
-     step each way; int8 within half a quantization step of exact).
+     step each way; int8 within half a quantization step of exact);
+   - ``dryrun:`` the dry run (``repro_torch.launch.dryrun``) against the
+     card, at full width and depth in bf16: stablelm-3b train at 8 x 128
+     (K3 both ways), and the prefill at 4 x 1280 of hymba-1.5b (K3, K4),
+     qwen3-14b and gemma3-27b (62 layers).  For each, ``build_step`` is
+     traced on ``meta`` tensors on a dry mesh of one (predicted product
+     flops, and peak memory above the arguments), then its function runs
+     on the card on ``init_params``' weights under ``dryrun.count_flops``:
+     the tallied flops must equal the prediction exactly, the peak above
+     the arguments (``max_memory_allocated`` over the call, less what was
+     allocated when it began) must be within 10 % of it, the output
+     finite, and each kernel's launches those the dry run tallied.  Then
+     the ``--all --mesh single`` sweep, started in a child process that
+     cannot see the card (nice 10) after phase 3, must have written its
+     40 records, none failed; its wall time is printed.
 5. agreement — a small configuration of each task and model (stablelm,
    hymba, xlstm, and glm4, qwen3 and gemma3 reduced), of every
    classification preset and of fused compiled chunks, run on the CPU
@@ -239,6 +254,7 @@ that holds this script without the repository's ``src/``.
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import gc
 import json
@@ -451,6 +467,7 @@ def _check_aggregate(shape, dtype, device):
     import torch
 
     from repro_torch.kernels.aggregate import masked_weighted_sum, masked_weighted_sum_ref
+    from repro_torch.kernels.aggregate.ops import reduce_work
 
     m, n = shape
     x, w = _aggregate_inputs(shape, dtype, device)
@@ -462,7 +479,8 @@ def _check_aggregate(shape, dtype, device):
     if not (got.shape == (n,) and torch.isfinite(got).all() and err <= tol):
         raise AssertionError(f"masked_weighted_sum {shape} {dtype}: max |err| = {err} > {tol}")
     w_lib = w.to(dtype)
-    bound_ms, bound_by = _bound(m * n * x.element_size() + 4 * m + 4 * n, 2 * m * n)
+    work = reduce_work(m, n, x.element_size())
+    bound_ms, bound_by = _bound(work.bytes, work.flops)
     rec = {
         "shape": [m, n], "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
         "tolerance": tol,
@@ -498,20 +516,6 @@ def _check_aggregate_nan(device):
             raise AssertionError(f"K1 with a NaN row at weight {weight} differs from plain")
 
 
-def _attention_work(shape, window, is_global, elem):
-    """(visible (q, k) pairs, bytes forward, bytes backward) of K3 at
-    (B, S, H, KV, D): each input read once, each output written once."""
-    b, s, h, kv, d = shape
-    if window > 0 and not is_global > 0:
-        pairs = sum(min(i + 1, window) for i in range(s))
-    else:
-        pairs = s * (s + 1) // 2
-    q_bytes, kv_bytes, stat = b * s * h * d * elem, b * s * kv * d * elem, 4 * b * h * s
-    fwd = q_bytes + 2 * kv_bytes + q_bytes + stat                     # q, k, v -> O, L
-    bwd = 3 * q_bytes + 2 * kv_bytes + stat + q_bytes + 2 * kv_bytes  # q, k, v, O, dO, L -> dq, dk, dv
-    return b * h * pairs, fwd, bwd
-
-
 def _flash_inputs(shape, dtype, device):
     """K3's q, k, v and an output gradient at (B, S, H, KV, D), from a seed."""
     import torch
@@ -533,6 +537,7 @@ def _check_flash(shape, dtype, window, is_global, device):
         flash_attention_backward,
         flash_attention_forward,
     )
+    from repro_torch.kernels.flash_attention.ops import attention_work
 
     b, s, h, kv, d = shape
     q, k, v, do = _flash_inputs(shape, dtype, device)
@@ -562,7 +567,7 @@ def _check_flash(shape, dtype, window, is_global, device):
            "is_global": is_global, "errors": errs, "tolerance": tol,
            "forward": {"max_abs_err": max(errs["o"], errs["lse"])},
            "backward": {"max_abs_err": max(errs["dq"], errs["dk"], errs["dv"])}}
-    pairs, fwd_bytes, bwd_bytes = _attention_work(shape, window, is_global, q.element_size())
+    pairs, fwd_bytes, bwd_bytes = attention_work(shape, window, is_global, q.element_size())
     # K3 multiplies fp32 inputs on the tensor cores as 3xTF32, so the least
     # time the card takes for fp32-accurate attention is set by that rate,
     # not by the 67 TFLOP/s of the CUDA cores
@@ -598,20 +603,6 @@ def _check_flash(shape, dtype, window, is_global, device):
     }
     print(f"kernel flash_attention {json.dumps(rec)}", flush=True)
     return rec
-
-
-def _mamba_work(shape, groups, elem, final_state=False):
-    """(forward bytes, backward bytes, (b, t, d, n) elements) of K4 at
-    (B, S, D, N): each input read once, each output written once (with
-    ``final_state`` also the (B, D, N) fp32 state after the last step).
-    The state checkpoints that the forward keeps for the backward are this
-    design's choice, not the function's, and are not counted."""
-    b, s, d, n = shape
-    seq, state = b * s * d * elem, b * s * n * elem
-    weights = 4 * groups * d * (n + 1)
-    fwd = 2 * seq + 2 * state + weights + seq + (4 * b * d * n if final_state else 0)
-    bwd = 3 * seq + 2 * state + weights + 2 * seq + 2 * state + weights    # ..., dy -> six grads
-    return fwd, bwd, b * s * d * n
 
 
 def _scan_bound(n_bytes, elements, flops_per_element, exps_per_element):
@@ -661,6 +652,7 @@ def _check_mamba(shape, groups, dtype, checkpoints, device, final_state=False):
         mamba_scan_forward,
         mamba_scan_ref,
     )
+    from repro_torch.kernels.mamba_scan.ops import scan_work
 
     b, s, d, n = shape
     inputs, dy = _scan_inputs(shape, groups, dtype, device)
@@ -693,8 +685,8 @@ def _check_mamba(shape, groups, dtype, checkpoints, device, final_state=False):
     tag = f"{list(shape)} groups={groups} {str(dtype).replace('torch.', '')}"
     if any(errs[k] > limits[k] for k in errs):
         raise AssertionError(f"mamba_scan {tag}: max |err| {errs} above {limits}")
-    fwd_bytes, bwd_bytes, elements = _mamba_work(shape, max(groups, 1), x.element_size(),
-                                                 final_state)
+    fwd_bytes, bwd_bytes, elements = scan_work(shape, max(groups, 1), x.element_size(),
+                                               final_state)
     # per (b, t, d, n): forward 1 exp and 5 flops (dt A, the state update and
     # the C contraction); backward at least 1 exp and 16 flops (the state
     # recurrence again, then the reverse one and its six gradient terms)
@@ -3527,6 +3519,149 @@ def _scaleout_phase(device):
     return launches
 
 
+# the dry run's steps held to real ones on the card: (model, kind, sequence,
+# batch), each at full width and depth in its config's dtype (bf16)
+DRYRUN_STEPS = (("stablelm-3b", "train", 128, 8), ("hymba-1.5b", "prefill", 1280, 4),
+                ("qwen3-14b", "prefill", 1280, 4), ("gemma3-27b", "prefill", 1280, 4))
+DRYRUN_PEAK_TOL = 0.10       # measured peak against the dry run's, relative
+DRYRUN_SWEEP = ROOT / "build" / "dryrun_sweep.jsonl"
+DRYRUN_SWEEP_TIMEOUT = 900
+
+
+def _start_dryrun_sweep():
+    """``python -m repro_torch.launch.dryrun --all --mesh single`` in a child
+    process that cannot see the card (the dry run needs none), at a lower
+    priority, started early so that its host time overlaps the card's
+    phases; ``_dryrun_phase`` waits for it.  Returns (process, start)."""
+    import os
+
+    DRYRUN_SWEEP.parent.mkdir(parents=True, exist_ok=True)
+    DRYRUN_SWEEP.unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all", "--mesh", "single",
+         "--out", str(DRYRUN_SWEEP)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, preexec_fn=lambda: os.nice(10))
+    atexit.register(lambda: proc.poll() is None and proc.kill())  # a failed run stops it too
+    return proc, time.perf_counter()
+
+
+def _dryrun_step(device, model, kind, seq, batch):
+    """The dry run's prediction for one step (``build_step`` traced on
+    ``meta`` tensors on a dry mesh of one: product flops and the peak
+    above the arguments), then ``build_step``'s function run on the card
+    (a mesh of one) on ``init_params``' weights and ``dummy_batch``'s
+    tokens under ``dryrun.count_flops``.  The tallied flops must equal the
+    prediction exactly, and the peak (``max_memory_allocated`` over the
+    call less what was allocated when it began, the arguments among it)
+    must be within ``DRYRUN_PEAK_TOL`` of it.  Returns the kernels'
+    launches in the call."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.configs.inputs import dummy_batch
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward,
+        flash_attention_forward,
+    )
+    from repro_torch.kernels.mamba_scan import mamba_scan_backward, mamba_scan_forward
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_dry_mesh, make_host_mesh
+    from repro_torch.models.transformer import init_params
+
+    counters = (flash_attention_forward, flash_attention_backward, mamba_scan_forward,
+                mamba_scan_backward)
+    cfg = get_config(model)
+    tag = f"dryrun {model} {kind} {batch} x {seq}"
+    shape = InputShape(f"{kind}_{batch}x{seq}", seq, batch, kind)
+    fn, args, _, _ = dryrun.build_step(cfg, make_dry_mesh(), shape)
+    pred = dryrun.trace(fn, args)
+    print(f"{tag}: predicted {pred['flops']:.6e} flops, peak above the arguments "
+          f"{pred['temp'] / 2**30:.3f} GiB (arguments {pred['args'] / 2**30:.3f} GiB), kernel "
+          f"launches {json.dumps({k: v['launches'] for k, v in pred['kernel_work'].items()})}, "
+          f"traced in {pred['t_trace_s']:.2f} s", flush=True)
+    del args
+    fn, _, _, _ = dryrun.build_step(cfg, make_host_mesh(), shape)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    params = init_params(torch.Generator(device).manual_seed(0), cfg)
+    data = {k: v.to(device) for k, v in dummy_batch(cfg, batch, seq, seed=0).items()}
+    if kind == "prefill":
+        data.pop("labels")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    for c in counters:
+        c.launches = 0
+    t = time.perf_counter()
+    out, flops, tally = dryrun.count_flops(fn, params, data)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = {c.__name__: c.launches for c in counters}
+    if kind == "train":
+        result = out[1]
+        ok = result.shape == () and bool(torch.isfinite(result))
+    else:
+        result = out[0]
+        ok = result.shape == (batch, cfg.vocab) and bool(torch.isfinite(result).all())
+    rel = (peak - pred["temp"]) / pred["temp"]
+    print(f"{tag}: on the card {flops:.6e} flops (tallied; the prediction's "
+          f"{pred['flops']:.6e}, equal {flops == pred['flops']}), peak above the arguments "
+          f"{peak / 2**30:.3f} GiB ({rel:+.4f} against the prediction; held to "
+          f"{DRYRUN_PEAK_TOL}), step {ms:.1f} ms under the flop counter, weights drawn in "
+          f"{init_s:.2f} s, launches {json.dumps(launches)}, tallied "
+          f"{json.dumps({k: v['launches'] for k, v in tally.kernels.items()})}; output "
+          f"{tuple(result.shape)} finite {ok}", flush=True)
+    del out, result, params, data
+    if flops != pred["flops"]:
+        raise AssertionError(f"{tag}: {flops} flops on the card, {pred['flops']} predicted")
+    if abs(rel) > DRYRUN_PEAK_TOL:
+        raise AssertionError(f"{tag}: peak {peak} B against the predicted {pred['temp']} B")
+    if not ok:
+        raise AssertionError(f"{tag}: the step's output is not finite or has the wrong shape")
+    predicted = {k: v["launches"] for k, v in pred["kernel_work"].items()}
+    if {k: v for k, v in launches.items() if v} != predicted or \
+            {k: v["launches"] for k, v in tally.kernels.items()} != predicted:
+        raise AssertionError(f"{tag}: launches {launches}, tallied {tally.kernels}, predicted "
+                             f"{predicted}")
+    return launches
+
+
+def _dryrun_phase(device, sweep):
+    """The dry run (``repro_torch.launch.dryrun``) against the card: each of
+    ``DRYRUN_STEPS`` predicted and run (``_dryrun_step``); then the
+    ``--all --mesh single`` sweep that ``_start_dryrun_sweep`` started:
+    its wall time on this machine's host and every record OK.  Returns the
+    kernels' launches in the steps."""
+    t = time.perf_counter()
+    total: dict[str, int] = {}
+    for step in DRYRUN_STEPS:
+        for k, n in _dryrun_step(device, *step).items():
+            total[k] = total.get(k, 0) + n
+    wanted = {"flash_attention_forward", "flash_attention_backward", "mamba_scan_forward"}
+    if not all(total.get(k, 0) > 0 for k in wanted):
+        raise AssertionError(f"dryrun: a kernel of the path never launched: {total}")
+    proc, started = sweep
+    log, _ = proc.communicate(timeout=DRYRUN_SWEEP_TIMEOUT)
+    wall = time.perf_counter() - started
+    recs = [json.loads(line) for line in DRYRUN_SWEEP.read_text().splitlines()]
+    failed = [f"{r['arch']} {r['shape']}: {r['error']}" for r in recs if "error" in r]
+    traced = sum(r.get("t_trace_s", 0.0) for r in recs)
+    print(f"dryrun: the --all --mesh single sweep in a child process: {len(recs)} records, "
+          f"{len(failed)} failed, {wall:.1f} s wall (started before the main paths, at nice "
+          f"10), the main traces' t_trace_s summing to {traced:.1f} s", flush=True)
+    if proc.returncode != 0 or failed or len(recs) != 40:
+        raise AssertionError(f"dryrun sweep: exit {proc.returncode}, {len(recs)} records, "
+                             f"failed {failed}; its output's end:\n{log[-3000:]}")
+    print(f"dryrun: launches {json.dumps(total)}; phase in {time.perf_counter() - t:.1f} s",
+          flush=True)
+    return total
+
+
 def _kernel_only(records) -> None:
     """Phase 6 on ``records`` ({"k1", "k2", "k3", "k4"}: phase 3's records
     of each kernel), each record updated in place."""
@@ -3647,6 +3782,10 @@ def main() -> int:
           for h, kv, d, w, ig in ((32, 32, 80, 0, 1.0), (25, 5, 64, 1024, 0.0),
                                   (40, 8, 128, 0, 1.0), (128, 128, 192, 0, 1.0))),
         ((2, 256, 16, 16, 192), torch.bfloat16, 0, 1.0),   # D = 192 backward
+        # gemma3-27b's prefill at its full depth in the dryrun phase: local
+        # layers (window 1024) and global ones (the window off by is_global)
+        ((4, 1280, 32, 16, 128), torch.bfloat16, 1024, 0.0),
+        ((4, 1280, 32, 16, 128), torch.bfloat16, 1024, 1.0),
         # dbrx-132b's prefill (GQA 48 / 8 kv, D = 128) on the capacity path, and
         # its launcher step, the first D = 128 backward on a path
         *(((4, s, 48, 8, 128), torch.bfloat16, 0, 1.0) for s in SERVE_PROMPTS),
@@ -3677,6 +3816,7 @@ def main() -> int:
     print("kernels: hellinger_strip, masked_weighted_sum, flash_attention and mamba_scan "
           "(forward and backward) passed at every shape above", flush=True)
     torch.cuda.empty_cache()
+    sweep = _start_dryrun_sweep()
 
     # 4. main paths: the paper's classification experiment, then LM training
     from repro_torch.kernels.flash_attention import (
@@ -3724,6 +3864,7 @@ def main() -> int:
     moe_mesh_launches = _moe_mesh_phase(device)
     train_launches = _train_phase(device)
     scaleout_launches = _scaleout_phase(device)
+    dryrun_launches = _dryrun_phase(device, sweep)
 
     # 5. small-input agreement with the CPU path
     _agreement(device)
@@ -3776,7 +3917,8 @@ def main() -> int:
          + serve_launches.get(f"flash_attention_{direction}", 0)
          + moe_mesh_launches[f"flash_attention_{direction}"]
          + train_launches[f"flash_attention_{direction}"]
-         + scaleout_launches[f"flash_attention_{direction}"], "shape": k3[0]["shape"],
+         + scaleout_launches[f"flash_attention_{direction}"]
+         + dryrun_launches[f"flash_attention_{direction}"], "shape": k3[0]["shape"],
          **{k: k3[0][direction][k] for k in keys + ("kernel_ms",)}}
         for direction in ("forward", "backward")
     ] + [
@@ -3793,7 +3935,8 @@ def main() -> int:
          "replaces": "src/repro/kernels/mamba_scan/kernel.py:69",
          "launches": hymba_launches[f"mamba_scan_{direction}"]
          + serve_launches.get(f"mamba_scan_{direction}", 0)
-         + train_launches[f"mamba_scan_{direction}"], "shape": k4[0]["shape"],
+         + train_launches[f"mamba_scan_{direction}"]
+         + dryrun_launches[f"mamba_scan_{direction}"], "shape": k4[0]["shape"],
          **{k: k4[0][direction][k] for k in keys + ("kernel_ms",)}}
         for direction in ("forward", "backward")
     ]

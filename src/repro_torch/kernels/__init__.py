@@ -12,7 +12,9 @@
   ``csrc/mamba_scan.cu``.
 
 A wrapper launches its CUDA kernel for CUDA tensors and takes the plain
-PyTorch version (``ref.py``) only for CPU tensors.  Each wrapper counts its
+PyTorch version (``ref.py``) only for CPU tensors; ``meta`` tensors (the
+dry run) take the CUDA path without the launch.  K1, K3 and K4 add each
+call's work to the active ``build.work_tally``.  Each wrapper counts its
 kernel launches in its ``launches`` attribute, and a launch recorded into a
 CUDA graph in its ``captured`` attribute (``build.count_launch``).
 """

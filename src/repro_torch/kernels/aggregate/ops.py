@@ -22,9 +22,9 @@ import functools
 import torch
 
 from repro_torch.kernels.aggregate.ref import masked_weighted_sum_ref
-from repro_torch.kernels.build import count_launch, load
+from repro_torch.kernels.build import Work, count_launch, kernel_path, load, tally_kernel
 
-__all__ = ["load_width", "masked_weighted_sum"]
+__all__ = ["load_width", "masked_weighted_sum", "reduce_work"]
 
 _SYMBOLS = {torch.float32: "fedavg_reduce_f32", torch.bfloat16: "fedavg_reduce_bf16"}
 _THREADS = 256           # threads a block in the kernel
@@ -48,6 +48,13 @@ def load_width(addr: int, n: int, elt: int, sms: int = 132) -> int:
     return 1
 
 
+def reduce_work(m: int, n: int, elem: int) -> Work:
+    """One call's ``Work`` at an (M, N) cohort of ``elem``-byte elements:
+    no product (the reference sums w_m x_m elementwise, then over the pod
+    axis), 2 M N flops, the cohort, the weights and the fp32 output once."""
+    return Work(0.0, 2.0 * m * n, float(m * n * elem + 4 * m + 4 * n))
+
+
 @functools.cache
 def _kernel(dtype: torch.dtype):
     fn = getattr(load("fedavg_reduce"), _SYMBOLS[dtype])
@@ -63,9 +70,9 @@ def _sms(index: int) -> int:
 
 
 def _check(stacked: torch.Tensor, weights: torch.Tensor) -> None:
-    if stacked.device != weights.device or stacked.device.type not in ("cpu", "cuda"):
+    if stacked.device != weights.device or stacked.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(
-            f"stacked and weights must share one CPU or CUDA device; got "
+            f"stacked and weights must share one CPU, CUDA or meta device; got "
             f"{stacked.device} and {weights.device}"
         )
     if stacked.dtype not in _SYMBOLS:
@@ -89,14 +96,18 @@ def masked_weighted_sum(stacked: torch.Tensor, weights: torch.Tensor) -> torch.T
 
     CUDA tensors launch the kernel on the current stream (counted in
     ``masked_weighted_sum.launches``, or ``.captured`` while the stream is
-    being captured into a CUDA graph); CPU tensors take the plain
-    version."""
+    being captured into a CUDA graph); ``meta`` tensors the same path
+    without the launch; CPU tensors take the plain version."""
     _check(stacked, weights)
-    if stacked.device.type == "cpu":
+    path = kernel_path(stacked)
+    if path == "plain":
         return masked_weighted_sum_ref(stacked, weights)
     m, n = stacked.shape
     out = torch.empty(n, dtype=torch.float32, device=stacked.device)
     if n == 0:
+        return out
+    tally_kernel("masked_weighted_sum", reduce_work(m, n, stacked.element_size()))
+    if path == "meta":
         return out
     index = stacked.device.index
     vec = load_width(stacked.data_ptr(), n, stacked.element_size(), _sms(index))

@@ -15,6 +15,16 @@ with nvcc, it prints what ptxas reports for each kernel of the named
 sources (all by default): registers a thread and bytes spilled,
 
     PYTHONPATH=src python3 -m repro_torch.kernels.build flash_attention
+
+``count_launch`` counts a wrapper's launches.  ``work_tally`` collects,
+while it is active, what each kernel call does (its ``Work``: the
+product flops that the reference's graph has for the same function, the
+kernel's own flops, its bytes; from the work formula beside each
+wrapper) on CUDA and ``meta`` tensors alike, and each collective's bytes
+(``tally_collective``): the dry run's counts and the card's are the same.
+``kernel_path`` says where a wrapper sends a tensor: CUDA tensors to the
+kernel, ``meta`` tensors to its ``meta`` branch (the outputs, no launch)
+or, inside ``plain_on_meta``, to the plain version, as CPU tensors.
 """
 
 from __future__ import annotations
@@ -26,9 +36,14 @@ import re
 import shutil
 import subprocess
 import sys
+from contextlib import contextmanager
+from dataclasses import dataclass, field
 from pathlib import Path
+from typing import NamedTuple
 
-__all__ = ["SOURCES", "BUILD_DIR", "build", "load", "ptxas_report", "count_launch"]
+__all__ = ["SOURCES", "BUILD_DIR", "build", "load", "ptxas_report", "count_launch", "Work",
+           "WorkTally", "work_tally", "tally_kernel", "tally_collective", "plain_on_meta",
+           "kernel_path", "launch_or_meta"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -149,7 +164,6 @@ def ptxas_report(name: str) -> list[dict]:
     return rows
 
 
-
 def count_launch(wrapper) -> None:
     """Count one launch of ``wrapper``'s kernel: in ``wrapper.captured``
     while the current stream is being captured into a CUDA graph (the
@@ -161,6 +175,107 @@ def count_launch(wrapper) -> None:
         wrapper.captured += 1
     else:
         wrapper.launches += 1
+
+
+# ---------------------------------------------------------------------------
+# The work tally: what each kernel call and each collective does
+# ---------------------------------------------------------------------------
+
+
+class Work(NamedTuple):
+    """One kernel call's work: ``product_flops``, the flops of the matrix
+    products that the reference's graph has for the same function (the
+    dry run's ``flops`` count); ``flops``, the kernel's own; ``bytes``,
+    its inputs read once and its outputs written once."""
+    product_flops: float
+    flops: float
+    bytes: float
+
+
+@dataclass
+class WorkTally:
+    """The work of the kernel calls and collectives made while it is
+    active: ``kernels`` name -> {"launches", "product_flops", "flops",
+    "bytes"}, ``collectives`` kind -> result bytes."""
+    kernels: dict = field(default_factory=dict)
+    collectives: dict = field(default_factory=dict)
+
+    @property
+    def product_flops(self) -> float:
+        return sum(k["product_flops"] for k in self.kernels.values())
+
+    @property
+    def bytes(self) -> float:
+        return sum(k["bytes"] for k in self.kernels.values())
+
+
+_TALLIES: list[WorkTally] = []
+_PLAIN_ON_META: list[bool] = [False]
+
+
+@contextmanager
+def work_tally():
+    """A ``WorkTally`` that every kernel wrapper (on CUDA and ``meta``
+    tensors alike) and every collective of a mesh adds to while the block
+    runs.  Tallies nest: each active one counts."""
+    tally = WorkTally()
+    _TALLIES.append(tally)
+    try:
+        yield tally
+    finally:
+        _TALLIES.remove(tally)
+
+
+def tally_kernel(name: str, work: Work) -> None:
+    """Add one call of kernel ``name`` and its ``work`` to every active tally."""
+    for tally in _TALLIES:
+        rec = tally.kernels.setdefault(
+            name, {"launches": 0, "product_flops": 0.0, "flops": 0.0, "bytes": 0.0})
+        rec["launches"] += 1
+        rec["product_flops"] += work.product_flops
+        rec["flops"] += work.flops
+        rec["bytes"] += work.bytes
+
+
+def tally_collective(kind: str, n_bytes: float) -> None:
+    """Add a collective's result bytes under ``kind`` (``all-reduce``,
+    ``all-gather``, ...) to every active tally."""
+    for tally in _TALLIES:
+        tally.collectives[kind] = tally.collectives.get(kind, 0.0) + float(n_bytes)
+
+
+@contextmanager
+def plain_on_meta():
+    """While the block runs, a kernel wrapper given ``meta`` tensors runs
+    its plain version on them (the path CPU tensors take), instead of its
+    ``meta`` branch (the path CUDA tensors take)."""
+    _PLAIN_ON_META.append(True)
+    try:
+        yield
+    finally:
+        _PLAIN_ON_META.pop()
+
+
+def kernel_path(t) -> str:
+    """Where a wrapper sends tensors on ``t``'s device: ``"cuda"`` (launch
+    the kernel), ``"meta"`` (the kernel's outputs and work, no data) or
+    ``"plain"`` (the plain version: CPU tensors, and ``meta`` ones inside
+    ``plain_on_meta``)."""
+    kind = t.device.type
+    if kind == "meta":
+        return "plain" if _PLAIN_ON_META[-1] else "meta"
+    return "cuda" if kind == "cuda" else "plain"
+
+
+def launch_or_meta(t, what: str) -> bool:
+    """For a function that launches a kernel: True for CUDA tensors, False
+    for ``meta`` ones (their outputs and work, no launch); raises for
+    tensors that the plain version takes."""
+    path = kernel_path(t)
+    if path == "plain":
+        raise ValueError(f"{what} launches the kernel: pass CUDA (or meta) tensors")
+    return path == "cuda"
+
 
 if __name__ == "__main__":
     for source in sys.argv[1:] or SOURCES:

@@ -1,0 +1,559 @@
+"""The dry run, ported from ``repro.launch.dryrun``: trace every (arch x
+input shape) step on the production mesh without allocating a parameter.
+
+For each pair the dry run
+
+1. builds the full config (``long_500k`` takes the reference's
+   sliding-window variant, ``long_context_variant``),
+2. makes the parameters (``abstract_params``), the batch (``input_specs``
+   / ``decode_specs``) and, for decode, the cache (``init_cache`` on
+   ``meta``) as empty ``meta`` tensors,
+3. takes the reference's layouts from the baseline (or ``fsdp``) policy
+   (``repro_torch.sharding``) on a dry production mesh: rank 0 of a world
+   of 256 (``single``) or 512 (``multi``) processes that is not there
+   (``launch.mesh.make_production_mesh(dry=True)``),
+4. runs the step on those ``meta`` tensors along the card's path: the
+   kernel wrappers take their ``meta`` branches, which return the CUDA
+   path's outputs and saved tensors and tally each kernel's work from its
+   work formula (``path="cpu"`` runs the kernels' plain versions on the
+   ``meta`` tensors instead, as the CPU runs them),
+5. records work, memory and collectives to a JSONL with the reference's
+   keys (``t_trace_s`` in place of ``t_lower_s`` / ``t_compile_s``, plus
+   ``memory.argument_size_held`` and ``kernel_work``).
+
+Nothing runs on a device and nothing is allocated beyond ``meta``
+tensors; an operation that meets a CPU tensor beside the ``meta`` ones
+(other than a 0-d scalar) raises.  The step functions are real ones:
+given tensors on the card (and a real mesh) they run.
+
+Counting rules:
+
+- ``flops`` are the flops of the matrix products, as the reference's graph
+  has them: ``torch.utils.flop_counter.FlopCounterMode`` over the aten
+  operations, plus each kernel's product flops from its work formula.
+  K3 counts the whole Sq x Sk square with or without a window, since the
+  reference's ``jnp`` attention computes every chunk pair: two S x S
+  products forward and four backward, and no recomputation (the dry run
+  runs no remat).  K4 counts the products of the reference's scan
+  formulation: its C contraction, 2 B S D N forward and twice that
+  backward.  K1 counts none (the reference's weighted sum is
+  elementwise).  The kernels' own work (visible pairs only, K3's
+  backward recomputing Q K^T) is under ``kernel_work``.  This is not
+  XLA's ``cost_analysis`` total, which also counts elementwise work.
+- ``bytes_accessed`` is the eager path's traffic: every aten operation's
+  tensor inputs read once and outputs written once (views, ``empty`` and
+  ``detach`` move none), plus each kernel's bytes from its work formula.
+  It is not comparable with XLA's count after fusion.
+- ``memory.temp_size`` is ``MemTracker``'s peak over the trace, less the
+  arguments, along the chosen path (outputs included).
+  ``memory.argument_size`` is one device's share of the arguments under
+  the reference's layout (``sharding.shard_bytes`` of each argument);
+  ``memory.argument_size_held`` what a port rank holds today, every
+  argument whole.  On the production meshes every port rank computes the
+  replicated values of the whole batch, so ``temp_size`` and
+  ``argument_size_held`` show what the port needs now; the gap to
+  ``argument_size`` is what storage sharding would save.
+- ``collective_bytes`` are the dry mesh's collectives by the reference's
+  kind names, each counted at its result's size (for an all-gather the
+  gathered tensor), as the reference's ``collective_bytes`` counts them.
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-14b \\
+      --shape train_4k --mesh single
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --federated --arch qwen3-14b
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import sys
+import time
+from contextlib import ExitStack
+from dataclasses import replace
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
+from torch.utils.flop_counter import FlopCounterMode
+
+from repro_torch.configs import INPUT_SHAPES, get_config, list_configs
+from repro_torch.configs.inputs import decode_specs, input_specs, long_context_variant
+from repro_torch.kernels.build import plain_on_meta, work_tally
+from repro_torch.launch.mesh import make_dry_mesh, make_production_mesh
+from repro_torch.models.transformer import (
+    abstract_params,
+    cache_specs,
+    decode_step,
+    init_cache,
+    loss_fn,
+    prefill,
+    transformer_specs,
+)
+from repro_torch.sharding import _is_axes, make_policy, shard_bytes, shard_shape
+
+__all__ = ["build_step", "trace", "count_flops", "probe_costs", "trace_step", "run_one",
+           "run_federated", "main"]
+
+PATHS = ("cuda", "cpu")
+
+
+def _batch_logical_axes(cfg, kind):
+    ax = {}
+    if cfg.input_mode == "tokens":
+        ax["tokens"] = ("batch", "seq_in")
+    elif cfg.input_mode == "frames":
+        ax["frames"] = ("batch", "seq_in", None)
+    else:
+        ax["patches"] = ("batch", None, None)
+        ax["tokens"] = ("batch", "seq_in")
+    if kind == "train":
+        ax["labels"] = ("batch", "seq_in")
+    return ax
+
+
+def _tensors(tree) -> list[torch.Tensor]:
+    return [t for t in tree_flatten(tree)[0] if isinstance(t, torch.Tensor)]
+
+
+def _held_bytes(tree) -> int:
+    """The bytes of ``tree``'s tensors, each storage once."""
+    storages = {t.untyped_storage()._cdata: t.untyped_storage().nbytes()
+                for t in _tensors(tree)}
+    return sum(storages.values())
+
+
+def build_step(cfg, mesh, shape, lr: float = 1e-3, policy_variant: str = "baseline"):
+    """(fn, args, (in_specs, out_specs), donate) for ``shape``'s kind, as the
+    reference's ``build_step``: ``args`` are ``meta`` tensors, the specs
+    the policy's layout of each argument and output (a spec tuple a leaf),
+    ``donate`` the arguments that the step updates in place.
+
+    - train: ``fn(params, batch) -> (params, loss)``, the gradient of
+      ``loss_fn`` and ``p - lr * g`` in each leaf's type, written into the
+      parameters in place (the reference donates them);
+    - prefill: ``fn(params, batch) -> (logits, cache)``;
+    - decode: ``fn(params, batch, cache, pos) -> (logits, cache)``, the
+      cache advanced in place; ``pos`` (a Python int) is the cache's last
+      position.
+
+    The ``fsdp`` variant sets ``act_shard="dp_all"`` where the config has
+    none, and a batch-1 decode moves the data axes to the sequence, as in
+    the reference."""
+    if policy_variant == "fsdp" and not cfg.act_shard:
+        cfg = replace(cfg, act_shard="dp_all")
+    policy = make_policy(mesh, shape.global_batch,
+                         shard_seq=(shape.kind == "decode" and shape.global_batch == 1),
+                         variant=policy_variant)
+    params = abstract_params(cfg)
+    pspecs = transformer_specs(cfg)
+    pshard = policy.shardings(pspecs, params)
+
+    if shape.kind in ("train", "prefill"):
+        batch = input_specs(cfg, shape)
+        bspec = _batch_logical_axes(cfg, shape.kind)
+        bshard = {k: policy.spec_for(bspec[k], tuple(batch[k].shape)) for k in batch}
+
+    if shape.kind == "train":
+        def train_step(params, batch):
+            leaves, spec = tree_flatten(params)
+            leaves = [p.detach().requires_grad_(True) for p in leaves]
+            loss, _ = loss_fn(tree_unflatten(leaves, spec), cfg, batch, mesh)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+            with torch.no_grad():
+                for p, g in zip(leaves, grads):
+                    p.sub_(lr * g)
+            del grads
+            return tree_unflatten([p.detach() for p in leaves], spec), loss.detach()
+
+        return train_step, (params, batch), ((pshard, bshard), (pshard, ())), (0,)
+
+    cache = init_cache(cfg, shape.global_batch, shape.seq_len, device="meta")
+    cshard = policy.shardings(cache_specs(cfg), cache)
+    if shape.kind == "prefill":
+        def prefill_step(params, batch):
+            return prefill(params, cfg, batch, max_len=shape.seq_len, mesh=mesh)
+
+        del cache
+        return prefill_step, (params, batch), ((pshard, bshard), ((), cshard)), ()
+
+    batch = decode_specs(cfg, shape)
+    bshard = {k: () for k in batch}
+
+    def serve_step(params, batch, cache, pos):
+        return decode_step(params, cfg, batch, cache, pos, mesh=mesh)
+
+    args = (params, batch, cache, shape.seq_len - 1)
+    return serve_step, args, ((pshard, bshard, cshard, ()), ((), cshard)), (2,)
+
+
+def _argument_size(mesh, specs, args) -> int:
+    """One device's bytes of ``args`` under the layout ``specs`` (a Python
+    int argument, decode's position, as the reference's int32 scalar)."""
+    total = 0
+    for spec, arg in zip(specs, args):
+        if isinstance(arg, int):
+            total += 4
+            continue
+        for sp, leaf in zip(_spec_leaves(spec), _tensors(arg), strict=True):
+            total += shard_bytes(mesh, sp, leaf)
+    return total
+
+
+def _spec_leaves(specs) -> list[tuple]:
+    """The spec tuples of a layout tree, in ``tree_flatten``'s order of the
+    arguments they describe (a scalar's spec stands for one leaf)."""
+    out = []
+
+    def walk(node):
+        if _is_axes(node):
+            out.append(node)
+        elif isinstance(node, dict):
+            for v in node.values():
+                walk(v)
+        else:
+            for v in node:
+                walk(v)
+
+    walk(specs)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Tracing
+# ---------------------------------------------------------------------------
+
+# operations that move no bytes: they make a view or an uninitialised tensor
+_NO_TRAFFIC = {"empty", "empty_like", "empty_strided", "new_empty", "new_empty_strided",
+               "detach", "alias", "lift_fresh", "lift_fresh_copy", "_unsafe_view"}
+
+
+class _Traffic(TorchDispatchMode):
+    """Counts each aten operation's tensor inputs read once and outputs
+    written once (``bytes``) and the operations by name (``ops``); with
+    ``meta_only`` it raises on an operation given a tensor that is not on
+    ``meta``, other than a 0-d scalar."""
+
+    def __init__(self, meta_only: bool):
+        super().__init__()
+        self.meta_only = meta_only
+        self.bytes = 0
+        self.ops: dict[str, int] = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        ins = _tensors((args, kwargs))
+        if self.meta_only:
+            for t in ins:
+                if t.device.type != "meta" and t.ndim > 0:
+                    raise RuntimeError(
+                        f"the dry run met a {t.device.type} tensor {tuple(t.shape)} beside "
+                        f"meta ones in {func}: every argument and every tensor a step makes "
+                        f"must be on meta")
+        out = func(*args, **kwargs)
+        name = func.overloadpacket.__name__
+        self.ops[name] = self.ops.get(name, 0) + 1
+        if not (func.is_view or name in _NO_TRAFFIC):
+            self.bytes += sum(t.numel() * t.element_size() for t in ins + _tensors(out))
+        return out
+
+
+def count_flops(fn, *args):
+    """(fn(*args), product flops, the work tally): the flops of the aten
+    products that ``FlopCounterMode`` sees plus each kernel's product flops
+    (``build.work_tally``).  On the card the same count as the dry run's
+    on ``meta`` tensors."""
+    counter = FlopCounterMode(display=False)
+    with work_tally() as tally, counter:
+        out = fn(*args)
+    return out, counter.get_total_flops() + tally.product_flops, tally
+
+
+def trace(fn, args, path: str = "cuda", memory: bool = True) -> dict:
+    """Run ``fn(*args)`` on ``meta`` arguments under the counters:
+    {"flops", "bytes", "coll", "kernel_work", "peak", "args", "output",
+    "ops", "t_trace_s"} (``peak`` and the rest of the memory numbers are
+    None without ``memory``).  ``path="cpu"`` runs the kernels' plain
+    versions."""
+    if path not in PATHS:
+        raise ValueError(f"path must be one of {PATHS}; got {path!r}")
+    leaves = _tensors(args)
+    bad = [t for t in leaves if t.device.type != "meta"]
+    if bad:
+        raise ValueError(f"the dry run takes meta arguments; got {len(bad)} on "
+                         f"{sorted({t.device.type for t in bad})}")
+    t0 = time.perf_counter()
+    counter, traffic = FlopCounterMode(display=False), _Traffic(meta_only=True)
+    tracker = base = None
+    with ExitStack() as stack:
+        if path == "cpu":
+            stack.enter_context(plain_on_meta())
+        tally = stack.enter_context(work_tally())
+        stack.enter_context(counter)
+        if memory:
+            from torch.distributed._tools.mem_tracker import MemTracker
+
+            tracker = MemTracker()
+            tracker.track_external(*leaves)
+            base = _total(tracker.get_tracker_snapshot("current"))
+            stack.enter_context(tracker)
+        stack.enter_context(traffic)
+        out = fn(*args)
+    rec = {
+        "flops": float(counter.get_total_flops() + tally.product_flops),
+        "bytes": float(traffic.bytes + tally.bytes),
+        "coll": dict(tally.collectives),
+        "kernel_work": {k: dict(v) for k, v in tally.kernels.items()},
+        "args": _held_bytes(args),
+        "output": _held_bytes(out),
+        "peak": None, "temp": None,
+        "ops": traffic.ops,
+        "t_trace_s": time.perf_counter() - t0,
+    }
+    if memory:
+        rec["peak"] = _total(tracker.get_tracker_snapshot("peak"))
+        rec["temp"] = rec["peak"] - base
+    return rec
+
+
+def _total(snapshot) -> int:
+    return int(sum(dev["Total"] for dev in snapshot.values()))
+
+
+# ---------------------------------------------------------------------------
+# Probes
+# ---------------------------------------------------------------------------
+
+
+def _probe_cfg(cfg, shape, n_layers: int):
+    """The reference's cost-probe variant: ``n_layers`` in {1, 2},
+    attention and loss chunks the whole sequence, no remat, the SSM chunk
+    the sequence (xLSTM capped at 8192).  The port's trace counts every
+    loop's body each time it runs, so the probes only split the total into
+    a per-layer part and the rest: total = outside + L x per_layer."""
+    s = shape.seq_len
+    kw = dict(n_layers=n_layers, scan_unroll=n_layers, attn_chunk=s, loss_chunk=s, remat=False)
+    if cfg.ssm is not None:
+        chunk = 8192 if cfg.ssm.family == "xlstm" and s > 8192 else s
+        kw["ssm"] = replace(cfg.ssm, chunk=chunk)
+    return replace(cfg, **kw)
+
+
+def _cost(cfg, mesh, shape, policy_variant, path):
+    fn, args, _, _ = build_step(cfg, mesh, shape, policy_variant=policy_variant)
+    rec = trace(fn, args, path, memory=False)
+    return {"flops": rec["flops"], "bytes": rec["bytes"], "coll": rec["coll"]}
+
+
+def _combine(outside, body, n_layers):
+    kinds = set(outside["coll"]) | set(body["coll"])
+    return {
+        "flops": outside["flops"] + n_layers * body["flops"],
+        "bytes": outside["bytes"] + n_layers * body["bytes"],
+        "coll": {k: outside["coll"].get(k, 0.0) + n_layers * body["coll"].get(k, 0.0)
+                 for k in kinds},
+    }
+
+
+def _diff(a, b):
+    kinds = set(a["coll"]) | set(b["coll"])
+    return {
+        "flops": max(a["flops"] - b["flops"], 0.0),
+        "bytes": max(a["bytes"] - b["bytes"], 0.0),
+        "coll": {k: max(a["coll"].get(k, 0.0) - b["coll"].get(k, 0.0), 0.0) for k in kinds},
+    }
+
+
+def probe_costs(cfg, mesh, shape, policy_variant: str = "baseline", path: str = "cuda") -> dict:
+    """The 1- and 2-layer probes as the reference computes them: per_layer
+    = cost(P2) - cost(P1), outside = cost(P1) - per_layer, total = outside
+    + L x per_layer."""
+    p1 = _cost(_probe_cfg(cfg, shape, 1), mesh, shape, policy_variant, path)
+    p2 = _cost(_probe_cfg(cfg, shape, 2), mesh, shape, policy_variant, path)
+    body = _diff(p2, p1)
+    outside = _diff(p1, body)
+    return {"per_layer": body, "outside": outside,
+            "total": _combine(outside, body, cfg.n_layers)}
+
+
+# ---------------------------------------------------------------------------
+# Records
+# ---------------------------------------------------------------------------
+
+
+def _record(traced, argument_size):
+    return {
+        "flops": traced["flops"],
+        "bytes_accessed": traced["bytes"],
+        "collective_bytes": traced["coll"],
+        "memory": {
+            "argument_size": int(argument_size),
+            "argument_size_held": int(traced["args"]),
+            "output_size": int(traced["output"]),
+            "temp_size": int(traced["temp"]),
+            "generated_code_size": 0,
+        },
+        "kernel_work": traced["kernel_work"],
+        "t_trace_s": round(traced["t_trace_s"], 2),
+    }
+
+
+def trace_step(cfg, mesh, shape, policy_variant: str = "baseline", path: str = "cuda",
+               probes: bool = True) -> dict:
+    """The record's numbers for ``cfg`` at ``shape`` (an ``InputShape``) on
+    ``mesh`` (a dry one, or a mesh of one), with the probes unless
+    ``probes`` is False, and the traced aten operations under ``ops``."""
+    fn, args, (in_specs, _), _ = build_step(cfg, mesh, shape, policy_variant=policy_variant)
+    traced = trace(fn, args, path)
+    rec = {"n_devices": mesh.size(), "kind": shape.kind, "path": path,
+           **_record(traced, _argument_size(mesh, in_specs, args)), "ops": traced["ops"]}
+    rec["probes"] = None
+    if probes:
+        try:
+            rec["probes"] = probe_costs(cfg, mesh, shape, policy_variant, path)
+        except Exception as e:  # probes are best-effort; record why
+            rec["probes"] = {"error": f"{type(e).__name__}: {e}"}
+    return rec
+
+
+def run_one(arch: str, shape_name: str, multi_pod: bool, record_hlo: bool = False,
+            policy_variant: str = "baseline", path: str = "cuda") -> dict:
+    """One (arch, shape, mesh) record; the probes on the single-pod mesh
+    only, as in the reference.  ``record_hlo`` (the reference's
+    compiled-HLO excerpt) keeps the traced aten operations and their
+    counts under ``ops`` instead: the port compiles nothing."""
+    shape = INPUT_SHAPES[shape_name]
+    cfg = get_config(arch)
+    if shape_name == "long_500k":
+        cfg = long_context_variant(cfg)
+    mesh = make_production_mesh(multi_pod=multi_pod, dry=True)
+    body = trace_step(cfg, mesh, shape, policy_variant, path, probes=not multi_pod)
+    ops = body.pop("ops")
+    rec = {"arch": arch, "config_name": cfg.name, "shape": shape_name, "policy": policy_variant,
+           "mesh": "multi" if multi_pod else "single", **body}
+    if record_hlo:
+        rec["ops"] = ops
+    return rec
+
+
+def run_federated(arch: str, local_steps: int = 4, batch_per_client: int = 128,
+                  seq: int = 4096, compress_bits: int = 0, path: str = "cuda") -> dict:
+    """Trace the scale-out FedLECC round (``federated.scaleout``'s
+    ``make_federated_round``) for rank 0 of a dry mesh of 2 pods, one a
+    process: ``local_steps`` of SGD on its pod's batch of
+    ``batch_per_client`` x ``seq`` tokens, K1 over its block of one pod,
+    then the sum over the pods (an all-reduce; with ``compress_bits`` the
+    int8 rows and weights all-gathered).  The port's round takes no data
+    or model axis yet, so this is the pods-only layout, not the
+    reference's 2 x 16 x 16."""
+    from repro_torch.federated.scaleout import make_federated_round, stack_for_clients
+
+    cfg = get_config(arch)
+    mesh = make_dry_mesh(pod=2)
+    n_pods, n_local = mesh.shape["pod"], len(mesh.pods)
+    policy = make_policy(mesh, batch_per_client * n_pods)
+    params = stack_for_clients(abstract_params(cfg), n_local)
+    pspecs = transformer_specs(cfg)
+    unstacked = tree_map(lambda p: p[0], params)
+    inner = _spec_leaves(policy.shardings(pspecs, unstacked))
+    batch = {k: torch.empty((n_local, batch_per_client, seq), dtype=torch.int32, device="meta")
+             for k in ("tokens", "labels")}
+    weights = torch.empty((n_pods,), dtype=torch.float32, device="meta")
+    round_fn = make_federated_round(cfg, mesh, lr=1e-3, local_steps=local_steps,
+                                    compress_bits=compress_bits)
+    traced = trace(round_fn, (params, batch, weights), path)
+    # the reference's arguments are every pod's, split over "pod": one
+    # device's share of the (n_pods, ...) leaves, batch and weights
+    def share(spec, leaf):
+        whole = (n_pods, *leaf.shape[1:])
+        return math.prod(shard_shape(mesh, spec, whole)) * leaf.element_size()
+
+    arg_size = sum(share(("pod", *sp), leaf) for sp, leaf in zip(inner, _tensors(params)))
+    arg_size += sum(share(("pod",), t) for t in batch.values()) + share(("pod",), weights)
+    return {
+        "arch": arch, "config_name": cfg.name,
+        "shape": f"fedround_b{batch_per_client}x{seq}_E{local_steps}_q{compress_bits}",
+        "mesh": "pods", "n_devices": mesh.size(), "kind": "federated_round", "path": path,
+        **_record(traced, arg_size),
+    }
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None, choices=list(INPUT_SHAPES))
+    ap.add_argument("--mesh", default="single", choices=["single", "multi", "both"])
+    ap.add_argument("--all", action="store_true", help="all (arch x shape) pairs")
+    ap.add_argument("--out", default="results/dryrun_torch.jsonl")
+    ap.add_argument("--skip-done", action="store_true")
+    ap.add_argument("--policy", default="baseline", choices=["baseline", "fsdp"])
+    ap.add_argument("--path", default="cuda", choices=list(PATHS),
+                    help="cuda: the kernels' meta branches (the card's path); cpu: their "
+                         "plain versions")
+    ap.add_argument("--federated", action="store_true",
+                    help="trace the scale-out FedLECC round instead of plain steps")
+    args = ap.parse_args(argv)
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+
+    if args.federated:
+        arch = args.arch or "qwen3-14b"
+        rc = 0
+        for bits in (0, 8):
+            try:
+                rec = run_federated(arch, compress_bits=bits, path=args.path)
+                status = "OK"
+            except Exception as e:
+                rec = {"arch": arch, "shape": f"fedround_q{bits}", "mesh": "pods",
+                       "error": f"{type(e).__name__}: {e}"}
+                status = "FAIL"
+                rc = 1
+            with open(args.out, "a") as f:
+                f.write(json.dumps(rec) + "\n")
+            detail = rec.get("error") or (
+                f"flops={rec['flops']:.3e} "
+                f"coll={ {k: round(v / 1e9, 2) for k, v in rec['collective_bytes'].items()} }GB")
+            print(f"[{status}] federated_round {arch} q{bits}: {detail}", flush=True)
+        sys.exit(rc)
+
+    archs = list_configs() if (args.all or args.arch is None) else [args.arch]
+    shapes = list(INPUT_SHAPES) if (args.all or args.shape is None) else [args.shape]
+    meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
+    done = set()
+    if args.skip_done and os.path.exists(args.out):
+        with open(args.out) as f:
+            for line in f:
+                try:
+                    r = json.loads(line)
+                except json.JSONDecodeError:
+                    continue
+                if "error" not in r:
+                    done.add((r["arch"], r["shape"], r["mesh"]))
+    n_fail = 0
+    for arch in archs:
+        for shape in shapes:
+            for mesh_kind in meshes:
+                if (arch, shape, mesh_kind) in done:
+                    continue
+                try:
+                    rec = run_one(arch, shape, multi_pod=(mesh_kind == "multi"),
+                                  policy_variant=args.policy, path=args.path)
+                    status = "OK"
+                except Exception as e:  # record failures: they are bugs
+                    rec = {"arch": arch, "shape": shape, "mesh": mesh_kind,
+                           "error": f"{type(e).__name__}: {e}"}
+                    status = "FAIL"
+                    n_fail += 1
+                with open(args.out, "a") as f:
+                    f.write(json.dumps(rec) + "\n")
+                msg = rec.get("error") or (
+                    f"trace={rec['t_trace_s']}s flops={rec['flops']:.3e} "
+                    f"temp={rec['memory']['temp_size'] / 2**30:.2f}GiB")
+                print(f"[{status}] {arch} x {shape} x {mesh_kind}: {msg}", flush=True)
+    sys.exit(1 if n_fail else 0)
+
+
+if __name__ == "__main__":
+    main()

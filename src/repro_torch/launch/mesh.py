@@ -30,6 +30,17 @@ never swaps one for the other.  ``init_process_group`` is left to the
 caller, with an explicit address, world size and rank (nothing on a
 one-host machine announces a cluster).
 
+A **dry** mesh (``make_dry_mesh``, ``make_production_mesh(dry=True)``) is
+rank 0 of a world of pod x data x model processes (``pod`` of them for a
+mesh of pods) that is not there: no process group, the axes, coordinates
+and subgroups that rank 0 would have.  Its collectives take ``meta``
+tensors only (the dry run, ``repro_torch.launch.dryrun``): each returns
+the shape it would return and adds its result bytes to the active work
+tallies (``kernels.build.work_tally``) under the reference's kind names,
+as the reference's dry run counts them (the result's size: for an
+all-reduce the reduced tensor, for an all-gather the gathered one),
+forward and, for ``grad_sum``, backward.
+
 Every rank of a grid computes the same replicated values and holds the
 whole parameter tree; the reductions carry gradients so that each rank's
 backward ends with the whole gradient: ``all_reduce_sum`` (the ``psum``
@@ -47,10 +58,36 @@ import math
 import torch
 import torch.distributed as dist
 
-__all__ = ["Mesh", "backend_for", "make_host_mesh", "make_production_mesh"]
+from repro_torch.kernels.build import tally_collective
+
+__all__ = ["Mesh", "backend_for", "make_host_mesh", "make_dry_mesh", "make_production_mesh"]
 
 # the reference's production layouts: a 16 x 16 pod, and two of them
 _PRODUCTION = {False: {"data": 16, "model": 16}, True: {"pod": 2, "data": 16, "model": 16}}
+
+
+class _DryGroup:
+    """The process group over some axes of a dry mesh: its size and this
+    rank's index in it."""
+
+    def __init__(self, size: int, rank: int):
+        self.size, self.rank = size, rank
+
+
+def _group_size(group) -> int:
+    return group.size if isinstance(group, _DryGroup) else dist.get_world_size(group)
+
+
+def _group_rank(group) -> int:
+    return group.rank if isinstance(group, _DryGroup) else dist.get_rank(group)
+
+
+def _all_reduce(t: torch.Tensor, group) -> None:
+    """Sum ``t`` over ``group`` in place (a dry group: tally its bytes)."""
+    if isinstance(group, _DryGroup):
+        tally_collective("all-reduce", t.numel() * t.element_size())
+    else:
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
 
 
 def backend_for(device: torch.device | str) -> str:
@@ -69,13 +106,16 @@ class Mesh:
     this process holds; ``coords`` the rank's index on each axis (None for
     pods blocked several to a process)."""
 
-    def __init__(self, pod: int = 0, data: int = 1, model: int = 1):
-        initialised = dist.is_available() and dist.is_initialized()
-        self.group = dist.group.WORLD if initialised else None
-        self.world = dist.get_world_size() if initialised else 1
-        self.rank = dist.get_rank() if initialised else 0
+    def __init__(self, pod: int = 0, data: int = 1, model: int = 1, dry: bool = False):
+        initialised = not dry and dist.is_available() and dist.is_initialized()
+        self.dry = dry
         self.shape = ({"pod": pod} if pod else {}) | {"data": data, "model": model}
         self.axis_names = tuple(self.shape)
+        self.group = dist.group.WORLD if initialised else None
+        self.world = self.size() if dry else dist.get_world_size() if initialised else 1
+        self.rank = dist.get_rank() if initialised else 0
+        if dry and self.world > 1:
+            self.group = _DryGroup(self.world, 0)
         self.grid = data * model > 1
         self._groups: dict[frozenset, object] = {}
         if self.grid:
@@ -126,11 +166,15 @@ class Mesh:
     def _make_groups(self) -> None:
         """One subgroup for each set of axes that the MoE reduces over
         (all axes, ``model``, the data axes), made on every rank in the
-        same order; a set whose group would be one process gets none."""
-        backend = dist.get_backend()
+        same order; a set whose group would be one process gets none (a
+        dry mesh makes rank 0's groups alone, without processes)."""
         names = self.axis_names
+        backend = None if self.dry else dist.get_backend()
         for axes in (names, ("model",), tuple(a for a in names if a != "model")):
             if self.size(axes) == 1:
+                continue
+            if self.dry:
+                self._groups[frozenset(axes)] = _DryGroup(self.size(axes), 0)
                 continue
             members: dict[tuple, list[int]] = {}
             for r in range(self.world):
@@ -173,6 +217,11 @@ class Mesh:
         return self.group if "pod" in axes and self.world > 1 else None
 
     def _check(self, t: torch.Tensor) -> None:
+        if self.dry:
+            if t.device.type != "meta":
+                raise RuntimeError(f"a dry mesh has no processes: its collectives take meta "
+                                   f"tensors; got a {t.device.type} tensor")
+            return
         backend = dist.get_backend(self.group)
         if backend != backend_for(t.device):
             raise RuntimeError(
@@ -193,7 +242,7 @@ class Mesh:
         self._check(t)
         if t.requires_grad:
             return _SumForward.apply(t, group)
-        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+        _all_reduce(t, group)
         return t
 
     def all_reduce_mean(self, t: torch.Tensor, axes=None) -> torch.Tensor:
@@ -229,7 +278,7 @@ class _SumForward(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, group):
         out = t.clone()
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        _all_reduce(out, group)
         return out
 
     @staticmethod
@@ -246,17 +295,20 @@ class _SumBackward(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
-        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+        _all_reduce(g, ctx.group)
         return g, None
 
 
 class _Gather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, group, dim):
-        n, ctx.dim = dist.get_world_size(group), dim
-        ctx.rank, ctx.size = dist.get_rank(group), t.shape[dim]
+        n, ctx.dim = _group_size(group), dim
+        ctx.rank, ctx.size = _group_rank(group), t.shape[dim]
         parts = [torch.empty_like(t) for _ in range(n)]
-        dist.all_gather(parts, t, group=group)
+        if isinstance(group, _DryGroup):
+            tally_collective("all-gather", n * t.numel() * t.element_size())
+        else:
+            dist.all_gather(parts, t, group=group)
         return torch.cat(parts, dim)
 
     @staticmethod
@@ -272,11 +324,22 @@ def make_host_mesh(data: int = 1, model: int = 1, pod: int = 0) -> Mesh:
     return Mesh(pod, data, model)
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+def make_dry_mesh(data: int = 1, model: int = 1, pod: int = 0) -> Mesh:
+    """Rank 0 of a mesh of pod x data x model processes (``pod`` of them,
+    one pod each, where data = model = 1) with no process group: the dry
+    run's mesh, whose collectives take ``meta`` tensors and tally their
+    bytes."""
+    return Mesh(pod, data, model, dry=True)
+
+
+def make_production_mesh(*, multi_pod: bool = False, dry: bool = False) -> Mesh:
     """The reference's production layout (data 16 x model 16, and pod 2
     with ``multi_pod``): raises where the world has fewer processes than
-    its 256 or 512 devices."""
+    its 256 or 512 devices; with ``dry``, rank 0 of that world without it
+    (``make_dry_mesh``)."""
     shape = _PRODUCTION[multi_pod]
+    if dry:
+        return make_dry_mesh(**shape)
     need = math.prod(shape.values())
     have = Mesh().world
     if have < need:

@@ -112,6 +112,7 @@ from repro_torch.models.common import (
 
 __all__ = [
     "TransformerLayout", "check_supported", "layer_flags", "init_transformer", "init_params",
+    "abstract_params",
     "transformer_specs", "cast_params", "embed_inputs", "forward", "output_head",
     "chunked_logits_sum", "token_nll", "loss_fn", "init_cache", "cache_specs", "prefill",
     "decode_step",
@@ -184,6 +185,49 @@ def _ffn_shapes(cfg) -> dict[str, tuple[int, ...]]:
     return moe_mod.moe_shapes(cfg) if cfg.moe else _mlp_shapes(cfg)
 
 
+def _leaf_entries(cfg) -> list[tuple[tuple, tuple[int, ...]]]:
+    """(path, shape) of every leaf of the parameter tree, in
+    ``TransformerLayout``'s order (without a frames model's
+    ``frame_norm``, which the flat layout does not hold)."""
+    entries: list[tuple[tuple, tuple[int, ...]]] = []
+    for i in range(cfg.n_layers):
+        if cfg.block_type == "xlstm":
+            for name, shape in ssm_mod.xlstm_shapes(cfg).items():
+                entries.append((("layers", i, "xlstm", name), shape))
+            for name, shape in _norm_shapes(cfg, "norm1").items():
+                entries.append((("layers", i, name), shape))
+            continue
+        for name, shape in _norm_shapes(cfg, "norm1").items():
+            entries.append((("layers", i, name), shape))
+        for name, shape in _attn_shapes(cfg).items():
+            entries.append((("layers", i, "attn", name), shape))
+        if cfg.block_type == "hymba":
+            for name, shape in ssm_mod.mamba_shapes(cfg).items():
+                entries.append((("layers", i, "ssm", name), shape))
+            for name in ("attn_out_norm", "ssm_out_norm"):
+                entries.append((("layers", i, name), (cfg.d_model,)))
+        for name, shape in _norm_shapes(cfg, "norm2").items():
+            entries.append((("layers", i, name), shape))
+        for name, shape in _ffn_shapes(cfg).items():
+            entries.append((("layers", i, "mlp", name), shape))
+    for name, shape in _norm_shapes(cfg, "final_norm").items():
+        entries.append(((name,), shape))
+    entries.append((("embed",), (cfg.vocab, cfg.d_model)))
+    if not cfg.tie_embeddings:
+        entries.append((("head",), (cfg.d_model, cfg.vocab)))
+    if cfg.mtp:
+        entries.append((("mtp_proj",), (cfg.d_model, cfg.d_model)))
+        entries.append((("mtp_norm",), (cfg.d_model,)))
+    return entries
+
+
+def _set_leaf(tree: dict, path: tuple, leaf) -> None:
+    node = tree
+    for key in path[:-1]:
+        node = node[key] if isinstance(key, int) else node.setdefault(key, {})
+    node[path[-1]] = leaf
+
+
 class TransformerLayout:
     """Where each parameter of the reference's tree sits in the flat
     vector: layer by layer (norm1, attn, for hymba ssm, attn_out_norm and
@@ -193,35 +237,7 @@ class TransformerLayout:
     def __init__(self, cfg):
         check_supported(cfg)
         self.cfg = cfg
-        self.entries: list[tuple[tuple[str, ...], tuple[int, ...]]] = []
-        for i in range(cfg.n_layers):
-            if cfg.block_type == "xlstm":
-                for name, shape in ssm_mod.xlstm_shapes(cfg).items():
-                    self.entries.append((("layers", i, "xlstm", name), shape))
-                for name, shape in _norm_shapes(cfg, "norm1").items():
-                    self.entries.append((("layers", i, name), shape))
-                continue
-            for name, shape in _norm_shapes(cfg, "norm1").items():
-                self.entries.append((("layers", i, name), shape))
-            for name, shape in _attn_shapes(cfg).items():
-                self.entries.append((("layers", i, "attn", name), shape))
-            if cfg.block_type == "hymba":
-                for name, shape in ssm_mod.mamba_shapes(cfg).items():
-                    self.entries.append((("layers", i, "ssm", name), shape))
-                for name in ("attn_out_norm", "ssm_out_norm"):
-                    self.entries.append((("layers", i, name), (cfg.d_model,)))
-            for name, shape in _norm_shapes(cfg, "norm2").items():
-                self.entries.append((("layers", i, name), shape))
-            for name, shape in _ffn_shapes(cfg).items():
-                self.entries.append((("layers", i, "mlp", name), shape))
-        for name, shape in _norm_shapes(cfg, "final_norm").items():
-            self.entries.append(((name,), shape))
-        self.entries.append((("embed",), (cfg.vocab, cfg.d_model)))
-        if not cfg.tie_embeddings:
-            self.entries.append((("head",), (cfg.d_model, cfg.vocab)))
-        if cfg.mtp:
-            self.entries.append((("mtp_proj",), (cfg.d_model, cfg.d_model)))
-            self.entries.append((("mtp_norm",), (cfg.d_model,)))
+        self.entries = _leaf_entries(cfg)
         self.sizes = [math.prod(shape) for _, shape in self.entries]
         self.n_params = sum(self.sizes)
 
@@ -233,10 +249,7 @@ class TransformerLayout:
                              f"{self.cfg.name} needs {self.n_params}")
         tree: dict = {"layers": [{} for _ in range(self.cfg.n_layers)]}
         for (path, shape), part in zip(self.entries, torch.split(flat, self.sizes, dim=-1)):
-            node = tree
-            for key in path[:-1]:
-                node = node[key] if isinstance(key, int) else node.setdefault(key, {})
-            node[path[-1]] = part.unflatten(-1, shape)
+            _set_leaf(tree, path, part.unflatten(-1, shape))
         return tree
 
     def flatten(self, tree: dict) -> torch.Tensor:
@@ -353,12 +366,13 @@ def _init_mlp(generator, cfg) -> dict:
     return p
 
 
-def _keeps_fp32(name: str, leaf: torch.Tensor) -> bool:
-    """Whether the reference keeps this leaf in fp32 in a model of another
-    dtype: every vector (norm scales and biases, the Mamba heads' dt weight
-    and bias and skip, the xLSTM gate bias), ``a_log``, the xLSTM gate
-    weights ``w_if`` and the MoE router."""
-    return leaf.ndim == 1 or name in ("a_log", "w_if", "router")
+def _keeps_fp32(name: str, leaf: torch.Tensor | tuple) -> bool:
+    """Whether the reference keeps this leaf (a tensor, or its shape) in
+    fp32 in a model of another dtype: every vector (norm scales and biases,
+    the Mamba heads' dt weight and bias and skip, the xLSTM gate bias),
+    ``a_log``, the xLSTM gate weights ``w_if`` and the MoE router."""
+    ndim = len(leaf) if isinstance(leaf, tuple) else leaf.ndim
+    return ndim == 1 or name in ("a_log", "w_if", "router")
 
 
 def cast_params(tree, dtype: torch.dtype):
@@ -425,6 +439,29 @@ def init_params(generator: torch.Generator, cfg) -> dict:
     fp32 ``frame_norm`` and keeps ``embed`` as its output code table."""
     check_supported(cfg, tree=True)
     return _init_tree(generator, cfg, getattr(torch, cfg.dtype))
+
+
+def abstract_params(cfg) -> dict:
+    """``init_params``' tree as empty ``meta`` tensors of the same shapes
+    and types, drawing nothing (the reference's ``jax.eval_shape`` of its
+    init): the dry run's parameters.  ``init_params`` draws on its
+    generator's device whatever the default device is, so a ``meta``
+    default does not make it abstract."""
+    check_supported(cfg, tree=True)
+    dtype = getattr(torch, cfg.dtype)
+    entries = _leaf_entries(cfg)
+    if cfg.input_mode == "frames":
+        at = next(i for i, (path, _) in enumerate(entries) if path == ("embed",))
+        entries.insert(at, (("frame_norm",), (cfg.d_model,)))
+    tree: dict = {"layers": [{} for _ in range(cfg.n_layers)]}
+    for path, shape in entries:
+        kind = torch.float32 if _keeps_fp32(path[-1], shape) else dtype
+        _set_leaf(tree, path, torch.empty(shape, dtype=kind, device="meta"))
+    if cfg.block_type != "xlstm":   # init_params' key order: both norms first
+        order = [*_norm_shapes(cfg, "norm1"), *_norm_shapes(cfg, "norm2"), "attn", "ssm",
+                 "attn_out_norm", "ssm_out_norm", "mlp"]
+        tree["layers"] = [{k: layer[k] for k in order if k in layer} for layer in tree["layers"]]
+    return tree
 
 
 # ---------------------------------------------------------------------------

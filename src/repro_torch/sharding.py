@@ -24,6 +24,13 @@ policy:
 
 everything else replicated; the ``fsdp`` variant splits the batch and the
 weights over every axis.
+
+``shard_shape`` and ``shard_bytes`` give one device's block of a leaf
+under a spec, as the reference's ``NamedSharding.shard_shape`` does (a
+spec from ``spec_for`` splits only the dimensions its axes divide): summed
+over a step's arguments, the per-device bytes of the reference's layout,
+which the dry run reports as ``argument_size``.  The port's ranks do not shard storage yet: each holds
+every leaf whole.
 """
 
 from __future__ import annotations
@@ -31,7 +38,8 @@ from __future__ import annotations
 import math
 from typing import Any
 
-__all__ = ["ShardingPolicy", "make_policy", "named_sharding_tree"]
+__all__ = ["ShardingPolicy", "make_policy", "named_sharding_tree", "shard_shape",
+           "shard_bytes"]
 
 
 def _is_axes(x) -> bool:
@@ -83,6 +91,29 @@ class ShardingPolicy:
         takes the stacked specs without their leading "layers" axis."""
         return _map(lambda sp, sh: self.spec_for(sp, tuple(sh.shape)), specs_tree, shapes_tree,
                     "")
+
+
+def shard_shape(mesh, spec: tuple, shape: tuple[int, ...]) -> tuple[int, ...]:
+    """One device's block of a leaf of ``shape`` under ``spec``: each
+    dimension divided by the size of the mesh axes its entry names
+    (which must divide it, as ``spec_for`` makes sure)."""
+    out = list(shape)
+    for i, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        n = math.prod(mesh.shape[a] for a in axes)
+        if out[i] % n:
+            raise ValueError(f"dimension {i} of {tuple(shape)} does not divide over {axes} "
+                             f"({n} devices)")
+        out[i] //= n
+    return tuple(out)
+
+
+def shard_bytes(mesh, spec: tuple, leaf) -> int:
+    """The bytes of one device's block of ``leaf`` (a tensor; ``meta``
+    will do) under ``spec``."""
+    return math.prod(shard_shape(mesh, spec, tuple(leaf.shape))) * leaf.element_size()
 
 
 def _unstack(specs):

@@ -60,7 +60,8 @@ def test_port_file_list_is_complete():
                       "launch/train.py", "optim/optimizers.py", "optim/schedules.py",
                       "models/moe.py", "configs/dbrx_132b.py", "configs/deepseek_v3_671b.py",
                       "configs/musicgen_large.py", "configs/internvl2_1b.py", "launch/mesh.py",
-                      "federated/scaleout.py", "engine/scaleout.py", "sharding.py"):
+                      "federated/scaleout.py", "engine/scaleout.py", "sharding.py",
+                      "launch/dryrun.py", "federated/simulation.py"):
         assert f"src/repro_torch/{lm_module}" in names
     assert len(names) > 20
 

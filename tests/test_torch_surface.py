@@ -7,6 +7,8 @@ the same inputs (``quantize_delta`` / ``dequantize_delta`` exactly,
 ``weighted_delta`` within 1e-6)."""
 
 import importlib
+import importlib.util
+import os
 import pkgutil
 
 import numpy as np
@@ -31,7 +33,6 @@ from repro_torch.models.mlp import MLPLayout  # noqa: E402
 UNPORTED = {
     "repro.core.selection": {"fedlecc_select_jax": "a jax entry point; the port's is "
                                                    "fedlecc_select_mask"},
-    "repro.federated": {"FederatedSimulation": "the deprecated simulation shim"},
     "repro.kernels": {n: "the Pallas entry points; the port's kernels have their own"
                       for n in ("hellinger_matrix_pallas", "hellinger_strip_pallas",
                                 "flash_attention_pallas", "masked_weighted_sum_pallas")},
@@ -47,13 +48,16 @@ UNPORTED = {
     "repro.kernels.hellinger.ref": {"hellinger_matrix_ref": "the Pallas matrix path"},
     "repro.kernels.mamba_scan": {"mamba_scan_pallas": "Pallas"},
     "repro.kernels.mamba_scan.ops": {"mamba_scan_pallas": "Pallas"},
+    "repro.launch.dryrun": {"collective_bytes": "it parses XLA's HLO text; the port's dry "
+                                                "mesh tallies its collectives itself"},
 }
 
 
 # Modules of the reference without a port module, each with the item (or
 # the reason) that keeps it out; every other module of these packages has one.
 UNPORTED_MODULES = {
-    "repro.launch.dryrun": "reference-only: XLA dry runs on a virtual TPU mesh",
+    "repro.jax_compat": "reference-only: a shim over moving JAX APIs",
+    "repro.analysis": "ROADMAP item 8: the lint rules with a torch meaning, the next slice",
 }
 
 
@@ -64,10 +68,18 @@ def _pairs():
                                                                       "repro_torch.")]
     for name in names:
         ref_name = "repro" + name[len("repro_torch"):]
+        # repro.launch.dryrun sets XLA_FLAGS for its own process when imported;
+        # keep it out of the environment that later subprocesses inherit
+        flags = os.environ.get("XLA_FLAGS")
         try:
             ref = importlib.import_module(ref_name)
         except ModuleNotFoundError:
             continue
+        finally:
+            if flags is None:
+                os.environ.pop("XLA_FLAGS", None)
+            else:
+                os.environ["XLA_FLAGS"] = flags
         yield ref_name, ref, importlib.import_module(name)
 
 
@@ -107,6 +119,9 @@ def test_every_reference_name_with_a_port_counterpart_imports_from_the_same_path
         missing = modules - seen - set(UNPORTED_MODULES)
         assert not missing, f"repro.{package} modules without a port: {missing}"
     assert not set(UNPORTED_MODULES) & seen, "ported modules still listed as unported"
+    for name in UNPORTED_MODULES:
+        assert importlib.util.find_spec(name) is not None, f"{name} is not in the reference"
+    assert "repro.launch.dryrun" in seen and "repro.federated.simulation" in seen
 
 
 def test_engine_exports_and_lists():
