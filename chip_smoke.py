@@ -213,7 +213,24 @@ Phases, each printed on its own lines:
      finite, and each kernel's launches those the dry run tallied.  Then
      the ``--all --mesh single`` sweep, started in a child process that
      cannot see the card (nice 10) after phase 3, must have written its
-     40 records, none failed; its wall time is printed.
+     40 records, none failed; its wall time is printed;
+   - ``analysis:`` the port's tracecheck (``repro_torch.analysis``): the
+     lint over ``src/repro_torch`` must be clean and every contract of
+     ``run_contracts`` on the card must pass, none skipped (masks, a
+     replay in its graph's own buffers, one load a kernel library, one
+     capture a chunk length, the host reads a round and a chunk); then the
+     sync and capture budgets (``drive_twice``) at the paper's
+     configuration over two ``rounds()`` calls of 15 rounds on compiled and
+     in fused chunks of 5 (K1 in the graphs, K2 at setup); then fused LM
+     chunks at full width: hymba-1.5b (6 layers) and stablelm-3b (2),
+     each as the LM paths above on the compiled backend and then in fused
+     chunks of 3 (every chunk one round at ``eval_every=1``: round 0
+     eager, then captured with K1, K3 and K4 inside, rounds 1 and 2
+     replays): the first chunk's eager and capture time, each replayed
+     round, the graph pool against the peak, the launches recorded at
+     capture times the replays against the LM paths' formulas, no
+     synchronizing call in a replay, the same selections as the eager
+     compiled run and params within 1e-5 of it.
 5. agreement — a small configuration of each task and model (stablelm,
    hymba, xlstm, and glm4, qwen3 and gemma3 reduced), of every
    classification preset and of fused compiled chunks, run on the CPU
@@ -2275,7 +2292,7 @@ def _print_profile(prof, wall_s: float, tag: str, families, host_top: bool = Fal
 
 
 def _lm_main_path(device, tag, model, n_layers, n_params, families, axes=None,
-                  save_probe=False):
+                  save_probe=False, keep=None):
     """Federated LM training on ``model`` at full width, cut to ``n_layers``,
     3 rounds (the last under the profiler); returns the kernels' launch
     counts from this run.  ``families`` holds one (forward wrapper, backward
@@ -2284,8 +2301,12 @@ def _lm_main_path(device, tag, model, n_layers, n_params, families, axes=None,
     evaluations) times and backward layers x rounds x steps times.
     ``axes(device, cfg_kwargs, train, test, vocab)`` gives ``FLConfig`` fields
     of the run (the systems and fault axes, the async runtime and its step
-    count).  With ``save_probe`` one save and one restore of the engine are
-    timed after the last round (files under build/, removed)."""
+    count, the compiled backend and its fused chunks).  A fused run counts
+    a kernel's launches as its eager ones plus, for each chunk length, those
+    recorded at the capture times the graph's replays (``_FusedProbe``).
+    With ``save_probe`` one save and one restore of the engine are timed
+    after the last round (files under build/, removed).  ``keep`` (a dict)
+    receives the rounds' results and the final params (on the host)."""
     import numpy as np
     import torch
 
@@ -2332,12 +2353,13 @@ def _lm_main_path(device, tag, model, n_layers, n_params, families, axes=None,
     print(f"{tag}: {model} at full width ({width}); {cut}{window}", flush=True)
 
     for c in counters:
-        c.launches = 0
+        c.launches = c.captured = 0
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
     engine = make_engine(cfg, train, test, n_classes=vocab, device=device)
     torch.cuda.synchronize()
+    probe = _FusedProbe(engine, counters) if cfg.fuse_rounds else None
     mc = engine.task.model_cfg
     print(f"{tag}: engine setup {time.perf_counter() - t:.3f} s  shards/client={engine.alpha:g}  "
           f"OPTICS clusters={engine.strategy.n_clusters}  P={engine.n_params}  "
@@ -2368,6 +2390,8 @@ def _lm_main_path(device, tag, model, n_layers, n_params, families, axes=None,
         if last:
             _print_profile(prof, wall, tag, families)
     launches = {c.__name__: c.launches for c in counters}
+    if probe is not None:
+        launches = probe.report(tag, launches)
     print(f"{tag}: launches {json.dumps(launches)}", flush=True)
 
     want = (mc.n_layers * cfg.rounds * (1 + engine.max_steps + 2),  # poll, steps, eval x 2
@@ -2379,7 +2403,7 @@ def _lm_main_path(device, tag, model, n_layers, n_params, families, axes=None,
         raise AssertionError(f"{tag}: K1 launched {launches['masked_weighted_sum']} times for "
                              f"{results[-1].params_version} applied updates")
     for fwd, bwd, _ in families:
-        got = (fwd.launches, bwd.launches)
+        got = (launches[fwd.__name__], launches[bwd.__name__])
         if got != want:
             raise AssertionError(f"{fwd.__name__}/{bwd.__name__} launches {got}; expected "
                                  f"forward {want[0]} (layers x rounds x (poll + steps + 2 "
@@ -2406,15 +2430,124 @@ def _lm_main_path(device, tag, model, n_layers, n_params, families, axes=None,
         raise AssertionError(f"final {tag} parameters are not a finite CUDA tensor")
     if save_probe:
         _save_probe(tag, engine)
+    if keep is not None:
+        keep |= {"results": results, "params": engine.params.cpu()}
     if cfg.async_mode is not None:
         rows = sum(g.stacked.shape[0] for g in engine._ledger)
         row_mb = 4 * engine.n_params / 1e6
         print(f"{tag}: the async ledger is not saved at this size: its checkpoint would hold "
               f"{rows} in-flight rows of {row_mb:.1f} MB, at least "
               f"{row_mb * (rows + 1) / 1e3:.1f} GB with the params", flush=True)
+    if probe is not None:
+        probe.close()
+        engine.close()
     del engine, it
     torch.cuda.empty_cache()
     return launches
+
+
+class _FusedProbe:
+    """Instruments a fused engine's chunks: ``repro_torch.analysis.
+    contracts.ChunkProbe`` (each replay's synchronizing calls, buffers and
+    memory) and over it (instance attributes, removed by ``close``) the
+    first chunk of each length timed eagerly (on the capture stream,
+    synchronized) and as a capture (the rest of ``_capture``: recording and
+    instantiating the graph), each counter's launches recorded at each
+    capture, each replayed chunk timed, and the graphs' private memory
+    pool and the peaks measured after each capture and replay."""
+
+    def __init__(self, engine, counters):
+        import torch
+
+        from repro_torch.analysis.contracts import ChunkProbe
+
+        self.engine, self.chunks = engine, ChunkProbe(engine)
+        self.first, self.captured, self.pool = {}, {}, {}
+        self.replay_ms = []
+        # peaks since the round began (_lm_main_path resets them each round)
+        self.peaks, self.peaks_allocated = [], []
+        body, capture, run_chunk = engine._chunk_body, engine._capture, engine._run_chunk
+        eager = []
+
+        def note_peak():
+            self.peaks.append(torch.cuda.max_memory_reserved())
+            self.peaks_allocated.append(torch.cuda.max_memory_allocated())
+
+        def timed_body(*args):
+            t = time.perf_counter()
+            out = body(*args)
+            if not torch.cuda.is_current_stream_capturing():
+                torch.cuda.synchronize()
+                eager.append(time.perf_counter() - t)
+            return out
+
+        def probe_capture(rnd, length, *args):
+            before = {c.__name__: c.captured for c in counters}
+            eager.clear()
+            t = time.perf_counter()
+            out = capture(rnd, length, *args)
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t
+            self.first[length] = {"eager_s": eager[0], "capture_s": total - eager[0]}
+            self.captured[length] = {c.__name__: c.captured - before[c.__name__]
+                                     for c in counters}
+            self.pool[length] = _graph_pool_bytes()
+            note_peak()
+            return out
+
+        def probe_run_chunk(rnd, length):
+            if length not in engine._graphs:
+                return run_chunk(rnd, length)
+            t = time.perf_counter()
+            out = run_chunk(rnd, length)
+            torch.cuda.synchronize()
+            self.replay_ms.append((time.perf_counter() - t) * 1e3 / length)
+            note_peak()
+            return out
+
+        engine._chunk_body, engine._capture, engine._run_chunk = (
+            timed_body, probe_capture, probe_run_chunk)
+
+    def report(self, tag, eager) -> dict:
+        """Prints the chunks' numbers; returns the run's launches: ``eager``
+        plus each length's captured launches times its replays.  Fails if a
+        replay read the device, moved its graph's buffers or left more than
+        its params copy allocated, or if nothing replayed."""
+        replays = self.engine.graph_replays
+        replayed = {name: sum(self.captured[n][name] * r for n, r in replays.items())
+                    for name in eager}
+        pool, peak = max(self.pool.values()), max(self.peaks)
+        rec = {"first_chunk_s": self.first, "replayed_round_ms": self.replay_ms,
+               "median_replayed_round_ms": statistics.median(self.replay_ms or [math.nan]),
+               "replay_syncs": [r["syncs"] for r in self.chunks.replays],
+               "replays_kept_buffers": all(r["same_buffers"] for r in self.chunks.replays),
+               "captured_launches": self.captured, "graph_replays": replays,
+               "eager_launches": eager, "replayed_launches": replayed,
+               "graph_pool_gib": pool / 2**30, "peak_reserved_gib": peak / 2**30,
+               "pool_share_of_peak": pool / peak,
+               "peak_allocated_gib": max(self.peaks_allocated) / 2**30}
+        print(f"{tag} chunks: {json.dumps(rec)}", flush=True)
+        if self.chunks.breaches() or not self.replay_ms:
+            raise AssertionError(f"{tag}: no replay, or replays that read the device, moved "
+                                 f"their graph's buffers or kept more than their params "
+                                 f"copy: {self.chunks.breaches()}")
+        if replayed["masked_weighted_sum"] != self.engine.replayed_launches():
+            raise AssertionError(f"{tag}: K1 replayed {replayed['masked_weighted_sum']}, the "
+                                 f"engine counts {self.engine.replayed_launches()}")
+        return {name: eager[name] + replayed[name] for name in eager}
+
+    def close(self) -> None:
+        del self.engine._chunk_body
+        self.chunks.close()  # the wrappers of _capture and _run_chunk, over its own
+
+
+def _graph_pool_bytes() -> int:
+    """Bytes the caching allocator holds in CUDA graphs' private pools
+    (segments outside the default pool (0, 0))."""
+    import torch
+
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0))
 
 
 def _save_probe(tag, engine):
@@ -3662,6 +3795,99 @@ def _dryrun_phase(device, sweep):
     return total
 
 
+# the analysis phase: the paper's configuration driven through two rounds()
+# calls of 15 rounds, on the compiled backend and in fused chunks of 5 (the
+# budgets of repro_torch.analysis.contracts.drive_twice)
+ANALYSIS_RUNS = {"compiled": {"backend": "compiled"},
+                 "fused 5": {"backend": "compiled", "fuse_rounds": 5}}
+ANALYSIS_ROUNDS = (15, 15)
+# fused LM chunks at full width: (tag, model, layers, P), each eager compiled
+# and then in fused chunks of 3 (eval_every = 1 ends every chunk after one
+# round: round 0 runs eagerly and is captured, rounds 1 and 2 replay it)
+FUSED_LM = (("hymba", "hymba-1.5b", 6, 344_430_400),
+            ("stablelm", "stablelm-3b", 2, 380_789_760))
+FUSED_LM_RUNS = {"compiled": {"backend": "compiled"},
+                 "fused 3": {"backend": "compiled", "fuse_rounds": 3}}
+FUSED_LM_TOL = 1e-5  # fused against eager compiled params (the CPU test holds 1e-6)
+
+
+def _analysis_phase(device, families):
+    """``repro_torch.analysis`` on the card: the lint over ``src/repro_torch``
+    (clean), ``run_contracts`` on the card (every contract passes, none
+    skips), the sync and capture budgets at the paper's configuration on
+    compiled and fused 5 (K1 in the graphs, K2 at setup), and fused LM
+    chunks at full width (``FUSED_LM``: K1, K3 and K4 captured), each
+    against its eager compiled run: the same selections, params within
+    ``FUSED_LM_TOL``, no synchronizing call in a replay.  ``families`` maps
+    each ``FUSED_LM`` tag to its kernel families.  Returns the kernels'
+    launches."""
+    from repro_torch.analysis import run_lint
+    from repro_torch.analysis.contracts import drive_twice, run_contracts
+    from repro_torch.engine import FLConfig, make_engine
+    from repro_torch.kernels.aggregate import masked_weighted_sum
+    from repro_torch.kernels.hellinger import hellinger_strip
+
+    t = time.perf_counter()
+    lint = run_lint()
+    for v in lint.violations:
+        print(f"analysis lint: {v}", flush=True)
+    print(f"analysis: lint over {lint.files_checked} files of src/repro_torch, "
+          f"{len(lint.violations)} violations ({time.perf_counter() - t:.3f} s)", flush=True)
+    if not lint.ok:
+        raise AssertionError("analysis: the lint found violations")
+    t = time.perf_counter()
+    report = run_contracts(device)
+    for r in report.results:
+        print(f"analysis contract: {r}", flush=True)
+    bad = [r.name for r in report.results if not report.passed(r)]
+    print(f"analysis: {len(report.results)} contracts on {report.device}, "
+          f"{sum(r.skipped for r in report.results)} skipped, {len(bad)} failed "
+          f"({time.perf_counter() - t:.1f} s)", flush=True)
+    if not report.ok:
+        raise AssertionError(f"analysis: contracts failed or skipped on the card: {bad}")
+
+    launches = {"masked_weighted_sum": 0, "hellinger_strip": 0}
+    train, test = _paper_data()
+    for tag, kw in ANALYSIS_RUNS.items():
+        hellinger_strip.launches = masked_weighted_sum.launches = masked_weighted_sum.captured = 0
+        cfg = FLConfig(**(PAPER | {"rounds": sum(ANALYSIS_ROUNDS), "strategy": "fedlecc",
+                                   "strategy_kwargs": {"J": 3}} | kw))
+        engine = make_engine(cfg, train, test, n_classes=10, device=device)
+        t = time.perf_counter()
+        out = drive_twice(engine, *ANALYSIS_ROUNDS)
+        rec = {k: v for k, v in out.items() if k != "selected"} | {
+            "wall_s": time.perf_counter() - t, "k1_launches": _k1_launches(engine),
+            "k2_launches": hellinger_strip.launches}
+        print(f"analysis paper {tag}: {json.dumps(rec)}", flush=True)
+        if (rec["k1_launches"], rec["k2_launches"]) != (cfg.rounds, 1):
+            raise AssertionError(f"analysis paper {tag}: K1/K2 launched {rec['k1_launches']}/"
+                                 f"{rec['k2_launches']} times; expected {cfg.rounds}/1")
+        launches["masked_weighted_sum"] += rec["k1_launches"]
+        launches["hellinger_strip"] += rec["k2_launches"]
+        if hasattr(engine, "close"):
+            engine.close()
+        del engine
+
+    for name, model, n_layers, n_params in FUSED_LM:
+        runs = {}
+        for leg, kw in FUSED_LM_RUNS.items():
+            runs[leg] = {}
+            got = _lm_main_path(device, f"analysis {name} {leg}", model, n_layers, n_params,
+                                families[name], axes=lambda *_, kw=kw: kw, keep=runs[leg])
+            for k, n in got.items():
+                launches[k] = launches.get(k, 0) + n
+        eager, fused = runs["compiled"], runs["fused 3"]
+        same = [r.selected for r in eager["results"]] == [r.selected for r in fused["results"]]
+        diff = float((eager["params"] - fused["params"]).abs().max())
+        print(f"analysis {name}: fused 3 against eager compiled: the same selections every "
+              f"round: {same}, max |params diff| {diff:.3g} (tolerance {FUSED_LM_TOL})",
+              flush=True)
+        if not (same and diff <= FUSED_LM_TOL):
+            raise AssertionError(f"analysis {name}: fused chunks differ from eager compiled")
+    print(f"analysis: launches {json.dumps(launches)}", flush=True)
+    return launches
+
+
 def _kernel_only(records) -> None:
     """Phase 6 on ``records`` ({"k1", "k2", "k3", "k4"}: phase 3's records
     of each kernel), each record updated in place."""
@@ -3865,6 +4091,8 @@ def main() -> int:
     train_launches = _train_phase(device)
     scaleout_launches = _scaleout_phase(device)
     dryrun_launches = _dryrun_phase(device, sweep)
+    analysis_launches = _analysis_phase(device, {"hymba": (attention, scan),
+                                                 "stablelm": (attention,)})
 
     # 5. small-input agreement with the CPU path
     _agreement(device)
@@ -3893,7 +4121,8 @@ def main() -> int:
          "source": "src/repro_torch/csrc/hellinger_strip.cu",
          "replaces": "src/repro/kernels/hellinger/kernel.py:38",
          "launches": (launches["hellinger_strip"] + population["hellinger_strip"]
-                      + scaleout_launches["hellinger_strip"]),
+                      + scaleout_launches["hellinger_strip"]
+                      + analysis_launches["hellinger_strip"]),
          "shape": k2[0]["shape"],
          **{k: k2[0][k] for k in keys + ("kernel_ms", "library_kernel_ms")}},
         {"name": "masked_weighted_sum", "route": "cuda",
@@ -3906,7 +4135,8 @@ def main() -> int:
                       + xlstm_axes_launches["masked_weighted_sum"]
                       + hymba_launches["masked_weighted_sum"]
                       + xlstm_launches["masked_weighted_sum"]
-                      + scaleout_launches["masked_weighted_sum"]),
+                      + scaleout_launches["masked_weighted_sum"]
+                      + analysis_launches["masked_weighted_sum"]),
          "shape": k1[0]["shape"],
          **{k: k1[0][k] for k in keys + ("kernel_ms", "library_kernel_ms")}},
     ] + [
@@ -3918,7 +4148,8 @@ def main() -> int:
          + moe_mesh_launches[f"flash_attention_{direction}"]
          + train_launches[f"flash_attention_{direction}"]
          + scaleout_launches[f"flash_attention_{direction}"]
-         + dryrun_launches[f"flash_attention_{direction}"], "shape": k3[0]["shape"],
+         + dryrun_launches[f"flash_attention_{direction}"]
+         + analysis_launches[f"flash_attention_{direction}"], "shape": k3[0]["shape"],
          **{k: k3[0][direction][k] for k in keys + ("kernel_ms",)}}
         for direction in ("forward", "backward")
     ] + [
@@ -3936,7 +4167,8 @@ def main() -> int:
          "launches": hymba_launches[f"mamba_scan_{direction}"]
          + serve_launches.get(f"mamba_scan_{direction}", 0)
          + train_launches[f"mamba_scan_{direction}"]
-         + dryrun_launches[f"mamba_scan_{direction}"], "shape": k4[0]["shape"],
+         + dryrun_launches[f"mamba_scan_{direction}"]
+         + analysis_launches[f"mamba_scan_{direction}"], "shape": k4[0]["shape"],
          **{k: k4[0][direction][k] for k in keys + ("kernel_ms",)}}
         for direction in ("forward", "backward")
     ]

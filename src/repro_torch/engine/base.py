@@ -732,7 +732,7 @@ class Engine:
         return self.history
 
 
-class MaskSelectionMixin:
+class MaskSelectionMixin:  # tracecheck: disable=capability-flags (an engine's hook)
     """Selection of the mask-gated backends: the strategy's ``select_mask``
     on the polled losses, any randomness drawn from ``self.rng``, the same
     numpy stream ``HostEngine`` consumes, so a host run and a compiled run

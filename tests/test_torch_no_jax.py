@@ -61,7 +61,11 @@ def test_port_file_list_is_complete():
                       "models/moe.py", "configs/dbrx_132b.py", "configs/deepseek_v3_671b.py",
                       "configs/musicgen_large.py", "configs/internvl2_1b.py", "launch/mesh.py",
                       "federated/scaleout.py", "engine/scaleout.py", "sharding.py",
-                      "launch/dryrun.py", "federated/simulation.py"):
+                      "launch/dryrun.py", "federated/simulation.py", "analysis/__init__.py",
+                      "analysis/__main__.py", "analysis/lint.py", "analysis/contracts.py",
+                      "analysis/rules/__init__.py", "analysis/rules/global_rng.py",
+                      "analysis/rules/host_sync.py", "analysis/rules/capability_flags.py",
+                      "analysis/rules/capture_stream.py"):
         assert f"src/repro_torch/{lm_module}" in names
     assert len(names) > 20
 

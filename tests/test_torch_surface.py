@@ -50,6 +50,8 @@ UNPORTED = {
     "repro.kernels.mamba_scan.ops": {"mamba_scan_pallas": "Pallas"},
     "repro.launch.dryrun": {"collective_bytes": "it parses XLA's HLO text; the port's dry "
                                                 "mesh tallies its collectives itself"},
+    "repro.analysis.contracts": {"BANNED_CALLBACK_PRIMITIVES": "jaxpr primitives; the port "
+                                                               "refuses BANNED_SYNC_OPS"},
 }
 
 
@@ -57,7 +59,12 @@ UNPORTED = {
 # the reason) that keeps it out; every other module of these packages has one.
 UNPORTED_MODULES = {
     "repro.jax_compat": "reference-only: a shim over moving JAX APIs",
-    "repro.analysis": "ROADMAP item 8: the lint rules with a torch meaning, the next slice",
+    "repro.analysis.rules.prng": "no object in the port: its draws are counter hashes "
+                                 "(engine/draws.py), not consumed keys, and no-global-rng "
+                                 "covers torch's samplers",
+    "repro.analysis.rules.jit_static": "its torch meaning is repro_torch.analysis.rules."
+                                       "capture_stream (graph-capture-stream): every "
+                                       "torch.cuda.graph names its stream",
 }
 
 
@@ -112,8 +119,11 @@ def test_every_reference_name_with_a_port_counterpart_imports_from_the_same_path
             "repro.launch.serve", "repro.configs.inputs", "repro.launch.train",
             "repro.optim.optimizers", "repro.optim.schedules", "repro.models.moe",
             "repro.launch.mesh", "repro.engine.scaleout", "repro.federated.scaleout",
-            "repro.configs.musicgen_large", "repro.configs.internvl2_1b", "repro.sharding"} <= seen
-    for package in ("systems", "faults", "checkpoint", "population", "serving", "launch"):
+            "repro.configs.musicgen_large", "repro.configs.internvl2_1b", "repro.sharding",
+            "repro.analysis", "repro.analysis.lint", "repro.analysis.contracts",
+            "repro.analysis.rules", "repro.analysis.rules.host_sync"} <= seen
+    for package in ("systems", "faults", "checkpoint", "population", "serving", "launch",
+                    "analysis"):
         ref = importlib.import_module(f"repro.{package}")
         modules = {m.name for m in pkgutil.walk_packages(ref.__path__, f"repro.{package}.")}
         missing = modules - seen - set(UNPORTED_MODULES)
