@@ -14,7 +14,9 @@ Phases, each printed on its own lines:
    call computing the same function where one exists (median over 30
    calls, CUDA events; 5 for the plain scan over 2048 steps); K1 also at
    the over-selected cohorts (13 and 16 rows, and xlstm's (13, P)), at the
-   async runtime's kept deltas (5 rows, classification and xlstm), and
+   async runtime's kept deltas (5 rows, classification and xlstm), at the
+   int8 grid round's model blocks of stablelm-3b ((2, 8,048,640), (2,
+   1,105,920) and (2, 409,600), the rows of both pods), and
    with a NaN row at weight > 0 and at weight 0 (the plain version's
    result: NaN in every column); K2 also at the population phase's shapes
    ((1, 3906), (61, 3906) and (4096, 10^4), C = 10); K3 in bf16 at the
@@ -191,8 +193,12 @@ Phases, each printed on its own lines:
      to 6 against 6 uninterrupted steps, within 1e-2 relative;
    - ``scaleout:`` the scaleout backend in a world of one process (every
      pod on this card, so the all-reduce and all-gather are the identity:
-     the collectives run in ``tests/test_torch_scaleout.py``'s world of
-     two CPU processes under gloo): the paper's configuration (fedlecc
+     one card cannot hold a world of several NCCL ranks, so the
+     collectives run on the CPU under gloo, pods over a world of two in
+     ``tests/test_torch_scaleout.py`` and the (pod 2, data 2, model 2)
+     grid over a world of eight in ``tests/test_torch_scaleout_grid.py``;
+     the grid round's rank 0 is held to the card in ``dryrun:``): the
+     paper's configuration (fedlecc
      J = 3) for 30 rounds on ``backend="scaleout"`` (K1 once a round over
      the (100, P) stack), host and compiled with ``cohort_gather=False``,
      the same selections every round and parameters within 1e-5; then
@@ -211,9 +217,20 @@ Phases, each printed on its own lines:
      the arguments (``max_memory_allocated`` over the call, less what was
      allocated when it began) must be within 10 % of it, the output
      finite, and each kernel's launches those the dry run tallied.  Then
-     the ``--all --mesh single`` sweep, started in a child process that
-     cannot see the card (nice 10) after phase 3, must have written its
-     40 records, none failed; its wall time is printed;
+     the scale-out round on the reference's grid: rank 0 of the dry 2 x
+     16 x 16 production mesh traced on ``meta`` at ``scaleout:``'s size
+     (stablelm-3b at full size in bf16, 4 local steps of 8 x 128, compress
+     bits 0 and 8: K1 on the rank's model block of each leaf, collectives
+     tallied by kind), then that pod's round run on the card in a world of
+     one (every rank of a pod computes what it computes): the tallied
+     flops must equal the prediction exactly, K1's and K3's launches the
+     tally, the peak above the arguments be within 10 % of it.  Then the
+     ``--all --mesh single`` sweep (40 records) and the ``--federated``
+     records on the 2 x 16 x 16 mesh (q0 and q8 of every arch but
+     deepseek-v3-671b, one of whose dense-MoE traces outlasts this
+     script's time limit: 18, in two children), each started in a child
+     process that cannot see the card (nice 10) after phase 3, must have
+     written their records, none failed; their wall times are printed;
    - ``analysis:`` the port's tracecheck (``repro_torch.analysis``): the
      lint over ``src/repro_torch`` must be clean and every contract of
      ``run_contracts`` on the card must pass, none skipped (masks, a
@@ -3641,8 +3658,11 @@ def _scaleout_phase(device):
     t = time.perf_counter()
     print("scaleout: a world of one process on one card: the engine's and the round's "
           "all-reduce and all-gather are the identity here, so this phase does not exercise "
-          "the collectives; tests/test_torch_scaleout.py runs a world of two CPU processes "
-          "under gloo", flush=True)
+          "the collectives (one card holds no world of several NCCL ranks); they run on the "
+          "CPU under gloo, pods over a world of two in tests/test_torch_scaleout.py and the "
+          "(pod 2, data 2, model 2) grid over a world of eight in "
+          "tests/test_torch_scaleout_grid.py, and dryrun: holds the grid round's rank 0 of "
+          "the 2 x 16 x 16 mesh to this card", flush=True)
     k1, k2 = _scaleout_engines(device)
     launches = _scaleout_round(device)
     launches["masked_weighted_sum"] += k1
@@ -3657,26 +3677,44 @@ def _scaleout_phase(device):
 DRYRUN_STEPS = (("stablelm-3b", "train", 128, 8), ("hymba-1.5b", "prefill", 1280, 4),
                 ("qwen3-14b", "prefill", 1280, 4), ("gemma3-27b", "prefill", 1280, 4))
 DRYRUN_PEAK_TOL = 0.10       # measured peak against the dry run's, relative
-DRYRUN_SWEEP = ROOT / "build" / "dryrun_sweep.jsonl"
+# the dry run's sweeps, each in a child process: (arguments, records).  The
+# --federated records at 2 x 16 x 16 run in two children, the archs split
+# so that each ends within the single-mesh sweep's time; deepseek-v3-671b's
+# are left out here: its dense MoE walks 256 expert blocks a layer at
+# 524,288 tokens a pod, and one record's trace outlasts this script's limit
+FEDERATED_SWEEPS = (("xlstm-125m", "dbrx-132b", "internvl2-1b"),
+                    ("gemma3-27b", "glm4-9b", "hymba-1.5b", "musicgen-large", "qwen3-14b",
+                     "stablelm-3b"))
+DRYRUN_SWEEPS = [(("--all", "--mesh", "single"), 40)] + [
+    (("--federated", "--arch", ",".join(archs)), 2 * len(archs)) for archs in FEDERATED_SWEEPS]
 DRYRUN_SWEEP_TIMEOUT = 900
 
 
+def _sweep_path(i):
+    return ROOT / "build" / f"dryrun_sweep{i}.jsonl"
+
+
 def _start_dryrun_sweep():
-    """``python -m repro_torch.launch.dryrun --all --mesh single`` in a child
-    process that cannot see the card (the dry run needs none), at a lower
-    priority, started early so that its host time overlaps the card's
-    phases; ``_dryrun_phase`` waits for it.  Returns (process, start)."""
+    """``python -m repro_torch.launch.dryrun`` with each of ``DRYRUN_SWEEPS``'
+    arguments, each in a child process that cannot see the card (the dry
+    run needs none), at a lower priority, started early so that their host
+    time overlaps the card's phases; ``_dryrun_phase`` waits for them.
+    Returns [(process, start)], one a sweep."""
     import os
 
-    DRYRUN_SWEEP.parent.mkdir(parents=True, exist_ok=True)
-    DRYRUN_SWEEP.unlink(missing_ok=True)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all", "--mesh", "single",
-         "--out", str(DRYRUN_SWEEP)], env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True, preexec_fn=lambda: os.nice(10))
-    atexit.register(lambda: proc.poll() is None and proc.kill())  # a failed run stops it too
-    return proc, time.perf_counter()
+    sweeps = []
+    for i, (argv, _) in enumerate(DRYRUN_SWEEPS):
+        out = _sweep_path(i)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.unlink(missing_ok=True)
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *argv, "--out", str(out)],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            preexec_fn=lambda: os.nice(10))
+        atexit.register(lambda p=proc: p.poll() is None and p.kill())  # a failed run too
+        sweeps.append((proc, time.perf_counter()))
+    return sweeps
 
 
 def _dryrun_step(device, model, kind, seq, batch):
@@ -3764,32 +3802,127 @@ def _dryrun_step(device, model, kind, seq, batch):
     return launches
 
 
-def _dryrun_phase(device, sweep):
+def _dryrun_round(device, bits):
+    """The scale-out round on the reference's grid: ``make_federated_round``
+    traced for rank 0 of the dry 2 x 16 x 16 production mesh
+    (``dryrun.build_federated``: ``ROUND_MODEL`` at full size in bf16,
+    ``ROUND_STEPS`` local steps of ``ROUND_BATCH`` x ``ROUND_SEQ`` tokens,
+    with ``bits``: K1 once a leaf on the rank's model block, collectives
+    tallied by kind), then that pod's round run on the card in a world of
+    one (``make_host_mesh(pod=1)``) under ``dryrun.count_flops``.  Every
+    data and model rank of a pod trains the pod's replica as the world of
+    one does, and K1 runs once a leaf on either, so the tallied flops must
+    equal the prediction exactly, K1's and K3's launches the tally, and the
+    peak above the arguments (``max_memory_allocated`` less what was
+    allocated when the round began) be within ``DRYRUN_PEAK_TOL`` of the
+    prediction: the local steps hold the peak, not the per-leaf
+    aggregation, whose blocks are smaller on the grid.  Returns the
+    launches."""
+    import torch
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.inputs import dummy_batch
+    from repro_torch.federated.scaleout import make_federated_round, stack_for_clients
+    from repro_torch.kernels.aggregate import masked_weighted_sum
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward,
+        flash_attention_forward,
+    )
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+    from repro_torch.models.transformer import init_params
+
+    counters = (masked_weighted_sum, flash_attention_forward, flash_attention_backward)
+    cfg = get_config(ROUND_MODEL)
+    mesh = make_production_mesh(multi_pod=True, dry=True)
+    tag = (f"dryrun grid round {ROUND_MODEL} {ROUND_STEPS} x {ROUND_BATCH} x {ROUND_SEQ} "
+           f"q{bits}")
+    fn, args = dryrun.build_federated(cfg, mesh, ROUND_STEPS, ROUND_BATCH, ROUND_SEQ, bits,
+                                      lr=ROUND_LR)
+    pred = dryrun.trace(fn, args)
+    predicted = {k: v["launches"] for k, v in pred["kernel_work"].items()}
+    print(f"{tag}: rank 0 of {mesh.shape} ({mesh.size()} devices), predicted "
+          f"{pred['flops']:.6e} flops, peak above the arguments {pred['temp'] / 2**30:.3f} GiB "
+          f"(arguments {pred['args'] / 2**30:.3f} GiB), collectives "
+          f"{json.dumps(pred['coll'])} B, kernel launches {json.dumps(predicted)}, traced in "
+          f"{pred['t_trace_s']:.2f} s", flush=True)
+    del args, fn
+    fn = make_federated_round(cfg, make_host_mesh(pod=1), lr=ROUND_LR, local_steps=ROUND_STEPS,
+                              compress_bits=bits)
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = init_params(torch.Generator(device).manual_seed(0), cfg)
+    start = stack_for_clients(params, 1)
+    batch = {k: v[None].to(device) for k, v in dummy_batch(cfg, ROUND_BATCH, ROUND_SEQ,
+                                                           seed=0).items()}
+    weights = torch.ones(1, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    for c in counters:
+        c.launches = 0
+    t = time.perf_counter()
+    (new, losses), flops, tally = dryrun.count_flops(fn, start, batch, weights)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = {c.__name__: c.launches for c in counters}
+    tallied = {k: v["launches"] for k, v in tally.kernels.items()}
+    ok = bool(torch.isfinite(losses).all()) and all(
+        bool(torch.isfinite(x).all()) for x in tree_leaves(new))
+    rel = (peak - pred["temp"]) / pred["temp"]
+    print(f"{tag}: on the card (a world of one) {flops:.6e} flops (tallied; the prediction's "
+          f"{pred['flops']:.6e}, equal {flops == pred['flops']}), peak above the arguments "
+          f"{peak / 2**30:.3f} GiB ({rel:+.4f} against the prediction; held to "
+          f"{DRYRUN_PEAK_TOL}), round {ms:.1f} ms under the flop counter, launches "
+          f"{json.dumps(launches)}, tallied {json.dumps(tallied)}; loss "
+          f"{losses.tolist()}, finite {ok}", flush=True)
+    del new, losses, start, params, batch
+    if flops != pred["flops"]:
+        raise AssertionError(f"{tag}: {flops} flops on the card, {pred['flops']} predicted")
+    if abs(rel) > DRYRUN_PEAK_TOL:
+        raise AssertionError(f"{tag}: peak {peak} B against the predicted {pred['temp']} B")
+    if not ok:
+        raise AssertionError(f"{tag}: the round's parameters or losses are not finite")
+    if launches != predicted or tallied != predicted:
+        raise AssertionError(f"{tag}: launches {launches}, tallied {tallied}, predicted "
+                             f"{predicted}")
+    return launches
+
+
+def _dryrun_phase(device, sweeps):
     """The dry run (``repro_torch.launch.dryrun``) against the card: each of
-    ``DRYRUN_STEPS`` predicted and run (``_dryrun_step``); then the
-    ``--all --mesh single`` sweep that ``_start_dryrun_sweep`` started:
-    its wall time on this machine's host and every record OK.  Returns the
-    kernels' launches in the steps."""
+    ``DRYRUN_STEPS`` predicted and run (``_dryrun_step``), then the grid
+    round at compress_bits 0 and 8 (``_dryrun_round``); then the sweeps
+    that ``_start_dryrun_sweep`` started: their wall times on this
+    machine's host and every record OK.  Returns the kernels' launches in
+    the steps and rounds."""
     t = time.perf_counter()
     total: dict[str, int] = {}
-    for step in DRYRUN_STEPS:
-        for k, n in _dryrun_step(device, *step).items():
+    for launches in [_dryrun_step(device, *step) for step in DRYRUN_STEPS] + [
+            _dryrun_round(device, bits) for bits in (0, 8)]:
+        for k, n in launches.items():
             total[k] = total.get(k, 0) + n
-    wanted = {"flash_attention_forward", "flash_attention_backward", "mamba_scan_forward"}
+    wanted = {"flash_attention_forward", "flash_attention_backward", "mamba_scan_forward",
+              "masked_weighted_sum"}
     if not all(total.get(k, 0) > 0 for k in wanted):
         raise AssertionError(f"dryrun: a kernel of the path never launched: {total}")
-    proc, started = sweep
-    log, _ = proc.communicate(timeout=DRYRUN_SWEEP_TIMEOUT)
-    wall = time.perf_counter() - started
-    recs = [json.loads(line) for line in DRYRUN_SWEEP.read_text().splitlines()]
-    failed = [f"{r['arch']} {r['shape']}: {r['error']}" for r in recs if "error" in r]
-    traced = sum(r.get("t_trace_s", 0.0) for r in recs)
-    print(f"dryrun: the --all --mesh single sweep in a child process: {len(recs)} records, "
-          f"{len(failed)} failed, {wall:.1f} s wall (started before the main paths, at nice "
-          f"10), the main traces' t_trace_s summing to {traced:.1f} s", flush=True)
-    if proc.returncode != 0 or failed or len(recs) != 40:
-        raise AssertionError(f"dryrun sweep: exit {proc.returncode}, {len(recs)} records, "
-                             f"failed {failed}; its output's end:\n{log[-3000:]}")
+    for i, ((argv, n_records), (proc, started)) in enumerate(zip(DRYRUN_SWEEPS, sweeps)):
+        name = " ".join(argv)
+        log, _ = proc.communicate(timeout=DRYRUN_SWEEP_TIMEOUT)
+        wall = time.perf_counter() - started
+        recs = [json.loads(line) for line in _sweep_path(i).read_text().splitlines()]
+        failed = [f"{r['arch']} {r['shape']}: {r['error']}" for r in recs if "error" in r]
+        traced = sum(r.get("t_trace_s", 0.0) for r in recs)
+        meshes = sorted({(r.get("mesh"), r.get("n_devices")) for r in recs}, key=str)
+        print(f"dryrun: the {name} sweep in a child process: {len(recs)} records on "
+              f"{meshes} (mesh, devices), {len(failed)} failed, {wall:.1f} s wall (started "
+              f"before the main paths, at nice 10), its traces' t_trace_s summing to "
+              f"{traced:.1f} s", flush=True)
+        if proc.returncode != 0 or failed or len(recs) != n_records:
+            raise AssertionError(f"dryrun {name} sweep: exit {proc.returncode}, {len(recs)} "
+                                 f"records, failed {failed}; its output's end:\n{log[-3000:]}")
     print(f"dryrun: launches {json.dumps(total)}; phase in {time.perf_counter() - t:.1f} s",
           flush=True)
     return total
@@ -3991,7 +4124,12 @@ def main() -> int:
                         ((13, 199_210), torch.float32), ((16, 199_210), torch.float32),
                         ((13, 119_827_296), torch.float32),
                         # the async runtime's kept deltas: buffer_k = 5 rows
-                        ((5, 199_210), torch.float32), ((5, 119_827_296), torch.float32)]]
+                        ((5, 199_210), torch.float32), ((5, 119_827_296), torch.float32),
+                        # the int8 grid round's model blocks of stablelm-3b on the 2 x 16
+                        # x 16 mesh (dryrun:, traced): both pods' rows of the embedding's
+                        # and head's, an FFN matrix's and an attention matrix's block
+                        ((2, 8_048_640), torch.float32), ((2, 1_105_920), torch.float32),
+                        ((2, 409_600), torch.float32)]]
     _check_aggregate_nan(device)
     k3 = [_check_flash(s, dt, w, ig, device) for s, dt, w, ig in [
         ((80, 64, 32, 32, 80), torch.float32, 0, 1.0),     # local SGD: m x batch sequences
@@ -4042,7 +4180,7 @@ def main() -> int:
     print("kernels: hellinger_strip, masked_weighted_sum, flash_attention and mamba_scan "
           "(forward and backward) passed at every shape above", flush=True)
     torch.cuda.empty_cache()
-    sweep = _start_dryrun_sweep()
+    sweeps = _start_dryrun_sweep()
 
     # 4. main paths: the paper's classification experiment, then LM training
     from repro_torch.kernels.flash_attention import (
@@ -4090,7 +4228,7 @@ def main() -> int:
     moe_mesh_launches = _moe_mesh_phase(device)
     train_launches = _train_phase(device)
     scaleout_launches = _scaleout_phase(device)
-    dryrun_launches = _dryrun_phase(device, sweep)
+    dryrun_launches = _dryrun_phase(device, sweeps)
     analysis_launches = _analysis_phase(device, {"hymba": (attention, scan),
                                                  "stablelm": (attention,)})
 
@@ -4136,6 +4274,7 @@ def main() -> int:
                       + hymba_launches["masked_weighted_sum"]
                       + xlstm_launches["masked_weighted_sum"]
                       + scaleout_launches["masked_weighted_sum"]
+                      + dryrun_launches["masked_weighted_sum"]
                       + analysis_launches["masked_weighted_sum"]),
          "shape": k1[0]["shape"],
          **{k: k1[0][k] for k in keys + ("kernel_ms", "library_kernel_ms")}},

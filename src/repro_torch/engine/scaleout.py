@@ -4,16 +4,20 @@
 The K clients are blocked over the pods of a ``repro_torch.launch.mesh.
 Mesh`` (K / pods clients a pod), and each process trains the clients of
 its block of pods, every client every round from its own draws, as the
-compiled backend's ``cohort_gather=False`` path does.  Selection is the
-mask-gated backends' (``MaskSelectionMixin``): the strategy's mask, its
-randomness from the same numpy stream as the host backend's; every
-process draws the same selection.  Aggregation is the FedAvg weights of
-the mask (``selection_weights``; under a systems deadline, of the
-survivors only) gating the sum: the FedAvg reduce kernel (K1) over the
-process's (block, P) stack, then an ``all_reduce`` of the partial sums
-over the processes (none in a world of one).  A round whose cohort was
-all dropped keeps the old model.  The clients' training losses are
-gathered from every process.
+compiled backend's ``cohort_gather=False`` path does.  On a grid (a
+``data`` or ``model`` axis larger than 1) a process holds one pod, and
+every data and model rank of the pod trains that pod's block alike, as
+the reference leaves ``data`` and ``model`` to GSPMD inside its manual
+``pod`` map.  Selection is the mask-gated backends'
+(``MaskSelectionMixin``): the strategy's mask, its randomness from the
+same numpy stream as the host backend's; every process draws the same
+selection.  Aggregation is the FedAvg weights of the mask
+(``selection_weights``; under a systems deadline, of the survivors only)
+gating the sum: the FedAvg reduce kernel (K1) over the process's (block,
+P) stack, then an ``all_reduce`` of the partial sums over ``pod`` (none
+where the process holds every pod).  A round whose cohort was all dropped
+keeps the old model.  The clients' training losses are gathered over
+``pod``.
 
 Since every client trains from draws keyed by client and zero-weight
 clients add exact zeros, a round selects exactly as the ``host`` and
@@ -53,10 +57,10 @@ class ScaleoutEngine(MaskSelectionMixin, Engine):
         if "pod" not in self.mesh.shape:
             raise ValueError(
                 f"scaleout mesh must carry a 'pod' (client) axis; got axes "
-                f"{tuple(self.mesh.shape)} — build it with "
-                f"make_host_mesh(pod=...) or make_production_mesh(multi_pod=True)"
+                f"{tuple(self.mesh.shape)} — build it with make_host_mesh(pod=...) (with "
+                f"data= or model=, a grid of one pod a process) or "
+                f"make_production_mesh(multi_pod=True)"
             )
-        self.mesh.require_pods_only("the scaleout backend")
         self.n_pods = int(self.mesh.shape["pod"])
         if cfg.n_clients % self.n_pods:
             raise ValueError(
@@ -79,7 +83,7 @@ class ScaleoutEngine(MaskSelectionMixin, Engine):
     def local_train(self, d: int, sel: np.ndarray):
         """Every client of this process's block trains from its rows of
         draw index ``d``.  Returns ``((block stack,), losses of sel)``, the
-        losses gathered from every process."""
+        losses gathered over ``pod``."""
         cfg, blk = self.cfg, self._block
         batch = self.draws.client_batch_indices(d, self.sample_probs, self.max_steps,
                                                 cfg.batch_size)
@@ -87,14 +91,14 @@ class ScaleoutEngine(MaskSelectionMixin, Engine):
             self._apply_fn, self._loss_fn, self.params, self.xs[blk], self.ys[blk],
             batch[:, blk], self._taus_t[blk], lr=cfg.lr, max_steps=self.max_steps,
         )
-        losses = self.mesh.all_gather(losses)
+        losses = self.mesh.all_gather(losses, "pod")
         return (stacked,), losses.cpu().numpy()[np.asarray(sel, np.int64)]
 
     def aggregate(self, rnd: int, sel: np.ndarray, payload,
                   survivors: np.ndarray | None = None) -> None:
         """The weighted sum over the pods: K1 over the block with the
         selection weights of ``sel`` (or of the ``survivors``), then the
-        sum over the processes; nobody surviving keeps the old model."""
+        sum over ``pod``; nobody surviving keeps the old model."""
         if survivors is not None and len(survivors) == 0:
             return
         stacked = payload[0]
@@ -102,7 +106,7 @@ class ScaleoutEngine(MaskSelectionMixin, Engine):
         mask = torch.zeros(self.cfg.n_clients, dtype=torch.bool, device=self.device)
         mask[torch.as_tensor(np.asarray(weight_idx, np.int64), device=self.device)] = True
         w = selection_weights(mask, self._sizes_t)[self._block].contiguous()
-        self.params = self.mesh.all_reduce_sum(masked_weighted_sum(stacked, w)).to(
+        self.params = self.mesh.all_reduce_sum(masked_weighted_sum(stacked, w), "pod").to(
             self.params.dtype)
 
 

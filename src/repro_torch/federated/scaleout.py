@@ -8,13 +8,25 @@ weights vector (zero for a client that was not selected) then gates the
 sum, so "only m of K clients upload" is "the sum carries zero weight for
 the others".  A process holds a block of pods (``mesh.pods``): the
 weighted sum over its block is the FedAvg reduce kernel (K1), leaf by
-leaf, and the processes' partial sums meet in one ``all_reduce`` (none in
-a world of one).  With ``compress_bits`` each pod's delta from its start
-is quantized to ``compress_bits``-bit integers with one scale a leaf
-(``max |delta| / qmax``, round to nearest, clipped); the integer rows
-and the pods' ``scale * w`` are gathered from every process, and K1 sums
-the rows as fp32 with those weights, onto the start.  Every pod's mean
-training loss is gathered too.
+leaf, and the partial sums meet in one ``all_reduce`` over ``pod`` (none
+where the process holds every pod).  With ``compress_bits`` each pod's
+delta from its start is quantized to ``compress_bits``-bit integers with
+one scale a block (``max |delta| / qmax``, round to nearest, clipped);
+the integer blocks and the pods' ``scale * w`` are gathered over ``pod``,
+and K1 sums the blocks as fp32 with those weights, onto the start.  Every
+pod's mean training loss is gathered over ``pod`` too.
+
+On a mesh of pods (``data = model = 1``) a block is a whole leaf.  On a
+grid (``data`` or ``model`` larger than 1) a process holds one pod, and
+every data and model rank of that pod trains the pod's replica on the
+pod's whole batch, as the reference's round leaves ``data`` and ``model``
+to GSPMD inside its manual ``pod`` map; the exact sum runs over the
+``pod`` subgroup at the rank's (data, model) coordinate.  The int8 round
+quantizes as the reference's second map, manual over ``pod`` and
+``model``, does: each rank takes its ``model`` block of each leaf under
+the baseline policy's storage spec (``sharding.model_block``), one scale a
+(leaf, model block), and after K1 the blocks are gathered over ``model``
+into the whole leaf that each rank holds.
 """
 
 from __future__ import annotations
@@ -23,7 +35,8 @@ import torch
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 from repro_torch.kernels.aggregate import masked_weighted_sum
-from repro_torch.models.transformer import check_supported, loss_fn
+from repro_torch.models.transformer import check_supported, loss_fn, transformer_specs
+from repro_torch.sharding import make_policy, model_block, spec_leaves
 
 __all__ = ["make_federated_round", "stack_for_clients"]
 
@@ -39,19 +52,19 @@ def make_federated_round(cfg, mesh, lr: float, local_steps: int = 4, compress_bi
     losses)``.
 
     ``stacked_params``: the parameter tree (``init_params``'s), each leaf
-    with a leading axis of this process's pods (``len(mesh.pods)``;
-    ``stack_for_clients``).  ``batch``: ``loss_fn``'s dict, each tensor
-    with the same leading axis.  ``weights``: (n_pods,) fp32 FedAvg weights
-    of every pod (zero: not selected), on the parameters' device.
+    whole with a leading axis of this process's pods (``len(mesh.pods)``,
+    1 on a grid; ``stack_for_clients``).  ``batch``: ``loss_fn``'s dict,
+    each tensor with the same leading axis.  ``weights``: (n_pods,) fp32
+    FedAvg weights of every pod (zero: not selected), on the parameters'
+    device.
     Returns the aggregated tree, the same for every pod (views of one
     leaf a leaf), and the (n_pods,) fp32 mean training losses.
     ``compress_bits``: 0 = the exact fp32 weighted sum; 2 to 8 = the
-    quantized deltas."""
+    quantized deltas, one scale a leaf (a grid: a leaf and model block)."""
     check_supported(cfg, tree=True)
     if "pod" not in mesh.shape:
         raise ValueError(f"the federated round needs a mesh with a 'pod' (client) axis; got "
                          f"{mesh.shape}")
-    mesh.require_pods_only("the federated round")
     if compress_bits and not 2 <= compress_bits <= 8:
         raise ValueError(f"compress_bits must be 0 (off) or in [2, 8], got {compress_bits}")
     n_pods, n_local = mesh.shape["pod"], len(mesh.pods)
@@ -71,7 +84,7 @@ def make_federated_round(cfg, mesh, lr: float, local_steps: int = 4, compress_bi
 
     def reduce_exact(rows, w):
         stack = torch.stack([r.reshape(-1) for r in rows])
-        return mesh.all_reduce_sum(masked_weighted_sum(stack, w))
+        return mesh.all_reduce_sum(masked_weighted_sum(stack, w), "pod")
 
     def reduce_quantized(rows, starts, w):
         deltas = [r.float() - s.float() for r, s in zip(rows, starts)]
@@ -79,7 +92,7 @@ def make_federated_round(cfg, mesh, lr: float, local_steps: int = 4, compress_bi
         q = torch.stack([torch.clamp(torch.round(d / sc), -qmax - 1, qmax).to(torch.int8)
                          .reshape(-1) for d, sc in zip(deltas, scales)])
         del deltas
-        q_all, sw_all = mesh.all_gather(q), mesh.all_gather(scales * w)
+        q_all, sw_all = mesh.all_gather(q, "pod"), mesh.all_gather(scales * w, "pod")
         return masked_weighted_sum(q_all.to(torch.float32), sw_all.contiguous())
 
     def round_fn(stacked_params, batch, weights):
@@ -90,6 +103,12 @@ def make_federated_round(cfg, mesh, lr: float, local_steps: int = 4, compress_bi
         if weights.shape != (n_pods,):
             raise ValueError(f"weights must be ({n_pods},), one a pod; got {tuple(weights.shape)}")
         w = weights[mesh.pods.start:mesh.pods.stop].to(torch.float32).contiguous()
+        blocks = [None] * len(leaves)
+        if compress_bits and mesh.grid:
+            shapes = tree_map(lambda x: x[0], stacked_params)
+            blocks = [model_block(mesh, sp, tuple(x.shape[1:])) for sp, x in zip(
+                spec_leaves(make_policy(mesh, 0).shardings(transformer_specs(cfg), shapes)),
+                leaves, strict=True)]
         ends, losses = [], []
         for i in range(n_local):
             end, loss = local_sgd([x[i] for x in leaves], spec,
@@ -103,13 +122,19 @@ def make_federated_round(cfg, mesh, lr: float, local_steps: int = 4, compress_bi
                 end[j] = None   # each pod's trained leaf is freed once it is reduced
             if compress_bits:
                 starts = [leaf[i] for i in range(n_local)]
+                if blocks[j] is not None:   # this rank's model block of the leaf
+                    dim, lo, n = blocks[j]
+                    rows = [r.narrow(dim, lo, n) for r in rows]
+                    starts = [s.narrow(dim, lo, n) for s in starts]
                 delta = reduce_quantized(rows, starts, w)
                 new = torch.stack([(s.float() + delta.view(s.shape)).to(leaf.dtype)
                                    for s in starts])
+                if blocks[j] is not None:
+                    new = mesh.all_gather(new, "model", dim=blocks[j][0] + 1)
             else:
                 agg = reduce_exact(rows, w).to(leaf.dtype).view(leaf.shape[1:])
                 new = agg.unsqueeze(0).expand(n_local, *agg.shape)
             out.append(new)
-        return tree_unflatten(out, spec), mesh.all_gather(torch.stack(losses))
+        return tree_unflatten(out, spec), mesh.all_gather(torch.stack(losses), "pod")
 
     return round_fn

@@ -62,6 +62,7 @@ Usage:
       --shape train_4k --mesh single
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both
   PYTHONPATH=src python -m repro_torch.launch.dryrun --federated --arch qwen3-14b
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --federated --all
 """
 
 from __future__ import annotations
@@ -80,10 +81,10 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 from torch.utils.flop_counter import FlopCounterMode
 
-from repro_torch.configs import INPUT_SHAPES, get_config, list_configs
+from repro_torch.configs import INPUT_SHAPES, InputShape, get_config, list_configs
 from repro_torch.configs.inputs import decode_specs, input_specs, long_context_variant
 from repro_torch.kernels.build import plain_on_meta, work_tally
-from repro_torch.launch.mesh import make_dry_mesh, make_production_mesh
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models.transformer import (
     abstract_params,
     cache_specs,
@@ -93,10 +94,10 @@ from repro_torch.models.transformer import (
     prefill,
     transformer_specs,
 )
-from repro_torch.sharding import _is_axes, make_policy, shard_bytes, shard_shape
+from repro_torch.sharding import make_policy, shard_bytes, shard_shape, spec_leaves
 
 __all__ = ["build_step", "trace", "count_flops", "probe_costs", "trace_step", "run_one",
-           "run_federated", "main"]
+           "build_federated", "run_federated", "main"]
 
 PATHS = ("cuda", "cpu")
 
@@ -198,28 +199,9 @@ def _argument_size(mesh, specs, args) -> int:
         if isinstance(arg, int):
             total += 4
             continue
-        for sp, leaf in zip(_spec_leaves(spec), _tensors(arg), strict=True):
+        for sp, leaf in zip(spec_leaves(spec), _tensors(arg), strict=True):
             total += shard_bytes(mesh, sp, leaf)
     return total
-
-
-def _spec_leaves(specs) -> list[tuple]:
-    """The spec tuples of a layout tree, in ``tree_flatten``'s order of the
-    arguments they describe (a scalar's spec stands for one leaf)."""
-    out = []
-
-    def walk(node):
-        if _is_axes(node):
-            out.append(node)
-        elif isinstance(node, dict):
-            for v in node.values():
-                walk(v)
-        else:
-            for v in node:
-                walk(v)
-
-    walk(specs)
-    return out
 
 
 # ---------------------------------------------------------------------------
@@ -439,51 +421,72 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, record_hlo: bool = Fals
     return rec
 
 
-def run_federated(arch: str, local_steps: int = 4, batch_per_client: int = 128,
-                  seq: int = 4096, compress_bits: int = 0, path: str = "cuda") -> dict:
-    """Trace the scale-out FedLECC round (``federated.scaleout``'s
-    ``make_federated_round``) for rank 0 of a dry mesh of 2 pods, one a
-    process: ``local_steps`` of SGD on its pod's batch of
-    ``batch_per_client`` x ``seq`` tokens, K1 over its block of one pod,
-    then the sum over the pods (an all-reduce; with ``compress_bits`` the
-    int8 rows and weights all-gathered).  The port's round takes no data
-    or model axis yet, so this is the pods-only layout, not the
-    reference's 2 x 16 x 16."""
+def build_federated(cfg, mesh, local_steps: int = 4, batch_per_client: int = 128,
+                    seq: int = 4096, compress_bits: int = 0, lr: float = 1e-3):
+    """(round_fn, args) of the scale-out FedLECC round
+    (``federated.scaleout``'s ``make_federated_round``) for this rank of
+    ``mesh`` (a dry one): ``args`` are ``meta`` tensors, the parameters
+    stacked over the rank's pods and their training batches of
+    ``batch_per_client`` x ``seq`` positions each (``input_specs``: tokens,
+    frames, or patches and tokens), and the (n_pods,) weights."""
     from repro_torch.federated.scaleout import make_federated_round, stack_for_clients
 
-    cfg = get_config(arch)
-    mesh = make_dry_mesh(pod=2)
-    n_pods, n_local = mesh.shape["pod"], len(mesh.pods)
-    policy = make_policy(mesh, batch_per_client * n_pods)
+    n_local = len(mesh.pods)
     params = stack_for_clients(abstract_params(cfg), n_local)
-    pspecs = transformer_specs(cfg)
-    unstacked = tree_map(lambda p: p[0], params)
-    inner = _spec_leaves(policy.shardings(pspecs, unstacked))
-    batch = {k: torch.empty((n_local, batch_per_client, seq), dtype=torch.int32, device="meta")
-             for k in ("tokens", "labels")}
-    weights = torch.empty((n_pods,), dtype=torch.float32, device="meta")
-    round_fn = make_federated_round(cfg, mesh, lr=1e-3, local_steps=local_steps,
+    one = input_specs(cfg, InputShape("fedround", seq, batch_per_client, "train"))
+    batch = {k: torch.empty((n_local, *t.shape), dtype=t.dtype, device="meta")
+             for k, t in one.items()}
+    weights = torch.empty((mesh.shape["pod"],), dtype=torch.float32, device="meta")
+    round_fn = make_federated_round(cfg, mesh, lr=lr, local_steps=local_steps,
                                     compress_bits=compress_bits)
-    traced = trace(round_fn, (params, batch, weights), path)
-    # the reference's arguments are every pod's, split over "pod": one
-    # device's share of the (n_pods, ...) leaves, batch and weights
+    return round_fn, (params, batch, weights)
+
+
+def run_federated(arch: str, local_steps: int = 4, batch_per_client: int = 128,
+                  seq: int = 4096, compress_bits: int = 0, path: str = "cuda") -> dict:
+    """Trace the scale-out FedLECC round (``build_federated``) for rank 0 of
+    the reference's production mesh of 2 pods x 16 data x 16 model
+    (``make_production_mesh(multi_pod=True, dry=True)``): one pod a
+    process, ``local_steps`` of SGD on its pod's batch of
+    ``batch_per_client`` x ``seq`` tokens, K1 over its row, then the sum
+    over ``pod`` (an all-reduce); with ``compress_bits`` the rank's model
+    block of each leaf quantized, its int8 rows and ``scale * w`` gathered
+    over ``pod`` and the summed blocks gathered over ``model``.  The
+    collectives are tallied under the reference's kind names.
+    ``argument_size`` is one device's share under the reference's layout
+    (each leaf ``("pod", *storage spec)``, the batch over ``pod`` and
+    ``data``, the weights over ``pod``); ``argument_size_held`` the port
+    rank's, every leaf and its pod's batch whole."""
+    cfg = get_config(arch)
+    mesh = make_production_mesh(multi_pod=True, dry=True)
+    n_pods = mesh.shape["pod"]
+    round_fn, args = build_federated(cfg, mesh, local_steps, batch_per_client, seq,
+                                     compress_bits)
+    params, batch, weights = args
+    traced = trace(round_fn, args, path)
+    policy = make_policy(mesh, batch_per_client * n_pods)
+    inner = spec_leaves(policy.shardings(transformer_specs(cfg),
+                                         tree_map(lambda p: p[0], params)))
+
+    # the reference's arguments are every pod's: one device's share of the
+    # (n_pods, ...) leaves, batch and weights
     def share(spec, leaf):
         whole = (n_pods, *leaf.shape[1:])
         return math.prod(shard_shape(mesh, spec, whole)) * leaf.element_size()
 
     arg_size = sum(share(("pod", *sp), leaf) for sp, leaf in zip(inner, _tensors(params)))
-    arg_size += sum(share(("pod",), t) for t in batch.values()) + share(("pod",), weights)
+    arg_size += sum(share(("pod", "data"), t) for t in batch.values()) + share(("pod",), weights)
     return {
         "arch": arch, "config_name": cfg.name,
         "shape": f"fedround_b{batch_per_client}x{seq}_E{local_steps}_q{compress_bits}",
-        "mesh": "pods", "n_devices": mesh.size(), "kind": "federated_round", "path": path,
+        "mesh": "multi", "n_devices": mesh.size(), "kind": "federated_round", "path": path,
         **_record(traced, arg_size),
     }
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default=None)
+    ap.add_argument("--arch", default=None, help="a config name, or several joined by commas")
     ap.add_argument("--shape", default=None, choices=list(INPUT_SHAPES))
     ap.add_argument("--mesh", default="single", choices=["single", "multi", "both"])
     ap.add_argument("--all", action="store_true", help="all (arch x shape) pairs")
@@ -494,31 +497,32 @@ def main(argv=None) -> None:
                     help="cuda: the kernels' meta branches (the card's path); cpu: their "
                          "plain versions")
     ap.add_argument("--federated", action="store_true",
-                    help="trace the scale-out FedLECC round instead of plain steps")
+                    help="trace the scale-out FedLECC round instead of plain steps (for "
+                         "--arch, qwen3-14b without one, or every arch with --all)")
     args = ap.parse_args(argv)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
 
     if args.federated:
-        arch = args.arch or "qwen3-14b"
         rc = 0
-        for bits in (0, 8):
-            try:
-                rec = run_federated(arch, compress_bits=bits, path=args.path)
-                status = "OK"
-            except Exception as e:
-                rec = {"arch": arch, "shape": f"fedround_q{bits}", "mesh": "pods",
-                       "error": f"{type(e).__name__}: {e}"}
-                status = "FAIL"
-                rc = 1
-            with open(args.out, "a") as f:
-                f.write(json.dumps(rec) + "\n")
-            detail = rec.get("error") or (
-                f"flops={rec['flops']:.3e} "
-                f"coll={ {k: round(v / 1e9, 2) for k, v in rec['collective_bytes'].items()} }GB")
-            print(f"[{status}] federated_round {arch} q{bits}: {detail}", flush=True)
+        for arch in list_configs() if args.all else (args.arch or "qwen3-14b").split(","):
+            for bits in (0, 8):
+                try:
+                    rec = run_federated(arch, compress_bits=bits, path=args.path)
+                    status = "OK"
+                except Exception as e:
+                    rec = {"arch": arch, "shape": f"fedround_q{bits}", "mesh": "multi",
+                           "error": f"{type(e).__name__}: {e}"}
+                    status = "FAIL"
+                    rc = 1
+                with open(args.out, "a") as f:
+                    f.write(json.dumps(rec) + "\n")
+                detail = rec.get("error") or (
+                    f"trace={rec['t_trace_s']}s flops={rec['flops']:.3e} coll="
+                    f"{ {k: round(v / 1e9, 2) for k, v in rec['collective_bytes'].items()} }GB")
+                print(f"[{status}] federated_round {arch} q{bits}: {detail}", flush=True)
         sys.exit(rc)
 
-    archs = list_configs() if (args.all or args.arch is None) else [args.arch]
+    archs = list_configs() if (args.all or args.arch is None) else args.arch.split(",")
     shapes = list(INPUT_SHAPES) if (args.all or args.shape is None) else [args.shape]
     meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
     done = set()

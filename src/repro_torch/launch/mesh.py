@@ -12,13 +12,17 @@ over all axes, over ``model``, or over the data axes (every axis but
   one device each, and rank r sits at the coordinates of r in row-major
   order over ("pod", "data", "model"), as ``jax.make_mesh`` lays out host
   devices.  One process subgroup is made for each combination of axes
-  that ``_run_moe`` reduces over; every rank makes every group, in the
-  same order, as ``dist.new_group`` requires.
-- **pods blocked over the world** (``data = model = 1``): the scale-out
-  round's layout, ``pod`` pods over the processes of the default process
-  group, each process holding ``pod / world`` consecutive pods (the world
-  may be smaller than ``pod``).  Only the ``pod`` axis spans processes;
-  a reduction over axes without it is the identity.
+  that the MoE and the scale-out round reduce over (all axes, ``model``,
+  the data axes, ``pod``); every rank makes every group, in the same
+  order, as ``dist.new_group`` requires.  The scale-out round runs on a
+  grid one pod a process: every data and model rank of a pod trains that
+  pod's replica, and the round sums over ``pod`` at a fixed (data, model)
+  coordinate.
+- **pods blocked over the world** (``data = model = 1``): ``pod`` pods over
+  the processes of the default process group, each process holding
+  ``pod / world`` consecutive pods (the world may be smaller than
+  ``pod``).  Only the ``pod`` axis spans processes; a reduction over axes
+  without it is the identity.
 
 Without an initialised process group the world is this one process: a
 grid of one device (``data = model = 1``, the card's), or every pod.
@@ -135,16 +139,6 @@ class Mesh:
         # one pod a process, or none (each process its own one-device mesh)
         self.coords = None if per > 1 else self._coords_of(self.rank * per)
 
-    def require_pods_only(self, what: str) -> None:
-        """Raise unless the mesh's data and model axes are 1: ``what`` (the
-        scale-out round) runs its pods over the world, one replica each,
-        and has no data or model axis yet (ROADMAP.md item 8)."""
-        if self.grid:
-            raise ValueError(
-                f"{what} takes a mesh of pods only (data = model = 1); got {self.shape}: the "
-                f"scale-out round with a data or model axis is not ported yet (ROADMAP.md "
-                f"item 8)")
-
     # -- axes and groups ----------------------------------------------------
 
     def _axes(self, axes) -> tuple[str, ...]:
@@ -165,12 +159,14 @@ class Mesh:
 
     def _make_groups(self) -> None:
         """One subgroup for each set of axes that the MoE reduces over
-        (all axes, ``model``, the data axes), made on every rank in the
-        same order; a set whose group would be one process gets none (a
-        dry mesh makes rank 0's groups alone, without processes)."""
+        (all axes, ``model``, the data axes) and for ``pod`` (the scale-out
+        round's sum), made on every rank in the same order; a set whose
+        group would be one process gets none (a dry mesh makes rank 0's
+        groups alone, without processes)."""
         names = self.axis_names
         backend = None if self.dry else dist.get_backend()
-        for axes in (names, ("model",), tuple(a for a in names if a != "model")):
+        pod = ("pod",) if "pod" in names else ()
+        for axes in (names, ("model",), tuple(a for a in names if a != "model"), pod):
             if self.size(axes) == 1:
                 continue
             if self.dry:
@@ -212,7 +208,7 @@ class Mesh:
                 return None
             if frozenset(axes) not in self._groups:
                 raise ValueError(f"the mesh has no process group over {axes}: it makes one "
-                                 f"for all axes, 'model' and the data axes")
+                                 f"for all axes, 'model', the data axes and 'pod'")
             return self._groups[frozenset(axes)]
         return self.group if "pod" in axes and self.world > 1 else None
 

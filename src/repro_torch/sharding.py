@@ -29,8 +29,12 @@ weights over every axis.
 under a spec, as the reference's ``NamedSharding.shard_shape`` does (a
 spec from ``spec_for`` splits only the dimensions its axes divide): summed
 over a step's arguments, the per-device bytes of the reference's layout,
-which the dry run reports as ``argument_size``.  The port's ranks do not shard storage yet: each holds
-every leaf whole.
+which the dry run reports as ``argument_size``.  The port's ranks do not
+shard storage yet: each holds every leaf whole.  ``model_block`` gives a
+rank's block of a leaf along the dimension ``model`` splits, which the
+scale-out round's int8 aggregation quantizes as the reference's does
+(one scale a leaf and model shard); ``spec_leaves`` lists a layout
+tree's specs in ``tree_flatten``'s order of the leaves they describe.
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ import math
 from typing import Any
 
 __all__ = ["ShardingPolicy", "make_policy", "named_sharding_tree", "shard_shape",
-           "shard_bytes"]
+           "shard_bytes", "model_block", "spec_leaves"]
 
 
 def _is_axes(x) -> bool:
@@ -114,6 +118,38 @@ def shard_bytes(mesh, spec: tuple, leaf) -> int:
     """The bytes of one device's block of ``leaf`` (a tensor; ``meta``
     will do) under ``spec``."""
     return math.prod(shard_shape(mesh, spec, tuple(leaf.shape))) * leaf.element_size()
+
+
+def model_block(mesh, spec: tuple, shape: tuple[int, ...]) -> tuple[int, int, int] | None:
+    """This rank's block of a leaf of ``shape`` under ``spec`` (the baseline
+    policy's ``spec_for``) along the dimension that ``model`` splits:
+    ``(dim, start, length)``, the rank's ``model`` index picking the block;
+    None where the spec names no ``model`` (the divisibility guard
+    replicated the leaf: it is one block).  Other axes split no block: a
+    ``data`` entry (``expert_ff``) stays whole, as the reference's
+    aggregation leaves ``data`` to GSPMD."""
+    for dim, entry in enumerate(spec):
+        if entry == "model":
+            length = shape[dim] // mesh.shape["model"]
+            return dim, mesh.axis_index("model") * length, length
+    return None
+
+
+def spec_leaves(specs) -> list[tuple]:
+    """The spec tuples of a layout tree (``ShardingPolicy.shardings``'s), in
+    ``tree_flatten``'s order of the leaves they describe (a scalar's spec
+    stands for one leaf)."""
+    out = []
+
+    def walk(node):
+        if _is_axes(node):
+            out.append(node)
+        else:
+            for v in node.values() if isinstance(node, dict) else node:
+                walk(v)
+
+    walk(specs)
+    return out
 
 
 def _unstack(specs):

@@ -17,7 +17,8 @@ package on the CPU.
   average, within 1e-5 (compress_bits 0) or within half a quantization
   step a pod, weighted (compress_bits 8); a zero-weight pod has no
   influence;
-- the ``Mesh``: the pod axis, the refusals, the backend check;
+- the ``Mesh``: the pod axis, the refusals, the grid round accepted, the
+  backend check;
 - a world of two CPU processes under gloo (a file store in the test's
   directory, a time limit of its own): the engine and the round equal the
   single process holding both pods within 1e-5."""
@@ -54,6 +55,7 @@ from repro_torch.federated.scaleout import make_federated_round, stack_for_clien
 from repro_torch.launch.mesh import (  # noqa: E402
     Mesh,
     backend_for,
+    make_dry_mesh,
     make_host_mesh,
     make_production_mesh,
 )
@@ -208,12 +210,11 @@ def test_mesh_axes_and_refusals():
     one = make_host_mesh(1, 1)   # the card's: a grid of one device
     assert one.coords == {"data": 0, "model": 0} and one.index(("data", "model")) == 0
     assert one.all_reduce_mean(t, "model") is t and one.grad_sum(t) is t
-    # the scale-out round refuses a data or model axis (ROADMAP.md item 8):
-    # the pods-only check, on a mesh whose grid the world cannot hold
-    grid = Mesh.__new__(Mesh)
-    grid.grid, grid.shape = True, {"pod": 2, "data": 2, "model": 1}
-    with pytest.raises(ValueError, match="mesh of pods only .*ROADMAP.md item 8"):
-        grid.require_pods_only("the federated round")
+    # the scale-out round takes a data or model axis, one pod a process: rank
+    # 0 of a dry (pod 2, data 2, model 1) grid, which this world cannot hold
+    grid = make_dry_mesh(2, 1, pod=2)
+    assert grid.grid and grid.pods == range(0, 1) and not hasattr(Mesh, "require_pods_only")
+    assert callable(make_federated_round(get_config("qwen3-14b", reduced=True), grid, lr=0.1))
     for multi_pod in (False, True):
         with pytest.raises(RuntimeError, match="names (256|512) devices; this world has 1"):
             make_production_mesh(multi_pod=multi_pod)

@@ -1,0 +1,450 @@
+"""The scale-out round and the scaleout backend on a (pod 2, data 2, model
+2) grid against the reference's on the CPU.
+
+One module fixture runs, side by side:
+
+- the reference in one subprocess on 8 virtual devices
+  (``--xla_force_host_platform_device_count=8``) under
+  ``jax.make_mesh((2, 2, 2), ("pod", "data", "model"))`` with Auto axes
+  (jax 0.9's default Explicit axes make the reference's round raise at
+  ``jax.jit``): ``make_federated_round`` at compress_bits 0 and 8 and
+  ``ScaleoutEngine`` on ``fl_cfg(backend="scaleout")``;
+- the port in a world of 8 CPU processes under gloo (a file store in the
+  test's directory, one intra-op thread each), one pod a process row:
+  the same rounds and engine on ``make_host_mesh(2, 2, pod=2)``, each
+  rank's results and its pod's local ends (the oracle's input) saved.
+
+Reduced qwen3-14b (fp32) from the reference's weights
+(``serving_params_from_jax``), B = 4, S = 32, 2 local steps; the engine
+replays the reference's draws as ``JaxReplayDraws`` draws them, recorded
+here by a one-process run and handed to the world in order.
+
+- (a) the exact round on every rank equals the reference's grid round
+  within ``ATOL`` and the port's pods-only round in one process;
+- (b) the int8 round equals a numpy oracle of one scale a (leaf, model
+  block) on the rank's own local ends within 1e-6, lies within one
+  quantization step of a (reference leaf, model block) of the
+  reference's int8 round, and differs from the pods-only int8 round (one
+  scale a leaf) by more than 1e-6 on a leaf that ``model`` splits;
+- (c) the engine selects exactly as the reference's on the grid, params
+  within ``ATOL``;
+- (d) the dry 2 x 2 x 2 trace's collective bytes by kind equal their
+  closed-form counts, and ``run_federated``'s record is the reference's
+  2 x 16 x 16.
+"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+pytest.importorskip("jax")
+
+import jax  # noqa: E402
+from torch.utils._pytree import (  # noqa: E402
+    MappingKey,
+    tree_flatten,
+    tree_flatten_with_path,
+    tree_leaves,
+    tree_unflatten,
+)
+
+from conftest import fl_cfg  # noqa: E402
+from repro.configs import get_config as ref_get_config  # noqa: E402
+from repro.models import transformer as ref_tf  # noqa: E402
+from repro.sharding import make_policy as ref_make_policy  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.inputs import dummy_batch  # noqa: E402
+from repro_torch.convert import params_from_jax, serving_params_from_jax  # noqa: E402
+from repro_torch.engine import FLConfig, make_engine  # noqa: E402
+from repro_torch.federated.scaleout import make_federated_round, stack_for_clients  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch.mesh import make_dry_mesh, make_host_mesh  # noqa: E402
+from repro_torch.models.transformer import abstract_params  # noqa: E402
+from test_torch_engine import JaxReplayDraws  # noqa: E402
+
+ROOT = Path(__file__).resolve().parent.parent
+ATOL = 1e-5
+ORACLE_TOL = 1e-6
+B, S, LR, STEPS, SEEDS, W = 4, 32, 0.05, 2, (10, 11), (0.25, 0.75)
+MODEL, QMAX = "qwen3-14b", 127
+CFG = fl_cfg(backend="scaleout").to_dict()
+
+# the constants and the draws both sides replay, importable by the subprocesses
+_CASE = f"""
+import torch
+B, S, LR, STEPS, SEEDS, W, MODEL = {B}, {S}, {LR}, {STEPS}, {SEEDS}, {W}, {MODEL!r}
+CFG = {CFG!r}
+
+
+class Recorded:
+    '''The draws a run made, one call after another: recording the calls
+    of ``draws`` (``record``), or handing out those of a file in order.'''
+
+    def __init__(self, draws=None, path=None):
+        self.draws, self.calls = draws, []
+        self._replay = iter(torch.load(path)) if path else None
+
+    def _call(self, name, *a, **k):
+        if self._replay is not None:
+            got, out = next(self._replay)
+            assert got == name, (got, name)
+            return out
+        out = getattr(self.draws, name)(*a, **k)
+        self.calls.append((name, out))
+        return out
+
+    def init_params(self, *a, **k):
+        return self._call("init_params", *a, **k)
+
+    def poll_indices(self, *a, **k):
+        return self._call("poll_indices", *a, **k)
+
+    def client_batch_indices(self, *a, **k):
+        return self._call("client_batch_indices", *a, **k)
+"""
+
+_REFERENCE = r"""
+import os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+import jax, jax.numpy as jnp, numpy as np
+from jax.sharding import AxisType
+sys.path.insert(0, sys.argv[1])
+from grid_case import B, CFG, LR, MODEL, S, SEEDS, STEPS, W
+from repro.configs import get_config
+from repro.configs.inputs import dummy_batch
+from repro.data import make_classification
+from repro.engine import FLConfig, make_engine
+from repro.federated.scaleout import make_federated_round, stack_for_clients
+from repro.jax_compat import set_mesh
+from repro.models.transformer import init_transformer
+
+mesh = jax.make_mesh((2, 2, 2), ("pod", "data", "model"), axis_types=(AxisType.Auto,) * 3)
+cfg = get_config(MODEL, reduced=True)
+params = init_transformer(jax.random.PRNGKey(0), cfg)
+batches = [dummy_batch(cfg, B, S, seed=s) for s in SEEDS]
+batch = {k: jnp.stack([b[k] for b in batches]) for k in batches[0]}
+out = {f"start/{i}": np.asarray(x) for i, x in enumerate(jax.tree.leaves(params))}
+for bits in (0, 8):
+    fn = make_federated_round(cfg, mesh, lr=LR, local_steps=STEPS, compress_bits=bits)
+    with set_mesh(mesh):
+        new, losses = jax.jit(fn)(stack_for_clients(params, 2), batch,
+                                  jnp.asarray(W, jnp.float32))
+    out |= {f"q{bits}/{i}": np.asarray(x[0]) for i, x in enumerate(jax.tree.leaves(new))}
+    out[f"loss{bits}"] = np.asarray(losses)
+train = make_classification(800, n_features=64, n_classes=10, seed=0)
+test = make_classification(200, n_features=64, n_classes=10, seed=1)
+with set_mesh(mesh):
+    eng = make_engine(FLConfig.from_dict(CFG), train, test, n_classes=10, mesh=mesh)
+    res = list(eng.rounds())
+out["selected"] = np.array([list(r.selected) for r in res])
+out["engine_losses"] = np.array([r.mean_selected_loss for r in res])
+out |= {f"engine/{i}": np.asarray(x) for i, x in enumerate(jax.tree.leaves(eng.params))}
+np.savez(os.path.join(sys.argv[1], "reference.npz"), **out)
+"""
+
+_WORLD = r"""
+import os, sys
+import torch
+import torch.distributed as dist
+from torch.utils._pytree import tree_flatten, tree_leaves, tree_unflatten
+
+torch.set_num_threads(1)
+rank, work = int(sys.argv[1]), sys.argv[2]
+dist.init_process_group("gloo", init_method="file://" + os.path.join(work, "store"),
+                        world_size=8, rank=rank)
+sys.path.insert(0, work)
+from grid_case import B, CFG, LR, MODEL, S, SEEDS, STEPS, W, Recorded
+from repro_torch.configs import get_config
+from repro_torch.configs.inputs import dummy_batch
+from repro_torch.data import make_classification
+from repro_torch.engine import FLConfig, make_engine
+from repro_torch.federated.scaleout import make_federated_round, stack_for_clients
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models.transformer import loss_fn
+
+mesh = make_host_mesh(2, 2, pod=2)
+pod = mesh.coords["pod"]
+assert mesh.grid and mesh.pods == range(pod, pod + 1)
+cfg = get_config(MODEL, reduced=True)
+params = torch.load(os.path.join(work, "params.pt"))
+batch = {k: v[None] for k, v in dummy_batch(cfg, B, S, seed=SEEDS[pod]).items()}
+out = {"coords": [mesh.coords[a] for a in ("pod", "data", "model")]}
+for bits in (0, 8):
+    fn = make_federated_round(cfg, mesh, lr=LR, local_steps=STEPS, compress_bits=bits)
+    new, losses = fn(stack_for_clients(params, 1), batch, torch.tensor(W))
+    out[f"q{bits}"] = [t[0] for t in tree_leaves(new)]
+    out[f"loss{bits}"] = losses
+if mesh.coords["data"] == mesh.coords["model"] == 0:
+    # the pod's local ends, as the round's local SGD computes them
+    leaves, spec = tree_flatten(params)
+    one = {k: v[0] for k, v in batch.items()}
+    for _ in range(STEPS):
+        leaves = [p.detach().requires_grad_(True) for p in leaves]
+        loss, _ = loss_fn(tree_unflatten(leaves, spec), cfg, one)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+        with torch.no_grad():
+            leaves = [(w - LR * g).to(w.dtype) for w, g in zip(leaves, grads)]
+    out["ends"] = leaves
+train = make_classification(800, n_features=64, n_classes=10, seed=0)
+test = make_classification(200, n_features=64, n_classes=10, seed=1)
+eng = make_engine(FLConfig.from_dict(CFG), train, test, 10, device="cpu", mesh=mesh,
+                  draws=Recorded(path=os.path.join(work, "draws.pt")))
+assert eng.n_pods == 2 and eng._block == slice(6 * pod, 6 * pod + 6)
+res = list(eng.rounds())
+out["selected"] = [list(r.selected) for r in res]
+out["engine_losses"] = [r.mean_selected_loss for r in res]
+out["engine"] = eng.params
+torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+dist.destroy_process_group()
+"""
+
+
+def _ref_tree(leaves, template):
+    """Saved reference leaves (``jax.tree.leaves`` order) as ``template``'s tree."""
+    return jax.tree.unflatten(jax.tree.structure(template), leaves)
+
+
+@pytest.fixture(scope="module")
+def grid(tmp_path_factory, data):
+    """The reference's subprocess and the port's world of 8, run side by
+    side; their saved results, the start weights (the reference's tree and
+    the port's), and the pods-only rounds of one process."""
+    work = tmp_path_factory.mktemp("grid")
+    (work / "grid_case.py").write_text(_CASE)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    env.pop("XLA_FLAGS", None)
+    procs = [subprocess.Popen([sys.executable, "-c", _REFERENCE, str(work)], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)]
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        ref_cfg, cfg = ref_get_config(MODEL, reduced=True), get_config(MODEL, reduced=True)
+        ref_start = jax.tree.map(np.asarray, ref_tf.init_transformer(jax.random.PRNGKey(0),
+                                                                     ref_cfg))
+        params = serving_params_from_jax(ref_start, cfg)
+        torch.save(params, work / "params.pt")
+        # the engine's draws as JaxReplayDraws makes them, for the world to replay
+        sys.path.insert(0, str(work))
+        try:
+            from grid_case import Recorded
+        finally:
+            sys.path.remove(str(work))
+        train, test = data
+        rec = Recorded(JaxReplayDraws(CFG["seed"], "cpu"))
+        one = make_engine(FLConfig.from_dict(CFG), train, test, 10, device="cpu", draws=rec,
+                          mesh=make_host_mesh(pod=2))
+        one_res = list(one.rounds())
+        torch.save(rec.calls, work / "draws.pt")
+        procs += [subprocess.Popen([sys.executable, "-c", _WORLD, str(r), str(work)], env=env,
+                                   stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                  for r in range(8)]
+        batch = {k: torch.stack([dummy_batch(cfg, B, S, seed=s)[k] for s in SEEDS])
+                 for k in ("tokens", "labels")}
+        pods_only = {}
+        for bits in (0, 8):
+            fn = make_federated_round(cfg, make_host_mesh(pod=2), lr=LR, local_steps=STEPS,
+                                      compress_bits=bits)
+            new, losses = fn(stack_for_clients(params, 2), batch, torch.tensor(W))
+            pods_only[bits] = ([t[0] for t in tree_leaves(new)], losses)
+        outs = [p.communicate(timeout=240) for p in procs]
+    finally:
+        torch.set_num_threads(n)
+        for p in procs:
+            p.kill()
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+    ref = dict(np.load(work / "reference.npz"))
+    ranks = [torch.load(work / f"rank{r}.pt") for r in range(8)]
+    return {"ref": ref, "ranks": ranks, "ref_start": ref_start, "params": params,
+            "pods_only": pods_only, "one": (one_res, one.params), "cfg": cfg, "ref_cfg": ref_cfg,
+            "mlp": jax.tree.structure(rec.draws._template)}
+
+
+def _diff(a, b) -> float:
+    return float(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)).max())
+
+
+def _ref_leaves(grid, key):
+    n = len(jax.tree.leaves(grid["ref_start"]))
+    return [grid["ref"][f"{key}/{i}"] for i in range(n)]
+
+
+def _as_port(grid, key):
+    """The reference's saved tree ``key`` as the port's leaves."""
+    tree = _ref_tree(_ref_leaves(grid, key), grid["ref_start"])
+    return tree_leaves(serving_params_from_jax(tree, grid["cfg"]))
+
+
+def test_world_sits_on_the_reference_grid_and_starts_from_its_weights(grid):
+    for r, got in enumerate(grid["ranks"]):
+        assert got["coords"] == [r // 4, r // 2 % 2, r % 2]   # row-major (pod, data, model)
+    for a, b in zip(_ref_leaves(grid, "start"), jax.tree.leaves(grid["ref_start"])):
+        np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------------------------- (a) exact
+def test_exact_grid_round_matches_the_reference_and_the_pods_only_round(grid):
+    want = _as_port(grid, "q0")
+    pods_only, pods_losses = grid["pods_only"][0]
+    for r, got in enumerate(grid["ranks"]):
+        for j, (g, w, p) in enumerate(zip(got["q0"], want, pods_only, strict=True)):
+            assert _diff(g, w) <= ATOL, (r, j, _diff(g, w))
+            assert _diff(g, p) <= ATOL, (r, j, _diff(g, p), "pods-only")
+        np.testing.assert_allclose(got["loss0"].numpy(), grid["ref"]["loss0"], atol=ATOL)
+        np.testing.assert_allclose(got["loss0"].numpy(), pods_losses.numpy(), atol=ATOL)
+
+
+# ----------------------------------------------------------------- (b) int8
+def _model_dim(policy, logical, shape):
+    spec = tuple(policy.spec_for(tuple(logical), shape))
+    return next((d for d, e in enumerate(spec) if e == "model"), None)
+
+
+def _port_specs(grid):
+    """Each port leaf's logical axes (``tree_flatten`` order of the serving
+    tree), looked up by its path in the reference's stacked specs, a layer
+    leaf's without the leading ``layers`` axis."""
+    specs = ref_tf.transformer_specs(grid["ref_cfg"])
+    out = []
+    for path, _ in tree_flatten_with_path(grid["params"])[0]:
+        node = specs
+        for entry in path:
+            if isinstance(entry, MappingKey):
+                node = node[entry.key]
+        out.append(tuple(node[1:]) if path[0].key == "layers" else tuple(node))
+    return out
+
+
+class _Grid:
+    shape = {"pod": 2, "data": 2, "model": 2}
+    axis_names = tuple(shape)
+
+
+def _quantize_oracle(ends, start, w, dim, model_index):
+    """K1's sum, in numpy fp32 with each product and sum rounded, of the
+    pods' int8 blocks at one scale a (pod, block), onto the start's block."""
+    def block(a):
+        a = np.asarray(a, np.float32)
+        return a if dim is None else np.split(a, 2, axis=dim)[model_index]
+
+    s0 = block(start)
+    acc = np.zeros(s0.shape, np.float32)
+    for e, wp in zip(ends, w):
+        d = block(e) - s0
+        scale = np.float32(max(np.abs(d).max(), np.float32(1e-12)) / np.float32(QMAX))
+        q = np.clip(np.round(d / scale), -QMAX - 1, QMAX).astype(np.float32)
+        acc = acc + np.float32(scale * np.float32(wp)) * q
+    return s0 + acc
+
+
+def test_int8_grid_round_quantizes_a_leaf_and_model_block(grid):
+    policy = ref_make_policy(_Grid(), batch_size=0)
+    logical = _port_specs(grid)
+    start = tree_leaves(grid["params"])
+    ends = [next(g["ends"] for g in grid["ranks"] if g["coords"][0] == p) for p in (0, 1)]
+    want = _as_port(grid, "q8")
+    pods_only = grid["pods_only"][8][0]
+    moved = []
+    for r, got in enumerate(grid["ranks"]):
+        m = got["coords"][2]
+        for j, (g, s0, lg) in enumerate(zip(got["q8"], start, logical, strict=True)):
+            dim = _model_dim(policy, lg, tuple(s0.shape))
+            oracle = _quantize_oracle([e[j] for e in ends], s0, W, dim, m)
+            mine = g.numpy() if dim is None else np.split(g.numpy(), 2, axis=dim)[m]
+            assert _diff(mine, oracle) <= ORACLE_TOL, (r, j, _diff(mine, oracle))
+            if dim is not None:
+                moved.append(_diff(g, pods_only[j]))
+        np.testing.assert_allclose(got["loss8"].numpy(), grid["ref"]["loss8"], atol=ATOL)
+    assert max(moved) > ORACLE_TOL, "the grid's scales never moved a model-split leaf"
+    # against the reference: within one quantization step of its blocks, whose
+    # stacked layer leaves take one scale over every layer
+    ref_tree = _ref_tree(_ref_leaves(grid, "q8"), grid["ref_start"])
+    stacked_ends = [_stack(e, grid) for e in ends]
+    stacked_start = _stack(start, grid)
+    ref_specs = ref_tf.transformer_specs(grid["ref_cfg"])
+    is_spec = lambda x: isinstance(x, tuple)  # noqa: E731
+    flat_ref = jax.tree_util.tree_flatten_with_path(ref_tree)[0]
+    flat_specs = jax.tree.leaves(ref_specs, is_leaf=is_spec)
+    for got in grid["ranks"]:
+        mine = _stack(got["q8"], grid)
+        for (path, want_leaf), lg in zip(flat_ref, flat_specs, strict=True):
+            key = jax.tree_util.keystr(path)
+            dim = _model_dim(policy, lg, want_leaf.shape)
+            blocks = [slice(None)] if dim is None else np.array_split(
+                np.arange(want_leaf.shape[dim]), 2)
+            for blk in blocks:
+                idx = (slice(None),) * (dim or 0) + (blk,)
+                step = sum(w * np.abs(e[key][idx] - stacked_start[key][idx]).max() / QMAX
+                           for w, e in zip(W, stacked_ends))
+                err = np.abs(mine[key][idx] - np.asarray(want_leaf)[idx]).max()
+                assert err <= step + ATOL, (key, float(err), float(step))
+
+
+def _stack(leaves, grid):
+    """Port leaves (``tree_flatten`` order of the serving tree) as numpy
+    arrays keyed by the reference tree's paths, layers stacked."""
+    _, spec = tree_flatten(grid["params"])
+    tree = tree_unflatten([torch.as_tensor(x) for x in leaves], spec)
+    ref = {k: v.numpy() for k, v in tree.items() if k != "layers"}
+    layers = tree["layers"]
+    ref["layers"] = jax.tree.map(lambda *xs: np.stack([x.numpy() for x in xs]), *layers)
+    flat = jax.tree_util.tree_flatten_with_path(ref)[0]
+    return {jax.tree_util.keystr(p): v for p, v in flat}
+
+
+# --------------------------------------------------------------- (c) engine
+def test_scaleout_engine_on_the_grid_matches_the_reference(grid):
+    ref = grid["ref"]
+    one_res, one_params = grid["one"]
+    n = sum(k.startswith("engine/") for k in ref)
+    ref_params = params_from_jax(jax.tree.unflatten(
+        grid["mlp"], [ref[f"engine/{i}"] for i in range(n)])).numpy()
+    for r, got in enumerate(grid["ranks"]):
+        assert got["selected"] == ref["selected"].tolist() == [list(x.selected)
+                                                               for x in one_res], r
+        np.testing.assert_allclose(got["engine_losses"], ref["engine_losses"], rtol=ATOL)
+        np.testing.assert_allclose(got["engine"].numpy(), ref_params, atol=ATOL)
+        np.testing.assert_allclose(got["engine"].numpy(), one_params.numpy(), atol=ATOL)
+
+
+# --------------------------------------------------------------- (d) dry run
+@pytest.mark.parametrize("bits", [0, 8])
+def test_dry_grid_round_tallies_its_collectives_in_closed_form(bits):
+    cfg, ref_cfg = get_config(MODEL, reduced=True), ref_get_config(MODEL, reduced=True)
+    mesh = make_dry_mesh(2, 2, pod=2)
+    fn, args = dryrun.build_federated(cfg, mesh, STEPS, B, S, bits)
+    traced = dryrun.trace(fn, args)
+    policy = ref_make_policy(_Grid(), batch_size=0)
+    shapes = jax.eval_shape(lambda k: ref_tf.init_transformer(k, ref_cfg), jax.random.PRNGKey(0))
+    specs = jax.tree.leaves(ref_tf.transformer_specs(ref_cfg),
+                            is_leaf=lambda x: isinstance(x, tuple))
+    numel = [int(np.prod(s.shape)) for s in jax.tree.leaves(shapes)]
+    split = [_model_dim(policy, sp, s.shape) is not None
+             for sp, s in zip(specs, jax.tree.leaves(shapes), strict=True)]
+    n_leaves = len(tree_leaves(args[0]))
+    losses = 2 * 4                                  # the (2,) fp32 losses over pod
+    if bits == 0:                                   # the fp32 sum of every leaf over pod
+        want = {"all-reduce": 4 * sum(numel), "all-gather": losses}
+    else:                                           # int8 blocks and scale * w over pod,
+        want = {"all-gather": sum(n if s else 2 * n for n, s in zip(numel, split))
+                + 2 * 4 * n_leaves                  # then the fp32 blocks over model
+                + sum(4 * n for n, s in zip(numel, split) if s) + losses}
+    assert traced["coll"] == want
+    assert traced["kernel_work"]["masked_weighted_sum"]["launches"] == n_leaves
+
+
+def test_federated_dry_run_record_is_the_reference_2x16x16(monkeypatch):
+    monkeypatch.setattr(dryrun, "get_config", lambda arch: get_config(arch, reduced=True))
+    rec = dryrun.run_federated(MODEL, local_steps=1, batch_per_client=16, seq=32,
+                               compress_bits=8)
+    assert (rec["mesh"], rec["n_devices"], rec["kind"]) == ("multi", 512, "federated_round")
+    assert set(rec["collective_bytes"]) == {"all-gather"} and rec["shape"].endswith("_q8")
+    held = sum(t.numel() * t.element_size()
+               for t in tree_leaves(abstract_params(get_config(MODEL, reduced=True))))
+    assert rec["memory"]["argument_size_held"] == held + 2 * 16 * 32 * 4 + 2 * 4
+    assert rec["memory"]["argument_size"] < rec["memory"]["argument_size_held"]
