@@ -192,12 +192,8 @@ Phases, each printed on its own lines:
      often on hymba; then xlstm's ``--ckpt`` after 3 steps and ``--resume``
      to 6 against 6 uninterrupted steps, within 1e-2 relative;
    - ``scaleout:`` the scaleout backend in a world of one process (every
-     pod on this card, so the all-reduce and all-gather are the identity:
-     one card cannot hold a world of several NCCL ranks, so the
-     collectives run on the CPU under gloo, pods over a world of two in
-     ``tests/test_torch_scaleout.py`` and the (pod 2, data 2, model 2)
-     grid over a world of eight in ``tests/test_torch_scaleout_grid.py``;
-     the grid round's rank 0 is held to the card in ``dryrun:``): the
+     pod on this card, so the all-reduce and all-gather are the identity;
+     the collectives run in ``scaleout grid:``): the
      paper's configuration (fedlecc
      J = 3) for 30 rounds on ``backend="scaleout"`` (K1 once a round over
      the (100, P) stack), host and compiled with ``cohort_gather=False``,
@@ -206,6 +202,23 @@ Phases, each printed on its own lines:
      pod, 4 local SGD steps of 8 x 128 tokens, with compress_bits 0 and 8
      (ms a round, loss, peak memory; K1 once a leaf, K3 once a layer a
      step each way; int8 within half a quantization step of exact);
+   - ``scaleout grid:`` first a probe of two processes on the card: NCCL
+     (two ranks of one communicator on one device, which NCCL refuses;
+     the finding is printed) and gloo with CUDA tensors (``all_reduce``
+     sum and max, ``all_gather``, in fp32, bf16 and int8, checked).  Then
+     the scale-out round on the (pod 2, data 2, model 2) grid in eight
+     processes of this script on the one card, started with a file store
+     under ``build/grid/``, with real collectives under gloo: stablelm-3b
+     at full width cut to 4 layers, each rank holding its blocks of every
+     leaf under the baseline policy and training on its 4-sequence share
+     of its pod's 8 x 128 batch, tensor-parallel over ``model`` (K3 on its
+     16 heads, forward and backward, K1 on its blocks), 4 local steps, in
+     bf16 at compress_bits 0 and 8 and in fp32 at 0.  Each rank prints its
+     held bytes, its peak, its K1 / K3 launches and its collectives; its
+     blocks are held against the same round in a world of one process on
+     the card (the whole layout, both pods in one process), cut to its
+     block: fp32 within 1e-4 of max(1, |ref|), bf16's largest difference
+     printed.  A rank that fails makes the phase raise;
    - ``dryrun:`` the dry run (``repro_torch.launch.dryrun``) against the
      card, at full width and depth in bf16: stablelm-3b train at 8 x 128
      (K3 both ways), and the prefill at 4 x 1280 of hymba-1.5b (K3, K4),
@@ -217,14 +230,14 @@ Phases, each printed on its own lines:
      the arguments (``max_memory_allocated`` over the call, less what was
      allocated when it began) must be within 10 % of it, the output
      finite, and each kernel's launches those the dry run tallied.  Then
-     the scale-out round on the reference's grid: rank 0 of the dry 2 x
-     16 x 16 production mesh traced on ``meta`` at ``scaleout:``'s size
-     (stablelm-3b at full size in bf16, 4 local steps of 8 x 128, compress
-     bits 0 and 8: K1 on the rank's model block of each leaf, collectives
-     tallied by kind), then that pod's round run on the card in a world of
-     one (every rank of a pod computes what it computes): the tallied
-     flops must equal the prediction exactly, K1's and K3's launches the
-     tally, the peak above the arguments be within 10 % of it.  Then the
+     the grid round: rank 0 of the dry (2, 2, 2) mesh traced on ``meta``
+     at ``scaleout grid:``'s size (the rank's blocks and batch share,
+     compress bits 0 and 8, collectives tallied by kind) against rank 0 of
+     the eight-process world on the card: the tallied flops equal, K1's
+     and K3's launches the tally, the collective bytes by kind equal, the
+     peak above the arguments within 10 %; and rank 0 of the 2 x 16 x 16
+     mesh at full depth predicted at 16 sequences a pod, its
+     ``argument_size`` equal to what it holds.  Then the
      ``--all --mesh single`` sweep (40 records) and the ``--federated``
      records on the 2 x 16 x 16 mesh (q0 and q8 of every arch but
      deepseek-v3-671b, one of whose dense-MoE traces outlasts this
@@ -3657,12 +3670,8 @@ def _scaleout_phase(device):
     launches of K1, K2 and K3 (forward, backward) in it."""
     t = time.perf_counter()
     print("scaleout: a world of one process on one card: the engine's and the round's "
-          "all-reduce and all-gather are the identity here, so this phase does not exercise "
-          "the collectives (one card holds no world of several NCCL ranks); they run on the "
-          "CPU under gloo, pods over a world of two in tests/test_torch_scaleout.py and the "
-          "(pod 2, data 2, model 2) grid over a world of eight in "
-          "tests/test_torch_scaleout_grid.py, and dryrun: holds the grid round's rank 0 of "
-          "the 2 x 16 x 16 mesh to this card", flush=True)
+          "all-reduce and all-gather are the identity here; scaleout grid: runs them in a "
+          "world of eight processes on this card under gloo", flush=True)
     k1, k2 = _scaleout_engines(device)
     launches = _scaleout_round(device)
     launches["masked_weighted_sum"] += k1
@@ -3670,6 +3679,348 @@ def _scaleout_phase(device):
     print(f"scaleout: launches {json.dumps(launches)}; phase in "
           f"{time.perf_counter() - t:.1f} s", flush=True)
     return launches
+
+
+GRID_DIR = ROOT / "build" / "grid"
+GRID_PROBE_TIMEOUT = 120
+
+
+def _grid_spawn(kind, world, timeout, *extra):
+    """``world`` processes of this script (``--grid-child kind rank world
+    dir ...``) on the one card, joined by a file store under ``GRID_DIR``:
+    [(returncode or None where the time limit cut it, its output, the JSON
+    object its last line holds or None)], one a rank.  Every process is
+    waited for or killed before this returns."""
+    import os
+
+    work = GRID_DIR / kind
+    work.mkdir(parents=True, exist_ok=True)
+    (work / "store").unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--grid-child",
+                               kind, str(r), str(world), str(work), *map(str, extra)],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(world)]
+    deadline = time.perf_counter() + timeout
+    out = []
+    try:
+        for p in procs:
+            try:
+                log, _ = p.communicate(timeout=max(deadline - time.perf_counter(), 1))
+                rc = p.returncode
+            except subprocess.TimeoutExpired:
+                p.kill()
+                log, _ = p.communicate()
+                rc = None
+            last = log.strip().splitlines()[-1:] if log.strip() else []
+            try:
+                res = json.loads(last[0]) if last else None
+            except json.JSONDecodeError:
+                res = None
+            out.append((rc, log, res))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
+
+
+def _grid_probe():
+    """Before the grid world: two processes on the one card under NCCL (a
+    communicator of two ranks on one device, which NCCL should refuse),
+    then under gloo with CUDA tensors: ``all_reduce`` (sum and max) and
+    ``all_gather`` in fp32, bf16 and int8, each result checked.  Prints
+    what each found; raises if gloo's CUDA collectives fail, since the
+    grid world runs on them."""
+    t = time.perf_counter()
+    nccl = _grid_spawn("nccl-probe", 2, GRID_PROBE_TIMEOUT)
+    found = []
+    for rc, log, res in nccl:
+        if rc is None:
+            found.append("cut at the time limit (hung)")
+        elif res is not None and res.get("ok"):
+            found.append("all_reduce ran")
+        else:
+            err = (res or {}).get("error") or log.strip().splitlines()[-1:]
+            found.append(f"refused (exit {rc}): {err}")
+    print(f"scaleout grid: probe: NCCL, two ranks of one communicator on one card: "
+          f"{json.dumps(found)}", flush=True)
+    gloo = _grid_spawn("gloo-probe", 2, GRID_PROBE_TIMEOUT)
+    for r, (rc, log, res) in enumerate(gloo):
+        print(f"scaleout grid: probe: gloo with CUDA tensors, rank {r}: exit {rc}, "
+              f"{json.dumps(res)}", flush=True)
+        if rc != 0 or not res or not res.get("ok"):
+            raise AssertionError(f"scaleout grid: gloo's CUDA collectives failed on rank {r}: "
+                                 f"{log[-3000:]}")
+    print(f"scaleout grid: probe in {time.perf_counter() - t:.1f} s", flush=True)
+    return found
+
+
+def _probe_child(kind, rank, world, work) -> dict:
+    """One rank of ``_grid_probe``'s worlds."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl" if kind == "nccl-probe" else "gloo",
+                            init_method=f"file://{work}/store", world_size=world, rank=rank)
+    dev = torch.device("cuda", 0)
+    if kind == "nccl-probe":
+        try:
+            t = torch.full((4,), rank + 1.0, device=dev)
+            dist.all_reduce(t)
+            torch.cuda.synchronize()
+            return {"ok": True, "sum": t.tolist()}
+        except Exception as e:  # the refusal is the finding
+            return {"ok": False, "error": f"{type(e).__name__}: {str(e)[:300]}"}
+    got = {}
+    for dt in (torch.float32, torch.bfloat16, torch.int8):
+        name = str(dt).replace("torch.", "")
+        t = torch.full((1000,), rank + 1, dtype=dt, device=dev)
+        dist.all_reduce(t)
+        parts = [torch.empty(1000, dtype=dt, device=dev) for _ in range(world)]
+        dist.all_gather(parts, torch.full((1000,), rank, dtype=dt, device=dev))
+        m = torch.full((1000,), float(rank), device=dev)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX)
+        ok = (t.float() == world * (world + 1) / 2).all().item() and all(
+            (p.float() == i).all().item() for i, p in enumerate(parts)) and \
+            (m == world - 1).all().item() and t.is_cuda and parts[0].is_cuda
+        got[name] = bool(ok)
+    return {"ok": all(got.values()), **got}
+
+
+def _grid_child_main() -> int:
+    """``--grid-child kind rank world dir [...]``: a rank of the probe's
+    worlds or of the grid world; its last line of output is a JSON
+    object."""
+    kind, rank, world, work, *extra = sys.argv[2:]
+    rank, world = int(rank), int(world)
+    sys.path.insert(0, str(ROOT / "src"))
+    if kind in ("nccl-probe", "gloo-probe"):
+        res = _probe_child(kind, rank, world, work)
+    else:
+        res = _grid_rank(rank, world, work, *extra)
+    print(json.dumps(res), flush=True)
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    return 0
+
+
+# the grid world: (pod 2, data 2, model 2) in eight processes on the one
+# card under gloo, ROUND_MODEL at full width cut to GRID_LAYERS layers (the
+# world's collectives cross host memory under gloo, so depth is what its
+# time scales with; eight processes of 4 layers hold ~2 GiB each in bf16),
+# ROUND_STEPS local steps of ROUND_BATCH x ROUND_SEQ tokens a pod, the pods'
+# FedAvg weights GRID_W; the runs: (tag, dtype, compress_bits)
+GRID_SHAPE, GRID_LAYERS, GRID_W = {"data": 2, "model": 2, "pod": 2}, 4, (0.25, 0.75)
+GRID_RUNS = (("bf16 q0", "bfloat16", 0), ("bf16 q8", "bfloat16", 8), ("fp32 q0", "float32", 0))
+GRID_TIMEOUT = 420
+# each rank's fp32 blocks against the world of one, relative to max(1, max
+# |world of one|): the same SGD from the same weights, its sums over model,
+# data and pod in another order, K3 as 3xTF32
+GRID_FP32_TOL = 1e-4
+GRID_RESULTS: dict = {}
+
+
+def _grid_cfg(dtype):
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(ROUND_MODEL), n_layers=GRID_LAYERS, dtype=dtype)
+
+
+def _grid_rank(rank, world, work) -> dict:
+    """One rank of the grid world: its blocks of ``_grid_cfg``'s weights
+    (``param_blocks``), its ``data`` share of its pod's batch, each of
+    ``GRID_RUNS`` once under ``dryrun.count_flops``: ms, loss, held bytes,
+    the peak above the arguments, K1 / K3 launches, the tallies, and its
+    blocks against the world of one's (``_grid_reference``'s file)."""
+    import torch
+    import torch.distributed as dist
+    from torch.utils._pytree import tree_flatten, tree_leaves, tree_unflatten
+
+    from repro_torch.configs.inputs import dummy_batch
+    from repro_torch.device import pin_fp32_matmul
+    from repro_torch.federated.scaleout import make_federated_round, stack_for_clients
+    from repro_torch.kernels.aggregate import masked_weighted_sum
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward,
+        flash_attention_forward,
+    )
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.transformer import init_params, param_blocks
+
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    pin_fp32_matmul()
+    dist.init_process_group("gloo", init_method=f"file://{work}/store", world_size=world,
+                            rank=rank)
+    mesh = make_host_mesh(**GRID_SHAPE)
+    pod, d = mesh.coords["pod"], mesh.coords["data"]
+    counters = (masked_weighted_sum, flash_attention_forward, flash_attention_backward)
+    out = {"coords": mesh.coords, "runs": {}}
+    for tag, dtype, bits in GRID_RUNS:
+        cfg = _grid_cfg(dtype)
+        whole = init_params(torch.Generator(device).manual_seed(0), cfg)
+        blocks = param_blocks(whole, cfg, mesh)
+        spec = tree_flatten(whole)[1]
+        del whole
+        share = ROUND_BATCH // mesh.shape["data"]
+        batch = {k: v[None, d * share:(d + 1) * share].to(device)
+                 for k, v in dummy_batch(cfg, ROUND_BATCH, ROUND_SEQ, seed=pod).items()}
+        start = stack_for_clients(blocks, 1)
+        weights = torch.tensor(GRID_W, device=device)
+        fn = make_federated_round(cfg, mesh, lr=ROUND_LR, local_steps=ROUND_STEPS,
+                                  compress_bits=bits)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        dist.barrier()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        for c in counters:
+            c.launches = 0
+        t = time.perf_counter()
+        (new, losses), flops, tally = dryrun.count_flops(fn, start, batch, weights)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        peak = torch.cuda.max_memory_allocated() - base
+        got = [x[0].float().cpu() for x in tree_leaves(new)]
+        held = sum(x.numel() * x.element_size() for x in tree_leaves(blocks))
+        del new, start, blocks, batch
+        ref = torch.load(Path(work).parent / f"reference_{bits}_{dtype}.pt", mmap=True)
+        want = tree_leaves(param_blocks(tree_unflatten(ref, spec), cfg, mesh))
+        diff = max((g - w.float()).abs().max().item() for g, w in zip(got, want, strict=True))
+        rel = max((g - w.float()).abs().max().item() / max(1.0, w.float().abs().max().item())
+                  for g, w in zip(got, want))
+        out["runs"][tag] = {
+            "ms": ms, "loss": losses.tolist(), "held_bytes": held, "peak_bytes": peak,
+            "flops": flops, "coll": dict(tally.collectives),
+            "launches": {c.__name__: c.launches for c in counters},
+            "tallied": {k: v["launches"] for k, v in tally.kernels.items()},
+            "max_abs_diff": diff, "max_rel_diff": rel,
+            "finite": bool(all(torch.isfinite(g).all() for g in got)
+                           and torch.isfinite(losses).all()),
+        }
+        del got, ref, want
+    return out
+
+
+def _grid_reference(device):
+    """Each of ``GRID_RUNS`` in a world of one process on the card (the
+    whole layout: ``make_host_mesh(pod=2)`` holds both pods and trains each
+    on its whole batch, then K1 over both), its leaves written under
+    ``GRID_DIR`` for the ranks to cut their blocks from.  Returns {tag:
+    (ms, the losses)}."""
+    import torch
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch.configs.inputs import dummy_batch
+    from repro_torch.federated.scaleout import make_federated_round, stack_for_clients
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.transformer import init_params
+
+    GRID_DIR.mkdir(parents=True, exist_ok=True)
+    out = {}
+    for tag, dtype, bits in GRID_RUNS:
+        cfg = _grid_cfg(dtype)
+        params = init_params(torch.Generator(device).manual_seed(0), cfg)
+        batch = {k: torch.stack([dummy_batch(cfg, ROUND_BATCH, ROUND_SEQ, seed=p)[k]
+                                 for p in range(GRID_SHAPE["pod"])]).to(device)
+                 for k in ("tokens", "labels")}
+        fn = make_federated_round(cfg, make_host_mesh(pod=GRID_SHAPE["pod"]), lr=ROUND_LR,
+                                  local_steps=ROUND_STEPS, compress_bits=bits)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        new, losses = fn(stack_for_clients(params, GRID_SHAPE["pod"]), batch,
+                         torch.tensor(GRID_W, device=device))
+        torch.cuda.synchronize()
+        out[tag] = ((time.perf_counter() - t) * 1e3, losses.tolist())
+        torch.save([x[0].cpu() for x in tree_leaves(new)],
+                   GRID_DIR / f"reference_{bits}_{dtype}.pt")
+        del params, batch, new, losses
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _scaleout_grid_phase(device):
+    """The scale-out round on the (pod 2, data 2, model 2) grid in eight
+    processes on the one card, with real collectives under gloo (NCCL
+    refuses several ranks on one device: ``_grid_probe``): each rank holds
+    its blocks under the baseline policy and trains on its ``data`` share,
+    tensor-parallel over ``model``, K3 on its heads and K1 on its blocks.
+    Each rank's held bytes, peak and launches are printed; its fp32 blocks
+    must equal the world of one's (``_grid_reference``), cut to the rank's
+    block, within ``GRID_FP32_TOL``; bf16's largest difference is
+    reported.  Returns the world's launches of K1 and K3, summed over its
+    ranks; rank 0's runs go to ``GRID_RESULTS`` for ``dryrun:``."""
+    import torch
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch.models.transformer import abstract_params
+
+    t = time.perf_counter()
+    probe = _grid_probe()
+    cfg = _grid_cfg("bfloat16")
+    n_leaves = len(tree_leaves(abstract_params(cfg)))
+    ref = _grid_reference(device)
+    torch.cuda.empty_cache()
+    world = math.prod(GRID_SHAPE.values())
+    ranks = _grid_spawn("round", world, GRID_TIMEOUT)
+    for r, (rc, log, res) in enumerate(ranks):
+        if rc != 0 or not res or "runs" not in res:
+            raise AssertionError(f"scaleout grid: rank {r} failed (exit {rc}): {log[-3000:]}")
+    total = {"masked_weighted_sum": 0, "flash_attention_forward": 0,
+             "flash_attention_backward": 0}
+    want_k3 = GRID_LAYERS * ROUND_STEPS
+    for tag, dtype, bits in GRID_RUNS:
+        ms, losses = ref[tag]
+        print(f"scaleout grid: {tag}: a world of one (the whole layout, both pods in one "
+              f"process) {ms:.1f} ms, losses {losses}", flush=True)
+        worst = 0.0
+        for r, (_, _, res) in enumerate(ranks):
+            run = res["runs"][tag]
+            for k in total:
+                total[k] += run["launches"][k]
+            print(f"scaleout grid: {tag} rank {r} {json.dumps(res['coords'])}: held "
+                  f"{run['held_bytes'] / 2**30:.4f} GiB, peak above the arguments "
+                  f"{run['peak_bytes'] / 2**30:.4f} GiB, round {run['ms']:.1f} ms (eight "
+                  f"processes sharing the card), losses {run['loss']}, launches "
+                  f"{json.dumps(run['launches'])}, collectives {json.dumps(run['coll'])} B, "
+                  f"against the world of one: max |diff| {run['max_abs_diff']:.4g}, relative "
+                  f"to max(1, |ref|) {run['max_rel_diff']:.4g}", flush=True)
+            worst = max(worst, run["max_rel_diff"])
+            bad = []
+            if not run["finite"]:
+                bad.append("not finite")
+            if run["launches"] != {"masked_weighted_sum": n_leaves,
+                                   "flash_attention_forward": want_k3,
+                                   "flash_attention_backward": want_k3}:
+                bad.append(f"launches {run['launches']}: K1 once a leaf ({n_leaves}), K3 "
+                           f"{want_k3} each way")
+            if run["launches"] != {k: run["tallied"].get(k, 0) for k in run["launches"]}:
+                bad.append(f"launches {run['launches']} against the tally {run['tallied']}")
+            if max(abs(a - b) for a, b in zip(run["loss"], losses)) > 1e-2 * max(
+                    1.0, max(abs(x) for x in losses)):
+                bad.append(f"losses {run['loss']} against the world of one's {losses}")
+            if dtype == "float32" and run["max_rel_diff"] > GRID_FP32_TOL:
+                bad.append(f"fp32 blocks differ by {run['max_rel_diff']} > {GRID_FP32_TOL}")
+            if bad:
+                raise AssertionError(f"scaleout grid {tag} rank {r}: {'; '.join(bad)}")
+        held = f"held to {GRID_FP32_TOL}" if dtype == "float32" else "reported, not held"
+        print(f"scaleout grid: {tag}: the largest difference of a rank's blocks from the "
+              f"world of one's, relative to max(1, |ref|), {worst:.4g} ({held})", flush=True)
+    GRID_RESULTS.update(ranks[0][2]["runs"])
+    print(f"scaleout grid: {ROUND_MODEL} at full width, {cfg.n_layers} layers, {world} "
+          f"processes of {json.dumps(GRID_SHAPE)} on one card under gloo (NCCL: "
+          f"{probe[0][:60]}...), {ROUND_STEPS} local steps of {ROUND_BATCH} x {ROUND_SEQ} "
+          f"tokens a pod; launches {json.dumps(total)}; phase wall time "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    return total
 
 
 # the dry run's steps held to real ones on the card: (model, kind, sequence,
@@ -3802,93 +4153,71 @@ def _dryrun_step(device, model, kind, seq, batch):
     return launches
 
 
-def _dryrun_round(device, bits):
-    """The scale-out round on the reference's grid: ``make_federated_round``
-    traced for rank 0 of the dry 2 x 16 x 16 production mesh
-    (``dryrun.build_federated``: ``ROUND_MODEL`` at full size in bf16,
-    ``ROUND_STEPS`` local steps of ``ROUND_BATCH`` x ``ROUND_SEQ`` tokens,
-    with ``bits``: K1 once a leaf on the rank's model block, collectives
-    tallied by kind), then that pod's round run on the card in a world of
-    one (``make_host_mesh(pod=1)``) under ``dryrun.count_flops``.  Every
-    data and model rank of a pod trains the pod's replica as the world of
-    one does, and K1 runs once a leaf on either, so the tallied flops must
-    equal the prediction exactly, K1's and K3's launches the tally, and the
-    peak above the arguments (``max_memory_allocated`` less what was
-    allocated when the round began) be within ``DRYRUN_PEAK_TOL`` of the
-    prediction: the local steps hold the peak, not the per-leaf
-    aggregation, whose blocks are smaller on the grid.  Returns the
-    launches."""
-    import torch
-    from torch.utils._pytree import tree_leaves
-
-    from repro_torch.configs import get_config
-    from repro_torch.configs.inputs import dummy_batch
-    from repro_torch.federated.scaleout import make_federated_round, stack_for_clients
-    from repro_torch.kernels.aggregate import masked_weighted_sum
-    from repro_torch.kernels.flash_attention import (
-        flash_attention_backward,
-        flash_attention_forward,
-    )
+def _dryrun_round(bits):
+    """The grid round's rank 0, predicted and held to the card's:
+    ``make_federated_round`` traced for rank 0 of the dry (pod 2, data 2,
+    model 2) mesh at the grid phase's size (``dryrun.build_federated``:
+    ``_grid_cfg`` in bf16, ``ROUND_STEPS`` local steps of ``ROUND_BATCH`` x
+    ``ROUND_SEQ`` tokens a pod, ``bits``; the rank's blocks and batch
+    share), against rank 0 of the eight-process world on the card
+    (``GRID_RESULTS``, from ``_scaleout_grid_phase``): the tallied flops
+    equal, K1's and K3's launches and the card's tally equal to the
+    prediction, the collective bytes by kind equal, the peak above the
+    arguments within ``DRYRUN_PEAK_TOL``.  Then (once, with ``bits`` 0)
+    rank 0 of the 2 x 16 x 16 mesh at full depth, predicted at 16
+    sequences a pod (which 16 data ranks divide): its ``argument_size``
+    and ``argument_size_held``, which must be equal.
+    Launches nothing: the world's launches are the grid phase's."""
     from repro_torch.launch import dryrun
-    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
-    from repro_torch.models.transformer import init_params
+    from repro_torch.launch.mesh import make_dry_mesh
 
-    counters = (masked_weighted_sum, flash_attention_forward, flash_attention_backward)
-    cfg = get_config(ROUND_MODEL)
-    mesh = make_production_mesh(multi_pod=True, dry=True)
-    tag = (f"dryrun grid round {ROUND_MODEL} {ROUND_STEPS} x {ROUND_BATCH} x {ROUND_SEQ} "
-           f"q{bits}")
+    cfg = _grid_cfg("bfloat16")
+    mesh = make_dry_mesh(GRID_SHAPE["data"], GRID_SHAPE["model"], pod=GRID_SHAPE["pod"])
+    tag = (f"dryrun grid round {ROUND_MODEL} {cfg.n_layers} layers {ROUND_STEPS} x "
+           f"{ROUND_BATCH} x {ROUND_SEQ} q{bits}")
     fn, args = dryrun.build_federated(cfg, mesh, ROUND_STEPS, ROUND_BATCH, ROUND_SEQ, bits,
                                       lr=ROUND_LR)
     pred = dryrun.trace(fn, args)
+    del fn, args
     predicted = {k: v["launches"] for k, v in pred["kernel_work"].items()}
-    print(f"{tag}: rank 0 of {mesh.shape} ({mesh.size()} devices), predicted "
-          f"{pred['flops']:.6e} flops, peak above the arguments {pred['temp'] / 2**30:.3f} GiB "
-          f"(arguments {pred['args'] / 2**30:.3f} GiB), collectives "
-          f"{json.dumps(pred['coll'])} B, kernel launches {json.dumps(predicted)}, traced in "
-          f"{pred['t_trace_s']:.2f} s", flush=True)
-    del args, fn
-    fn = make_federated_round(cfg, make_host_mesh(pod=1), lr=ROUND_LR, local_steps=ROUND_STEPS,
-                              compress_bits=bits)
-    gc.collect()
-    torch.cuda.empty_cache()
-    params = init_params(torch.Generator(device).manual_seed(0), cfg)
-    start = stack_for_clients(params, 1)
-    batch = {k: v[None].to(device) for k, v in dummy_batch(cfg, ROUND_BATCH, ROUND_SEQ,
-                                                           seed=0).items()}
-    weights = torch.ones(1, device=device)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    for c in counters:
-        c.launches = 0
-    t = time.perf_counter()
-    (new, losses), flops, tally = dryrun.count_flops(fn, start, batch, weights)
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t) * 1e3
-    peak = torch.cuda.max_memory_allocated() - base
-    launches = {c.__name__: c.launches for c in counters}
-    tallied = {k: v["launches"] for k, v in tally.kernels.items()}
-    ok = bool(torch.isfinite(losses).all()) and all(
-        bool(torch.isfinite(x).all()) for x in tree_leaves(new))
-    rel = (peak - pred["temp"]) / pred["temp"]
-    print(f"{tag}: on the card (a world of one) {flops:.6e} flops (tallied; the prediction's "
-          f"{pred['flops']:.6e}, equal {flops == pred['flops']}), peak above the arguments "
-          f"{peak / 2**30:.3f} GiB ({rel:+.4f} against the prediction; held to "
-          f"{DRYRUN_PEAK_TOL}), round {ms:.1f} ms under the flop counter, launches "
-          f"{json.dumps(launches)}, tallied {json.dumps(tallied)}; loss "
-          f"{losses.tolist()}, finite {ok}", flush=True)
-    del new, losses, start, params, batch
-    if flops != pred["flops"]:
-        raise AssertionError(f"{tag}: {flops} flops on the card, {pred['flops']} predicted")
+    card = GRID_RESULTS[f"bf16 q{bits}"]
+    rel = (card["peak_bytes"] - pred["temp"]) / pred["temp"]
+    print(f"{tag}: rank 0 of {mesh.shape}, predicted {pred['flops']:.6e} flops, peak above the "
+          f"arguments {pred['temp'] / 2**30:.4f} GiB (arguments {pred['args'] / 2**30:.4f} "
+          f"GiB), collectives {json.dumps(pred['coll'])} B, kernel launches "
+          f"{json.dumps(predicted)}, traced in {pred['t_trace_s']:.2f} s; rank 0 of the world "
+          f"on the card: {card['flops']:.6e} flops (equal {card['flops'] == pred['flops']}), "
+          f"peak above the arguments {card['peak_bytes'] / 2**30:.4f} GiB ({rel:+.4f} against "
+          f"the prediction; held to {DRYRUN_PEAK_TOL}), held {card['held_bytes'] / 2**30:.4f} "
+          f"GiB, collectives {json.dumps(card['coll'])} B (equal "
+          f"{card['coll'] == pred['coll']}), launches {json.dumps(card['launches'])}, tallied "
+          f"{json.dumps(card['tallied'])}", flush=True)
+    if card["flops"] != pred["flops"]:
+        raise AssertionError(f"{tag}: {card['flops']} flops on the card, {pred['flops']} "
+                             f"predicted")
+    if card["coll"] != pred["coll"]:
+        raise AssertionError(f"{tag}: collectives {card['coll']} on the card, {pred['coll']} "
+                             f"predicted")
+    if card["launches"] != predicted or card["tallied"] != predicted:
+        raise AssertionError(f"{tag}: launches {card['launches']}, tallied {card['tallied']}, "
+                             f"predicted {predicted}")
     if abs(rel) > DRYRUN_PEAK_TOL:
-        raise AssertionError(f"{tag}: peak {peak} B against the predicted {pred['temp']} B")
-    if not ok:
-        raise AssertionError(f"{tag}: the round's parameters or losses are not finite")
-    if launches != predicted or tallied != predicted:
-        raise AssertionError(f"{tag}: launches {launches}, tallied {tallied}, predicted "
-                             f"{predicted}")
-    return launches
+        raise AssertionError(f"{tag}: peak {card['peak_bytes']} B against the predicted "
+                             f"{pred['temp']} B")
+    if bits:
+        return {}
+    rec = dryrun.run_federated(ROUND_MODEL, ROUND_STEPS, 16, ROUND_SEQ, bits)
+    mem = rec["memory"]
+    print(f"dryrun grid round {ROUND_MODEL} 2 x 16 x 16 rank 0, {rec['shape']}: storage "
+          f"{rec['storage']}, argument_size {mem['argument_size']} B, argument_size_held "
+          f"{mem['argument_size_held']} B, temp_size {mem['temp_size'] / 2**30:.3f} GiB, "
+          f"{rec['flops']:.6e} flops, collectives {json.dumps(rec['collective_bytes'])} B, "
+          f"traced in {rec['t_trace_s']} s", flush=True)
+    if mem["argument_size"] != mem["argument_size_held"]:
+        raise AssertionError(f"dryrun grid round 2 x 16 x 16: rank 0 holds "
+                             f"{mem['argument_size_held']} B, its share is "
+                             f"{mem['argument_size']} B")
+    return {}
 
 
 def _dryrun_phase(device, sweeps):
@@ -3901,11 +4230,10 @@ def _dryrun_phase(device, sweeps):
     t = time.perf_counter()
     total: dict[str, int] = {}
     for launches in [_dryrun_step(device, *step) for step in DRYRUN_STEPS] + [
-            _dryrun_round(device, bits) for bits in (0, 8)]:
+            _dryrun_round(bits) for bits in (0, 8)]:
         for k, n in launches.items():
             total[k] = total.get(k, 0) + n
-    wanted = {"flash_attention_forward", "flash_attention_backward", "mamba_scan_forward",
-              "masked_weighted_sum"}
+    wanted = {"flash_attention_forward", "flash_attention_backward", "mamba_scan_forward"}
     if not all(total.get(k, 0) > 0 for k in wanted):
         raise AssertionError(f"dryrun: a kernel of the path never launched: {total}")
     for i, ((argv, n_records), (proc, started)) in enumerate(zip(DRYRUN_SWEEPS, sweeps)):
@@ -4129,7 +4457,11 @@ def main() -> int:
                         # x 16 mesh (dryrun:, traced): both pods' rows of the embedding's
                         # and head's, an FFN matrix's and an attention matrix's block
                         ((2, 8_048_640), torch.float32), ((2, 1_105_920), torch.float32),
-                        ((2, 409_600), torch.float32)]]
+                        ((2, 409_600), torch.float32),
+                        # the scaleout grid's largest block, the embedding's and the
+                        # head's at model 2: one pod's bf16 row of the exact round,
+                        # both pods' int8 rows of the quantized one
+                        ((1, 64_389_120), torch.bfloat16), ((2, 64_389_120), torch.float32)]]
     _check_aggregate_nan(device)
     k3 = [_check_flash(s, dt, w, ig, device) for s, dt, w, ig in [
         ((80, 64, 32, 32, 80), torch.float32, 0, 1.0),     # local SGD: m x batch sequences
@@ -4161,6 +4493,10 @@ def main() -> int:
           for s in MODAL_PROMPTS[model]),
         # the training launcher in bf16: stablelm, hymba (local layers)
         ((8, 128, 32, 32, 80), torch.bfloat16, 0, 1.0),
+        # the scaleout grid's rank at model 2, data 2: stablelm's 16 heads of
+        # its 4-sequence share, in bf16 and fp32
+        ((4, 128, 16, 16, 80), torch.bfloat16, 0, 1.0),
+        ((4, 128, 16, 16, 80), torch.float32, 0, 1.0),
         ((8, 128, 25, 5, 64), torch.bfloat16, 1024, 0.0),
     ]]
     k4 = [_check_mamba(s, g, dt, ck, device, fin) for s, g, dt, ck, fin in [
@@ -4228,6 +4564,7 @@ def main() -> int:
     moe_mesh_launches = _moe_mesh_phase(device)
     train_launches = _train_phase(device)
     scaleout_launches = _scaleout_phase(device)
+    grid_launches = _scaleout_grid_phase(device)
     dryrun_launches = _dryrun_phase(device, sweeps)
     analysis_launches = _analysis_phase(device, {"hymba": (attention, scan),
                                                  "stablelm": (attention,)})
@@ -4274,7 +4611,7 @@ def main() -> int:
                       + hymba_launches["masked_weighted_sum"]
                       + xlstm_launches["masked_weighted_sum"]
                       + scaleout_launches["masked_weighted_sum"]
-                      + dryrun_launches["masked_weighted_sum"]
+                      + grid_launches["masked_weighted_sum"]
                       + analysis_launches["masked_weighted_sum"]),
          "shape": k1[0]["shape"],
          **{k: k1[0][k] for k in keys + ("kernel_ms", "library_kernel_ms")}},
@@ -4288,6 +4625,7 @@ def main() -> int:
          + train_launches[f"flash_attention_{direction}"]
          + scaleout_launches[f"flash_attention_{direction}"]
          + dryrun_launches[f"flash_attention_{direction}"]
+         + grid_launches[f"flash_attention_{direction}"]
          + analysis_launches[f"flash_attention_{direction}"], "shape": k3[0]["shape"],
          **{k: k3[0][direction][k] for k in keys + ("kernel_ms",)}}
         for direction in ("forward", "backward")
@@ -4319,4 +4657,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--grid-child"]:
+        sys.exit(_grid_child_main())
     sys.exit(_kernel_only_child() if sys.argv[1:] == ["--kernel-only"] else main())

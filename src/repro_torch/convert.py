@@ -11,7 +11,8 @@ stretches of the flat vector make up each of the reference's leaves.
 For serving, ``serving_params_from_jax`` carries the reference's
 parameter tree over in the config's dtype (a bf16 tree too: each leaf
 crosses as float32 numpy, which holds every bf16 value exactly, and is
-cast back leaf by leaf), and ``cache_from_jax`` / ``cache_to_numpy``
+cast back leaf by leaf), ``blocks_from_jax`` cuts that tree into a
+rank's blocks under the baseline policy (storage sharding on a grid), and ``cache_from_jax`` / ``cache_to_numpy``
 carry a decode cache both ways, so both packages decode from the same
 weights and state.
 """
@@ -22,11 +23,11 @@ import numpy as np
 import torch
 
 from repro_torch.models.mlp import MLPLayout
-from repro_torch.models.transformer import TransformerLayout, cast_params
+from repro_torch.models.transformer import TransformerLayout, cast_params, param_blocks
 
 __all__ = ["leaf_segments", "params_from_jax", "params_to_numpy",
            "transformer_params_from_jax", "transformer_params_to_numpy",
-           "serving_params_from_jax", "cache_from_jax", "cache_to_numpy"]
+           "serving_params_from_jax", "blocks_from_jax", "cache_from_jax", "cache_to_numpy"]
 
 
 def params_from_jax(params) -> torch.Tensor:
@@ -80,6 +81,13 @@ def serving_params_from_jax(tree, cfg) -> dict:
     ported["layers"] = [_map_tree(lambda a, i=i: _f32(a[i]), tree["layers"])
                         for i in range(cfg.n_layers)]
     return cast_params(ported, getattr(torch, cfg.dtype))
+
+
+def blocks_from_jax(tree, cfg, mesh) -> dict:
+    """The reference's transformer tree -> this rank's blocks of the port's
+    serving tree on ``mesh`` (``serving_params_from_jax``, then
+    ``transformer.param_blocks``), on the CPU."""
+    return param_blocks(serving_params_from_jax(tree, cfg), cfg, mesh)
 
 
 def cache_from_jax(cache, cfg) -> dict:

@@ -17,16 +17,24 @@ and K1 sums the blocks as fp32 with those weights, onto the start.  Every
 pod's mean training loss is gathered over ``pod`` too.
 
 On a mesh of pods (``data = model = 1``) a block is a whole leaf.  On a
-grid (``data`` or ``model`` larger than 1) a process holds one pod, and
-every data and model rank of that pod trains the pod's replica on the
-pod's whole batch, as the reference's round leaves ``data`` and ``model``
-to GSPMD inside its manual ``pod`` map; the exact sum runs over the
-``pod`` subgroup at the rank's (data, model) coordinate.  The int8 round
-quantizes as the reference's second map, manual over ``pod`` and
-``model``, does: each rank takes its ``model`` block of each leaf under
-the baseline policy's storage spec (``sharding.model_block``), one scale a
-(leaf, model block), and after K1 the blocks are gathered over ``model``
-into the whole leaf that each rank holds.
+grid (``data`` or ``model`` larger than 1) a process holds one pod, as
+the reference's round is manual over ``pod`` and leaves ``data`` and
+``model`` to GSPMD inside each pod, and the exact sum runs over the
+``pod`` subgroup at the rank's (data, model) coordinate.  For the families
+of ``models.transformer.shards_storage`` (the dense attention models)
+each rank holds its block of every leaf under the baseline policy
+(``sharding.shard_tree``, the reference's ``P("pod", *spec)``) and trains
+on its ``data`` share of the pod's batch (the reference's ``P("pod",
+"data")``), tensor-parallel over ``model`` and data-parallel over
+``data`` (``loss_fn`` on ``mesh.in_pod()``): K1 sums the rank's blocks,
+and the int8 round quantizes the rank's block, one scale a (leaf,
+block), and keeps it, as the reference's second map (manual over ``pod``
+and ``model``) leaves its output split.  The other families hold every
+leaf whole on every rank and train on the pod's whole batch; their int8
+round quantizes each rank's ``model`` block of each leaf under the
+baseline policy's storage spec (``sharding.model_block``), one scale a
+(leaf, model block), and after K1 gathers the blocks over ``model`` into
+the whole leaf that each rank holds.
 """
 
 from __future__ import annotations
@@ -35,15 +43,21 @@ import torch
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 from repro_torch.kernels.aggregate import masked_weighted_sum
-from repro_torch.models.transformer import check_supported, loss_fn, transformer_specs
+from repro_torch.models.transformer import (
+    check_supported,
+    loss_fn,
+    shards_storage,
+    transformer_specs,
+)
 from repro_torch.sharding import make_policy, model_block, spec_leaves
 
 __all__ = ["make_federated_round", "stack_for_clients"]
 
 
 def stack_for_clients(params, n_clients: int):
-    """The parameter tree with a leading client axis of ``n_clients``:
-    views of each leaf, which local training never writes to."""
+    """The parameter tree (or a rank's blocks of it) with a leading client
+    axis of ``n_clients``: views of each leaf, which local training never
+    writes to."""
     return tree_map(lambda p: p.unsqueeze(0).expand(n_clients, *p.shape), params)
 
 
@@ -51,14 +65,19 @@ def make_federated_round(cfg, mesh, lr: float, local_steps: int = 4, compress_bi
     """``round_fn(stacked_params, batch, weights) -> (new_stacked_params,
     losses)``.
 
-    ``stacked_params``: the parameter tree (``init_params``'s), each leaf
-    whole with a leading axis of this process's pods (``len(mesh.pods)``,
-    1 on a grid; ``stack_for_clients``).  ``batch``: ``loss_fn``'s dict,
-    each tensor with the same leading axis.  ``weights``: (n_pods,) fp32
-    FedAvg weights of every pod (zero: not selected), on the parameters'
-    device.
-    Returns the aggregated tree, the same for every pod (views of one
-    leaf a leaf), and the (n_pods,) fp32 mean training losses.
+    ``stacked_params``: the parameter tree (``init_params``'s) with a
+    leading axis of this process's pods (``len(mesh.pods)``, 1 on a grid;
+    ``stack_for_clients``), each leaf whole or, on a grid for the families
+    that shard (``shards_storage``), the rank's block of it
+    (``sharding.shard_tree``).  ``batch``: ``loss_fn``'s dict, each
+    tensor with the same leading axis, then the pod's rows (the rank's
+    ``data`` share of them where the leaves are blocks).  ``weights``:
+    (n_pods,) fp32 FedAvg weights of every pod (zero: not selected), or
+    (``len(mesh.pods)``,), this process's pods' own (the reference's
+    ``P("pod")`` share), on the parameters' device.
+    Returns the aggregated tree (the rank's blocks where it took blocks),
+    the same for every pod (views of one leaf a leaf), and the (n_pods,)
+    fp32 mean training losses, each over its pod's whole batch.
     ``compress_bits``: 0 = the exact fp32 weighted sum; 2 to 8 = the
     quantized deltas, one scale a leaf (a grid: a leaf and model block)."""
     check_supported(cfg, tree=True)
@@ -69,12 +88,14 @@ def make_federated_round(cfg, mesh, lr: float, local_steps: int = 4, compress_bi
         raise ValueError(f"compress_bits must be 0 (off) or in [2, 8], got {compress_bits}")
     n_pods, n_local = mesh.shape["pod"], len(mesh.pods)
     qmax = 2 ** (compress_bits - 1) - 1 if compress_bits else 0
+    sharded = shards_storage(cfg, mesh)
+    inner = mesh.in_pod() if sharded else None
 
     def local_sgd(leaves, spec, batch):
         losses = []
         for _ in range(local_steps):
             leaves = [p.detach().requires_grad_(True) for p in leaves]
-            loss, _ = loss_fn(tree_unflatten(leaves, spec), cfg, batch)
+            loss, _ = loss_fn(tree_unflatten(leaves, spec), cfg, batch, inner, sharded=sharded)
             # a leaf the loss does not reach gets a zero gradient
             grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
             with torch.no_grad():
@@ -100,11 +121,14 @@ def make_federated_round(cfg, mesh, lr: float, local_steps: int = 4, compress_bi
         if any(x.shape[0] != n_local for x in leaves):
             raise ValueError(f"this process holds {n_local} pods; the stacked parameters' "
                              f"leading axes are {sorted({x.shape[0] for x in leaves})}")
-        if weights.shape != (n_pods,):
-            raise ValueError(f"weights must be ({n_pods},), one a pod; got {tuple(weights.shape)}")
-        w = weights[mesh.pods.start:mesh.pods.stop].to(torch.float32).contiguous()
-        blocks = [None] * len(leaves)
-        if compress_bits and mesh.grid:
+        if weights.shape == (n_pods,):
+            weights = weights[mesh.pods.start:mesh.pods.stop]
+        elif weights.shape != (n_local,):
+            raise ValueError(f"weights must be ({n_pods},), one a pod, or ({n_local},), this "
+                             f"process's pods'; got {tuple(weights.shape)}")
+        w = weights.to(torch.float32).contiguous()
+        blocks = [None] * len(leaves)     # the rank quantizes (and keeps) what it holds
+        if compress_bits and mesh.grid and not sharded:
             shapes = tree_map(lambda x: x[0], stacked_params)
             blocks = [model_block(mesh, sp, tuple(x.shape[1:])) for sp, x in zip(
                 spec_leaves(make_policy(mesh, 0).shardings(transformer_specs(cfg), shapes)),

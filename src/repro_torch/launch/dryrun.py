@@ -48,11 +48,17 @@ Counting rules:
   arguments, along the chosen path (outputs included).
   ``memory.argument_size`` is one device's share of the arguments under
   the reference's layout (``sharding.shard_bytes`` of each argument);
-  ``memory.argument_size_held`` what a port rank holds today, every
-  argument whole.  On the production meshes every port rank computes the
-  replicated values of the whole batch, so ``temp_size`` and
-  ``argument_size_held`` show what the port needs now; the gap to
-  ``argument_size`` is what storage sharding would save.
+  ``memory.argument_size_held`` what the port's rank holds.  ``storage``
+  says which: ``"sharded"`` where the rank holds its blocks and its batch
+  share (the ``train`` step and the federated round of the families that
+  ``models.transformer.shards_storage`` names, under the baseline policy
+  on a grid: the arguments are those blocks, the held bytes equal
+  ``argument_size``, and ``temp_size`` is the tensor-parallel step's);
+  ``"whole"`` where it holds every argument whole and computes the
+  replicated values of the whole batch (prefill and decode, the other
+  families, the ``fsdp`` variant), so that ``temp_size`` and
+  ``argument_size_held`` show what that path needs and the gap to
+  ``argument_size`` is what sharding its storage would save.
 - ``collective_bytes`` are the dry mesh's collectives by the reference's
   kind names, each counted at its result's size (for an all-gather the
   gathered tensor), as the reference's ``collective_bytes`` counts them.
@@ -91,10 +97,12 @@ from repro_torch.models.transformer import (
     decode_step,
     init_cache,
     loss_fn,
+    param_blocks,
     prefill,
+    shards_storage,
     transformer_specs,
 )
-from repro_torch.sharding import make_policy, shard_bytes, shard_shape, spec_leaves
+from repro_torch.sharding import make_policy, shard_bytes, shard_shape, shard_tree, spec_leaves
 
 __all__ = ["build_step", "trace", "count_flops", "probe_costs", "trace_step", "run_one",
            "build_federated", "run_federated", "main"]
@@ -127,6 +135,21 @@ def _held_bytes(tree) -> int:
     return sum(storages.values())
 
 
+def step_storage(cfg, mesh, kind: str, policy_variant: str = "baseline") -> str:
+    """``"sharded"`` where a rank of ``mesh`` holds its blocks of the
+    arguments of a ``kind`` step (``train`` or the federated round, under
+    the baseline policy, for the families of ``shards_storage``), else
+    ``"whole"``."""
+    sharded = (kind in ("train", "federated_round") and policy_variant == "baseline"
+               and shards_storage(cfg, mesh))
+    return "sharded" if sharded else "whole"
+
+
+def _local(tree):
+    """The specs of a rank's blocks: each is what the rank holds, ``()``."""
+    return tree_map(lambda _: (), tree)
+
+
 def build_step(cfg, mesh, shape, lr: float = 1e-3, policy_variant: str = "baseline"):
     """(fn, args, (in_specs, out_specs), donate) for ``shape``'s kind, as the
     reference's ``build_step``: ``args`` are ``meta`` tensors, the specs
@@ -143,7 +166,10 @@ def build_step(cfg, mesh, shape, lr: float = 1e-3, policy_variant: str = "baseli
 
     The ``fsdp`` variant sets ``act_shard="dp_all"`` where the config has
     none, and a batch-1 decode moves the data axes to the sequence, as in
-    the reference."""
+    the reference.  Where ``step_storage`` says ``"sharded"``, ``args``
+    are the rank's blocks of the parameters (``param_blocks``) and its
+    share of the batch, and each spec is ``()``: the rank holds exactly
+    its share of the reference's layout."""
     if policy_variant == "fsdp" and not cfg.act_shard:
         cfg = replace(cfg, act_shard="dp_all")
     policy = make_policy(mesh, shape.global_batch,
@@ -159,10 +185,15 @@ def build_step(cfg, mesh, shape, lr: float = 1e-3, policy_variant: str = "baseli
         bshard = {k: policy.spec_for(bspec[k], tuple(batch[k].shape)) for k in batch}
 
     if shape.kind == "train":
+        sharded = step_storage(cfg, mesh, "train", policy_variant) == "sharded"
+        if sharded:
+            params, batch = param_blocks(params, cfg, mesh), shard_tree(batch, bshard, mesh)
+            pshard, bshard = _local(params), _local(batch)
+
         def train_step(params, batch):
             leaves, spec = tree_flatten(params)
             leaves = [p.detach().requires_grad_(True) for p in leaves]
-            loss, _ = loss_fn(tree_unflatten(leaves, spec), cfg, batch, mesh)
+            loss, _ = loss_fn(tree_unflatten(leaves, spec), cfg, batch, mesh, sharded=sharded)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
             with torch.no_grad():
                 for p, g in zip(leaves, grads):
@@ -391,6 +422,7 @@ def trace_step(cfg, mesh, shape, policy_variant: str = "baseline", path: str = "
     fn, args, (in_specs, _), _ = build_step(cfg, mesh, shape, policy_variant=policy_variant)
     traced = trace(fn, args, path)
     rec = {"n_devices": mesh.size(), "kind": shape.kind, "path": path,
+           "storage": step_storage(cfg, mesh, shape.kind, policy_variant),
            **_record(traced, _argument_size(mesh, in_specs, args)), "ops": traced["ops"]}
     rec["probes"] = None
     if probes:
@@ -428,15 +460,24 @@ def build_federated(cfg, mesh, local_steps: int = 4, batch_per_client: int = 128
     ``mesh`` (a dry one): ``args`` are ``meta`` tensors, the parameters
     stacked over the rank's pods and their training batches of
     ``batch_per_client`` x ``seq`` positions each (``input_specs``: tokens,
-    frames, or patches and tokens), and the (n_pods,) weights."""
+    frames, or patches and tokens), and the (n_pods,) weights.  Where
+    ``step_storage`` says ``"sharded"`` the parameters are the rank's
+    blocks (``param_blocks``), each pod's batch its ``data`` share and the
+    weights its pods' own: the rank's share of the reference's layout."""
     from repro_torch.federated.scaleout import make_federated_round, stack_for_clients
 
     n_local = len(mesh.pods)
-    params = stack_for_clients(abstract_params(cfg), n_local)
+    whole = abstract_params(cfg)
     one = input_specs(cfg, InputShape("fedround", seq, batch_per_client, "train"))
     batch = {k: torch.empty((n_local, *t.shape), dtype=t.dtype, device="meta")
              for k, t in one.items()}
-    weights = torch.empty((mesh.shape["pod"],), dtype=torch.float32, device="meta")
+    if step_storage(cfg, mesh, "federated_round") == "sharded":
+        whole = param_blocks(whole, cfg, mesh)
+        batch = shard_tree(batch, {k: (None, "data") for k in batch}, mesh)
+    params = stack_for_clients(whole, n_local)
+    n_weights = n_local if step_storage(cfg, mesh, "federated_round") == "sharded" else \
+        mesh.shape["pod"]
+    weights = torch.empty((n_weights,), dtype=torch.float32, device="meta")
     round_fn = make_federated_round(cfg, mesh, lr=lr, local_steps=local_steps,
                                     compress_bits=compress_bits)
     return round_fn, (params, batch, weights)
@@ -449,37 +490,39 @@ def run_federated(arch: str, local_steps: int = 4, batch_per_client: int = 128,
     (``make_production_mesh(multi_pod=True, dry=True)``): one pod a
     process, ``local_steps`` of SGD on its pod's batch of
     ``batch_per_client`` x ``seq`` tokens, K1 over its row, then the sum
-    over ``pod`` (an all-reduce); with ``compress_bits`` the rank's model
-    block of each leaf quantized, its int8 rows and ``scale * w`` gathered
-    over ``pod`` and the summed blocks gathered over ``model``.  The
-    collectives are tallied under the reference's kind names.
-    ``argument_size`` is one device's share under the reference's layout
-    (each leaf ``("pod", *storage spec)``, the batch over ``pod`` and
-    ``data``, the weights over ``pod``); ``argument_size_held`` the port
-    rank's, every leaf and its pod's batch whole."""
+    over ``pod`` (an all-reduce); with ``compress_bits`` the rank's block
+    of each leaf quantized, its int8 rows and ``scale * w`` gathered over
+    ``pod`` (and, where the rank holds every leaf whole, the summed blocks
+    gathered over ``model``).  The collectives are tallied under the
+    reference's kind names.  ``argument_size`` is one device's share under
+    the reference's layout (each leaf ``("pod", *storage spec)``, the batch
+    over ``pod`` and ``data``, the weights over ``pod``);
+    ``argument_size_held`` the port rank's: that share where ``storage``
+    is ``"sharded"``, else every leaf and its pod's batch whole."""
     cfg = get_config(arch)
     mesh = make_production_mesh(multi_pod=True, dry=True)
     n_pods = mesh.shape["pod"]
     round_fn, args = build_federated(cfg, mesh, local_steps, batch_per_client, seq,
                                      compress_bits)
-    params, batch, weights = args
     traced = trace(round_fn, args, path)
+    whole = abstract_params(cfg)
     policy = make_policy(mesh, batch_per_client * n_pods)
-    inner = spec_leaves(policy.shardings(transformer_specs(cfg),
-                                         tree_map(lambda p: p[0], params)))
+    inner = spec_leaves(policy.shardings(transformer_specs(cfg), whole))
 
     # the reference's arguments are every pod's: one device's share of the
     # (n_pods, ...) leaves, batch and weights
     def share(spec, leaf):
-        whole = (n_pods, *leaf.shape[1:])
-        return math.prod(shard_shape(mesh, spec, whole)) * leaf.element_size()
+        return math.prod(shard_shape(mesh, spec, (n_pods, *leaf.shape))) * leaf.element_size()
 
-    arg_size = sum(share(("pod", *sp), leaf) for sp, leaf in zip(inner, _tensors(params)))
-    arg_size += sum(share(("pod", "data"), t) for t in batch.values()) + share(("pod",), weights)
+    one = input_specs(cfg, InputShape("fedround", seq, batch_per_client, "train"))
+    arg_size = sum(share(("pod", *sp), leaf) for sp, leaf in zip(inner, _tensors(whole)))
+    arg_size += sum(share(("pod", "data"), t) for t in one.values())
+    arg_size += share(("pod",), args[2][0])
     return {
         "arch": arch, "config_name": cfg.name,
         "shape": f"fedround_b{batch_per_client}x{seq}_E{local_steps}_q{compress_bits}",
         "mesh": "multi", "n_devices": mesh.size(), "kind": "federated_round", "path": path,
+        "storage": step_storage(cfg, mesh, "federated_round"),
         **_record(traced, arg_size),
     }
 

@@ -12,12 +12,14 @@ over all axes, over ``model``, or over the data axes (every axis but
   one device each, and rank r sits at the coordinates of r in row-major
   order over ("pod", "data", "model"), as ``jax.make_mesh`` lays out host
   devices.  One process subgroup is made for each combination of axes
-  that the MoE and the scale-out round reduce over (all axes, ``model``,
-  the data axes, ``pod``); every rank makes every group, in the same
-  order, as ``dist.new_group`` requires.  The scale-out round runs on a
-  grid one pod a process: every data and model rank of a pod trains that
-  pod's replica, and the round sums over ``pod`` at a fixed (data, model)
-  coordinate.
+  that the MoE, the sharded layers and the scale-out round reduce over
+  (all axes, ``model``, the data axes, ``pod``, and with a ``pod`` axis
+  ``data``, the data axis inside one pod); every rank makes
+  every group, in the same order, as ``dist.new_group`` requires.  The
+  scale-out round runs on a grid one pod a process row: the data and
+  model ranks of a pod train that pod's replica (``in_pod``: the mesh as
+  the round's body sees it, manual over ``pod``), and the round sums over
+  ``pod`` at a fixed (data, model) coordinate.
 - **pods blocked over the world** (``data = model = 1``): ``pod`` pods over
   the processes of the default process group, each process holding
   ``pod / world`` consecutive pods (the world may be smaller than
@@ -28,9 +30,11 @@ Without an initialised process group the world is this one process: a
 grid of one device (``data = model = 1``, the card's), or every pod.
 
 The collectives run on the process group as it was initialised: its
-backend must be the one the tensors' device calls for (``backend_for``:
-NCCL for CUDA tensors, gloo for CPU tensors), else they raise; the port
-never swaps one for the other.  ``init_process_group`` is left to the
+backend must be one the tensors' device can use (``backend_for``: NCCL
+for CUDA tensors, gloo for CPU tensors; gloo also takes CUDA tensors,
+where the caller initialised gloo, e.g. for several processes on one
+card, which NCCL refuses), else they raise; the port never swaps one
+for the other.  ``init_process_group`` is left to the
 caller, with an explicit address, world size and rank (nothing on a
 one-host machine announces a cluster).
 
@@ -39,24 +43,27 @@ rank 0 of a world of pod x data x model processes (``pod`` of them for a
 mesh of pods) that is not there: no process group, the axes, coordinates
 and subgroups that rank 0 would have.  Its collectives take ``meta``
 tensors only (the dry run, ``repro_torch.launch.dryrun``): each returns
-the shape it would return and adds its result bytes to the active work
-tallies (``kernels.build.work_tally``) under the reference's kind names,
-as the reference's dry run counts them (the result's size: for an
-all-reduce the reduced tensor, for an all-gather the gathered one),
-forward and, for ``grad_sum``, backward.
+the shape it would return.  A dry and a real group alike add each
+collective's result bytes to the active work tallies
+(``kernels.build.work_tally``) under the reference's kind names, as the
+reference's dry run counts them (the result's size: for an all-reduce
+the reduced tensor, for an all-gather the gathered one), forward and,
+for ``grad_sum``, backward: a card's run is counted as its prediction.
 
-Every rank of a grid computes the same replicated values and holds the
-whole parameter tree; the reductions carry gradients so that each rank's
-backward ends with the whole gradient: ``all_reduce_sum`` (the ``psum``
-of partial outputs: the cotangent, replicated, passes to each rank's part
+The reductions carry gradients so that each rank's backward ends with
+the gradient of what it holds: ``all_reduce_sum`` (the ``psum`` of
+partial outputs: the cotangent, replicated, passes to each rank's part
 unchanged), ``all_reduce_mean`` (the ``pmean``), ``all_gather`` (each
 rank's piece takes its slice of the cotangent) and ``grad_sum`` (the
 identity forward, whose backward sums the partial gradients of a
 replicated value that each rank used for its own part).
+``all_reduce_max`` takes no gradient (the cross-entropy's row maximum, a
+shift that cancels).
 """
 
 from __future__ import annotations
 
+import copy
 import math
 
 import torch
@@ -86,12 +93,12 @@ def _group_rank(group) -> int:
     return group.rank if isinstance(group, _DryGroup) else dist.get_rank(group)
 
 
-def _all_reduce(t: torch.Tensor, group) -> None:
-    """Sum ``t`` over ``group`` in place (a dry group: tally its bytes)."""
-    if isinstance(group, _DryGroup):
-        tally_collective("all-reduce", t.numel() * t.element_size())
-    else:
-        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+def _all_reduce(t: torch.Tensor, group, op=None) -> None:
+    """Sum ``t`` (or its ``op``) over ``group`` in place, its bytes tallied
+    (a dry group: only tallied)."""
+    tally_collective("all-reduce", t.numel() * t.element_size())
+    if not isinstance(group, _DryGroup):
+        dist.all_reduce(t, op=op or dist.ReduceOp.SUM, group=group)
 
 
 def backend_for(device: torch.device | str) -> str:
@@ -158,15 +165,17 @@ class Mesh:
         return {name: coords[name] for name in self.axis_names}
 
     def _make_groups(self) -> None:
-        """One subgroup for each set of axes that the MoE reduces over
-        (all axes, ``model``, the data axes) and for ``pod`` (the scale-out
-        round's sum), made on every rank in the same order; a set whose
-        group would be one process gets none (a dry mesh makes rank 0's
-        groups alone, without processes)."""
+        """One subgroup for each set of axes that the MoE and the sharded
+        layers reduce over (all axes, ``model``, the data axes), for
+        ``pod`` (the scale-out round's sum) and, with a ``pod`` axis, for
+        ``data`` (the data axis inside one pod), made on every rank in the
+        same order; a set whose group would be one process gets none (a dry
+        mesh makes rank 0's groups alone, without processes)."""
         names = self.axis_names
         backend = None if self.dry else dist.get_backend()
         pod = ("pod",) if "pod" in names else ()
-        for axes in (names, ("model",), tuple(a for a in names if a != "model"), pod):
+        in_pod = ("data",) if pod else ()
+        for axes in (names, ("model",), tuple(a for a in names if a != "model"), pod, in_pod):
             if self.size(axes) == 1:
                 continue
             if self.dry:
@@ -180,6 +189,19 @@ class Mesh:
                 g = dist.new_group(ranks, backend=backend)
                 if self.rank in ranks:
                     self._groups[frozenset(axes)] = g
+
+    def in_pod(self) -> "Mesh":
+        """This grid as the scale-out round's body sees it, manual over
+        ``pod``: the data and model axes of this rank's pod (the same
+        process groups), whose data axes leave ``pod`` out (the sharded
+        loss reduces over ``model`` and ``data``)."""
+        if not self.grid or "pod" not in self.shape:
+            raise ValueError(f"in_pod takes a grid with a 'pod' axis; this mesh is {self.shape}")
+        inner = copy.copy(self)
+        inner.shape = {a: n for a, n in self.shape.items() if a != "pod"}
+        inner.axis_names = tuple(inner.shape)
+        inner.coords = {a: i for a, i in self.coords.items() if a != "pod"}
+        return inner
 
     def size(self, axes=None) -> int:
         """The number of devices on ``axes`` (all axes for None)."""
@@ -219,7 +241,7 @@ class Mesh:
                                    f"tensors; got a {t.device.type} tensor")
             return
         backend = dist.get_backend(self.group)
-        if backend != backend_for(t.device):
+        if backend != backend_for(t.device) and not (backend == "gloo" and t.is_cuda):
             raise RuntimeError(
                 f"the process group's backend is {backend!r} but {t.device.type} tensors need "
                 f"{backend_for(t.device)!r}; initialise the group for the tensors' device")
@@ -247,6 +269,17 @@ class Mesh:
         if self._group(axes) is None:
             return t
         return self.all_reduce_sum(t.clone(), axes) / self.size(axes)
+
+    def all_reduce_max(self, t: torch.Tensor, axes=None) -> torch.Tensor:
+        """``t``'s elementwise maximum over the processes of ``axes``, in
+        place (``t`` itself), with no gradient; the identity where the axes
+        hold one process."""
+        group = self._group(axes)
+        if group is None:
+            return t
+        self._check(t)
+        _all_reduce(t, group, dist.ReduceOp.MAX)
+        return t
 
     def grad_sum(self, t: torch.Tensor, axes=None) -> torch.Tensor:
         """``t`` itself forward; backward, its gradient summed over the
@@ -301,9 +334,8 @@ class _Gather(torch.autograd.Function):
         n, ctx.dim = _group_size(group), dim
         ctx.rank, ctx.size = _group_rank(group), t.shape[dim]
         parts = [torch.empty_like(t) for _ in range(n)]
-        if isinstance(group, _DryGroup):
-            tally_collective("all-gather", n * t.numel() * t.element_size())
-        else:
+        tally_collective("all-gather", n * t.numel() * t.element_size())
+        if not isinstance(group, _DryGroup):
             dist.all_gather(parts, t, group=group)
         return torch.cat(parts, dim)
 

@@ -45,15 +45,16 @@ def make_train_step(cfg, optimizer, mesh=None):
     ``apply_updates``.  The optimizer state advances in place and the
     parameters come back as a new tree, as the reference's step donates
     both; pass each step the previous step's outputs.  Under a mesh of
-    several processes each passes the same batch and ends with the same
-    gradient, so their trees stay equal."""
+    several processes each holds every leaf whole (the global-norm clip
+    and AdamW do not run on blocks yet), passes the same batch and ends
+    with the same gradient, so their trees stay equal."""
     check_supported(cfg, tree=True)
 
     def step(params, opt_state, batch):
         leaves, spec = tree_flatten(params)
         leaves = [p.detach().requires_grad_(True) for p in leaves]
         params = tree_unflatten(leaves, spec)
-        loss, metrics = loss_fn(params, cfg, batch, mesh)
+        loss, metrics = loss_fn(params, cfg, batch, mesh, sharded=False)
         # a leaf the step does not reach (an xLSTM layer runs one of its two
         # cores) gets a zero gradient, as the reference's where-selection
         # gives it

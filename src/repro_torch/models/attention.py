@@ -32,6 +32,35 @@ full sequence and for decode.
 
 Sliding-window blending: layer heterogeneity enters through the scalar
 ``is_global`` flag, as in the reference.
+
+``gqa_attention(..., tp=mesh)`` runs on a rank's blocks of the weights
+(``sharding.shard_tree`` under the baseline policy: ``wq``, ``wk``, ``wv``
+split by columns and ``wo`` by rows over ``model``, as the reference's
+``gqa_specs`` name them all "heads"), tensor-parallel over ``model``,
+with one of three rules:
+
+- **whole heads** (the ``wq`` block is ``n_heads / model`` whole heads
+  and the ``wk`` / ``wv`` blocks exactly the kv heads those q heads use):
+  K3 on the rank's heads, ``wo``'s row block gives a partial output that
+  is summed over ``model``; the qk-norm scales, replicated, are used by
+  each rank for its own heads, so their gradients are summed over
+  ``model``;
+- **q on whole heads, kv not** (the kv blocks split a head): ``wk`` and
+  ``wv`` are gathered whole for the layer, their gradients summed over
+  ``model`` before each rank takes its slice, and each rank projects the
+  kv heads its q heads use (one kv head a q head where the groups do not
+  fall evenly on the rank), then as above;
+- **q not on whole heads**: every projection is gathered whole and the
+  layer is computed replicated over ``model`` (each rank's gradient is
+  then the whole one, and it keeps its slice).
+
+At 2 x 16 x 16 (model 16): stablelm-3b (32 heads, 32 kv) and gemma3-27b
+(32, 16 kv) split on whole heads; glm4-9b's 32 q heads split on whole
+heads and its 2 kv heads at 1/8 of a head (the second rule); qwen3-14b's
+40 q heads fall at 2.5 heads a rank (the third).  On the test grids
+(model 2, the reduced configs' 4 heads) all four split on whole heads;
+the tests' micro configs take the other two rules (3 heads; 4 heads
+over 1 kv head).
 """
 
 from __future__ import annotations
@@ -42,7 +71,16 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.common import apply_rope, lecun_init, linear, per_client, rms_norm
+from repro_torch.models.common import (
+    apply_rope,
+    column_in,
+    gather_whole,
+    lecun_init,
+    linear,
+    per_client,
+    rms_norm,
+    row_out,
+)
 
 __all__ = ["init_gqa", "gqa_shapes", "gqa_specs", "gqa_attention", "gqa_decode", "init_mla",
            "mla_shapes", "mla_specs", "mla_attention", "mla_decode", "naive_attention",
@@ -109,11 +147,13 @@ def init_gqa(generator: torch.Generator, cfg) -> dict[str, torch.Tensor]:
     return p
 
 
-def _project_qkv(p, cfg, x, sin, cos):
+def _project_qkv(p, cfg, x, sin, cos, heads=None):
     """x (..., S, d) -> q (N, S, H, hd), k and v (N, S, KV, hd), the leading
-    axes (client and batch) folded into N."""
+    axes (client and batch) folded into N; ``heads`` = (H, KV) where the
+    weights hold fewer than the config's (a rank's blocks)."""
     s = x.shape[-2]
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    h, kv = heads or (cfg.n_heads, cfg.n_kv_heads)
+    hd = cfg.resolved_head_dim
     q = linear(x, p["wq"]).reshape(-1, s, h, hd)
     k = linear(x, p["wk"]).reshape(-1, s, kv, hd)
     v = linear(x, p["wv"]).reshape(-1, s, kv, hd)
@@ -133,16 +173,58 @@ def _head_vec(scale: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return scale.repeat_interleave(t.shape[0] // m, dim=0)[:, None, None, :]
 
 
-def gqa_attention(p, cfg, x, sin, cos, is_global=1.0):
+def gqa_attention(p, cfg, x, sin, cos, is_global=1.0, tp=None):
     """Full sequence (training, poll, evaluation and prefill): x (..., S, d)
     with weights shared, or x (m, B, S, d) with weights one set per client
     -> (out (..., S, d), (k, v) (..., S, KV, hd)), k rotated as the cache
-    holds it."""
+    holds it.  ``tp``: the mesh whose ``model`` axis splits ``p`` (a rank's
+    blocks; x replicated over ``model``); k and v are then the rank's."""
+    if tp is not None:
+        return _gqa_blocks(p, cfg, x, sin, cos, is_global, tp)
     q, k, v = _project_qkv(p, cfg, x, sin, cos)
     o = flash_attention(q, k, v, cfg.sliding_window, is_global)
     kv_shape = (*x.shape[:-1], *k.shape[-2:])
     return linear(o.reshape(*x.shape[:-1], -1), p["wo"]), (k.reshape(kv_shape),
                                                             v.reshape(kv_shape))
+
+
+def _gqa_blocks(p, cfg, x, sin, cos, is_global, mesh):
+    """``gqa_attention`` on a rank's blocks, by the rules of the module's
+    docstring."""
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    m, r = mesh.shape["model"], mesh.axis_index("model")
+    split = {k: p[k].shape[0 if k == "wo" else 1] != n * hd
+             for k, n in (("wq", h), ("wo", h), ("wk", kv), ("wv", kv))}
+    if not (split["wq"] and split["wo"]) or h % m:
+        whole = dict(p)
+        for k in ("wq", "wk", "wv", "wo"):
+            if split[k]:
+                whole[k] = gather_whole(p[k], mesh, 0 if k == "wo" else 1)
+        return gqa_attention(whole, cfg, x, sin, cos, is_global)
+    hl, g = h // m, h // kv
+    a = r * hl
+    lo, hi = a // g, (a + hl - 1) // g + 1       # the kv heads the rank's q heads use
+    x = column_in(x, mesh)
+    pl = {"wq": p["wq"]}
+    for k in ("wk", "wv"):
+        if split[k] and kv % m == 0:             # the block is [lo, hi)
+            pl[k] = p[k]
+        else:
+            w = gather_whole(p[k], mesh, 1, partial=True) if split[k] else \
+                mesh.grad_sum(p[k], "model")
+            pl[k] = w[:, lo * hd:hi * hd]
+    for k in ("q_norm", "k_norm"):
+        if k in p:
+            pl[k] = mesh.grad_sum(p[k], "model")
+    q, k, v = _project_qkv(pl, cfg, x, sin, cos, heads=(hl, hi - lo))
+    n = hi - lo
+    idx = [(a + i) // g - lo for i in range(hl)]
+    if hl % n or idx != [i // (hl // n) for i in range(hl)]:
+        k, v = k[:, :, idx], v[:, :, idx]        # one kv head a q head
+    o = flash_attention(q, k, v, cfg.sliding_window, is_global)
+    kv_shape = (*x.shape[:-1], *k.shape[-2:])
+    out = row_out(linear(o.reshape(*x.shape[:-1], -1), p["wo"]), mesh)
+    return out, (k.reshape(kv_shape), v.reshape(kv_shape))
 
 
 def decode_attention(q, k_cache, v_cache, pos: int, window: int = 0,

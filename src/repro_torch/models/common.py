@@ -10,6 +10,17 @@ x0 s + x1 c)`` of the leading ``rope_fraction`` of the head dims.
 Weights arrive either shared by the whole batch or with a leading client
 axis m (a cohort of m models, one per client): ``linear`` and
 ``per_client`` are the two places where the difference shows.
+
+A rank that holds its blocks of the weights (``sharding.shard_tree``)
+computes a layer tensor-parallel over the mesh's ``model`` axis with the
+Megatron primitives: ``column_in`` on the activation, replicated over
+``model``, that feeds column blocks (the identity forward; backward, the
+ranks' partial gradients summed), ``row_out`` on a row block's partial
+output (summed over ``model``; backward, the identity), and
+``gather_whole`` for a leaf whose split does not fall on a head
+boundary: gathered whole over ``model`` for the layer (backward, the
+rank's slice of the gradient; with ``partial``, the ranks' gradients
+summed first, where each rank uses the whole leaf for its own part).
 """
 
 from __future__ import annotations
@@ -29,6 +40,9 @@ __all__ = [
     "lecun_init",
     "linear",
     "per_client",
+    "column_in",
+    "row_out",
+    "gather_whole",
 ]
 
 
@@ -140,3 +154,24 @@ def per_client(p: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     if p.ndim == 1:
         return p
     return p.reshape(p.shape[0], *([1] * (x.ndim - 2)), p.shape[-1])
+
+
+def column_in(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The replicated activation that feeds column blocks: ``x`` forward,
+    its gradient summed over ``model`` backward (``Mesh.grad_sum``)."""
+    return mesh.grad_sum(x, "model")
+
+
+def row_out(y: torch.Tensor, mesh) -> torch.Tensor:
+    """A row block's partial output summed over ``model``
+    (``Mesh.all_reduce_sum``; backward, the cotangent passes through)."""
+    return mesh.all_reduce_sum(y, "model")
+
+
+def gather_whole(w: torch.Tensor, mesh, dim: int, partial: bool = False) -> torch.Tensor:
+    """A leaf's ``model`` blocks gathered whole along ``dim``
+    (``Mesh.all_gather``; backward, the rank's slice of its gradient).
+    ``partial``: each rank uses the whole leaf for its own part of a sum,
+    so the gradient is summed over ``model`` before it is sliced."""
+    w = mesh.all_gather(w, "model", dim=dim)
+    return mesh.grad_sum(w, "model") if partial else w

@@ -64,6 +64,25 @@ by the loss mask and divided by its sum, each chunk's logits in fp32
 and, with ``cfg.mtp``, the MTP head's weighted cross-entropy against the
 labels shifted by one more position.
 
+Storage sharding: on a grid (``data`` or ``model`` larger than 1) the
+families of ``shards_storage`` (the dense attention models with token
+inputs) take a rank's blocks of every leaf under the baseline policy
+(``sharding.shard_tree``) and the rank's ``data`` share of the batch,
+as the reference's layout puts them on a device, and compute
+tensor-parallel over ``model`` (``forward(..., tp=mesh)``): GQA on the
+rank's heads (``attention.gqa_attention``'s rules), the MLP's
+``w_gate`` / ``w_up`` column blocks and ``w_down`` row block with the
+output summed over ``model``, the vocab-parallel embedding (a token
+outside the rank's rows reads zero; the rows summed over ``model``; the
+tied table's sqrt(d) after the sum, in the table's type) and the
+vocab-parallel cross-entropy, chunk by chunk (local fp32 logits (..., c,
+V / model), the row maximum, the sum of exponentials and the gold logit
+each over ``model``; the tied head is the embedding's block transposed).
+The loss divides by the mask's sum over the data axes, and every leaf,
+replicated over them, takes its gradient summed over them: each rank's
+backward ends with the gradient of its blocks for the mean over the
+whole batch.  The other families hold every leaf whole on every rank.
+
 Serving (``init_params``, ``init_cache``, ``prefill``, ``decode_step``) and
 the training launcher run the model in the config's dtype, bf16 at full
 size as the reference trains and serves it: ``init_params`` builds the
@@ -85,6 +104,7 @@ import math
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_map
 
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -102,16 +122,18 @@ from repro_torch.models.attention import (
 )
 from repro_torch.models.common import (
     activation,
+    column_in,
     layer_norm,
     lecun_init,
     linear,
     per_client,
     rms_norm,
     rope_table,
+    row_out,
 )
 
 __all__ = [
-    "TransformerLayout", "check_supported", "layer_flags", "init_transformer", "init_params",
+    "TransformerLayout", "check_supported", "shards_storage", "param_blocks", "layer_flags", "init_transformer", "init_params",
     "abstract_params",
     "transformer_specs", "cast_params", "embed_inputs", "forward", "output_head",
     "chunked_logits_sum", "token_nll", "loss_fn", "init_cache", "cache_specs", "prefill",
@@ -123,7 +145,8 @@ def check_supported(cfg, tree: bool = False) -> None:
     """Raise for what the port does not run: the flat fp32 layout
     (federated training) takes float32 configs with token inputs, the
     parameter tree (``tree``: the training launcher and serving) float32
-    and bfloat16 and every input mode."""
+    and bfloat16 and every input mode.  On a grid, the configs that
+    ``shards_storage`` names take the rank's blocks of the tree."""
     if not tree and cfg.input_mode != "tokens":
         raise ValueError(
             f"repro_torch's flat transformer layout (federated training) takes token inputs "
@@ -147,6 +170,18 @@ def check_supported(cfg, tree: bool = False) -> None:
         if bad:
             raise ValueError(f"repro_torch's transformer does not implement {what} yet "
                              f"(model {cfg.name!r}); the JAX package repro runs it")
+
+
+def shards_storage(cfg, mesh) -> bool:
+    """Whether a rank of ``mesh`` holds ``cfg``'s leaves as its blocks under
+    the baseline policy (``sharding.shard_tree``) and computes on them
+    (``loss_fn``): on a grid (``data`` or ``model`` larger than 1), for
+    the dense attention models with token inputs (stablelm-3b, glm4-9b,
+    qwen3-14b, gemma3-27b).  Hymba, xLSTM, the MoE and MLA models and the
+    frame and patch inputs keep every leaf whole on every rank."""
+    return bool(mesh is not None and getattr(mesh, "grid", False) and cfg.block_type == "attn"
+                and not cfg.use_mla and cfg.moe is None and not cfg.mtp
+                and cfg.input_mode == "tokens")
 
 
 # ---------------------------------------------------------------------------
@@ -345,6 +380,17 @@ def cache_specs(cfg) -> dict:
     return s
 
 
+def param_blocks(params, cfg, mesh):
+    """This rank's blocks of the parameter tree (``init_params``' or
+    ``abstract_params``') under the baseline policy's storage specs on
+    ``mesh`` (``sharding.shard_tree``): what a rank of a family that
+    ``shards_storage`` holds."""
+    from repro_torch.sharding import make_policy, shard_tree
+
+    return shard_tree(params, make_policy(mesh, 0).shardings(transformer_specs(cfg), params),
+                      mesh)
+
+
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
@@ -476,17 +522,24 @@ def _norm(p, cfg, x, name):
     return rms_norm(x, per_client(p[name], x), cfg.norm_eps)
 
 
-def _mlp(p, cfg, x):
+def _mlp(p, cfg, x, tp=None):
+    """The dense MLP; with ``tp`` (a mesh) and ``w_up`` split over its
+    ``model`` axis, on the rank's column blocks of ``w_gate`` / ``w_up``
+    and row block of ``w_down``, the output summed over ``model``."""
+    split = tp is not None and p["w_up"].shape[-1] != cfg.d_ff
+    if split:
+        x = column_in(x, tp)
     gate = linear(x, p["w_gate"]) if "w_gate" in p else None
     h = activation(cfg.mlp_activation, linear(x, p["w_up"]), gate)
-    return linear(h, p["w_down"])
+    out = linear(h, p["w_down"])
+    return row_out(out, tp) if split else out
 
 
-def _ffn(p, cfg, x, mesh=None):
+def _ffn(p, cfg, x, mesh=None, tp=None):
     """The layer's MLP: (out, the router's aux loss), 0.0 for a dense one."""
     if cfg.moe:
         return _run_moe(p, cfg, x, mesh)
-    return _mlp(p, cfg, x), 0.0
+    return _mlp(p, cfg, x, tp), 0.0
 
 
 # the most tokens for which the reference keeps the experts apart over every
@@ -597,13 +650,20 @@ def _run_moe(p, cfg, x, mesh):
     return out, aux
 
 
-def _embed_tokens(params, cfg, tokens: torch.Tensor) -> torch.Tensor:
+def _embed_tokens(params, cfg, tokens: torch.Tensor, tp=None) -> torch.Tensor:
     """Token ids (..., S) -> (..., S, d); with per-client tables (m, V, d)
     the tokens are (m, B, S) and client i reads its own table.  A tied
     embedding scales by sqrt(d) rounded to the table's type, as the
-    reference does."""
+    reference does.  With ``tp`` (a mesh) and the table's rows split over
+    its ``model`` axis, the vocab-parallel lookup: a token outside the
+    rank's rows reads zero and the rows are summed over ``model``."""
     table = params["embed"]
-    if table.ndim == 2:
+    if tp is not None and table.shape[0] != cfg.vocab:
+        n = table.shape[0]
+        local = tokens.long() - tp.axis_index("model") * n
+        inside = ((local >= 0) & (local < n)).unsqueeze(-1).to(table.dtype)
+        x = row_out(table[local.clamp(0, n - 1)] * inside, tp)
+    elif table.ndim == 2:
         x = table[tokens.long()]
     else:
         rows = torch.arange(table.shape[0], device=tokens.device)
@@ -670,11 +730,13 @@ def _flags_at(flags, i: int) -> dict[str, float]:
     return {k: float(v[i]) for k, v in flags.items()}
 
 
-def _apply_layer_seq(pl, cfg, x, flags: dict[str, float], tabs_l, tabs_g, mesh=None):
+def _apply_layer_seq(pl, cfg, x, flags: dict[str, float], tabs_l, tabs_g, mesh=None,
+                     tp=None):
     """One layer over the full sequence: attention (in parallel with the
     Mamba heads for hymba), then the MLP; for xlstm the flagged core.
     Returns (x, the router's aux loss (0.0 without MoE), the layer's decode
-    cache entries)."""
+    cache entries).  ``tp``: the mesh whose ``model`` axis splits ``pl``
+    (a rank's blocks)."""
     if cfg.block_type == "xlstm":
         name = "mlstm" if flags["is_mlstm"] > 0 else "slstm"
         out, state = getattr(ssm_mod, f"{name}_seq")(pl["xlstm"], cfg, _norm(pl, cfg, x, "norm1"))
@@ -686,13 +748,13 @@ def _apply_layer_seq(pl, cfg, x, flags: dict[str, float], tabs_l, tabs_g, mesh=N
         a_out, (latent, k_rope) = mla_attention(pl["attn"], cfg, h, sin, cos, is_global)
         cache = {"latent": latent, "k_rope": k_rope}
     else:
-        a_out, (k, v) = gqa_attention(pl["attn"], cfg, h, sin, cos, is_global)
+        a_out, (k, v) = gqa_attention(pl["attn"], cfg, h, sin, cos, is_global, tp=tp)
         cache = {"k": k, "v": v}
     if cfg.block_type == "hymba":
         s_out, (cache["ssm_h"], cache["conv"]) = ssm_mod.mamba_seq(pl["ssm"], cfg, h)
         a_out = _hymba_fuse(pl, cfg, a_out, s_out)
     x = x + a_out
-    m_out, aux = _ffn(pl["mlp"], cfg, _norm(pl, cfg, x, "norm2"), mesh)
+    m_out, aux = _ffn(pl["mlp"], cfg, _norm(pl, cfg, x, "norm2"), mesh, tp)
     return x + m_out, aux, cache
 
 
@@ -703,7 +765,7 @@ def _hymba_fuse(pl, cfg, a_out, s_out):
 
 
 def forward(params, cfg, inputs: torch.Tensor, layout: TransformerLayout | None = None,
-            collect_cache: bool = False, with_aux: bool = False, mesh=None):
+            collect_cache: bool = False, with_aux: bool = False, mesh=None, tp=None):
     """Hidden states after the final norm, (..., S, d).  ``params`` is the
     flat (P,) or (m, P) vector (cut by ``layout``) or its tree of views;
     ``inputs`` the token ids (..., S) or, floating point, the embedded
@@ -713,19 +775,22 @@ def forward(params, cfg, inputs: torch.Tensor, layout: TransformerLayout | None 
     one per leading group of (B, S) tokens; a 0-d zero without MoE), as the
     reference's forward does; with ``collect_cache`` one dict of decode
     cache entries a layer, last: (hidden[, aux][, caches]).  ``mesh``:
-    the MoE's device mesh (one model's weights and (B, S) inputs only)."""
+    the MoE's device mesh (one model's weights and (B, S) inputs only).
+    ``tp``: the mesh whose ``model`` axis splits ``params``, a rank's
+    blocks (``shards_storage``), computed tensor-parallel; the hidden
+    states come out replicated over ``model``."""
     if isinstance(params, torch.Tensor):
         params = (layout or TransformerLayout(cfg)).views(params)
     if mesh is not None and params["embed"].ndim != 2:
         raise ValueError("per-client weights take no mesh: the reference never combines "
                          "them")
-    x = inputs if inputs.is_floating_point() else _embed_tokens(params, cfg, inputs)
+    x = inputs if inputs.is_floating_point() else _embed_tokens(params, cfg, inputs, tp)
     tabs_l, tabs_g = _rope_tables(cfg, x.shape[-2], x.device)
     flags = layer_flags(cfg)
     caches, aux = [], 0.0
     for i, pl in enumerate(params["layers"]):
         x, layer_aux, cache = _apply_layer_seq(pl, cfg, x, _flags_at(flags, i), tabs_l, tabs_g,
-                                               mesh)
+                                               mesh, tp)
         aux = aux + layer_aux
         if collect_cache:
             caches.append(cache)
@@ -778,15 +843,59 @@ def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return torch.logsumexp(logits, dim=-1) - gold
 
 
-def _masked_ce(h, head, cfg, labels, mask):
-    """sum(NLL x mask) / max(sum(mask), 1) over sequence chunks."""
-    tot = chunked_logits_sum(
+def _masked_nll_sum(h, head, cfg, labels, mask):
+    """sum(NLL x mask) over sequence chunks."""
+    return chunked_logits_sum(
         h, head, cfg.loss_chunk,
         lambda lg, lo, hi: (token_nll(lg, labels[..., lo:hi]) * mask[..., lo:hi]).sum())
-    return tot / torch.clamp(mask.sum(), min=1.0)
 
 
-def loss_fn(params, cfg, batch: dict, mesh=None):
+def _masked_ce(h, head, cfg, labels, mask):
+    """sum(NLL x mask) / max(sum(mask), 1) over sequence chunks."""
+    return _masked_nll_sum(h, head, cfg, labels, mask) / torch.clamp(mask.sum(), min=1.0)
+
+
+def _vocab_parallel_nll_sum(h, head, cfg, labels, mask, mesh):
+    """sum(NLL x mask) over sequence chunks with the head's vocab block
+    (d, V / model) on this rank: h (..., S, d), replicated over ``model``;
+    each chunk's local fp32 logits (..., c, V / model), their row maximum
+    (no gradient: it cancels), sum of exponentials and gold logit (the
+    owning rank's, zero elsewhere) taken over ``model``."""
+    n = head.shape[-1]
+    lo_v = mesh.axis_index("model") * n
+
+    def per_chunk(lg, lo, hi):
+        lab = labels[..., lo:hi].long() - lo_v
+        inside = (lab >= 0) & (lab < n)
+        mx = mesh.all_reduce_max(lg.detach().amax(-1), "model")
+        se = row_out(torch.exp(lg - mx.unsqueeze(-1)).sum(-1), mesh)
+        gold = torch.gather(lg, -1, lab.clamp(0, n - 1).unsqueeze(-1)).squeeze(-1)
+        gold = row_out(gold * inside, mesh)
+        return ((torch.log(se) + mx - gold) * mask[..., lo:hi]).sum()
+
+    return chunked_logits_sum(column_in(h, mesh), head, cfg.loss_chunk, per_chunk)
+
+
+def _loss_blocks(params, cfg, batch: dict, mesh):
+    """``loss_fn`` on a rank's blocks and its ``data`` share of the batch
+    (``shards_storage``): every leaf's gradient summed over the data axes,
+    the loss the mean over the whole batch, the same on every rank."""
+    dp = tuple(a for a in mesh.axis_names if a != "model")
+    params = tree_map(lambda p: mesh.grad_sum(p, dp), params)
+    labels = batch["labels"]
+    h = forward(params, cfg, batch["tokens"], tp=mesh)
+    mask = torch.ones(labels.shape, dtype=torch.float32, device=h.device)
+    head = output_head(params, cfg)
+    if head.shape[-1] != cfg.vocab:
+        tot = _vocab_parallel_nll_sum(h, head, cfg, labels, mask, mesh)
+    else:                                  # the head whole: computed replicated over model
+        tot = _masked_nll_sum(h, head, cfg, labels, mask)
+    count = mesh.all_reduce_sum(mask.sum(), dp)
+    ce = mesh.all_reduce_sum(tot / torch.clamp(count, min=1.0), dp)
+    return ce, {"ce": ce, "aux": torch.zeros((), device=h.device)}
+
+
+def loss_fn(params, cfg, batch: dict, mesh=None, sharded: bool | None = None):
     """The mean next-token cross-entropy of ``batch`` (``embed_inputs``'s
     dict and "labels" (B, S)) under the parameter tree, each position
     weighted by the loss mask (vlm: the text positions) and divided by the
@@ -794,7 +903,16 @@ def loss_fn(params, cfg, batch: dict, mesh=None):
     ``cfg.mtp``, ``mtp_weight`` x the MTP head's cross-entropy:
     rms_norm(h @ mtp_proj, mtp_norm) against the labels shifted one more
     position, the last position masked too.  Returns (loss, {"ce",
-    "aux"[, "mtp_ce"]})."""
+    "aux"[, "mtp_ce"]}).
+
+    ``sharded`` (by default ``shards_storage(cfg, mesh)``): ``params`` are
+    this rank's blocks of the tree and ``batch`` its ``data`` share, as the
+    module's docstring says; False keeps every leaf whole on every rank
+    (the launcher's layout)."""
+    if sharded is None:
+        sharded = shards_storage(cfg, mesh)
+    if sharded:
+        return _loss_blocks(params, cfg, batch, mesh)
     labels = batch["labels"]
     x, mask = embed_inputs(params, cfg, batch)
     h, aux = forward(params, cfg, x, with_aux=True, mesh=mesh)

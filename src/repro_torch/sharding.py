@@ -29,8 +29,20 @@ weights over every axis.
 under a spec, as the reference's ``NamedSharding.shard_shape`` does (a
 spec from ``spec_for`` splits only the dimensions its axes divide): summed
 over a step's arguments, the per-device bytes of the reference's layout,
-which the dry run reports as ``argument_size``.  The port's ranks do not
-shard storage yet: each holds every leaf whole.  ``model_block`` gives a
+which the dry run reports as ``argument_size``.  ``shard_tree`` cuts a
+whole tree into one rank's blocks under a tree of specs (each dimension
+split over every axis its entry names, the axes row-major, as the
+reference's ``NamedSharding`` lays out devices), and ``gather_tree``
+puts the ranks' blocks back together over the mesh's processes.
+
+Which families a rank holds as blocks: on a grid (``data`` or ``model``
+larger than 1) the dense attention models with token inputs
+(stablelm-3b, glm4-9b, qwen3-14b, gemma3-27b: ``models.transformer
+.shards_storage``) hold every leaf as its block under the baseline policy
+and train on their ``data`` share of the batch, tensor-parallel over
+``model``; hymba, xLSTM, the MoE and MLA models and the frame and patch
+inputs, and every family under the ``fsdp`` variant, hold each leaf
+whole on every rank, as before.  For those, ``model_block`` gives a
 rank's block of a leaf along the dimension ``model`` splits, which the
 scale-out round's int8 aggregation quantizes as the reference's does
 (one scale a leaf and model shard); ``spec_leaves`` lists a layout
@@ -43,7 +55,7 @@ import math
 from typing import Any
 
 __all__ = ["ShardingPolicy", "make_policy", "named_sharding_tree", "shard_shape",
-           "shard_bytes", "model_block", "spec_leaves"]
+           "shard_bytes", "shard_tree", "gather_tree", "model_block", "spec_leaves"]
 
 
 def _is_axes(x) -> bool:
@@ -118,6 +130,48 @@ def shard_bytes(mesh, spec: tuple, leaf) -> int:
     """The bytes of one device's block of ``leaf`` (a tensor; ``meta``
     will do) under ``spec``."""
     return math.prod(shard_shape(mesh, spec, tuple(leaf.shape))) * leaf.element_size()
+
+
+def _entry_axes(entry) -> tuple[str, ...]:
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def shard_tree(tree, specs, mesh):
+    """This rank's blocks of ``tree`` (tensors; ``meta`` will do) under
+    ``specs`` (``ShardingPolicy.shardings``'s tree for it, or any tree of
+    spec tuples of the same structure): each dimension a spec entry names
+    is cut to the rank's block over that entry's axes (its row-major index
+    over them, ``mesh.index``), as a new contiguous tensor, so that the
+    rank holds the block's bytes and not the whole leaf's."""
+    def one(spec, leaf):
+        out = leaf
+        for dim, entry in enumerate(spec):
+            if entry is None:
+                continue
+            axes = _entry_axes(entry)
+            n = math.prod(mesh.shape[a] for a in axes)
+            if leaf.shape[dim] % n:
+                raise ValueError(f"dimension {dim} of {tuple(leaf.shape)} does not divide "
+                                 f"over {axes} ({n} devices)")
+            size = leaf.shape[dim] // n
+            out = out.narrow(dim, mesh.index(axes) * size, size)
+        return out.clone() if out is not leaf else leaf
+
+    return _map(one, specs, tree, "")
+
+
+def gather_tree(blocks, specs, mesh):
+    """The inverse of ``shard_tree`` over the mesh's processes: each
+    leaf's blocks gathered whole over the axes of each entry of its spec
+    (``mesh.all_gather``; a dry mesh gathers ``meta`` shapes)."""
+    def one(spec, leaf):
+        out = leaf
+        for dim, entry in enumerate(spec):
+            if entry is not None:
+                out = mesh.all_gather(out.contiguous(), _entry_axes(entry), dim=dim)
+        return out
+
+    return _map(one, specs, blocks, "")
 
 
 def model_block(mesh, spec: tuple, shape: tuple[int, ...]) -> tuple[int, int, int] | None:

@@ -444,6 +444,32 @@ def test_run_moe_branch_collectives(case):
     assert tally.kernels == {}
 
 
+SHARDED = ("gemma3-27b", "glm4-9b", "qwen3-14b", "stablelm-3b")
+
+
+@pytest.mark.parametrize("name", list_configs())
+def test_records_say_whether_the_rank_holds_its_blocks(name, monkeypatch):
+    """The single-mesh ``train`` record and the federated round's of the
+    dense attention models hold the rank's blocks (``storage``
+    "sharded", ``argument_size_held == argument_size``); every other
+    family's, and every prefill record, hold the arguments whole."""
+    from repro_torch.launch.mesh import make_production_mesh
+
+    monkeypatch.setattr(dryrun, "get_config", _reduced)
+    mesh = make_production_mesh(dry=True)
+    recs = [dryrun.trace_step(_reduced(name), mesh, InputShape("t", 32, 16, kind), probes=False)
+            for kind in ("train", "prefill")]
+    recs.append(dryrun.run_federated(name, local_steps=1, batch_per_client=16, seq=32))
+    for rec in recs:
+        mem = rec["memory"]
+        if name in SHARDED and rec["kind"] != "prefill":
+            assert rec["storage"] == "sharded", rec["kind"]
+            assert mem["argument_size_held"] == mem["argument_size"], rec["kind"]
+        else:
+            assert rec["storage"] == "whole", rec["kind"]
+            assert mem["argument_size_held"] > mem["argument_size"], rec["kind"]
+
+
 def test_dry_mesh_layouts_and_refusals():
     from repro_torch.launch.mesh import make_production_mesh
 

@@ -12,27 +12,36 @@ One module fixture runs, side by side:
 - the port in a world of 8 CPU processes under gloo (a file store in the
   test's directory, one intra-op thread each), one pod a process row:
   the same rounds and engine on ``make_host_mesh(2, 2, pod=2)``, each
-  rank's results and its pod's local ends (the oracle's input) saved.
+  rank holding its blocks of every leaf under the baseline policy
+  (``param_blocks``) and training on its ``data`` share of its pod's
+  batch; each rank's results and its pod's local ends (the oracle's
+  input, the whole tree trained in one process) saved.
 
 Reduced qwen3-14b (fp32) from the reference's weights
 (``serving_params_from_jax``), B = 4, S = 32, 2 local steps; the engine
 replays the reference's draws as ``JaxReplayDraws`` draws them, recorded
 here by a one-process run and handed to the world in order.
 
-- (a) the exact round on every rank equals the reference's grid round
-  within ``ATOL`` and the port's pods-only round in one process;
-- (b) the int8 round equals a numpy oracle of one scale a (leaf, model
-  block) on the rank's own local ends within 1e-6, lies within one
-  quantization step of a (reference leaf, model block) of the
-  reference's int8 round, and differs from the pods-only int8 round (one
+- (a) every rank holds each leaf as the baseline spec's ``shard_shape``,
+  before and after the round, and the exact round's blocks equal the
+  reference's grid round, cut to the rank's block, within ``ATOL`` and
+  the port's pods-only round in one process likewise;
+- (b) the int8 round keeps each rank's blocks (nothing is gathered over
+  ``model``): each equals a numpy oracle of one scale a (leaf, block) on
+  the rank's own local ends within 1e-6, the blocks put together lie
+  within one quantization step of a (reference leaf, model block) of the
+  reference's int8 round, and differ from the pods-only int8 round (one
   scale a leaf) by more than 1e-6 on a leaf that ``model`` splits;
 - (c) the engine selects exactly as the reference's on the grid, params
   within ``ATOL``;
 - (d) the dry 2 x 2 x 2 trace's collective bytes by kind equal their
-  closed-form counts, and ``run_federated``'s record is the reference's
-  2 x 16 x 16.
+  closed-form counts (the tensor-parallel step's sums over ``model``, the
+  gradients' over ``data``, the round's over ``pod``; no gather over
+  ``model``), and ``run_federated``'s record is the reference's 2 x 16 x
+  16, its arguments the rank's share of the reference's layout.
 """
 
+import math
 import os
 import subprocess
 import sys
@@ -64,7 +73,8 @@ from repro_torch.engine import FLConfig, make_engine  # noqa: E402
 from repro_torch.federated.scaleout import make_federated_round, stack_for_clients  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.mesh import make_dry_mesh, make_host_mesh  # noqa: E402
-from repro_torch.models.transformer import abstract_params  # noqa: E402
+from repro_torch.models.transformer import abstract_params, param_blocks  # noqa: E402
+from repro_torch.sharding import shard_shape  # noqa: E402
 from test_torch_engine import JaxReplayDraws  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -165,31 +175,35 @@ from repro_torch.data import make_classification
 from repro_torch.engine import FLConfig, make_engine
 from repro_torch.federated.scaleout import make_federated_round, stack_for_clients
 from repro_torch.launch.mesh import make_host_mesh
-from repro_torch.models.transformer import loss_fn
+from repro_torch.models.transformer import loss_fn, param_blocks
 
 mesh = make_host_mesh(2, 2, pod=2)
 pod = mesh.coords["pod"]
 assert mesh.grid and mesh.pods == range(pod, pod + 1)
 cfg = get_config(MODEL, reduced=True)
 params = torch.load(os.path.join(work, "params.pt"))
+blocks = param_blocks(params, cfg, mesh)
+share = B // 2
+lo = mesh.coords["data"] * share
 batch = {k: v[None] for k, v in dummy_batch(cfg, B, S, seed=SEEDS[pod]).items()}
-out = {"coords": [mesh.coords[a] for a in ("pod", "data", "model")]}
+out = {"coords": [mesh.coords[a] for a in ("pod", "data", "model")],
+       "held": [tuple(t.shape) for t in tree_leaves(blocks)]}
 for bits in (0, 8):
     fn = make_federated_round(cfg, mesh, lr=LR, local_steps=STEPS, compress_bits=bits)
-    new, losses = fn(stack_for_clients(params, 1), batch, torch.tensor(W))
+    new, losses = fn(stack_for_clients(blocks, 1), {k: v[:, lo:lo + share] for k, v in
+                                                    batch.items()}, torch.tensor(W))
     out[f"q{bits}"] = [t[0] for t in tree_leaves(new)]
     out[f"loss{bits}"] = losses
-if mesh.coords["data"] == mesh.coords["model"] == 0:
-    # the pod's local ends, as the round's local SGD computes them
-    leaves, spec = tree_flatten(params)
-    one = {k: v[0] for k, v in batch.items()}
-    for _ in range(STEPS):
-        leaves = [p.detach().requires_grad_(True) for p in leaves]
-        loss, _ = loss_fn(tree_unflatten(leaves, spec), cfg, one)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
-        with torch.no_grad():
-            leaves = [(w - LR * g).to(w.dtype) for w, g in zip(leaves, grads)]
-    out["ends"] = leaves
+# the rank's blocks of its pod's local ends, as the round's local SGD computes them
+leaves, spec = tree_flatten(blocks)
+one = {k: v[0, lo:lo + share] for k, v in batch.items()}
+for _ in range(STEPS):
+    leaves = [p.detach().requires_grad_(True) for p in leaves]
+    loss, _ = loss_fn(tree_unflatten(leaves, spec), cfg, one, mesh.in_pod())
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+    with torch.no_grad():
+        leaves = [(w - LR * g).to(w.dtype) for w, g in zip(leaves, grads)]
+out["ends"] = leaves
 train = make_classification(800, n_features=64, n_classes=10, seed=0)
 test = make_classification(200, n_features=64, n_classes=10, seed=1)
 eng = make_engine(FLConfig.from_dict(CFG), train, test, 10, device="cpu", mesh=mesh,
@@ -280,6 +294,30 @@ def _as_port(grid, key):
     return tree_leaves(serving_params_from_jax(tree, grid["cfg"]))
 
 
+class _At:
+    """A rank of the (pod 2, data 2, model 2) grid, as ``param_blocks``
+    reads a mesh."""
+
+    shape = {"pod": 2, "data": 2, "model": 2}
+    axis_names = tuple(shape)
+
+    def __init__(self, coords):
+        self.coords = dict(zip(self.axis_names, coords))
+
+    def index(self, axes):
+        idx = 0
+        for a in ((axes,) if isinstance(axes, str) else axes):
+            idx = idx * self.shape[a] + self.coords[a]
+        return idx
+
+
+def _blocks(grid, leaves, coords):
+    """The port's whole ``leaves`` cut to the block of the rank at ``coords``."""
+    _, spec = tree_flatten(grid["params"])
+    tree = tree_unflatten([torch.as_tensor(np.asarray(x)) for x in leaves], spec)
+    return tree_leaves(param_blocks(tree, grid["cfg"], _At(coords)))
+
+
 def test_world_sits_on_the_reference_grid_and_starts_from_its_weights(grid):
     for r, got in enumerate(grid["ranks"]):
         assert got["coords"] == [r // 4, r // 2 % 2, r % 2]   # row-major (pod, data, model)
@@ -287,12 +325,29 @@ def test_world_sits_on_the_reference_grid_and_starts_from_its_weights(grid):
         np.testing.assert_array_equal(a, b)
 
 
+def test_every_rank_holds_its_baseline_spec_blocks(grid):
+    policy = ref_make_policy(_Grid(), batch_size=0)
+    whole = tree_leaves(grid["params"])
+    specs = [tuple(policy.spec_for(lg, tuple(w.shape))) for lg, w in
+             zip(_port_specs(grid), whole, strict=True)]
+    split = 0
+    for got in grid["ranks"]:
+        want = [shard_shape(_Grid(), sp, tuple(w.shape)) for sp, w in zip(specs, whole)]
+        for key in ("q0", "q8"):
+            assert [tuple(t.shape) for t in got[key]] == got["held"] == want, key
+        split = sum(w != tuple(x.shape) for w, x in zip(want, whole))
+    assert split > len(whole) // 2      # the projections, the FFN, embed and head
+
+
 # ---------------------------------------------------------------- (a) exact
 def test_exact_grid_round_matches_the_reference_and_the_pods_only_round(grid):
-    want = _as_port(grid, "q0")
     pods_only, pods_losses = grid["pods_only"][0]
     for r, got in enumerate(grid["ranks"]):
-        for j, (g, w, p) in enumerate(zip(got["q0"], want, pods_only, strict=True)):
+        want = _blocks(grid, _as_port(grid, "q0"), got["coords"])
+        for j, (g, w, p) in enumerate(zip(got["q0"], want, _blocks(grid, pods_only,
+                                                                     got["coords"]),
+                                          strict=True)):
+            assert g.shape == w.shape, (r, j)
             assert _diff(g, w) <= ATOL, (r, j, _diff(g, w))
             assert _diff(g, p) <= ATOL, (r, j, _diff(g, p), "pods-only")
         np.testing.assert_allclose(got["loss0"].numpy(), grid["ref"]["loss0"], atol=ATOL)
@@ -325,53 +380,65 @@ class _Grid:
     axis_names = tuple(shape)
 
 
-def _quantize_oracle(ends, start, w, dim, model_index):
+def _quantize_oracle(ends, start, w):
     """K1's sum, in numpy fp32 with each product and sum rounded, of the
     pods' int8 blocks at one scale a (pod, block), onto the start's block."""
-    def block(a):
-        a = np.asarray(a, np.float32)
-        return a if dim is None else np.split(a, 2, axis=dim)[model_index]
-
-    s0 = block(start)
+    s0 = np.asarray(start, np.float32)
     acc = np.zeros(s0.shape, np.float32)
     for e, wp in zip(ends, w):
-        d = block(e) - s0
+        d = np.asarray(e, np.float32) - s0
         scale = np.float32(max(np.abs(d).max(), np.float32(1e-12)) / np.float32(QMAX))
         q = np.clip(np.round(d / scale), -QMAX - 1, QMAX).astype(np.float32)
         acc = acc + np.float32(scale * np.float32(wp)) * q
     return s0 + acc
 
 
+def _assembled(grid, key, pod):
+    """The whole leaves of ``key`` put together from the blocks of ``pod``'s
+    data-0 ranks, in numpy (the int8 round gathers nothing itself)."""
+    policy = ref_make_policy(_Grid(), batch_size=0)
+    ranks = {tuple(g["coords"][1:]): g[key] for g in grid["ranks"] if g["coords"][0] == pod}
+    out = []
+    for j, (lg, w) in enumerate(zip(_port_specs(grid), tree_leaves(grid["params"]))):
+        dim = _model_dim(policy, lg, tuple(w.shape))
+        parts = [ranks[(0, m)][j].numpy() for m in (0, 1)]
+        out.append(parts[0] if dim is None else np.concatenate(parts, axis=dim))
+    return out
+
+
 def test_int8_grid_round_quantizes_a_leaf_and_model_block(grid):
     policy = ref_make_policy(_Grid(), batch_size=0)
     logical = _port_specs(grid)
     start = tree_leaves(grid["params"])
-    ends = [next(g["ends"] for g in grid["ranks"] if g["coords"][0] == p) for p in (0, 1)]
-    want = _as_port(grid, "q8")
     pods_only = grid["pods_only"][8][0]
     moved = []
     for r, got in enumerate(grid["ranks"]):
         m = got["coords"][2]
-        for j, (g, s0, lg) in enumerate(zip(got["q8"], start, logical, strict=True)):
-            dim = _model_dim(policy, lg, tuple(s0.shape))
-            oracle = _quantize_oracle([e[j] for e in ends], s0, W, dim, m)
-            mine = g.numpy() if dim is None else np.split(g.numpy(), 2, axis=dim)[m]
-            assert _diff(mine, oracle) <= ORACLE_TOL, (r, j, _diff(mine, oracle))
+        # the same block of each pod's ends: the ranks at this (data, model)
+        ends = [next(g["ends"] for g in grid["ranks"]
+                     if g["coords"] == [p, *got["coords"][1:]]) for p in (0, 1)]
+        for j, (g, s0, lg) in enumerate(zip(got["q8"], _blocks(grid, start, got["coords"]),
+                                            logical, strict=True)):
+            dim = _model_dim(policy, lg, tuple(start[j].shape))
+            oracle = _quantize_oracle([e[j] for e in ends], s0, W)
+            assert g.shape == oracle.shape, (r, j)      # kept as the rank's block
+            assert _diff(g, oracle) <= ORACLE_TOL, (r, j, _diff(g, oracle))
             if dim is not None:
-                moved.append(_diff(g, pods_only[j]))
+                theirs = np.split(pods_only[j].numpy(), 2, axis=dim)[m]
+                moved.append(_diff(g, theirs))
         np.testing.assert_allclose(got["loss8"].numpy(), grid["ref"]["loss8"], atol=ATOL)
     assert max(moved) > ORACLE_TOL, "the grid's scales never moved a model-split leaf"
     # against the reference: within one quantization step of its blocks, whose
     # stacked layer leaves take one scale over every layer
     ref_tree = _ref_tree(_ref_leaves(grid, "q8"), grid["ref_start"])
-    stacked_ends = [_stack(e, grid) for e in ends]
+    stacked_ends = [_stack(_assembled(grid, "ends", p), grid) for p in (0, 1)]
     stacked_start = _stack(start, grid)
     ref_specs = ref_tf.transformer_specs(grid["ref_cfg"])
     is_spec = lambda x: isinstance(x, tuple)  # noqa: E731
     flat_ref = jax.tree_util.tree_flatten_with_path(ref_tree)[0]
     flat_specs = jax.tree.leaves(ref_specs, is_leaf=is_spec)
-    for got in grid["ranks"]:
-        mine = _stack(got["q8"], grid)
+    for pod in (0, 1):
+        mine = _stack(_assembled(grid, "q8", pod), grid)
         for (path, want_leaf), lg in zip(flat_ref, flat_specs, strict=True):
             key = jax.tree_util.keystr(path)
             dim = _model_dim(policy, lg, want_leaf.shape)
@@ -418,24 +485,39 @@ def test_dry_grid_round_tallies_its_collectives_in_closed_form(bits):
     cfg, ref_cfg = get_config(MODEL, reduced=True), ref_get_config(MODEL, reduced=True)
     mesh = make_dry_mesh(2, 2, pod=2)
     fn, args = dryrun.build_federated(cfg, mesh, STEPS, B, S, bits)
+    assert args[1]["tokens"].shape == (1, B // 2, S) and args[2].shape == (1,)
     traced = dryrun.trace(fn, args)
     policy = ref_make_policy(_Grid(), batch_size=0)
     shapes = jax.eval_shape(lambda k: ref_tf.init_transformer(k, ref_cfg), jax.random.PRNGKey(0))
     specs = jax.tree.leaves(ref_tf.transformer_specs(ref_cfg),
                             is_leaf=lambda x: isinstance(x, tuple))
-    numel = [int(np.prod(s.shape)) for s in jax.tree.leaves(shapes)]
-    split = [_model_dim(policy, sp, s.shape) is not None
+    # the rank's block of each stacked reference leaf: halved where model splits it
+    block = [int(np.prod(s.shape)) // (2 if _model_dim(policy, sp, s.shape) is not None else 1)
              for sp, s in zip(specs, jax.tree.leaves(shapes), strict=True)]
     n_leaves = len(tree_leaves(args[0]))
+    f32, t, d = 4, B // 2 * S, cfg.d_model          # t: the rank's tokens, a data share
+    layers = cfg.n_layers
+    # a local step's: forward, the embedding's, each layer's attention and MLP
+    # outputs and the head's gold logits and sums of exponentials summed over
+    # model, the row maxima's maximum, the mask's and the loss's sums over data;
+    # backward, the hidden states' gradient before the head and each layer's two
+    # inputs' over model, the qk-norm scales' over model, every block's over data
+    step = (f32 * t * d * (1 + 2 * layers) + 3 * f32 * t + 2 * f32
+            + f32 * t * d * (1 + 2 * layers) + layers * 2 * cfg.resolved_head_dim * f32
+            + f32 * sum(block))
     losses = 2 * 4                                  # the (2,) fp32 losses over pod
-    if bits == 0:                                   # the fp32 sum of every leaf over pod
-        want = {"all-reduce": 4 * sum(numel), "all-gather": losses}
+    if bits == 0:                                   # the fp32 sum of every block over pod
+        want = {"all-reduce": STEPS * step + f32 * sum(block), "all-gather": losses}
     else:                                           # int8 blocks and scale * w over pod,
-        want = {"all-gather": sum(n if s else 2 * n for n, s in zip(numel, split))
-                + 2 * 4 * n_leaves                  # then the fp32 blocks over model
-                + sum(4 * n for n, s in zip(numel, split) if s) + losses}
+        want = {"all-reduce": STEPS * step,         # kept: nothing over model
+                "all-gather": 2 * sum(block) + 2 * f32 * n_leaves + losses}
     assert traced["coll"] == want
     assert traced["kernel_work"]["masked_weighted_sum"]["launches"] == n_leaves
+
+
+class _Production:
+    shape = {"pod": 2, "data": 16, "model": 16}
+    axis_names = tuple(shape)
 
 
 def test_federated_dry_run_record_is_the_reference_2x16x16(monkeypatch):
@@ -443,8 +525,15 @@ def test_federated_dry_run_record_is_the_reference_2x16x16(monkeypatch):
     rec = dryrun.run_federated(MODEL, local_steps=1, batch_per_client=16, seq=32,
                                compress_bits=8)
     assert (rec["mesh"], rec["n_devices"], rec["kind"]) == ("multi", 512, "federated_round")
-    assert set(rec["collective_bytes"]) == {"all-gather"} and rec["shape"].endswith("_q8")
-    held = sum(t.numel() * t.element_size()
-               for t in tree_leaves(abstract_params(get_config(MODEL, reduced=True))))
-    assert rec["memory"]["argument_size_held"] == held + 2 * 16 * 32 * 4 + 2 * 4
-    assert rec["memory"]["argument_size"] < rec["memory"]["argument_size_held"]
+    assert set(rec["collective_bytes"]) == {"all-gather", "all-reduce"}
+    assert rec["shape"].endswith("_q8") and rec["storage"] == "sharded"
+    # one device's share of the reference's layout: each leaf's block under
+    # the baseline policy, one of the 16 rows of its pod's batch, its weight
+    policy = ref_make_policy(_Production(), batch_size=0)
+    whole = abstract_params(get_config(MODEL, reduced=True))
+    logical = _port_specs({"params": whole, "ref_cfg": ref_get_config(MODEL, reduced=True)})
+    params = sum(math.prod(shard_shape(_Production(), tuple(policy.spec_for(lg, tuple(t.shape))),
+                                       tuple(t.shape))) * t.element_size()
+                 for lg, t in zip(logical, tree_leaves(whole)))
+    share = params + 2 * 1 * 32 * 4 + 4
+    assert rec["memory"]["argument_size_held"] == rec["memory"]["argument_size"] == share

@@ -1,0 +1,226 @@
+"""Storage sharding: ``loss_fn`` and its gradient on a rank's blocks
+against the reference's unsharded ``loss_fn`` and ``jax.grad`` on the CPU.
+
+Two gloo worlds run side by side, each one launch of its processes (a
+file store in the test's directory, one intra-op thread each): a world of
+2 (``make_host_mesh(1, 2)``: model 2) and a world of 4
+(``make_host_mesh(2, 2)``: data 2 x model 2).  The weights are drawn once
+(``init_transformer``) and handed to both sides as the reference's
+stacked numpy tree.  Every rank cuts them into its blocks under the
+baseline policy
+(``convert.blocks_from_jax``), takes its ``data`` share of the batch and
+computes ``loss_fn(blocks, cfg, share, mesh)`` and the gradient of every
+block.  Meanwhile this process computes the reference's loss and
+``jax.grad`` on the whole tree and batch.
+
+Cases (fp32, B = 4, S = 32, the loss over chunks of 16 positions):
+reduced stablelm-3b (LayerNorm, GeLU, partial RoPE), glm4-9b, gemma3-27b
+(the tied vocab-parallel head, a window of 16 that bites) and qwen3-14b
+(qk-norm), which all split on whole heads at model 2; a micro config whose
+q split falls mid-head, as qwen3-14b's does on 16 (3 heads: every
+projection gathered, the layer replicated over ``model``), and one whose
+kv split falls mid-head, as glm4-9b's does (4 q heads over 1 kv head: the
+kv projections gathered, their gradients summed over ``model``).
+
+Every rank's loss equals the reference's within ``LOSS_ATOL`` (fp32: the
+vocab-parallel log-sum-exp and the sums over ranks add in another order),
+and each of its gradient blocks equals the reference's gradient, cut to
+that rank's block, within ``GRAD_ATOL`` times max(1, the leaf's largest
+|gradient|); so do the blocks gathered whole (``sharding.gather_tree``)
+on rank 0.
+"""
+
+import os
+import pickle
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+pytest.importorskip("jax")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+from torch.utils._pytree import tree_leaves  # noqa: E402
+
+from repro.configs import get_config as ref_get_config  # noqa: E402
+from repro.models import transformer as ref_tf  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.inputs import dummy_batch  # noqa: E402
+from repro_torch.convert import (  # noqa: E402
+    serving_params_from_jax,
+    transformer_params_to_numpy,
+)
+from repro_torch.models.transformer import (  # noqa: E402
+    init_transformer,
+    param_blocks,
+    shards_storage,
+)
+
+ROOT = Path(__file__).resolve().parent.parent
+LOSS_ATOL = 1e-5
+GRAD_ATOL = 1e-5
+B, S = 4, 32
+WORLDS = {2: (1, 2), 4: (2, 2)}   # world size: (data, model)
+# the cases, importable by the world's processes (which import no jax)
+_CASE = """
+import dataclasses
+
+MICRO = dict(d_model=64, n_heads=3, n_kv_heads=1, head_dim=16, d_ff=128, vocab=64)
+# name: (the reduced config it starts from, the fields it changes)
+CASES = {
+    "stablelm-3b": ("stablelm-3b", {}),
+    "glm4-9b": ("glm4-9b", {}),
+    "gemma3-27b": ("gemma3-27b", {"sliding_window": 16}),
+    "qwen3-14b": ("qwen3-14b", {}),
+    "q_mid_head": ("qwen3-14b", MICRO),
+    "kv_mid_head": ("glm4-9b", MICRO | {"n_heads": 4}),
+}
+
+
+def make_cfg(get, name):
+    arch, kw = CASES[name]
+    return dataclasses.replace(get(arch, reduced=True), loss_chunk=16, **kw)
+"""
+exec(_CASE)
+
+
+_WORLD = r"""
+import os, pickle, sys
+import torch
+import torch.distributed as dist
+from torch.utils._pytree import tree_flatten, tree_unflatten
+
+torch.set_num_threads(1)
+rank, world, data, model = (int(a) for a in sys.argv[1:5])
+work = sys.argv[5]
+dist.init_process_group("gloo", init_method="file://" + os.path.join(work, f"store{world}"),
+                        world_size=world, rank=rank)
+sys.path.insert(0, work)
+from shard_case import CASES, make_cfg
+from repro_torch.configs import get_config
+from repro_torch.convert import blocks_from_jax
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models.transformer import abstract_params, loss_fn, transformer_specs
+from repro_torch.sharding import gather_tree, make_policy
+
+mesh = make_host_mesh(data, model)
+with open(os.path.join(work, "case.pkl"), "rb") as f:
+    case = pickle.load(f)
+out = {"coords": mesh.coords}
+for name in CASES:
+    cfg = make_cfg(get_config, name)
+    tree, batch = case[name]
+    leaves, spec = tree_flatten(blocks_from_jax(tree, cfg, mesh))
+    share = len(batch["tokens"]) // data
+    lo = mesh.axis_index("data") * share
+    mine = {k: torch.from_numpy(v[lo:lo + share]) for k, v in batch.items()}
+    leaves = [p.requires_grad_(True) for p in leaves]
+    loss, _ = loss_fn(tree_unflatten(leaves, spec), cfg, mine, mesh)
+    grads = [g.detach() for g in torch.autograd.grad(loss, leaves, allow_unused=True,
+                                                      materialize_grads=True)]
+    whole = abstract_params(cfg)
+    specs = make_policy(mesh, 0).shardings(transformer_specs(cfg), whole)
+    gathered = gather_tree(tree_unflatten(grads, spec), specs, mesh)
+    out[name] = {"loss": float(loss), "grads": grads,
+                 "gathered": tree_flatten(gathered)[0] if rank == 0 else None}
+torch.save(out, os.path.join(work, f"world{world}_rank{rank}.pt"))
+dist.destroy_process_group()
+"""
+
+
+class _At:
+    """A rank's place on a grid, as ``param_blocks`` reads a mesh."""
+
+    def __init__(self, shape, coords):
+        self.shape, self.axis_names, self.coords = shape, tuple(shape), coords
+
+    def index(self, axes):
+        idx = 0
+        for a in ((axes,) if isinstance(axes, str) else axes):
+            idx = idx * self.shape[a] + self.coords[a]
+        return idx
+
+
+@pytest.fixture(scope="module")
+def shard(tmp_path_factory):
+    """The worlds' saved results and the reference's loss and gradient a
+    case."""
+    work = tmp_path_factory.mktemp("shard")
+    (work / "shard_case.py").write_text(_CASE)
+    case, cfgs = {}, {}
+    for name in CASES:
+        ref_cfg, cfg = make_cfg(ref_get_config, name), make_cfg(get_config, name)
+        # the weights drawn by the port (faster than the reference's init here),
+        # as the reference's stacked numpy tree, its keys in jax's order
+        tree = jax.tree.map(np.asarray, transformer_params_to_numpy(
+            init_transformer(torch.Generator().manual_seed(0), cfg), cfg))
+        batch = {k: v.numpy() for k, v in dummy_batch(cfg, B, S, seed=1).items()}
+        case[name], cfgs[name] = (tree, batch), (ref_cfg, cfg)
+    with open(work / "case.pkl", "wb") as f:
+        pickle.dump(case, f)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    procs = [subprocess.Popen([sys.executable, "-c", _WORLD, str(r), str(n), *map(str, dm),
+                               str(work)], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for n, dm in WORLDS.items() for r in range(n)]
+    def reference(name):
+        (tree, batch), ref_cfg = case[name], cfgs[name][0]
+        jb = {k: jnp.asarray(v) for k, v in batch.items()}
+        (loss, _), grads = jax.jit(jax.value_and_grad(
+            lambda p, b: ref_tf.loss_fn(p, ref_cfg, b), has_aux=True))(tree, jb)
+        return float(loss), jax.tree.map(np.asarray, grads)
+
+    try:
+        # XLA compiles outside the GIL: the six cases' compiles overlap
+        with ThreadPoolExecutor(3) as pool:
+            ref = dict(zip(case, pool.map(reference, case)))
+        outs = [p.communicate(timeout=240) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+    ranks = {n: [torch.load(work / f"world{n}_rank{r}.pt") for r in range(n)] for n in WORLDS}
+    return {"ref": ref, "ranks": ranks, "cfgs": cfgs}
+
+
+@pytest.mark.parametrize("world", sorted(WORLDS))
+@pytest.mark.parametrize("name", list(CASES))
+def test_loss_and_gradient_on_blocks_match_the_reference(shard, name, world):
+    ref_cfg, cfg = shard["cfgs"][name]
+    want_loss, want_grads = shard["ref"][name]
+    data, model = WORLDS[world]
+    shape = {"data": data, "model": model}
+    whole = serving_params_from_jax(want_grads, cfg)
+    for rank, got in enumerate(shard["ranks"][world]):
+        assert got["coords"] == {"data": rank // model, "model": rank % model}
+        assert abs(got[name]["loss"] - want_loss) <= LOSS_ATOL, (rank, got[name]["loss"],
+                                                                 want_loss)
+        want = tree_leaves(param_blocks(whole, cfg, _At(shape, got["coords"])))
+        pairs = list(zip(got[name]["grads"], want, strict=True))
+        if rank == 0:       # its blocks' gradients gathered whole over the world
+            pairs += list(zip(got[name]["gathered"], tree_leaves(whole), strict=True))
+        for j, (g, w) in enumerate(pairs):
+            assert g.shape == w.shape, (rank, j, g.shape, w.shape)
+            tol = GRAD_ATOL * max(1.0, float(w.abs().max()))
+            err = float((g - w).abs().max())
+            assert err <= tol, (rank, j, tuple(w.shape), err, tol)
+
+
+def test_the_cases_shard_and_split_as_the_docstring_says():
+    """The four families shard on a grid; each case's q and kv blocks at
+    model 2 fall on whole heads or not as the module's docstring says."""
+    from repro_torch.launch.mesh import make_dry_mesh
+
+    whole_heads = {"q_mid_head": (False, False), "kv_mid_head": (True, False)}
+    for name in CASES:
+        cfg = make_cfg(get_config, name)
+        assert shards_storage(cfg, make_dry_mesh(1, 2)) and not shards_storage(cfg, None)
+        h, kv = cfg.n_heads, cfg.n_kv_heads
+        assert (h % 2 == 0, kv % 2 == 0) == whole_heads.get(name, (True, True)), name
+    assert not shards_storage(get_config("hymba-1.5b", reduced=True), make_dry_mesh(1, 2))
