@@ -31,9 +31,12 @@ Phases, each printed on its own lines:
    and at the training launcher's (8, 128, 32, 80) stablelm, (8, 128, 25 /
    5 kv, 64) hymba and (8, 128, 48 / 8 kv, 128) dbrx-132b (the first D =
    128 backward on a path), with ``scaled_dot_product_attention(enable_gqa=True)``
-   as the library; K4 with its final-state output at hymba's prefill, (4,
-   128 / 1280, 1600, 16) fp32, and with its checkpoints at the launcher's
-   (8, 128, 1600, 16).
+   as the library; K3 also at the scaleout grid's ranks: (4, 128, 25 / 5
+   kv, 64) hymba replicated (bf16, fp32), (4, 128, 16, 64) musicgen-large
+   and (4, 384, 7 / 1 kv, 64) internvl2-1b (fp32); K4 with its final-state
+   output at hymba's prefill, (4, 128 / 1280, 1600, 16) fp32, and with its
+   checkpoints at the launcher's (8, 128, 1600, 16) and at a grid rank's
+   channel block (4, 128, 800, 16).
 4. main paths, each driven through ``make_engine(...).rounds()`` with
    every kernel's launch count set to 0 just before and read just after:
    - the paper's experiment at full width (K = 100 clients, m = 10, MLP
@@ -209,16 +212,21 @@ Phases, each printed on its own lines:
      the scale-out round on the (pod 2, data 2, model 2) grid in eight
      processes of this script on the one card, started with a file store
      under ``build/grid/``, with real collectives under gloo: stablelm-3b
-     at full width cut to 4 layers, each rank holding its blocks of every
-     leaf under the baseline policy and training on its 4-sequence share
-     of its pod's 8 x 128 batch, tensor-parallel over ``model`` (K3 on its
-     16 heads, forward and backward, K1 on its blocks), 4 local steps, in
-     bf16 at compress_bits 0 and 8 and in fp32 at 0.  Each rank prints its
-     held bytes, its peak, its K1 / K3 launches and its collectives; its
-     blocks are held against the same round in a world of one process on
-     the card (the whole layout, both pods in one process), cut to its
-     block: fp32 within 1e-4 of max(1, |ref|), bf16's largest difference
-     printed.  A rank that fails makes the phase raise;
+     and hymba-1.5b at full width cut to 4 layers, each rank holding its
+     blocks of every leaf under the baseline policy and training on its
+     4-sequence share of its pod's 8 x 128 batch, tensor-parallel over
+     ``model`` (K3 on stablelm's 16 heads and on hymba's 25 replicated,
+     K4 on hymba's 800-channel block at (4, 128, 800, 16), forward and
+     backward, K1 on its blocks), 4 local steps, in bf16 at compress_bits
+     0 and 8 and in fp32 at 0; then internvl2-1b (8 x 384 a pod: 256
+     patches and 128 tokens) and musicgen-large (8 x 128 frames), 4
+     layers, in fp32 at 0.  Each rank prints its held bytes, its peak, its
+     K1 / K3 / K4 launches (held to once a leaf, and 16 + 16 a round, the
+     shapes held by the work formulas' product flops a launch) and its
+     collectives; its blocks are held against the same round in a world of
+     one process on the card (the whole layout, both pods in one
+     process), cut to its block: fp32 within 1e-4 of max(1, |ref|), bf16's
+     largest difference printed.  A rank that fails makes the phase raise;
    - ``dryrun:`` the dry run (``repro_torch.launch.dryrun``) against the
      card, at full width and depth in bf16: stablelm-3b train at 8 x 128
      (K3 both ways), and the prefill at 4 x 1280 of hymba-1.5b (K3, K4),
@@ -230,12 +238,13 @@ Phases, each printed on its own lines:
      the arguments (``max_memory_allocated`` over the call, less what was
      allocated when it began) must be within 10 % of it, the output
      finite, and each kernel's launches those the dry run tallied.  Then
-     the grid round: rank 0 of the dry (2, 2, 2) mesh traced on ``meta``
-     at ``scaleout grid:``'s size (the rank's blocks and batch share,
-     compress bits 0 and 8, collectives tallied by kind) against rank 0 of
-     the eight-process world on the card: the tallied flops equal, K1's
-     and K3's launches the tally, the collective bytes by kind equal, the
-     peak above the arguments within 10 %; and rank 0 of the 2 x 16 x 16
+     the grid round, each model and run of ``scaleout grid:``: rank 0 of
+     the dry (2, 2, 2) mesh traced on ``meta`` at that phase's size (the
+     rank's blocks and batch share, collectives tallied by kind) against
+     rank 0 of the eight-process world on the card: the
+     tallied flops equal, K1's, K3's and K4's launches the tally, the
+     collective bytes by kind equal, the peak above the arguments within
+     10 %; and rank 0 of the 2 x 16 x 16
      mesh at full depth predicted at 16 sequences a pod, its
      ``argument_size`` equal to what it holds.  Then the
      ``--all --mesh single`` sweep (40 records) and the ``--federated``
@@ -243,7 +252,9 @@ Phases, each printed on its own lines:
      deepseek-v3-671b, one of whose dense-MoE traces outlasts this
      script's time limit: 18, in two children), each started in a child
      process that cannot see the card (nice 10) after phase 3, must have
-     written their records, none failed; their wall times are printed;
+     written their records, none failed, every ``train`` and federated
+     record of a family that ``shards_storage`` names "sharded" and
+     holding exactly its ``argument_size``; their wall times are printed;
    - ``analysis:`` the port's tracecheck (``repro_torch.analysis``): the
      lint over ``src/repro_torch`` must be clean and every contract of
      ``run_contracts`` on the card must pass, none skipped (masks, a
@@ -293,7 +304,8 @@ Phases, each printed on its own lines:
 
 Then the card's name and power limit again, one JSON line lists the
 kernels (K1's launches summed over every path above; K3's backward also
-at the dbrx-132b step's shape, with that step's launches), and the last line
+at the dbrx-132b step's shape, with that step's launches; K4 also at a
+grid rank's channel block, with the grid's launches), and the last line
 is ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
 before that line; so does a machine with no CUDA device, and a directory
 that holds this script without the repository's ``src/``.
@@ -302,6 +314,7 @@ that holds this script without the repository's ``src/``.
 from __future__ import annotations
 
 import atexit
+import concurrent.futures
 import dataclasses
 import gc
 import json
@@ -3685,22 +3698,37 @@ GRID_DIR = ROOT / "build" / "grid"
 GRID_PROBE_TIMEOUT = 120
 
 
-def _grid_spawn(kind, world, timeout, *extra):
+def _grid_start(kind, world, *extra):
     """``world`` processes of this script (``--grid-child kind rank world
-    dir ...``) on the one card, joined by a file store under ``GRID_DIR``:
-    [(returncode or None where the time limit cut it, its output, the JSON
-    object its last line holds or None)], one a rank.  Every process is
-    waited for or killed before this returns."""
+    dir ...``) on the one card, joined by a file store under ``GRID_DIR``,
+    started and not waited for: (their directory, the processes)."""
     import os
 
     work = GRID_DIR / kind
     work.mkdir(parents=True, exist_ok=True)
     (work / "store").unlink(missing_ok=True)
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    # expandable segments: eight allocators share the card, and internvl2-1b's
+    # fp32 round (its 151,655-row table and head whole on every rank) leaves
+    # ~1.8 GiB a process reserved but unallocated in fixed segments, which
+    # made the eighth process's allocation fail
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1",
+               PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
     procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--grid-child",
                                kind, str(r), str(world), str(work), *map(str, extra)],
                               env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                               text=True) for r in range(world)]
+    for p in procs:
+        atexit.register(lambda p=p: p.poll() is None and p.kill())  # a failed run too
+    return work, procs
+
+
+def _grid_wait(started, timeout):
+    """Wait for ``_grid_start``'s processes: [(returncode or None where the
+    time limit cut it, its output, the JSON object its last line holds or
+    None)], one a rank, each rank's output also written to ``rank{r}.log``
+    in their directory.  Every process is waited for or killed before this
+    returns."""
+    work, procs = started
     deadline = time.perf_counter() + timeout
     out = []
     try:
@@ -3718,6 +3746,7 @@ def _grid_spawn(kind, world, timeout, *extra):
             except json.JSONDecodeError:
                 res = None
             out.append((rc, log, res))
+            (work / f"rank{len(out) - 1}.log").write_text(log)
     finally:
         for p in procs:
             if p.poll() is None:
@@ -3726,15 +3755,20 @@ def _grid_spawn(kind, world, timeout, *extra):
     return out
 
 
-def _grid_probe():
-    """Before the grid world: two processes on the one card under NCCL (a
-    communicator of two ranks on one device, which NCCL should refuse),
-    then under gloo with CUDA tensors: ``all_reduce`` (sum and max) and
-    ``all_gather`` in fp32, bf16 and int8, each result checked.  Prints
-    what each found; raises if gloo's CUDA collectives fail, since the
-    grid world runs on them."""
-    t = time.perf_counter()
-    nccl = _grid_spawn("nccl-probe", 2, GRID_PROBE_TIMEOUT)
+def _grid_probe_start():
+    """Before the grid world, two worlds of two processes on the one card,
+    started together: one under NCCL (a communicator of two ranks on one
+    device, which NCCL should refuse), one under gloo with CUDA tensors
+    (``all_reduce`` sum and max and ``all_gather`` in fp32, bf16 and int8,
+    each result checked).  ``_grid_probe_finish`` waits for them."""
+    return (time.perf_counter(), _grid_start("nccl-probe", 2), _grid_start("gloo-probe", 2))
+
+
+def _grid_probe_finish(probes):
+    """Prints what each of ``_grid_probe_start``'s worlds found; raises if
+    gloo's CUDA collectives fail, since the grid world runs on them."""
+    t, nccl_started, gloo_started = probes
+    nccl = _grid_wait(nccl_started, GRID_PROBE_TIMEOUT)
     found = []
     for rc, log, res in nccl:
         if rc is None:
@@ -3746,19 +3780,20 @@ def _grid_probe():
             found.append(f"refused (exit {rc}): {err}")
     print(f"scaleout grid: probe: NCCL, two ranks of one communicator on one card: "
           f"{json.dumps(found)}", flush=True)
-    gloo = _grid_spawn("gloo-probe", 2, GRID_PROBE_TIMEOUT)
+    gloo = _grid_wait(gloo_started, GRID_PROBE_TIMEOUT)
     for r, (rc, log, res) in enumerate(gloo):
         print(f"scaleout grid: probe: gloo with CUDA tensors, rank {r}: exit {rc}, "
               f"{json.dumps(res)}", flush=True)
         if rc != 0 or not res or not res.get("ok"):
             raise AssertionError(f"scaleout grid: gloo's CUDA collectives failed on rank {r}: "
                                  f"{log[-3000:]}")
-    print(f"scaleout grid: probe in {time.perf_counter() - t:.1f} s", flush=True)
+    print(f"scaleout grid: probe in {time.perf_counter() - t:.1f} s (beside the world of one)",
+          flush=True)
     return found
 
 
 def _probe_child(kind, rank, world, work) -> dict:
-    """One rank of ``_grid_probe``'s worlds."""
+    """One rank of ``_grid_probe_start``'s worlds."""
     import torch
     import torch.distributed as dist
 
@@ -3810,33 +3845,50 @@ def _grid_child_main() -> int:
 
 
 # the grid world: (pod 2, data 2, model 2) in eight processes on the one
-# card under gloo, ROUND_MODEL at full width cut to GRID_LAYERS layers (the
-# world's collectives cross host memory under gloo, so depth is what its
-# time scales with; eight processes of 4 layers hold ~2 GiB each in bf16),
-# ROUND_STEPS local steps of ROUND_BATCH x ROUND_SEQ tokens a pod, the pods'
-# FedAvg weights GRID_W; the runs: (tag, dtype, compress_bits)
+# card under gloo, each of GRID_MODELS at full width cut to GRID_LAYERS
+# layers (the world's collectives cross host memory under gloo, so depth is
+# what its time scales with; eight processes of 4 layers hold ~2 GiB each
+# in bf16), GRID_STEPS local steps of ROUND_BATCH sequences a pod (two, not
+# the scaleout phase's ROUND_STEPS: each step sums every block's gradient
+# over data through host memory, and the script has a time limit), the
+# pods' FedAvg weights GRID_W; the runs: (tag, dtype, compress_bits)
 GRID_SHAPE, GRID_LAYERS, GRID_W = {"data": 2, "model": 2, "pod": 2}, 4, (0.25, 0.75)
+GRID_STEPS = 2
 GRID_RUNS = (("bf16 q0", "bfloat16", 0), ("bf16 q8", "bfloat16", 8), ("fp32 q0", "float32", 0))
-GRID_TIMEOUT = 420
+# model: (sequence, its runs); internvl2-1b's 384 positions are its 256
+# patches and 128 text tokens (128 would hold no text after the patches)
+GRID_MODELS = {"stablelm-3b": (ROUND_SEQ, GRID_RUNS), "hymba-1.5b": (ROUND_SEQ, GRID_RUNS),
+               "internvl2-1b": (384, GRID_RUNS[2:]), "musicgen-large": (ROUND_SEQ, GRID_RUNS[2:])}
+# the shapes a rank hands K3, (B, S, H, KV, D), and K4, (B, S, D, N): its
+# 4-sequence data share; stablelm's, internvl2's and musicgen's heads split
+# over model 2, hymba's 25 q heads do not (its attention replicated) and its
+# 1600 Mamba channels do
+GRID_K3 = {"stablelm-3b": (4, 128, 16, 16, 80), "hymba-1.5b": (4, 128, 25, 5, 64),
+           "internvl2-1b": (4, 384, 7, 1, 64), "musicgen-large": (4, 128, 16, 16, 64)}
+GRID_K4 = {"hymba-1.5b": (4, 128, 800, 16)}
+GRID_TIMEOUT = 600
 # each rank's fp32 blocks against the world of one, relative to max(1, max
 # |world of one|): the same SGD from the same weights, its sums over model,
 # data and pod in another order, K3 as 3xTF32
 GRID_FP32_TOL = 1e-4
 GRID_RESULTS: dict = {}
+GRID_COUNTERS = ("masked_weighted_sum", "flash_attention_forward", "flash_attention_backward",
+                 "mamba_scan_forward", "mamba_scan_backward")
 
 
-def _grid_cfg(dtype):
+def _grid_cfg(model, dtype):
     from repro_torch.configs import get_config
 
-    return dataclasses.replace(get_config(ROUND_MODEL), n_layers=GRID_LAYERS, dtype=dtype)
+    return dataclasses.replace(get_config(model), n_layers=GRID_LAYERS, dtype=dtype)
 
 
 def _grid_rank(rank, world, work) -> dict:
-    """One rank of the grid world: its blocks of ``_grid_cfg``'s weights
-    (``param_blocks``), its ``data`` share of its pod's batch, each of
-    ``GRID_RUNS`` once under ``dryrun.count_flops``: ms, loss, held bytes,
-    the peak above the arguments, K1 / K3 launches, the tallies, and its
-    blocks against the world of one's (``_grid_reference``'s file)."""
+    """One rank of the grid world: for each of ``GRID_MODELS`` and each of
+    its runs, its blocks of ``_grid_cfg``'s weights (``param_blocks``), its
+    ``data`` share of its pod's batch, the round once under
+    ``dryrun.count_flops``: ms, loss, held bytes, the peak above the
+    arguments, K1 / K3 / K4 launches, the tallies, and its blocks against
+    the world of one's (``_grid_reference``'s file)."""
     import torch
     import torch.distributed as dist
     from torch.utils._pytree import tree_flatten, tree_leaves, tree_unflatten
@@ -3849,6 +3901,7 @@ def _grid_rank(rank, world, work) -> dict:
         flash_attention_backward,
         flash_attention_forward,
     )
+    from repro_torch.kernels.mamba_scan import mamba_scan_backward, mamba_scan_forward
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models.transformer import init_params, param_blocks
@@ -3860,61 +3913,78 @@ def _grid_rank(rank, world, work) -> dict:
                             rank=rank)
     mesh = make_host_mesh(**GRID_SHAPE)
     pod, d = mesh.coords["pod"], mesh.coords["data"]
-    counters = (masked_weighted_sum, flash_attention_forward, flash_attention_backward)
+    counters = (masked_weighted_sum, flash_attention_forward, flash_attention_backward,
+                mamba_scan_forward, mamba_scan_backward)
     out = {"coords": mesh.coords, "runs": {}}
-    for tag, dtype, bits in GRID_RUNS:
-        cfg = _grid_cfg(dtype)
-        whole = init_params(torch.Generator(device).manual_seed(0), cfg)
-        blocks = param_blocks(whole, cfg, mesh)
-        spec = tree_flatten(whole)[1]
-        del whole
-        share = ROUND_BATCH // mesh.shape["data"]
-        batch = {k: v[None, d * share:(d + 1) * share].to(device)
-                 for k, v in dummy_batch(cfg, ROUND_BATCH, ROUND_SEQ, seed=pod).items()}
-        start = stack_for_clients(blocks, 1)
-        weights = torch.tensor(GRID_W, device=device)
-        fn = make_federated_round(cfg, mesh, lr=ROUND_LR, local_steps=ROUND_STEPS,
-                                  compress_bits=bits)
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.synchronize()
-        dist.barrier()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        for c in counters:
-            c.launches = 0
-        t = time.perf_counter()
-        (new, losses), flops, tally = dryrun.count_flops(fn, start, batch, weights)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t) * 1e3
-        peak = torch.cuda.max_memory_allocated() - base
-        got = [x[0].float().cpu() for x in tree_leaves(new)]
-        held = sum(x.numel() * x.element_size() for x in tree_leaves(blocks))
-        del new, start, blocks, batch
-        ref = torch.load(Path(work).parent / f"reference_{bits}_{dtype}.pt", mmap=True)
-        want = tree_leaves(param_blocks(tree_unflatten(ref, spec), cfg, mesh))
-        diff = max((g - w.float()).abs().max().item() for g, w in zip(got, want, strict=True))
-        rel = max((g - w.float()).abs().max().item() / max(1.0, w.float().abs().max().item())
-                  for g, w in zip(got, want))
-        out["runs"][tag] = {
-            "ms": ms, "loss": losses.tolist(), "held_bytes": held, "peak_bytes": peak,
-            "flops": flops, "coll": dict(tally.collectives),
-            "launches": {c.__name__: c.launches for c in counters},
-            "tallied": {k: v["launches"] for k, v in tally.kernels.items()},
-            "max_abs_diff": diff, "max_rel_diff": rel,
-            "finite": bool(all(torch.isfinite(g).all() for g in got)
-                           and torch.isfinite(losses).all()),
-        }
-        del got, ref, want
+    for model, (seq, runs) in GRID_MODELS.items():
+        for tag, dtype, bits in runs:
+            cfg = _grid_cfg(model, dtype)
+            whole = init_params(torch.Generator(device).manual_seed(0), cfg)
+            blocks = param_blocks(whole, cfg, mesh)
+            spec = tree_flatten(whole)[1]
+            del whole
+            share = ROUND_BATCH // mesh.shape["data"]
+            batch = {k: v[None, d * share:(d + 1) * share].to(device)
+                     for k, v in dummy_batch(cfg, ROUND_BATCH, seq, seed=pod).items()}
+            start = stack_for_clients(blocks, 1)
+            weights = torch.tensor(GRID_W, device=device)
+            fn = make_federated_round(cfg, mesh, lr=ROUND_LR, local_steps=GRID_STEPS,
+                                      compress_bits=bits)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            free, _ = torch.cuda.mem_get_info()
+            print(f"grid rank {rank}: {model} {tag}: the card has {free / 2**30:.2f} GiB free, "
+                  f"this process holds {torch.cuda.memory_reserved() / 2**30:.2f} GiB",
+                  flush=True)
+            dist.barrier()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            for c in counters:
+                c.launches = 0
+            t = time.perf_counter()
+            (new, losses), flops, tally = dryrun.count_flops(fn, start, batch, weights)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            peak = torch.cuda.max_memory_allocated() - base
+            got = [x[0] for x in tree_leaves(new)]
+            held = sum(x.numel() * x.element_size() for x in tree_leaves(blocks))
+            del new, start, blocks, batch
+            # the world of one's leaves, cut to this rank's blocks on the host
+            # and compared on the card (eight processes share the host's cores)
+            ref_path = Path(work).parent / f"reference_{model}_{bits}_{dtype}.pt"
+            deadline = time.perf_counter() + GRID_TIMEOUT
+            while not ref_path.exists():  # the world of one runs beside this world
+                if time.perf_counter() > deadline:
+                    raise TimeoutError(f"no {ref_path.name} from the world of one")
+                time.sleep(0.2)
+            ref = torch.load(ref_path, mmap=True)
+            want = [w.to(device) for w in
+                    tree_leaves(param_blocks(tree_unflatten(ref, spec), cfg, mesh))]
+            errs = [((g.float() - w.float()).abs().max().item(), w.float().abs().max().item())
+                    for g, w in zip(got, want, strict=True)]
+            diff = max(e for e, _ in errs)
+            rel = max(e / max(1.0, m) for e, m in errs)
+            out["runs"][f"{model} {tag}"] = {
+                "ms": ms, "loss": losses.tolist(), "held_bytes": held, "peak_bytes": peak,
+                "flops": flops, "coll": dict(tally.collectives),
+                "launches": {c.__name__: c.launches for c in counters},
+                "tallied": {k: v["launches"] for k, v in tally.kernels.items()},
+                "product_flops": {k: v["product_flops"] for k, v in tally.kernels.items()},
+                "max_abs_diff": diff, "max_rel_diff": rel,
+                "finite": bool(all(torch.isfinite(g).all() for g in got)
+                               and torch.isfinite(losses).all()),
+            }
+            del got, ref, want
     return out
 
 
 def _grid_reference(device):
-    """Each of ``GRID_RUNS`` in a world of one process on the card (the
-    whole layout: ``make_host_mesh(pod=2)`` holds both pods and trains each
-    on its whole batch, then K1 over both), its leaves written under
-    ``GRID_DIR`` for the ranks to cut their blocks from.  Returns {tag:
-    (ms, the losses)}."""
+    """Each model's runs of ``GRID_MODELS`` in a world of one process on the
+    card (the whole layout: ``make_host_mesh(pod=2)`` holds both pods and
+    trains each on its whole batch, then K1 over both), its leaves written
+    under ``GRID_DIR`` for the ranks to cut their blocks from.  Returns
+    {"model tag": (ms, the losses)}."""
     import torch
     from torch.utils._pytree import tree_leaves
 
@@ -3925,101 +3995,142 @@ def _grid_reference(device):
 
     GRID_DIR.mkdir(parents=True, exist_ok=True)
     out = {}
-    for tag, dtype, bits in GRID_RUNS:
-        cfg = _grid_cfg(dtype)
-        params = init_params(torch.Generator(device).manual_seed(0), cfg)
-        batch = {k: torch.stack([dummy_batch(cfg, ROUND_BATCH, ROUND_SEQ, seed=p)[k]
-                                 for p in range(GRID_SHAPE["pod"])]).to(device)
-                 for k in ("tokens", "labels")}
-        fn = make_federated_round(cfg, make_host_mesh(pod=GRID_SHAPE["pod"]), lr=ROUND_LR,
-                                  local_steps=ROUND_STEPS, compress_bits=bits)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        new, losses = fn(stack_for_clients(params, GRID_SHAPE["pod"]), batch,
-                         torch.tensor(GRID_W, device=device))
-        torch.cuda.synchronize()
-        out[tag] = ((time.perf_counter() - t) * 1e3, losses.tolist())
-        torch.save([x[0].cpu() for x in tree_leaves(new)],
-                   GRID_DIR / f"reference_{bits}_{dtype}.pt")
-        del params, batch, new, losses
-        gc.collect()
-        torch.cuda.empty_cache()
+    for model, (seq, runs) in GRID_MODELS.items():
+        for tag, dtype, bits in runs:
+            cfg = _grid_cfg(model, dtype)
+            params = init_params(torch.Generator(device).manual_seed(0), cfg)
+            # pod p's batch from seed p, as the world's ranks draw it
+            pods = [dummy_batch(cfg, ROUND_BATCH, seq, seed=p) for p in range(GRID_SHAPE["pod"])]
+            batch = {k: torch.stack([b[k] for b in pods]).to(device) for k in pods[0]}
+            fn = make_federated_round(cfg, make_host_mesh(pod=GRID_SHAPE["pod"]), lr=ROUND_LR,
+                                      local_steps=GRID_STEPS, compress_bits=bits)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            new, losses = fn(stack_for_clients(params, GRID_SHAPE["pod"]), batch,
+                             torch.tensor(GRID_W, device=device))
+            torch.cuda.synchronize()
+            out[f"{model} {tag}"] = ((time.perf_counter() - t) * 1e3, losses.tolist())
+            path = GRID_DIR / f"reference_{model}_{bits}_{dtype}.pt"
+            torch.save([x[0].cpu() for x in tree_leaves(new)], path.with_suffix(".tmp"))
+            path.with_suffix(".tmp").replace(path)  # a rank never reads half a file
+            del params, batch, new, losses
+            gc.collect()
+            torch.cuda.empty_cache()
     return out
+
+
+def _grid_expected(model, n_leaves) -> tuple[dict, dict]:
+    """A round's launches on each rank of the grid world for ``model`` (K1
+    once a leaf, K3 and K4 once a layer and local step each way, K4 for
+    hymba alone) and the product flops a launch of K3 and K4 forward at
+    the model's ``GRID_K3`` / ``GRID_K4`` shape (the work formulas'):
+    4 B H S^2 D and 2 B S D N."""
+    per_layer = GRID_LAYERS * GRID_STEPS
+    scan = per_layer if model in GRID_K4 else 0
+    launches = {"masked_weighted_sum": n_leaves, "flash_attention_forward": per_layer,
+                "flash_attention_backward": per_layer, "mamba_scan_forward": scan,
+                "mamba_scan_backward": scan}
+    b, s, h, _, dh = GRID_K3[model]
+    per_launch = {"flash_attention_forward": 4.0 * b * h * s * s * dh}
+    if model in GRID_K4:
+        per_launch["mamba_scan_forward"] = 2.0 * math.prod(GRID_K4[model])
+    return launches, per_launch
 
 
 def _scaleout_grid_phase(device):
     """The scale-out round on the (pod 2, data 2, model 2) grid in eight
     processes on the one card, with real collectives under gloo (NCCL
-    refuses several ranks on one device: ``_grid_probe``): each rank holds
-    its blocks under the baseline policy and trains on its ``data`` share,
-    tensor-parallel over ``model``, K3 on its heads and K1 on its blocks.
-    Each rank's held bytes, peak and launches are printed; its fp32 blocks
-    must equal the world of one's (``_grid_reference``), cut to the rank's
-    block, within ``GRID_FP32_TOL``; bf16's largest difference is
-    reported.  Returns the world's launches of K1 and K3, summed over its
-    ranks; rank 0's runs go to ``GRID_RESULTS`` for ``dryrun:``."""
+    refuses several ranks on one device: ``_grid_probe_finish``): for each of
+    ``GRID_MODELS`` each rank holds its blocks under the baseline policy and
+    trains on its ``data`` share, tensor-parallel over ``model``, K3 on its
+    heads (hymba's replicated), K4 on its block of hymba's Mamba channels
+    and K1 on its blocks.  Each rank's held bytes, peak and launches are
+    printed, and the K3 / K4 shapes are checked against their work
+    formulas' product flops; its fp32 blocks must equal the world of
+    one's (``_grid_reference``), cut to the rank's block, within
+    ``GRID_FP32_TOL``; bf16's largest difference is reported.  Returns the
+    world's launches of K1, K3 and K4, summed over its ranks; rank 0's runs
+    go to ``GRID_RESULTS`` for ``dryrun:``."""
     import torch
     from torch.utils._pytree import tree_leaves
 
     from repro_torch.models.transformer import abstract_params
 
     t = time.perf_counter()
-    probe = _grid_probe()
-    cfg = _grid_cfg("bfloat16")
-    n_leaves = len(tree_leaves(abstract_params(cfg)))
-    ref = _grid_reference(device)
-    torch.cuda.empty_cache()
+    # the probes, the world and the world of one start together: a rank
+    # waits for the world of one's file of a run only after its own round
+    for old in GRID_DIR.glob("reference_*"):
+        old.unlink()
+    probes = _grid_probe_start()
     world = math.prod(GRID_SHAPE.values())
-    ranks = _grid_spawn("round", world, GRID_TIMEOUT)
-    for r, (rc, log, res) in enumerate(ranks):
-        if rc != 0 or not res or "runs" not in res:
-            raise AssertionError(f"scaleout grid: rank {r} failed (exit {rc}): {log[-3000:]}")
-    total = {"masked_weighted_sum": 0, "flash_attention_forward": 0,
-             "flash_attention_backward": 0}
-    want_k3 = GRID_LAYERS * ROUND_STEPS
-    for tag, dtype, bits in GRID_RUNS:
-        ms, losses = ref[tag]
-        print(f"scaleout grid: {tag}: a world of one (the whole layout, both pods in one "
-              f"process) {ms:.1f} ms, losses {losses}", flush=True)
-        worst = 0.0
-        for r, (_, _, res) in enumerate(ranks):
-            run = res["runs"][tag]
-            for k in total:
-                total[k] += run["launches"][k]
-            print(f"scaleout grid: {tag} rank {r} {json.dumps(res['coords'])}: held "
-                  f"{run['held_bytes'] / 2**30:.4f} GiB, peak above the arguments "
-                  f"{run['peak_bytes'] / 2**30:.4f} GiB, round {run['ms']:.1f} ms (eight "
-                  f"processes sharing the card), losses {run['loss']}, launches "
-                  f"{json.dumps(run['launches'])}, collectives {json.dumps(run['coll'])} B, "
-                  f"against the world of one: max |diff| {run['max_abs_diff']:.4g}, relative "
-                  f"to max(1, |ref|) {run['max_rel_diff']:.4g}", flush=True)
-            worst = max(worst, run["max_rel_diff"])
-            bad = []
-            if not run["finite"]:
-                bad.append("not finite")
-            if run["launches"] != {"masked_weighted_sum": n_leaves,
-                                   "flash_attention_forward": want_k3,
-                                   "flash_attention_backward": want_k3}:
-                bad.append(f"launches {run['launches']}: K1 once a leaf ({n_leaves}), K3 "
-                           f"{want_k3} each way")
-            if run["launches"] != {k: run["tallied"].get(k, 0) for k in run["launches"]}:
-                bad.append(f"launches {run['launches']} against the tally {run['tallied']}")
-            if max(abs(a - b) for a, b in zip(run["loss"], losses)) > 1e-2 * max(
-                    1.0, max(abs(x) for x in losses)):
-                bad.append(f"losses {run['loss']} against the world of one's {losses}")
-            if dtype == "float32" and run["max_rel_diff"] > GRID_FP32_TOL:
-                bad.append(f"fp32 blocks differ by {run['max_rel_diff']} > {GRID_FP32_TOL}")
-            if bad:
-                raise AssertionError(f"scaleout grid {tag} rank {r}: {'; '.join(bad)}")
-        held = f"held to {GRID_FP32_TOL}" if dtype == "float32" else "reported, not held"
-        print(f"scaleout grid: {tag}: the largest difference of a rank's blocks from the "
-              f"world of one's, relative to max(1, |ref|), {worst:.4g} ({held})", flush=True)
-    GRID_RESULTS.update(ranks[0][2]["runs"])
-    print(f"scaleout grid: {ROUND_MODEL} at full width, {cfg.n_layers} layers, {world} "
-          f"processes of {json.dumps(GRID_SHAPE)} on one card under gloo (NCCL: "
-          f"{probe[0][:60]}...), {ROUND_STEPS} local steps of {ROUND_BATCH} x {ROUND_SEQ} "
-          f"tokens a pod; launches {json.dumps(total)}; phase wall time "
-          f"{time.perf_counter() - t:.1f} s", flush=True)
+    started = _grid_start("round", world)
+    ref = _grid_reference(device)
+    print(f"scaleout grid: the world of one's runs in {time.perf_counter() - t:.1f} s (beside "
+          f"the probes and the eight processes' start)", flush=True)
+    probe = _grid_probe_finish(probes)
+    torch.cuda.empty_cache()
+    ranks = _grid_wait(started, GRID_TIMEOUT)
+    failed = [(r, rc, log) for r, (rc, log, res) in enumerate(ranks)
+              if rc != 0 or not res or "runs" not in res]
+    if failed:
+        # a rank whose peer failed ends with "Connection closed by peer": the
+        # others' ends say why
+        first = [f for f in failed if "closed by peer" not in f[2][-400:]] or failed
+        raise AssertionError("scaleout grid: ranks " + ", ".join(
+            f"{r} (exit {rc})" for r, rc, _ in failed) + " failed; " + "\n".join(
+            f"rank {r}: {log[-2500:]}" for r, _, log in first[:2]))
+    total = dict.fromkeys(GRID_COUNTERS, 0)
+    for model, (seq, runs) in GRID_MODELS.items():
+        n_leaves = len(tree_leaves(abstract_params(_grid_cfg(model, "bfloat16"))))
+        want_launches, want_per_launch = _grid_expected(model, n_leaves)
+        for tag, dtype, bits in runs:
+            key = f"{model} {tag}"
+            ms, losses = ref[key]
+            print(f"scaleout grid: {key}: a world of one (the whole layout, both pods in one "
+                  f"process) {ms:.1f} ms, losses {losses}", flush=True)
+            worst = 0.0
+            for r, (_, _, res) in enumerate(ranks):
+                run = res["runs"][key]
+                for k in total:
+                    total[k] += run["launches"][k]
+                per_launch = {k: run["product_flops"].get(k, 0.0) / max(
+                    run["tallied"].get(k, 0), 1) for k in want_per_launch}
+                print(f"scaleout grid: {key} rank {r} {json.dumps(res['coords'])}: held "
+                      f"{run['held_bytes'] / 2**30:.4f} GiB, peak above the arguments "
+                      f"{run['peak_bytes'] / 2**30:.4f} GiB, round {run['ms']:.1f} ms (eight "
+                      f"processes sharing the card), losses {run['loss']}, launches "
+                      f"{json.dumps(run['launches'])}, product flops a launch "
+                      f"{json.dumps(per_launch)}, collectives {json.dumps(run['coll'])} B, "
+                      f"against the world of one: max |diff| {run['max_abs_diff']:.4g}, "
+                      f"relative to max(1, |ref|) {run['max_rel_diff']:.4g}", flush=True)
+                worst = max(worst, run["max_rel_diff"])
+                bad = []
+                if not run["finite"]:
+                    bad.append("not finite")
+                if run["launches"] != want_launches:
+                    bad.append(f"launches {run['launches']}, want {want_launches}")
+                if run["launches"] != {k: run["tallied"].get(k, 0) for k in run["launches"]}:
+                    bad.append(f"launches {run['launches']} against the tally {run['tallied']}")
+                if per_launch != want_per_launch:
+                    bad.append(f"product flops a launch {per_launch}, want {want_per_launch} "
+                               f"(K3 at {GRID_K3[model]}, K4 at {GRID_K4.get(model)})")
+                if max(abs(a - b) for a, b in zip(run["loss"], losses)) > 1e-2 * max(
+                        1.0, max(abs(x) for x in losses)):
+                    bad.append(f"losses {run['loss']} against the world of one's {losses}")
+                if dtype == "float32" and run["max_rel_diff"] > GRID_FP32_TOL:
+                    bad.append(f"fp32 blocks differ by {run['max_rel_diff']} > {GRID_FP32_TOL}")
+                if bad:
+                    raise AssertionError(f"scaleout grid {key} rank {r}: {'; '.join(bad)}")
+            held = f"held to {GRID_FP32_TOL}" if dtype == "float32" else "reported, not held"
+            print(f"scaleout grid: {key}: the largest difference of a rank's blocks from the "
+                  f"world of one's, relative to max(1, |ref|), {worst:.4g} ({held})", flush=True)
+        GRID_RESULTS[model] = {tag: ranks[0][2]["runs"][f"{model} {tag}"]
+                               for tag, _, _ in runs}
+    print(f"scaleout grid: {', '.join(GRID_MODELS)} at full width, {GRID_LAYERS} layers, "
+          f"{world} processes of {json.dumps(GRID_SHAPE)} on one card under gloo (NCCL: "
+          f"{probe[0][:60]}...), {GRID_STEPS} local steps of {ROUND_BATCH} sequences a pod; "
+          f"launches {json.dumps(total)}; phase wall time {time.perf_counter() - t:.1f} s",
+          flush=True)
     return total
 
 
@@ -4153,36 +4264,96 @@ def _dryrun_step(device, model, kind, seq, batch):
     return launches
 
 
-def _dryrun_round(bits):
-    """The grid round's rank 0, predicted and held to the card's:
-    ``make_federated_round`` traced for rank 0 of the dry (pod 2, data 2,
-    model 2) mesh at the grid phase's size (``dryrun.build_federated``:
-    ``_grid_cfg`` in bf16, ``ROUND_STEPS`` local steps of ``ROUND_BATCH`` x
-    ``ROUND_SEQ`` tokens a pod, ``bits``; the rank's blocks and batch
-    share), against rank 0 of the eight-process world on the card
-    (``GRID_RESULTS``, from ``_scaleout_grid_phase``): the tallied flops
-    equal, K1's and K3's launches and the card's tally equal to the
-    prediction, the collective bytes by kind equal, the peak above the
-    arguments within ``DRYRUN_PEAK_TOL``.  Then (once, with ``bits`` 0)
-    rank 0 of the 2 x 16 x 16 mesh at full depth, predicted at 16
-    sequences a pod (which 16 data ranks divide): its ``argument_size``
-    and ``argument_size_held``, which must be equal.
-    Launches nothing: the world's launches are the grid phase's."""
+DRY_GRID_OUT = ROOT / "build" / "dry_grid.json"
+
+
+def _dry_grid_predictions() -> dict:
+    """The grid round's rank 0, predicted: ``make_federated_round`` traced
+    for rank 0 of the dry (pod 2, data 2, model 2) mesh at the grid phase's
+    size (``dryrun.build_federated``: ``_grid_cfg(model)`` in each run's
+    dtype of ``GRID_MODELS``, ``GRID_STEPS`` local steps of ``ROUND_BATCH``
+    sequences a pod, the run's compress bits; the rank's blocks and batch
+    share), {"model tag": flops, peak above the arguments, arguments,
+    collective bytes, kernel launches, trace seconds}; and under
+    "2 x 16 x 16" rank 0 of that mesh at full depth for ``ROUND_MODEL`` at
+    bf16 q0, predicted at 16 sequences a pod (which 16 data ranks
+    divide)."""
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_dry_mesh
 
-    cfg = _grid_cfg("bfloat16")
+    out = {}
     mesh = make_dry_mesh(GRID_SHAPE["data"], GRID_SHAPE["model"], pod=GRID_SHAPE["pod"])
-    tag = (f"dryrun grid round {ROUND_MODEL} {cfg.n_layers} layers {ROUND_STEPS} x "
-           f"{ROUND_BATCH} x {ROUND_SEQ} q{bits}")
-    fn, args = dryrun.build_federated(cfg, mesh, ROUND_STEPS, ROUND_BATCH, ROUND_SEQ, bits,
-                                      lr=ROUND_LR)
-    pred = dryrun.trace(fn, args)
-    del fn, args
-    predicted = {k: v["launches"] for k, v in pred["kernel_work"].items()}
-    card = GRID_RESULTS[f"bf16 q{bits}"]
+    for model, (seq, runs) in GRID_MODELS.items():
+        for tag, dtype, bits in runs:
+            fn, args = dryrun.build_federated(_grid_cfg(model, dtype), mesh, GRID_STEPS,
+                                              ROUND_BATCH, seq, bits, lr=ROUND_LR)
+            pred = dryrun.trace(fn, args)
+            del fn, args
+            out[f"{model} {tag}"] = {
+                **{k: pred[k] for k in ("flops", "temp", "args", "coll", "t_trace_s")},
+                "launches": {k: v["launches"] for k, v in pred["kernel_work"].items()}}
+    out["2 x 16 x 16"] = dryrun.run_federated(ROUND_MODEL, ROUND_STEPS, 16, ROUND_SEQ, 0)
+    return out
+
+
+def _start_dry_grid():
+    """``_dry_grid_predictions`` in a child process of this script
+    (``--dry-grid``) that cannot see the card, at a lower priority, started
+    with the sweeps; its output to ``DRY_GRID_OUT``.  Returns (process,
+    start)."""
+    import os
+
+    DRY_GRID_OUT.parent.mkdir(parents=True, exist_ok=True)
+    DRY_GRID_OUT.unlink(missing_ok=True)
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dry-grid"],
+                            env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            preexec_fn=lambda: os.nice(10))
+    atexit.register(lambda: proc.poll() is None and proc.kill())  # a failed run too
+    return proc, time.perf_counter()
+
+
+def _dry_grid_child() -> int:
+    """The ``--dry-grid`` process: ``_dry_grid_predictions`` written to
+    ``DRY_GRID_OUT``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    DRY_GRID_OUT.write_text(json.dumps(_dry_grid_predictions()))
+    return 0
+
+
+def _dry_grid_wait(started) -> dict:
+    """``_start_dry_grid``'s predictions, once its process has ended; raises
+    if it failed."""
+    proc, t = started
+    log, _ = proc.communicate(timeout=DRYRUN_SWEEP_TIMEOUT)
+    if proc.returncode != 0 or not DRY_GRID_OUT.exists():
+        raise AssertionError(f"dryrun: the grid predictions' process failed (exit "
+                             f"{proc.returncode}); its output's end:\n{log[-3000:]}")
+    print(f"dryrun: the grid rounds predicted in a child process, {time.perf_counter() - t:.1f} s "
+          f"wall to this wait (started before the build, at nice 10)", flush=True)
+    return json.loads(DRY_GRID_OUT.read_text())
+
+
+def _dryrun_round(model, tag, preds):
+    """The grid round's rank 0 (``preds``: ``_dry_grid_predictions``) held
+    to rank 0 of the eight-process world on the card (``GRID_RESULTS``,
+    from ``_scaleout_grid_phase``): the tallied flops equal, K1's, K3's and
+    K4's launches and the card's tally equal to the prediction, the
+    collective bytes by kind equal, the peak above the arguments within
+    ``DRYRUN_PEAK_TOL``.  Then (once, for ``ROUND_MODEL`` at bf16 q0) the
+    2 x 16 x 16 record's ``argument_size`` and ``argument_size_held``,
+    which must be equal.  Launches nothing: the world's launches are the
+    grid phase's."""
+    seq, runs = GRID_MODELS[model]
+    dtype, bits = next((dt, b) for t, dt, b in runs if t == tag)
+    card = GRID_RESULTS[model][tag]
+    pred = preds[f"{model} {tag}"]
+    name = (f"dryrun grid round {model} {GRID_LAYERS} layers {GRID_STEPS} x "
+            f"{ROUND_BATCH} x {seq} {tag}")
+    predicted = pred["launches"]
+    launched = {k: n for k, n in card["launches"].items() if n}
     rel = (card["peak_bytes"] - pred["temp"]) / pred["temp"]
-    print(f"{tag}: rank 0 of {mesh.shape}, predicted {pred['flops']:.6e} flops, peak above the "
+    print(f"{name}: rank 0 of {GRID_SHAPE}, predicted {pred['flops']:.6e} flops, peak above the "
           f"arguments {pred['temp'] / 2**30:.4f} GiB (arguments {pred['args'] / 2**30:.4f} "
           f"GiB), collectives {json.dumps(pred['coll'])} B, kernel launches "
           f"{json.dumps(predicted)}, traced in {pred['t_trace_s']:.2f} s; rank 0 of the world "
@@ -4190,23 +4361,23 @@ def _dryrun_round(bits):
           f"peak above the arguments {card['peak_bytes'] / 2**30:.4f} GiB ({rel:+.4f} against "
           f"the prediction; held to {DRYRUN_PEAK_TOL}), held {card['held_bytes'] / 2**30:.4f} "
           f"GiB, collectives {json.dumps(card['coll'])} B (equal "
-          f"{card['coll'] == pred['coll']}), launches {json.dumps(card['launches'])}, tallied "
+          f"{card['coll'] == pred['coll']}), launches {json.dumps(launched)}, tallied "
           f"{json.dumps(card['tallied'])}", flush=True)
     if card["flops"] != pred["flops"]:
-        raise AssertionError(f"{tag}: {card['flops']} flops on the card, {pred['flops']} "
+        raise AssertionError(f"{name}: {card['flops']} flops on the card, {pred['flops']} "
                              f"predicted")
     if card["coll"] != pred["coll"]:
-        raise AssertionError(f"{tag}: collectives {card['coll']} on the card, {pred['coll']} "
+        raise AssertionError(f"{name}: collectives {card['coll']} on the card, {pred['coll']} "
                              f"predicted")
-    if card["launches"] != predicted or card["tallied"] != predicted:
-        raise AssertionError(f"{tag}: launches {card['launches']}, tallied {card['tallied']}, "
+    if launched != predicted or card["tallied"] != predicted:
+        raise AssertionError(f"{name}: launches {launched}, tallied {card['tallied']}, "
                              f"predicted {predicted}")
     if abs(rel) > DRYRUN_PEAK_TOL:
-        raise AssertionError(f"{tag}: peak {card['peak_bytes']} B against the predicted "
+        raise AssertionError(f"{name}: peak {card['peak_bytes']} B against the predicted "
                              f"{pred['temp']} B")
-    if bits:
+    if bits or dtype != "bfloat16" or model != ROUND_MODEL:
         return {}
-    rec = dryrun.run_federated(ROUND_MODEL, ROUND_STEPS, 16, ROUND_SEQ, bits)
+    rec = preds["2 x 16 x 16"]
     mem = rec["memory"]
     print(f"dryrun grid round {ROUND_MODEL} 2 x 16 x 16 rank 0, {rec['shape']}: storage "
           f"{rec['storage']}, argument_size {mem['argument_size']} B, argument_size_held "
@@ -4220,17 +4391,44 @@ def _dryrun_round(bits):
     return {}
 
 
-def _dryrun_phase(device, sweeps):
+def _storage_faults(recs) -> list[str]:
+    """The ``train`` and federated records of a sweep whose ``storage``
+    disagrees with ``shards_storage`` on a grid, or that say "sharded" and
+    hold other bytes than their share (``argument_size``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_dry_mesh
+    from repro_torch.models.transformer import shards_storage
+
+    grid = make_dry_mesh(1, 2)
+    out = []
+    for r in recs:
+        if r["kind"] not in ("train", "federated_round"):
+            continue
+        want = "sharded" if shards_storage(get_config(r["arch"]), grid) else "whole"
+        mem = r["memory"]
+        if r["storage"] != want or (want == "sharded"
+                                    and mem["argument_size_held"] != mem["argument_size"]):
+            out.append(f"{r['arch']} {r['shape']} {r['mesh']}: {r['storage']}, held "
+                       f"{mem['argument_size_held']} of {mem['argument_size']} B")
+    return out
+
+
+def _dryrun_phase(device, sweeps, dry_grid):
     """The dry run (``repro_torch.launch.dryrun``) against the card: each of
     ``DRYRUN_STEPS`` predicted and run (``_dryrun_step``), then the grid
-    round at compress_bits 0 and 8 (``_dryrun_round``); then the sweeps
-    that ``_start_dryrun_sweep`` started: their wall times on this
-    machine's host and every record OK.  Returns the kernels' launches in
-    the steps and rounds."""
+    round of each run of ``GRID_MODELS`` (``_dryrun_round``, on the
+    predictions of ``_start_dry_grid``'s process ``dry_grid``); then the
+    sweeps that ``_start_dryrun_sweep`` started: their wall times on this
+    machine's host, every record OK, and every ``train`` and federated
+    record "sharded" where ``shards_storage`` names its arch and then
+    holding exactly its share (``_storage_faults``).  Returns the kernels'
+    launches in the steps (the rounds launch nothing)."""
     t = time.perf_counter()
+    preds = _dry_grid_wait(dry_grid)
     total: dict[str, int] = {}
     for launches in [_dryrun_step(device, *step) for step in DRYRUN_STEPS] + [
-            _dryrun_round(bits) for bits in (0, 8)]:
+            _dryrun_round(model, tag, preds) for model, (_, runs) in GRID_MODELS.items()
+            for tag, _, _ in runs]:
         for k, n in launches.items():
             total[k] = total.get(k, 0) + n
     wanted = {"flash_attention_forward", "flash_attention_backward", "mamba_scan_forward"}
@@ -4244,13 +4442,22 @@ def _dryrun_phase(device, sweeps):
         failed = [f"{r['arch']} {r['shape']}: {r['error']}" for r in recs if "error" in r]
         traced = sum(r.get("t_trace_s", 0.0) for r in recs)
         meshes = sorted({(r.get("mesh"), r.get("n_devices")) for r in recs}, key=str)
+        ended = _sweep_path(i).stat().st_mtime - T0_WALL  # its last record's write
         print(f"dryrun: the {name} sweep in a child process: {len(recs)} records on "
-              f"{meshes} (mesh, devices), {len(failed)} failed, {wall:.1f} s wall (started "
-              f"before the main paths, at nice 10), its traces' t_trace_s summing to "
+              f"{meshes} (mesh, devices), {len(failed)} failed, {wall:.1f} s wall to this "
+              f"wait (started before the build, at nice 10), its last record written "
+              f"{ended:.1f} s after the script's start, its traces' t_trace_s summing to "
               f"{traced:.1f} s", flush=True)
         if proc.returncode != 0 or failed or len(recs) != n_records:
             raise AssertionError(f"dryrun {name} sweep: exit {proc.returncode}, {len(recs)} "
                                  f"records, failed {failed}; its output's end:\n{log[-3000:]}")
+        wrong = _storage_faults(recs)
+        print(f"dryrun: the {name} sweep's train and federated records: "
+              f"{sum(r['kind'] in ('train', 'federated_round') for r in recs)}, each "
+              f"sharded where shards_storage names its arch and then holding its share "
+              f"exactly; faults {wrong}", flush=True)
+        if wrong:
+            raise AssertionError(f"dryrun {name} sweep: storage faults {wrong}")
     print(f"dryrun: launches {json.dumps(total)}; phase in {time.perf_counter() - t:.1f} s",
           flush=True)
     return total
@@ -4405,6 +4612,105 @@ def _kernel_only_child() -> int:
     return 0
 
 
+def _host_phases(device) -> dict:
+    """The paper's classification phases, each on its own engines: the
+    presets' comparison, the backends (and the device memory they leave),
+    the systems, faults and async grids, checkpoint / resume and the
+    population axis.  Returns each phase's launches of K1 (the population
+    phase's of K1 and K2)."""
+    import torch
+
+    _comparison(device)
+    _timeline("comparison")
+    mib = lambda: torch.cuda.memory_allocated() / 2**20  # noqa: E731
+    before = mib()
+    print(f"memory: {before:.2f} MiB allocated before the backends phase", flush=True)
+    out = {"backends": _backends(device)}
+    _timeline("backends")
+    after = mib()
+    gc.collect()
+    collected = mib()
+    print(f"memory: {after:.2f} MiB allocated after the backends phase, {collected:.2f} MiB "
+          f"after gc.collect() ({collected - before:+.2f} MiB against before; tolerance 16 MiB)",
+          flush=True)
+    if not collected - before <= 16:
+        raise AssertionError(f"the backends phase left {collected - before:.2f} MiB allocated")
+    for key, phase in (("systems", _systems_phase), ("faults", _faults_phase),
+                       ("async", _async_phase), ("checkpoint", _checkpoint_phase),
+                       ("population", _population_phase)):
+        out[key] = phase(device)
+        _timeline(f"{key} phase")
+    return out
+
+
+HOST_PHASES_OUT, HOST_PHASES_LOG = ROOT / "build" / "host_phases_out.json", \
+    ROOT / "build" / "host_phases.log"
+HOST_PHASES_TIMEOUT = 900
+
+
+def _host_phases_start():
+    """``_host_phases`` in a child process of this script (``--host-phases``)
+    on the same card, its output to ``HOST_PHASES_LOG``; not waited for."""
+    import os
+
+    HOST_PHASES_OUT.parent.mkdir(parents=True, exist_ok=True)
+    HOST_PHASES_OUT.unlink(missing_ok=True)
+    log = HOST_PHASES_LOG.open("w")
+    sys.stdout.flush()
+    env = dict(os.environ, CHIP_SMOKE_T0_WALL=repr(T0_WALL))  # one timeline for both
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--host-phases"],
+                            stdout=log, stderr=subprocess.STDOUT, text=True, env=env)
+    atexit.register(lambda: proc.poll() is None and proc.kill())  # a failed run too
+    return proc, log
+
+
+def _host_phases_finish(started) -> dict:
+    """Waits for ``_host_phases_start``'s process, prints its output and
+    returns its launches; raises if it failed."""
+    proc, log = started
+    try:
+        rc = proc.wait(timeout=HOST_PHASES_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        rc = proc.wait()
+    log.close()
+    text = HOST_PHASES_LOG.read_text()
+    print(text, end="" if text.endswith("\n") else "\n", flush=True)
+    if rc != 0 or not HOST_PHASES_OUT.exists():
+        raise AssertionError(f"the classification phases' process failed (exit {rc}); its "
+                             f"output's end:\n{text[-3000:]}")
+    return json.loads(HOST_PHASES_OUT.read_text())
+
+
+def _host_phases_child() -> int:
+    """The ``--host-phases`` process: ``_host_phases`` on the card, its
+    launches written to ``HOST_PHASES_OUT``; its timeline counts from the
+    parent's start."""
+    import os
+
+    import torch
+
+    global T0
+    T0 -= T0_WALL - float(os.environ.get("CHIP_SMOKE_T0_WALL", T0_WALL))
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.device import pin_fp32_matmul
+
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    pin_fp32_matmul()
+    HOST_PHASES_OUT.write_text(json.dumps(_host_phases(device)))
+    return 0
+
+
+T0, T0_WALL = time.perf_counter(), time.time()  # the script's start, for the timeline
+
+
+def _timeline(label) -> None:
+    """One line of the run's timeline: ``label`` ended this many seconds
+    after the script started."""
+    print(f"timeline: {label} ended {time.perf_counter() - T0:.1f} s after the start", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -4429,11 +4735,23 @@ def main() -> int:
     print(f"device: {name}  torch {torch.__version__}  cuda {torch.version.cuda}  "
           f"count {torch.cuda.device_count()}", flush=True)
 
-    # 2. build
+    # the dry run's sweeps and the grid rounds' predictions need neither the
+    # card nor the kernels: started first, their host time overlaps the
+    # build and every later phase
+    sweeps, dry_grid = _start_dryrun_sweep(), _start_dry_grid()
+
+    # 2. build: one nvcc a source, all started together.  K3's source takes
+    # longest, so K2, K1 and K4 are built, then held to their plain versions
+    # while it compiles; K3's checks wait for it
     t = time.perf_counter()
-    libs = build.build()
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    k3_built = pool.submit(build.build, ("flash_attention",))
+    others = tuple(n for n in build.SOURCES if n != "flash_attention")
+    libs = build.build(others)
+    _timeline("build of " + ", ".join(others))
     print(f"build: {time.perf_counter() - t:.2f} s for {len(libs)} sources "
-          f"({', '.join(sorted(libs))}) into {build.BUILD_DIR.relative_to(ROOT)}", flush=True)
+          f"({', '.join(sorted(libs))}) into {build.BUILD_DIR.relative_to(ROOT)}, "
+          f"flash_attention compiling beside the checks below", flush=True)
 
     # 3. kernels against their plain versions
     k2 = [_check_hellinger(s, device) for s in [
@@ -4463,6 +4781,30 @@ def main() -> int:
                         # both pods' int8 rows of the quantized one
                         ((1, 64_389_120), torch.bfloat16), ((2, 64_389_120), torch.float32)]]
     _check_aggregate_nan(device)
+    _timeline("K2 and K1 checks")
+    k4 = [_check_mamba(s, g, dt, ck, device, fin) for s, g, dt, ck, fin in [
+        ((80, 64, 1600, 16), 10, torch.float32, True, False),   # hymba's local SGD: 10 clients
+        ((400, 64, 1600, 16), 0, torch.float32, False, False),  # the poll: shared weights
+        ((64, 64, 1600, 16), 0, torch.float32, False, False),   # the evaluations
+        ((4, 2048, 1600, 16), 0, torch.float32, True, False),
+        ((4, 2048, 1600, 16), 0, torch.bfloat16, True, False),
+        ((3, 100, 130, 16), 0, torch.float32, True, False),     # ragged D and S
+        # the serving prefill: fp32 inputs (a bf16 model discretises in fp32)
+        # and the final state
+        ((4, 128, 1600, 16), 0, torch.float32, False, True),
+        ((4, 1280, 1600, 16), 0, torch.float32, False, True),
+        # the training launcher on hymba: batch 8 of 128, checkpoints kept
+        ((8, 128, 1600, 16), 0, torch.float32, True, False),
+        # the scaleout grid's rank: its 800 of hymba's 1600 channels at model 2,
+        # its 4-sequence data share, checkpoints kept (GRID_K4)
+        (GRID_K4["hymba-1.5b"], 0, torch.float32, True, False),
+    ]]
+    _timeline("K4 checks")
+    libs |= k3_built.result()
+    pool.shutdown()
+    _timeline("build of flash_attention")
+    print(f"build: flash_attention built {time.perf_counter() - t:.2f} s after the build began",
+          flush=True)
     k3 = [_check_flash(s, dt, w, ig, device) for s, dt, w, ig in [
         ((80, 64, 32, 32, 80), torch.float32, 0, 1.0),     # local SGD: m x batch sequences
         ((80, 64, 32, 32, 80), torch.bfloat16, 0, 1.0),
@@ -4498,25 +4840,18 @@ def main() -> int:
         ((4, 128, 16, 16, 80), torch.bfloat16, 0, 1.0),
         ((4, 128, 16, 16, 80), torch.float32, 0, 1.0),
         ((8, 128, 25, 5, 64), torch.bfloat16, 1024, 0.0),
+        # the grid's other models at model 2, a rank's 4-sequence share:
+        # hymba's 25 / 5 kv heads replicated (local layers), in bf16 and fp32;
+        # musicgen's 16 heads and internvl2's 7 / 1 kv of 384 positions in fp32
+        ((4, 128, 25, 5, 64), torch.bfloat16, 1024, 0.0),
+        ((4, 128, 25, 5, 64), torch.float32, 1024, 0.0),
+        ((4, 128, 16, 16, 64), torch.float32, 0, 1.0),
+        ((4, 384, 7, 1, 64), torch.float32, 0, 1.0),
     ]]
-    k4 = [_check_mamba(s, g, dt, ck, device, fin) for s, g, dt, ck, fin in [
-        ((80, 64, 1600, 16), 10, torch.float32, True, False),   # hymba's local SGD: 10 clients
-        ((400, 64, 1600, 16), 0, torch.float32, False, False),  # the poll: shared weights
-        ((64, 64, 1600, 16), 0, torch.float32, False, False),   # the evaluations
-        ((4, 2048, 1600, 16), 0, torch.float32, True, False),
-        ((4, 2048, 1600, 16), 0, torch.bfloat16, True, False),
-        ((3, 100, 130, 16), 0, torch.float32, True, False),     # ragged D and S
-        # the serving prefill: fp32 inputs (a bf16 model discretises in fp32)
-        # and the final state
-        ((4, 128, 1600, 16), 0, torch.float32, False, True),
-        ((4, 1280, 1600, 16), 0, torch.float32, False, True),
-        # the training launcher on hymba: batch 8 of 128, checkpoints kept
-        ((8, 128, 1600, 16), 0, torch.float32, True, False),
-    ]]
+    _timeline("K3 checks")
     print("kernels: hellinger_strip, masked_weighted_sum, flash_attention and mamba_scan "
           "(forward and backward) passed at every shape above", flush=True)
     torch.cuda.empty_cache()
-    sweeps = _start_dryrun_sweep()
 
     # 4. main paths: the paper's classification experiment, then LM training
     from repro_torch.kernels.flash_attention import (
@@ -4532,57 +4867,70 @@ def main() -> int:
     scan = (mamba_scan_forward, mamba_scan_backward,
             re.compile(f"{SCAN_FORWARD.pattern}|{SCAN_BACKWARD.pattern}"))
     launches = _main_path(device)
-    _comparison(device)
-    mib = lambda: torch.cuda.memory_allocated() / 2**20  # noqa: E731
-    before = mib()
-    print(f"memory: {before:.2f} MiB allocated before the backends phase", flush=True)
-    backend_k1 = _backends(device)
-    after = mib()
-    gc.collect()
-    collected = mib()
-    print(f"memory: {after:.2f} MiB allocated after the backends phase, {collected:.2f} MiB "
-          f"after gc.collect() ({collected - before:+.2f} MiB against before; tolerance 16 MiB)",
-          flush=True)
-    if not collected - before <= 16:
-        raise AssertionError(f"the backends phase left {collected - before:.2f} MiB allocated")
-    systems_k1 = _systems_phase(device)
-    faults_k1 = _faults_phase(device)
-    async_k1 = _async_phase(device)
-    checkpoint_k1 = _checkpoint_phase(device)
-    population = _population_phase(device)
+    _timeline("main_path")
+    # the paper's classification phases, host-bound (a round of ~16 ms on a
+    # 199,210-parameter MLP), in a child process beside the LM phases below
+    host = _host_phases_start()
     lm_launches = _lm_main_path(device, "lm", "stablelm-3b", 2, 380_789_760, (attention,))
+    _timeline("lm_main_path lm")
     hymba_launches = _lm_main_path(device, "hymba", "hymba-1.5b", 6, 344_430_400,
                                    (attention, scan))
+    _timeline("lm_main_path hymba")
     xlstm_launches = _lm_main_path(device, "xlstm", "xlstm-125m", 12, 119_827_296, (),
                                    save_probe=True)
+    _timeline("lm_main_path xlstm")
     xlstm_axes_launches = _lm_main_path(device, "xlstm systems+faults", "xlstm-125m", 12,
                                         119_827_296, (), axes=_xlstm_axes)
+    _timeline("lm_main_path xlstm systems+faults")
     _gate_kernel_ms(device, 13, 119_827_296)
+    _timeline("gate_kernel_ms")
     xlstm_async_launches = _lm_main_path(device, "xlstm async", "xlstm-125m", 12, 119_827_296,
                                          (), axes=_xlstm_async)
+    _timeline("lm_main_path xlstm async")
     serve_launches = _serve_phase(device)
+    _timeline("serve_phase")
     moe_mesh_launches = _moe_mesh_phase(device)
+    _timeline("moe_mesh_phase")
     train_launches = _train_phase(device)
+    _timeline("train_phase")
     scaleout_launches = _scaleout_phase(device)
+    _timeline("scaleout_phase")
     grid_launches = _scaleout_grid_phase(device)
-    dryrun_launches = _dryrun_phase(device, sweeps)
+    _timeline("scaleout_grid_phase")
+    dryrun_launches = _dryrun_phase(device, sweeps, dry_grid)
+    _timeline("dryrun_phase")
     analysis_launches = _analysis_phase(device, {"hymba": (attention, scan),
                                                  "stablelm": (attention,)})
+    _timeline("analysis_phase")
 
     # 5. small-input agreement with the CPU path
     _agreement(device)
+    _timeline("agreement")
     _lm_agreement(device, "lm", LM_MICRO)
+    _timeline("lm_agreement lm")
     _lm_agreement(device, "hymba", HYMBA_MICRO)
+    _timeline("lm_agreement hymba")
     _lm_agreement(device, "xlstm", XLSTM_MICRO, seq=128, resync=True, max_steps=1)
+    _timeline("lm_agreement xlstm")
     _lm_agreement(device, "xlstm systems+faults", XLSTM_MICRO, seq=128, resync=True,
                   max_steps=1, axes=XLSTM_MICRO_AXES)
+    _timeline("lm_agreement xlstm systems+faults")
     _async_agreement(device)
+    _timeline("async_agreement")
     for tag, task_kwargs in DENSE_REDUCED.items():
         _lm_agreement(device, tag, task_kwargs)
+    _timeline("lm agreement (dense reduced)")
     _train_agreement(device)
+    _timeline("train_agreement")
+
+    host = _host_phases_finish(host)
+    _timeline("host phases joined")
+    backend_k1, systems_k1, faults_k1, async_k1, checkpoint_k1, population = (
+        host[k] for k in ("backends", "systems", "faults", "async", "checkpoint", "population"))
 
     # 6. the kernels' own device time, after every host-timed phase
     _kernel_only_phase({"k1": k1, "k2": k2, "k3": k3, "k4": k4})
+    _timeline("kernel_only_phase")
     retried = [t for t in PROFILE_TRIES if t[1] > 1]
     print(f"kernel-only: {len(PROFILE_TRIES)} readings, {len(retried)} of them profiled more "
           f"than once; attempts a reading {json.dumps([n for _, n in PROFILE_TRIES])}; retried "
@@ -4645,8 +4993,18 @@ def main() -> int:
          + serve_launches.get(f"mamba_scan_{direction}", 0)
          + train_launches[f"mamba_scan_{direction}"]
          + dryrun_launches[f"mamba_scan_{direction}"]
+         + grid_launches[f"mamba_scan_{direction}"]
          + analysis_launches[f"mamba_scan_{direction}"], "shape": k4[0]["shape"],
          **{k: k4[0][direction][k] for k in keys + ("kernel_ms",)}}
+        for direction in ("forward", "backward")
+    ] + [
+        # K4 on a grid rank's channel block, launched by the scaleout grid alone
+        {"name": f"mamba_scan_{direction}_grid", "route": "cuda",
+         "source": "src/repro_torch/csrc/mamba_scan.cu",
+         "replaces": "src/repro/kernels/mamba_scan/kernel.py:69",
+         "launches": grid_launches[f"mamba_scan_{direction}"], "shape": rec["shape"],
+         **{k: rec[direction][k] for k in keys + ("kernel_ms",)}}
+        for rec in k4 if tuple(rec["shape"]) == GRID_K4["hymba-1.5b"]
         for direction in ("forward", "backward")
     ]
     print(smi, flush=True)  # again, so that the end of the output names the card
@@ -4659,4 +5017,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--grid-child"]:
         sys.exit(_grid_child_main())
+    if sys.argv[1:] == ["--host-phases"]:
+        sys.exit(_host_phases_child())
+    if sys.argv[1:] == ["--dry-grid"]:
+        sys.exit(_dry_grid_child())
     sys.exit(_kernel_only_child() if sys.argv[1:] == ["--kernel-only"] else main())

@@ -51,12 +51,15 @@ Counting rules:
   ``memory.argument_size_held`` what the port's rank holds.  ``storage``
   says which: ``"sharded"`` where the rank holds its blocks and its batch
   share (the ``train`` step and the federated round of the families that
-  ``models.transformer.shards_storage`` names, under the baseline policy
+  ``models.transformer.shards_storage`` names: the dense GQA models,
+  hymba-1.5b, internvl2-1b and musicgen-large, under the baseline policy
   on a grid: the arguments are those blocks, the held bytes equal
-  ``argument_size``, and ``temp_size`` is the tensor-parallel step's);
+  ``argument_size``, and ``temp_size`` is the tensor-parallel step's,
+  hymba's with ``w_in`` and, where its 25 heads split mid-head, the
+  attention's projections gathered whole over ``model``);
   ``"whole"`` where it holds every argument whole and computes the
-  replicated values of the whole batch (prefill and decode, the other
-  families, the ``fsdp`` variant), so that ``temp_size`` and
+  replicated values of the whole batch (prefill and decode, xLSTM and the
+  MoE and MLA models, the ``fsdp`` variant), so that ``temp_size`` and
   ``argument_size_held`` show what that path needs and the gap to
   ``argument_size`` is what sharding its storage would save.
 - ``collective_bytes`` are the dry mesh's collectives by the reference's

@@ -38,6 +38,25 @@ sequence form starts from the zero state (the reference's optional
 ``state`` and ``conv_tail`` inputs are not ported: its prefill never
 passes them).
 
+``mamba_seq(..., tp=mesh)`` runs on a rank's blocks of the weights
+(``sharding.shard_tree`` under the baseline policy: every ``ffn`` axis of
+``mamba_specs`` split over ``model``), tensor-parallel over ``model``:
+rank r of M owns channels [r D / M, (r + 1) D / M) and holds those rows
+or columns of ``conv_w``, ``a_log``, ``w_dt``, ``b_dt``, ``d_skip``,
+``w_b``, ``w_c`` and ``w_out``.  ``w_in`` (d, 2D) is split by columns
+across its [raw | z] halves (at model 2 one rank holds raw, the other z),
+so it is gathered whole for the layer (its gradient summed over ``model``
+before each rank takes its slice: each rank uses it for its own channels)
+and the rank takes columns [r D / M, ...) of each half.  ``B = x w_b`` and
+``C = x w_c`` contract over the channels, so each rank's product is a
+partial sum: it is summed over ``model`` forward and, since every rank's
+scan uses the summed B and C for different channels, its cotangent is
+summed over ``model`` backward too.  The scan then runs on the rank's
+(B, S, D / M) channels; ``w_out``'s row block gives a partial output that
+is summed over ``model``.  Where ``model`` does not divide D the channel
+leaves stay whole: ``w_in`` is gathered if it is split, and the block is
+computed replicated over ``model``.
+
 The xLSTM cores have no TPU kernel in the reference and none here: their
 products are ``torch.matmul``.  ``ssm.chunk`` is the mLSTM chunk and the
 sLSTM scan chunk, as in the reference.
@@ -51,7 +70,15 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.mamba_scan import mamba_scan
-from repro_torch.models.common import lecun_init, linear, per_client, rms_norm
+from repro_torch.models.common import (
+    column_in,
+    gather_whole,
+    lecun_init,
+    linear,
+    per_client,
+    rms_norm,
+    row_out,
+)
 
 __all__ = ["mamba_shapes", "mamba_specs", "init_mamba", "mamba_seq", "mamba_decode",
            "chunked_linear_scan", "xlstm_shapes", "xlstm_specs", "init_xlstm", "mlstm_seq",
@@ -122,21 +149,46 @@ def _conv_tail(ext: torch.Tensor, k: int) -> torch.Tensor:
     return ext[..., ext.shape[-2] - (k - 1):, :].to(torch.float32)
 
 
-def mamba_seq(p, cfg, x: torch.Tensor):
+def _channel_block(p, cfg, mesh, split: bool) -> dict:
+    """``p`` with ``w_in`` gathered whole where ``model`` splits it and, where
+    the channel leaves are split (``split``), cut to this rank's columns of
+    the raw half and of the z half (``mamba_seq``'s ``tp``)."""
+    d, w_in = cfg.d_model, p["w_in"]
+    if w_in.shape[-1] != 2 * d:
+        w_in = gather_whole(w_in, mesh, 1, partial=split)
+    if split:
+        n = p["conv_w"].shape[-1]
+        lo = mesh.axis_index("model") * n
+        w_in = torch.cat([w_in[:, lo:lo + n], w_in[:, d + lo:d + lo + n]], dim=1)
+    return {**p, "w_in": w_in}
+
+
+def mamba_seq(p, cfg, x: torch.Tensor, tp=None):
     """Full-sequence selective SSM: x (..., S, d) -> (out (..., S, d),
     (h (..., D, N), conv_tail (..., k - 1, D))), the state after the last
     step and the last k - 1 conv inputs (zero-padded in front where S < k -
-    1), both fp32."""
+    1), both fp32.  ``tp``: the mesh whose ``model`` axis splits ``p`` (a
+    rank's blocks; x replicated over ``model``), as the module's docstring
+    says; h and the tail are then the rank's channels."""
     s, k = x.shape[-2], cfg.ssm.conv_kernel
+    split = tp is not None and p["conv_w"].shape[-1] != cfg.d_model
+    if tp is not None:
+        p = _channel_block(p, cfg, tp, split)
+    if split:
+        x = column_in(x, tp)
     raw, z = linear(x, p["w_in"]).chunk(2, dim=-1)
     x_in = F.silu(_causal_conv(raw, p["conv_w"]))
     xf, dt, bmat, cmat = _discretize(p, x_in)
+    if split:   # partial sums over the rank's channels, summed both ways
+        bmat, cmat = (tp.all_reduce_sum(tp.grad_sum(t, "model"), "model") for t in (bmat, cmat))
     d_in, n = x_in.shape[-1], bmat.shape[-1]
     rows = math.prod(x_in.shape[:-2])
     y, h = mamba_scan(xf.reshape(rows, s, d_in), dt.reshape(rows, s, d_in),
                       bmat.reshape(rows, s, n), cmat.reshape(rows, s, n),
                       p["a_log"].contiguous(), p["d_skip"].contiguous(), final_state=True)
     out = linear(y.reshape(x_in.shape).to(x.dtype) * F.silu(z), p["w_out"])
+    if split:
+        out = row_out(out, tp)
     tail = _conv_tail(F.pad(raw, (0, 0, k - 1, 0)), k)
     return out, (h.reshape(*x_in.shape[:-2], d_in, n), tail)
 

@@ -65,23 +65,33 @@ and, with ``cfg.mtp``, the MTP head's weighted cross-entropy against the
 labels shifted by one more position.
 
 Storage sharding: on a grid (``data`` or ``model`` larger than 1) the
-families of ``shards_storage`` (the dense attention models with token
-inputs) take a rank's blocks of every leaf under the baseline policy
-(``sharding.shard_tree``) and the rank's ``data`` share of the batch,
-as the reference's layout puts them on a device, and compute
-tensor-parallel over ``model`` (``forward(..., tp=mesh)``): GQA on the
-rank's heads (``attention.gqa_attention``'s rules), the MLP's
-``w_gate`` / ``w_up`` column blocks and ``w_down`` row block with the
-output summed over ``model``, the vocab-parallel embedding (a token
+families of ``shards_storage`` (the dense GQA models, hymba, and the
+frame and patch inputs of musicgen-large and internvl2-1b) take a rank's
+blocks of every leaf under the baseline policy (``sharding.shard_tree``)
+and the rank's ``data`` share of the batch, as the reference's layout
+puts them on a device, and compute tensor-parallel over ``model``
+(``embed_inputs(..., tp=mesh)``, ``forward(..., tp=mesh)``): GQA on the
+rank's heads (``attention.gqa_attention``'s rules), hymba's Mamba heads
+on the rank's channels (``ssm.mamba_seq``: ``w_in`` gathered whole and
+cut to the rank's columns of both halves, B and C summed over ``model``
+forward and backward, K4 on the rank's (B, S, D / model) block), the
+MLP's ``w_gate`` / ``w_up`` column blocks and ``w_down`` row block with
+the output summed over ``model``, the vocab-parallel embedding (a token
 outside the rank's rows reads zero; the rows summed over ``model``; the
-tied table's sqrt(d) after the sum, in the table's type) and the
-vocab-parallel cross-entropy, chunk by chunk (local fp32 logits (..., c,
-V / model), the row maximum, the sum of exponentials and the gold logit
-each over ``model``; the tied head is the embedding's block transposed).
-The loss divides by the mask's sum over the data axes, and every leaf,
-replicated over them, takes its gradient summed over them: each rank's
-backward ends with the gradient of its blocks for the mean over the
-whole batch.  The other families hold every leaf whole on every rank.
+tied table's sqrt(d) after the sum, in the table's type; vlm's patches in
+front of the summed rows; frames RMS-normed by the replicated
+``frame_norm``, the untied ``embed`` table then read by nothing, its
+blocks' gradient zero) and the vocab-parallel cross-entropy, chunk by
+chunk (local fp32 logits (..., c, V / model), the row maximum, the sum of
+exponentials and the gold logit each over ``model``; the tied head is
+the embedding's block transposed).  Where ``model`` does not divide the
+vocab (hymba's 32001, internvl2's 151655) the table and head stay whole
+and the cross-entropy is computed replicated over ``model``.  The loss
+divides by the mask's sum over the data axes (vlm: the text positions),
+and every leaf, replicated over them, takes its gradient summed over
+them: each rank's backward ends with the gradient of its blocks for the
+mean over the whole batch.  xLSTM, the MoE and MLA models hold every
+leaf whole on every rank.
 
 Serving (``init_params``, ``init_cache``, ``prefill``, ``decode_step``) and
 the training launcher run the model in the config's dtype, bf16 at full
@@ -146,7 +156,8 @@ def check_supported(cfg, tree: bool = False) -> None:
     (federated training) takes float32 configs with token inputs, the
     parameter tree (``tree``: the training launcher and serving) float32
     and bfloat16 and every input mode.  On a grid, the configs that
-    ``shards_storage`` names take the rank's blocks of the tree."""
+    ``shards_storage`` names (the dense GQA models, hymba and both modal
+    input modes) take the rank's blocks of the tree."""
     if not tree and cfg.input_mode != "tokens":
         raise ValueError(
             f"repro_torch's flat transformer layout (federated training) takes token inputs "
@@ -176,12 +187,12 @@ def shards_storage(cfg, mesh) -> bool:
     """Whether a rank of ``mesh`` holds ``cfg``'s leaves as its blocks under
     the baseline policy (``sharding.shard_tree``) and computes on them
     (``loss_fn``): on a grid (``data`` or ``model`` larger than 1), for
-    the dense attention models with token inputs (stablelm-3b, glm4-9b,
-    qwen3-14b, gemma3-27b).  Hymba, xLSTM, the MoE and MLA models and the
-    frame and patch inputs keep every leaf whole on every rank."""
-    return bool(mesh is not None and getattr(mesh, "grid", False) and cfg.block_type == "attn"
-                and not cfg.use_mla and cfg.moe is None and not cfg.mtp
-                and cfg.input_mode == "tokens")
+    the dense GQA models (stablelm-3b, glm4-9b, qwen3-14b, gemma3-27b),
+    hymba-1.5b, musicgen-large (frames) and internvl2-1b (patches).
+    xLSTM and the MoE and MLA models keep every leaf whole on every rank."""
+    return bool(mesh is not None and getattr(mesh, "grid", False)
+                and cfg.block_type in ("attn", "hymba") and not cfg.use_mla
+                and cfg.moe is None and not cfg.mtp)
 
 
 # ---------------------------------------------------------------------------
@@ -650,24 +661,28 @@ def _run_moe(p, cfg, x, mesh):
     return out, aux
 
 
-def _embed_tokens(params, cfg, tokens: torch.Tensor, tp=None) -> torch.Tensor:
-    """Token ids (..., S) -> (..., S, d); with per-client tables (m, V, d)
-    the tokens are (m, B, S) and client i reads its own table.  A tied
-    embedding scales by sqrt(d) rounded to the table's type, as the
-    reference does.  With ``tp`` (a mesh) and the table's rows split over
-    its ``model`` axis, the vocab-parallel lookup: a token outside the
+def _lookup(table: torch.Tensor, cfg, tokens: torch.Tensor, tp=None) -> torch.Tensor:
+    """The embedding table's rows of token ids (..., S) -> (..., S, d); with
+    a per-client table (m, V, d) the tokens are (m, B, S) and client i
+    reads its own table.  With ``tp`` (a mesh) and the table's rows split
+    over its ``model`` axis, the vocab-parallel lookup: a token outside the
     rank's rows reads zero and the rows are summed over ``model``."""
-    table = params["embed"]
     if tp is not None and table.shape[0] != cfg.vocab:
         n = table.shape[0]
         local = tokens.long() - tp.axis_index("model") * n
         inside = ((local >= 0) & (local < n)).unsqueeze(-1).to(table.dtype)
-        x = row_out(table[local.clamp(0, n - 1)] * inside, tp)
-    elif table.ndim == 2:
-        x = table[tokens.long()]
-    else:
-        rows = torch.arange(table.shape[0], device=tokens.device)
-        x = table[rows.view(-1, *([1] * (tokens.ndim - 1))), tokens.long()]
+        return row_out(table[local.clamp(0, n - 1)] * inside, tp)
+    if table.ndim == 2:
+        return table[tokens.long()]
+    rows = torch.arange(table.shape[0], device=tokens.device)
+    return table[rows.view(-1, *([1] * (tokens.ndim - 1))), tokens.long()]
+
+
+def _embed_tokens(params, cfg, tokens: torch.Tensor, tp=None) -> torch.Tensor:
+    """Token ids (..., S) -> (..., S, d) (``_lookup``, ``tp`` likewise); a
+    tied embedding scales by sqrt(d) rounded to the table's type, as the
+    reference does."""
+    x = _lookup(params["embed"], cfg, tokens, tp)
     if cfg.tie_embeddings:
         x = x * torch.tensor(math.sqrt(cfg.d_model)).to(x.dtype)
     return x
@@ -680,9 +695,12 @@ def _embed_frames(params, cfg, frames: torch.Tensor) -> torch.Tensor:
     return rms_norm(frames.to(getattr(torch, cfg.dtype)), params["frame_norm"], cfg.norm_eps)
 
 
-def embed_inputs(params, cfg, batch: dict) -> tuple[torch.Tensor, torch.Tensor | None]:
+def embed_inputs(params, cfg, batch: dict,
+                 tp=None) -> tuple[torch.Tensor, torch.Tensor | None]:
     """A batch dict -> (x (B, S, d), the loss mask (B, S) fp32, or None
-    where every position counts), as the reference's ``embed_inputs``:
+    where every position counts), as the reference's ``embed_inputs``
+    (``tp``: a rank's blocks, the tables' lookups vocab-parallel where
+    ``model`` splits their rows, ``_lookup``):
 
     - tokens: {"tokens": (B, S) int}
     - frames: {"frames": (B, S, d)}
@@ -691,12 +709,11 @@ def embed_inputs(params, cfg, batch: dict) -> tuple[torch.Tensor, torch.Tensor |
       embeddings; the mask is 0 over the patches and 1 after them.
     """
     if cfg.input_mode == "tokens":
-        return _embed_tokens(params, cfg, batch["tokens"]), None
+        return _embed_tokens(params, cfg, batch["tokens"], tp), None
     if cfg.input_mode == "frames":
         return _embed_frames(params, cfg, batch["frames"]), None
     if cfg.input_mode == "vlm":
-        table = params["embed"]
-        tok = table[batch["tokens"].long()]
+        tok = _lookup(params["embed"], cfg, batch["tokens"], tp)
         x = torch.cat([batch["patches"].to(tok.dtype), tok], dim=1)
         b, s = x.shape[:2]
         mask = torch.ones(b, s, dtype=torch.float32, device=x.device)
@@ -751,7 +768,7 @@ def _apply_layer_seq(pl, cfg, x, flags: dict[str, float], tabs_l, tabs_g, mesh=N
         a_out, (k, v) = gqa_attention(pl["attn"], cfg, h, sin, cos, is_global, tp=tp)
         cache = {"k": k, "v": v}
     if cfg.block_type == "hymba":
-        s_out, (cache["ssm_h"], cache["conv"]) = ssm_mod.mamba_seq(pl["ssm"], cfg, h)
+        s_out, (cache["ssm_h"], cache["conv"]) = ssm_mod.mamba_seq(pl["ssm"], cfg, h, tp=tp)
         a_out = _hymba_fuse(pl, cfg, a_out, s_out)
     x = x + a_out
     m_out, aux = _ffn(pl["mlp"], cfg, _norm(pl, cfg, x, "norm2"), mesh, tp)
@@ -883,8 +900,10 @@ def _loss_blocks(params, cfg, batch: dict, mesh):
     dp = tuple(a for a in mesh.axis_names if a != "model")
     params = tree_map(lambda p: mesh.grad_sum(p, dp), params)
     labels = batch["labels"]
-    h = forward(params, cfg, batch["tokens"], tp=mesh)
-    mask = torch.ones(labels.shape, dtype=torch.float32, device=h.device)
+    x, mask = embed_inputs(params, cfg, batch, tp=mesh)
+    h = forward(params, cfg, x, tp=mesh)
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32, device=h.device)
     head = output_head(params, cfg)
     if head.shape[-1] != cfg.vocab:
         tot = _vocab_parallel_nll_sum(h, head, cfg, labels, mask, mesh)

@@ -36,13 +36,12 @@ reference's ``NamedSharding`` lays out devices), and ``gather_tree``
 puts the ranks' blocks back together over the mesh's processes.
 
 Which families a rank holds as blocks: on a grid (``data`` or ``model``
-larger than 1) the dense attention models with token inputs
-(stablelm-3b, glm4-9b, qwen3-14b, gemma3-27b: ``models.transformer
-.shards_storage``) hold every leaf as its block under the baseline policy
-and train on their ``data`` share of the batch, tensor-parallel over
-``model``; hymba, xLSTM, the MoE and MLA models and the frame and patch
-inputs, and every family under the ``fsdp`` variant, hold each leaf
-whole on every rank, as before.  For those, ``model_block`` gives a
+larger than 1) the dense GQA models (stablelm-3b, glm4-9b, qwen3-14b,
+gemma3-27b), hymba-1.5b, internvl2-1b and musicgen-large
+(``models.transformer.shards_storage``) hold every leaf as its block
+under the baseline policy and train on their ``data`` share of the batch,
+tensor-parallel over ``model``; xLSTM, the MoE and MLA models, and every
+family under the ``fsdp`` variant, hold each leaf whole on every rank.  For those, ``model_block`` gives a
 rank's block of a leaf along the dimension ``model`` splits, which the
 scale-out round's int8 aggregation quantizes as the reference's does
 (one scale a leaf and model shard); ``spec_leaves`` lists a layout

@@ -444,13 +444,14 @@ def test_run_moe_branch_collectives(case):
     assert tally.kernels == {}
 
 
-SHARDED = ("gemma3-27b", "glm4-9b", "qwen3-14b", "stablelm-3b")
+SHARDED = ("gemma3-27b", "glm4-9b", "qwen3-14b", "stablelm-3b", "hymba-1.5b", "internvl2-1b",
+           "musicgen-large")
 
 
 @pytest.mark.parametrize("name", list_configs())
 def test_records_say_whether_the_rank_holds_its_blocks(name, monkeypatch):
     """The single-mesh ``train`` record and the federated round's of the
-    dense attention models hold the rank's blocks (``storage``
+    dense GQA models, hymba and the modal inputs hold the rank's blocks (``storage``
     "sharded", ``argument_size_held == argument_size``); every other
     family's, and every prefill record, hold the arguments whole."""
     from repro_torch.launch.mesh import make_production_mesh

@@ -34,6 +34,10 @@ here by a one-process run and handed to the world in order.
   scale a leaf) by more than 1e-6 on a leaf that ``model`` splits;
 - (c) the engine selects exactly as the reference's on the grid, params
   within ``ATOL``;
+- (e) reduced hymba-1.5b in the same world: its exact and int8 rounds
+  keep each rank's baseline-spec blocks (the Mamba heads on the rank's
+  channels), and the exact round's blocks and losses equal the port's
+  pods-only round in one process within ``ATOL``;
 - (d) the dry 2 x 2 x 2 trace's collective bytes by kind equal their
   closed-form counts (the tensor-parallel step's sums over ``model``, the
   gradients' over ``data``, the round's over ``pod``; no gather over
@@ -73,7 +77,11 @@ from repro_torch.engine import FLConfig, make_engine  # noqa: E402
 from repro_torch.federated.scaleout import make_federated_round, stack_for_clients  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.mesh import make_dry_mesh, make_host_mesh  # noqa: E402
-from repro_torch.models.transformer import abstract_params, param_blocks  # noqa: E402
+from repro_torch.models.transformer import (  # noqa: E402
+    abstract_params,
+    init_params,
+    param_blocks,
+)
 from repro_torch.sharding import shard_shape  # noqa: E402
 from test_torch_engine import JaxReplayDraws  # noqa: E402
 
@@ -81,13 +89,14 @@ ROOT = Path(__file__).resolve().parent.parent
 ATOL = 1e-5
 ORACLE_TOL = 1e-6
 B, S, LR, STEPS, SEEDS, W = 4, 32, 0.05, 2, (10, 11), (0.25, 0.75)
-MODEL, QMAX = "qwen3-14b", 127
+MODEL, HYMBA, QMAX = "qwen3-14b", "hymba-1.5b", 127
 CFG = fl_cfg(backend="scaleout").to_dict()
 
 # the constants and the draws both sides replay, importable by the subprocesses
 _CASE = f"""
 import torch
-B, S, LR, STEPS, SEEDS, W, MODEL = {B}, {S}, {LR}, {STEPS}, {SEEDS}, {W}, {MODEL!r}
+B, S, LR, STEPS, SEEDS, W = {B}, {S}, {LR}, {STEPS}, {SEEDS}, {W}
+MODEL, HYMBA = {MODEL!r}, {HYMBA!r}
 CFG = {CFG!r}
 
 
@@ -168,7 +177,7 @@ rank, work = int(sys.argv[1]), sys.argv[2]
 dist.init_process_group("gloo", init_method="file://" + os.path.join(work, "store"),
                         world_size=8, rank=rank)
 sys.path.insert(0, work)
-from grid_case import B, CFG, LR, MODEL, S, SEEDS, STEPS, W, Recorded
+from grid_case import B, CFG, HYMBA, LR, MODEL, S, SEEDS, STEPS, W, Recorded
 from repro_torch.configs import get_config
 from repro_torch.configs.inputs import dummy_batch
 from repro_torch.data import make_classification
@@ -194,6 +203,16 @@ for bits in (0, 8):
                                                     batch.items()}, torch.tensor(W))
     out[f"q{bits}"] = [t[0] for t in tree_leaves(new)]
     out[f"loss{bits}"] = losses
+# hymba: its blocks, the Mamba heads on the rank's channels
+hcfg = get_config(HYMBA, reduced=True)
+hblocks = param_blocks(torch.load(os.path.join(work, "hymba.pt")), hcfg, mesh)
+hbatch = {k: v[None, lo:lo + share] for k, v in dummy_batch(hcfg, B, S,
+                                                            seed=SEEDS[pod]).items()}
+for bits in (0, 8):
+    fn = make_federated_round(hcfg, mesh, lr=LR, local_steps=STEPS, compress_bits=bits)
+    new, losses = fn(stack_for_clients(hblocks, 1), hbatch, torch.tensor(W))
+    out[f"hymba_q{bits}"] = [t[0] for t in tree_leaves(new)]
+    out[f"hymba_loss{bits}"] = losses
 # the rank's blocks of its pod's local ends, as the round's local SGD computes them
 leaves, spec = tree_flatten(blocks)
 one = {k: v[0, lo:lo + share] for k, v in batch.items()}
@@ -242,6 +261,9 @@ def grid(tmp_path_factory, data):
                                                                      ref_cfg))
         params = serving_params_from_jax(ref_start, cfg)
         torch.save(params, work / "params.pt")
+        hcfg = get_config(HYMBA, reduced=True)
+        hymba = init_params(torch.Generator().manual_seed(0), hcfg)
+        torch.save(hymba, work / "hymba.pt")
         # the engine's draws as JaxReplayDraws makes them, for the world to replay
         sys.path.insert(0, str(work))
         try:
@@ -265,6 +287,11 @@ def grid(tmp_path_factory, data):
                                       compress_bits=bits)
             new, losses = fn(stack_for_clients(params, 2), batch, torch.tensor(W))
             pods_only[bits] = ([t[0] for t in tree_leaves(new)], losses)
+        hbatch = {k: torch.stack([dummy_batch(hcfg, B, S, seed=s)[k] for s in SEEDS])
+                  for k in ("tokens", "labels")}
+        fn = make_federated_round(hcfg, make_host_mesh(pod=2), lr=LR, local_steps=STEPS)
+        new, losses = fn(stack_for_clients(hymba, 2), hbatch, torch.tensor(W))
+        pods_only["hymba"] = ([t[0] for t in tree_leaves(new)], losses)
         outs = [p.communicate(timeout=240) for p in procs]
     finally:
         torch.set_num_threads(n)
@@ -276,6 +303,7 @@ def grid(tmp_path_factory, data):
     ranks = [torch.load(work / f"rank{r}.pt") for r in range(8)]
     return {"ref": ref, "ranks": ranks, "ref_start": ref_start, "params": params,
             "pods_only": pods_only, "one": (one_res, one.params), "cfg": cfg, "ref_cfg": ref_cfg,
+            "hymba": (hcfg, hymba),
             "mlp": jax.tree.structure(rec.draws._template)}
 
 
@@ -477,6 +505,34 @@ def test_scaleout_engine_on_the_grid_matches_the_reference(grid):
         np.testing.assert_allclose(got["engine_losses"], ref["engine_losses"], rtol=ATOL)
         np.testing.assert_allclose(got["engine"].numpy(), ref_params, atol=ATOL)
         np.testing.assert_allclose(got["engine"].numpy(), one_params.numpy(), atol=ATOL)
+
+
+# ---------------------------------------------------------------- (e) hymba
+@pytest.mark.parametrize("bits", [0, 8])
+def test_hymba_rounds_keep_each_ranks_blocks(grid, bits):
+    hcfg, whole = grid["hymba"]
+    pods_losses = grid["pods_only"]["hymba"][1]
+    for r, got in enumerate(grid["ranks"]):
+        want = param_blocks(abstract_params(hcfg), hcfg, _At(got["coords"]))
+        assert [tuple(t.shape) for t in got[f"hymba_q{bits}"]] == [
+            tuple(t.shape) for t in tree_leaves(want)], r
+        ssm = want["layers"][0]["ssm"]                  # the rank's 128 of 256 channels
+        assert ssm["conv_w"].shape[-1] == ssm["a_log"].shape[0] == hcfg.d_model // 2
+        assert all(torch.isfinite(t).all() for t in got[f"hymba_q{bits}"]), r
+        # each pod's local training, the same at either bits, is the pods-only round's
+        np.testing.assert_allclose(got[f"hymba_loss{bits}"].numpy(), pods_losses.numpy(),
+                                   atol=ATOL)
+
+
+def test_hymba_exact_grid_round_matches_the_pods_only_round(grid):
+    hcfg, whole = grid["hymba"]
+    _, spec = tree_flatten(whole)
+    pods_only = tree_unflatten(grid["pods_only"]["hymba"][0], spec)
+    for r, got in enumerate(grid["ranks"]):
+        want = tree_leaves(param_blocks(pods_only, hcfg, _At(got["coords"])))
+        for j, (g, w) in enumerate(zip(got["hymba_q0"], want, strict=True)):
+            assert g.shape == w.shape, (r, j)
+            assert _diff(g, w) <= ATOL, (r, j, _diff(g, w))
 
 
 # --------------------------------------------------------------- (d) dry run

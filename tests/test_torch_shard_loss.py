@@ -5,7 +5,7 @@ Two gloo worlds run side by side, each one launch of its processes (a
 file store in the test's directory, one intra-op thread each): a world of
 2 (``make_host_mesh(1, 2)``: model 2) and a world of 4
 (``make_host_mesh(2, 2)``: data 2 x model 2).  The weights are drawn once
-(``init_transformer``) and handed to both sides as the reference's
+(``init_params`` in fp32) and handed to both sides as the reference's
 stacked numpy tree.  Every rank cuts them into its blocks under the
 baseline policy
 (``convert.blocks_from_jax``), takes its ``data`` share of the batch and
@@ -21,6 +21,19 @@ q split falls mid-head, as qwen3-14b's does on 16 (3 heads: every
 projection gathered, the layer replicated over ``model``), and one whose
 kv split falls mid-head, as glm4-9b's does (4 q heads over 1 kv head: the
 kv projections gathered, their gradients summed over ``model``).
+Hymba: reduced hymba-1.5b (4 heads on whole heads, a window of 16 that
+bites) and a micro hymba whose q split falls mid-head, as full
+hymba-1.5b's 25 heads do on 2 and on 16 (3 heads: the attention computed
+replicated), both with the Mamba heads on each rank's channel block
+(``w_in`` gathered, B and C summed over ``model`` both ways).  The modal
+inputs: reduced internvl2-1b (8 patches in front of 24 tokens; the loss
+mask's sum over ``data``) and musicgen-large (frames through the
+replicated ``frame_norm``, drawn away from zero so that it enters every
+number; the untied ``embed`` table read by nothing).  The table paths:
+every other case's vocab splits over ``model`` (the vocab-parallel lookup
+and cross-entropy); the micro hymba's vocab of 65 does not, as full
+hymba-1.5b's 32001 and internvl2-1b's 151655 do not, so its table and
+head stay whole and the cross-entropy is computed replicated.
 
 Every rank's loss equals the reference's within ``LOSS_ATOL`` (fp32: the
 vocab-parallel log-sum-exp and the sums over ranks add in another order),
@@ -51,12 +64,9 @@ from repro.configs import get_config as ref_get_config  # noqa: E402
 from repro.models import transformer as ref_tf  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.inputs import dummy_batch  # noqa: E402
-from repro_torch.convert import (  # noqa: E402
-    serving_params_from_jax,
-    transformer_params_to_numpy,
-)
+from repro_torch.convert import serving_params_from_jax  # noqa: E402
 from repro_torch.models.transformer import (  # noqa: E402
-    init_transformer,
+    init_params,
     param_blocks,
     shards_storage,
 )
@@ -79,6 +89,10 @@ CASES = {
     "qwen3-14b": ("qwen3-14b", {}),
     "q_mid_head": ("qwen3-14b", MICRO),
     "kv_mid_head": ("glm4-9b", MICRO | {"n_heads": 4}),
+    "hymba-1.5b": ("hymba-1.5b", {"sliding_window": 16}),
+    "hymba_q_mid_head": ("hymba-1.5b", MICRO | {"sliding_window": 16, "vocab": 65}),
+    "internvl2-1b": ("internvl2-1b", {}),
+    "musicgen-large": ("musicgen-large", {}),
 }
 
 
@@ -116,7 +130,7 @@ for name in CASES:
     cfg = make_cfg(get_config, name)
     tree, batch = case[name]
     leaves, spec = tree_flatten(blocks_from_jax(tree, cfg, mesh))
-    share = len(batch["tokens"]) // data
+    share = len(batch["labels"]) // data
     lo = mesh.axis_index("data") * share
     mine = {k: torch.from_numpy(v[lo:lo + share]) for k, v in batch.items()}
     leaves = [p.requires_grad_(True) for p in leaves]
@@ -131,6 +145,15 @@ for name in CASES:
 torch.save(out, os.path.join(work, f"world{world}_rank{rank}.pt"))
 dist.destroy_process_group()
 """
+
+
+def _numpy_tree(params):
+    """``init_params``' tree as the reference's: numpy leaves, each layer
+    leaf stacked on a leading axis, the keys in jax's order."""
+    tree = {k: v.numpy() for k, v in params.items() if k != "layers"}
+    tree["layers"] = jax.tree.map(lambda *xs: np.stack([x.numpy() for x in xs]),
+                                  *params["layers"])
+    return jax.tree.map(np.asarray, tree)
 
 
 class _At:
@@ -156,9 +179,13 @@ def shard(tmp_path_factory):
     for name in CASES:
         ref_cfg, cfg = make_cfg(ref_get_config, name), make_cfg(get_config, name)
         # the weights drawn by the port (faster than the reference's init here),
-        # as the reference's stacked numpy tree, its keys in jax's order
-        tree = jax.tree.map(np.asarray, transformer_params_to_numpy(
-            init_transformer(torch.Generator().manual_seed(0), cfg), cfg))
+        # as the reference's stacked numpy tree; a frames model's zero
+        # frame_norm drawn away from zero
+        params = init_params(torch.Generator().manual_seed(0), cfg)
+        if "frame_norm" in params:
+            params["frame_norm"] = 0.3 * torch.randn(cfg.d_model,
+                                                     generator=torch.Generator().manual_seed(1))
+        tree = _numpy_tree(params)
         batch = {k: v.numpy() for k, v in dummy_batch(cfg, B, S, seed=1).items()}
         case[name], cfgs[name] = (tree, batch), (ref_cfg, cfg)
     with open(work / "case.pkl", "wb") as f:
@@ -176,7 +203,7 @@ def shard(tmp_path_factory):
         return float(loss), jax.tree.map(np.asarray, grads)
 
     try:
-        # XLA compiles outside the GIL: the six cases' compiles overlap
+        # XLA compiles outside the GIL: the cases' compiles overlap
         with ThreadPoolExecutor(3) as pool:
             ref = dict(zip(case, pool.map(reference, case)))
         outs = [p.communicate(timeout=240) for p in procs]
@@ -213,14 +240,32 @@ def test_loss_and_gradient_on_blocks_match_the_reference(shard, name, world):
 
 
 def test_the_cases_shard_and_split_as_the_docstring_says():
-    """The four families shard on a grid; each case's q and kv blocks at
-    model 2 fall on whole heads or not as the module's docstring says."""
+    """The families shard on a grid, xLSTM and the MoE and MLA models do
+    not; each case's q and kv blocks at model 2 fall on whole heads or not,
+    and its vocab splits over ``model`` or stays whole, as the module's
+    docstring says; so do the full-width configs the card runs."""
     from repro_torch.launch.mesh import make_dry_mesh
 
-    whole_heads = {"q_mid_head": (False, False), "kv_mid_head": (True, False)}
+    grid = make_dry_mesh(1, 2)
+    whole_heads = {"q_mid_head": (False, False), "kv_mid_head": (True, False),
+                   "hymba_q_mid_head": (False, False)}
     for name in CASES:
         cfg = make_cfg(get_config, name)
-        assert shards_storage(cfg, make_dry_mesh(1, 2)) and not shards_storage(cfg, None)
+        assert shards_storage(cfg, grid) and not shards_storage(cfg, None)
         h, kv = cfg.n_heads, cfg.n_kv_heads
         assert (h % 2 == 0, kv % 2 == 0) == whole_heads.get(name, (True, True)), name
-    assert not shards_storage(get_config("hymba-1.5b", reduced=True), make_dry_mesh(1, 2))
+        assert (cfg.vocab % 2 == 0) == (name != "hymba_q_mid_head"), name
+        if cfg.block_type == "hymba":      # the Mamba channels on whole blocks
+            assert cfg.d_model % 2 == 0, name
+    for name in ("xlstm-125m", "dbrx-132b", "deepseek-v3-671b"):
+        assert not shards_storage(get_config(name, reduced=True), grid), name
+    # full width at model 2 and 16: hymba's 25 q heads split mid-head (its
+    # attention replicated), its 1600 channels on whole blocks, internvl2's
+    # 14 / 2 kv and musicgen's 32 heads on whole heads at 2; hymba's and
+    # internvl2's vocab stay whole, musicgen's splits
+    hymba, vlm, frames = (get_config(n) for n in ("hymba-1.5b", "internvl2-1b",
+                                                   "musicgen-large"))
+    for model in (2, 16):
+        assert hymba.n_heads % model and hymba.d_model % model == 0
+        assert hymba.vocab % model and vlm.vocab % model and frames.vocab % model == 0
+    assert vlm.n_heads % 2 == vlm.n_kv_heads % 2 == frames.n_heads % 2 == 0
