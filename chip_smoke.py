@@ -36,7 +36,10 @@ Phases, each printed on its own lines:
    and (4, 384, 7 / 1 kv, 64) internvl2-1b (fp32); K4 with its final-state
    output at hymba's prefill, (4, 128 / 1280, 1600, 16) fp32, and with its
    checkpoints at the launcher's (8, 128, 1600, 16) and at a grid rank's
-   channel block (4, 128, 800, 16).
+   channel block (4, 128, 800, 16); at the serve grid's ranks, K3 at (2 /
+   3, 128, 16, 80) stablelm and (2 / 3, 128, 25 / 5 kv, 64) hymba (window
+   1024) in fp32 and bf16, and K4 with its final state at (2 / 3, 128, 800,
+   16).
 4. main paths, each driven through ``make_engine(...).rounds()`` with
    every kernel's launch count set to 0 just before and read just after:
    - the paper's experiment at full width (K = 100 clients, m = 10, MLP
@@ -226,7 +229,22 @@ Phases, each printed on its own lines:
      collectives; its blocks are held against the same round in a world of
      one process on the card (the whole layout, both pods in one
      process), cut to its block: fp32 within 1e-4 of max(1, |ref|), bf16's
-     largest difference printed.  A rank that fails makes the phase raise;
+     largest difference printed; xlstm-125m (4 layers, its 4 heads over
+     model 2, no kernel but K1) likewise in fp32 at 0, one local step (its
+     training at full width is chaotic from the second step on).  Then the serve grid
+     in the same world: stablelm-3b, hymba-1.5b and xlstm-125m at full width
+     cut to 4 layers, in fp32 and bf16, each rank's blocks served through
+     ``BatchScheduler(mesh=)``: 8 requests of 128 tokens in one group (2
+     rows a rank over the 4 data ranks) and 3 in another (every rank all
+     3), 16 new tokens each (K3 on the rank's heads and K4 with its final
+     state on its channels once a layer a group's prefill; decode on its
+     blocks and cache block); every rank's tokens and each step's logits
+     held against the same requests served whole in the world of one: fp32
+     tokens equal and logits within 1e-4 of max(1, |ref|), bf16 logits
+     within 3e-2 while a row's tokens agree (or within the world of one's
+     own bf16 departure from its fp32 logits, where that is larger:
+     xlstm-125m's).  A rank that fails makes the
+     phase raise;
    - ``dryrun:`` the dry run (``repro_torch.launch.dryrun``) against the
      card, at full width and depth in bf16: stablelm-3b train at 8 x 128
      (K3 both ways), and the prefill at 4 x 1280 of hymba-1.5b (K3, K4),
@@ -244,7 +262,11 @@ Phases, each printed on its own lines:
      rank 0 of the eight-process world on the card: the
      tallied flops equal, K1's, K3's and K4's launches the tally, the
      collective bytes by kind equal, the peak above the arguments within
-     10 %; and rank 0 of the 2 x 16 x 16
+     10 %; the serve grid's rank 0, a prefill of the 8-row group and a
+     decode step each measured on the card against its trace on the dry
+     (2, 2, 2) mesh: held bytes equal to the trace's and to its
+     ``argument_size``, flops, collective bytes and launches equal, the
+     peak within 10 %; and rank 0 of the 2 x 16 x 16
      mesh at full depth predicted at 16 sequences a pod, its
      ``argument_size`` equal to what it holds.  Then the
      ``--all --mesh single`` sweep (40 records) and the ``--federated``
@@ -252,9 +274,11 @@ Phases, each printed on its own lines:
      deepseek-v3-671b, one of whose dense-MoE traces outlasts this
      script's time limit: 18, in two children), each started in a child
      process that cannot see the card (nice 10) after phase 3, must have
-     written their records, none failed, every ``train`` and federated
-     record of a family that ``shards_storage`` names "sharded" and
-     holding exactly its ``argument_size``; their wall times are printed;
+     written their records, none failed, every record that
+     ``dryrun.step_storage`` calls "sharded" (``train``, federated, and
+     ``prefill_32k`` / ``decode_32k`` of a family that ``shards_storage``
+     names) saying so and holding exactly its ``argument_size``; their wall
+     times are printed;
    - ``analysis:`` the port's tracecheck (``repro_torch.analysis``): the
      lint over ``src/repro_torch`` must be clean and every contract of
      ``run_contracts`` on the card must pass, none skipped (masks, a
@@ -305,7 +329,8 @@ Phases, each printed on its own lines:
 Then the card's name and power limit again, one JSON line lists the
 kernels (K1's launches summed over every path above; K3's backward also
 at the dbrx-132b step's shape, with that step's launches; K4 also at a
-grid rank's channel block, with the grid's launches), and the last line
+grid rank's channel block, with the grid's launches; K3 and K4 forward
+also at the serve grid's fp32 shapes, with its launches), and the last line
 is ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
 before that line; so does a machine with no CUDA device, and a directory
 that holds this script without the repository's ``src/``.
@@ -3854,11 +3879,24 @@ def _grid_child_main() -> int:
 # pods' FedAvg weights GRID_W; the runs: (tag, dtype, compress_bits)
 GRID_SHAPE, GRID_LAYERS, GRID_W = {"data": 2, "model": 2, "pod": 2}, 4, (0.25, 0.75)
 GRID_STEPS = 2
+# xlstm-125m's round takes one local step: its training at full width is
+# chaotic from the second step on (a 1e-7 relative change of its start
+# weights moves the 2-step round's leaves by 4.8e-3 relative, the 1-step
+# round's by 2.1e-6; fp32, 4 layers, scripts/xlstm_round_sensitivity.py on
+# a CPU), so that the grid's sums in another order could not be held to
+# GRID_FP32_TOL over two steps
+GRID_MODEL_STEPS = {"xlstm-125m": 1}
+
+
+def _grid_steps(model) -> int:
+    return GRID_MODEL_STEPS.get(model, GRID_STEPS)
+
 GRID_RUNS = (("bf16 q0", "bfloat16", 0), ("bf16 q8", "bfloat16", 8), ("fp32 q0", "float32", 0))
 # model: (sequence, its runs); internvl2-1b's 384 positions are its 256
 # patches and 128 text tokens (128 would hold no text after the patches)
 GRID_MODELS = {"stablelm-3b": (ROUND_SEQ, GRID_RUNS), "hymba-1.5b": (ROUND_SEQ, GRID_RUNS),
-               "internvl2-1b": (384, GRID_RUNS[2:]), "musicgen-large": (ROUND_SEQ, GRID_RUNS[2:])}
+               "internvl2-1b": (384, GRID_RUNS[2:]), "musicgen-large": (ROUND_SEQ, GRID_RUNS[2:]),
+               "xlstm-125m": (ROUND_SEQ, GRID_RUNS[2:])}
 # the shapes a rank hands K3, (B, S, H, KV, D), and K4, (B, S, D, N): its
 # 4-sequence data share; stablelm's, internvl2's and musicgen's heads split
 # over model 2, hymba's 25 q heads do not (its attention replicated) and its
@@ -3928,7 +3966,7 @@ def _grid_rank(rank, world, work) -> dict:
                      for k, v in dummy_batch(cfg, ROUND_BATCH, seq, seed=pod).items()}
             start = stack_for_clients(blocks, 1)
             weights = torch.tensor(GRID_W, device=device)
-            fn = make_federated_round(cfg, mesh, lr=ROUND_LR, local_steps=GRID_STEPS,
+            fn = make_federated_round(cfg, mesh, lr=ROUND_LR, local_steps=_grid_steps(model),
                                       compress_bits=bits)
             gc.collect()
             torch.cuda.empty_cache()
@@ -3976,6 +4014,213 @@ def _grid_rank(rank, world, work) -> dict:
                                and torch.isfinite(losses).all()),
             }
             del got, ref, want
+    out["serve"] = _serve_grid_rank(mesh, work, device, counters)
+    return out
+
+
+# the serve grid, in the grid world after its rounds: each of SERVE_GRID_MODELS
+# at full width cut to GRID_LAYERS layers, its blocks served through
+# BatchScheduler(mesh=) in fp32 and bf16: SERVE_GRID_ROWS requests of
+# SERVE_GRID_PROMPT tokens in one group (2 rows a rank over the 4 data
+# ranks), then SERVE_GRID_ODD of them in a group of their own (rows the data
+# axes do not divide: every rank holds all 3), SERVE_GRID_NEW new tokens each
+SERVE_GRID_MODELS = ("stablelm-3b", "hymba-1.5b", "xlstm-125m")
+SERVE_GRID_DTYPES = ("float32", "bfloat16")
+SERVE_GRID_ROWS, SERVE_GRID_ODD, SERVE_GRID_PROMPT, SERVE_GRID_NEW = 8, 3, 128, 16
+# bf16 logits against the world of one's, relative to max(1, |ref|), or the
+# world of one's own bf16 departure from its fp32 logits where that is
+# larger: xlstm-125m's (4 layers, these requests) is 0.18 on an H100, where
+# a grid's sums in another order move its bf16 logits by up to 0.08
+SERVE_GRID_BF16_TOL = 3e-2
+# the shapes a rank's serve prefill hands K3, (B, S, H, KV, D), and K4, (B, S,
+# D, N), for each group (rows a rank): stablelm's 16 of 32 heads; hymba's 25 /
+# 5 kv heads replicated (they split mid-head) and its 800 of 1600 channels
+SERVE_GRID_K3 = {model: {rows: (r, SERVE_GRID_PROMPT, *heads) for rows, r in
+                         ((SERVE_GRID_ROWS, 2), (SERVE_GRID_ODD, SERVE_GRID_ODD))}
+                 for model, heads in (("stablelm-3b", (16, 16, 80)),
+                                      ("hymba-1.5b", (25, 5, 64)))}
+SERVE_GRID_K4 = {"hymba-1.5b": {rows: (r, SERVE_GRID_PROMPT, 800, 16) for rows, r in
+                                ((SERVE_GRID_ROWS, 2), (SERVE_GRID_ODD, SERVE_GRID_ODD))}}
+
+
+def _serve_grid_prompts(cfg):
+    """The serve grid's requests: SERVE_GRID_ROWS prompts of
+    SERVE_GRID_PROMPT tokens drawn from seed 7, as numpy rows."""
+    from repro_torch.configs.inputs import dummy_batch
+
+    return list(dummy_batch(cfg, SERVE_GRID_ROWS, SERVE_GRID_PROMPT, seed=7)["tokens"].numpy())
+
+
+def _serve_grid_run(cfg, params, mesh):
+    """Both groups served: {rows: {"tokens", "logits" (steps, rows, V) fp32
+    on the host}} and the seconds, through ``BatchScheduler`` (``mesh``: on
+    the rank's blocks), each step's logits recorded where the scheduler
+    takes its greedy tokens."""
+    import torch
+
+    from repro_torch.serving import BatchScheduler
+
+    class Recording(BatchScheduler):
+        def _greedy(self, logits):
+            self.seen.append(logits.float().cpu())
+            return super()._greedy(logits)
+
+    prompts = _serve_grid_prompts(cfg)
+    out = {}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for rows in (SERVE_GRID_ROWS, SERVE_GRID_ODD):
+        sched = Recording(cfg, params, max_batch=rows, max_new=SERVE_GRID_NEW, mesh=mesh)
+        sched.seen = []
+        ids = [sched.submit(p) for p in prompts[:rows]]
+        sched.run()
+        out[rows] = {"tokens": [sched.result(i).tolist() for i in ids],
+                     "logits": torch.stack(sched.seen)}
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def _serve_grid_measure(cfg, blocks, mesh, device) -> dict:
+    """One prefill of the SERVE_GRID_ROWS group on the rank's blocks (its
+    rows, the cache of ``SERVE_GRID_PROMPT + SERVE_GRID_NEW`` positions) and
+    one decode step after it, each under ``dryrun.count_flops`` as the dry
+    run traces them: held bytes (the step's arguments), flops, collective
+    bytes, K3 / K4 launches and their tally, the peak above the arguments."""
+    import numpy as np
+    import torch
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch.kernels.flash_attention import flash_attention_forward
+    from repro_torch.kernels.mamba_scan import mamba_scan_forward
+    from repro_torch.launch import dryrun
+    from repro_torch.models import transformer as tf
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+    kernels = (flash_attention_forward, mamba_scan_forward)
+    lo, n = tf.batch_rows(mesh, SERVE_GRID_ROWS)
+    rows = np.stack(_serve_grid_prompts(cfg))[lo:lo + n]
+    batch = {"tokens": torch.from_numpy(rows).to(device)}
+    max_len = SERVE_GRID_PROMPT + SERVE_GRID_NEW
+    out, state = {}, {}
+
+    def prefill():
+        return tf.prefill(blocks, cfg, batch, max_len, mesh=mesh, batch_size=SERVE_GRID_ROWS)
+
+    def decode():
+        return tf.decode_step(blocks, cfg, {"token": state["tok"]}, state["cache"],
+                              SERVE_GRID_PROMPT, mesh=mesh)
+
+    for kind, fn, held in (("prefill", prefill, lambda: nbytes(blocks) + nbytes(batch)),
+                           ("decode", decode, lambda: nbytes(blocks) + nbytes(state["tok"])
+                            + nbytes(state["cache"]) + 4)):   # + decode's int32 position
+        args = held()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        for c in kernels:
+            c.launches = 0
+        (logits, cache), flops, tally = dryrun.count_flops(fn)
+        torch.cuda.synchronize()
+        out[kind] = {"held_bytes": args, "flops": flops, "coll": dict(tally.collectives),
+                     "peak_bytes": torch.cuda.max_memory_allocated() - base,
+                     "launches": {c.__name__: c.launches for c in kernels if c.launches},
+                     "tallied": {k: v["launches"] for k, v in tally.kernels.items()},
+                     "product_flops": {k: v["product_flops"] for k, v in tally.kernels.items()}}
+        state = {"tok": torch.argmax(logits, -1)[:, None].to(torch.int32), "cache": cache}
+    return out
+
+
+def _serve_grid_against(run, want) -> dict:
+    """One group's served tokens and logits (``_serve_grid_run``'s) against
+    ``want``'s: a row's logits are compared at the steps where its tokens
+    so far agree (the same inputs), relative to max(1, max |want|)."""
+    import torch
+
+    same = [[g[:i] == w[:i] for i in range(SERVE_GRID_NEW)]
+            for g, w in zip(run["tokens"], want["tokens"])]
+    mask = torch.tensor(same).T[:, :, None]                      # (steps, rows, 1)
+    diff = ((run["logits"] - want["logits"]).abs() * mask).max().item()
+    scale = max(1.0, want["logits"].abs().max().item())
+    return {"tokens_equal": run["tokens"] == want["tokens"], "compared": int(mask.sum()),
+            "of": mask.numel(), "max_abs_diff": diff, "max_rel_diff": diff / scale,
+            "finite": bool(torch.isfinite(run["logits"]).all())}
+
+
+def _serve_grid_rank(mesh, work, device, counters) -> dict:
+    """The serve grid on one rank of the grid world: for each model and
+    dtype, the rank's blocks of ``_grid_cfg``'s weights served
+    (``_serve_grid_run``: launches counted), then measured
+    (``_serve_grid_measure``), and each step's logits and tokens against
+    the world of one's (``_serve_grid_reference``'s file)."""
+    import torch
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch.models import transformer as tf
+
+    out = {}
+    for model in SERVE_GRID_MODELS:
+        for dtype in SERVE_GRID_DTYPES:
+            cfg = _grid_cfg(model, dtype)
+            whole = tf.init_params(torch.Generator(device).manual_seed(0), cfg)
+            blocks = tf.param_blocks(whole, cfg, mesh)
+            del whole
+            gc.collect()
+            torch.cuda.empty_cache()
+            for c in counters:
+                c.launches = 0
+            t = time.perf_counter()
+            got, seconds = _serve_grid_run(cfg, blocks, mesh)
+            launches = {c.__name__: c.launches for c in counters}
+            measured = _serve_grid_measure(cfg, blocks, mesh, device)
+            print(f"grid rank {mesh.rank}: serve {model} {dtype}: both groups in {seconds:.2f} s, "
+                  f"measured in {time.perf_counter() - t - seconds:.2f} s", flush=True)
+            ref_path = Path(work).parent / f"serve_reference_{model}_{dtype}.pt"
+            deadline = time.perf_counter() + GRID_TIMEOUT
+            while not ref_path.exists():  # the world of one runs beside this world
+                if time.perf_counter() > deadline:
+                    raise TimeoutError(f"no {ref_path.name} from the world of one")
+                time.sleep(0.2)
+            ref = torch.load(ref_path)
+            groups = {rows: _serve_grid_against(run, ref[rows]) for rows, run in got.items()}
+            out[f"{model} {dtype}"] = {
+                "ms": seconds * 1e3, "launches": launches, "groups": groups,
+                "blocks_bytes": sum(t.numel() * t.element_size() for t in tree_leaves(blocks)),
+                "measured": measured}
+            del blocks, got, ref
+    return out
+
+
+def _serve_grid_reference(device):
+    """The serve grid's world of one: each model and dtype's whole weights
+    served by ``BatchScheduler`` without a mesh on the card, its tokens and
+    logits written under ``GRID_DIR`` for the ranks.  Returns {"model
+    dtype": ms} and, under "bf16 departure", each model's bf16 logits
+    against its own fp32 ones (``_serve_grid_against``: the same weights
+    and requests, the steps where the tokens agree): the model's own bf16
+    error, a floor for the grid's bf16 difference."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+
+    out, departure = {}, {}
+    for model in SERVE_GRID_MODELS:
+        runs = {}
+        for dtype in SERVE_GRID_DTYPES:
+            cfg = _grid_cfg(model, dtype)
+            params = tf.init_params(torch.Generator(device).manual_seed(0), cfg)
+            runs[dtype], seconds = _serve_grid_run(cfg, params, None)
+            out[f"{model} {dtype}"] = seconds * 1e3
+            path = GRID_DIR / f"serve_reference_{model}_{dtype}.pt"
+            torch.save(runs[dtype], path.with_suffix(".tmp"))
+            path.with_suffix(".tmp").replace(path)  # a rank never reads half a file
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+        departure[model] = max(_serve_grid_against(runs["bfloat16"][rows], runs["float32"][rows])
+                               ["max_rel_diff"] for rows in runs["float32"])
+    out["bf16 departure"] = departure
     return out
 
 
@@ -4003,7 +4248,7 @@ def _grid_reference(device):
             pods = [dummy_batch(cfg, ROUND_BATCH, seq, seed=p) for p in range(GRID_SHAPE["pod"])]
             batch = {k: torch.stack([b[k] for b in pods]).to(device) for k in pods[0]}
             fn = make_federated_round(cfg, make_host_mesh(pod=GRID_SHAPE["pod"]), lr=ROUND_LR,
-                                      local_steps=GRID_STEPS, compress_bits=bits)
+                                      local_steps=_grid_steps(model), compress_bits=bits)
             torch.cuda.synchronize()
             t = time.perf_counter()
             new, losses = fn(stack_for_clients(params, GRID_SHAPE["pod"]), batch,
@@ -4025,13 +4270,16 @@ def _grid_expected(model, n_leaves) -> tuple[dict, dict]:
     hymba alone) and the product flops a launch of K3 and K4 forward at
     the model's ``GRID_K3`` / ``GRID_K4`` shape (the work formulas'):
     4 B H S^2 D and 2 B S D N."""
-    per_layer = GRID_LAYERS * GRID_STEPS
+    per_layer = GRID_LAYERS * _grid_steps(model)
     scan = per_layer if model in GRID_K4 else 0
-    launches = {"masked_weighted_sum": n_leaves, "flash_attention_forward": per_layer,
-                "flash_attention_backward": per_layer, "mamba_scan_forward": scan,
+    attn = per_layer if model in GRID_K3 else 0     # xlstm-125m: no attention
+    launches = {"masked_weighted_sum": n_leaves, "flash_attention_forward": attn,
+                "flash_attention_backward": attn, "mamba_scan_forward": scan,
                 "mamba_scan_backward": scan}
-    b, s, h, _, dh = GRID_K3[model]
-    per_launch = {"flash_attention_forward": 4.0 * b * h * s * s * dh}
+    per_launch = {}
+    if model in GRID_K3:
+        b, s, h, _, dh = GRID_K3[model]
+        per_launch["flash_attention_forward"] = 4.0 * b * h * s * s * dh
     if model in GRID_K4:
         per_launch["mamba_scan_forward"] = 2.0 * math.prod(GRID_K4[model])
     return launches, per_launch
@@ -4065,8 +4313,9 @@ def _scaleout_grid_phase(device):
     world = math.prod(GRID_SHAPE.values())
     started = _grid_start("round", world)
     ref = _grid_reference(device)
+    serve_ref = _serve_grid_reference(device)
     print(f"scaleout grid: the world of one's runs in {time.perf_counter() - t:.1f} s (beside "
-          f"the probes and the eight processes' start)", flush=True)
+          f"the probes and the eight processes' start), its serve runs among them", flush=True)
     probe = _grid_probe_finish(probes)
     torch.cuda.empty_cache()
     ranks = _grid_wait(started, GRID_TIMEOUT)
@@ -4113,7 +4362,7 @@ def _scaleout_grid_phase(device):
                     bad.append(f"launches {run['launches']} against the tally {run['tallied']}")
                 if per_launch != want_per_launch:
                     bad.append(f"product flops a launch {per_launch}, want {want_per_launch} "
-                               f"(K3 at {GRID_K3[model]}, K4 at {GRID_K4.get(model)})")
+                               f"(K3 at {GRID_K3.get(model)}, K4 at {GRID_K4.get(model)})")
                 if max(abs(a - b) for a, b in zip(run["loss"], losses)) > 1e-2 * max(
                         1.0, max(abs(x) for x in losses)):
                     bad.append(f"losses {run['loss']} against the world of one's {losses}")
@@ -4128,9 +4377,96 @@ def _scaleout_grid_phase(device):
                                for tag, _, _ in runs}
     print(f"scaleout grid: {', '.join(GRID_MODELS)} at full width, {GRID_LAYERS} layers, "
           f"{world} processes of {json.dumps(GRID_SHAPE)} on one card under gloo (NCCL: "
-          f"{probe[0][:60]}...), {GRID_STEPS} local steps of {ROUND_BATCH} sequences a pod; "
-          f"launches {json.dumps(total)}; phase wall time {time.perf_counter() - t:.1f} s",
-          flush=True)
+          f"{probe[0][:60]}...), {GRID_STEPS} local steps (xlstm-125m 1) of {ROUND_BATCH} "
+          f"sequences a pod; "
+          f"launches {json.dumps(total)}", flush=True)
+    serve = _serve_grid_check(ranks, serve_ref)
+    for k, n in serve.items():
+        total[k] += n
+    total["serve_flash_attention_forward"] = serve["flash_attention_forward"]
+    total["serve_mamba_scan_forward"] = serve["mamba_scan_forward"]
+    print(f"scaleout grid: phase wall time {time.perf_counter() - t:.1f} s", flush=True)
+    return total
+
+
+def _serve_grid_expected(model) -> tuple[dict, dict]:
+    """A serve run's launches on each rank of the grid world (K3 and K4
+    forward once a layer a group's prefill, none a decode step) and the
+    product flops a launch of K3 and K4 forward in the SERVE_GRID_ROWS
+    group's prefill (the work formulas': 4 B H S^2 D and 2 B S D N)."""
+    n = GRID_LAYERS * 2                    # two groups
+    launches = dict.fromkeys(GRID_COUNTERS, 0)
+    per_launch = {}
+    if model in SERVE_GRID_K3:
+        launches["flash_attention_forward"] = n
+        b, s, h, _, dh = SERVE_GRID_K3[model][SERVE_GRID_ROWS]
+        per_launch["flash_attention_forward"] = 4.0 * b * h * s * s * dh
+    if model in SERVE_GRID_K4:
+        launches["mamba_scan_forward"] = n
+        per_launch["mamba_scan_forward"] = 2.0 * math.prod(SERVE_GRID_K4[model][SERVE_GRID_ROWS])
+    return launches, per_launch
+
+
+def _serve_grid_check(ranks, serve_ref) -> dict:
+    """The serve grid's results on every rank (``_serve_grid_rank``): in fp32
+    every token of both groups equal to the world of one's and every
+    step's logits within ``GRID_FP32_TOL`` of max(1, |ref|); in bf16 the
+    logits within ``SERVE_GRID_BF16_TOL`` while a row's tokens agree (its
+    inputs the same), or within the world of one's own bf16 departure from
+    its fp32 logits where that is larger, the tokens' agreement printed; the K3 / K4 launches
+    and their shapes by the work formulas; each rank's held bytes printed.
+    Rank 0's measurements go to ``GRID_RESULTS["serve"]`` for ``dryrun:``.
+    Returns the serve runs' launches, summed over the ranks."""
+    total = dict.fromkeys(GRID_COUNTERS, 0)
+    GRID_RESULTS["serve"] = {}
+    for model in SERVE_GRID_MODELS:
+        want_launches, want_per_launch = _serve_grid_expected(model)
+        for dtype in SERVE_GRID_DTYPES:
+            key = f"{model} {dtype}"
+            floor = serve_ref["bf16 departure"][model]
+            tol = GRID_FP32_TOL if dtype == "float32" else max(SERVE_GRID_BF16_TOL, floor)
+            print(f"serve grid: {key}: a world of one (the whole weights, no mesh) "
+                  f"{serve_ref[key]:.1f} ms for both groups; its bf16 logits against its fp32 "
+                  f"ones {floor:.4g} relative; held to {tol:.4g}", flush=True)
+            for r, (_, _, res) in enumerate(ranks):
+                run = res["serve"][key]
+                pre = run["measured"]["prefill"]
+                per_launch = {k: pre["product_flops"].get(k, 0.0) / max(
+                    pre["tallied"].get(k, 0), 1) for k in want_per_launch}
+                for k in total:
+                    total[k] += run["launches"][k]
+                print(f"serve grid: {key} rank {r} {json.dumps(res['coords'])}: blocks "
+                      f"{run['blocks_bytes'] / 2**30:.4f} GiB held, a prefill's arguments "
+                      f"{pre['held_bytes']} B, a decode step's {run['measured']['decode']['held_bytes']} "
+                      f"B; both groups in {run['ms']:.1f} ms (eight processes sharing the "
+                      f"card); launches {json.dumps(run['launches'])}; product flops a launch "
+                      f"{json.dumps(per_launch)}; against the world of one "
+                      f"{json.dumps(run['groups'])}", flush=True)
+                bad = []
+                if run["launches"] != want_launches:
+                    bad.append(f"launches {run['launches']}, want {want_launches}")
+                if per_launch != want_per_launch:
+                    bad.append(f"product flops a launch {per_launch}, want {want_per_launch} "
+                               f"(K3 at {SERVE_GRID_K3.get(model)}, K4 at "
+                               f"{SERVE_GRID_K4.get(model)})")
+                for rows, g in run["groups"].items():
+                    if not g["finite"]:
+                        bad.append(f"{rows} rows: logits not finite")
+                    if g["max_rel_diff"] > tol:
+                        bad.append(f"{rows} rows: logits differ by {g['max_rel_diff']} > {tol}")
+                    if dtype == "float32" and not (g["tokens_equal"]
+                                                   and g["compared"] == g["of"]):
+                        bad.append(f"{rows} rows: fp32 tokens differ from the world of one's")
+                if bad:
+                    raise AssertionError(f"serve grid {key} rank {r}: {'; '.join(bad)}")
+            GRID_RESULTS["serve"][key] = ranks[0][2]["serve"][key]["measured"]
+    print(f"serve grid: {', '.join(SERVE_GRID_MODELS)} at full width, {GRID_LAYERS} layers, "
+          f"in {', '.join(SERVE_GRID_DTYPES)}, through BatchScheduler(mesh=) on every rank's "
+          f"blocks: {SERVE_GRID_ROWS} requests of {SERVE_GRID_PROMPT} tokens in one group "
+          f"and {SERVE_GRID_ODD} in another, {SERVE_GRID_NEW} new tokens each; fp32 tokens "
+          f"equal to the world of one's and logits within {GRID_FP32_TOL}, bf16 logits within "
+          f"the larger of {SERVE_GRID_BF16_TOL} and the world of one's own bf16 departure from "
+          f"its fp32 logits; launches {json.dumps(total)}", flush=True)
     return total
 
 
@@ -4285,7 +4621,7 @@ def _dry_grid_predictions() -> dict:
     mesh = make_dry_mesh(GRID_SHAPE["data"], GRID_SHAPE["model"], pod=GRID_SHAPE["pod"])
     for model, (seq, runs) in GRID_MODELS.items():
         for tag, dtype, bits in runs:
-            fn, args = dryrun.build_federated(_grid_cfg(model, dtype), mesh, GRID_STEPS,
+            fn, args = dryrun.build_federated(_grid_cfg(model, dtype), mesh, _grid_steps(model),
                                               ROUND_BATCH, seq, bits, lr=ROUND_LR)
             pred = dryrun.trace(fn, args)
             del fn, args
@@ -4293,6 +4629,44 @@ def _dry_grid_predictions() -> dict:
                 **{k: pred[k] for k in ("flops", "temp", "args", "coll", "t_trace_s")},
                 "launches": {k: v["launches"] for k, v in pred["kernel_work"].items()}}
     out["2 x 16 x 16"] = dryrun.run_federated(ROUND_MODEL, ROUND_STEPS, 16, ROUND_SEQ, 0)
+    out["serve"] = _dry_serve_predictions(mesh)
+    return out
+
+
+def _dry_serve_predictions(mesh) -> dict:
+    """The serve grid's rank 0, predicted on the dry (pod 2, data 2, model 2)
+    ``mesh``: for each model and dtype, the ``SERVE_GRID_ROWS`` group's
+    prefill (``dryrun.build_step``'s arguments: the rank's blocks and rows;
+    traced with the scheduler's cache of ``SERVE_GRID_PROMPT +
+    SERVE_GRID_NEW`` positions) and a decode step on that cache's block:
+    flops, peak above the arguments, held arguments, ``argument_size``
+    (the rank's share of the reference's layout), storage, collective
+    bytes, kernel launches."""
+    from repro_torch.configs import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.models import transformer as tf
+
+    out = {}
+    max_len = SERVE_GRID_PROMPT + SERVE_GRID_NEW
+    for model in SERVE_GRID_MODELS:
+        for dtype in SERVE_GRID_DTYPES:
+            cfg = _grid_cfg(model, dtype)
+            rec = {}
+            for kind, seq in (("prefill", SERVE_GRID_PROMPT), ("decode", max_len)):
+                shape = InputShape("serve", seq, SERVE_GRID_ROWS, kind)
+                fn, args, (specs, _), _ = dryrun.build_step(cfg, mesh, shape)
+                if kind == "prefill":
+                    def fn(p, b, cfg=cfg):
+                        return tf.prefill(p, cfg, b, max_len, mesh=mesh,
+                                          batch_size=SERVE_GRID_ROWS)
+                pred = dryrun.trace(fn, args)
+                rec[kind] = {
+                    **{k: pred[k] for k in ("flops", "temp", "coll", "t_trace_s")},
+                    "held": pred["args"] + pred["scalars"],
+                    "argument_size": dryrun._argument_size(mesh, specs, args),
+                    "storage": dryrun.step_storage(cfg, mesh, kind, batch_size=SERVE_GRID_ROWS),
+                    "launches": {k: v["launches"] for k, v in pred["kernel_work"].items()}}
+            out[f"{model} {dtype}"] = rec
     return out
 
 
@@ -4348,7 +4722,7 @@ def _dryrun_round(model, tag, preds):
     dtype, bits = next((dt, b) for t, dt, b in runs if t == tag)
     card = GRID_RESULTS[model][tag]
     pred = preds[f"{model} {tag}"]
-    name = (f"dryrun grid round {model} {GRID_LAYERS} layers {GRID_STEPS} x "
+    name = (f"dryrun grid round {model} {GRID_LAYERS} layers {_grid_steps(model)} x "
             f"{ROUND_BATCH} x {seq} {tag}")
     predicted = pred["launches"]
     launched = {k: n for k, n in card["launches"].items() if n}
@@ -4391,20 +4765,67 @@ def _dryrun_round(model, tag, preds):
     return {}
 
 
-def _storage_faults(recs) -> list[str]:
-    """The ``train`` and federated records of a sweep whose ``storage``
-    disagrees with ``shards_storage`` on a grid, or that say "sharded" and
-    hold other bytes than their share (``argument_size``)."""
-    from repro_torch.configs import get_config
-    from repro_torch.launch.mesh import make_dry_mesh
-    from repro_torch.models.transformer import shards_storage
+def _dryrun_serve(model, dtype, preds):
+    """The serve grid's rank 0 (``GRID_RESULTS["serve"]``, one prefill and
+    one decode step measured on the card) held to its dry trace
+    (``_dry_serve_predictions``): held bytes equal to the trace's and to
+    ``argument_size``, storage "sharded", flops, collective bytes and K3 /
+    K4 launches (and their tally) equal, the peak above the arguments
+    within ``DRYRUN_PEAK_TOL``.  Launches nothing."""
+    key = f"{model} {dtype}"
+    for kind in ("prefill", "decode"):
+        card, pred = GRID_RESULTS["serve"][key][kind], preds["serve"][key][kind]
+        name = f"dryrun serve grid {key} {kind}"
+        rel = (card["peak_bytes"] - pred["temp"]) / max(pred["temp"], 1)
+        print(f"{name}: rank 0 of {GRID_SHAPE}, predicted (storage {pred['storage']}) "
+              f"{pred['flops']:.6e} flops, peak above the arguments {pred['temp']} B, "
+              f"arguments held {pred['held']} B of argument_size {pred['argument_size']} B, "
+              f"collectives {json.dumps(pred['coll'])} B, launches "
+              f"{json.dumps(pred['launches'])}, traced in {pred['t_trace_s']:.2f} s; on the "
+              f"card: {card['flops']:.6e} flops, peak above the arguments {card['peak_bytes']} "
+              f"B ({rel:+.4f}; held to {DRYRUN_PEAK_TOL}), held {card['held_bytes']} B, "
+              f"collectives {json.dumps(card['coll'])} B, launches "
+              f"{json.dumps(card['launches'])}, tallied {json.dumps(card['tallied'])}",
+              flush=True)
+        bad = []
+        if pred["storage"] != "sharded":
+            bad.append(f"storage {pred['storage']}")
+        if not card["held_bytes"] == pred["held"] == pred["argument_size"]:
+            bad.append(f"held {card['held_bytes']} B, traced {pred['held']} B, share "
+                       f"{pred['argument_size']} B")
+        if card["flops"] != pred["flops"]:
+            bad.append(f"flops {card['flops']} against {pred['flops']}")
+        if card["coll"] != pred["coll"]:
+            bad.append(f"collectives {card['coll']} against {pred['coll']}")
+        if not card["launches"] == card["tallied"] == pred["launches"]:
+            bad.append(f"launches {card['launches']}, tallied {card['tallied']}, predicted "
+                       f"{pred['launches']}")
+        if abs(rel) > DRYRUN_PEAK_TOL:
+            bad.append(f"peak {card['peak_bytes']} B against {pred['temp']} B")
+        if bad:
+            raise AssertionError(f"{name}: {'; '.join(bad)}")
 
-    grid = make_dry_mesh(1, 2)
+
+def _storage_faults(recs) -> list[str]:
+    """The records of a sweep whose ``storage`` disagrees with
+    ``dryrun.step_storage`` (train and federated records: ``shards_storage``
+    on a grid; prefill and decode: also where the data axes divide the
+    batch), or that say "sharded" and hold other bytes than their share
+    (``argument_size``)."""
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.configs.inputs import long_context_variant
+    from repro_torch.launch.dryrun import step_storage
+    from repro_torch.launch.mesh import make_production_mesh
+
     out = []
     for r in recs:
-        if r["kind"] not in ("train", "federated_round"):
-            continue
-        want = "sharded" if shards_storage(get_config(r["arch"]), grid) else "whole"
+        mesh = make_production_mesh(multi_pod=r["mesh"] == "multi", dry=True)
+        cfg = get_config(r["arch"])
+        shape = INPUT_SHAPES.get(r["shape"])
+        if r["shape"] == "long_500k":
+            cfg = long_context_variant(cfg)
+        want = step_storage(cfg, mesh, r["kind"], r.get("policy", "baseline"),
+                            shape.global_batch if shape else None)
         mem = r["memory"]
         if r["storage"] != want or (want == "sharded"
                                     and mem["argument_size_held"] != mem["argument_size"]):
@@ -4414,18 +4835,23 @@ def _storage_faults(recs) -> list[str]:
 
 
 def _dryrun_phase(device, sweeps, dry_grid):
-    """The dry run (``repro_torch.launch.dryrun``) against the card: each of
+    """The dry run (``repro_torch.launch.dryrun``) against the card: the
+    serve grid's prefill and decode on rank 0 (``_dryrun_serve``), each of
     ``DRYRUN_STEPS`` predicted and run (``_dryrun_step``), then the grid
-    round of each run of ``GRID_MODELS`` (``_dryrun_round``, on the
-    predictions of ``_start_dry_grid``'s process ``dry_grid``); then the
+    round of each run of ``GRID_MODELS`` (``_dryrun_round``), on the
+    predictions of ``_start_dry_grid``'s process ``dry_grid``; then the
     sweeps that ``_start_dryrun_sweep`` started: their wall times on this
-    machine's host, every record OK, and every ``train`` and federated
-    record "sharded" where ``shards_storage`` names its arch and then
-    holding exactly its share (``_storage_faults``).  Returns the kernels'
-    launches in the steps (the rounds launch nothing)."""
+    machine's host, every record OK, and every record "sharded" where
+    ``dryrun.step_storage`` says so (train, federated, and prefill and
+    decode where the data axes divide the batch) and then holding exactly
+    its share (``_storage_faults``).  Returns the kernels' launches in the
+    steps (the rounds and the serve grid's checks launch nothing)."""
     t = time.perf_counter()
     preds = _dry_grid_wait(dry_grid)
     total: dict[str, int] = {}
+    for model in SERVE_GRID_MODELS:
+        for dtype in SERVE_GRID_DTYPES:
+            _dryrun_serve(model, dtype, preds)
     for launches in [_dryrun_step(device, *step) for step in DRYRUN_STEPS] + [
             _dryrun_round(model, tag, preds) for model, (_, runs) in GRID_MODELS.items()
             for tag, _, _ in runs]:
@@ -4452,10 +4878,10 @@ def _dryrun_phase(device, sweeps, dry_grid):
             raise AssertionError(f"dryrun {name} sweep: exit {proc.returncode}, {len(recs)} "
                                  f"records, failed {failed}; its output's end:\n{log[-3000:]}")
         wrong = _storage_faults(recs)
-        print(f"dryrun: the {name} sweep's train and federated records: "
-              f"{sum(r['kind'] in ('train', 'federated_round') for r in recs)}, each "
-              f"sharded where shards_storage names its arch and then holding its share "
-              f"exactly; faults {wrong}", flush=True)
+        sharded = [f"{r['arch']} {r['shape']}" for r in recs if r["storage"] == "sharded"]
+        print(f"dryrun: the {name} sweep's records: {len(sharded)} sharded ({', '.join(sharded)}), "
+              f"each where step_storage says so and then holding its share exactly; faults "
+              f"{wrong}", flush=True)
         if wrong:
             raise AssertionError(f"dryrun {name} sweep: storage faults {wrong}")
     print(f"dryrun: launches {json.dumps(total)}; phase in {time.perf_counter() - t:.1f} s",
@@ -4798,6 +5224,11 @@ def main() -> int:
         # the scaleout grid's rank: its 800 of hymba's 1600 channels at model 2,
         # its 4-sequence data share, checkpoints kept (GRID_K4)
         (GRID_K4["hymba-1.5b"], 0, torch.float32, True, False),
+        # the serve grid's prefill on a rank: the same channels, its 2 rows of
+        # the 8-row group and all 3 of the 3-row one, with the final state
+        # (fp32 inputs in either dtype)
+        *((shape, 0, torch.float32, False, True)
+          for shape in SERVE_GRID_K4["hymba-1.5b"].values()),
     ]]
     _timeline("K4 checks")
     libs |= k3_built.result()
@@ -4847,6 +5278,12 @@ def main() -> int:
         ((4, 128, 25, 5, 64), torch.float32, 1024, 0.0),
         ((4, 128, 16, 16, 64), torch.float32, 0, 1.0),
         ((4, 384, 7, 1, 64), torch.float32, 0, 1.0),
+        # the serve grid's prefill on a rank in fp32 and bf16: stablelm's 16
+        # heads and hymba's 25 / 5 kv replicated (local layers), its 2 rows of
+        # the 8-row group and all 3 of the 3-row one (SERVE_GRID_K3)
+        *((shape, dt, w, ig) for dt in (torch.float32, torch.bfloat16)
+          for model, w, ig in (("stablelm-3b", 0, 1.0), ("hymba-1.5b", 1024, 0.0))
+          for shape in SERVE_GRID_K3[model].values()),
     ]]
     _timeline("K3 checks")
     print("kernels: hellinger_strip, masked_weighted_sum, flash_attention and mamba_scan "
@@ -5006,6 +5443,21 @@ def main() -> int:
          **{k: rec[direction][k] for k in keys + ("kernel_ms",)}}
         for rec in k4 if tuple(rec["shape"]) == GRID_K4["hymba-1.5b"]
         for direction in ("forward", "backward")
+    ] + [
+        # K3 and K4 forward in the serve grid's prefill, at a rank's shape of
+        # the 8-row group (fp32), launched by the serve grid alone
+        {"name": f"{kernel}_serve_grid", "route": "cuda", "source": source,
+         "replaces": replaces, "launches": grid_launches[f"serve_{kernel}"],
+         "shape": rec["shape"], **{k: rec["forward"][k] for k in keys + ("kernel_ms",)
+                                   if k in rec["forward"]}}
+        for kernel, source, replaces, recs, shape in (
+            ("flash_attention_forward", "src/repro_torch/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention/kernel.py:68", k3,
+             SERVE_GRID_K3["stablelm-3b"][SERVE_GRID_ROWS]),
+            ("mamba_scan_forward", "src/repro_torch/csrc/mamba_scan.cu",
+             "src/repro/kernels/mamba_scan/kernel.py:69", k4,
+             SERVE_GRID_K4["hymba-1.5b"][SERVE_GRID_ROWS]))
+        for rec in recs if tuple(rec["shape"]) == shape and rec["dtype"] == "float32"
     ]
     print(smi, flush=True)  # again, so that the end of the output names the card
     print(json.dumps({"kernels": kernels}), flush=True)

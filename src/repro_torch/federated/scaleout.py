@@ -22,15 +22,16 @@ the reference's round is manual over ``pod`` and leaves ``data`` and
 ``model`` to GSPMD inside each pod, and the exact sum runs over the
 ``pod`` subgroup at the rank's (data, model) coordinate.  For the families
 of ``models.transformer.shards_storage`` (the dense GQA models, hymba-1.5b
-with its Mamba heads on the rank's channels, internvl2-1b's patches and
-musicgen-large's frames) each rank holds its block of every leaf under the baseline policy
+with its Mamba heads on the rank's channels, xlstm-125m with its cores on
+the rank's heads, internvl2-1b's patches and musicgen-large's frames)
+each rank holds its block of every leaf under the baseline policy
 (``sharding.shard_tree``, the reference's ``P("pod", *spec)``) and trains
 on its ``data`` share of the pod's batch (the reference's ``P("pod",
 "data")``), tensor-parallel over ``model`` and data-parallel over
 ``data`` (``loss_fn`` on ``mesh.in_pod()``): K1 sums the rank's blocks,
 and the int8 round quantizes the rank's block, one scale a (leaf,
 block), and keeps it, as the reference's second map (manual over ``pod``
-and ``model``) leaves its output split.  xLSTM and the MoE and MLA models
+and ``model``) leaves its output split.  The MoE and MLA models
 hold every leaf whole on every rank and train on the pod's whole batch; their int8
 round quantizes each rank's ``model`` block of each leaf under the
 baseline policy's storage spec (``sharding.model_block``), one scale a

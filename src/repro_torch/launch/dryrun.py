@@ -50,16 +50,22 @@ Counting rules:
   the reference's layout (``sharding.shard_bytes`` of each argument);
   ``memory.argument_size_held`` what the port's rank holds.  ``storage``
   says which: ``"sharded"`` where the rank holds its blocks and its batch
-  share (the ``train`` step and the federated round of the families that
+  share (``step_storage``: the ``train`` step, the federated round, and
+  prefill and decode where the data axes divide the global batch
+  (``prefill_32k``, ``decode_32k``), of the families that
   ``models.transformer.shards_storage`` names: the dense GQA models,
-  hymba-1.5b, internvl2-1b and musicgen-large, under the baseline policy
-  on a grid: the arguments are those blocks, the held bytes equal
-  ``argument_size``, and ``temp_size`` is the tensor-parallel step's,
+  hymba-1.5b, xlstm-125m, internvl2-1b and musicgen-large, under the
+  baseline policy on a grid: the arguments are those blocks and, for
+  decode, the rank's cache block beside the whole token batch, the held
+  bytes equal ``argument_size`` (decode's position counted as the
+  reference's int32), and ``temp_size`` is the tensor-parallel step's,
   hymba's with ``w_in`` and, where its 25 heads split mid-head, the
-  attention's projections gathered whole over ``model``);
+  attention's projections gathered whole over ``model``, xlstm's with
+  ``w_up`` gathered and, at model 16, its 4 heads computed replicated);
   ``"whole"`` where it holds every argument whole and computes the
-  replicated values of the whole batch (prefill and decode, xLSTM and the
-  MoE and MLA models, the ``fsdp`` variant), so that ``temp_size`` and
+  replicated values of the whole batch (the MoE and MLA models, the
+  ``fsdp`` variant, and a decode of batch 1 such as ``long_500k``, whose
+  cache the policy splits over the sequence), so that ``temp_size`` and
   ``argument_size_held`` show what that path needs and the gap to
   ``argument_size`` is what sharding its storage would save.
 - ``collective_bytes`` are the dry mesh's collectives by the reference's
@@ -87,7 +93,7 @@ from dataclasses import replace
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
+from torch.utils._pytree import tree_flatten, tree_unflatten
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs import INPUT_SHAPES, InputShape, get_config, list_configs
@@ -138,19 +144,32 @@ def _held_bytes(tree) -> int:
     return sum(storages.values())
 
 
-def step_storage(cfg, mesh, kind: str, policy_variant: str = "baseline") -> str:
+def step_storage(cfg, mesh, kind: str, policy_variant: str = "baseline",
+                 batch_size: int | None = None) -> str:
     """``"sharded"`` where a rank of ``mesh`` holds its blocks of the
-    arguments of a ``kind`` step (``train`` or the federated round, under
-    the baseline policy, for the families of ``shards_storage``), else
-    ``"whole"``."""
-    sharded = (kind in ("train", "federated_round") and policy_variant == "baseline"
-               and shards_storage(cfg, mesh))
-    return "sharded" if sharded else "whole"
+    arguments of a ``kind`` step under the baseline policy, for the
+    families of ``shards_storage``: ``train`` and the federated round, and
+    ``prefill`` and ``decode`` where the data axes divide the global batch
+    ``batch_size``; else ``"whole"`` (a batch of one, whose decode the
+    policy splits over the sequence, stays whole)."""
+    if policy_variant != "baseline" or not shards_storage(cfg, mesh):
+        return "whole"
+    if kind in ("train", "federated_round"):
+        return "sharded"
+    dp = tuple(a for a in mesh.axis_names if a != "model")
+    divides = batch_size is not None and batch_size > 1 and batch_size % mesh.size(dp) == 0
+    return "sharded" if kind in ("prefill", "decode") and divides else "whole"
 
 
 def _local(tree):
-    """The specs of a rank's blocks: each is what the rank holds, ``()``."""
-    return tree_map(lambda _: (), tree)
+    """The specs of a rank's blocks: each is what the rank holds, ``()``
+    (a list where the tree holds a list or a tuple, as ``shardings``
+    gives them)."""
+    if isinstance(tree, dict):
+        return {k: _local(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_local(v) for v in tree]
+    return ()
 
 
 def build_step(cfg, mesh, shape, lr: float = 1e-3, policy_variant: str = "baseline"):
@@ -170,9 +189,11 @@ def build_step(cfg, mesh, shape, lr: float = 1e-3, policy_variant: str = "baseli
     The ``fsdp`` variant sets ``act_shard="dp_all"`` where the config has
     none, and a batch-1 decode moves the data axes to the sequence, as in
     the reference.  Where ``step_storage`` says ``"sharded"``, ``args``
-    are the rank's blocks of the parameters (``param_blocks``) and its
-    share of the batch, and each spec is ``()``: the rank holds exactly
-    its share of the reference's layout."""
+    are the rank's blocks of the parameters (``param_blocks``), its share
+    of the batch (decode's tokens whole, as the reference replicates them)
+    and its block of the cache (``init_cache(..., mesh=)``), and each spec
+    is ``()``: the rank holds exactly its share of the reference's
+    layout."""
     if policy_variant == "fsdp" and not cfg.act_shard:
         cfg = replace(cfg, act_shard="dp_all")
     policy = make_policy(mesh, shape.global_batch,
@@ -187,8 +208,9 @@ def build_step(cfg, mesh, shape, lr: float = 1e-3, policy_variant: str = "baseli
         bspec = _batch_logical_axes(cfg, shape.kind)
         bshard = {k: policy.spec_for(bspec[k], tuple(batch[k].shape)) for k in batch}
 
+    sharded = step_storage(cfg, mesh, shape.kind, policy_variant,
+                           shape.global_batch) == "sharded"
     if shape.kind == "train":
-        sharded = step_storage(cfg, mesh, "train", policy_variant) == "sharded"
         if sharded:
             params, batch = param_blocks(params, cfg, mesh), shard_tree(batch, bshard, mesh)
             pshard, bshard = _local(params), _local(batch)
@@ -208,9 +230,17 @@ def build_step(cfg, mesh, shape, lr: float = 1e-3, policy_variant: str = "baseli
 
     cache = init_cache(cfg, shape.global_batch, shape.seq_len, device="meta")
     cshard = policy.shardings(cache_specs(cfg), cache)
+    if sharded:
+        params, pshard = param_blocks(params, cfg, mesh), _local(params)
+        cache = init_cache(cfg, shape.global_batch, shape.seq_len, device="meta", mesh=mesh)
+        cshard = _local(cache)
     if shape.kind == "prefill":
+        if sharded:
+            batch, bshard = shard_tree(batch, bshard, mesh), _local(batch)
+
         def prefill_step(params, batch):
-            return prefill(params, cfg, batch, max_len=shape.seq_len, mesh=mesh)
+            return prefill(params, cfg, batch, max_len=shape.seq_len, mesh=mesh,
+                           sharded=sharded, batch_size=shape.global_batch)
 
         del cache
         return prefill_step, (params, batch), ((pshard, bshard), ((), cshard)), ()
@@ -219,7 +249,7 @@ def build_step(cfg, mesh, shape, lr: float = 1e-3, policy_variant: str = "baseli
     bshard = {k: () for k in batch}
 
     def serve_step(params, batch, cache, pos):
-        return decode_step(params, cfg, batch, cache, pos, mesh=mesh)
+        return decode_step(params, cfg, batch, cache, pos, mesh=mesh, sharded=sharded)
 
     args = (params, batch, cache, shape.seq_len - 1)
     return serve_step, args, ((pshard, bshard, cshard, ()), ((), cshard)), (2,)
@@ -290,7 +320,7 @@ def count_flops(fn, *args):
 
 def trace(fn, args, path: str = "cuda", memory: bool = True) -> dict:
     """Run ``fn(*args)`` on ``meta`` arguments under the counters:
-    {"flops", "bytes", "coll", "kernel_work", "peak", "args", "output",
+    {"flops", "bytes", "coll", "kernel_work", "peak", "args", "scalars", "output",
     "ops", "t_trace_s"} (``peak`` and the rest of the memory numbers are
     None without ``memory``).  ``path="cpu"`` runs the kernels' plain
     versions."""
@@ -324,6 +354,7 @@ def trace(fn, args, path: str = "cuda", memory: bool = True) -> dict:
         "coll": dict(tally.collectives),
         "kernel_work": {k: dict(v) for k, v in tally.kernels.items()},
         "args": _held_bytes(args),
+        "scalars": 4 * sum(isinstance(a, int) for a in args),  # decode's int32 position
         "output": _held_bytes(out),
         "peak": None, "temp": None,
         "ops": traffic.ops,
@@ -407,7 +438,7 @@ def _record(traced, argument_size):
         "collective_bytes": traced["coll"],
         "memory": {
             "argument_size": int(argument_size),
-            "argument_size_held": int(traced["args"]),
+            "argument_size_held": int(traced["args"] + traced["scalars"]),
             "output_size": int(traced["output"]),
             "temp_size": int(traced["temp"]),
             "generated_code_size": 0,
@@ -425,7 +456,7 @@ def trace_step(cfg, mesh, shape, policy_variant: str = "baseline", path: str = "
     fn, args, (in_specs, _), _ = build_step(cfg, mesh, shape, policy_variant=policy_variant)
     traced = trace(fn, args, path)
     rec = {"n_devices": mesh.size(), "kind": shape.kind, "path": path,
-           "storage": step_storage(cfg, mesh, shape.kind, policy_variant),
+           "storage": step_storage(cfg, mesh, shape.kind, policy_variant, shape.global_batch),
            **_record(traced, _argument_size(mesh, in_specs, args)), "ops": traced["ops"]}
     rec["probes"] = None
     if probes:

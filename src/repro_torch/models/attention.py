@@ -173,14 +173,16 @@ def _head_vec(scale: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return scale.repeat_interleave(t.shape[0] // m, dim=0)[:, None, None, :]
 
 
-def gqa_attention(p, cfg, x, sin, cos, is_global=1.0, tp=None):
+def gqa_attention(p, cfg, x, sin, cos, is_global=1.0, tp=None, all_kv=False):
     """Full sequence (training, poll, evaluation and prefill): x (..., S, d)
     with weights shared, or x (m, B, S, d) with weights one set per client
     -> (out (..., S, d), (k, v) (..., S, KV, hd)), k rotated as the cache
     holds it.  ``tp``: the mesh whose ``model`` axis splits ``p`` (a rank's
-    blocks; x replicated over ``model``); k and v are then the rank's."""
+    blocks; x replicated over ``model``); k and v are then the rank's kv
+    heads, or with ``all_kv`` (a prefill) the cache block's: the rank's kv
+    heads where ``model`` divides them, else every kv head."""
     if tp is not None:
-        return _gqa_blocks(p, cfg, x, sin, cos, is_global, tp)
+        return _gqa_blocks(p, cfg, x, sin, cos, is_global, tp, all_kv)
     q, k, v = _project_qkv(p, cfg, x, sin, cos)
     o = flash_attention(q, k, v, cfg.sliding_window, is_global)
     kv_shape = (*x.shape[:-1], *k.shape[-2:])
@@ -188,43 +190,83 @@ def gqa_attention(p, cfg, x, sin, cos, is_global=1.0, tp=None):
                                                             v.reshape(kv_shape))
 
 
-def _gqa_blocks(p, cfg, x, sin, cos, is_global, mesh):
-    """``gqa_attention`` on a rank's blocks, by the rules of the module's
-    docstring."""
+def _head_plan(p, cfg, mesh):
+    """Which of the module docstring's rules a rank's blocks take: None for
+    the third (the layer replicated), else (the rank's q heads ``hl``, its
+    first q head, the kv heads [lo, hi) they use, and for each of its q
+    heads its kv head's index in [lo, hi) where one kv head a q head must be
+    taken, else None)."""
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    m, r = mesh.shape["model"], mesh.axis_index("model")
-    split = {k: p[k].shape[0 if k == "wo" else 1] != n * hd
-             for k, n in (("wq", h), ("wo", h), ("wk", kv), ("wv", kv))}
-    if not (split["wq"] and split["wo"]) or h % m:
-        whole = dict(p)
-        for k in ("wq", "wk", "wv", "wo"):
-            if split[k]:
-                whole[k] = gather_whole(p[k], mesh, 0 if k == "wo" else 1)
-        return gqa_attention(whole, cfg, x, sin, cos, is_global)
+    m = mesh.shape["model"]
+    if p["wq"].shape[1] == h * hd or p["wo"].shape[0] == h * hd or h % m:
+        return None
     hl, g = h // m, h // kv
-    a = r * hl
-    lo, hi = a // g, (a + hl - 1) // g + 1       # the kv heads the rank's q heads use
-    x = column_in(x, mesh)
-    pl = {"wq": p["wq"]}
+    a = mesh.axis_index("model") * hl
+    lo, hi = a // g, (a + hl - 1) // g + 1
+    n = hi - lo
+    idx = [(a + i) // g - lo for i in range(hl)]
+    if not hl % n and idx == [i // (hl // n) for i in range(hl)]:
+        idx = None
+    return hl, a, lo, hi, idx
+
+
+def _whole(p, cfg, mesh):
+    """``p`` with every projection that ``model`` splits gathered whole."""
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    whole = dict(p)
+    for k, n in (("wq", h), ("wk", kv), ("wv", kv), ("wo", h)):
+        dim = 0 if k == "wo" else 1
+        if p[k].shape[dim] != n * hd:
+            whole[k] = gather_whole(p[k], mesh, dim)
+    return whole
+
+
+def _kv_weights(p, cfg, mesh, lo, hi, every):
+    """The rank's q-head plan's kv projections: its ``wk`` / ``wv`` blocks
+    where they are the kv heads [lo, hi), else the leaves gathered whole
+    (their gradients summed over ``model``, each rank using them for its own
+    heads) and cut to [lo, hi), or kept whole with ``every``; and the
+    qk-norm scales, their gradients summed over ``model``."""
+    kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    pl = {}
     for k in ("wk", "wv"):
-        if split[k] and kv % m == 0:             # the block is [lo, hi)
+        split = p[k].shape[1] != kv * hd
+        if split and kv % mesh.shape["model"] == 0:   # the block is [lo, hi)
             pl[k] = p[k]
         else:
-            w = gather_whole(p[k], mesh, 1, partial=True) if split[k] else \
+            w = gather_whole(p[k], mesh, 1, partial=True) if split else \
                 mesh.grad_sum(p[k], "model")
-            pl[k] = w[:, lo * hd:hi * hd]
+            pl[k] = w if every else w[:, lo * hd:hi * hd]
     for k in ("q_norm", "k_norm"):
         if k in p:
             pl[k] = mesh.grad_sum(p[k], "model")
-    q, k, v = _project_qkv(pl, cfg, x, sin, cos, heads=(hl, hi - lo))
-    n = hi - lo
-    idx = [(a + i) // g - lo for i in range(hl)]
-    if hl % n or idx != [i // (hl // n) for i in range(hl)]:
+    return pl
+
+
+def _gqa_blocks(p, cfg, x, sin, cos, is_global, mesh, all_kv=False):
+    """``gqa_attention`` on a rank's blocks, by the rules of the module's
+    docstring."""
+    plan = _head_plan(p, cfg, mesh)
+    if plan is None:
+        return gqa_attention(_whole(p, cfg, mesh), cfg, x, sin, cos, is_global)
+    hl, _, lo, hi, idx = plan
+    x = column_in(x, mesh)
+    pl = {"wq": p["wq"], **_kv_weights(p, cfg, mesh, lo, hi, all_kv)}
+    every = all_kv and pl["wk"].shape[1] != (hi - lo) * cfg.resolved_head_dim
+    q, k, v = _project_qkv(pl, cfg, x, sin, cos,
+                           heads=(hl, cfg.n_kv_heads if every else hi - lo))
+    kv_shape = (*x.shape[:-1], *k.shape[-2:])
+    cache = (k.reshape(kv_shape), v.reshape(kv_shape))
+    if every:
+        k, v = k[:, :, lo:hi], v[:, :, lo:hi]
+    if idx is not None:
         k, v = k[:, :, idx], v[:, :, idx]        # one kv head a q head
     o = flash_attention(q, k, v, cfg.sliding_window, is_global)
-    kv_shape = (*x.shape[:-1], *k.shape[-2:])
     out = row_out(linear(o.reshape(*x.shape[:-1], -1), p["wo"]), mesh)
-    return out, (k.reshape(kv_shape), v.reshape(kv_shape))
+    if not all_kv:
+        kv_shape = (*x.shape[:-1], *k.shape[-2:])
+        cache = (k.reshape(kv_shape), v.reshape(kv_shape))
+    return out, cache
 
 
 def decode_attention(q, k_cache, v_cache, pos: int, window: int = 0,
@@ -241,17 +283,36 @@ def decode_attention(q, k_cache, v_cache, pos: int, window: int = 0,
     return out.reshape(b, 1, h, d).to(q.dtype)
 
 
-def gqa_decode(p, cfg, x, sin_pos, cos_pos, cache, pos: int, is_global=1.0):
+def gqa_decode(p, cfg, x, sin_pos, cos_pos, cache, pos: int, is_global=1.0, tp=None):
     """One token: x (B, 1, d), the one-row RoPE tables of position ``pos``
     and ``cache`` = (k_cache, v_cache) (B, S_max, KV, hd) -> (out (B, 1,
     d), cache), the token's k and v written into the cache at ``pos`` in
-    place."""
+    place.  ``tp``: on a rank's blocks, by ``gqa_attention``'s rules, the
+    cache being the rank's block: its kv heads where ``model`` divides them
+    (the first rule), else every kv head, each of which the rank projects
+    and writes, attending its q heads to the kv heads they use."""
     k_cache, v_cache = cache
-    q, k_new, v_new = _project_qkv(p, cfg, x, sin_pos, cos_pos)
+    plan = None if tp is None else _head_plan(p, cfg, tp)
+    if tp is not None and plan is None:
+        p = _whole(p, cfg, tp)
+    if plan is None:
+        q, k_new, v_new = _project_qkv(p, cfg, x, sin_pos, cos_pos)
+    else:
+        hl, _, lo, hi, idx = plan
+        pl = {"wq": p["wq"], **_kv_weights(p, cfg, tp, lo, hi, every=True)}
+        q, k_new, v_new = _project_qkv(pl, cfg, x, sin_pos, cos_pos,
+                                       heads=(hl, k_cache.shape[2]))
     k_cache[:, pos] = k_new[:, 0].to(k_cache.dtype)
     v_cache[:, pos] = v_new[:, 0].to(v_cache.dtype)
-    o = decode_attention(q, k_cache, v_cache, pos, cfg.sliding_window, is_global)
-    return linear(o.reshape(x.shape[0], 1, -1), p["wo"]), (k_cache, v_cache)
+    kc, vc = k_cache, v_cache
+    if plan is not None:
+        if kc.shape[2] != hi - lo:
+            kc, vc = kc[:, :, lo:hi], vc[:, :, lo:hi]
+        if idx is not None:
+            kc, vc = kc[:, :, idx], vc[:, :, idx]
+    o = decode_attention(q, kc, vc, pos, cfg.sliding_window, is_global)
+    out = linear(o.reshape(x.shape[0], 1, -1), p["wo"])
+    return (out if plan is None else row_out(out, tp)), (k_cache, v_cache)
 
 
 # ---------------------------------------------------------------------------

@@ -55,11 +55,32 @@ summed over ``model`` backward too.  The scan then runs on the rank's
 (B, S, D / M) channels; ``w_out``'s row block gives a partial output that
 is summed over ``model``.  Where ``model`` does not divide D the channel
 leaves stay whole: ``w_in`` is gathered if it is split, and the block is
-computed replicated over ``model``.
+computed replicated over ``model``.  ``mamba_decode(..., tp=mesh)`` steps
+the same blocks one token at a time; its state and conv tail come and go
+whole over ``model`` (the cache's layout: batch rows only), the rank
+advancing its channels and the new ones gathered over ``model``.
 
 The xLSTM cores have no TPU kernel in the reference and none here: their
 products are ``torch.matmul``.  ``ssm.chunk`` is the mLSTM chunk and the
-sLSTM scan chunk, as in the reference.
+sLSTM scan chunk, as in the reference.  ``mlstm_seq`` / ``slstm_seq`` /
+``mlstm_decode`` / ``slstm_decode`` take ``tp=mesh`` too (``xlstm_specs``:
+``w_up``'s columns, ``wq`` / ``wk`` / ``wv``'s head columns and
+``w_down``'s head rows split over ``model``; ``w_if``, ``b_if`` and
+``core_norm`` replicated).  ``wq``, ``wk`` and ``wv`` each contract over
+all of ``core_in``, so ``w_up`` (split by columns across its [core_in |
+out_gate] halves) is gathered whole (its gradient summed over ``model``
+first), ``core_in`` is computed whole on every rank and the out_gate on
+the rank's channels; q, k, v and both halves of the gate logits on the
+rank's heads (``w_if`` / ``b_if`` cut to their columns, their gradients
+summed over ``model``; with ``core_in`` whole the logits are no partial
+sum); the cores on the rank's heads; ``core_norm`` is an RMS norm over all
+d channels, so its sum of squares is summed over ``model`` forward and
+backward and the rank scales by its slice of the replicated scale;
+``w_down``'s row block gives a partial output summed over ``model``.
+Where ``model`` does not divide the heads (xlstm-125m's 4 at model 16)
+the split leaves are gathered whole and the block is computed replicated.
+The sequence forms return the rank's heads of the state; the decode forms
+take and return it whole over ``model``, as the cache holds it.
 """
 
 from __future__ import annotations
@@ -193,21 +214,37 @@ def mamba_seq(p, cfg, x: torch.Tensor, tp=None):
     return out, (h.reshape(*x_in.shape[:-2], d_in, n), tail)
 
 
-def mamba_decode(p, cfg, x: torch.Tensor, state: torch.Tensor, conv_tail: torch.Tensor):
+def mamba_decode(p, cfg, x: torch.Tensor, state: torch.Tensor, conv_tail: torch.Tensor,
+                 tp=None):
     """One token: x (B, 1, d), state (B, D, N) and conv_tail (B, k - 1, D)
     fp32 -> (out (B, 1, d), (state, conv_tail) after it), with the
-    reference's arithmetic and order (fp32 discretisation, h = a h + b)."""
+    reference's arithmetic and order (fp32 discretisation, h = a h + b).
+    ``tp``: on a rank's blocks, as ``mamba_seq``'s; the state and tail come
+    and go whole over ``model``, the rank advancing its channels."""
     k = cfg.ssm.conv_kernel
+    split = tp is not None and p["conv_w"].shape[-1] != cfg.d_model
+    if tp is not None:
+        p = _channel_block(p, cfg, tp, split)
+    if split:
+        n = p["conv_w"].shape[-1]
+        lo = tp.axis_index("model") * n
+        state, conv_tail = state[:, lo:lo + n], conv_tail[..., lo:lo + n]
     raw, z = linear(x, p["w_in"]).chunk(2, dim=-1)
     ext = torch.cat([conv_tail.to(raw.dtype), raw], dim=-2)
     x_in = F.silu(_causal_conv(ext, p["conv_w"])[..., -1:, :])
     xf, dt, bmat, cmat = _discretize(p, x_in)
+    if split:   # partial sums over the rank's channels
+        bmat, cmat = (tp.all_reduce_sum(t, "model") for t in (bmat, cmat))
     xf, dt, bmat, cmat = xf[..., 0, :], dt[..., 0, :], bmat[..., 0, :], cmat[..., 0, :]
     a = torch.exp(dt[..., None] * -torch.exp(p["a_log"]))                 # (B, D, N)
     h = a * state + dt[..., None] * bmat[..., None, :] * xf[..., None]
     y = (h * cmat[..., None, :]).sum(-1) + xf * p["d_skip"]
     out = linear(y[..., None, :].to(x.dtype) * F.silu(z), p["w_out"])
-    return out, (h, _conv_tail(ext, k))
+    tail = _conv_tail(ext, k)
+    if split:
+        out = row_out(out, tp)
+        h, tail = tp.all_gather(h, "model", dim=1), tp.all_gather(tail, "model", dim=2)
+    return out, (h, tail)
 
 
 # ---------------------------------------------------------------------------
@@ -275,13 +312,46 @@ def chunked_linear_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor, chun
     return torch.cat(outs, dim=1), h
 
 
-def _xlstm_proj(p, cfg, x):
+def _xlstm_blocks(p, cfg, tp):
+    """``p`` on a rank's blocks (``tp``, the module's docstring) -> (p', tp',
+    the rank's first head, its heads).  On whole heads: ``w_up`` gathered
+    whole (its gradient summed over ``model`` first) and cut to all of its
+    core_in half and the rank's columns of its out_gate half; ``w_if`` and
+    ``b_if`` cut to the rank's heads' columns of both gate halves and
+    ``core_norm`` to the rank's channels, each gradient summed over
+    ``model``; tp' is ``tp``.  Where ``model`` does not divide the heads,
+    every split leaf gathered whole and tp' None: the block is computed
+    replicated."""
+    d, h = cfg.d_model, cfg.ssm.n_heads
+    m = tp.shape["model"]
+    if p["wq"].shape[-1] == d or h % m:
+        whole = dict(p)
+        for k, dim, n in (("w_up", 1, 2 * d), ("wq", 1, d), ("wk", 1, d), ("wv", 1, d),
+                          ("w_down", 0, d)):
+            if p[k].shape[dim] != n:
+                whole[k] = gather_whole(p[k], tp, dim)
+        return whole, None, 0, h
+    n, hl = d // m, h // m
+    r = tp.axis_index("model")
+    lo, a = r * n, r * hl
+    w_up = gather_whole(p["w_up"], tp, 1, partial=True)
+    w_if, b_if = (tp.grad_sum(p[k], "model") for k in ("w_if", "b_if"))
+    return {**p, "w_up": torch.cat([w_up[:, :d], w_up[:, d + lo:d + lo + n]], dim=1),
+            "w_if": torch.cat([w_if[:, a:a + hl], w_if[:, h + a:h + a + hl]], dim=1),
+            "b_if": torch.cat([b_if[a:a + hl], b_if[h + a:h + a + hl]]),
+            "core_norm": tp.grad_sum(p["core_norm"], "model")[lo:lo + n]}, tp, a, hl
+
+
+def _xlstm_proj(p, cfg, x, heads=None):
     """q, k (scaled by 1/sqrt(hd)), v (..., S, H, hd); the input and
     forget-gate logits (..., S, H) in fp32 (the forget one as log f); the
-    output gate (..., S, d)."""
-    h = cfg.ssm.n_heads
-    hd = x.shape[-1] // h
-    core_in, out_gate = linear(x, p["w_up"]).chunk(2, dim=-1)
+    output gate (..., S, d).  ``heads``: the H of a rank's blocks
+    (``_xlstm_blocks``), whose out_gate is then its (..., S, H hd)."""
+    d = cfg.d_model
+    h = heads or cfg.ssm.n_heads
+    hd = d // cfg.ssm.n_heads
+    up = linear(x, p["w_up"])
+    core_in, out_gate = up[..., :d], up[..., d:]
     q = linear(core_in, p["wq"]).unflatten(-1, (h, hd))
     k = linear(core_in, p["wk"]).unflatten(-1, (h, hd)) / math.sqrt(hd)
     v = linear(core_in, p["wv"]).unflatten(-1, (h, hd))
@@ -289,12 +359,32 @@ def _xlstm_proj(p, cfg, x):
     return q, k, v, gates[..., :h], F.logsigmoid(gates[..., h:]), out_gate
 
 
-def _xlstm_out(p, cfg, x, y, out_gate):
-    """The core's (N, S, H, hd) output back to x's shape, normed, gated and
-    projected down."""
-    y = y.reshape(x.shape).to(x.dtype)
-    y = rms_norm(y, per_client(p["core_norm"], y), cfg.norm_eps)
-    return linear(y * F.silu(out_gate), p["w_down"])
+def _xlstm_out(p, cfg, x, y, out_gate, tp=None):
+    """The core's (N, S, H, hd) output back to x's shape (its last axis the
+    rank's H hd channels on blocks), normed, gated and projected down.  On
+    blocks (``tp``) the RMS norm spans every head: its sum of squares is
+    summed over ``model`` both ways, and ``w_down``'s row block gives a
+    partial output summed over ``model``."""
+    y = y.reshape(*x.shape[:-1], -1).to(x.dtype)
+    if tp is None:
+        y = rms_norm(y, per_client(p["core_norm"], y), cfg.norm_eps)
+        return linear(y * F.silu(out_gate), p["w_down"])
+    yf = y.to(torch.float32)
+    ss = tp.all_reduce_sum(tp.grad_sum((yf * yf).sum(-1, keepdim=True), "model"), "model")
+    y = (yf * torch.rsqrt(ss / cfg.d_model + cfg.norm_eps)
+         * (1.0 + p["core_norm"].to(torch.float32))).to(y.dtype)
+    return row_out(linear(y * F.silu(out_gate), p["w_down"]), tp)
+
+
+def _xlstm_state_in(state, tp, a, hl):
+    """A decode state held whole over ``model`` (the cache's layout) cut to
+    the rank's heads [a, a + hl) where ``tp`` splits them."""
+    return state if tp is None else tuple(t[:, a:a + hl] for t in state)
+
+
+def _xlstm_state_out(state, tp):
+    """The rank's heads of a decode state gathered whole over ``model``."""
+    return state if tp is None else tuple(tp.all_gather(t, "model", dim=1) for t in state)
 
 
 def _exp_floor(m: torch.Tensor) -> torch.Tensor:
@@ -312,19 +402,26 @@ def _exp_floor(m: torch.Tensor) -> torch.Tensor:
     return torch.where(over, torch.inf, torch.exp(torch.where(over, 0.0, -m)))
 
 
-def mlstm_seq(p, cfg, x: torch.Tensor):
+def mlstm_seq(p, cfg, x: torch.Tensor, tp=None):
     """Chunkwise-parallel mLSTM over the full sequence, x (..., S, d) ->
     (out (..., S, d), (C (..., H, hd, hd), n (..., H, hd), m (..., H))),
     the state after the last step, fp32, with the reference's stabilisers:
     the running maximum m of the exponential-gate logits, ``_NEG`` as the
     causal fill, the normaliser max(|n|, exp(-m)), and the state (C, n, m,
     F) carried from chunk to chunk.  One departure: where exp(-m)
-    overflows, the gradient is 0, not the reference's NaN (``_exp_floor``)."""
+    overflows, the gradient is 0, not the reference's NaN (``_exp_floor``).
+    ``tp``: the mesh whose ``model`` axis splits ``p`` (a rank's blocks; x
+    replicated over ``model``), as the module's docstring says; the state
+    is then the rank's heads."""
     s = x.shape[-2]
     ck = min(cfg.ssm.chunk, s)
     if s % ck:
         raise ValueError(f"sequence length {s} is not a multiple of the mLSTM chunk {ck}")
-    q, k, v, i_log, f_log, out_gate = _xlstm_proj(p, cfg, x)
+    hl = None
+    if tp is not None:
+        p, tp, _, hl = _xlstm_blocks(p, cfg, tp)
+        x = x if tp is None else column_in(x, tp)
+    q, k, v, i_log, f_log, out_gate = _xlstm_proj(p, cfg, x, hl)
     # the batch axes folded into one, heads first: (N, H, S, hd) and (N, H, S)
     q, k, v = (t.reshape(-1, *t.shape[-3:]).transpose(1, 2).to(torch.float32) for t in (q, k, v))
     i_log, f_log = (t.reshape(-1, s, t.shape[-1]).transpose(1, 2) for t in (i_log, f_log))
@@ -359,17 +456,22 @@ def mlstm_seq(p, cfg, x: torch.Tensor):
         n_state = keep[..., None] * n_state + wj.sum(-2)
         m_state, f_prev = m_end, f_end
     lead = x.shape[:-2]
-    out = _xlstm_out(p, cfg, x, torch.cat(ys, dim=2).transpose(1, 2), out_gate)
+    out = _xlstm_out(p, cfg, x, torch.cat(ys, dim=2).transpose(1, 2), out_gate, tp)
     return out, (c_state.reshape(*lead, hh, hd, hd), n_state.reshape(*lead, hh, hd),
                  m_state.reshape(*lead, hh))
 
 
-def mlstm_decode(p, cfg, x: torch.Tensor, state):
+def mlstm_decode(p, cfg, x: torch.Tensor, state, tp=None):
     """One token of the mLSTM, x (B, 1, d), from its state (C, n, m) ->
     (out (B, 1, d), the state after it): the reference's recurrent form,
-    with ``_exp_floor`` for the normaliser's exp(-m) as in ``mlstm_seq``."""
-    q, k, v, i_log, f_log, out_gate = _xlstm_proj(p, cfg, x)
-    c_state, n_state, m_state = state
+    with ``_exp_floor`` for the normaliser's exp(-m) as in ``mlstm_seq``.
+    ``tp``: on a rank's blocks; the state comes and goes whole over
+    ``model`` (every head), the rank advancing its own heads."""
+    hl = a = None
+    if tp is not None:
+        p, tp, a, hl = _xlstm_blocks(p, cfg, tp)
+    q, k, v, i_log, f_log, out_gate = _xlstm_proj(p, cfg, x, hl)
+    c_state, n_state, m_state = _xlstm_state_in(state, tp, a, hl)
     i1, f1 = i_log[:, 0], f_log[:, 0]                             # (B, H)
     m_new = torch.maximum(f1 + m_state, i1)
     fp = torch.exp(f1 + m_state - m_new)
@@ -381,10 +483,11 @@ def mlstm_decode(p, cfg, x: torch.Tensor, state):
     num = (qf[..., None, :] @ c_state)[..., 0, :]
     den = torch.abs((qf * n_state).sum(-1))
     y = num / torch.maximum(den, _exp_floor(m_new))[..., None]
-    return _xlstm_out(p, cfg, x, y, out_gate), (c_state, n_state, m_new)
+    return _xlstm_out(p, cfg, x, y, out_gate, tp), _xlstm_state_out((c_state, n_state, m_new),
+                                                                     tp)
 
 
-def slstm_seq(p, cfg, x: torch.Tensor):
+def slstm_seq(p, cfg, x: torch.Tensor, tp=None):
     """sLSTM over the full sequence, x (..., S, d) -> (out (..., S, d), (c
     (..., H, hd), n (..., H, hd), m (..., H))), the state after the last
     step, fp32: the reference's linearised form (no h -> gate feedback),
@@ -392,9 +495,13 @@ def slstm_seq(p, cfg, x: torch.Tensor):
     max(f_t + m_{t-1}, i_t), the reference's (max, +) scan, is computed in
     closed form as F_t + cummax(i - F) with F = cumsum(log f); c and n are
     chunked linear scans (n the same for every dim of a head, broadcast to
-    hd as the reference keeps it)."""
+    hd as the reference keeps it).  ``tp`` as for ``mlstm_seq``."""
     s = x.shape[-2]
-    _, _, v, i_log, f_log, out_gate = _xlstm_proj(p, cfg, x)
+    hl = None
+    if tp is not None:
+        p, tp, _, hl = _xlstm_blocks(p, cfg, tp)
+        x = x if tp is None else column_in(x, tp)
+    _, _, v, i_log, f_log, out_gate = _xlstm_proj(p, cfg, x, hl)
     z = torch.tanh(v.reshape(-1, *v.shape[-3:]).to(torch.float32))  # (N, S, H, hd)
     i_log, f_log = i_log.reshape(-1, s, i_log.shape[-1]), f_log.reshape(-1, s, f_log.shape[-1])
     big_f = torch.cumsum(f_log, dim=1)
@@ -406,17 +513,21 @@ def slstm_seq(p, cfg, x: torch.Tensor):
     n_all, n_fin = chunked_linear_scan(fp, ip, torch.zeros_like(ip[:, 0]), cfg.ssm.chunk)
     y = c_all / torch.clamp(torch.abs(n_all), min=1e-6)
     lead, hh, hd = x.shape[:-2], z.shape[-2], z.shape[-1]
-    return _xlstm_out(p, cfg, x, y, out_gate), (
+    return _xlstm_out(p, cfg, x, y, out_gate, tp), (
         c_fin.reshape(*lead, hh, hd), n_fin.expand(-1, hh, hd).reshape(*lead, hh, hd),
         m_run[:, -1].reshape(*lead, hh))
 
 
-def slstm_decode(p, cfg, x: torch.Tensor, state):
+def slstm_decode(p, cfg, x: torch.Tensor, state, tp=None):
     """One token of the sLSTM, x (B, 1, d), from its state (c, n, m) ->
-    (out (B, 1, d), the state after it): the reference's recurrent form."""
-    _, _, v, i_log, f_log, out_gate = _xlstm_proj(p, cfg, x)
+    (out (B, 1, d), the state after it): the reference's recurrent form.
+    ``tp`` as for ``mlstm_decode``."""
+    hl = a = None
+    if tp is not None:
+        p, tp, a, hl = _xlstm_blocks(p, cfg, tp)
+    _, _, v, i_log, f_log, out_gate = _xlstm_proj(p, cfg, x, hl)
     z = torch.tanh(v[:, 0].to(torch.float32))                    # (B, H, hd)
-    c_state, n_state, m_state = state
+    c_state, n_state, m_state = _xlstm_state_in(state, tp, a, hl)
     i1, f1 = i_log[:, 0], f_log[:, 0]
     m_new = torch.maximum(f1 + m_state, i1)
     fp = torch.exp(f1 + m_state - m_new)[..., None]
@@ -424,4 +535,5 @@ def slstm_decode(p, cfg, x: torch.Tensor, state):
     c_state = fp * c_state + ip * z
     n_state = fp * n_state + ip
     y = c_state / torch.clamp(torch.abs(n_state), min=1e-6)
-    return _xlstm_out(p, cfg, x, y, out_gate), (c_state, n_state, m_new)
+    return _xlstm_out(p, cfg, x, y, out_gate, tp), _xlstm_state_out((c_state, n_state, m_new),
+                                                                     tp)

@@ -41,7 +41,8 @@ runs ``moe_dense``; with one and ``impl == "capacity"`` it runs
 processes, each of which holds the whole parameter tree and the same
 tokens and takes its experts as views.  Per-client weights do not take a
 mesh.  The reference's ``_act_constraint`` and ``_cache_constraint`` are
-layout hints to XLA that change no value, and have no counterpart here.
+layout hints to XLA that change no value; the cache's layout on a grid is
+``init_cache(..., mesh=)``'s (below).
 ``transformer_specs`` and ``cache_specs`` name each leaf's logical axes
 with the reference's structure (the layers stacked under one "layers"
 axis, where the port's tree keeps a list of layers).
@@ -65,8 +66,8 @@ and, with ``cfg.mtp``, the MTP head's weighted cross-entropy against the
 labels shifted by one more position.
 
 Storage sharding: on a grid (``data`` or ``model`` larger than 1) the
-families of ``shards_storage`` (the dense GQA models, hymba, and the
-frame and patch inputs of musicgen-large and internvl2-1b) take a rank's
+families of ``shards_storage`` (the dense GQA models, hymba, xlstm, and
+the frame and patch inputs of musicgen-large and internvl2-1b) take a rank's
 blocks of every leaf under the baseline policy (``sharding.shard_tree``)
 and the rank's ``data`` share of the batch, as the reference's layout
 puts them on a device, and compute tensor-parallel over ``model``
@@ -75,7 +76,10 @@ rank's heads (``attention.gqa_attention``'s rules), hymba's Mamba heads
 on the rank's channels (``ssm.mamba_seq``: ``w_in`` gathered whole and
 cut to the rank's columns of both halves, B and C summed over ``model``
 forward and backward, K4 on the rank's (B, S, D / model) block), the
-MLP's ``w_gate`` / ``w_up`` column blocks and ``w_down`` row block with
+xLSTM cores on the rank's heads (``ssm.mlstm_seq`` / ``slstm_seq``:
+``w_up`` gathered whole, ``core_in`` whole and the out_gate on the
+rank's channels, ``core_norm``'s sum of squares over ``model`` both
+ways), the MLP's ``w_gate`` / ``w_up`` column blocks and ``w_down`` row block with
 the output summed over ``model``, the vocab-parallel embedding (a token
 outside the rank's rows reads zero; the rows summed over ``model``; the
 tied table's sqrt(d) after the sum, in the table's type; vlm's patches in
@@ -90,8 +94,29 @@ and the cross-entropy is computed replicated over ``model``.  The loss
 divides by the mask's sum over the data axes (vlm: the text positions),
 and every leaf, replicated over them, takes its gradient summed over
 them: each rank's backward ends with the gradient of its blocks for the
-mean over the whole batch.  xLSTM, the MoE and MLA models hold every
-leaf whole on every rank.
+mean over the whole batch.  The MoE and MLA models (and the ``fsdp``
+variant's layout) hold every leaf whole on every rank.
+
+Serving on a grid, for the same families: ``init_cache(...,
+mesh=)`` builds the rank's block of each cache leaf under the baseline
+policy (``cache_layout``: rows over the data axes where they divide the
+batch, else every row; kv heads over ``model`` where it divides them;
+hymba's Mamba state and conv tail and the xLSTM states whole over
+``model``); ``prefill(..., mesh=)`` takes the rank's rows
+(``batch_rows``) and runs ``forward(..., tp=mesh)``, writes the rank's k
+and v (every kv head where the cache holds them all) and gathers the
+recurrent states over ``model`` into its block; ``decode_step(...,
+mesh=)`` takes every row of the token batch, as the reference replicates
+it, and steps the cache block's rows: the vocab-parallel lookup, GQA on
+the rank's q and kv heads (``attention.gqa_decode(..., tp=)``, ``wo``'s
+row block summed over ``model``), the Mamba heads on the rank's channels
+and the xLSTM cores on its heads (``ssm.mamba_decode`` /
+``mlstm_decode`` / ``slstm_decode(..., tp=)``, their states brought back
+whole over ``model`` each step), the MLP's blocks.  Both return the
+logits replicated, as the reference's steps do: the vocab-parallel head's
+blocks gathered over ``model``, the rows over the data axes.  A batch of
+one keeps its sequence whole on every data rank, where the policy splits
+it over them (a softmax combined across ranks, not ported).
 
 Serving (``init_params``, ``init_cache``, ``prefill``, ``decode_step``) and
 the training launcher run the model in the config's dtype, bf16 at full
@@ -114,7 +139,7 @@ import math
 
 import numpy as np
 import torch
-from torch.utils._pytree import tree_map
+from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -146,8 +171,8 @@ __all__ = [
     "TransformerLayout", "check_supported", "shards_storage", "param_blocks", "layer_flags", "init_transformer", "init_params",
     "abstract_params",
     "transformer_specs", "cast_params", "embed_inputs", "forward", "output_head",
-    "chunked_logits_sum", "token_nll", "loss_fn", "init_cache", "cache_specs", "prefill",
-    "decode_step",
+    "chunked_logits_sum", "token_nll", "loss_fn", "init_cache", "cache_specs", "cache_layout",
+    "batch_rows", "prefill", "decode_step",
 ]
 
 
@@ -156,8 +181,10 @@ def check_supported(cfg, tree: bool = False) -> None:
     (federated training) takes float32 configs with token inputs, the
     parameter tree (``tree``: the training launcher and serving) float32
     and bfloat16 and every input mode.  On a grid, the configs that
-    ``shards_storage`` names (the dense GQA models, hymba and both modal
-    input modes) take the rank's blocks of the tree."""
+    ``shards_storage`` names (the dense GQA models, hymba, xlstm and both
+    modal input modes) take the rank's blocks of the tree in ``loss_fn``,
+    ``init_cache``, ``prefill`` and ``decode_step``; the MoE and MLA
+    models hold it whole."""
     if not tree and cfg.input_mode != "tokens":
         raise ValueError(
             f"repro_torch's flat transformer layout (federated training) takes token inputs "
@@ -186,12 +213,13 @@ def check_supported(cfg, tree: bool = False) -> None:
 def shards_storage(cfg, mesh) -> bool:
     """Whether a rank of ``mesh`` holds ``cfg``'s leaves as its blocks under
     the baseline policy (``sharding.shard_tree``) and computes on them
-    (``loss_fn``): on a grid (``data`` or ``model`` larger than 1), for
-    the dense GQA models (stablelm-3b, glm4-9b, qwen3-14b, gemma3-27b),
-    hymba-1.5b, musicgen-large (frames) and internvl2-1b (patches).
-    xLSTM and the MoE and MLA models keep every leaf whole on every rank."""
+    (``loss_fn``, ``init_cache``, ``prefill``, ``decode_step``): on a grid
+    (``data`` or ``model`` larger than 1), for the dense GQA models
+    (stablelm-3b, glm4-9b, qwen3-14b, gemma3-27b), hymba-1.5b, xlstm-125m,
+    musicgen-large (frames) and internvl2-1b (patches).  The MoE and MLA
+    models keep every leaf whole on every rank."""
     return bool(mesh is not None and getattr(mesh, "grid", False)
-                and cfg.block_type in ("attn", "hymba") and not cfg.use_mla
+                and cfg.block_type in ("attn", "hymba", "xlstm") and not cfg.use_mla
                 and cfg.moe is None and not cfg.mtp)
 
 
@@ -748,15 +776,17 @@ def _flags_at(flags, i: int) -> dict[str, float]:
 
 
 def _apply_layer_seq(pl, cfg, x, flags: dict[str, float], tabs_l, tabs_g, mesh=None,
-                     tp=None):
+                     tp=None, all_kv=False):
     """One layer over the full sequence: attention (in parallel with the
     Mamba heads for hymba), then the MLP; for xlstm the flagged core.
     Returns (x, the router's aux loss (0.0 without MoE), the layer's decode
     cache entries).  ``tp``: the mesh whose ``model`` axis splits ``pl``
-    (a rank's blocks)."""
+    (a rank's blocks); ``all_kv``: k and v as the cache block holds them
+    (``gqa_attention``)."""
     if cfg.block_type == "xlstm":
         name = "mlstm" if flags["is_mlstm"] > 0 else "slstm"
-        out, state = getattr(ssm_mod, f"{name}_seq")(pl["xlstm"], cfg, _norm(pl, cfg, x, "norm1"))
+        out, state = getattr(ssm_mod, f"{name}_seq")(pl["xlstm"], cfg, _norm(pl, cfg, x, "norm1"),
+                                                     tp=tp)
         return x + out, 0.0, {name: state}
     is_global = flags["is_global"]
     sin, cos = _select_rope(tabs_l, tabs_g, is_global)
@@ -765,7 +795,8 @@ def _apply_layer_seq(pl, cfg, x, flags: dict[str, float], tabs_l, tabs_g, mesh=N
         a_out, (latent, k_rope) = mla_attention(pl["attn"], cfg, h, sin, cos, is_global)
         cache = {"latent": latent, "k_rope": k_rope}
     else:
-        a_out, (k, v) = gqa_attention(pl["attn"], cfg, h, sin, cos, is_global, tp=tp)
+        a_out, (k, v) = gqa_attention(pl["attn"], cfg, h, sin, cos, is_global, tp=tp,
+                                      all_kv=all_kv)
         cache = {"k": k, "v": v}
     if cfg.block_type == "hymba":
         s_out, (cache["ssm_h"], cache["conv"]) = ssm_mod.mamba_seq(pl["ssm"], cfg, h, tp=tp)
@@ -795,7 +826,9 @@ def forward(params, cfg, inputs: torch.Tensor, layout: TransformerLayout | None 
     the MoE's device mesh (one model's weights and (B, S) inputs only).
     ``tp``: the mesh whose ``model`` axis splits ``params``, a rank's
     blocks (``shards_storage``), computed tensor-parallel; the hidden
-    states come out replicated over ``model``."""
+    states come out replicated over ``model``, and the cache entries are
+    the rank's: k and v its cache block's kv heads, the recurrent states
+    its channels or heads."""
     if isinstance(params, torch.Tensor):
         params = (layout or TransformerLayout(cfg)).views(params)
     if mesh is not None and params["embed"].ndim != 2:
@@ -807,7 +840,7 @@ def forward(params, cfg, inputs: torch.Tensor, layout: TransformerLayout | None 
     caches, aux = [], 0.0
     for i, pl in enumerate(params["layers"]):
         x, layer_aux, cache = _apply_layer_seq(pl, cfg, x, _flags_at(flags, i), tabs_l, tabs_g,
-                                               mesh, tp)
+                                               mesh, tp, all_kv=collect_cache)
         aux = aux + layer_aux
         if collect_cache:
             caches.append(cache)
@@ -959,75 +992,176 @@ def loss_fn(params, cfg, batch: dict, mesh=None, sharded: bool | None = None):
 # ---------------------------------------------------------------------------
 
 
-def init_cache(cfg, batch_size: int, max_len: int, device=None) -> dict:
+class _Leaf:
+    """A cache leaf's shape, type and fill, allocating nothing: the layout of
+    a cache whose whole leaves no rank holds."""
+
+    __slots__ = ("shape", "dtype", "fill")
+
+    def __init__(self, shape, dtype, fill):
+        self.shape, self.dtype, self.fill = tuple(shape), dtype, fill
+
+
+def _cache_tree(cfg, batch_size: int, max_len: int, make) -> dict:
+    """``init_cache``'s structure, each leaf ``make(shape, dtype, fill)``."""
+    n_layers, d = cfg.n_layers, cfg.d_model
+    f32 = torch.float32
+    if cfg.block_type == "xlstm":
+        hh = cfg.ssm.n_heads
+        hd = d // hh
+        lead = (n_layers, batch_size, hh)
+        return {
+            "mlstm": (make((*lead, hd, hd), f32, 0.0), make((*lead, hd), f32, 0.0),
+                      make(lead, f32, ssm_mod._NEG)),
+            "slstm": (make((*lead, hd), f32, 0.0), make((*lead, hd), f32, 0.0),
+                      make(lead, f32, ssm_mod._NEG)),
+        }
+    dt = getattr(torch, cfg.dtype)
+    seq = (n_layers, batch_size, max_len)
+    if cfg.use_mla:
+        cache = {"latent": make((*seq, cfg.kv_lora_rank), dt, 0.0),
+                 "k_rope": make((*seq, cfg.qk_rope_head_dim), dt, 0.0)}
+    else:
+        kv_shape = (*seq, cfg.n_kv_heads, cfg.resolved_head_dim)
+        cache = {"k": make(kv_shape, dt, 0.0), "v": make(kv_shape, dt, 0.0)}
+    if cfg.block_type == "hymba":
+        cache["ssm_h"] = make((n_layers, batch_size, d, cfg.ssm.d_state), f32, 0.0)
+        cache["conv"] = make((n_layers, batch_size, cfg.ssm.conv_kernel - 1, d), f32, 0.0)
+    return cache
+
+
+def init_cache(cfg, batch_size: int, max_len: int, device=None, mesh=None) -> dict:
     """The stacked (L-leading) decode cache: k and v (L, B, max_len, KV,
     hd) in ``cfg.dtype`` (MLA: ``latent`` (L, B, max_len, kv_lora_rank) and
     ``k_rope`` (L, B, max_len, qk_rope_head_dim)), with hymba's Mamba
     state ``ssm_h`` (L, B, D, N) and conv tail ``conv`` (L, B, k - 1, D);
     for xlstm the mLSTM state (C (L, B, H, hd, hd), n (L, B, H, hd), m (L,
     B, H)) and the sLSTM state (c, n (L, B, H, hd), m (L, B, H)).  States
-    are fp32, m starts at -1e30, everything else at 0."""
+    are fp32, m starts at -1e30, everything else at 0.
+
+    ``mesh``: for the families of ``shards_storage`` on a grid, this rank's
+    block of each leaf (``cache_layout``), the rows of ``batch_rows``; the
+    whole leaves are never allocated."""
     check_supported(cfg, tree=True)
-    n_layers, d = cfg.n_layers, cfg.d_model
-    f32 = {"dtype": torch.float32, "device": device}
-    if cfg.block_type == "xlstm":
-        hh = cfg.ssm.n_heads
-        hd = d // hh
-        lead = (n_layers, batch_size, hh)
-        return {
-            "mlstm": (torch.zeros(*lead, hd, hd, **f32), torch.zeros(*lead, hd, **f32),
-                      torch.full(lead, ssm_mod._NEG, **f32)),
-            "slstm": (torch.zeros(*lead, hd, **f32), torch.zeros(*lead, hd, **f32),
-                      torch.full(lead, ssm_mod._NEG, **f32)),
-        }
-    dt = {"dtype": getattr(torch, cfg.dtype), "device": device}
-    seq = (n_layers, batch_size, max_len)
-    if cfg.use_mla:
-        cache = {"latent": torch.zeros(*seq, cfg.kv_lora_rank, **dt),
-                 "k_rope": torch.zeros(*seq, cfg.qk_rope_head_dim, **dt)}
-    else:
-        kv_shape = (*seq, cfg.n_kv_heads, cfg.resolved_head_dim)
-        cache = {"k": torch.zeros(kv_shape, **dt), "v": torch.zeros(kv_shape, **dt)}
-    if cfg.block_type == "hymba":
-        cache["ssm_h"] = torch.zeros(n_layers, batch_size, d, cfg.ssm.d_state, **f32)
-        cache["conv"] = torch.zeros(n_layers, batch_size, cfg.ssm.conv_kernel - 1, d, **f32)
-    return cache
+
+    def make(shape, dtype, fill):
+        return torch.full(shape, fill, dtype=dtype, device=device)
+
+    if not shards_storage(cfg, mesh):
+        return _cache_tree(cfg, batch_size, max_len, make)
+    from repro_torch.sharding import shard_shape, spec_leaves
+
+    leaves, spec = tree_flatten(_cache_tree(cfg, batch_size, max_len, _Leaf))
+    specs = spec_leaves(cache_layout(cfg, mesh, batch_size))
+    return tree_unflatten([make(shard_shape(mesh, sp, leaf.shape), leaf.dtype, leaf.fill)
+                           for sp, leaf in zip(specs, leaves, strict=True)], spec)
+
+
+def cache_layout(cfg, mesh, batch_size: int):
+    """The baseline policy's spec of each leaf of ``init_cache``'s whole
+    cache for a batch of ``batch_size`` on ``mesh``: rows over the data
+    axes where they divide the batch, kv heads over ``model`` where it
+    divides them, everything else whole (hymba's Mamba state and conv
+    tail, the xLSTM states: batch rows only; the sequence, never split,
+    takes no part).  A batch of one keeps its rows and its sequence whole
+    on every data rank, where the policy moves the data axes to the
+    sequence: a decode over a sequence split across ranks (a softmax
+    combined over them) is not ported."""
+    from repro_torch.sharding import make_policy
+
+    return make_policy(mesh, batch_size).shardings(cache_specs(cfg),
+                                                   _cache_tree(cfg, batch_size, 1, _Leaf))
+
+
+def batch_rows(mesh, batch_size: int) -> tuple[int, int]:
+    """(first row, rows) of a batch of ``batch_size`` that a rank of
+    ``mesh`` holds on blocks: its share over the data axes (every axis but
+    ``model``, row-major) where they divide the batch, else every row."""
+    dp = tuple(a for a in mesh.axis_names if a != "model")
+    n = mesh.size(dp)
+    if batch_size % n:
+        return 0, batch_size
+    return mesh.index(dp) * (batch_size // n), batch_size // n
+
+
+def _logits_blocks(params, cfg, h, mesh, batch_size: int):
+    """The logits (B, V) of the rank's rows' last hidden states ``h`` on
+    its blocks, replicated as the reference's step returns them: the
+    vocab-parallel head's blocks gathered over ``model``, the rows over the
+    data axes where they split the batch."""
+    logits = _logits(params, cfg, h)
+    if logits.shape[-1] != cfg.vocab:
+        logits = mesh.all_gather(logits, "model", dim=-1)
+    if logits.shape[0] != batch_size:
+        logits = mesh.all_gather(logits, tuple(a for a in mesh.axis_names if a != "model"))
+    return logits
+
+
+# the dimension along which a rank's recurrent cache entries hold only its
+# channels or heads where the cache holds them whole over model
+_MODEL_DIM = {"ssm_h": 1, "conv": 2, "mlstm": 1, "slstm": 1}
 
 
 @torch.no_grad()
-def prefill(params, cfg, batch: dict, max_len: int, mesh=None):
+def prefill(params, cfg, batch: dict, max_len: int, mesh=None, sharded: bool | None = None,
+            batch_size: int | None = None):
     """Run the prompt ``batch`` (``embed_inputs``'s dict; a "labels" entry
     is ignored) through the parameter tree -> (the last position's logits
     (B, V), the cache with the prompt's entries at positions [0, S), room
     up to ``max_len``).  S is the embedded sequence's length: for vlm the
-    patches and the tokens."""
-    x, _ = embed_inputs(params, cfg, batch)
+    patches and the tokens.
+
+    ``sharded`` (by default ``shards_storage(cfg, mesh)``): ``params`` are
+    this rank's blocks and ``batch`` its rows (``batch_rows``) of a batch
+    of ``batch_size`` (by default its rows times the data axes' size: a
+    batch they split); the prompt runs tensor-parallel (``forward(...,
+    tp=mesh)``), the cache is the rank's block (``init_cache(...,
+    mesh=)``), the recurrent states gathered over ``model`` where it holds
+    them whole, and the logits come out replicated (``_logits_blocks``)."""
+    if sharded is None:
+        sharded = shards_storage(cfg, mesh)
+    tp = mesh if sharded else None
+    x, _ = embed_inputs(params, cfg, batch, tp=tp)
     b, s = x.shape[:2]
     if s > max_len:
         raise ValueError(f"a prompt of {s} positions does not fit a cache of {max_len}")
-    h, caches = forward(params, cfg, x, collect_cache=True, mesh=mesh)
-    logits = _logits(params, cfg, h[:, -1])
-    cache = init_cache(cfg, b, max_len, device=h.device)
+    if sharded:
+        batch_size = batch_size or b * mesh.size(tuple(a for a in mesh.axis_names
+                                                       if a != "model"))
+        if batch_rows(mesh, batch_size)[1] != b:
+            raise ValueError(f"a rank holds {batch_rows(mesh, batch_size)[1]} rows of a batch "
+                             f"of {batch_size} on {mesh.shape}; got {b}")
+        h, caches = forward(params, cfg, x, collect_cache=True, tp=mesh)
+        logits = _logits_blocks(params, cfg, h[:, -1], mesh, batch_size)
+        cache = init_cache(cfg, batch_size, max_len, device=h.device, mesh=mesh)
+    else:
+        h, caches = forward(params, cfg, x, collect_cache=True, mesh=mesh)
+        logits = _logits(params, cfg, h[:, -1])
+        cache = init_cache(cfg, b, max_len, device=h.device)
     for i, entries in enumerate(caches):
         for name, value in entries.items():
             if name in ("k", "v", "latent", "k_rope"):
                 cache[name][i, :, :s] = value
-            elif name in ("mlstm", "slstm"):
-                for dst, src in zip(cache[name], value):
-                    dst[i] = src
-            else:
-                cache[name][i] = value
+                continue
+            dst = cache[name] if isinstance(cache[name], tuple) else (cache[name],)
+            src = value if isinstance(value, tuple) else (value,)
+            dim = _MODEL_DIM[name]
+            for whole, part in zip(dst, src):
+                if sharded and part.shape[dim] != whole.shape[dim + 1]:
+                    part = mesh.all_gather(part, "model", dim=dim)
+                whole[i] = part
     return logits, cache
 
 
 def _apply_layer_decode(pl, cfg, x, flags: dict[str, float], tabs_l, tabs_g, cache: dict,
-                        i: int, pos: int, mesh=None):
-    """One layer, one token; layer ``i``'s cache entries advance in place."""
+                        i: int, pos: int, mesh=None, tp=None):
+    """One layer, one token; layer ``i``'s cache entries advance in place.
+    ``tp``: on a rank's blocks and its cache block."""
     if cfg.block_type == "xlstm":
         name = "mlstm" if flags["is_mlstm"] > 0 else "slstm"
         state = tuple(t[i] for t in cache[name])
         out, new = getattr(ssm_mod, f"{name}_decode")(pl["xlstm"], cfg,
-                                                      _norm(pl, cfg, x, "norm1"), state)
+                                                      _norm(pl, cfg, x, "norm1"), state, tp=tp)
         for dst, src in zip(state, new):
             dst.copy_(src)
         return x + out
@@ -1039,25 +1173,44 @@ def _apply_layer_decode(pl, cfg, x, flags: dict[str, float], tabs_l, tabs_g, cac
                               (cache["latent"][i], cache["k_rope"][i]), pos, is_global)
     else:
         a_out, _ = gqa_decode(pl["attn"], cfg, h, sin, cos, (cache["k"][i], cache["v"][i]),
-                              pos, is_global)
+                              pos, is_global, tp=tp)
     if cfg.block_type == "hymba":
         s_out, (cache["ssm_h"][i], cache["conv"][i]) = ssm_mod.mamba_decode(
-            pl["ssm"], cfg, h, cache["ssm_h"][i], cache["conv"][i])
+            pl["ssm"], cfg, h, cache["ssm_h"][i], cache["conv"][i], tp=tp)
         a_out = _hymba_fuse(pl, cfg, a_out, s_out)
     x = x + a_out
-    return x + _ffn(pl["mlp"], cfg, _norm(pl, cfg, x, "norm2"), mesh)[0]  # decode drops the aux
+    return x + _ffn(pl["mlp"], cfg, _norm(pl, cfg, x, "norm2"), mesh, tp)[0]  # decode drops the aux
 
 
 @torch.no_grad()
-def decode_step(params, cfg, batch: dict, cache: dict, pos: int, mesh=None):
+def decode_step(params, cfg, batch: dict, cache: dict, pos: int, mesh=None,
+                sharded: bool | None = None):
     """One greedy-decode step: ``batch["token"]`` (B, 1) (a frames model:
     ``batch["frame"]`` (B, 1, d), RMS-normed as the prompt's frames) at
     position ``pos`` -> (logits (B, V), cache), the cache advanced in
-    place."""
+    place.
+
+    ``sharded`` (by default ``shards_storage(cfg, mesh)``): ``params`` and
+    ``cache`` are this rank's blocks (``init_cache(..., mesh=)``); the
+    batch is every row, as the reference's step takes it replicated, and
+    the rank steps the cache block's rows: the vocab-parallel lookup, GQA
+    on its q and kv heads (``gqa_decode(..., tp=)``), the Mamba heads on
+    its channels and the xLSTM cores on its heads (their states, whole over
+    ``model``, brought back whole each step), the MLP's blocks; the logits
+    come out replicated (``_logits_blocks``).  The MoE and MLA models keep
+    ``mesh``'s capacity dispatch on every leaf whole."""
+    if sharded is None:
+        sharded = shards_storage(cfg, mesh)
+    tp = mesh if sharded else None
+    rows = batch["frame" if cfg.input_mode == "frames" else "token"]
+    batch_size = rows.shape[0]
+    if sharded:
+        lo, n = batch_rows(mesh, batch_size)
+        rows = rows[lo:lo + n]
     if cfg.input_mode == "frames":
-        x = _embed_frames(params, cfg, batch["frame"])
+        x = _embed_frames(params, cfg, rows)
     else:
-        x = _embed_tokens(params, cfg, batch["token"])
+        x = _embed_tokens(params, cfg, rows, tp)
     pos = int(pos)
     tabs_l = tabs_g = None
     if cfg.block_type != "xlstm":
@@ -1066,6 +1219,8 @@ def decode_step(params, cfg, batch: dict, cache: dict, pos: int, mesh=None):
     flags = layer_flags(cfg)
     for i, pl in enumerate(params["layers"]):
         x = _apply_layer_decode(pl, cfg, x, _flags_at(flags, i), tabs_l, tabs_g, cache,
-                                i, pos, mesh)
+                                i, pos, mesh, tp=tp)
     x = _norm(params, cfg, x, "final_norm")
+    if sharded:
+        return _logits_blocks(params, cfg, x[:, 0], mesh, batch_size), cache
     return _logits(params, cfg, x[:, 0]), cache

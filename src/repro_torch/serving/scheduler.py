@@ -15,6 +15,18 @@ Usage:
     sched.run()                       # drains the queue
     out = sched.result(ids[0])        # np.ndarray of generated tokens
 
+On a grid (``mesh``: a ``launch.mesh.Mesh`` with ``data`` or ``model``
+larger than 1) the families of ``models.transformer.shards_storage`` take
+``params`` as this rank's blocks (``transformer.param_blocks``), as the
+reference's scheduler takes them laid out by its policy: every rank
+submits the same requests, and each group's rows go over the data axes
+(pod and data) where they divide them (``transformer.batch_rows``), else
+every rank holds every row, on its ``model`` blocks, as the policy lays
+out such a batch; prefill and decode run on the rank's blocks and its
+cache block, their logits come back replicated, and every rank makes the
+same tokens.  The MoE and MLA models take the mesh as the reference's do
+(``transformer.decode_step``): every leaf whole, the capacity dispatch.
+
 The model runs on the device of ``params`` (from ``init_params`` or a
 checkpoint); tokens cross to it once a group and come back once a step,
 which synchronises with the device.  ``groups`` records each group's
@@ -31,7 +43,13 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from repro_torch.models.transformer import check_supported, decode_step, prefill
+from repro_torch.models.transformer import (
+    batch_rows,
+    check_supported,
+    decode_step,
+    prefill,
+    shards_storage,
+)
 
 __all__ = ["Request", "BatchScheduler"]
 
@@ -47,7 +65,7 @@ class Request:
 
 class BatchScheduler:
     def __init__(self, cfg, params, max_batch: int = 8, max_new: int = 32,
-                 eos_id: int | None = None):
+                 eos_id: int | None = None, mesh=None):
         if cfg.input_mode != "tokens":
             raise ValueError("BatchScheduler serves token-input archs")
         check_supported(cfg, tree=True)
@@ -57,6 +75,8 @@ class BatchScheduler:
         self.max_batch = max_batch
         self.max_new = max_new
         self.eos_id = eos_id
+        self.mesh = mesh
+        self._sharded = shards_storage(cfg, mesh)
         self._queue: dict[int, list[Request]] = defaultdict(list)  # by prompt len
         self._results: dict[int, Request] = {}
         self._next_id = 0
@@ -111,8 +131,12 @@ class BatchScheduler:
         for i, r in enumerate(group):
             toks[i] = r.tokens
         t0 = time.perf_counter()
+        if self._sharded:       # this rank's rows of the group
+            lo, n = batch_rows(self.mesh, b)
+            toks = toks[lo:lo + n]
         batch = {"tokens": torch.from_numpy(toks).to(self.device)}
-        logits, cache = prefill(self.params, self.cfg, batch, plen + gmax)
+        logits, cache = prefill(self.params, self.cfg, batch, plen + gmax, mesh=self.mesh,
+                                batch_size=b)
         tok = self._greedy(logits)
         outs = [tok.cpu().numpy()]
         t1 = time.perf_counter()
@@ -122,7 +146,8 @@ class BatchScheduler:
                 alive &= outs[-1][:, 0] != self.eos_id
                 if not alive[: len(group)].any():
                     break
-            logits, cache = decode_step(self.params, self.cfg, {"token": tok}, cache, plen + i)
+            logits, cache = decode_step(self.params, self.cfg, {"token": tok}, cache, plen + i,
+                                        mesh=self.mesh)
             tok = self._greedy(logits)
             outs.append(tok.cpu().numpy())
         self.groups.append({"prompt_len": plen, "rows": len(group), "prefill_s": t1 - t0,

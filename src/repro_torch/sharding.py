@@ -37,11 +37,12 @@ puts the ranks' blocks back together over the mesh's processes.
 
 Which families a rank holds as blocks: on a grid (``data`` or ``model``
 larger than 1) the dense GQA models (stablelm-3b, glm4-9b, qwen3-14b,
-gemma3-27b), hymba-1.5b, internvl2-1b and musicgen-large
+gemma3-27b), hymba-1.5b, xlstm-125m, internvl2-1b and musicgen-large
 (``models.transformer.shards_storage``) hold every leaf as its block
-under the baseline policy and train on their ``data`` share of the batch,
-tensor-parallel over ``model``; xLSTM, the MoE and MLA models, and every
-family under the ``fsdp`` variant, hold each leaf whole on every rank.  For those, ``model_block`` gives a
+under the baseline policy and train, prefill and decode on their
+``data`` share of the batch (the decode cache's block too), tensor-parallel
+over ``model``; the MoE and MLA models, and every family under the
+``fsdp`` variant, hold each leaf whole on every rank.  For those, ``model_block`` gives a
 rank's block of a leaf along the dimension ``model`` splits, which the
 scale-out round's int8 aggregation quantizes as the reference's does
 (one scale a leaf and model shard); ``spec_leaves`` lists a layout

@@ -29,6 +29,16 @@ from repro_torch.kernels.aggregate import masked_weighted_sum, masked_weighted_s
 TOL = {"float32": dict(rtol=1e-6, atol=1e-6), "bfloat16": dict(rtol=1e-2, atol=1e-2)}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Several test workers share the cores: one intra-op thread keeps this
+    file's many small torch operations from oversubscribing them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(m, n, dtype):
     rng = np.random.default_rng(m * n % 977)
     x = rng.normal(0, 1, (m, n)).astype(np.float32)

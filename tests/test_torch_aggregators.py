@@ -43,6 +43,16 @@ SIZES = (64, 16, 10)
 ATOL = 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Several test workers share the cores: one intra-op thread keeps this
+    file's many small torch operations from oversubscribing them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cohort(m, seed, ties=False):
     """(global pytree, stacked pytree with a leading client axis, and the
     same as flat torch tensors (P,) and (m, P)).  ``ties`` makes client 1

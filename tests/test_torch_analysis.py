@@ -44,6 +44,16 @@ ROOT = Path(__file__).resolve().parent.parent
 ANALYSIS = ROOT / "src" / "repro_torch" / "analysis"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Several test workers share the cores: one intra-op thread keeps this
+    file's many small torch operations from oversubscribing them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def lint(src, **kw):
     return lint_source(textwrap.dedent(src), **kw)
 

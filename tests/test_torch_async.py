@@ -50,6 +50,16 @@ from repro_torch.engine import async_engine  # noqa: E402
 from repro_torch.engine.registry import list_staleness_discounts  # noqa: E402
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Several test workers share the cores: one intra-op thread keeps this
+    file's many small torch operations from oversubscribing them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _sys(**over):
     base = dict(profile="mobile_mix", availability="markov",
                 availability_kwargs={"p_drop": 0.2, "p_join": 0.6}, jitter_sigma=0.1)

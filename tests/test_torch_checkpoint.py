@@ -50,6 +50,18 @@ from repro_torch.engine.base import RoundResult  # noqa: E402
 
 
 # ------------------------------------------------------------ serializer
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Several test workers share the cores: one intra-op thread keeps this
+    file's many small torch operations from oversubscribing them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _tree():
     return {
         "w": torch.arange(6, dtype=torch.float32).reshape(2, 3),

@@ -30,6 +30,16 @@ MASK = mask_selection_strategies()
 ATOL = 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Several test workers share the cores: one intra-op thread keeps this
+    file's many small torch operations from oversubscribing them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _port(cfg, data, n_classes, **kw):
     train, test = data
     return make_engine(cfg, train, test, n_classes, device="cpu",

@@ -38,6 +38,16 @@ from repro_torch.models.transformer import TransformerLayout  # noqa: E402
 from test_torch_engine import JaxReplayDraws  # noqa: E402
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Several test workers share the cores: one intra-op thread keeps this
+    file's many small torch operations from oversubscribing them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _micro_lm():
     ov = lm_fl_cfg().task_kwargs["overrides"]
     return dataclasses.replace(get_config("stablelm-3b"), **ov, n_layers=2, dtype="float32")

@@ -113,6 +113,17 @@ for name, kind in %r:
 json.dump(out, open(sys.argv[1], "w"))
 """
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Several test workers share the cores: one intra-op thread keeps this
+    file's many small torch operations from oversubscribing them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 EXACT = ("stablelm-3b", "qwen3-14b", "gemma3-27b", "internvl2-1b", "dbrx-132b")
 # arch -> (the kinds held exactly, the relative tolerance of the rest, why)
 WITHIN = {
@@ -445,30 +456,54 @@ def test_run_moe_branch_collectives(case):
 
 
 SHARDED = ("gemma3-27b", "glm4-9b", "qwen3-14b", "stablelm-3b", "hymba-1.5b", "internvl2-1b",
-           "musicgen-large")
+           "musicgen-large", "xlstm-125m")
 
 
 @pytest.mark.parametrize("name", list_configs())
 def test_records_say_whether_the_rank_holds_its_blocks(name, monkeypatch):
-    """The single-mesh ``train`` record and the federated round's of the
-    dense GQA models, hymba and the modal inputs hold the rank's blocks (``storage``
-    "sharded", ``argument_size_held == argument_size``); every other
-    family's, and every prefill record, hold the arguments whole."""
+    """The single-mesh ``train``, ``prefill`` and ``decode`` records (a
+    batch of 16, which the 16 data ranks divide) and the federated round's
+    of the dense GQA models, hymba, xlstm and the modal inputs hold the
+    rank's blocks (``storage`` "sharded", ``argument_size_held ==
+    argument_size``); the MoE and MLA models' hold the arguments whole."""
     from repro_torch.launch.mesh import make_production_mesh
 
     monkeypatch.setattr(dryrun, "get_config", _reduced)
     mesh = make_production_mesh(dry=True)
     recs = [dryrun.trace_step(_reduced(name), mesh, InputShape("t", 32, 16, kind), probes=False)
-            for kind in ("train", "prefill")]
+            for kind in ("train", "prefill", "decode")]
     recs.append(dryrun.run_federated(name, local_steps=1, batch_per_client=16, seq=32))
     for rec in recs:
         mem = rec["memory"]
-        if name in SHARDED and rec["kind"] != "prefill":
+        if name in SHARDED:
             assert rec["storage"] == "sharded", rec["kind"]
             assert mem["argument_size_held"] == mem["argument_size"], rec["kind"]
         else:
             assert rec["storage"] == "whole", rec["kind"]
             assert mem["argument_size_held"] > mem["argument_size"], rec["kind"]
+
+
+@pytest.mark.parametrize("name", SHARDED)
+def test_serving_records_shard_where_the_data_axes_divide_the_batch(name):
+    """On a dry 2 x 2 mesh the prefill and decode records of the families
+    that shard hold the rank's blocks, its rows and its cache block where
+    the 2 data ranks divide the batch (4), with ``argument_size_held ==
+    argument_size`` and the logits replicated; a batch of 3, and a batch
+    of 1 (whose decode the policy splits over the sequence), hold every
+    argument whole."""
+    cfg = _reduced(name)
+    mesh = make_dry_mesh(2, 2)
+    for kind in ("prefill", "decode"):
+        for batch, storage in ((4, "sharded"), (3, "whole"), (1, "whole")):
+            shape = InputShape("t", 32, batch, kind)
+            fn, args, (in_specs, _), _ = dryrun.build_step(cfg, mesh, shape)
+            traced = dryrun.trace(fn, args, memory=False)
+            held = traced["args"] + traced["scalars"]
+            want = dryrun._argument_size(mesh, in_specs, args)
+            assert dryrun.step_storage(cfg, mesh, kind, batch_size=batch) == storage
+            assert (held == want) == (storage == "sharded"), (kind, batch, held, want)
+            logits = fn(*args)[0]
+            assert logits.shape == (batch, cfg.vocab), (kind, batch)
 
 
 def test_dry_mesh_layouts_and_refusals():
@@ -583,11 +618,11 @@ def _both_cores(monkeypatch):
         x2, aux, cache = seq(pl, cfg, x, flags, *a, **kw)
         return x2 + 0.0 * o, aux, cache
 
-    def both_decode(pl, cfg, x, flags, tabs_l, tabs_g, cache, i, pos, mesh=None):
+    def both_decode(pl, cfg, x, flags, tabs_l, tabs_g, cache, i, pos, mesh=None, **kw):
         other = "slstm" if flags["is_mlstm"] > 0 else "mlstm"
         getattr(ssm, f"{other}_decode")(pl["xlstm"], cfg, tf._norm(pl, cfg, x, "norm1"),
                                         tuple(t[i] for t in cache[other]))
-        return dec(pl, cfg, x, flags, tabs_l, tabs_g, cache, i, pos, mesh)
+        return dec(pl, cfg, x, flags, tabs_l, tabs_g, cache, i, pos, mesh, **kw)
 
     monkeypatch.setattr(tf, "_apply_layer_seq", both_seq)
     monkeypatch.setattr(tf, "_apply_layer_decode", both_decode)

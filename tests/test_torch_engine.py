@@ -33,6 +33,16 @@ from repro_torch.engine import FLConfig, make_engine  # noqa: E402
 from repro_torch.engine.draws import TorchDraws  # noqa: E402
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Several test workers share the cores: one intra-op thread keeps this
+    file's many small torch operations from oversubscribing them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _choice_rows(keys, mask, n):
     """The reference's with-replacement row draw: one ``jax.random.choice``
     per (key, mask row), p = mask / max(mask.sum(), 1e-9)."""

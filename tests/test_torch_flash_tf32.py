@@ -43,6 +43,16 @@ SHAPES = [
 ]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Several test workers share the cores: one intra-op thread keeps this
+    file's many small torch operations from oversubscribing them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def tf32(x: torch.Tensor) -> torch.Tensor:
     """Round fp32 to TF32 as `cvt.rna.tf32.f32` does: to nearest on the low
     13 mantissa bits, ties away from zero; the low 13 bits come out zero."""

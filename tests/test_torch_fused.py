@@ -32,6 +32,16 @@ from test_torch_engine import JaxReplayDraws  # noqa: E402
 TRACED = traced_selection_strategies()
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Several test workers share the cores: one intra-op thread keeps this
+    file's many small torch operations from oversubscribing them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _kw(strategy):
     return {"strategy": strategy,
             "strategy_kwargs": {"J": 3} if strategy in ("fedlecc", "clusterrandom") else {}}

@@ -27,6 +27,16 @@ SHAPES = [(16, 4), (100, 10), (129, 33), (256, 128)]  # tests/test_kernels.py sw
 ATOL_BC = 1e-6
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Several test workers share the cores: one intra-op thread keeps this
+    file's many small torch operations from oversubscribing them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _bc(d):
     d = np.asarray(d, np.float64)
     return 1.0 - d * d

@@ -62,6 +62,16 @@ from repro_torch.models.transformer import (  # noqa: E402
 MICRO = lm_fl_cfg().task_kwargs["overrides"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Several test workers share the cores: one intra-op thread keeps this
+    file's many small torch operations from oversubscribing them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _micro_cfgs():
     """The stablelm micro config of ``lm_fl_cfg`` in both packages."""
     ov = {"dtype": "float32", **MICRO}

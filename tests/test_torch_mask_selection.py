@@ -34,6 +34,16 @@ MASK = mask_selection_strategies()
 TRACED = traced_selection_strategies()
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Several test workers share the cores: one intra-op thread keeps this
+    file's many small torch operations from oversubscribing them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_capability_lists_match_the_reference():
     assert MASK == ref_mask_strategies() and TRACED == ref_traced()
     assert "fedlecc_adaptive" in MASK and "fedlecc_adaptive" not in TRACED

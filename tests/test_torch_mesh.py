@@ -186,6 +186,16 @@ dist.destroy_process_group()
 """
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Several test workers share the cores: one intra-op thread keeps this
+    file's many small torch operations from oversubscribing them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def four_devices(tmp_path_factory):
     """The reference's oracle on 4 virtual devices and the port's world of

@@ -59,6 +59,16 @@ from repro_torch.models.common import rope_table  # noqa: E402
 MODELS = {"dbrx": "dbrx-132b", "deepseek": "deepseek-v3-671b"}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Several test workers share the cores: one intra-op thread keeps this
+    file's many small torch operations from oversubscribing them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return torch.from_numpy(np.array(a))
 

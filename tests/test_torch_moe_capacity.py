@@ -54,6 +54,16 @@ CASES = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Several test workers share the cores: one intra-op thread keeps this
+    file's many small torch operations from oversubscribing them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfgs(e, k, shared, cf):
     base = dict(n_experts=e, top_k=k, d_expert=FE, n_shared=shared, capacity_factor=cf,
                 impl="capacity")

@@ -27,6 +27,16 @@ SHAPES = {"a": ((7, 5), "float32"), "b": ((11,), "float32"), "c": ((4, 6), "bflo
           "d": ((3,), "bfloat16")}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Several test workers share the cores: one intra-op thread keeps this
+    file's many small torch operations from oversubscribing them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _tree(rng, scale=1.0):
     return {k: rng.standard_normal(shape).astype(np.float32) * scale
             for k, (shape, _) in SHAPES.items()}

@@ -23,6 +23,16 @@ from repro_torch.engine import FLConfig, get_preset, list_presets  # noqa: E402
 CLASSIFICATION = [n for n in ref_list_presets() if ref_get_preset(n).task == "classification"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Several test workers share the cores: one intra-op thread keeps this
+    file's many small torch operations from oversubscribing them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_presets_are_the_references():
     assert list_presets() == ref_list_presets()
     assert list_presets(fast_only=True) == ref_list_presets(fast_only=True)

@@ -38,6 +38,10 @@ here by a one-process run and handed to the world in order.
   keep each rank's baseline-spec blocks (the Mamba heads on the rank's
   channels), and the exact round's blocks and losses equal the port's
   pods-only round in one process within ``ATOL``;
+- (f) reduced xlstm-125m with one mLSTM and one sLSTM layer in the same
+  world: its exact round keeps each rank's blocks (the cores on the
+  rank's one of two heads) and equals the pods-only round within
+  ``ATOL``;
 - (d) the dry 2 x 2 x 2 trace's collective bytes by kind equal their
   closed-form counts (the tensor-parallel step's sums over ``model``, the
   gradients' over ``data``, the round's over ``pod``; no gather over
@@ -89,15 +93,21 @@ ROOT = Path(__file__).resolve().parent.parent
 ATOL = 1e-5
 ORACLE_TOL = 1e-6
 B, S, LR, STEPS, SEEDS, W = 4, 32, 0.05, 2, (10, 11), (0.25, 0.75)
-MODEL, HYMBA, QMAX = "qwen3-14b", "hymba-1.5b", 127
+MODEL, HYMBA, XLSTM, QMAX = "qwen3-14b", "hymba-1.5b", "xlstm-125m", 127
 CFG = fl_cfg(backend="scaleout").to_dict()
 
 # the constants and the draws both sides replay, importable by the subprocesses
 _CASE = f"""
 import torch
 B, S, LR, STEPS, SEEDS, W = {B}, {S}, {LR}, {STEPS}, {SEEDS}, {W}
-MODEL, HYMBA = {MODEL!r}, {HYMBA!r}
+MODEL, HYMBA, XLSTM = {MODEL!r}, {HYMBA!r}, {XLSTM!r}
 CFG = {CFG!r}
+
+
+def xlstm_cfg(get):
+    '''Reduced xlstm-125m with one mLSTM and one sLSTM layer.'''
+    import dataclasses
+    return dataclasses.replace(get(XLSTM, reduced=True), layer_pattern="MS")
 
 
 class Recorded:
@@ -177,7 +187,7 @@ rank, work = int(sys.argv[1]), sys.argv[2]
 dist.init_process_group("gloo", init_method="file://" + os.path.join(work, "store"),
                         world_size=8, rank=rank)
 sys.path.insert(0, work)
-from grid_case import B, CFG, HYMBA, LR, MODEL, S, SEEDS, STEPS, W, Recorded
+from grid_case import B, CFG, HYMBA, LR, MODEL, S, SEEDS, STEPS, W, Recorded, xlstm_cfg
 from repro_torch.configs import get_config
 from repro_torch.configs.inputs import dummy_batch
 from repro_torch.data import make_classification
@@ -213,6 +223,14 @@ for bits in (0, 8):
     new, losses = fn(stack_for_clients(hblocks, 1), hbatch, torch.tensor(W))
     out[f"hymba_q{bits}"] = [t[0] for t in tree_leaves(new)]
     out[f"hymba_loss{bits}"] = losses
+# xlstm: its blocks, the cores on the rank's heads
+xcfg = xlstm_cfg(get_config)
+xblocks = param_blocks(torch.load(os.path.join(work, "xlstm.pt")), xcfg, mesh)
+xbatch = {k: v[None, lo:lo + share] for k, v in dummy_batch(xcfg, B, S,
+                                                            seed=SEEDS[pod]).items()}
+fn = make_federated_round(xcfg, mesh, lr=LR, local_steps=STEPS)
+new, losses = fn(stack_for_clients(xblocks, 1), xbatch, torch.tensor(W))
+out["xlstm_q0"], out["xlstm_loss0"] = [t[0] for t in tree_leaves(new)], losses
 # the rank's blocks of its pod's local ends, as the round's local SGD computes them
 leaves, spec = tree_flatten(blocks)
 one = {k: v[0, lo:lo + share] for k, v in batch.items()}
@@ -235,6 +253,16 @@ out["engine"] = eng.params
 torch.save(out, os.path.join(work, f"rank{rank}.pt"))
 dist.destroy_process_group()
 """
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Several test workers share the cores: one intra-op thread keeps this
+    file's many small torch operations from oversubscribing them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _ref_tree(leaves, template):
@@ -267,9 +295,12 @@ def grid(tmp_path_factory, data):
         # the engine's draws as JaxReplayDraws makes them, for the world to replay
         sys.path.insert(0, str(work))
         try:
-            from grid_case import Recorded
+            from grid_case import Recorded, xlstm_cfg
         finally:
             sys.path.remove(str(work))
+        xcfg = xlstm_cfg(get_config)
+        xlstm = init_params(torch.Generator().manual_seed(0), xcfg)
+        torch.save(xlstm, work / "xlstm.pt")
         train, test = data
         rec = Recorded(JaxReplayDraws(CFG["seed"], "cpu"))
         one = make_engine(FLConfig.from_dict(CFG), train, test, 10, device="cpu", draws=rec,
@@ -292,6 +323,11 @@ def grid(tmp_path_factory, data):
         fn = make_federated_round(hcfg, make_host_mesh(pod=2), lr=LR, local_steps=STEPS)
         new, losses = fn(stack_for_clients(hymba, 2), hbatch, torch.tensor(W))
         pods_only["hymba"] = ([t[0] for t in tree_leaves(new)], losses)
+        xbatch = {k: torch.stack([dummy_batch(xcfg, B, S, seed=s)[k] for s in SEEDS])
+                  for k in ("tokens", "labels")}
+        fn = make_federated_round(xcfg, make_host_mesh(pod=2), lr=LR, local_steps=STEPS)
+        new, losses = fn(stack_for_clients(xlstm, 2), xbatch, torch.tensor(W))
+        pods_only["xlstm"] = ([t[0] for t in tree_leaves(new)], losses)
         outs = [p.communicate(timeout=240) for p in procs]
     finally:
         torch.set_num_threads(n)
@@ -303,7 +339,7 @@ def grid(tmp_path_factory, data):
     ranks = [torch.load(work / f"rank{r}.pt") for r in range(8)]
     return {"ref": ref, "ranks": ranks, "ref_start": ref_start, "params": params,
             "pods_only": pods_only, "one": (one_res, one.params), "cfg": cfg, "ref_cfg": ref_cfg,
-            "hymba": (hcfg, hymba),
+            "hymba": (hcfg, hymba), "xlstm": (xcfg, xlstm),
             "mlp": jax.tree.structure(rec.draws._template)}
 
 
@@ -533,6 +569,22 @@ def test_hymba_exact_grid_round_matches_the_pods_only_round(grid):
         for j, (g, w) in enumerate(zip(got["hymba_q0"], want, strict=True)):
             assert g.shape == w.shape, (r, j)
             assert _diff(g, w) <= ATOL, (r, j, _diff(g, w))
+
+
+# ---------------------------------------------------------------- (f) xlstm
+def test_xlstm_exact_grid_round_keeps_blocks_and_matches_the_pods_only_round(grid):
+    xcfg, whole = grid["xlstm"]
+    _, spec = tree_flatten(whole)
+    pods_only, pods_losses = grid["pods_only"]["xlstm"]
+    pods_only = tree_unflatten(pods_only, spec)
+    for r, got in enumerate(grid["ranks"]):
+        want = param_blocks(pods_only, xcfg, _At(got["coords"]))
+        core = want["layers"][0]["xlstm"]            # the rank's one of two heads
+        assert core["wq"].shape[-1] == core["w_down"].shape[0] == xcfg.d_model // 2
+        for j, (g, w) in enumerate(zip(got["xlstm_q0"], tree_leaves(want), strict=True)):
+            assert g.shape == w.shape, (r, j)
+            assert _diff(g, w) <= ATOL, (r, j, _diff(g, w))
+        np.testing.assert_allclose(got["xlstm_loss0"].numpy(), pods_losses.numpy(), atol=ATOL)
 
 
 # --------------------------------------------------------------- (d) dry run

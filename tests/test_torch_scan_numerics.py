@@ -63,6 +63,16 @@ SHAPES = [
 ]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Several test workers share the cores: one intra-op thread keeps this
+    file's many small torch operations from oversubscribing them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def fma(a, b, c):
     """fp32 fused multiply-add: the exact product plus c, rounded once."""
     return (a.double() * b.double() + c.double()).float()

@@ -14,6 +14,16 @@ import repro.core.selection as ref  # noqa: E402
 import repro_torch.core.selection as port  # noqa: E402
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Several test workers share the cores: one intra-op thread keeps this
+    file's many small torch operations from oversubscribing them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _case(seed):
     rng = np.random.default_rng(seed)
     k = int(rng.integers(5, 60))

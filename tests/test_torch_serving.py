@@ -75,6 +75,16 @@ LOGITS_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 CACHE_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Several test workers share the cores: one intra-op thread keeps this
+    file's many small torch operations from oversubscribing them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return torch.from_numpy(np.array(a))
 

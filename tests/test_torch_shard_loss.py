@@ -35,6 +35,25 @@ and cross-entropy); the micro hymba's vocab of 65 does not, as full
 hymba-1.5b's 32001 and internvl2-1b's 151655 do not, so its table and
 head stay whole and the cross-entropy is computed replicated.
 
+xLSTM: reduced xlstm-125m with one mLSTM and one sLSTM layer (layers
+"MS"; reduced "MMMS" holds two mLSTM), its 2 heads on whole heads at model
+2 (``w_up`` gathered, ``core_norm``'s sum of squares over ``model`` both
+ways), and a micro xLSTM whose 3 heads split mid-head (computed
+replicated).
+
+Serving, in the same worlds on the same blocks: every case's prefill of
+the batch's first 4 rows (2 a data rank in the world of 4) and
+``SERVE_STEPS`` greedy decode steps (the frames model decodes its next
+frames), and hymba's of 3 rows that the data axes do not divide (every
+rank holds every row), against the reference's unsharded ``prefill`` and
+``decode_step`` on the whole tree, jitted in this process: the logits
+within ``SERVE_TOL`` of max(1, |ref|), the greedy tokens exactly, each
+rank's cache block (after prefill and at the end) within ``SERVE_TOL``
+element by element of the reference's cache cut to it
+(``transformer.cache_layout``); and ``BatchScheduler(mesh=)`` on reduced
+stablelm-3b, hymba-1.5b and xlstm-125m, groups of 4 and 3 rows, making the
+unsharded scheduler's tokens.
+
 Every rank's loss equals the reference's within ``LOSS_ATOL`` (fp32: the
 vocab-parallel log-sum-exp and the sums over ranks add in another order),
 and each of its gradient blocks equals the reference's gradient, cut to
@@ -65,15 +84,20 @@ from repro.models import transformer as ref_tf  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.inputs import dummy_batch  # noqa: E402
 from repro_torch.convert import serving_params_from_jax  # noqa: E402
+from repro_torch.convert import cache_from_jax  # noqa: E402
 from repro_torch.models.transformer import (  # noqa: E402
+    cache_layout,
     init_params,
     param_blocks,
     shards_storage,
 )
+from repro_torch.serving import BatchScheduler  # noqa: E402
+from repro_torch.sharding import shard_tree  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
 LOSS_ATOL = 1e-5
 GRAD_ATOL = 1e-5
+SERVE_TOL = 1e-5
 B, S = 4, 32
 WORLDS = {2: (1, 2), 4: (2, 2)}   # world size: (data, model)
 # the cases, importable by the world's processes (which import no jax)
@@ -93,12 +117,38 @@ CASES = {
     "hymba_q_mid_head": ("hymba-1.5b", MICRO | {"sliding_window": 16, "vocab": 65}),
     "internvl2-1b": ("internvl2-1b", {}),
     "musicgen-large": ("musicgen-large", {}),
+    # "MS": one mLSTM and one sLSTM layer (reduced "MMMS" holds two mLSTM)
+    "xlstm-125m": ("xlstm-125m", {"layer_pattern": "MS"}),
+    "xlstm_mid_head": ("xlstm-125m", {"layer_pattern": "MS", "d_model": 48, "ssm_heads": 3}),
 }
+# serving: prefill and SERVE_STEPS greedy decode steps of the first rows of
+# the case's batch: 4 (the data axes divide them), and for hymba (a kv cache
+# and a recurrent state) also 3 (they do not: every rank holds every row)
+SERVE_STEPS = 8
+UNDIVIDED = ("hymba-1.5b",)
+# BatchScheduler(mesh=): two prompt lengths, groups of max_batch 4 and 3
+SCHEDULED = ("stablelm-3b", "hymba-1.5b", "xlstm-125m")
+SCHED_LENS, SCHED_NEW = (16, 16, 16, 16, 12), 5
 
 
 def make_cfg(get, name):
     arch, kw = CASES[name]
-    return dataclasses.replace(get(arch, reduced=True), loss_chunk=16, **kw)
+    kw = dict(kw)
+    heads = kw.pop("ssm_heads", None)
+    cfg = dataclasses.replace(get(arch, reduced=True), loss_chunk=16, **kw)
+    if heads:
+        cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm, n_heads=heads))
+    return cfg
+
+
+def serve_rows(name):
+    return (4, 3) if name in UNDIVIDED else (4,)
+
+
+def prompts(tokens):
+    '''The scheduler's requests: request i the first SCHED_LENS[i] tokens
+    of row i of the batch, cyclically.'''
+    return [tokens[i % len(tokens), :n] for i, n in enumerate(SCHED_LENS)]
 """
 exec(_CASE)
 
@@ -115,11 +165,14 @@ work = sys.argv[5]
 dist.init_process_group("gloo", init_method="file://" + os.path.join(work, f"store{world}"),
                         world_size=world, rank=rank)
 sys.path.insert(0, work)
-from shard_case import CASES, make_cfg
+from shard_case import (CASES, SCHED_NEW, SCHEDULED, SERVE_STEPS, make_cfg, prompts,
+                        serve_rows)
 from repro_torch.configs import get_config
 from repro_torch.convert import blocks_from_jax
 from repro_torch.launch.mesh import make_host_mesh
-from repro_torch.models.transformer import abstract_params, loss_fn, transformer_specs
+from repro_torch.models.transformer import (abstract_params, batch_rows, decode_step, loss_fn,
+                                            prefill, transformer_specs)
+from repro_torch.serving import BatchScheduler
 from repro_torch.sharding import gather_tree, make_policy
 
 mesh = make_host_mesh(data, model)
@@ -142,9 +195,43 @@ for name in CASES:
     gathered = gather_tree(tree_unflatten(grads, spec), specs, mesh)
     out[name] = {"loss": float(loss), "grads": grads,
                  "gathered": tree_flatten(gathered)[0] if rank == 0 else None}
+    # serving on the blocks: prefill, then greedy decode steps (frames: the
+    # case's next frames), the logits and the cache block after each end
+    blocks = tree_unflatten([p.detach() for p in leaves], spec)
+    s = len(batch["labels"][0])
+    for b in serve_rows(name):
+        lo, n = batch_rows(mesh, b)
+        mine = {k: torch.from_numpy(v[lo:lo + n]) for k, v in batch.items() if k != "labels"}
+        logits, cache = prefill(blocks, cfg, mine, s + SERVE_STEPS, mesh=mesh, batch_size=b)
+        seen, first = [logits], {k: v.clone() if torch.is_tensor(v) else
+                                 tuple(t.clone() for t in v) for k, v in cache.items()}
+        for i in range(SERVE_STEPS):
+            step = ({"frame": torch.from_numpy(case["frames"][i][:b])}
+                    if cfg.input_mode == "frames" else {"token": logits.argmax(-1)[:, None]})
+            logits, cache = decode_step(blocks, cfg, step, cache, s + i, mesh=mesh)
+            seen.append(logits)
+        out[name][f"serve{b}"] = {"logits": torch.stack(seen), "prefill_cache": first,
+                                  "cache": cache}
+    if name in SCHEDULED:
+        toks = prompts(batch["tokens"])
+        for mb in (4, 3):
+            sched = BatchScheduler(cfg, blocks, max_batch=mb, max_new=SCHED_NEW, mesh=mesh)
+            ids = [sched.submit(t) for t in toks]
+            sched.run()
+            out[name][f"sched{mb}"] = [sched.result(i).tolist() for i in ids]
 torch.save(out, os.path.join(work, f"world{world}_rank{rank}.pt"))
 dist.destroy_process_group()
 """
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Several test workers share the cores: one intra-op thread keeps this
+    file's many small torch operations from oversubscribing them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _numpy_tree(params):
@@ -188,6 +275,10 @@ def shard(tmp_path_factory):
         tree = _numpy_tree(params)
         batch = {k: v.numpy() for k, v in dummy_batch(cfg, B, S, seed=1).items()}
         case[name], cfgs[name] = (tree, batch), (ref_cfg, cfg)
+        if cfg.input_mode == "frames":     # the frames model's decode inputs
+            rng = np.random.default_rng(2)
+            case["frames"] = [rng.standard_normal((B, 1, cfg.d_model)).astype(np.float32)
+                              for _ in range(SERVE_STEPS)]
     with open(work / "case.pkl", "wb") as f:
         pickle.dump(case, f)
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
@@ -202,10 +293,44 @@ def shard(tmp_path_factory):
             lambda p, b: ref_tf.loss_fn(p, ref_cfg, b), has_aux=True))(tree, jb)
         return float(loss), jax.tree.map(np.asarray, grads)
 
+    def reference_serve(name):
+        """The reference's prefill and greedy decode steps, unsharded, for
+        each of the case's row counts: (logits, the cache after prefill, the
+        cache at the end), numpy."""
+        (tree, batch), ref_cfg = case[name], cfgs[name][0]
+        pre = jax.jit(lambda p, bt: ref_tf.prefill(p, ref_cfg, bt, S + SERVE_STEPS))
+        step = jax.jit(lambda p, bt, c, pos: ref_tf.decode_step(p, ref_cfg, bt, c, pos))
+        got = {}
+        for b in serve_rows(name):
+            logits, cache = pre(tree, {k: jnp.asarray(v[:b]) for k, v in batch.items()
+                                       if k != "labels"})
+            seen, first = [logits], jax.tree.map(np.asarray, cache)
+            for i in range(SERVE_STEPS):
+                inp = ({"frame": jnp.asarray(case["frames"][i][:b])}
+                       if ref_cfg.input_mode == "frames" else
+                       {"token": jnp.argmax(logits, -1)[:, None].astype(jnp.int32)})
+                logits, cache = step(tree, inp, cache, jnp.int32(S + i))
+                seen.append(logits)
+            got[b] = (np.stack([np.asarray(x) for x in seen]), first,
+                      jax.tree.map(np.asarray, cache))
+        return got
+
     try:
         # XLA compiles outside the GIL: the cases' compiles overlap
         with ThreadPoolExecutor(3) as pool:
-            ref = dict(zip(case, pool.map(reference, case)))
+            served = pool.map(reference_serve, CASES)
+            ref = dict(zip(CASES, pool.map(reference, CASES)))
+            ref_serve = dict(zip(CASES, served))
+        # the unsharded port's scheduler on the same weights
+        sched = {}
+        for name in SCHEDULED:
+            cfg = cfgs[name][1]
+            params = serving_params_from_jax(case[name][0], cfg)
+            for mb in (4, 3):
+                one = BatchScheduler(cfg, params, max_batch=mb, max_new=SCHED_NEW)
+                ids = [one.submit(t) for t in prompts(case[name][1]["tokens"])]
+                one.run()
+                sched[name, mb] = [one.result(i).tolist() for i in ids]
         outs = [p.communicate(timeout=240) for p in procs]
     finally:
         for p in procs:
@@ -213,7 +338,7 @@ def shard(tmp_path_factory):
     for p, (_, err) in zip(procs, outs):
         assert p.returncode == 0, err[-3000:]
     ranks = {n: [torch.load(work / f"world{n}_rank{r}.pt") for r in range(n)] for n in WORLDS}
-    return {"ref": ref, "ranks": ranks, "cfgs": cfgs}
+    return {"ref": ref, "ranks": ranks, "cfgs": cfgs, "serve": ref_serve, "sched": sched}
 
 
 @pytest.mark.parametrize("world", sorted(WORLDS))
@@ -239,33 +364,89 @@ def test_loss_and_gradient_on_blocks_match_the_reference(shard, name, world):
             assert err <= tol, (rank, j, tuple(w.shape), err, tol)
 
 
+@pytest.mark.parametrize("world", sorted(WORLDS))
+@pytest.mark.parametrize("name", list(CASES))
+def test_serving_on_blocks_matches_the_reference(shard, name, world):
+    """Prefill and ``SERVE_STEPS`` greedy decode steps on every rank's
+    blocks against the reference's unsharded ``prefill`` and
+    ``decode_step``: the logits within ``SERVE_TOL`` of max(1, |ref|)
+    (every rank holds all of them), the greedy tokens exactly, and the
+    rank's cache block, after prefill and at the end, within ``SERVE_TOL``
+    of max(1, |ref|) element by element."""
+    cfg = shard["cfgs"][name][1]
+    data, model = WORLDS[world]
+    shape = {"data": data, "model": model}
+    for b, (want_logits, want_first, want_end) in shard["serve"][name].items():
+        for rank, got in enumerate(shard["ranks"][world]):
+            run = got[name][f"serve{b}"]
+            logits = run["logits"]
+            assert logits.shape == want_logits.shape, (rank, b)
+            tol = SERVE_TOL * max(1.0, float(np.abs(want_logits).max()))
+            err = float(np.abs(logits.numpy() - want_logits).max())
+            assert err <= tol, (rank, b, err, tol)
+            np.testing.assert_array_equal(logits.argmax(-1).numpy(), want_logits.argmax(-1))
+            at = _At(shape, got["coords"])
+            for mine, want in ((run["prefill_cache"], want_first), (run["cache"], want_end)):
+                whole = cache_from_jax(want, cfg)
+                block = shard_tree(whole, cache_layout(cfg, at, b), at)
+                assert set(mine) == set(block), (rank, b)
+                for key in block:
+                    gs, ws = (v if isinstance(v, (list, tuple)) else (v,)
+                              for v in (mine[key], block[key]))
+                    for g, w in zip(gs, ws, strict=True):
+                        assert g.shape == w.shape, (rank, b, key, g.shape, w.shape)
+                        bad = (g - w).abs() > SERVE_TOL * w.abs().clamp(min=1.0)
+                        assert not bad.any(), (rank, b, key, float((g - w).abs().max()))
+
+
+@pytest.mark.parametrize("world", sorted(WORLDS))
+def test_batch_scheduler_on_a_mesh_gives_the_unsharded_tokens(shard, world):
+    """``BatchScheduler(..., mesh=)`` on every rank's blocks, groups of 4
+    (split over the data axes) and 3 rows (not split), makes the tokens of
+    the unsharded scheduler on the same weights, on every rank."""
+    for name in SCHEDULED:
+        for mb in (4, 3):
+            want = shard["sched"][name, mb]
+            for rank, got in enumerate(shard["ranks"][world]):
+                assert got[name][f"sched{mb}"] == want, (name, mb, rank)
+
+
 def test_the_cases_shard_and_split_as_the_docstring_says():
-    """The families shard on a grid, xLSTM and the MoE and MLA models do
-    not; each case's q and kv blocks at model 2 fall on whole heads or not,
-    and its vocab splits over ``model`` or stays whole, as the module's
-    docstring says; so do the full-width configs the card runs."""
+    """The families shard on a grid, xLSTM among them, the MoE and MLA
+    models do not; each case's q and kv blocks at model 2 fall on whole
+    heads or not (an xLSTM case: its cores' heads), and its vocab splits
+    over ``model`` or stays whole, as the module's docstring says; so do
+    the full-width configs the card runs."""
     from repro_torch.launch.mesh import make_dry_mesh
 
     grid = make_dry_mesh(1, 2)
     whole_heads = {"q_mid_head": (False, False), "kv_mid_head": (True, False),
-                   "hymba_q_mid_head": (False, False)}
+                   "hymba_q_mid_head": (False, False), "xlstm_mid_head": (False, False)}
     for name in CASES:
         cfg = make_cfg(get_config, name)
         assert shards_storage(cfg, grid) and not shards_storage(cfg, None)
         h, kv = cfg.n_heads, cfg.n_kv_heads
+        if cfg.block_type == "xlstm":      # the cores' heads, one layer of each core
+            h = kv = cfg.ssm.n_heads
+            assert cfg.layer_pattern == "MS" and cfg.n_layers == 2, name
+            assert cfg.d_model % 2 == 0, name
         assert (h % 2 == 0, kv % 2 == 0) == whole_heads.get(name, (True, True)), name
         assert (cfg.vocab % 2 == 0) == (name != "hymba_q_mid_head"), name
         if cfg.block_type == "hymba":      # the Mamba channels on whole blocks
             assert cfg.d_model % 2 == 0, name
-    for name in ("xlstm-125m", "dbrx-132b", "deepseek-v3-671b"):
+    assert shards_storage(get_config("xlstm-125m", reduced=True), grid)
+    for name in ("dbrx-132b", "deepseek-v3-671b"):
         assert not shards_storage(get_config(name, reduced=True), grid), name
     # full width at model 2 and 16: hymba's 25 q heads split mid-head (its
     # attention replicated), its 1600 channels on whole blocks, internvl2's
     # 14 / 2 kv and musicgen's 32 heads on whole heads at 2; hymba's and
-    # internvl2's vocab stay whole, musicgen's splits
-    hymba, vlm, frames = (get_config(n) for n in ("hymba-1.5b", "internvl2-1b",
-                                                   "musicgen-large"))
+    # internvl2's vocab stay whole, musicgen's splits; xlstm-125m's 4 heads
+    # split on whole heads at 2 and mid-head at 16 (computed replicated)
+    hymba, vlm, frames, xlstm = (get_config(n) for n in ("hymba-1.5b", "internvl2-1b",
+                                                          "musicgen-large", "xlstm-125m"))
     for model in (2, 16):
         assert hymba.n_heads % model and hymba.d_model % model == 0
         assert hymba.vocab % model and vlm.vocab % model and frames.vocab % model == 0
+        assert xlstm.d_model % model == 0 and xlstm.vocab % model == 0
     assert vlm.n_heads % 2 == vlm.n_kv_heads % 2 == frames.n_heads % 2 == 0
+    assert xlstm.ssm.n_heads % 2 == 0 and xlstm.ssm.n_heads % 16

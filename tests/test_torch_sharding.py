@@ -44,6 +44,16 @@ from repro_torch.models import transformer as tf  # noqa: E402
 MESHES = [{"data": 16, "model": 16}, {"pod": 2, "data": 16, "model": 16}]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Several test workers share the cores: one intra-op thread keeps this
+    file's many small torch operations from oversubscribing them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 class FakeMesh:
     """Shape-only stand-in: the policy reads ``shape`` and ``axis_names``."""
 

@@ -41,6 +41,16 @@ KERNEL_SHAPES = [(2, 64, 32, 8, 32, 32), (1, 128, 256, 16, 64, 128), (2, 100, 13
 NAMES = ("x", "dt", "bmat", "cmat", "a_log", "d_skip")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Several test workers share the cores: one intra-op thread keeps this
+    file's many small torch operations from oversubscribing them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return torch.from_numpy(np.array(a))
 

@@ -47,6 +47,16 @@ CASES = {
 SIZES = [(0, 24, 4), (1, 60, 10), (2, 100, 10)]  # (seed, K, m)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Several test workers share the cores: one intra-op thread keeps this
+    file's many small torch operations from oversubscribing them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(seed, K, structured=True):
     rng = np.random.default_rng(seed)
     if structured:

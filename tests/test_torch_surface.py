@@ -68,6 +68,16 @@ UNPORTED_MODULES = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Several test workers share the cores: one intra-op thread keeps this
+    file's many small torch operations from oversubscribing them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _pairs():
     """(reference module, port module) for every port module whose
     counterpart exists in the reference."""
