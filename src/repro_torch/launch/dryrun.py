@@ -49,23 +49,28 @@ Counting rules:
   ``memory.argument_size`` is one device's share of the arguments under
   the reference's layout (``sharding.shard_bytes`` of each argument);
   ``memory.argument_size_held`` what the port's rank holds.  ``storage``
-  says which: ``"sharded"`` where the rank holds its blocks and its batch
-  share (``step_storage``: the ``train`` step, the federated round, and
-  prefill and decode where the data axes divide the global batch
-  (``prefill_32k``, ``decode_32k``), of the families that
-  ``models.transformer.shards_storage`` names: the dense GQA models,
-  hymba-1.5b, xlstm-125m, internvl2-1b and musicgen-large, under the
-  baseline policy on a grid: the arguments are those blocks and, for
-  decode, the rank's cache block beside the whole token batch, the held
-  bytes equal ``argument_size`` (decode's position counted as the
-  reference's int32), and ``temp_size`` is the tensor-parallel step's,
-  hymba's with ``w_in`` and, where its 25 heads split mid-head, the
-  attention's projections gathered whole over ``model``, xlstm's with
-  ``w_up`` gathered and, at model 16, its 4 heads computed replicated);
-  ``"whole"`` where it holds every argument whole and computes the
-  replicated values of the whole batch (the MoE and MLA models, the
-  ``fsdp`` variant, and a decode of batch 1 such as ``long_500k``, whose
-  cache the policy splits over the sequence), so that ``temp_size`` and
+  says which (``step_storage``), under the baseline policy on a grid, for
+  the families that ``models.transformer.shards_storage`` names (the
+  dense GQA models, hymba-1.5b, xlstm-125m, internvl2-1b and
+  musicgen-large): ``"sharded"`` where the rank holds its share, its
+  blocks and its rows (the ``train`` step, the federated round, prefill,
+  and decode but for a batch of one: ``prefill_32k``, ``decode_32k``; a
+  batch that the data axes do not divide is every row on every data
+  rank, its share): the arguments are those blocks and, for decode, the
+  rank's cache block beside the whole token batch, the held bytes equal
+  ``argument_size`` (decode's position counted as the reference's int32),
+  and ``temp_size`` is the tensor-parallel step's, hymba's with ``w_in``
+  and, where its 25 heads split mid-head, the attention's projections
+  gathered whole over ``model``, xlstm's with ``w_up`` gathered and, at
+  model 16, its 4 heads computed replicated; ``"model-sharded"`` for a
+  decode of batch 1 whose cache has a sequence (``long_500k``): the rank
+  holds its ``model`` blocks and the whole sequence, as
+  ``BatchScheduler(mesh=)`` serves such a request, where the policy
+  splits the sequence over the data axes (not ported: ROADMAP 8b.6b), so
+  that the held bytes exceed ``argument_size`` by the sequence's other
+  data shares; ``"whole"`` where it holds every argument whole and
+  computes the replicated values of the whole batch (the MoE and MLA
+  models and the ``fsdp`` variant), so that ``temp_size`` and
   ``argument_size_held`` show what that path needs and the gap to
   ``argument_size`` is what sharding its storage would save.
 - ``collective_bytes`` are the dry mesh's collectives by the reference's
@@ -146,19 +151,25 @@ def _held_bytes(tree) -> int:
 
 def step_storage(cfg, mesh, kind: str, policy_variant: str = "baseline",
                  batch_size: int | None = None) -> str:
-    """``"sharded"`` where a rank of ``mesh`` holds its blocks of the
-    arguments of a ``kind`` step under the baseline policy, for the
-    families of ``shards_storage``: ``train`` and the federated round, and
-    ``prefill`` and ``decode`` where the data axes divide the global batch
-    ``batch_size``; else ``"whole"`` (a batch of one, whose decode the
-    policy splits over the sequence, stays whole)."""
+    """What a rank of ``mesh`` holds of a ``kind`` step's arguments under the
+    baseline policy, for the families of ``shards_storage``: ``"sharded"``,
+    its share of the reference's layout (``train``, the federated round,
+    ``prefill``, and ``decode``: its blocks, and the rows the data axes give
+    it, every row where they do not divide the batch); ``"model-sharded"``
+    for a decode of batch 1 whose cache has a sequence axis, such as
+    ``long_500k``: the policy splits that sequence over the data axes
+    (ROADMAP 8b.6b), while the rank holds its ``model`` blocks and the
+    whole sequence, as ``BatchScheduler(mesh=)`` serves such a request;
+    else ``"whole"``."""
     if policy_variant != "baseline" or not shards_storage(cfg, mesh):
         return "whole"
-    if kind in ("train", "federated_round"):
-        return "sharded"
+    if kind not in ("train", "federated_round", "prefill", "decode"):
+        return "whole"
     dp = tuple(a for a in mesh.axis_names if a != "model")
-    divides = batch_size is not None and batch_size > 1 and batch_size % mesh.size(dp) == 0
-    return "sharded" if kind in ("prefill", "decode") and divides else "whole"
+    if (kind == "decode" and batch_size == 1 and mesh.size(dp) > 1
+            and any("seq" in axes for axes in spec_leaves(cache_specs(cfg)))):
+        return "model-sharded"
+    return "sharded"
 
 
 def _local(tree):
@@ -170,6 +181,43 @@ def _local(tree):
     if isinstance(tree, (list, tuple)):
         return [_local(v) for v in tree]
     return ()
+
+
+def _reference_args(cfg, mesh, shape, policy_variant: str):
+    """(cfg, the policy, the whole arguments as ``meta`` tensors, their
+    specs under the policy, the prefill's cache specs) of ``shape``'s step:
+    the reference's layout.  The ``fsdp`` variant sets
+    ``act_shard="dp_all"`` where the config has none, and a batch-1 decode
+    moves the data axes to the sequence, as in the reference."""
+    if policy_variant == "fsdp" and not cfg.act_shard:
+        cfg = replace(cfg, act_shard="dp_all")
+    policy = make_policy(mesh, shape.global_batch,
+                         shard_seq=(shape.kind == "decode" and shape.global_batch == 1),
+                         variant=policy_variant)
+    params = abstract_params(cfg)
+    pshard = policy.shardings(transformer_specs(cfg), params)
+    if shape.kind == "decode":
+        batch = decode_specs(cfg, shape)
+        bshard = {k: () for k in batch}
+    else:
+        batch = input_specs(cfg, shape)
+        bspec = _batch_logical_axes(cfg, shape.kind)
+        bshard = {k: policy.spec_for(bspec[k], tuple(batch[k].shape)) for k in batch}
+    if shape.kind == "train":
+        return cfg, (params, batch), (pshard, bshard), None
+    cache = init_cache(cfg, shape.global_batch, shape.seq_len, device="meta")
+    cshard = policy.shardings(cache_specs(cfg), cache)
+    if shape.kind == "prefill":
+        return cfg, (params, batch), (pshard, bshard), cshard
+    return cfg, (params, batch, cache, shape.seq_len - 1), (pshard, bshard, cshard, ()), cshard
+
+
+def argument_size(cfg, mesh, shape, policy_variant: str = "baseline") -> int:
+    """One device's bytes of ``shape``'s step arguments under the
+    reference's layout (``_argument_size`` of ``_reference_args``), what
+    the rank holds aside."""
+    _, args, specs, _ = _reference_args(cfg, mesh, shape, policy_variant)
+    return _argument_size(mesh, specs, args)
 
 
 def build_step(cfg, mesh, shape, lr: float = 1e-3, policy_variant: str = "baseline"):
@@ -186,39 +234,31 @@ def build_step(cfg, mesh, shape, lr: float = 1e-3, policy_variant: str = "baseli
       cache advanced in place; ``pos`` (a Python int) is the cache's last
       position.
 
-    The ``fsdp`` variant sets ``act_shard="dp_all"`` where the config has
-    none, and a batch-1 decode moves the data axes to the sequence, as in
-    the reference.  Where ``step_storage`` says ``"sharded"``, ``args``
-    are the rank's blocks of the parameters (``param_blocks``), its share
-    of the batch (decode's tokens whole, as the reference replicates them)
-    and its block of the cache (``init_cache(..., mesh=)``), and each spec
-    is ``()``: the rank holds exactly its share of the reference's
-    layout."""
-    if policy_variant == "fsdp" and not cfg.act_shard:
-        cfg = replace(cfg, act_shard="dp_all")
-    policy = make_policy(mesh, shape.global_batch,
-                         shard_seq=(shape.kind == "decode" and shape.global_batch == 1),
-                         variant=policy_variant)
-    params = abstract_params(cfg)
-    pspecs = transformer_specs(cfg)
-    pshard = policy.shardings(pspecs, params)
-
-    if shape.kind in ("train", "prefill"):
-        batch = input_specs(cfg, shape)
-        bspec = _batch_logical_axes(cfg, shape.kind)
-        bshard = {k: policy.spec_for(bspec[k], tuple(batch[k].shape)) for k in batch}
-
-    sharded = step_storage(cfg, mesh, shape.kind, policy_variant,
-                           shape.global_batch) == "sharded"
+    The layout is ``_reference_args``'.  Where ``step_storage`` says
+    ``"sharded"`` or ``"model-sharded"``, ``args`` are what the rank holds
+    on that path: its blocks of the parameters (``param_blocks``), its
+    share of the batch (every row for ``"model-sharded"``; decode's tokens
+    whole, as the reference replicates them) and its block of the cache (``init_cache(...,
+    mesh=)``), and each spec is ``()``.  Where it says ``"sharded"`` that
+    is exactly the rank's share of the reference's layout
+    (``argument_size``)."""
+    cfg, args, in_specs, cshard = _reference_args(cfg, mesh, shape, policy_variant)
+    params, batch = args[:2]
+    pshard, bshard = in_specs[:2]
+    storage = step_storage(cfg, mesh, shape.kind, policy_variant, shape.global_batch)
+    blocks = storage != "whole"
+    if blocks:
+        params, pshard = param_blocks(params, cfg, mesh), _local(params)
+        if shape.kind != "decode":
+            if storage == "sharded":
+                batch = shard_tree(batch, bshard, mesh)
+            bshard = _local(batch)
     if shape.kind == "train":
-        if sharded:
-            params, batch = param_blocks(params, cfg, mesh), shard_tree(batch, bshard, mesh)
-            pshard, bshard = _local(params), _local(batch)
 
         def train_step(params, batch):
             leaves, spec = tree_flatten(params)
             leaves = [p.detach().requires_grad_(True) for p in leaves]
-            loss, _ = loss_fn(tree_unflatten(leaves, spec), cfg, batch, mesh, sharded=sharded)
+            loss, _ = loss_fn(tree_unflatten(leaves, spec), cfg, batch, mesh, sharded=blocks)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
             with torch.no_grad():
                 for p, g in zip(leaves, grads):
@@ -228,31 +268,30 @@ def build_step(cfg, mesh, shape, lr: float = 1e-3, policy_variant: str = "baseli
 
         return train_step, (params, batch), ((pshard, bshard), (pshard, ())), (0,)
 
-    cache = init_cache(cfg, shape.global_batch, shape.seq_len, device="meta")
-    cshard = policy.shardings(cache_specs(cfg), cache)
-    if sharded:
-        params, pshard = param_blocks(params, cfg, mesh), _local(params)
-        cache = init_cache(cfg, shape.global_batch, shape.seq_len, device="meta", mesh=mesh)
-        cshard = _local(cache)
+    # prefill and decode take blocks on a grid for a family of
+    # shards_storage; its fsdp variant, whole, runs them without the mesh
+    # (which on a whole path only steers the MoE dispatch)
+    serve_mesh = mesh if blocks or not shards_storage(cfg, mesh) else None
+    if blocks:
+        cshard = _local(init_cache(cfg, shape.global_batch, shape.seq_len, device="meta",
+                                   mesh=mesh))
     if shape.kind == "prefill":
-        if sharded:
-            batch, bshard = shard_tree(batch, bshard, mesh), _local(batch)
 
         def prefill_step(params, batch):
-            return prefill(params, cfg, batch, max_len=shape.seq_len, mesh=mesh,
-                           sharded=sharded, batch_size=shape.global_batch)
+            return prefill(params, cfg, batch, max_len=shape.seq_len, mesh=serve_mesh,
+                           batch_size=shape.global_batch)
 
-        del cache
         return prefill_step, (params, batch), ((pshard, bshard), ((), cshard)), ()
 
-    batch = decode_specs(cfg, shape)
-    bshard = {k: () for k in batch}
+    cache = args[2]
+    if blocks:
+        cache = init_cache(cfg, shape.global_batch, shape.seq_len, device="meta", mesh=mesh)
 
     def serve_step(params, batch, cache, pos):
-        return decode_step(params, cfg, batch, cache, pos, mesh=mesh, sharded=sharded)
+        return decode_step(params, cfg, batch, cache, pos, mesh=serve_mesh)
 
-    args = (params, batch, cache, shape.seq_len - 1)
-    return serve_step, args, ((pshard, bshard, cshard, ()), ((), cshard)), (2,)
+    return (serve_step, (params, batch, cache, shape.seq_len - 1),
+            ((pshard, bshard, cshard, ()), ((), cshard)), (2,))
 
 
 def _argument_size(mesh, specs, args) -> int:
@@ -453,11 +492,12 @@ def trace_step(cfg, mesh, shape, policy_variant: str = "baseline", path: str = "
     """The record's numbers for ``cfg`` at ``shape`` (an ``InputShape``) on
     ``mesh`` (a dry one, or a mesh of one), with the probes unless
     ``probes`` is False, and the traced aten operations under ``ops``."""
-    fn, args, (in_specs, _), _ = build_step(cfg, mesh, shape, policy_variant=policy_variant)
+    fn, args, _, _ = build_step(cfg, mesh, shape, policy_variant=policy_variant)
     traced = trace(fn, args, path)
     rec = {"n_devices": mesh.size(), "kind": shape.kind, "path": path,
            "storage": step_storage(cfg, mesh, shape.kind, policy_variant, shape.global_batch),
-           **_record(traced, _argument_size(mesh, in_specs, args)), "ops": traced["ops"]}
+           **_record(traced, argument_size(cfg, mesh, shape, policy_variant)),
+           "ops": traced["ops"]}
     rec["probes"] = None
     if probes:
         try:

@@ -46,10 +46,18 @@ __all__ = [
 ]
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """RMSNorm with fp32 accumulation; ``scale`` broadcasts over x."""
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5,
+             mesh=None) -> torch.Tensor:
+    """RMSNorm with fp32 accumulation; ``scale`` broadcasts over x.
+    ``mesh``: x's last axis is a rank's block of channels split over
+    ``model``, so the sum of squares is summed over ``model``, forward and
+    backward (each rank's block is in every rank's norm)."""
     xf = x.to(torch.float32)
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    if mesh is None:
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    else:
+        ss = mesh.grad_sum((xf * xf).sum(-1, keepdim=True), "model")
+        var = mesh.all_reduce_sum(ss, "model") / (x.shape[-1] * mesh.shape["model"])
     out = xf * torch.rsqrt(var + eps) * (1.0 + scale.to(torch.float32))
     return out.to(x.dtype)
 

@@ -366,14 +366,9 @@ def _xlstm_out(p, cfg, x, y, out_gate, tp=None):
     summed over ``model`` both ways, and ``w_down``'s row block gives a
     partial output summed over ``model``."""
     y = y.reshape(*x.shape[:-1], -1).to(x.dtype)
-    if tp is None:
-        y = rms_norm(y, per_client(p["core_norm"], y), cfg.norm_eps)
-        return linear(y * F.silu(out_gate), p["w_down"])
-    yf = y.to(torch.float32)
-    ss = tp.all_reduce_sum(tp.grad_sum((yf * yf).sum(-1, keepdim=True), "model"), "model")
-    y = (yf * torch.rsqrt(ss / cfg.d_model + cfg.norm_eps)
-         * (1.0 + p["core_norm"].to(torch.float32))).to(y.dtype)
-    return row_out(linear(y * F.silu(out_gate), p["w_down"]), tp)
+    y = rms_norm(y, per_client(p["core_norm"], y), cfg.norm_eps, mesh=tp)
+    out = linear(y * F.silu(out_gate), p["w_down"])
+    return out if tp is None else row_out(out, tp)
 
 
 def _xlstm_state_in(state, tp, a, hl):

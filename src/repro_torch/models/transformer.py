@@ -1103,23 +1103,24 @@ _MODEL_DIM = {"ssm_h": 1, "conv": 2, "mlstm": 1, "slstm": 1}
 
 
 @torch.no_grad()
-def prefill(params, cfg, batch: dict, max_len: int, mesh=None, sharded: bool | None = None,
-            batch_size: int | None = None):
+def prefill(params, cfg, batch: dict, max_len: int, mesh=None, batch_size: int | None = None):
     """Run the prompt ``batch`` (``embed_inputs``'s dict; a "labels" entry
     is ignored) through the parameter tree -> (the last position's logits
     (B, V), the cache with the prompt's entries at positions [0, S), room
     up to ``max_len``).  S is the embedded sequence's length: for vlm the
     patches and the tokens.
 
-    ``sharded`` (by default ``shards_storage(cfg, mesh)``): ``params`` are
-    this rank's blocks and ``batch`` its rows (``batch_rows``) of a batch
-    of ``batch_size`` (by default its rows times the data axes' size: a
-    batch they split); the prompt runs tensor-parallel (``forward(...,
+    On a grid, for the families of ``shards_storage``: ``params`` are
+    this rank's blocks and ``batch`` its rows (``batch_rows``: every row
+    where the data axes do not divide the batch) of a batch of
+    ``batch_size`` (by default its rows times the data axes' size: a batch
+    they split); the prompt runs tensor-parallel (``forward(...,
     tp=mesh)``), the cache is the rank's block (``init_cache(...,
     mesh=)``), the recurrent states gathered over ``model`` where it holds
-    them whole, and the logits come out replicated (``_logits_blocks``)."""
-    if sharded is None:
-        sharded = shards_storage(cfg, mesh)
+    them whole, and the logits come out replicated (``_logits_blocks``).
+    The MoE and MLA models keep ``mesh``'s capacity dispatch on every leaf
+    whole."""
+    sharded = shards_storage(cfg, mesh)
     tp = mesh if sharded else None
     x, _ = embed_inputs(params, cfg, batch, tp=tp)
     b, s = x.shape[:2]
@@ -1183,14 +1184,13 @@ def _apply_layer_decode(pl, cfg, x, flags: dict[str, float], tabs_l, tabs_g, cac
 
 
 @torch.no_grad()
-def decode_step(params, cfg, batch: dict, cache: dict, pos: int, mesh=None,
-                sharded: bool | None = None):
+def decode_step(params, cfg, batch: dict, cache: dict, pos: int, mesh=None):
     """One greedy-decode step: ``batch["token"]`` (B, 1) (a frames model:
     ``batch["frame"]`` (B, 1, d), RMS-normed as the prompt's frames) at
     position ``pos`` -> (logits (B, V), cache), the cache advanced in
     place.
 
-    ``sharded`` (by default ``shards_storage(cfg, mesh)``): ``params`` and
+    On a grid, for the families of ``shards_storage``: ``params`` and
     ``cache`` are this rank's blocks (``init_cache(..., mesh=)``); the
     batch is every row, as the reference's step takes it replicated, and
     the rank steps the cache block's rows: the vocab-parallel lookup, GQA
@@ -1199,8 +1199,7 @@ def decode_step(params, cfg, batch: dict, cache: dict, pos: int, mesh=None,
     ``model``, brought back whole each step), the MLP's blocks; the logits
     come out replicated (``_logits_blocks``).  The MoE and MLA models keep
     ``mesh``'s capacity dispatch on every leaf whole."""
-    if sharded is None:
-        sharded = shards_storage(cfg, mesh)
+    sharded = shards_storage(cfg, mesh)
     tp = mesh if sharded else None
     rows = batch["frame" if cfg.input_mode == "frames" else "token"]
     batch_size = rows.shape[0]

@@ -488,20 +488,28 @@ def test_serving_records_shard_where_the_data_axes_divide_the_batch(name):
     """On a dry 2 x 2 mesh the prefill and decode records of the families
     that shard hold the rank's blocks, its rows and its cache block where
     the 2 data ranks divide the batch (4), with ``argument_size_held ==
-    argument_size`` and the logits replicated; a batch of 3, and a batch
-    of 1 (whose decode the policy splits over the sequence), hold every
-    argument whole."""
+    argument_size`` and the logits replicated; a batch of 3 and a prefill
+    of 1 hold the ``model`` blocks and every row, which is their share
+    too; a decode of batch 1, whose sequence the policy splits over the
+    data axes, holds the ``model`` blocks and the whole sequence
+    ("model-sharded", as ``BatchScheduler(mesh=)`` serves it): more than
+    its share (xlstm's cache has no sequence: its share), less than the
+    whole arguments."""
     cfg = _reduced(name)
     mesh = make_dry_mesh(2, 2)
     for kind in ("prefill", "decode"):
-        for batch, storage in ((4, "sharded"), (3, "whole"), (1, "whole")):
+        for batch in (4, 3, 1):
+            storage = ("model-sharded" if kind == "decode" and batch == 1
+                       and cfg.block_type != "xlstm" else "sharded")
             shape = InputShape("t", 32, batch, kind)
-            fn, args, (in_specs, _), _ = dryrun.build_step(cfg, mesh, shape)
+            fn, args, _, _ = dryrun.build_step(cfg, mesh, shape)
             traced = dryrun.trace(fn, args, memory=False)
             held = traced["args"] + traced["scalars"]
-            want = dryrun._argument_size(mesh, in_specs, args)
+            want = dryrun.argument_size(cfg, mesh, shape)
+            whole = dryrun.argument_size(cfg, make_dry_mesh(), shape)
             assert dryrun.step_storage(cfg, mesh, kind, batch_size=batch) == storage
             assert (held == want) == (storage == "sharded"), (kind, batch, held, want)
+            assert want <= held < whole, (kind, batch, want, held, whole)
             logits = fn(*args)[0]
             assert logits.shape == (batch, cfg.vocab), (kind, batch)
 
@@ -555,7 +563,10 @@ def test_cli_writes_one_record_with_the_reference_keys(tmp_path):
                                   "temp_size", "generated_code_size"}
     assert rec["n_devices"] == 256 and rec["kind"] == "decode" and rec["flops"] > 0
     assert set(rec["probes"]) == {"per_layer", "outside", "total"}
-    assert rec["memory"]["argument_size"] < rec["memory"]["argument_size_held"]
+    # xlstm's decode cache has no sequence axis: a batch of one on blocks
+    # holds exactly its share of the reference's layout
+    assert rec["storage"] == "sharded"
+    assert rec["memory"]["argument_size"] == rec["memory"]["argument_size_held"]
 
 
 def test_federated_simulation_shim_warns_and_runs_the_host_engine(data):
