@@ -39,7 +39,9 @@ Phases, each printed on its own lines:
    channel block (4, 128, 800, 16); at the serve grid's ranks, K3 at (2 /
    3, 128, 16, 80) stablelm and (2 / 3, 128, 25 / 5 kv, 64) hymba (window
    1024) in fp32 and bf16, and K4 with its final state at (2 / 3, 128, 800,
-   16).
+   16); at the long request's prefill on a grid rank, K3 in bf16 at (1,
+   2048, 16, 80) stablelm (window 4096) and (1, 2048, 25 / 5 kv, 64) hymba
+   (window 1024), and K4 with its final state at (1, 2048, 800, 16).
 4. main paths, each driven through ``make_engine(...).rounds()`` with
    every kernel's launch count set to 0 just before and read just after:
    - the paper's experiment at full width (K = 100 clients, m = 10, MLP
@@ -242,7 +244,20 @@ Phases, each printed on its own lines:
      held against the same requests served whole in the world of one: fp32
      tokens equal and logits within 1e-4 of max(1, |ref|), bf16 logits
      within 3e-2 while a row's tokens agree (xlstm-125m's within 1e-1:
-     ``SERVE_GRID_BF16_TOL``).  A rank that fails makes the phase raise;
+     ``SERVE_GRID_BF16_TOL``); the 3-row group's cache of 144 positions
+     is split over the 4 data ranks, 36 a rank, the prompt across all
+     four blocks, and its decode combines their partial softmaxes.  Then
+     the long request in the same world: stablelm-3b as the reference's
+     ``long_500k`` takes it (a window of 4096 on every layer) and
+     hymba-1.5b, 4 layers at full width in bf16, one prompt of 2048
+     tokens in a cache of 524,288 positions and 8 new tokens through
+     ``prefill`` and ``decode_step(mesh=)``: each rank holds its quarter
+     of the sequence (stablelm's k / v block 1/8 of its 21.47 GB cache,
+     hymba's 1/4 of 2.68 GB, printed a rank), its bf16 logits within
+     3e-2 of a world of one's, run alone after the world, and its tokens
+     equal but where they part at a near tie of the world of one's two
+     best logits; K3 and K4 forward once a layer in its prefill.  A rank
+     that fails makes the phase raise;
    - ``dryrun:`` the dry run (``repro_torch.launch.dryrun``) against the
      card, at full width and depth in bf16: stablelm-3b train at 8 x 128
      (K3 both ways), and the prefill at 4 x 1280 of hymba-1.5b (K3, K4),
@@ -264,7 +279,8 @@ Phases, each printed on its own lines:
      decode step each measured on the card against its trace on the dry
      (2, 2, 2) mesh: held bytes equal to the trace's and to its
      ``argument_size``, flops, collective bytes and launches equal, the
-     peak within 10 %; and rank 0 of the 2 x 16 x 16
+     peak within 10 % (the long request's prefill and first decode step
+     too); and rank 0 of the 2 x 16 x 16
      mesh at full depth predicted at 16 sequences a pod, its
      ``argument_size`` equal to what it holds.  Then the
      ``--all --mesh single`` sweep (40 records) and the ``--federated``
@@ -273,10 +289,10 @@ Phases, each printed on its own lines:
      script's time limit: 18, in two children), each started in a child
      process that cannot see the card (nice 10) after phase 3, must have
      written their records, none failed, every record that
-     ``dryrun.step_storage`` calls "sharded" (``train``, federated, and
-     ``prefill_32k`` / ``decode_32k`` of a family that ``shards_storage``
-     names) saying so and holding exactly its ``argument_size``; their wall
-     times are printed;
+     ``dryrun.step_storage`` calls "sharded" (``train``, federated,
+     ``prefill_32k``, ``decode_32k`` and ``long_500k`` of a family that
+     ``shards_storage`` names) saying so and holding exactly its
+     ``argument_size``; their wall times are printed;
    - ``analysis:`` the port's tracecheck (``repro_torch.analysis``): the
      lint over ``src/repro_torch`` must be clean and every contract of
      ``run_contracts`` on the card must pass, none skipped (masks, a
@@ -328,7 +344,8 @@ Then the card's name and power limit again, one JSON line lists the
 kernels (K1's launches summed over every path above; K3's backward also
 at the dbrx-132b step's shape, with that step's launches; K4 also at a
 grid rank's channel block, with the grid's launches; K3 and K4 forward
-also at the serve grid's fp32 shapes, with its launches), and the last line
+also at the serve grid's shapes and at the long request's, with their
+launches), and the last line
 is ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
 before that line; so does a machine with no CUDA device, and a directory
 that holds this script without the repository's ``src/``.
@@ -4066,6 +4083,26 @@ SERVE_GRID_K3 = {model: {rows: (r, SERVE_GRID_PROMPT, *heads) for rows, r in
                                       ("hymba-1.5b", (25, 5, 64)))}
 SERVE_GRID_K4 = {"hymba-1.5b": {rows: (r, SERVE_GRID_PROMPT, 800, 16) for rows, r in
                                 ((SERVE_GRID_ROWS, 2), (SERVE_GRID_ODD, SERVE_GRID_ODD))}}
+# the long request, in the grid world after the serve grid: one prompt of
+# SERVE_LONG_PROMPT tokens in a cache of SERVE_LONG_CACHE positions (the
+# reference's long_500k: stablelm-3b as its long_context_variant takes it,
+# a window of 4096 on every layer), SERVE_LONG_NEW new tokens, bf16 at full
+# width cut to GRID_LAYERS layers, through prefill and decode_step; a batch
+# of one, so each rank holds its quarter of the k / v sequence over the 4
+# data ranks (and its kv heads over model where model divides them), the
+# prompt in the first quarter, the other three empty at every step.  Its
+# world of one runs alone after the grid world: its whole cache (21.47 GB
+# for stablelm) and its decode's fp32 copy of a layer's k and v (10.7 GB)
+# would crowd the eight processes
+SERVE_LONG_MODELS = ("stablelm-3b", "hymba-1.5b")
+SERVE_LONG_PROMPT, SERVE_LONG_CACHE, SERVE_LONG_NEW = 2048, 524_288, 8
+SERVE_LONG_TOL = 3e-2        # bf16 logits against the world of one's, of max(1, |ref|)
+# the shapes a rank's long prefill hands K3 (B, S, H, KV, D) and its window,
+# stablelm's 16 of 32 heads and hymba's 25 / 5 kv replicated, and K4 (B, S,
+# D, N), hymba's 800 of 1600 channels (fp32 inputs, the final state)
+SERVE_LONG_K3 = {"stablelm-3b": ((1, SERVE_LONG_PROMPT, 16, 16, 80), 4096),
+                 "hymba-1.5b": ((1, SERVE_LONG_PROMPT, 25, 5, 64), 1024)}
+SERVE_LONG_K4 = {"hymba-1.5b": (1, SERVE_LONG_PROMPT, 800, 16)}
 
 
 def _serve_grid_prompts(cfg):
@@ -4120,13 +4157,11 @@ def _serve_grid_measure(cfg, blocks, mesh, device) -> dict:
 
     from repro_torch.kernels.flash_attention import flash_attention_forward
     from repro_torch.kernels.mamba_scan import mamba_scan_forward
-    from repro_torch.launch import dryrun
     from repro_torch.models import transformer as tf
 
     def nbytes(tree):
         return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
 
-    kernels = (flash_attention_forward, mamba_scan_forward)
     lo, n = tf.batch_rows(mesh, SERVE_GRID_ROWS)
     rows = np.stack(_serve_grid_prompts(cfg))[lo:lo + n]
     batch = {"tokens": torch.from_numpy(rows).to(device)}
@@ -4138,26 +4173,39 @@ def _serve_grid_measure(cfg, blocks, mesh, device) -> dict:
 
     def decode():
         return tf.decode_step(blocks, cfg, {"token": state["tok"]}, state["cache"],
-                              SERVE_GRID_PROMPT, mesh=mesh)
+                              SERVE_GRID_PROMPT, mesh=mesh, max_len=max_len)
 
     for kind, fn, held in (("prefill", prefill, lambda: nbytes(blocks) + nbytes(batch)),
                            ("decode", decode, lambda: nbytes(blocks) + nbytes(state["tok"])
                             + nbytes(state["cache"]) + 4)):   # + decode's int32 position
-        args = held()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        for c in kernels:
-            c.launches = 0
-        (logits, cache), flops, tally = dryrun.count_flops(fn)
-        torch.cuda.synchronize()
-        out[kind] = {"held_bytes": args, "flops": flops, "coll": dict(tally.collectives),
-                     "peak_bytes": torch.cuda.max_memory_allocated() - base,
-                     "launches": {c.__name__: c.launches for c in kernels if c.launches},
-                     "tallied": {k: v["launches"] for k, v in tally.kernels.items()},
-                     "product_flops": {k: v["product_flops"] for k, v in tally.kernels.items()}}
+        (logits, cache), out[kind] = _measured(fn, held(), (flash_attention_forward,
+                                                            mamba_scan_forward))
         state = {"tok": torch.argmax(logits, -1)[:, None].to(torch.int32), "cache": cache}
     return out
+
+
+def _measured(fn, held, kernels):
+    """``fn()`` once under ``dryrun.count_flops``, as the dry run traces a
+    step: (its output, {the step's arguments ``held`` (bytes), flops,
+    collective bytes, the peak above what was allocated when it began,
+    each of ``kernels``' launches in the call, the tally's launches and
+    product flops})."""
+    import torch
+
+    from repro_torch.launch import dryrun
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    at = {c.__name__: c.launches for c in kernels}
+    out, flops, tally = dryrun.count_flops(fn)
+    torch.cuda.synchronize()
+    return out, {"held_bytes": held, "flops": flops, "coll": dict(tally.collectives),
+                 "peak_bytes": torch.cuda.max_memory_allocated() - base,
+                 "launches": {c.__name__: c.launches - at[c.__name__] for c in kernels
+                              if c.launches > at[c.__name__]},
+                 "tallied": {k: v["launches"] for k, v in tally.kernels.items()},
+                 "product_flops": {k: v["product_flops"] for k, v in tally.kernels.items()}}
 
 
 def _serve_grid_against(run, want) -> dict:
@@ -4166,7 +4214,7 @@ def _serve_grid_against(run, want) -> dict:
     so far agree (the same inputs), relative to max(1, max |want|)."""
     import torch
 
-    same = [[g[:i] == w[:i] for i in range(SERVE_GRID_NEW)]
+    same = [[g[:i] == w[:i] for i in range(len(w))]
             for g, w in zip(run["tokens"], want["tokens"])]
     mask = torch.tensor(same).T[:, :, None]                      # (steps, rows, 1)
     diff = ((run["logits"] - want["logits"]).abs() * mask).max().item()
@@ -4218,7 +4266,187 @@ def _serve_grid_rank(mesh, work, device, counters) -> dict:
                 "blocks_bytes": sum(t.numel() * t.element_size() for t in tree_leaves(blocks)),
                 "measured": measured}
             del blocks, got, ref
+    for model in SERVE_LONG_MODELS:
+        cfg = _serve_long_cfg(model)
+        whole = tf.init_params(torch.Generator(device).manual_seed(0), cfg)
+        blocks = tf.param_blocks(whole, cfg, mesh)
+        del whole
+        gc.collect()
+        torch.cuda.empty_cache()
+        run = _serve_long_run(cfg, blocks, mesh, device, counters)
+        print(f"grid rank {mesh.rank}: serve long {model}: {run['ms']:.1f} ms, its k / v "
+              f"block {run['kv_bytes']} B", flush=True)
+        torch.save({k: run.pop(k) for k in ("logits",)},
+                   Path(work) / f"long_{model}_rank{mesh.rank}.pt")
+        out[f"long {model}"] = run
+        del blocks, run
+        gc.collect()
+        torch.cuda.empty_cache()
     return out
+
+
+def _serve_long_cfg(model):
+    from repro_torch.configs.inputs import long_context_variant
+
+    return long_context_variant(_grid_cfg(model, "bfloat16"))
+
+
+def _serve_long_run(cfg, params, mesh, device, counters=()) -> dict:
+    """The long request (``mesh``: on the rank's blocks; None: the world of
+    one): ``prefill`` of one prompt of SERVE_LONG_PROMPT tokens (seed 7)
+    into a cache of SERVE_LONG_CACHE positions, then SERVE_LONG_NEW - 1
+    greedy ``decode_step``s.  The prefill and the first decode step run
+    under ``dryrun.count_flops``, as the dry run traces them: held bytes
+    (the step's arguments), flops, collective bytes, K3 / K4 launches and
+    their tally, the peak above the arguments.  Returns those, the tokens,
+    each step's logits (fp32, host), the k / v bytes the cache holds, each
+    of ``counters``' launches, and the milliseconds."""
+    import torch
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch.configs.inputs import dummy_batch
+    from repro_torch.models import transformer as tf
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+    batch = {"tokens": dummy_batch(cfg, 1, SERVE_LONG_PROMPT, seed=7)["tokens"].to(device)}
+    state, logits_seen, tokens, measured = {}, [], [], {}
+    before = {c.__name__: c.launches for c in counters}
+
+    def prefill():
+        return tf.prefill(params, cfg, batch, SERVE_LONG_CACHE, mesh=mesh, batch_size=1)
+
+    def decode():
+        return tf.decode_step(params, cfg, {"token": state["tok"]}, state["cache"],
+                              state["pos"], mesh=mesh, max_len=SERVE_LONG_CACHE)
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i in range(SERVE_LONG_NEW):
+        fn = prefill if i == 0 else decode
+        if i < 2:      # + decode's int32 position
+            held = nbytes(params) + (nbytes(batch) if i == 0 else
+                                     nbytes(state["tok"]) + nbytes(state["cache"]) + 4)
+            (logits, cache), measured["decode" if i else "prefill"] = _measured(fn, held,
+                                                                                counters)
+        else:
+            logits, cache = fn()
+        tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        logits_seen.append(logits.float().cpu())
+        tokens.append(int(tok[0, 0]))
+        state = {"tok": tok, "cache": cache, "pos": SERVE_LONG_PROMPT + i}
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    return {"ms": ms, "tokens": [tokens], "logits": torch.stack(logits_seen),
+            "finite": bool(all(torch.isfinite(x).all() for x in logits_seen)),
+            "kv_bytes": nbytes([state["cache"]["k"], state["cache"]["v"]]),
+            "launches": {c.__name__: c.launches - before[c.__name__] for c in counters},
+            "measured": measured}
+
+
+def _serve_long_reference(device) -> dict:
+    """The long request's world of one, each model's whole weights on the
+    card without a mesh (``_serve_long_run``), run alone: {model: its
+    run}."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+
+    out = {}
+    for model in SERVE_LONG_MODELS:
+        cfg = _serve_long_cfg(model)
+        params = tf.init_params(torch.Generator(device).manual_seed(0), cfg)
+        out[model] = _serve_long_run(cfg, params, None, device)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _serve_long_check(ranks, ref) -> dict:
+    """The long request on every rank (``_serve_grid_rank``'s) against the
+    world of one (``_serve_long_reference``): the bf16 logits within
+    ``SERVE_LONG_TOL`` of max(1, |ref|) at every step while the tokens
+    agree, and the tokens equal but where they part at a step whose two
+    best logits in the world of one lie within twice that bound (a near
+    tie that the bound lets either side break, after which the sequences
+    differ); each rank's k /
+    v bytes the whole cache's over the 4 data ranks and, where ``model``
+    divides the kv heads, over model too; K3 and K4 forward once a layer
+    in the prefill, none in a decode step, at the shapes of
+    ``SERVE_LONG_K3`` / ``SERVE_LONG_K4`` by their product flops.  Rank
+    0's measurements go to ``GRID_RESULTS["long"]`` for ``dryrun:``.
+    Returns the launches summed over the ranks by (kernel, model)."""
+    import torch
+
+    launched: dict = {}
+    GRID_RESULTS["long"] = {}
+    dp = GRID_SHAPE["pod"] * GRID_SHAPE["data"]
+    for model in SERVE_LONG_MODELS:
+        cfg, want = _serve_long_cfg(model), ref[model]
+        split = dp * (GRID_SHAPE["model"] if cfg.n_kv_heads % GRID_SHAPE["model"] == 0 else 1)
+        # the layout before the sequence split: only the kv heads over model
+        before = want["kv_bytes"] // (split // dp) * len(ranks)
+        print(f"serve long {model}: batch 1 of {SERVE_LONG_PROMPT} tokens, a cache of "
+              f"{SERVE_LONG_CACHE} positions ({cfg.name}, window {cfg.sliding_window}), "
+              f"{SERVE_LONG_NEW} new tokens, bf16, {GRID_LAYERS} layers; the world of one "
+              f"{want['ms']:.1f} ms, its k / v cache {want['kv_bytes']} B "
+              f"({want['kv_bytes'] / 1e9:.2f} GB); the {len(ranks)} ranks would hold "
+              f"{before / 1e9:.2f} GB together with the kv heads split over model alone",
+              flush=True)
+        k3, w3 = SERVE_LONG_K3[model]
+        per_launch = {"flash_attention_forward": 4.0 * k3[0] * k3[2] * k3[1] ** 2 * k3[4]}
+        launches = {"flash_attention_forward": GRID_LAYERS}
+        if model in SERVE_LONG_K4:
+            per_launch["mamba_scan_forward"] = 2.0 * math.prod(SERVE_LONG_K4[model])
+            launches["mamba_scan_forward"] = GRID_LAYERS
+        scale = max(1.0, want["logits"].abs().max().item())
+        for r, (_, _, res) in enumerate(ranks):
+            run = res["serve"][f"long {model}"]
+            run["logits"] = torch.load(GRID_DIR / "round" / f"long_{model}_rank{r}.pt")["logits"]
+            against = _serve_grid_against(run, want)
+            pre = run["measured"]["prefill"]
+            got_per_launch = {k: pre["product_flops"].get(k, 0.0) / max(pre["tallied"].get(k, 0), 1)
+                              for k in per_launch}
+            got_launches = {k: n for k, n in run["launches"].items() if n}
+            for k, n in got_launches.items():
+                launched[k, model] = launched.get((k, model), 0) + n
+            print(f"serve long {model} rank {r} {json.dumps(res['coords'])}: k / v block "
+                  f"{run['kv_bytes']} B ({run['kv_bytes'] / 1e9:.3f} GB, 1/"
+                  f"{want['kv_bytes'] / run['kv_bytes']:g} of the whole), {run['ms']:.1f} ms "
+                  f"(eight processes sharing the card), launches {json.dumps(got_launches)}, "
+                  f"product flops a launch {json.dumps(got_per_launch)}, tokens "
+                  f"{run['tokens'][0]}, against the world of one {json.dumps(against)}",
+                  flush=True)
+            bad = []
+            if not (run["finite"] and against["finite"]):
+                bad.append("logits not finite")
+            flip = next((i for i, (g, w) in enumerate(zip(run["tokens"][0], want["tokens"][0]))
+                         if g != w), None)
+            if flip is not None:
+                top = want["logits"][flip, 0].topk(2).values
+                gap, room = float(top[0] - top[1]), 2 * SERVE_LONG_TOL * scale
+                print(f"serve long {model} rank {r}: the tokens part at step {flip}, where the "
+                      f"world of one's two best logits lie {gap:.4g} apart (a flip the logits' "
+                      f"bound allows within {room:.4g})", flush=True)
+                if gap > room:
+                    bad.append(f"tokens {run['tokens']} against {want['tokens']}, parting at "
+                               f"step {flip} where the two best logits lie {gap} apart")
+            if against["max_rel_diff"] > SERVE_LONG_TOL:
+                bad.append(f"logits differ by {against['max_rel_diff']} > {SERVE_LONG_TOL}")
+            if run["kv_bytes"] * split != want["kv_bytes"]:
+                bad.append(f"k / v block {run['kv_bytes']} B, the whole's 1/{split} is "
+                           f"{want['kv_bytes'] / split} B")
+            if got_launches != launches:
+                bad.append(f"launches {got_launches}, want {launches}")
+            if got_per_launch != per_launch:
+                bad.append(f"product flops a launch {got_per_launch}, want {per_launch} (K3 at "
+                           f"{k3}, K4 at {SERVE_LONG_K4.get(model)})")
+            if bad:
+                raise AssertionError(f"serve long {model} rank {r}: {'; '.join(bad)}")
+        GRID_RESULTS["long"][model] = ranks[0][2]["serve"][f"long {model}"]["measured"]
+    return launched
 
 
 def _serve_grid_reference(device):
@@ -4350,6 +4578,10 @@ def _scaleout_grid_phase(device):
         raise AssertionError("scaleout grid: ranks " + ", ".join(
             f"{r} (exit {rc})" for r, rc, _ in failed) + " failed; " + "\n".join(
             f"rank {r}: {log[-2500:]}" for r, _, log in first[:2]))
+    t_long = time.perf_counter()
+    long_ref = _serve_long_reference(device)
+    print(f"scaleout grid: the long request's world of one in "
+          f"{time.perf_counter() - t_long:.1f} s, alone after the world", flush=True)
     total = dict.fromkeys(GRID_COUNTERS, 0)
     for model, (seq, runs) in GRID_MODELS.items():
         n_leaves = len(tree_leaves(abstract_params(_grid_cfg(model, "bfloat16"))))
@@ -4410,11 +4642,14 @@ def _scaleout_grid_phase(device):
           f"sequences a pod; "
           f"launches {json.dumps(total)}", flush=True)
     serve, by_shape = _serve_grid_check(ranks, serve_ref)
+    long = _serve_long_check(ranks, long_ref)
     rounds = dict(total)
     for k, n in serve.items():
         total[k] += n
+    for (k, _), n in long.items():
+        total[k] += n
     print(f"scaleout grid: phase wall time {time.perf_counter() - t:.1f} s", flush=True)
-    return total | {"rounds": rounds, "serve_by_shape": by_shape}
+    return total | {"rounds": rounds, "serve_by_shape": by_shape, "serve_long": long}
 
 
 def _serve_grid_expected(model) -> tuple[dict, dict]:
@@ -4698,9 +4933,25 @@ def _dry_serve_predictions(mesh) -> dict:
                     **{k: pred[k] for k in ("flops", "temp", "coll", "t_trace_s")},
                     "held": pred["args"] + pred["scalars"],
                     "argument_size": dryrun.argument_size(cfg, mesh, shape),
-                    "storage": dryrun.step_storage(cfg, mesh, kind, batch_size=SERVE_GRID_ROWS),
+                    "storage": dryrun.step_storage(cfg, mesh, kind),
                     "launches": {k: v["launches"] for k, v in pred["kernel_work"].items()}}
             out[f"{model} {dtype}"] = rec
+    for model in SERVE_LONG_MODELS:
+        cfg, rec = _serve_long_cfg(model), {}
+        for kind, seq in (("prefill", SERVE_LONG_PROMPT), ("decode", SERVE_LONG_CACHE)):
+            shape = InputShape("long", seq, 1, kind)
+            fn, args, _, _ = dryrun.build_step(cfg, mesh, shape)
+            if kind == "prefill":
+                def fn(p, b, cfg=cfg):
+                    return tf.prefill(p, cfg, b, SERVE_LONG_CACHE, mesh=mesh, batch_size=1)
+            pred = dryrun.trace(fn, args)
+            rec[kind] = {
+                **{k: pred[k] for k in ("flops", "temp", "coll", "t_trace_s")},
+                "held": pred["args"] + pred["scalars"],
+                "argument_size": dryrun.argument_size(cfg, mesh, shape),
+                "storage": dryrun.step_storage(cfg, mesh, kind),
+                "launches": {k: v["launches"] for k, v in pred["kernel_work"].items()}}
+        out[f"long {model}"] = rec
     return out
 
 
@@ -4799,16 +5050,18 @@ def _dryrun_round(model, tag, preds):
     return {}
 
 
-def _dryrun_serve(model, dtype, preds):
+def _dryrun_serve(model, dtype, preds, long=False):
     """The serve grid's rank 0 (``GRID_RESULTS["serve"]``, one prefill and
     one decode step measured on the card) held to its dry trace
     (``_dry_serve_predictions``): held bytes equal to the trace's and to
     ``argument_size``, storage "sharded", flops, collective bytes and K3 /
     K4 launches (and their tally) equal, the peak above the arguments
-    within ``DRYRUN_PEAK_TOL``.  Launches nothing."""
-    key = f"{model} {dtype}"
+    within ``DRYRUN_PEAK_TOL``; ``long``: the long request's
+    (``GRID_RESULTS["long"]``).  Launches nothing."""
+    key = f"long {model}" if long else f"{model} {dtype}"
     for kind in ("prefill", "decode"):
-        card, pred = GRID_RESULTS["serve"][key][kind], preds["serve"][key][kind]
+        card = (GRID_RESULTS["long"][model] if long else GRID_RESULTS["serve"][key])[kind]
+        pred = preds["serve"][key][kind]
         name = f"dryrun serve grid {key} {kind}"
         rel = (card["peak_bytes"] - pred["temp"]) / max(pred["temp"], 1)
         print(f"{name}: rank 0 of {GRID_SHAPE}, predicted (storage {pred['storage']}) "
@@ -4842,24 +5095,19 @@ def _dryrun_serve(model, dtype, preds):
 
 def _storage_faults(recs) -> list[str]:
     """The records of a sweep whose ``storage`` disagrees with
-    ``dryrun.step_storage`` (train and federated records: ``shards_storage``
-    on a grid; prefill and decode: also where the data axes divide the
-    batch), or that say "sharded" and hold other bytes than their share
-    (``argument_size``)."""
-    from repro_torch.configs import INPUT_SHAPES, get_config
-    from repro_torch.configs.inputs import long_context_variant
+    ``dryrun.step_storage`` (``shards_storage`` on a grid, for train,
+    federated, prefill and decode records, ``long_500k``'s batch of one on
+    its sequence blocks among them), or that say "sharded" and hold other
+    bytes than their share (``argument_size``: no shape of the sweep
+    decodes a batch larger than 1 that the data axes do not divide)."""
+    from repro_torch.configs import get_config
     from repro_torch.launch.dryrun import step_storage
     from repro_torch.launch.mesh import make_production_mesh
 
     out = []
     for r in recs:
         mesh = make_production_mesh(multi_pod=r["mesh"] == "multi", dry=True)
-        cfg = get_config(r["arch"])
-        shape = INPUT_SHAPES.get(r["shape"])
-        if r["shape"] == "long_500k":
-            cfg = long_context_variant(cfg)
-        want = step_storage(cfg, mesh, r["kind"], r.get("policy", "baseline"),
-                            shape.global_batch if shape else None)
+        want = step_storage(get_config(r["arch"]), mesh, r["kind"], r.get("policy", "baseline"))
         mem = r["memory"]
         if r["storage"] != want or (want == "sharded"
                                     and mem["argument_size_held"] != mem["argument_size"]):
@@ -4886,6 +5134,8 @@ def _dryrun_phase(device, sweeps, dry_grid):
     for model in SERVE_GRID_MODELS:
         for dtype in SERVE_GRID_DTYPES:
             _dryrun_serve(model, dtype, preds)
+    for model in SERVE_LONG_MODELS:
+        _dryrun_serve(model, "bfloat16", preds, long=True)
     for launches in [_dryrun_step(device, *step) for step in DRYRUN_STEPS] + [
             _dryrun_round(model, tag, preds) for model, (_, runs) in GRID_MODELS.items()
             for tag, _, _ in runs]:
@@ -5263,6 +5513,9 @@ def main() -> int:
         # (fp32 inputs in either dtype)
         *((shape, 0, torch.float32, False, True)
           for shape in SERVE_GRID_K4["hymba-1.5b"].values()),
+        # the long request's prefill on a grid rank: batch 1 of 2048 on the
+        # same channels, with the final state (SERVE_LONG_K4)
+        *((shape, 0, torch.float32, False, True) for shape in SERVE_LONG_K4.values()),
     ]]
     _timeline("K4 checks")
     libs |= k3_built.result()
@@ -5318,6 +5571,10 @@ def main() -> int:
         *((shape, dt, w, ig) for dt in (torch.float32, torch.bfloat16)
           for model, w, ig in (("stablelm-3b", 0, 1.0), ("hymba-1.5b", 1024, 0.0))
           for shape in SERVE_GRID_K3[model].values()),
+        # the long request's prefill on a grid rank in bf16, batch 1 of 2048:
+        # stablelm+swa4k's 16 heads (its window of 4096 on every layer) and
+        # hymba's 25 / 5 kv replicated (local layers) (SERVE_LONG_K3)
+        *((shape, torch.bfloat16, w, 0.0) for shape, w in SERVE_LONG_K3.values()),
     ]]
     _timeline("K3 checks")
     print("kernels: hellinger_strip, masked_weighted_sum, flash_attention and mamba_scan "
@@ -5503,6 +5760,24 @@ def main() -> int:
         for dtype, dtypes in dt_pairs
         for rec in recs if tuple(rec["shape"]) == shape and rec["dtype"] == dtype
         and (rec.get("final_state") if window is None else rec["window"] == window[model])
+    ] + [
+        # K3 and K4 forward in the long request's prefill on a grid rank, each
+        # with the long request's launches (hymba's first layer global, the
+        # others local)
+        {"name": f"{kernel}_serve_long_{model}", "route": "cuda", "source": source,
+         "replaces": replaces, "launches": grid_launches["serve_long"].get((kernel, model), 0),
+         "shape": rec["shape"], **{k: rec["forward"][k] for k in keys + ("kernel_ms",)
+                                   if k in rec["forward"]}}
+        for kernel, source, replaces, recs, shapes in (
+            ("flash_attention_forward", "src/repro_torch/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention/kernel.py:68", k3,
+             {m: shape for m, (shape, _) in SERVE_LONG_K3.items()}),
+            ("mamba_scan_forward", "src/repro_torch/csrc/mamba_scan.cu",
+             "src/repro/kernels/mamba_scan/kernel.py:69", k4, SERVE_LONG_K4))
+        for model, shape in shapes.items()
+        for rec in recs if tuple(rec["shape"]) == shape
+        and (rec.get("final_state") if kernel == "mamba_scan_forward" else
+             rec["dtype"] == "bfloat16" and rec["window"] == SERVE_LONG_K3[model][1])
     ]
     print(smi, flush=True)  # again, so that the end of the output names the card
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -53,26 +53,28 @@ Counting rules:
   the families that ``models.transformer.shards_storage`` names (the
   dense GQA models, hymba-1.5b, xlstm-125m, internvl2-1b and
   musicgen-large): ``"sharded"`` where the rank holds its share, its
-  blocks and its rows (the ``train`` step, the federated round, prefill,
-  and decode but for a batch of one: ``prefill_32k``, ``decode_32k``; a
-  batch that the data axes do not divide is every row on every data
-  rank, its share): the arguments are those blocks and, for decode, the
-  rank's cache block beside the whole token batch, the held bytes equal
-  ``argument_size`` (decode's position counted as the reference's int32),
-  and ``temp_size`` is the tensor-parallel step's, hymba's with ``w_in``
-  and, where its 25 heads split mid-head, the attention's projections
-  gathered whole over ``model``, xlstm's with ``w_up`` gathered and, at
-  model 16, its 4 heads computed replicated; ``"model-sharded"`` for a
-  decode of batch 1 whose cache has a sequence (``long_500k``): the rank
-  holds its ``model`` blocks and the whole sequence, as
-  ``BatchScheduler(mesh=)`` serves such a request, where the policy
-  splits the sequence over the data axes (not ported: ROADMAP 8b.6b), so
-  that the held bytes exceed ``argument_size`` by the sequence's other
-  data shares; ``"whole"`` where it holds every argument whole and
-  computes the replicated values of the whole batch (the MoE and MLA
-  models and the ``fsdp`` variant), so that ``temp_size`` and
-  ``argument_size_held`` show what that path needs and the gap to
-  ``argument_size`` is what sharding its storage would save.
+  blocks and its rows (the ``train`` step, the federated round, prefill
+  and decode: ``prefill_32k``, ``decode_32k``, ``long_500k``; a batch
+  that the data axes do not divide is every row on every data rank, its
+  share): the arguments are those blocks and, for decode, the rank's
+  cache block beside the whole token batch, the held bytes equal
+  ``argument_size`` (decode's position counted as the reference's
+  int32), and ``temp_size`` is the tensor-parallel step's, hymba's with
+  ``w_in`` and, where its 25 heads split mid-head, the attention's
+  projections gathered whole over ``model``, xlstm's with ``w_up``
+  gathered and, at model 16, its 4 heads computed replicated.  A decode
+  of batch 1 (``long_500k``) holds its block of the k / v cache's
+  sequence over the data axes, as the policy's ``shard_seq`` lays it
+  out, and combines the blocks' partial softmaxes over them.  A decode
+  of a batch larger than 1 that the data axes do not divide holds that
+  sequence block too, as the reference's step constrains its cache,
+  while the reference's policy keeps the step's cache argument whole
+  over the data axes: its held bytes are below ``argument_size``.
+  ``"whole"`` where the rank holds every argument whole and computes the
+  replicated values of the whole batch (the MoE and MLA models and the
+  ``fsdp`` variant), so that ``temp_size`` and ``argument_size_held``
+  show what that path needs and the gap to ``argument_size`` is what
+  sharding its storage would save.
 - ``collective_bytes`` are the dry mesh's collectives by the reference's
   kind names, each counted at its result's size (for an all-gather the
   gathered tensor), as the reference's ``collective_bytes`` counts them.
@@ -149,26 +151,18 @@ def _held_bytes(tree) -> int:
     return sum(storages.values())
 
 
-def step_storage(cfg, mesh, kind: str, policy_variant: str = "baseline",
-                 batch_size: int | None = None) -> str:
+def step_storage(cfg, mesh, kind: str, policy_variant: str = "baseline") -> str:
     """What a rank of ``mesh`` holds of a ``kind`` step's arguments under the
     baseline policy, for the families of ``shards_storage``: ``"sharded"``,
-    its share of the reference's layout (``train``, the federated round,
-    ``prefill``, and ``decode``: its blocks, and the rows the data axes give
-    it, every row where they do not divide the batch); ``"model-sharded"``
-    for a decode of batch 1 whose cache has a sequence axis, such as
-    ``long_500k``: the policy splits that sequence over the data axes
-    (ROADMAP 8b.6b), while the rank holds its ``model`` blocks and the
-    whole sequence, as ``BatchScheduler(mesh=)`` serves such a request;
-    else ``"whole"``."""
+    its blocks (``train``, the federated round, ``prefill`` and ``decode``),
+    the rows the data axes give it (every row where they do not divide
+    the batch) and, for a decode whose batch they do not divide, its block
+    of the k / v cache's sequence where they divide its length
+    (``transformer.seq_block``); else ``"whole"``."""
     if policy_variant != "baseline" or not shards_storage(cfg, mesh):
         return "whole"
     if kind not in ("train", "federated_round", "prefill", "decode"):
         return "whole"
-    dp = tuple(a for a in mesh.axis_names if a != "model")
-    if (kind == "decode" and batch_size == 1 and mesh.size(dp) > 1
-            and any("seq" in axes for axes in spec_leaves(cache_specs(cfg)))):
-        return "model-sharded"
     return "sharded"
 
 
@@ -235,23 +229,25 @@ def build_step(cfg, mesh, shape, lr: float = 1e-3, policy_variant: str = "baseli
       position.
 
     The layout is ``_reference_args``'.  Where ``step_storage`` says
-    ``"sharded"`` or ``"model-sharded"``, ``args`` are what the rank holds
-    on that path: its blocks of the parameters (``param_blocks``), its
-    share of the batch (every row for ``"model-sharded"``; decode's tokens
-    whole, as the reference replicates them) and its block of the cache (``init_cache(...,
-    mesh=)``), and each spec is ``()``.  Where it says ``"sharded"`` that
-    is exactly the rank's share of the reference's layout
-    (``argument_size``)."""
+    ``"sharded"``, ``args`` are what the rank holds on that path: its
+    blocks of the parameters (``param_blocks``), its share of the batch
+    (decode's tokens whole, as the reference replicates them) and its
+    block of the cache (``init_cache(..., mesh=)``: a batch of one, or one
+    the data axes do not divide, holds its block of the sequence), and
+    each spec is ``()``.  That is the rank's share of the reference's
+    layout (``argument_size``), but for the decode of a batch larger than
+    1 that the data axes do not divide: the reference's policy keeps that
+    step's cache argument whole over the data axes, which its step's
+    cache constraint then splits over the sequence, the layout the rank
+    holds, so that the rank holds less than ``argument_size``."""
     cfg, args, in_specs, cshard = _reference_args(cfg, mesh, shape, policy_variant)
     params, batch = args[:2]
     pshard, bshard = in_specs[:2]
-    storage = step_storage(cfg, mesh, shape.kind, policy_variant, shape.global_batch)
-    blocks = storage != "whole"
+    blocks = step_storage(cfg, mesh, shape.kind, policy_variant) == "sharded"
     if blocks:
         params, pshard = param_blocks(params, cfg, mesh), _local(params)
         if shape.kind != "decode":
-            if storage == "sharded":
-                batch = shard_tree(batch, bshard, mesh)
+            batch = shard_tree(batch, bshard, mesh)
             bshard = _local(batch)
     if shape.kind == "train":
 
@@ -288,7 +284,8 @@ def build_step(cfg, mesh, shape, lr: float = 1e-3, policy_variant: str = "baseli
         cache = init_cache(cfg, shape.global_batch, shape.seq_len, device="meta", mesh=mesh)
 
     def serve_step(params, batch, cache, pos):
-        return decode_step(params, cfg, batch, cache, pos, mesh=serve_mesh)
+        return decode_step(params, cfg, batch, cache, pos, mesh=serve_mesh,
+                           max_len=shape.seq_len)
 
     return (serve_step, (params, batch, cache, shape.seq_len - 1),
             ((pshard, bshard, cshard, ()), ((), cshard)), (2,))
@@ -495,7 +492,7 @@ def trace_step(cfg, mesh, shape, policy_variant: str = "baseline", path: str = "
     fn, args, _, _ = build_step(cfg, mesh, shape, policy_variant=policy_variant)
     traced = trace(fn, args, path)
     rec = {"n_devices": mesh.size(), "kind": shape.kind, "path": path,
-           "storage": step_storage(cfg, mesh, shape.kind, policy_variant, shape.global_batch),
+           "storage": step_storage(cfg, mesh, shape.kind, policy_variant),
            **_record(traced, argument_size(cfg, mesh, shape, policy_variant)),
            "ops": traced["ops"]}
     rec["probes"] = None

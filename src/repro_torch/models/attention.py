@@ -84,7 +84,7 @@ from repro_torch.models.common import (
 
 __all__ = ["init_gqa", "gqa_shapes", "gqa_specs", "gqa_attention", "gqa_decode", "init_mla",
            "mla_shapes", "mla_specs", "mla_attention", "mla_decode", "naive_attention",
-           "flash_attention", "decode_attention"]
+           "flash_attention", "decode_attention", "decode_partial", "decode_attention_split"]
 
 _NEG = -1e30
 
@@ -283,14 +283,61 @@ def decode_attention(q, k_cache, v_cache, pos: int, window: int = 0,
     return out.reshape(b, 1, h, d).to(q.dtype)
 
 
-def gqa_decode(p, cfg, x, sin_pos, cos_pos, cache, pos: int, is_global=1.0, tp=None):
+def decode_partial(q, k_block, v_block, pos: int, first: int = 0, window: int = 0,
+                   is_global=1.0):
+    """``decode_attention`` over one block of the cache, the positions
+    [first, first + S) of k_block and v_block (B, S, KV, D), masked on
+    those global positions -> the block's partial softmax in fp32: its
+    score maximum m (B, KV, G, 1), l = sum exp(s - m) (B, KV, G, 1) and o
+    = sum exp(s - m) v (B, KV, G, D), G = H / KV.  A block with no valid
+    position gives l = o = 0."""
+    b, _, h, d = q.shape
+    s, kv = k_block.shape[1], k_block.shape[2]
+    qg = q.reshape(b, kv, h // kv, d).to(torch.float32)
+    scores = torch.einsum("bkgd,bskd->bkgs", qg, k_block.to(torch.float32)) / math.sqrt(d)
+    kpos = torch.arange(first, first + s, device=q.device)
+    scores = scores + _mask_val(pos, kpos, window, is_global)
+    m = scores.amax(-1, keepdim=True)
+    e = torch.exp(scores - m)
+    valid = m > _NEG / 2           # a masked score is _NEG: the block's max then too
+    l = torch.where(valid, e.sum(-1, keepdim=True), 0.0)
+    o = torch.where(valid, torch.einsum("bkgs,bskd->bkgd", e, v_block.to(torch.float32)), 0.0)
+    return m, l, o
+
+
+def decode_attention_split(q, k_block, v_block, pos: int, first: int, mesh, window: int = 0,
+                           is_global=1.0) -> torch.Tensor:
+    """``decode_attention`` over a cache whose sequence lies in blocks on
+    the data axes of ``mesh`` (every axis but ``model``), this rank's the
+    positions [first, first + S): each rank's partial (``decode_partial``)
+    rescaled to the maximum over the ranks, M = max_r m_r, and summed over
+    them, l = sum_r l_r exp(m_r - M) and o = sum_r o_r exp(m_r - M) (one
+    all-reduce of o and l together) -> o / l (B, 1, H, D) in q's type.  A
+    block with no valid position adds exactly 0; the block holding
+    ``pos`` always has one."""
+    b, _, h, d = q.shape
+    axes = tuple(a for a in mesh.axis_names if a != "model")
+    m, l, o = decode_partial(q, k_block, v_block, pos, first, window, is_global)
+    top = mesh.all_reduce_max(m.clone(), axes)
+    scale = torch.exp(m - top)
+    ol = mesh.all_reduce_sum(torch.cat([o * scale, l * scale], dim=-1), axes)
+    out = ol[..., :d] / ol[..., d:]
+    return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+def gqa_decode(p, cfg, x, sin_pos, cos_pos, cache, pos: int, is_global=1.0, tp=None,
+               seq=None):
     """One token: x (B, 1, d), the one-row RoPE tables of position ``pos``
     and ``cache`` = (k_cache, v_cache) (B, S_max, KV, hd) -> (out (B, 1,
     d), cache), the token's k and v written into the cache at ``pos`` in
     place.  ``tp``: on a rank's blocks, by ``gqa_attention``'s rules, the
     cache being the rank's block: its kv heads where ``model`` divides them
     (the first rule), else every kv head, each of which the rank projects
-    and writes, attending its q heads to the kv heads they use."""
+    and writes, attending its q heads to the kv heads they use.  ``seq``
+    (with ``tp``): the cache block holds the positions [seq, seq + S) of a
+    sequence split over ``tp``'s data axes; the token is written where
+    ``pos`` falls in the block, and the attention is
+    ``decode_attention_split``'s."""
     k_cache, v_cache = cache
     plan = None if tp is None else _head_plan(p, cfg, tp)
     if tp is not None and plan is None:
@@ -302,15 +349,19 @@ def gqa_decode(p, cfg, x, sin_pos, cos_pos, cache, pos: int, is_global=1.0, tp=N
         pl = {"wq": p["wq"], **_kv_weights(p, cfg, tp, lo, hi, every=True)}
         q, k_new, v_new = _project_qkv(pl, cfg, x, sin_pos, cos_pos,
                                        heads=(hl, k_cache.shape[2]))
-    k_cache[:, pos] = k_new[:, 0].to(k_cache.dtype)
-    v_cache[:, pos] = v_new[:, 0].to(v_cache.dtype)
+    if seq is None or seq <= pos < seq + k_cache.shape[1]:
+        k_cache[:, pos - (seq or 0)] = k_new[:, 0].to(k_cache.dtype)
+        v_cache[:, pos - (seq or 0)] = v_new[:, 0].to(v_cache.dtype)
     kc, vc = k_cache, v_cache
     if plan is not None:
         if kc.shape[2] != hi - lo:
             kc, vc = kc[:, :, lo:hi], vc[:, :, lo:hi]
         if idx is not None:
             kc, vc = kc[:, :, idx], vc[:, :, idx]
-    o = decode_attention(q, kc, vc, pos, cfg.sliding_window, is_global)
+    if seq is None:
+        o = decode_attention(q, kc, vc, pos, cfg.sliding_window, is_global)
+    else:
+        o = decode_attention_split(q, kc, vc, pos, seq, tp, cfg.sliding_window, is_global)
     out = linear(o.reshape(x.shape[0], 1, -1), p["wo"])
     return (out if plan is None else row_out(out, tp)), (k_cache, v_cache)
 

@@ -100,23 +100,25 @@ variant's layout) hold every leaf whole on every rank.
 Serving on a grid, for the same families: ``init_cache(...,
 mesh=)`` builds the rank's block of each cache leaf under the baseline
 policy (``cache_layout``: rows over the data axes where they divide the
-batch, else every row; kv heads over ``model`` where it divides them;
-hymba's Mamba state and conv tail and the xLSTM states whole over
-``model``); ``prefill(..., mesh=)`` takes the rank's rows
-(``batch_rows``) and runs ``forward(..., tp=mesh)``, writes the rank's k
-and v (every kv head where the cache holds them all) and gathers the
-recurrent states over ``model`` into its block; ``decode_step(...,
-mesh=)`` takes every row of the token batch, as the reference replicates
-it, and steps the cache block's rows: the vocab-parallel lookup, GQA on
-the rank's q and kv heads (``attention.gqa_decode(..., tp=)``, ``wo``'s
-row block summed over ``model``), the Mamba heads on the rank's channels
-and the xLSTM cores on its heads (``ssm.mamba_decode`` /
-``mlstm_decode`` / ``slstm_decode(..., tp=)``, their states brought back
-whole over ``model`` each step), the MLP's blocks.  Both return the
-logits replicated, as the reference's steps do: the vocab-parallel head's
-blocks gathered over ``model``, the rows over the data axes.  A batch of
-one keeps its sequence whole on every data rank, where the policy splits
-it over them (a softmax combined across ranks, not ported).
+batch; else, where they divide the cache's length, the k / v sequence
+over them (``seq_block``), as the reference's decode constraint lays it
+out; kv heads over ``model`` where it divides them; hymba's Mamba state
+and conv tail and the xLSTM states whole over ``model``);
+``prefill(..., mesh=)`` takes the rank's rows (``batch_rows``) and runs
+``forward(..., tp=mesh)``, writes the rank's k and v (every kv head where
+the cache holds them all; on a split sequence the prompt's positions in
+the rank's block) and gathers the recurrent states over ``model`` into
+its block; ``decode_step(..., mesh=)`` takes every row of the token
+batch, as the reference replicates it, and steps the cache block's rows:
+the vocab-parallel lookup, GQA on the rank's q and kv heads
+(``attention.gqa_decode(..., tp=)``, ``wo``'s row block summed over
+``model``; on a split sequence the partial softmax of the rank's block
+combined over the data axes), the Mamba heads on the rank's channels and
+the xLSTM cores on its heads (``ssm.mamba_decode`` / ``mlstm_decode`` /
+``slstm_decode(..., tp=)``, their states brought back whole over
+``model`` each step), the MLP's blocks.  Both return the logits
+replicated, as the reference's steps do: the vocab-parallel head's
+blocks gathered over ``model``, the rows over the data axes.
 
 Serving (``init_params``, ``init_cache``, ``prefill``, ``decode_step``) and
 the training launcher run the model in the config's dtype, bf16 at full
@@ -172,7 +174,7 @@ __all__ = [
     "abstract_params",
     "transformer_specs", "cast_params", "embed_inputs", "forward", "output_head",
     "chunked_logits_sum", "token_nll", "loss_fn", "init_cache", "cache_specs", "cache_layout",
-    "batch_rows", "prefill", "decode_step",
+    "batch_rows", "seq_block", "prefill", "decode_step",
 ]
 
 
@@ -1040,8 +1042,9 @@ def init_cache(cfg, batch_size: int, max_len: int, device=None, mesh=None) -> di
     are fp32, m starts at -1e30, everything else at 0.
 
     ``mesh``: for the families of ``shards_storage`` on a grid, this rank's
-    block of each leaf (``cache_layout``), the rows of ``batch_rows``; the
-    whole leaves are never allocated."""
+    block of each leaf (``cache_layout``), the rows of ``batch_rows`` and,
+    where the data axes split the sequence, the positions of
+    ``seq_block``; the whole leaves are never allocated."""
     check_supported(cfg, tree=True)
 
     def make(shape, dtype, fill):
@@ -1052,36 +1055,82 @@ def init_cache(cfg, batch_size: int, max_len: int, device=None, mesh=None) -> di
     from repro_torch.sharding import shard_shape, spec_leaves
 
     leaves, spec = tree_flatten(_cache_tree(cfg, batch_size, max_len, _Leaf))
-    specs = spec_leaves(cache_layout(cfg, mesh, batch_size))
+    specs = spec_leaves(cache_layout(cfg, mesh, batch_size, max_len))
     return tree_unflatten([make(shard_shape(mesh, sp, leaf.shape), leaf.dtype, leaf.fill)
                            for sp, leaf in zip(specs, leaves, strict=True)], spec)
 
 
-def cache_layout(cfg, mesh, batch_size: int):
-    """The baseline policy's spec of each leaf of ``init_cache``'s whole
-    cache for a batch of ``batch_size`` on ``mesh``: rows over the data
-    axes where they divide the batch, kv heads over ``model`` where it
-    divides them, everything else whole (hymba's Mamba state and conv
-    tail, the xLSTM states: batch rows only; the sequence, never split,
-    takes no part).  A batch of one keeps its rows and its sequence whole
-    on every data rank, where the policy moves the data axes to the
-    sequence: a decode over a sequence split across ranks (a softmax
-    combined over them) is not ported."""
+def cache_layout(cfg, mesh, batch_size: int, max_len: int):
+    """The spec of each leaf of ``init_cache``'s whole cache for a batch of
+    ``batch_size`` and ``max_len`` positions on ``mesh``, by the rule of
+    the reference's decode constraint on a layer's k / v leaf (B, S, KV,
+    hd): rows over the data axes where they divide the batch; else the
+    sequence over them where they divide ``max_len`` (a batch of one, or
+    one they do not divide: ``seq_block``, the baseline policy's
+    ``shard_seq``); else whole.  kv heads over ``model`` where it divides
+    them.  hymba's Mamba state and conv tail and the xLSTM states, which
+    have no sequence, take rows only where the data axes divide the
+    batch, else stay whole (the reference's constraint would split their
+    second axis inside its step, a layout of that step's state, not of
+    the stored cache)."""
     from repro_torch.sharding import make_policy
 
-    return make_policy(mesh, batch_size).shardings(cache_specs(cfg),
-                                                   _cache_tree(cfg, batch_size, 1, _Leaf))
+    policy = make_policy(mesh, batch_size,
+                         shard_seq=_splits_sequence(cfg, mesh, batch_size, max_len))
+    return policy.shardings(cache_specs(cfg), _cache_tree(cfg, batch_size, max_len, _Leaf))
+
+
+def _data_axes(mesh) -> tuple[str, ...]:
+    return tuple(a for a in mesh.axis_names if a != "model")
 
 
 def batch_rows(mesh, batch_size: int) -> tuple[int, int]:
     """(first row, rows) of a batch of ``batch_size`` that a rank of
     ``mesh`` holds on blocks: its share over the data axes (every axis but
     ``model``, row-major) where they divide the batch, else every row."""
-    dp = tuple(a for a in mesh.axis_names if a != "model")
+    dp = _data_axes(mesh)
     n = mesh.size(dp)
     if batch_size % n:
         return 0, batch_size
     return mesh.index(dp) * (batch_size // n), batch_size // n
+
+
+def _splits_sequence(cfg, mesh, batch_size: int, max_len: int) -> bool:
+    """Whether a rank of ``mesh`` holds only its block of the k / v cache's
+    sequence: a family of ``shards_storage`` with a k / v cache, whose
+    batch the data axes do not divide while they divide ``max_len``."""
+    if cfg.block_type == "xlstm" or not shards_storage(cfg, mesh):
+        return False
+    n = mesh.size(_data_axes(mesh))
+    return n > 1 and batch_size % n != 0 and max_len % n == 0
+
+
+def seq_block(cfg, mesh, batch_size: int, max_len: int) -> tuple[int, int]:
+    """(first position, positions) of the k / v cache of ``max_len``
+    positions that a rank of ``mesh`` holds for a batch of ``batch_size``:
+    its block over the data axes (row-major, as ``batch_rows``) where they
+    do not divide the batch but divide ``max_len``, else every position."""
+    if not _splits_sequence(cfg, mesh, batch_size, max_len):
+        return 0, max_len
+    dp = _data_axes(mesh)
+    n = max_len // mesh.size(dp)
+    return mesh.index(dp) * n, n
+
+
+def _whole_len(cfg, mesh, batch_size: int, held: int) -> int:
+    """The whole cache's length, from the ``held`` positions of a rank's
+    k / v block: ``held`` times the data axes' size where the batch does
+    not divide over them and ``held`` does (a whole cache of ``held``
+    positions would have been split), ``held`` where they divide the batch
+    or there is one data rank.  Raises where the two readings stay open."""
+    n = mesh.size(_data_axes(mesh))
+    if cfg.block_type == "xlstm" or n == 1 or batch_size % n == 0:
+        return held
+    if held % n == 0:
+        return held * n
+    raise ValueError(f"a cache block of {held} positions for a batch of {batch_size} on "
+                     f"{mesh.shape} is a whole cache of {held} or a block of {held * n}: "
+                     f"pass max_len")
 
 
 def _logits_blocks(params, cfg, h, mesh, batch_size: int):
@@ -1093,7 +1142,7 @@ def _logits_blocks(params, cfg, h, mesh, batch_size: int):
     if logits.shape[-1] != cfg.vocab:
         logits = mesh.all_gather(logits, "model", dim=-1)
     if logits.shape[0] != batch_size:
-        logits = mesh.all_gather(logits, tuple(a for a in mesh.axis_names if a != "model"))
+        logits = mesh.all_gather(logits, _data_axes(mesh))
     return logits
 
 
@@ -1118,31 +1167,37 @@ def prefill(params, cfg, batch: dict, max_len: int, mesh=None, batch_size: int |
     tp=mesh)``), the cache is the rank's block (``init_cache(...,
     mesh=)``), the recurrent states gathered over ``model`` where it holds
     them whole, and the logits come out replicated (``_logits_blocks``).
-    The MoE and MLA models keep ``mesh``'s capacity dispatch on every leaf
-    whole."""
+    Where the data axes split the cache's sequence (``seq_block``: a batch
+    they do not divide, a ``max_len`` they do), every data rank runs every
+    row of the prompt and keeps the prompt's k and v at the positions of
+    its block, none where its block starts at or past S.  The MoE and MLA
+    models keep ``mesh``'s capacity dispatch on every leaf whole."""
     sharded = shards_storage(cfg, mesh)
     tp = mesh if sharded else None
     x, _ = embed_inputs(params, cfg, batch, tp=tp)
     b, s = x.shape[:2]
     if s > max_len:
         raise ValueError(f"a prompt of {s} positions does not fit a cache of {max_len}")
+    first, held = 0, max_len
     if sharded:
-        batch_size = batch_size or b * mesh.size(tuple(a for a in mesh.axis_names
-                                                       if a != "model"))
+        batch_size = batch_size or b * mesh.size(_data_axes(mesh))
         if batch_rows(mesh, batch_size)[1] != b:
             raise ValueError(f"a rank holds {batch_rows(mesh, batch_size)[1]} rows of a batch "
                              f"of {batch_size} on {mesh.shape}; got {b}")
         h, caches = forward(params, cfg, x, collect_cache=True, tp=mesh)
         logits = _logits_blocks(params, cfg, h[:, -1], mesh, batch_size)
         cache = init_cache(cfg, batch_size, max_len, device=h.device, mesh=mesh)
+        first, held = seq_block(cfg, mesh, batch_size, max_len)
     else:
         h, caches = forward(params, cfg, x, collect_cache=True, mesh=mesh)
         logits = _logits(params, cfg, h[:, -1])
         cache = init_cache(cfg, b, max_len, device=h.device)
+    lo, hi = first, min(first + held, s)     # the prompt's positions in the block
     for i, entries in enumerate(caches):
         for name, value in entries.items():
             if name in ("k", "v", "latent", "k_rope"):
-                cache[name][i, :, :s] = value
+                if hi > lo:
+                    cache[name][i, :, :hi - lo] = value[:, lo:hi]
                 continue
             dst = cache[name] if isinstance(cache[name], tuple) else (cache[name],)
             src = value if isinstance(value, tuple) else (value,)
@@ -1155,9 +1210,10 @@ def prefill(params, cfg, batch: dict, max_len: int, mesh=None, batch_size: int |
 
 
 def _apply_layer_decode(pl, cfg, x, flags: dict[str, float], tabs_l, tabs_g, cache: dict,
-                        i: int, pos: int, mesh=None, tp=None):
+                        i: int, pos: int, mesh=None, tp=None, seq=None):
     """One layer, one token; layer ``i``'s cache entries advance in place.
-    ``tp``: on a rank's blocks and its cache block."""
+    ``tp``: on a rank's blocks and its cache block; ``seq``: the first
+    position of that block where it holds a block of the sequence."""
     if cfg.block_type == "xlstm":
         name = "mlstm" if flags["is_mlstm"] > 0 else "slstm"
         state = tuple(t[i] for t in cache[name])
@@ -1174,7 +1230,7 @@ def _apply_layer_decode(pl, cfg, x, flags: dict[str, float], tabs_l, tabs_g, cac
                               (cache["latent"][i], cache["k_rope"][i]), pos, is_global)
     else:
         a_out, _ = gqa_decode(pl["attn"], cfg, h, sin, cos, (cache["k"][i], cache["v"][i]),
-                              pos, is_global, tp=tp)
+                              pos, is_global, tp=tp, seq=seq)
     if cfg.block_type == "hymba":
         s_out, (cache["ssm_h"][i], cache["conv"][i]) = ssm_mod.mamba_decode(
             pl["ssm"], cfg, h, cache["ssm_h"][i], cache["conv"][i], tp=tp)
@@ -1184,7 +1240,8 @@ def _apply_layer_decode(pl, cfg, x, flags: dict[str, float], tabs_l, tabs_g, cac
 
 
 @torch.no_grad()
-def decode_step(params, cfg, batch: dict, cache: dict, pos: int, mesh=None):
+def decode_step(params, cfg, batch: dict, cache: dict, pos: int, mesh=None,
+                max_len: int | None = None):
     """One greedy-decode step: ``batch["token"]`` (B, 1) (a frames model:
     ``batch["frame"]`` (B, 1, d), RMS-normed as the prompt's frames) at
     position ``pos`` -> (logits (B, V), cache), the cache advanced in
@@ -1197,8 +1254,13 @@ def decode_step(params, cfg, batch: dict, cache: dict, pos: int, mesh=None):
     on its q and kv heads (``gqa_decode(..., tp=)``), the Mamba heads on
     its channels and the xLSTM cores on its heads (their states, whole over
     ``model``, brought back whole each step), the MLP's blocks; the logits
-    come out replicated (``_logits_blocks``).  The MoE and MLA models keep
-    ``mesh``'s capacity dispatch on every leaf whole."""
+    come out replicated (``_logits_blocks``).  Where the cache block holds
+    the rank's block of the sequence (``seq_block``), GQA writes the token
+    only on the rank whose block holds ``pos`` and combines the blocks'
+    partial softmaxes over the data axes; ``max_len`` is the whole cache's
+    length, by default read from the block (``_whole_len``, which raises
+    where a block and a whole cache cannot be told apart).  The MoE and MLA
+    models keep ``mesh``'s capacity dispatch on every leaf whole."""
     sharded = shards_storage(cfg, mesh)
     tp = mesh if sharded else None
     rows = batch["frame" if cfg.input_mode == "frames" else "token"]
@@ -1211,14 +1273,23 @@ def decode_step(params, cfg, batch: dict, cache: dict, pos: int, mesh=None):
     else:
         x = _embed_tokens(params, cfg, rows, tp)
     pos = int(pos)
-    tabs_l = tabs_g = None
+    tabs_l = tabs_g = seq = None
     if cfg.block_type != "xlstm":
-        max_len = cache["latent" if cfg.use_mla else "k"].shape[2]
+        held = cache["latent" if cfg.use_mla else "k"].shape[2]
+        if sharded:
+            max_len = max_len or _whole_len(cfg, mesh, batch_size, held)
+            first, n = seq_block(cfg, mesh, batch_size, max_len)
+            if n != held:
+                raise ValueError(f"a rank holds {n} positions of a cache of {max_len} for a "
+                                 f"batch of {batch_size} on {mesh.shape}; got {held}")
+            seq = first if n != max_len else None
+        else:
+            max_len = held
         tabs_l, tabs_g = _rope_tables(cfg, max_len, x.device, positions=pos)
     flags = layer_flags(cfg)
     for i, pl in enumerate(params["layers"]):
         x = _apply_layer_decode(pl, cfg, x, _flags_at(flags, i), tabs_l, tabs_g, cache,
-                                i, pos, mesh, tp=tp)
+                                i, pos, mesh, tp=tp, seq=seq)
     x = _norm(params, cfg, x, "final_norm")
     if sharded:
         return _logits_blocks(params, cfg, x[:, 0], mesh, batch_size), cache

@@ -21,10 +21,14 @@ larger than 1) the families of ``models.transformer.shards_storage`` take
 reference's scheduler takes them laid out by its policy: every rank
 submits the same requests, and each group's rows go over the data axes
 (pod and data) where they divide them (``transformer.batch_rows``), else
-every rank holds every row, on its ``model`` blocks, as the policy lays
-out such a batch; prefill and decode run on the rank's blocks and its
-cache block, their logits come back replicated, and every rank makes the
-same tokens.  The MoE and MLA models take the mesh as the reference's do
+every rank holds every row, on its ``model`` blocks, and its block of the
+k / v cache's sequence where the data axes divide the group's cache of
+prompt length + ``max_new`` positions (``transformer.seq_block``, as the
+reference's decode lays out a batch of one or one they do not divide):
+choosing ``max_new`` so that they divide it is how a caller gets that
+split for a single request or an odd group.  Prefill and decode run on
+the rank's blocks and its cache block, their logits come back
+replicated, and every rank makes the same tokens.  The MoE and MLA models take the mesh as the reference's do
 (``transformer.decode_step``): every leaf whole, the capacity dispatch.
 
 The model runs on the device of ``params`` (from ``init_params`` or a
@@ -147,7 +151,7 @@ class BatchScheduler:
                 if not alive[: len(group)].any():
                     break
             logits, cache = decode_step(self.params, self.cfg, {"token": tok}, cache, plen + i,
-                                        mesh=self.mesh)
+                                        mesh=self.mesh, max_len=plen + gmax)
             tok = self._greedy(logits)
             outs.append(tok.cpu().numpy())
         self.groups.append({"prompt_len": plen, "rows": len(group), "prefill_s": t1 - t0,

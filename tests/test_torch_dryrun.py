@@ -490,26 +490,27 @@ def test_serving_records_shard_where_the_data_axes_divide_the_batch(name):
     the 2 data ranks divide the batch (4), with ``argument_size_held ==
     argument_size`` and the logits replicated; a batch of 3 and a prefill
     of 1 hold the ``model`` blocks and every row, which is their share
-    too; a decode of batch 1, whose sequence the policy splits over the
-    data axes, holds the ``model`` blocks and the whole sequence
-    ("model-sharded", as ``BatchScheduler(mesh=)`` serves it): more than
-    its share (xlstm's cache has no sequence: its share), less than the
+    too; a decode of batch 1 holds its block of the cache's sequence over
+    the data axes, as the policy's ``shard_seq`` lays it out: its share
+    ("sharded"); a decode of 3 holds that sequence block too, as the
+    reference's step constrains its cache, less than the policy's share,
+    which keeps the step's cache argument whole over the data axes
+    (xlstm's cache has no sequence: its share).  Each holds less than the
     whole arguments."""
     cfg = _reduced(name)
     mesh = make_dry_mesh(2, 2)
     for kind in ("prefill", "decode"):
         for batch in (4, 3, 1):
-            storage = ("model-sharded" if kind == "decode" and batch == 1
-                       and cfg.block_type != "xlstm" else "sharded")
             shape = InputShape("t", 32, batch, kind)
             fn, args, _, _ = dryrun.build_step(cfg, mesh, shape)
             traced = dryrun.trace(fn, args, memory=False)
             held = traced["args"] + traced["scalars"]
             want = dryrun.argument_size(cfg, mesh, shape)
             whole = dryrun.argument_size(cfg, make_dry_mesh(), shape)
-            assert dryrun.step_storage(cfg, mesh, kind, batch_size=batch) == storage
-            assert (held == want) == (storage == "sharded"), (kind, batch, held, want)
-            assert want <= held < whole, (kind, batch, want, held, whole)
+            below = kind == "decode" and batch == 3 and cfg.block_type != "xlstm"
+            assert dryrun.step_storage(cfg, mesh, kind) == "sharded"
+            assert (held < want) if below else (held == want), (kind, batch, held, want)
+            assert held < whole, (kind, batch, want, held, whole)
             logits = fn(*args)[0]
             assert logits.shape == (batch, cfg.vocab), (kind, batch)
 

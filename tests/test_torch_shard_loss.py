@@ -109,7 +109,8 @@ MICRO = dict(d_model=64, n_heads=3, n_kv_heads=1, head_dim=16, d_ff=128, vocab=6
 CASES = {
     "stablelm-3b": ("stablelm-3b", {}),
     "glm4-9b": ("glm4-9b", {}),
-    "gemma3-27b": ("gemma3-27b", {"sliding_window": 16}),
+    # one local layer and one global, the window of 16 biting on the first
+    "gemma3-27b": ("gemma3-27b", {"sliding_window": 16, "layer_pattern": "LG"}),
     "qwen3-14b": ("qwen3-14b", {}),
     "q_mid_head": ("qwen3-14b", MICRO),
     "kv_mid_head": ("glm4-9b", MICRO | {"n_heads": 4}),
@@ -122,13 +123,26 @@ CASES = {
     "xlstm_mid_head": ("xlstm-125m", {"layer_pattern": "MS", "d_model": 48, "ssm_heads": 3}),
 }
 # serving: prefill and SERVE_STEPS greedy decode steps of the first rows of
-# the case's batch: 4 (the data axes divide them), and for hymba (a kv cache
-# and a recurrent state) also 3 (they do not: every rank holds every row)
+# the case's batch, each run (rows, prompt length, cache length): 4 rows of
+# the whole prompt (the data axes divide them); for hymba (a kv cache and a
+# recurrent state) also 3 (they do not: every rank holds every row and, on
+# the world of 4, its half of the k / v cache's 40 positions, the prompt in
+# both halves, the window of 16 leaving the first half with no valid
+# position on the local layer from position 35 on); and a batch of one of
+# ONE_ROW's prompt and cache lengths, on its halves of the sequence:
+# stablelm-3b's prompt of 12 in a cache of 32 (the second half with no
+# valid position until the step at 16), gemma3-27b's prompt of 32 in 40
+# (its window crossing the halves' boundary at 20 from position 32, the
+# first half with no valid position on the local layer from 35 on, the
+# global layer reading both)
 SERVE_STEPS = 8
 UNDIVIDED = ("hymba-1.5b",)
-# BatchScheduler(mesh=): two prompt lengths, groups of max_batch 4 and 3
+ONE_ROW = {"stablelm-3b": (12, 32), "gemma3-27b": (32, 40)}
+# BatchScheduler(mesh=): two prompt lengths, groups of max_batch 4 and 3;
+# the groups of 3 and of 1 hold caches of 22 and 18 positions, which the
+# world of 4's two data ranks split
 SCHEDULED = ("stablelm-3b", "hymba-1.5b", "xlstm-125m")
-SCHED_LENS, SCHED_NEW = (16, 16, 16, 16, 12), 5
+SCHED_LENS, SCHED_NEW = (16, 16, 16, 16, 12), 6
 
 
 def make_cfg(get, name):
@@ -141,8 +155,15 @@ def make_cfg(get, name):
     return cfg
 
 
-def serve_rows(name):
-    return (4, 3) if name in UNDIVIDED else (4,)
+def serve_runs(name, s):
+    '''The case's serving runs, (rows, prompt length, cache length), for
+    its batch's sequences of s positions.'''
+    runs = [(4, s, s + SERVE_STEPS)]
+    if name in UNDIVIDED:
+        runs.append((3, s, s + SERVE_STEPS))
+    if name in ONE_ROW:
+        runs.append((1, *ONE_ROW[name]))
+    return runs
 
 
 def prompts(tokens):
@@ -166,7 +187,7 @@ dist.init_process_group("gloo", init_method="file://" + os.path.join(work, f"sto
                         world_size=world, rank=rank)
 sys.path.insert(0, work)
 from shard_case import (CASES, SCHED_NEW, SCHEDULED, SERVE_STEPS, make_cfg, prompts,
-                        serve_rows)
+                        serve_runs)
 from repro_torch.configs import get_config
 from repro_torch.convert import blocks_from_jax
 from repro_torch.launch.mesh import make_host_mesh
@@ -196,13 +217,14 @@ for name in CASES:
     out[name] = {"loss": float(loss), "grads": grads,
                  "gathered": tree_flatten(gathered)[0] if rank == 0 else None}
     # serving on the blocks: prefill, then greedy decode steps (frames: the
-    # case's next frames), the logits and the cache block after each end
+    # case's next frames), the logits and the cache block after each end;
+    # decode_step reads the whole cache's length from the block
     blocks = tree_unflatten([p.detach() for p in leaves], spec)
-    s = len(batch["labels"][0])
-    for b in serve_rows(name):
+    for b, s, max_len in serve_runs(name, len(batch["labels"][0])):
         lo, n = batch_rows(mesh, b)
-        mine = {k: torch.from_numpy(v[lo:lo + n]) for k, v in batch.items() if k != "labels"}
-        logits, cache = prefill(blocks, cfg, mine, s + SERVE_STEPS, mesh=mesh, batch_size=b)
+        mine = {k: torch.from_numpy(v[lo:lo + n, :s]) for k, v in batch.items()
+                if k != "labels"}
+        logits, cache = prefill(blocks, cfg, mine, max_len, mesh=mesh, batch_size=b)
         seen, first = [logits], {k: v.clone() if torch.is_tensor(v) else
                                  tuple(t.clone() for t in v) for k, v in cache.items()}
         for i in range(SERVE_STEPS):
@@ -244,10 +266,16 @@ def _numpy_tree(params):
 
 
 class _At:
-    """A rank's place on a grid, as ``param_blocks`` reads a mesh."""
+    """A rank's place on a grid, as ``param_blocks`` and ``cache_layout``
+    read a mesh."""
+
+    grid = True
 
     def __init__(self, shape, coords):
         self.shape, self.axis_names, self.coords = shape, tuple(shape), coords
+
+    def size(self, axes):
+        return int(np.prod([self.shape[a] for a in axes]))
 
     def index(self, axes):
         idx = 0
@@ -295,21 +323,21 @@ def shard(tmp_path_factory):
 
     def reference_serve(name):
         """The reference's prefill and greedy decode steps, unsharded, for
-        each of the case's row counts: (logits, the cache after prefill, the
-        cache at the end), numpy."""
+        each of the case's serving runs, by rows: (logits, the cache after
+        prefill, the cache at the end), numpy."""
         (tree, batch), ref_cfg = case[name], cfgs[name][0]
-        pre = jax.jit(lambda p, bt: ref_tf.prefill(p, ref_cfg, bt, S + SERVE_STEPS))
         step = jax.jit(lambda p, bt, c, pos: ref_tf.decode_step(p, ref_cfg, bt, c, pos))
         got = {}
-        for b in serve_rows(name):
-            logits, cache = pre(tree, {k: jnp.asarray(v[:b]) for k, v in batch.items()
+        for b, s, max_len in serve_runs(name, S):
+            pre = jax.jit(lambda p, bt, n=max_len: ref_tf.prefill(p, ref_cfg, bt, n))
+            logits, cache = pre(tree, {k: jnp.asarray(v[:b, :s]) for k, v in batch.items()
                                        if k != "labels"})
             seen, first = [logits], jax.tree.map(np.asarray, cache)
             for i in range(SERVE_STEPS):
                 inp = ({"frame": jnp.asarray(case["frames"][i][:b])}
                        if ref_cfg.input_mode == "frames" else
                        {"token": jnp.argmax(logits, -1)[:, None].astype(jnp.int32)})
-                logits, cache = step(tree, inp, cache, jnp.int32(S + i))
+                logits, cache = step(tree, inp, cache, jnp.int32(s + i))
                 seen.append(logits)
             got[b] = (np.stack([np.asarray(x) for x in seen]), first,
                       jax.tree.map(np.asarray, cache))
@@ -372,10 +400,12 @@ def test_serving_on_blocks_matches_the_reference(shard, name, world):
     ``decode_step``: the logits within ``SERVE_TOL`` of max(1, |ref|)
     (every rank holds all of them), the greedy tokens exactly, and the
     rank's cache block, after prefill and at the end, within ``SERVE_TOL``
-    of max(1, |ref|) element by element."""
+    of max(1, |ref|) element by element: its rows, or on the world of 4
+    for 3 rows and 1 its block of the k / v sequence."""
     cfg = shard["cfgs"][name][1]
     data, model = WORLDS[world]
     shape = {"data": data, "model": model}
+    cache_len = {b: n for b, _, n in serve_runs(name, S)}
     for b, (want_logits, want_first, want_end) in shard["serve"][name].items():
         for rank, got in enumerate(shard["ranks"][world]):
             run = got[name][f"serve{b}"]
@@ -388,7 +418,11 @@ def test_serving_on_blocks_matches_the_reference(shard, name, world):
             at = _At(shape, got["coords"])
             for mine, want in ((run["prefill_cache"], want_first), (run["cache"], want_end)):
                 whole = cache_from_jax(want, cfg)
-                block = shard_tree(whole, cache_layout(cfg, at, b), at)
+                layout = cache_layout(cfg, at, b, cache_len[b])
+                if "k" in layout:   # the k / v sequence over data where the rows stay
+                    split = data > 1 and b % data and cache_len[b] % data == 0
+                    assert (*layout["k"], None, None, None)[2] == ("data" if split else None)
+                block = shard_tree(whole, layout, at)
                 assert set(mine) == set(block), (rank, b)
                 for key in block:
                     gs, ws = (v if isinstance(v, (list, tuple)) else (v,)
@@ -402,8 +436,9 @@ def test_serving_on_blocks_matches_the_reference(shard, name, world):
 @pytest.mark.parametrize("world", sorted(WORLDS))
 def test_batch_scheduler_on_a_mesh_gives_the_unsharded_tokens(shard, world):
     """``BatchScheduler(..., mesh=)`` on every rank's blocks, groups of 4
-    (split over the data axes) and 3 rows (not split), makes the tokens of
-    the unsharded scheduler on the same weights, on every rank."""
+    (rows split over the data axes) and of 3 and 1 (every row; on the
+    world of 4 the k / v sequence split), makes the tokens of the
+    unsharded scheduler on the same weights, on every rank."""
     for name in SCHEDULED:
         for mb in (4, 3):
             want = shard["sched"][name, mb]
@@ -450,3 +485,114 @@ def test_the_cases_shard_and_split_as_the_docstring_says():
         assert xlstm.d_model % model == 0 and xlstm.vocab % model == 0
     assert vlm.n_heads % 2 == vlm.n_kv_heads % 2 == frames.n_heads % 2 == 0
     assert xlstm.ssm.n_heads % 2 == 0 and xlstm.ssm.n_heads % 16
+
+
+@pytest.mark.parametrize("name", ["stablelm-3b", "hymba-1.5b"])
+def test_cache_layout_splits_the_sequence_where_the_reference_constraint_does(name,
+                                                                               monkeypatch):
+    """``cache_layout``'s k / v leaf (L, B, S, KV, hd) puts the data axes on
+    the rows, on the sequence or on neither exactly where the reference's
+    ``_cache_constraint`` puts them on a layer's leaf (B, S, KV, hd):
+    rows where the data axes divide a batch larger than 1, else the
+    sequence where they divide its length (a batch of one, or 3), else
+    neither (a length they do not divide).  The reference's constraint is
+    read by standing in for ``with_sharding_constraint``."""
+    import jax.sharding
+
+    seen = []
+    monkeypatch.setattr(jax.sharding, "NamedSharding", lambda mesh, spec: spec)
+    monkeypatch.setattr(jax.lax, "with_sharding_constraint",
+                        lambda leaf, spec: seen.append(tuple(spec)) or leaf)
+
+    def placed(spec, dims):   # the dimension the data axes split, or None
+        for dim, entry in zip(dims, (*spec, None, None)):
+            axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
+            if "data" in axes:
+                return dim
+        return None
+
+    cfg = make_cfg(get_config, name)
+    kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    ways = set()
+    for shape in ({"data": 2, "model": 2}, {"pod": 2, "data": 2, "model": 2},
+                  {"data": 4, "model": 1}):
+        at = _At(shape, dict.fromkeys(shape, 0))
+        for b in (1, 3, 4, 8):
+            for max_len in (40, 41, 36):
+                seen.clear()
+                ref_tf._cache_constraint({"k": np.zeros((b, max_len, kv, hd), np.float32)}, at)
+                want = placed(seen[0], ("rows", "seq")) if seen else None
+                got = placed(cache_layout(cfg, at, b, max_len)["k"][1:], ("rows", "seq"))
+                assert got == want, (shape, b, max_len, got, want)
+                ways.add(got)
+    assert ways == {"rows", "seq", None}
+
+
+class _Ranks:
+    """n threads standing for the ranks of a mesh's data axis: each
+    collective waits for all n and gives each the reduction of their
+    tensors, in rank order."""
+
+    def __init__(self, n):
+        import threading
+
+        self.shape, self.axis_names = {"data": n, "model": 1}, ("data", "model")
+        self.barrier, self.slots, self.local = threading.Barrier(n), [None] * n, threading.local()
+
+    def _reduce(self, t, op):
+        self.slots[self.local.rank] = t.clone()
+        self.barrier.wait()
+        out = op(torch.stack(self.slots))
+        self.barrier.wait()
+        return t.copy_(out)
+
+    def all_reduce_max(self, t, axes):
+        return self._reduce(t, lambda x: x.amax(0))
+
+    def all_reduce_sum(self, t, axes):
+        return self._reduce(t, lambda x: x.sum(0))
+
+
+def test_split_decode_attention_combines_to_the_whole_cache():
+    """A cache cut into n blocks, each block's partial softmax
+    (``decode_partial``) combined over n threads standing for the data
+    ranks (``decode_attention_split``), equals ``decode_attention`` on the
+    whole cache within 1e-6 and is finite, for every n, causal limit and
+    window, including blocks with no valid position (past ``pos``, or
+    before the window), whose partial sums are exactly 0."""
+    from repro_torch.models.attention import (decode_attention, decode_attention_split,
+                                              decode_partial)
+
+    rng = np.random.default_rng(0)
+    b, s, h, kv, d = 2, 48, 6, 2, 16
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               for shape in ((b, 1, h, d), (b, s, kv, d), (b, s, kv, d)))
+    empty = 0
+    for n in (2, 3, 4):
+        m = s // n
+        for pos, window, is_global in ((5, 0, 1.0), (47, 0, 1.0), (30, 8, 0.0), (30, 8, 1.0),
+                                       (20, 4, 0.0), (40, 12, 0.0)):
+            want = decode_attention(q, k, v, pos, window, is_global)
+            ranks = _Ranks(n)
+
+            def rank(r, ranks=ranks, pos=pos, window=window, is_global=is_global):
+                ranks.local.rank = r
+                blk = slice(r * m, (r + 1) * m)
+                return decode_attention_split(q, k[:, blk], v[:, blk], pos, r * m, ranks,
+                                              window, is_global)
+
+            with ThreadPoolExecutor(n) as pool:
+                got = list(pool.map(rank, range(n)))
+            for r, out in enumerate(got):
+                assert torch.isfinite(out).all(), (n, pos, window, r)
+                err = float((out - want).abs().max())
+                assert err <= 1e-6, (n, pos, window, is_global, r, err)
+            for r in range(n):
+                blk = slice(r * m, (r + 1) * m)
+                valid = [p for p in range(r * m, (r + 1) * m) if p <= pos and (
+                    not window or is_global > 0 or pos - p < window)]
+                _, l, o = decode_partial(q, k[:, blk], v[:, blk], pos, r * m, window, is_global)
+                if not valid:
+                    empty += 1
+                    assert not l.any() and not o.any(), (n, pos, window, r)
+    assert empty >= 10
