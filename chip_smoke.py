@@ -3799,8 +3799,9 @@ def _grid_probe_start():
     """Before the grid world, two worlds of two processes on the one card,
     started together: one under NCCL (a communicator of two ranks on one
     device, which NCCL should refuse), one under gloo with CUDA tensors
-    (``all_reduce`` sum and max and ``all_gather`` in fp32, bf16 and int8,
-    each result checked).  ``_grid_probe_finish`` waits for them."""
+    (``all_reduce`` sum and max, ``all_gather`` and an uneven
+    ``all_to_all_single`` in fp32, bf16, int8 and int64, each result
+    checked).  ``_grid_probe_finish`` waits for them."""
     return (time.perf_counter(), _grid_start("nccl-probe", 2), _grid_start("gloo-probe", 2))
 
 
@@ -3850,7 +3851,7 @@ def _probe_child(kind, rank, world, work) -> dict:
         except Exception as e:  # the refusal is the finding
             return {"ok": False, "error": f"{type(e).__name__}: {str(e)[:300]}"}
     got = {}
-    for dt in (torch.float32, torch.bfloat16, torch.int8):
+    for dt in (torch.float32, torch.bfloat16, torch.int8, torch.int64):
         name = str(dt).replace("torch.", "")
         t = torch.full((1000,), rank + 1, dtype=dt, device=dev)
         dist.all_reduce(t)
@@ -3858,9 +3859,17 @@ def _probe_child(kind, rank, world, work) -> dict:
         dist.all_gather(parts, torch.full((1000,), rank, dtype=dt, device=dev))
         m = torch.full((1000,), float(rank), device=dev)
         dist.all_reduce(m, op=dist.ReduceOp.MAX)
+        # the MoE's all-to-all of expert rows, uneven: rank r sends r + k + 1
+        # rows to rank k, each row its sender's number
+        send = [rank + k + 1 for k in range(world)]
+        recv = [k + rank + 1 for k in range(world)]
+        y = torch.empty((sum(recv), 3), dtype=dt, device=dev)
+        dist.all_to_all_single(y, torch.full((sum(send), 3), rank, dtype=dt, device=dev),
+                               recv, send)
         ok = (t.float() == world * (world + 1) / 2).all().item() and all(
             (p.float() == i).all().item() for i, p in enumerate(parts)) and \
-            (m == world - 1).all().item() and t.is_cuda and parts[0].is_cuda
+            (m == world - 1).all().item() and t.is_cuda and parts[0].is_cuda and y.is_cuda \
+            and all((c.float() == k).all().item() for k, c in enumerate(y.split(recv)))
         got[name] = bool(ok)
     return {"ok": all(got.values()), **got}
 
@@ -4055,14 +4064,38 @@ def _grid_rank(rank, world, work) -> dict:
 
 
 # the serve grid, in the grid world after its rounds: each of SERVE_GRID_MODELS
-# at full width cut to GRID_LAYERS layers, its blocks served through
+# at full width cut to GRID_LAYERS layers (dbrx-132b to SERVE_GRID_RUN_LAYERS),
+# its blocks, built leaf by leaf, served through
 # BatchScheduler(mesh=) in fp32 and bf16: SERVE_GRID_ROWS requests of
 # SERVE_GRID_PROMPT tokens in one group (2 rows a rank over the 4 data
 # ranks), then SERVE_GRID_ODD of them in a group of their own (rows the data
 # axes do not divide: every rank holds all 3), SERVE_GRID_NEW new tokens each
-SERVE_GRID_MODELS = ("stablelm-3b", "hymba-1.5b", "xlstm-125m")
+SERVE_GRID_MODELS = ("stablelm-3b", "hymba-1.5b", "xlstm-125m", "dbrx-132b")
 SERVE_GRID_DTYPES = ("float32", "bfloat16")
 SERVE_GRID_ROWS, SERVE_GRID_ODD, SERVE_GRID_PROMPT, SERVE_GRID_NEW = 8, 3, 128, 16
+# dbrx-132b on its blocks (its 16 experts over model, their FFN columns over
+# data, its 48 / 8 kv heads and its vocab over model) at full width: in bf16
+# at SERVE_CUT's 2 layers (whole 7.75e9 parameters, 15.5 GB; a rank's blocks
+# 4.27 GiB), and in fp32 at 1 layer (whole 4.49e9, 18.0 GB; a rank's 5.8
+# GB), whose fp32 at 2 layers would not fit the eight ranks' blocks and
+# their exchanges.  Each call takes rule 1 (T <= 8192 and 8 | 16: 2 whole
+# experts a rank, exchanged from the blocks by an all-to-all of 0.79 GB a
+# layer a rank in bf16 through gloo in host memory), so its new tokens are
+# cut to SERVE_GRID_MODEL_NEW (not its width).  Its world of one runs alone
+# after the grid world (beside the eight processes' rounds it would crowd
+# the card), under a mesh of one process, whose capacity dispatch is the
+# grid's rule 1 with every expert on one rank (the reference's MoE under a
+# mesh); the ranks save their tokens, logits and dispatch slots.  In bf16
+# the router's top-k and the experts' capacity part from the world of
+# one's at near ties among a prefill's 1024 tokens (an H100 run: every row
+# of both groups at the first layer, the closest k-th / (k+1)-th router
+# probabilities 8.4e-5 apart), after which the two compute other
+# functions; so the world of one replays the grid's slots (``_Routing``)
+# and each of its own that differs must lie at a near tie
+SERVE_GRID_RUNS = tuple((m, dt) for m in SERVE_GRID_MODELS for dt in SERVE_GRID_DTYPES)
+SERVE_GRID_ALONE = ("dbrx-132b",)
+SERVE_GRID_RUN_LAYERS = {("dbrx-132b", "float32"): 1, ("dbrx-132b", "bfloat16"): 2}
+SERVE_GRID_MODEL_NEW = {"dbrx-132b": 4}
 # bf16 logits against the world of one's, relative to max(1, |ref|), while a
 # row's tokens agree: 3e-2, and xlstm-125m's 1e-1.  xlstm-125m (4 layers,
 # these requests) moves one bf16 rounding into its logits many times over:
@@ -4073,14 +4106,19 @@ SERVE_GRID_ROWS, SERVE_GRID_ODD, SERVE_GRID_PROMPT, SERVE_GRID_NEW = 8, 3, 128, 
 # core_norm's sum over model moves them by 0.9 (H100 80GB HBM3, 700 W,
 # scripts/xlstm_bf16_serve_grid.py; the reference's own bf16 departs 0.15
 # from its fp32 on a CPU, scripts/xlstm_reference_bf16.py)
-SERVE_GRID_BF16_TOL = {"stablelm-3b": 3e-2, "hymba-1.5b": 3e-2, "xlstm-125m": 1e-1}
+SERVE_GRID_BF16_TOL = {"stablelm-3b": 3e-2, "hymba-1.5b": 3e-2, "xlstm-125m": 1e-1,
+                       "dbrx-132b": 3e-2}
 # the shapes a rank's serve prefill hands K3, (B, S, H, KV, D), and K4, (B, S,
 # D, N), for each group (rows a rank): stablelm's 16 of 32 heads; hymba's 25 /
-# 5 kv heads replicated (they split mid-head) and its 800 of 1600 channels
+# 5 kv heads replicated (they split mid-head) and its 800 of 1600 channels;
+# dbrx's 24 of 48 heads over 4 of 8 kv heads
 SERVE_GRID_K3 = {model: {rows: (r, SERVE_GRID_PROMPT, *heads) for rows, r in
                          ((SERVE_GRID_ROWS, 2), (SERVE_GRID_ODD, SERVE_GRID_ODD))}
                  for model, heads in (("stablelm-3b", (16, 16, 80)),
-                                      ("hymba-1.5b", (25, 5, 64)))}
+                                      ("hymba-1.5b", (25, 5, 64)),
+                                      ("dbrx-132b", (24, 4, 128)))}
+# each model's window on its serve grid's K3 checks (hymba's local layers)
+SERVE_GRID_WINDOW = {"stablelm-3b": 0, "hymba-1.5b": 1024, "dbrx-132b": 0}
 SERVE_GRID_K4 = {"hymba-1.5b": {rows: (r, SERVE_GRID_PROMPT, 800, 16) for rows, r in
                                 ((SERVE_GRID_ROWS, 2), (SERVE_GRID_ODD, SERVE_GRID_ODD))}}
 # the long request, in the grid world after the serve grid: one prompt of
@@ -4094,7 +4132,13 @@ SERVE_GRID_K4 = {"hymba-1.5b": {rows: (r, SERVE_GRID_PROMPT, 800, 16) for rows, 
 # world of one runs alone after the grid world: its whole cache (21.47 GB
 # for stablelm) and its decode's fp32 copy of a layer's k and v (10.7 GB)
 # would crowd the eight processes
-SERVE_LONG_MODELS = ("stablelm-3b", "hymba-1.5b")
+# each run (model, dtype): both models in bf16, and hymba-1.5b in fp32 too,
+# whose tokens must equal the world of one's exactly (its fp32 k / v cache of
+# 524,288 positions is 5.37 GB, a quarter of it a rank): a bf16 run may part
+# from them only at a near tie, which fp32 tells apart from a fault of the
+# split decode
+SERVE_LONG_RUNS = (("stablelm-3b", "bfloat16"), ("hymba-1.5b", "bfloat16"),
+                   ("hymba-1.5b", "float32"))
 SERVE_LONG_PROMPT, SERVE_LONG_CACHE, SERVE_LONG_NEW = 2048, 524_288, 8
 SERVE_LONG_TOL = 3e-2        # bf16 logits against the world of one's, of max(1, |ref|)
 # the shapes a rank's long prefill hands K3 (B, S, H, KV, D) and its window,
@@ -4105,6 +4149,39 @@ SERVE_LONG_K3 = {"stablelm-3b": ((1, SERVE_LONG_PROMPT, 16, 16, 80), 4096),
 SERVE_LONG_K4 = {"hymba-1.5b": (1, SERVE_LONG_PROMPT, 800, 16)}
 
 
+def _serve_grid_cfg(model, dtype):
+    """A serve grid model at full width, cut to its serve grid depth."""
+    return dataclasses.replace(_grid_cfg(model, dtype),
+                               n_layers=SERVE_GRID_RUN_LAYERS.get((model, dtype), GRID_LAYERS))
+
+
+def _serve_new(model) -> int:
+    return SERVE_GRID_MODEL_NEW.get(model, SERVE_GRID_NEW)
+
+
+def _rank_blocks(cfg, mesh, device):
+    """The rank's blocks of the weights drawn from seed 0 on the card, built
+    leaf by leaf (``transformer.init_param_blocks``: exactly
+    ``param_blocks(init_params(...))``, no whole tree held), the ranks
+    taking turns so that no two hold a whole leaf's draw at once
+    (dbrx-132b's expert leaves are 4.2 GB a layer in fp32 before their
+    cast)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.models.transformer import init_param_blocks
+
+    blocks = None
+    for r in range(dist.get_world_size()):
+        if r == mesh.rank:
+            blocks = init_param_blocks(torch.Generator(device).manual_seed(0), cfg, mesh)
+            torch.cuda.synchronize()
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return blocks
+
+
 def _serve_grid_prompts(cfg):
     """The serve grid's requests: SERVE_GRID_ROWS prompts of
     SERVE_GRID_PROMPT tokens drawn from seed 7, as numpy rows."""
@@ -4113,12 +4190,14 @@ def _serve_grid_prompts(cfg):
     return list(dummy_batch(cfg, SERVE_GRID_ROWS, SERVE_GRID_PROMPT, seed=7)["tokens"].numpy())
 
 
-def _serve_grid_run(cfg, params, mesh, counters=()):
+def _serve_grid_run(cfg, params, mesh, counters=(), new=SERVE_GRID_NEW, replay=None):
     """Both groups served: {rows: {"tokens", "logits" (steps, rows, V) fp32
-    on the host, "launches": each of ``counters``' launches in that group}}
-    and the seconds, through ``BatchScheduler`` (``mesh``: on the rank's
-    blocks), each step's logits recorded where the scheduler takes its
-    greedy tokens."""
+    on the host, "routing": the capacity dispatch's calls (``_Routing``),
+    "launches": each of ``counters``' launches in that group}} and the
+    seconds, through ``BatchScheduler`` (``mesh``: on the rank's blocks),
+    each step's logits recorded where the scheduler takes its greedy
+    tokens.  ``replay``: {rows: each dispatch call's slots} that the
+    group's capacity dispatch takes in place of its own (``_Routing``)."""
     import torch
 
     from repro_torch.serving import BatchScheduler
@@ -4133,30 +4212,34 @@ def _serve_grid_run(cfg, params, mesh, counters=()):
     torch.cuda.synchronize()
     t = time.perf_counter()
     for rows in (SERVE_GRID_ROWS, SERVE_GRID_ODD):
-        sched = Recording(cfg, params, max_batch=rows, max_new=SERVE_GRID_NEW, mesh=mesh)
+        sched = Recording(cfg, params, max_batch=rows, max_new=new, mesh=mesh)
         sched.seen = []
         ids = [sched.submit(p) for p in prompts[:rows]]
         before = {c.__name__: c.launches for c in counters}
-        sched.run()
+        with _Routing((replay or {}).get(rows)) as routing:
+            sched.run()
         out[rows] = {"tokens": [sched.result(i).tolist() for i in ids],
-                     "logits": torch.stack(sched.seen),
+                     "logits": torch.stack(sched.seen), "routing": routing.calls,
                      "launches": {c.__name__: c.launches - before[c.__name__] for c in counters}}
     torch.cuda.synchronize()
     return out, time.perf_counter() - t
 
 
-def _serve_grid_measure(cfg, blocks, mesh, device) -> dict:
+def _serve_grid_measure(cfg, blocks, mesh, device, new=SERVE_GRID_NEW) -> dict:
     """One prefill of the SERVE_GRID_ROWS group on the rank's blocks (its
-    rows, the cache of ``SERVE_GRID_PROMPT + SERVE_GRID_NEW`` positions) and
+    rows, the cache of ``SERVE_GRID_PROMPT + new`` positions) and
     one decode step after it, each under ``dryrun.count_flops`` as the dry
     run traces them: held bytes (the step's arguments), flops, collective
-    bytes, K3 / K4 launches and their tally, the peak above the arguments."""
+    bytes, K3 / K4 launches and their tally, the peak above the arguments,
+    and the call's wall ms and its all-to-all's (the MoE's exchange of
+    expert blocks, each timed between two synchronizations)."""
     import numpy as np
     import torch
     from torch.utils._pytree import tree_leaves
 
     from repro_torch.kernels.flash_attention import flash_attention_forward
     from repro_torch.kernels.mamba_scan import mamba_scan_forward
+    from repro_torch.launch.mesh import Mesh
     from repro_torch.models import transformer as tf
 
     def nbytes(tree):
@@ -4165,7 +4248,7 @@ def _serve_grid_measure(cfg, blocks, mesh, device) -> dict:
     lo, n = tf.batch_rows(mesh, SERVE_GRID_ROWS)
     rows = np.stack(_serve_grid_prompts(cfg))[lo:lo + n]
     batch = {"tokens": torch.from_numpy(rows).to(device)}
-    max_len = SERVE_GRID_PROMPT + SERVE_GRID_NEW
+    max_len = SERVE_GRID_PROMPT + new
     out, state = {}, {}
 
     def prefill():
@@ -4175,12 +4258,30 @@ def _serve_grid_measure(cfg, blocks, mesh, device) -> dict:
         return tf.decode_step(blocks, cfg, {"token": state["tok"]}, state["cache"],
                               SERVE_GRID_PROMPT, mesh=mesh, max_len=max_len)
 
-    for kind, fn, held in (("prefill", prefill, lambda: nbytes(blocks) + nbytes(batch)),
-                           ("decode", decode, lambda: nbytes(blocks) + nbytes(state["tok"])
-                            + nbytes(state["cache"]) + 4)):   # + decode's int32 position
-        (logits, cache), out[kind] = _measured(fn, held(), (flash_attention_forward,
-                                                            mamba_scan_forward))
-        state = {"tok": torch.argmax(logits, -1)[:, None].to(torch.int32), "cache": cache}
+    plain = Mesh.all_to_all
+
+    def timed(self, *args, **kwargs):     # the MoE's exchange of expert blocks
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = plain(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t
+        return got
+
+    Mesh.all_to_all = timed
+    try:
+        for kind, fn, held in (("prefill", prefill, lambda: nbytes(blocks) + nbytes(batch)),
+                               ("decode", decode, lambda: nbytes(blocks) + nbytes(state["tok"])
+                                + nbytes(state["cache"]) + 4)):   # + decode's int32 position
+            spent = [0.0]
+            t = time.perf_counter()
+            (logits, cache), out[kind] = _measured(fn, held(), (flash_attention_forward,
+                                                                mamba_scan_forward))
+            out[kind] |= {"ms": (time.perf_counter() - t) * 1e3,
+                          "all_to_all_ms": spent[0] * 1e3}
+            state = {"tok": torch.argmax(logits, -1)[:, None].to(torch.int32), "cache": cache}
+    finally:
+        Mesh.all_to_all = plain
     return out
 
 
@@ -4208,6 +4309,113 @@ def _measured(fn, held, kernels):
                  "product_flops": {k: v["product_flops"] for k, v in tally.kernels.items()}}
 
 
+class _Routing:
+    """While on, records each call of the capacity dispatch
+    (``moe.dispatch``): its slots (token, weight and validity a slot, on
+    the host) and expert offset, for each expert whose assignments
+    overflow its capacity the gap between the router weights of its last
+    kept and first dropped assignment, and each token's gap between its
+    k-th and (k+1)-th router probability where the router ran on the same
+    tokens (``moe.route``; else None).  ``replay``: a list of slots a
+    call, which each call returns in place of its own (after recording
+    its own)."""
+
+    def __init__(self, replay=None):
+        self.replay = replay
+
+    def __enter__(self):
+        from repro_torch.models import moe as moe_mod
+
+        self.calls, self._gap = [], None
+        plain_route, plain = moe_mod.route, moe_mod.dispatch
+
+        def routing(p, cfg, x2d):
+            ids, w, probs = plain_route(p, cfg, x2d)
+            top = probs.float().topk(min(cfg.moe.top_k + 1, probs.shape[-1]), dim=-1).values
+            self._gap = (top[..., -2] - top[..., -1]).reshape(-1).cpu()
+            return ids, w, probs
+
+        def recording(ids, w, cap, expert_offset, e_loc):
+            out = plain(ids, w, cap, expert_offset, e_loc)
+            ids_c, w_c = ids.cpu(), w.float().cpu()
+            gaps = {}
+            for e in range(expert_offset, expert_offset + e_loc):
+                ws = w_c[ids_c == e].sort(descending=True).values
+                if ws.numel() > cap:
+                    gaps[e] = float(ws[cap - 1] - ws[cap])
+            topk = self._gap.tolist() if self._gap is not None and \
+                self._gap.numel() == ids.shape[0] else None
+            self.calls.append({"offset": expert_offset, "cap": cap,
+                               "slots": tuple(t.cpu() for t in out), "gaps": gaps,
+                               "topk": topk})
+            if self.replay is None:
+                return out
+            return tuple(t.to(o.device) for t, o in zip(self.replay[len(self.calls) - 1], out))
+
+        self._plain = plain_route, plain
+        moe_mod.route, moe_mod.dispatch = routing, recording
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe as moe_mod
+
+        moe_mod.route, moe_mod.dispatch = self._plain
+
+
+def _routing_merged(ranks) -> list:
+    """The grid's dispatch calls (``ranks``: each rank's ``_Routing`` calls of
+    one group, each covering its own experts) as one call's slots each:
+    the ranks' slots in the order of their experts."""
+    import torch
+
+    out = []
+    for calls in zip(*ranks):
+        parts = sorted(calls, key=lambda c: c["offset"])
+        out.append(tuple(torch.cat([c["slots"][i] for c in parts]) for i in range(3)))
+    return out
+
+
+def _kept(slots, cap) -> dict:
+    """{expert (from 0): its kept tokens, sorted} of one call's slots."""
+    tok, _, valid = slots
+    return {e: sorted(tok[e * cap:(e + 1) * cap][valid[e * cap:(e + 1) * cap]].tolist())
+            for e in range(len(tok) // cap)}
+
+
+def _routing_faults(own, grid, n_layers, prompt, room, inputs) -> list[str]:
+    """The world of one's own capacity dispatch (``own``: its ``_Routing``
+    calls, which replayed ``grid``, the grid's merged slots) against the
+    grid's, call by call (``n_layers`` calls a forward: the prefill of
+    ``prompt`` positions a row, then a decode step of one token a row),
+    before step ``inputs`` (the first whose input tokens differ): each
+    expert whose kept tokens differ must be explained by a near tie in the
+    world of one: its last kept and first dropped router weights, or the
+    k-th and (k+1)-th router probabilities of one of the tokens that moved,
+    within ``room``.  Every difference is printed; returns the faults."""
+    faults = []
+    for c, (call, slots) in enumerate(zip(own, grid)):
+        step = c // n_layers
+        if step >= inputs:
+            break
+        mine, theirs = _kept(call["slots"], call["cap"]), _kept(slots, call["cap"])
+        for e, toks in mine.items():
+            if theirs.get(e) == toks:
+                continue
+            moved = set(toks) ^ set(theirs.get(e, []))
+            rows = sorted({t // (prompt if step == 0 else 1) for t in moved})
+            tie = min(call["topk"][t] for t in moved) if call["topk"] else None
+            gap = call["gaps"].get(e)
+            print(f"    routing: call {c} (step {step}, layer {c % n_layers}), expert {e}: the "
+                  f"grid keeps other tokens in rows {rows}; in the world of one its last kept "
+                  f"and first dropped weights lie {gap} apart, the closest k-th / (k+1)-th "
+                  f"router probabilities of the moved tokens {tie} (room {room:.4g})",
+                  flush=True)
+            if not any(x is not None and x <= room for x in (gap, tie)):
+                faults.append(f"call {c} expert {e}: kept tokens differ, weight gap {gap}, "
+                              f"probability gap {tie}")
+    return faults
+
+
 def _serve_grid_against(run, want) -> dict:
     """One group's served tokens and logits (``_serve_grid_run``'s) against
     ``want``'s: a row's logits are compared at the steps where its tokens
@@ -4225,33 +4433,37 @@ def _serve_grid_against(run, want) -> dict:
 
 
 def _serve_grid_rank(mesh, work, device, counters) -> dict:
-    """The serve grid on one rank of the grid world: for each model and
-    dtype, the rank's blocks of ``_grid_cfg``'s weights served
-    (``_serve_grid_run``: launches counted), then measured
-    (``_serve_grid_measure``), and each step's logits and tokens against
-    the world of one's (``_serve_grid_reference``'s file)."""
+    """The serve grid on one rank of the grid world: for each of
+    ``SERVE_GRID_RUNS``, the rank's blocks of ``_serve_grid_cfg``'s weights
+    (``_rank_blocks``, leaf by leaf) served (``_serve_grid_run``: launches
+    counted), then measured (``_serve_grid_measure``), and each step's
+    logits and tokens against the world of one's (``_serve_grid_reference``'s
+    file; a model of ``SERVE_GRID_ALONE`` saves its tokens and logits for
+    the main process instead).  Then each of ``SERVE_LONG_RUNS``."""
     import torch
     from torch.utils._pytree import tree_leaves
 
-    from repro_torch.models import transformer as tf
-
     out = {}
-    for model in SERVE_GRID_MODELS:
-        for dtype in SERVE_GRID_DTYPES:
-            cfg = _grid_cfg(model, dtype)
-            whole = tf.init_params(torch.Generator(device).manual_seed(0), cfg)
-            blocks = tf.param_blocks(whole, cfg, mesh)
-            del whole
-            gc.collect()
-            torch.cuda.empty_cache()
-            for c in counters:
-                c.launches = 0
-            t = time.perf_counter()
-            got, seconds = _serve_grid_run(cfg, blocks, mesh, counters)
-            launches = {c.__name__: c.launches for c in counters}
-            measured = _serve_grid_measure(cfg, blocks, mesh, device)
-            print(f"grid rank {mesh.rank}: serve {model} {dtype}: both groups in {seconds:.2f} s, "
-                  f"measured in {time.perf_counter() - t - seconds:.2f} s", flush=True)
+    for model, dtype in SERVE_GRID_RUNS:
+        cfg = _serve_grid_cfg(model, dtype)
+        t = time.perf_counter()
+        blocks = _rank_blocks(cfg, mesh, device)
+        built = time.perf_counter() - t
+        for c in counters:
+            c.launches = 0
+        t = time.perf_counter()
+        got, seconds = _serve_grid_run(cfg, blocks, mesh, counters, _serve_new(model))
+        launches = {c.__name__: c.launches for c in counters}
+        measured = _serve_grid_measure(cfg, blocks, mesh, device, _serve_new(model))
+        print(f"grid rank {mesh.rank}: serve {model} {dtype}: blocks built leaf by leaf in "
+              f"{built:.2f} s (the ranks in turn), both groups in {seconds:.2f} s, measured in "
+              f"{time.perf_counter() - t - seconds:.2f} s", flush=True)
+        groups = None
+        if model in SERVE_GRID_ALONE:     # its world of one runs after this world
+            torch.save({rows: {k: run[k] for k in ("tokens", "logits", "routing")}
+                        for rows, run in got.items()},
+                       Path(work) / f"serve_{model}_{dtype}_rank{mesh.rank}.pt")
+        else:
             ref_path = Path(work).parent / f"serve_reference_{model}_{dtype}.pt"
             deadline = time.perf_counter() + GRID_TIMEOUT
             while not ref_path.exists():  # the world of one runs beside this world
@@ -4260,35 +4472,34 @@ def _serve_grid_rank(mesh, work, device, counters) -> dict:
                 time.sleep(0.2)
             ref = torch.load(ref_path)
             groups = {rows: _serve_grid_against(run, ref[rows]) for rows, run in got.items()}
-            out[f"{model} {dtype}"] = {
-                "ms": seconds * 1e3, "launches": launches, "groups": groups,
-                "group_launches": {rows: run["launches"] for rows, run in got.items()},
-                "blocks_bytes": sum(t.numel() * t.element_size() for t in tree_leaves(blocks)),
-                "measured": measured}
-            del blocks, got, ref
-    for model in SERVE_LONG_MODELS:
-        cfg = _serve_long_cfg(model)
-        whole = tf.init_params(torch.Generator(device).manual_seed(0), cfg)
-        blocks = tf.param_blocks(whole, cfg, mesh)
-        del whole
+            del ref
+        out[f"{model} {dtype}"] = {
+            "ms": seconds * 1e3, "build_s": built, "launches": launches, "groups": groups,
+            "group_launches": {rows: run["launches"] for rows, run in got.items()},
+            "blocks_bytes": sum(t.numel() * t.element_size() for t in tree_leaves(blocks)),
+            "measured": measured}
+        del blocks, got
         gc.collect()
         torch.cuda.empty_cache()
+    for model, dtype in SERVE_LONG_RUNS:
+        cfg = _serve_long_cfg(model, dtype)
+        blocks = _rank_blocks(cfg, mesh, device)
         run = _serve_long_run(cfg, blocks, mesh, device, counters)
-        print(f"grid rank {mesh.rank}: serve long {model}: {run['ms']:.1f} ms, its k / v "
-              f"block {run['kv_bytes']} B", flush=True)
+        print(f"grid rank {mesh.rank}: serve long {model} {dtype}: {run['ms']:.1f} ms, its k / "
+              f"v block {run['kv_bytes']} B", flush=True)
         torch.save({k: run.pop(k) for k in ("logits",)},
-                   Path(work) / f"long_{model}_rank{mesh.rank}.pt")
-        out[f"long {model}"] = run
+                   Path(work) / f"long_{model}_{dtype}_rank{mesh.rank}.pt")
+        out[f"long {model} {dtype}"] = run
         del blocks, run
         gc.collect()
         torch.cuda.empty_cache()
     return out
 
 
-def _serve_long_cfg(model):
+def _serve_long_cfg(model, dtype="bfloat16"):
     from repro_torch.configs.inputs import long_context_variant
 
-    return long_context_variant(_grid_cfg(model, "bfloat16"))
+    return long_context_variant(_grid_cfg(model, dtype))
 
 
 def _serve_long_run(cfg, params, mesh, device, counters=()) -> dict:
@@ -4346,73 +4557,96 @@ def _serve_long_run(cfg, params, mesh, device, counters=()) -> dict:
 
 
 def _serve_long_reference(device) -> dict:
-    """The long request's world of one, each model's whole weights on the
-    card without a mesh (``_serve_long_run``), run alone: {model: its
-    run}."""
+    """The long request's world of one, each run's whole weights on the
+    card without a mesh (``_serve_long_run``), run alone: {"model dtype":
+    its run}."""
     import torch
 
     from repro_torch.models import transformer as tf
 
     out = {}
-    for model in SERVE_LONG_MODELS:
-        cfg = _serve_long_cfg(model)
+    for model, dtype in SERVE_LONG_RUNS:
+        cfg = _serve_long_cfg(model, dtype)
         params = tf.init_params(torch.Generator(device).manual_seed(0), cfg)
-        out[model] = _serve_long_run(cfg, params, None, device)
+        out[f"{model} {dtype}"] = _serve_long_run(cfg, params, None, device)
         del params
         gc.collect()
         torch.cuda.empty_cache()
     return out
 
 
+def _near_tie(tag, tokens, want, scale, tol) -> str | None:
+    """Where a bf16 run's ``tokens`` (one row) first part from the world of
+    one's (``want``: its "tokens" and "logits" (steps, rows, V)), printed:
+    None if they do not part or part at a step whose two best logits in the
+    world of one lie within twice the logits' bound (a near tie that the
+    bound lets either side break, after which the sequences differ), else
+    what is wrong."""
+    flip = next((i for i, (g, w) in enumerate(zip(tokens, want["tokens"][0])) if g != w), None)
+    if flip is None:
+        return None
+    top = want["logits"][flip, 0].topk(2).values
+    gap, room = float(top[0] - top[1]), 2 * tol * scale
+    print(f"{tag}: the tokens part at step {flip}, where the world of one's two best logits "
+          f"lie {gap:.4g} apart (a flip the logits' bound allows within {room:.4g})", flush=True)
+    if gap > room:
+        return (f"tokens {tokens} against {want['tokens'][0]}, parting at step {flip} where the "
+                f"two best logits lie {gap} apart")
+    return None
+
+
 def _serve_long_check(ranks, ref) -> dict:
     """The long request on every rank (``_serve_grid_rank``'s) against the
-    world of one (``_serve_long_reference``): the bf16 logits within
-    ``SERVE_LONG_TOL`` of max(1, |ref|) at every step while the tokens
-    agree, and the tokens equal but where they part at a step whose two
-    best logits in the world of one lie within twice that bound (a near
-    tie that the bound lets either side break, after which the sequences
-    differ); each rank's k /
-    v bytes the whole cache's over the 4 data ranks and, where ``model``
-    divides the kv heads, over model too; K3 and K4 forward once a layer
-    in the prefill, none in a decode step, at the shapes of
-    ``SERVE_LONG_K3`` / ``SERVE_LONG_K4`` by their product flops.  Rank
-    0's measurements go to ``GRID_RESULTS["long"]`` for ``dryrun:``.
-    Returns the launches summed over the ranks by (kernel, model)."""
+    world of one (``_serve_long_reference``), for each of
+    ``SERVE_LONG_RUNS``: in bf16 the logits within ``SERVE_LONG_TOL`` of
+    max(1, |ref|) at every step while the tokens agree, and the tokens
+    equal but where they part at a near tie (``_near_tie``); in fp32 the
+    tokens equal and the logits within ``GRID_FP32_TOL`` at every step;
+    each rank's k / v bytes the whole cache's over the 4 data ranks and,
+    where ``model`` divides the kv heads, over model too; K3 and K4
+    forward once a layer in the prefill, none in a decode step, at the
+    shapes of ``SERVE_LONG_K3`` / ``SERVE_LONG_K4`` by their product flops.
+    Rank 0's measurements go to ``GRID_RESULTS["long"]`` for ``dryrun:``.
+    Returns the launches summed over the ranks by (kernel, "model dtype")."""
     import torch
 
     launched: dict = {}
     GRID_RESULTS["long"] = {}
     dp = GRID_SHAPE["pod"] * GRID_SHAPE["data"]
-    for model in SERVE_LONG_MODELS:
-        cfg, want = _serve_long_cfg(model), ref[model]
+    for model, dtype in SERVE_LONG_RUNS:
+        key = f"{model} {dtype}"
+        cfg, want = _serve_long_cfg(model, dtype), ref[key]
+        tol = SERVE_LONG_TOL if dtype == "bfloat16" else GRID_FP32_TOL
         split = dp * (GRID_SHAPE["model"] if cfg.n_kv_heads % GRID_SHAPE["model"] == 0 else 1)
         # the layout before the sequence split: only the kv heads over model
         before = want["kv_bytes"] // (split // dp) * len(ranks)
-        print(f"serve long {model}: batch 1 of {SERVE_LONG_PROMPT} tokens, a cache of "
+        print(f"serve long {key}: batch 1 of {SERVE_LONG_PROMPT} tokens, a cache of "
               f"{SERVE_LONG_CACHE} positions ({cfg.name}, window {cfg.sliding_window}), "
-              f"{SERVE_LONG_NEW} new tokens, bf16, {GRID_LAYERS} layers; the world of one "
+              f"{SERVE_LONG_NEW} new tokens, {cfg.n_layers} layers; the world of one "
               f"{want['ms']:.1f} ms, its k / v cache {want['kv_bytes']} B "
-              f"({want['kv_bytes'] / 1e9:.2f} GB); the {len(ranks)} ranks would hold "
-              f"{before / 1e9:.2f} GB together with the kv heads split over model alone",
-              flush=True)
+              f"({want['kv_bytes'] / 1e9:.2f} GB), tokens {want['tokens'][0]}; the "
+              f"{len(ranks)} ranks would hold {before / 1e9:.2f} GB together with the kv heads "
+              f"split over model alone; logits held to {tol}" + (
+                  ", tokens exactly" if dtype == "float32" else ""), flush=True)
         k3, w3 = SERVE_LONG_K3[model]
         per_launch = {"flash_attention_forward": 4.0 * k3[0] * k3[2] * k3[1] ** 2 * k3[4]}
-        launches = {"flash_attention_forward": GRID_LAYERS}
+        launches = {"flash_attention_forward": cfg.n_layers}
         if model in SERVE_LONG_K4:
             per_launch["mamba_scan_forward"] = 2.0 * math.prod(SERVE_LONG_K4[model])
-            launches["mamba_scan_forward"] = GRID_LAYERS
+            launches["mamba_scan_forward"] = cfg.n_layers
         scale = max(1.0, want["logits"].abs().max().item())
         for r, (_, _, res) in enumerate(ranks):
-            run = res["serve"][f"long {model}"]
-            run["logits"] = torch.load(GRID_DIR / "round" / f"long_{model}_rank{r}.pt")["logits"]
+            run = res["serve"][f"long {key}"]
+            run["logits"] = torch.load(GRID_DIR / "round" /
+                                       f"long_{model}_{dtype}_rank{r}.pt")["logits"]
             against = _serve_grid_against(run, want)
             pre = run["measured"]["prefill"]
             got_per_launch = {k: pre["product_flops"].get(k, 0.0) / max(pre["tallied"].get(k, 0), 1)
                               for k in per_launch}
             got_launches = {k: n for k, n in run["launches"].items() if n}
             for k, n in got_launches.items():
-                launched[k, model] = launched.get((k, model), 0) + n
-            print(f"serve long {model} rank {r} {json.dumps(res['coords'])}: k / v block "
+                launched[k, key] = launched.get((k, key), 0) + n
+            print(f"serve long {key} rank {r} {json.dumps(res['coords'])}: k / v block "
                   f"{run['kv_bytes']} B ({run['kv_bytes'] / 1e9:.3f} GB, 1/"
                   f"{want['kv_bytes'] / run['kv_bytes']:g} of the whole), {run['ms']:.1f} ms "
                   f"(eight processes sharing the card), launches {json.dumps(got_launches)}, "
@@ -4422,19 +4656,16 @@ def _serve_long_check(ranks, ref) -> dict:
             bad = []
             if not (run["finite"] and against["finite"]):
                 bad.append("logits not finite")
-            flip = next((i for i, (g, w) in enumerate(zip(run["tokens"][0], want["tokens"][0]))
-                         if g != w), None)
-            if flip is not None:
-                top = want["logits"][flip, 0].topk(2).values
-                gap, room = float(top[0] - top[1]), 2 * SERVE_LONG_TOL * scale
-                print(f"serve long {model} rank {r}: the tokens part at step {flip}, where the "
-                      f"world of one's two best logits lie {gap:.4g} apart (a flip the logits' "
-                      f"bound allows within {room:.4g})", flush=True)
-                if gap > room:
-                    bad.append(f"tokens {run['tokens']} against {want['tokens']}, parting at "
-                               f"step {flip} where the two best logits lie {gap} apart")
-            if against["max_rel_diff"] > SERVE_LONG_TOL:
-                bad.append(f"logits differ by {against['max_rel_diff']} > {SERVE_LONG_TOL}")
+            if dtype == "float32":
+                if not (against["tokens_equal"] and against["compared"] == against["of"]):
+                    bad.append(f"fp32 tokens {run['tokens']} against {want['tokens']}")
+            else:
+                parted = _near_tie(f"serve long {key} rank {r}", run["tokens"][0], want,
+                                   scale, tol)
+                if parted:
+                    bad.append(parted)
+            if against["max_rel_diff"] > tol:
+                bad.append(f"logits differ by {against['max_rel_diff']} > {tol}")
             if run["kv_bytes"] * split != want["kv_bytes"]:
                 bad.append(f"k / v block {run['kv_bytes']} B, the whole's 1/{split} is "
                            f"{want['kv_bytes'] / split} B")
@@ -4444,33 +4675,53 @@ def _serve_long_check(ranks, ref) -> dict:
                 bad.append(f"product flops a launch {got_per_launch}, want {per_launch} (K3 at "
                            f"{k3}, K4 at {SERVE_LONG_K4.get(model)})")
             if bad:
-                raise AssertionError(f"serve long {model} rank {r}: {'; '.join(bad)}")
-        GRID_RESULTS["long"][model] = ranks[0][2]["serve"][f"long {model}"]["measured"]
+                raise AssertionError(f"serve long {key} rank {r}: {'; '.join(bad)}")
+        GRID_RESULTS["long"][key] = ranks[0][2]["serve"][f"long {key}"]["measured"]
     return launched
 
 
-def _serve_grid_reference(device):
-    """The serve grid's world of one: each model and dtype's whole weights
-    served by ``BatchScheduler`` without a mesh on the card, its tokens and
-    logits written under ``GRID_DIR`` for the ranks.  Returns {"model
-    dtype": ms}."""
+def _serve_grid_reference(device, alone: bool = False, n_ranks: int = 0):
+    """The serve grid's world of one: each run's whole weights served by
+    ``BatchScheduler`` on the card, without a mesh, its tokens and logits
+    written under ``GRID_DIR`` for the ranks (``alone``: the runs of
+    ``SERVE_GRID_ALONE`` instead, after the grid world of ``n_ranks``
+    ranks, under a mesh of one process, each group's capacity dispatch
+    replaying the grid's merged slots (``_routing_merged``) while it
+    records its own; their runs returned, each group's "grid_routing" the
+    slots replayed).  Returns {"model dtype": ms} (``alone``: {"model
+    dtype": (ms, run)})."""
     import torch
 
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import transformer as tf
 
     out = {}
-    for model in SERVE_GRID_MODELS:
-        for dtype in SERVE_GRID_DTYPES:
-            cfg = _grid_cfg(model, dtype)
-            params = tf.init_params(torch.Generator(device).manual_seed(0), cfg)
-            run, seconds = _serve_grid_run(cfg, params, None)
+    for model, dtype in SERVE_GRID_RUNS:
+        if (model in SERVE_GRID_ALONE) != alone:
+            continue
+        cfg = _serve_grid_cfg(model, dtype)
+        replay = None
+        if alone:          # the grid's slots, merged over its ranks' experts
+            saved = [torch.load(GRID_DIR / "round" / f"serve_{model}_{dtype}_rank{r}.pt")
+                     for r in range(n_ranks)]
+            replay = {rows: _routing_merged([g[rows]["routing"] for g in saved])
+                      for rows in saved[0]}
+            del saved
+        params = tf.init_params(torch.Generator(device).manual_seed(0), cfg)
+        run, seconds = _serve_grid_run(cfg, params, make_host_mesh() if alone else None,
+                                       new=_serve_new(model), replay=replay)
+        if alone:
+            for rows, group in run.items():
+                group["grid_routing"] = replay[rows]
+            out[f"{model} {dtype}"] = (seconds * 1e3, run)
+        else:
             out[f"{model} {dtype}"] = seconds * 1e3
             path = GRID_DIR / f"serve_reference_{model}_{dtype}.pt"
             torch.save(run, path.with_suffix(".tmp"))
             path.with_suffix(".tmp").replace(path)  # a rank never reads half a file
-            del params, run
-            gc.collect()
-            torch.cuda.empty_cache()
+        del params, run
+        gc.collect()
+        torch.cuda.empty_cache()
     return out
 
 
@@ -4546,9 +4797,12 @@ def _scaleout_grid_phase(device):
     printed, and the K3 / K4 shapes are checked against their work
     formulas' product flops; its fp32 blocks must equal the world of
     one's (``_grid_reference``), cut to the rank's block, within
-    ``GRID_FP32_TOL``; bf16's largest difference is reported.  Returns the
-    world's launches of K1, K3 and K4, summed over its ranks; rank 0's runs
-    go to ``GRID_RESULTS`` for ``dryrun:``."""
+    ``GRID_FP32_TOL``; bf16's largest difference is reported.  Then, in the
+    same world, the serve grid (``_serve_grid_check``) and the long request
+    (``_serve_long_check``), their worlds of one for ``SERVE_GRID_ALONE``
+    and the long request run alone after the world.  Returns the world's
+    launches of K1, K3 and K4, summed over its ranks; rank 0's runs go to
+    ``GRID_RESULTS`` for ``dryrun:``."""
     import torch
     from torch.utils._pytree import tree_leaves
 
@@ -4582,6 +4836,12 @@ def _scaleout_grid_phase(device):
     long_ref = _serve_long_reference(device)
     print(f"scaleout grid: the long request's world of one in "
           f"{time.perf_counter() - t_long:.1f} s, alone after the world", flush=True)
+    t_alone = time.perf_counter()
+    for key, (ms, run) in _serve_grid_reference(device, alone=True,
+                                                n_ranks=len(ranks)).items():
+        serve_ref[key] = (ms, run)
+    print(f"scaleout grid: the serve grid's world of one of {', '.join(SERVE_GRID_ALONE)} in "
+          f"{time.perf_counter() - t_alone:.1f} s, alone after the world", flush=True)
     total = dict.fromkeys(GRID_COUNTERS, 0)
     for model, (seq, runs) in GRID_MODELS.items():
         n_leaves = len(tree_leaves(abstract_params(_grid_cfg(model, "bfloat16"))))
@@ -4652,7 +4912,7 @@ def _scaleout_grid_phase(device):
     return total | {"rounds": rounds, "serve_by_shape": by_shape, "serve_long": long}
 
 
-def _serve_grid_expected(model) -> tuple[dict, dict]:
+def _serve_grid_expected(model, dtype) -> tuple[dict, dict]:
     """A serve run's launches in each group on each rank of the grid world
     (K3 and K4 forward once a layer in the group's prefill, none a decode
     step) and the product flops a launch of K3 and K4 forward in the
@@ -4660,12 +4920,13 @@ def _serve_grid_expected(model) -> tuple[dict, dict]:
     2 B S D N)."""
     launches = dict.fromkeys(GRID_COUNTERS, 0)
     per_launch = {}
+    layers = SERVE_GRID_RUN_LAYERS.get((model, dtype), GRID_LAYERS)
     if model in SERVE_GRID_K3:
-        launches["flash_attention_forward"] = GRID_LAYERS
+        launches["flash_attention_forward"] = layers
         b, s, h, _, dh = SERVE_GRID_K3[model][SERVE_GRID_ROWS]
         per_launch["flash_attention_forward"] = 4.0 * b * h * s * s * dh
     if model in SERVE_GRID_K4:
-        launches["mamba_scan_forward"] = GRID_LAYERS
+        launches["mamba_scan_forward"] = layers
         per_launch["mamba_scan_forward"] = 2.0 * math.prod(SERVE_GRID_K4[model][SERVE_GRID_ROWS])
     return launches, per_launch
 
@@ -4675,66 +4936,114 @@ def _serve_grid_check(ranks, serve_ref) -> dict:
     every token of both groups equal to the world of one's and every
     step's logits within ``GRID_FP32_TOL`` of max(1, |ref|); in bf16 the
     logits within the model's ``SERVE_GRID_BF16_TOL`` while a row's tokens
-    agree (its inputs the same), the tokens' agreement printed; the K3 / K4 launches
-    and their shapes by the work formulas; each rank's held bytes printed.
-    Rank 0's measurements go to ``GRID_RESULTS["serve"]`` for ``dryrun:``.
-    Returns the serve runs' launches summed over the ranks, and K3's and
-    K4's forward launches at each of their shapes: {(kernel, model, dtype,
-    group rows): launches}, summed over the ranks."""
+    agree (its inputs the same), the tokens' agreement printed.  A model of
+    ``SERVE_GRID_ALONE`` (its ranks' tokens, logits and dispatch slots read
+    from their files) is held so against a world of one whose capacity
+    dispatch replayed the grid's slots; every expert whose own slots there
+    differ from the grid's, before the tokens part, must differ at a near
+    tie (``_routing_faults``), and in bf16 the tokens may part only at a
+    near tie (``_near_tie``).  The K3 / K4 launches and their shapes by the work
+    formulas; each rank's held bytes printed.  Rank 0's measurements go to
+    ``GRID_RESULTS["serve"]`` for ``dryrun:``.  Returns the serve runs'
+    launches summed over the ranks, and K3's and K4's forward launches at
+    each of their shapes: {(kernel, model, dtype, group rows): launches},
+    summed over the ranks."""
+    import torch
+
     total = dict.fromkeys(GRID_COUNTERS, 0)
     by_shape: dict = {}
     GRID_RESULTS["serve"] = {}
-    for model in SERVE_GRID_MODELS:
-        want_launches, want_per_launch = _serve_grid_expected(model)
-        for dtype in SERVE_GRID_DTYPES:
-            key = f"{model} {dtype}"
-            tol = GRID_FP32_TOL if dtype == "float32" else SERVE_GRID_BF16_TOL[model]
-            print(f"serve grid: {key}: a world of one (the whole weights, no mesh) "
-                  f"{serve_ref[key]:.1f} ms for both groups; logits held to {tol:.4g}",
-                  flush=True)
-            for r, (_, _, res) in enumerate(ranks):
-                run = res["serve"][key]
-                pre = run["measured"]["prefill"]
-                per_launch = {k: pre["product_flops"].get(k, 0.0) / max(
-                    pre["tallied"].get(k, 0), 1) for k in want_per_launch}
-                for k in total:
-                    total[k] += run["launches"][k]
-                for rows, group in run["group_launches"].items():
-                    for k in ("flash_attention_forward", "mamba_scan_forward"):
-                        if group[k]:      # rows: a JSON key from the rank's last line
-                            at = (k, model, dtype, int(rows))
-                            by_shape[at] = by_shape.get(at, 0) + group[k]
-                print(f"serve grid: {key} rank {r} {json.dumps(res['coords'])}: blocks "
-                      f"{run['blocks_bytes'] / 2**30:.4f} GiB held, a prefill's arguments "
-                      f"{pre['held_bytes']} B, a decode step's {run['measured']['decode']['held_bytes']} "
-                      f"B; both groups in {run['ms']:.1f} ms (eight processes sharing the "
-                      f"card); launches {json.dumps(run['launches'])}; product flops a launch "
-                      f"{json.dumps(per_launch)}; against the world of one "
-                      f"{json.dumps(run['groups'])}", flush=True)
-                bad = []
-                for rows, group in run["group_launches"].items():
-                    if group != want_launches:
-                        bad.append(f"{rows} rows: launches {group}, want {want_launches}")
-                if per_launch != want_per_launch:
-                    bad.append(f"product flops a launch {per_launch}, want {want_per_launch} "
-                               f"(K3 at {SERVE_GRID_K3.get(model)}, K4 at "
-                               f"{SERVE_GRID_K4.get(model)})")
-                for rows, g in run["groups"].items():
-                    if not g["finite"]:
-                        bad.append(f"{rows} rows: logits not finite")
-                    if g["max_rel_diff"] > tol:
-                        bad.append(f"{rows} rows: logits differ by {g['max_rel_diff']} > {tol}")
-                    if dtype == "float32" and not (g["tokens_equal"]
-                                                   and g["compared"] == g["of"]):
-                        bad.append(f"{rows} rows: fp32 tokens differ from the world of one's")
-                if bad:
-                    raise AssertionError(f"serve grid {key} rank {r}: {'; '.join(bad)}")
-            GRID_RESULTS["serve"][key] = ranks[0][2]["serve"][key]["measured"]
-    print(f"serve grid: {', '.join(SERVE_GRID_MODELS)} at full width, {GRID_LAYERS} layers, "
-          f"in {', '.join(SERVE_GRID_DTYPES)}, through BatchScheduler(mesh=) on every rank's "
-          f"blocks: {SERVE_GRID_ROWS} requests of {SERVE_GRID_PROMPT} tokens in one group "
-          f"and {SERVE_GRID_ODD} in another, {SERVE_GRID_NEW} new tokens each; fp32 tokens "
-          f"equal to the world of one's and logits within {GRID_FP32_TOL}, bf16 logits within "
+    for model, dtype in SERVE_GRID_RUNS:
+        want_launches, want_per_launch = _serve_grid_expected(model, dtype)
+        key = f"{model} {dtype}"
+        tol = GRID_FP32_TOL if dtype == "float32" else SERVE_GRID_BF16_TOL[model]
+        ref_ms, ref_run = serve_ref[key] if model in SERVE_GRID_ALONE else (serve_ref[key], None)
+        cfg = _serve_grid_cfg(model, dtype)
+        if ref_run is not None:   # the world of one's own dispatch against the grid's
+            first = torch.load(GRID_DIR / "round" / f"serve_{model}_{dtype}_rank0.pt")
+            for rows, want in ref_run.items():
+                # the first step whose input tokens differ (tokens parted a step before)
+                inputs = min((next((i for i, (a, b) in enumerate(zip(g, w)) if a != b),
+                                   len(w)) + 1
+                              for g, w in zip(first[rows]["tokens"], want["tokens"])),
+                             default=len(want["tokens"][0]))
+                faults = _routing_faults(want["routing"], want["grid_routing"], cfg.n_layers,
+                                         SERVE_GRID_PROMPT, 2 * tol, inputs)
+                print(f"serve grid: {key} group {rows}: {len(want['routing'])} dispatch calls "
+                      f"in the world of one, replaying the grid's slots, compared before step "
+                      f"{inputs}: {len(faults)} differences that no near tie explains",
+                      flush=True)
+                if faults:
+                    raise AssertionError(f"serve grid {key} group {rows}: {'; '.join(faults)}")
+            del first
+        print(f"serve grid: {key}: {cfg.n_layers} layers, {_serve_new(model)} new tokens; a "
+              f"world of one (the whole weights, " + ("a mesh of one process, after the world"
+                                                      if ref_run else "no mesh") +
+              f") {ref_ms:.1f} ms for both groups; logits held to {tol:.4g}", flush=True)
+        for r, (_, _, res) in enumerate(ranks):
+            run = res["serve"][key]
+            if ref_run is not None:     # the rank's saved tokens and logits
+                saved = torch.load(GRID_DIR / "round" / f"serve_{model}_{dtype}_rank{r}.pt")
+                run["groups"] = {rows: _serve_grid_against(saved[rows], ref_run[rows])
+                                 for rows in ref_run}
+            pre = run["measured"]["prefill"]
+            per_launch = {k: pre["product_flops"].get(k, 0.0) / max(
+                pre["tallied"].get(k, 0), 1) for k in want_per_launch}
+            for k in total:
+                total[k] += run["launches"][k]
+            for rows, group in run["group_launches"].items():
+                for k in ("flash_attention_forward", "mamba_scan_forward"):
+                    if group[k]:      # rows: a JSON key from the rank's last line
+                        at = (k, model, dtype, int(rows))
+                        by_shape[at] = by_shape.get(at, 0) + group[k]
+            print(f"serve grid: {key} rank {r} {json.dumps(res['coords'])}: blocks "
+                  f"{run['blocks_bytes'] / 2**30:.4f} GiB held (built leaf by leaf in "
+                  f"{run['build_s']:.2f} s), a prefill's arguments {pre['held_bytes']} B, a "
+                  f"decode step's {run['measured']['decode']['held_bytes']} B; both groups in "
+                  f"{run['ms']:.1f} ms (eight processes sharing the card); launches "
+                  f"{json.dumps(run['launches'])}; product flops a launch "
+                  f"{json.dumps(per_launch)}; collectives of a prefill "
+                  f"{json.dumps(pre['coll'])} B and of a decode step "
+                  f"{json.dumps(run['measured']['decode']['coll'])} B; a prefill "
+                  f"{pre['ms']:.1f} ms (its all-to-all {pre['all_to_all_ms']:.1f} ms), a decode "
+                  f"step {run['measured']['decode']['ms']:.1f} ms (its all-to-all "
+                  f"{run['measured']['decode']['all_to_all_ms']:.1f} ms); against the world of one "
+                  f"{json.dumps(run['groups'])}", flush=True)
+            bad = []
+            for rows, group in run["group_launches"].items():
+                if group != want_launches:
+                    bad.append(f"{rows} rows: launches {group}, want {want_launches}")
+            if per_launch != want_per_launch:
+                bad.append(f"product flops a launch {per_launch}, want {want_per_launch} "
+                           f"(K3 at {SERVE_GRID_K3.get(model)}, K4 at "
+                           f"{SERVE_GRID_K4.get(model)})")
+            for rows, g in run["groups"].items():
+                if not g["finite"]:
+                    bad.append(f"{rows} rows: logits not finite")
+                if g["max_rel_diff"] > tol:
+                    bad.append(f"{rows} rows: logits differ by {g['max_rel_diff']} > {tol}")
+                if dtype == "float32" and not (g["tokens_equal"] and g["compared"] == g["of"]):
+                    bad.append(f"{rows} rows: fp32 tokens differ from the world of one's")
+            if ref_run is not None and dtype != "float32":   # a bf16 parting: a near tie
+                scale = max(1.0, max(w["logits"].abs().max().item() for w in ref_run.values()))
+                for rows, want in ref_run.items():
+                    for i, tokens in enumerate(saved[rows]["tokens"]):
+                        one = {"tokens": [want["tokens"][i]],
+                               "logits": want["logits"][:, i:i + 1]}
+                        wrong = _near_tie(f"serve grid {key} rank {r} group {rows} row {i}",
+                                          tokens, one, scale, tol)
+                        if wrong:
+                            bad.append(f"{rows} rows, row {i}: {wrong}")
+            if bad:
+                raise AssertionError(f"serve grid {key} rank {r}: {'; '.join(bad)}")
+        GRID_RESULTS["serve"][key] = ranks[0][2]["serve"][key]["measured"]
+    print(f"serve grid: {', '.join(f'{m} {dt}' for m, dt in SERVE_GRID_RUNS)} at full width, "
+          f"{GRID_LAYERS} layers (dbrx-132b fp32 1, bf16 2), through "
+          f"BatchScheduler(mesh=) on every rank's blocks: {SERVE_GRID_ROWS} requests of "
+          f"{SERVE_GRID_PROMPT} tokens in one group and {SERVE_GRID_ODD} in another, "
+          f"{SERVE_GRID_NEW} new tokens each (dbrx-132b "
+          f"{SERVE_GRID_MODEL_NEW['dbrx-132b']}); fp32 tokens equal to the world of one's and "
+          f"logits within {GRID_FP32_TOL}, bf16 logits within "
           f"{json.dumps(SERVE_GRID_BF16_TOL)}; launches {json.dumps(total)}", flush=True)
     return total, by_shape
 
@@ -4916,28 +5225,27 @@ def _dry_serve_predictions(mesh) -> dict:
     from repro_torch.models import transformer as tf
 
     out = {}
-    max_len = SERVE_GRID_PROMPT + SERVE_GRID_NEW
-    for model in SERVE_GRID_MODELS:
-        for dtype in SERVE_GRID_DTYPES:
-            cfg = _grid_cfg(model, dtype)
-            rec = {}
-            for kind, seq in (("prefill", SERVE_GRID_PROMPT), ("decode", max_len)):
-                shape = InputShape("serve", seq, SERVE_GRID_ROWS, kind)
-                fn, args, _, _ = dryrun.build_step(cfg, mesh, shape)
-                if kind == "prefill":
-                    def fn(p, b, cfg=cfg):
-                        return tf.prefill(p, cfg, b, max_len, mesh=mesh,
-                                          batch_size=SERVE_GRID_ROWS)
-                pred = dryrun.trace(fn, args)
-                rec[kind] = {
-                    **{k: pred[k] for k in ("flops", "temp", "coll", "t_trace_s")},
-                    "held": pred["args"] + pred["scalars"],
-                    "argument_size": dryrun.argument_size(cfg, mesh, shape),
-                    "storage": dryrun.step_storage(cfg, mesh, kind),
-                    "launches": {k: v["launches"] for k, v in pred["kernel_work"].items()}}
-            out[f"{model} {dtype}"] = rec
-    for model in SERVE_LONG_MODELS:
-        cfg, rec = _serve_long_cfg(model), {}
+    for model, dtype in SERVE_GRID_RUNS:
+        cfg = _serve_grid_cfg(model, dtype)
+        max_len = SERVE_GRID_PROMPT + _serve_new(model)
+        rec = {}
+        for kind, seq in (("prefill", SERVE_GRID_PROMPT), ("decode", max_len)):
+            shape = InputShape("serve", seq, SERVE_GRID_ROWS, kind)
+            fn, args, _, _ = dryrun.build_step(cfg, mesh, shape)
+            if kind == "prefill":
+                def fn(p, b, cfg=cfg, max_len=max_len):
+                    return tf.prefill(p, cfg, b, max_len, mesh=mesh,
+                                      batch_size=SERVE_GRID_ROWS)
+            pred = dryrun.trace(fn, args)
+            rec[kind] = {
+                **{k: pred[k] for k in ("flops", "temp", "coll", "t_trace_s")},
+                "held": pred["args"] + pred["scalars"],
+                "argument_size": dryrun.argument_size(cfg, mesh, shape),
+                "storage": dryrun.step_storage(cfg, mesh, kind),
+                "launches": {k: v["launches"] for k, v in pred["kernel_work"].items()}}
+        out[f"{model} {dtype}"] = rec
+    for model, dtype in SERVE_LONG_RUNS:
+        cfg, rec = _serve_long_cfg(model, dtype), {}
         for kind, seq in (("prefill", SERVE_LONG_PROMPT), ("decode", SERVE_LONG_CACHE)):
             shape = InputShape("long", seq, 1, kind)
             fn, args, _, _ = dryrun.build_step(cfg, mesh, shape)
@@ -4951,7 +5259,7 @@ def _dry_serve_predictions(mesh) -> dict:
                 "argument_size": dryrun.argument_size(cfg, mesh, shape),
                 "storage": dryrun.step_storage(cfg, mesh, kind),
                 "launches": {k: v["launches"] for k, v in pred["kernel_work"].items()}}
-        out[f"long {model}"] = rec
+        out[f"long {model} {dtype}"] = rec
     return out
 
 
@@ -5058,9 +5366,10 @@ def _dryrun_serve(model, dtype, preds, long=False):
     K4 launches (and their tally) equal, the peak above the arguments
     within ``DRYRUN_PEAK_TOL``; ``long``: the long request's
     (``GRID_RESULTS["long"]``).  Launches nothing."""
-    key = f"long {model}" if long else f"{model} {dtype}"
+    key = f"long {model} {dtype}" if long else f"{model} {dtype}"
     for kind in ("prefill", "decode"):
-        card = (GRID_RESULTS["long"][model] if long else GRID_RESULTS["serve"][key])[kind]
+        card = (GRID_RESULTS["long"][f"{model} {dtype}"] if long else
+                GRID_RESULTS["serve"][key])[kind]
         pred = preds["serve"][key][kind]
         name = f"dryrun serve grid {key} {kind}"
         rel = (card["peak_bytes"] - pred["temp"]) / max(pred["temp"], 1)
@@ -5131,11 +5440,10 @@ def _dryrun_phase(device, sweeps, dry_grid):
     t = time.perf_counter()
     preds = _dry_grid_wait(dry_grid)
     total: dict[str, int] = {}
-    for model in SERVE_GRID_MODELS:
-        for dtype in SERVE_GRID_DTYPES:
-            _dryrun_serve(model, dtype, preds)
-    for model in SERVE_LONG_MODELS:
-        _dryrun_serve(model, "bfloat16", preds, long=True)
+    for model, dtype in SERVE_GRID_RUNS:
+        _dryrun_serve(model, dtype, preds)
+    for model, dtype in SERVE_LONG_RUNS:
+        _dryrun_serve(model, dtype, preds, long=True)
     for launches in [_dryrun_step(device, *step) for step in DRYRUN_STEPS] + [
             _dryrun_round(model, tag, preds) for model, (_, runs) in GRID_MODELS.items()
             for tag, _, _ in runs]:
@@ -5565,16 +5873,19 @@ def main() -> int:
         ((4, 128, 25, 5, 64), torch.float32, 1024, 0.0),
         ((4, 128, 16, 16, 64), torch.float32, 0, 1.0),
         ((4, 384, 7, 1, 64), torch.float32, 0, 1.0),
-        # the serve grid's prefill on a rank in fp32 and bf16: stablelm's 16
-        # heads and hymba's 25 / 5 kv replicated (local layers), its 2 rows of
-        # the 8-row group and all 3 of the 3-row one (SERVE_GRID_K3)
-        *((shape, dt, w, ig) for dt in (torch.float32, torch.bfloat16)
-          for model, w, ig in (("stablelm-3b", 0, 1.0), ("hymba-1.5b", 1024, 0.0))
+        # the serve grid's prefill on a rank in each of its types: stablelm's
+        # 16 heads, hymba's 25 / 5 kv replicated (local layers) and dbrx's 24 /
+        # 4 kv (bf16), its 2 rows of the 8-row group and all 3 of the 3-row
+        # one (SERVE_GRID_K3)
+        *((shape, getattr(torch, dt), SERVE_GRID_WINDOW[model],
+           0.0 if SERVE_GRID_WINDOW[model] else 1.0)
+          for model, dt in SERVE_GRID_RUNS if model in SERVE_GRID_K3
           for shape in SERVE_GRID_K3[model].values()),
-        # the long request's prefill on a grid rank in bf16, batch 1 of 2048:
-        # stablelm+swa4k's 16 heads (its window of 4096 on every layer) and
-        # hymba's 25 / 5 kv replicated (local layers) (SERVE_LONG_K3)
-        *((shape, torch.bfloat16, w, 0.0) for shape, w in SERVE_LONG_K3.values()),
+        # the long request's prefill on a grid rank, batch 1 of 2048, in each
+        # run's type: stablelm+swa4k's 16 heads (its window of 4096 on every
+        # layer) and hymba's 25 / 5 kv replicated (local layers) (SERVE_LONG_K3)
+        *((SERVE_LONG_K3[model][0], getattr(torch, dtype), SERVE_LONG_K3[model][1], 0.0)
+          for model, dtype in SERVE_LONG_RUNS),
     ]]
     _timeline("K3 checks")
     print("kernels: hellinger_strip, masked_weighted_sum, flash_attention and mamba_scan "
@@ -5749,8 +6060,7 @@ def main() -> int:
         for kernel, source, replaces, recs, shapes, window, dt_pairs in (
             ("flash_attention_forward", "src/repro_torch/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention/kernel.py:68", k3,
-             {m: SERVE_GRID_K3[m] for m in SERVE_GRID_K3},
-             {"stablelm-3b": 0, "hymba-1.5b": 1024},
+             {m: SERVE_GRID_K3[m] for m in SERVE_GRID_K3}, SERVE_GRID_WINDOW,
              [(dt, (dt,)) for dt in SERVE_GRID_DTYPES]),
             ("mamba_scan_forward", "src/repro_torch/csrc/mamba_scan.cu",
              "src/repro/kernels/mamba_scan/kernel.py:69", k4, SERVE_GRID_K4, None,
@@ -5763,9 +6073,11 @@ def main() -> int:
     ] + [
         # K3 and K4 forward in the long request's prefill on a grid rank, each
         # with the long request's launches (hymba's first layer global, the
-        # others local)
-        {"name": f"{kernel}_serve_long_{model}", "route": "cuda", "source": source,
-         "replaces": replaces, "launches": grid_launches["serve_long"].get((kernel, model), 0),
+        # others local), a run's K3 at its type (K4 takes fp32 inputs in
+        # either type); the fp32 run's entries named for it
+        {"name": f"{kernel}_serve_long_{model}" + ("" if dtype == "bfloat16" else f"_{dtype}"),
+         "route": "cuda", "source": source, "replaces": replaces,
+         "launches": grid_launches["serve_long"].get((kernel, f"{model} {dtype}"), 0),
          "shape": rec["shape"], **{k: rec["forward"][k] for k in keys + ("kernel_ms",)
                                    if k in rec["forward"]}}
         for kernel, source, replaces, recs, shapes in (
@@ -5774,10 +6086,10 @@ def main() -> int:
              {m: shape for m, (shape, _) in SERVE_LONG_K3.items()}),
             ("mamba_scan_forward", "src/repro_torch/csrc/mamba_scan.cu",
              "src/repro/kernels/mamba_scan/kernel.py:69", k4, SERVE_LONG_K4))
-        for model, shape in shapes.items()
-        for rec in recs if tuple(rec["shape"]) == shape
+        for model, dtype in SERVE_LONG_RUNS if model in shapes
+        for rec in recs if tuple(rec["shape"]) == shapes[model]
         and (rec.get("final_state") if kernel == "mamba_scan_forward" else
-             rec["dtype"] == "bfloat16" and rec["window"] == SERVE_LONG_K3[model][1])
+             rec["dtype"] == dtype and rec["window"] == SERVE_LONG_K3[model][1])
     ]
     print(smi, flush=True)  # again, so that the end of the output names the card
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -31,27 +31,22 @@ on its ``data`` share of the pod's batch (the reference's ``P("pod",
 ``data`` (``loss_fn`` on ``mesh.in_pod()``): K1 sums the rank's blocks,
 and the int8 round quantizes the rank's block, one scale a (leaf,
 block), and keeps it, as the reference's second map (manual over ``pod``
-and ``model``) leaves its output split.  The MoE and MLA models
-hold every leaf whole on every rank and train on the pod's whole batch; their int8
-round quantizes each rank's ``model`` block of each leaf under the
-baseline policy's storage spec (``sharding.model_block``), one scale a
-(leaf, model block), and after K1 gathers the blocks over ``model`` into
-the whole leaf that each rank holds.
+and ``model``) leaves its output split (an expert leaf's block is also
+its ``data`` block of columns).  The reference's local steps call
+``loss_fn`` without a mesh, so an MoE layer computes ``moe_dense``'s
+function there whatever its ``impl``: the port's round runs it so, on the
+rank's experts (``transformer._moe_blocks``).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 from repro_torch.kernels.aggregate import masked_weighted_sum
-from repro_torch.models.transformer import (
-    check_supported,
-    loss_fn,
-    shards_storage,
-    transformer_specs,
-)
-from repro_torch.sharding import make_policy, model_block, spec_leaves
+from repro_torch.models.transformer import check_supported, loss_fn, shards_storage
 
 __all__ = ["make_federated_round", "stack_for_clients"]
 
@@ -81,7 +76,7 @@ def make_federated_round(cfg, mesh, lr: float, local_steps: int = 4, compress_bi
     the same for every pod (views of one leaf a leaf), and the (n_pods,)
     fp32 mean training losses, each over its pod's whole batch.
     ``compress_bits``: 0 = the exact fp32 weighted sum; 2 to 8 = the
-    quantized deltas, one scale a leaf (a grid: a leaf and model block)."""
+    quantized deltas, one scale a leaf (a grid: a leaf and block)."""
     check_supported(cfg, tree=True)
     if "pod" not in mesh.shape:
         raise ValueError(f"the federated round needs a mesh with a 'pod' (client) axis; got "
@@ -92,6 +87,8 @@ def make_federated_round(cfg, mesh, lr: float, local_steps: int = 4, compress_bi
     qmax = 2 ** (compress_bits - 1) - 1 if compress_bits else 0
     sharded = shards_storage(cfg, mesh)
     inner = mesh.in_pod() if sharded else None
+    if cfg.moe:    # the reference's local steps pass no mesh: moe_dense's function
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, impl="dense"))
 
     def local_sgd(leaves, spec, batch):
         losses = []
@@ -129,12 +126,6 @@ def make_federated_round(cfg, mesh, lr: float, local_steps: int = 4, compress_bi
             raise ValueError(f"weights must be ({n_pods},), one a pod, or ({n_local},), this "
                              f"process's pods'; got {tuple(weights.shape)}")
         w = weights.to(torch.float32).contiguous()
-        blocks = [None] * len(leaves)     # the rank quantizes (and keeps) what it holds
-        if compress_bits and mesh.grid and not sharded:
-            shapes = tree_map(lambda x: x[0], stacked_params)
-            blocks = [model_block(mesh, sp, tuple(x.shape[1:])) for sp, x in zip(
-                spec_leaves(make_policy(mesh, 0).shardings(transformer_specs(cfg), shapes)),
-                leaves, strict=True)]
         ends, losses = [], []
         for i in range(n_local):
             end, loss = local_sgd([x[i] for x in leaves], spec,
@@ -148,15 +139,9 @@ def make_federated_round(cfg, mesh, lr: float, local_steps: int = 4, compress_bi
                 end[j] = None   # each pod's trained leaf is freed once it is reduced
             if compress_bits:
                 starts = [leaf[i] for i in range(n_local)]
-                if blocks[j] is not None:   # this rank's model block of the leaf
-                    dim, lo, n = blocks[j]
-                    rows = [r.narrow(dim, lo, n) for r in rows]
-                    starts = [s.narrow(dim, lo, n) for s in starts]
                 delta = reduce_quantized(rows, starts, w)
                 new = torch.stack([(s.float() + delta.view(s.shape)).to(leaf.dtype)
                                    for s in starts])
-                if blocks[j] is not None:
-                    new = mesh.all_gather(new, "model", dim=blocks[j][0] + 1)
             else:
                 agg = reduce_exact(rows, w).to(leaf.dtype).view(leaf.shape[1:])
                 new = agg.unsqueeze(0).expand(n_local, *agg.shape)

@@ -50,9 +50,9 @@ Counting rules:
   the reference's layout (``sharding.shard_bytes`` of each argument);
   ``memory.argument_size_held`` what the port's rank holds.  ``storage``
   says which (``step_storage``), under the baseline policy on a grid, for
-  the families that ``models.transformer.shards_storage`` names (the
-  dense GQA models, hymba-1.5b, xlstm-125m, internvl2-1b and
-  musicgen-large): ``"sharded"`` where the rank holds its share, its
+  every family (``models.transformer.shards_storage``: the dense GQA
+  models, hymba-1.5b, xlstm-125m, internvl2-1b, musicgen-large, dbrx-132b
+  and deepseek-v3-671b): ``"sharded"`` where the rank holds its share, its
   blocks and its rows (the ``train`` step, the federated round, prefill
   and decode: ``prefill_32k``, ``decode_32k``, ``long_500k``; a batch
   that the data axes do not divide is every row on every data rank, its
@@ -62,7 +62,10 @@ Counting rules:
   int32), and ``temp_size`` is the tensor-parallel step's, hymba's with
   ``w_in`` and, where its 25 heads split mid-head, the attention's
   projections gathered whole over ``model``, xlstm's with ``w_up``
-  gathered and, at model 16, its 4 heads computed replicated.  A decode
+  gathered and, at model 16, its 4 heads computed replicated, an MoE
+  layer's by its rule (``transformer._moe_blocks``: rule 1's all-to-all
+  of expert blocks, the expert-FFN columns gathered over ``data``, the
+  tokens over the data axes), MLA's on the rank's heads.  A decode
   of batch 1 (``long_500k``) holds its block of the k / v cache's
   sequence over the data axes, as the policy's ``shard_seq`` lays it
   out, and combines the blocks' partial softmaxes over them.  A decode
@@ -71,8 +74,8 @@ Counting rules:
   while the reference's policy keeps the step's cache argument whole
   over the data axes: its held bytes are below ``argument_size``.
   ``"whole"`` where the rank holds every argument whole and computes the
-  replicated values of the whole batch (the MoE and MLA models and the
-  ``fsdp`` variant), so that ``temp_size`` and ``argument_size_held``
+  replicated values of the whole batch (the ``fsdp`` variant, run
+  without the mesh), so that ``temp_size`` and ``argument_size_held``
   show what that path needs and the gap to ``argument_size`` is what
   sharding its storage would save.
 - ``collective_bytes`` are the dry mesh's collectives by the reference's
@@ -153,7 +156,7 @@ def _held_bytes(tree) -> int:
 
 def step_storage(cfg, mesh, kind: str, policy_variant: str = "baseline") -> str:
     """What a rank of ``mesh`` holds of a ``kind`` step's arguments under the
-    baseline policy, for the families of ``shards_storage``: ``"sharded"``,
+    baseline policy on a grid (``shards_storage``): ``"sharded"``,
     its blocks (``train``, the federated round, ``prefill`` and ``decode``),
     the rows the data axes give it (every row where they do not divide
     the batch) and, for a decode whose batch they do not divide, its block
@@ -264,9 +267,8 @@ def build_step(cfg, mesh, shape, lr: float = 1e-3, policy_variant: str = "baseli
 
         return train_step, (params, batch), ((pshard, bshard), (pshard, ())), (0,)
 
-    # prefill and decode take blocks on a grid for a family of
-    # shards_storage; its fsdp variant, whole, runs them without the mesh
-    # (which on a whole path only steers the MoE dispatch)
+    # prefill and decode take blocks on a grid; the fsdp variant, whole,
+    # runs them without the mesh
     serve_mesh = mesh if blocks or not shards_storage(cfg, mesh) else None
     if blocks:
         cshard = _local(init_cache(cfg, shape.global_batch, shape.seq_len, device="meta",
@@ -563,8 +565,7 @@ def run_federated(arch: str, local_steps: int = 4, batch_per_client: int = 128,
     ``batch_per_client`` x ``seq`` tokens, K1 over its row, then the sum
     over ``pod`` (an all-reduce); with ``compress_bits`` the rank's block
     of each leaf quantized, its int8 rows and ``scale * w`` gathered over
-    ``pod`` (and, where the rank holds every leaf whole, the summed blocks
-    gathered over ``model``).  The collectives are tallied under the
+    ``pod``.  The collectives are tallied under the
     reference's kind names.  ``argument_size`` is one device's share under
     the reference's layout (each leaf ``("pod", *storage spec)``, the batch
     over ``pod`` and ``data``, the weights over ``pod``);

@@ -47,7 +47,8 @@ the shape it would return.  A dry and a real group alike add each
 collective's result bytes to the active work tallies
 (``kernels.build.work_tally``) under the reference's kind names, as the
 reference's dry run counts them (the result's size: for an all-reduce
-the reduced tensor, for an all-gather the gathered one), forward and,
+the reduced tensor, for an all-gather the gathered one, for an all-to-all
+the rows this rank receives), forward and,
 for ``grad_sum``, backward: a card's run is counted as its prediction.
 
 The reductions carry gradients so that each rank's backward ends with
@@ -56,7 +57,9 @@ partial outputs: the cotangent, replicated, passes to each rank's part
 unchanged), ``all_reduce_mean`` (the ``pmean``), ``all_gather`` (each
 rank's piece takes its slice of the cotangent) and ``grad_sum`` (the
 identity forward, whose backward sums the partial gradients of a
-replicated value that each rank used for its own part).
+replicated value that each rank used for its own part) and
+``all_to_all`` (each rank's rows sent to the ranks that asked for them;
+backward, each row's gradient sent back to the rank it came from).
 ``all_reduce_max`` takes no gradient (the cross-entropy's row maximum, a
 shift that cancels).
 """
@@ -302,6 +305,20 @@ class Mesh:
         self._check(t)
         return _Gather.apply(t.contiguous(), group, dim)
 
+    def all_to_all(self, t: torch.Tensor, send: list[int], recv: list[int],
+                   axes=None) -> torch.Tensor:
+        """Rows of ``t`` exchanged between the processes of ``axes`` (all
+        axes for None): ``send[k]`` consecutive rows go to the k-th process
+        of the group (row-major over ``axes``) and ``recv[k]`` rows come
+        from it, concatenated in that order (``dist.all_to_all_single``).
+        Backward, each row's gradient goes back to the process it came
+        from.  ``t`` itself where the axes hold one process."""
+        group = self._group(axes)
+        if group is None:
+            return t
+        self._check(t)
+        return _AllToAll.apply(t.contiguous(), group, list(send), list(recv))
+
 
 class _SumForward(torch.autograd.Function):
     @staticmethod
@@ -342,6 +359,25 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g.narrow(ctx.dim, ctx.rank * ctx.size, ctx.size), None, None
+
+
+def _exchange(t: torch.Tensor, group, send: list[int], recv: list[int]) -> torch.Tensor:
+    out = t.new_empty((sum(recv), *t.shape[1:]))
+    tally_collective("all-to-all", out.numel() * out.element_size())
+    if not isinstance(group, _DryGroup):
+        dist.all_to_all_single(out, t, recv, send, group=group)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, send, recv):
+        ctx.group, ctx.send, ctx.recv = group, send, recv
+        return _exchange(t, group, send, recv)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g.contiguous(), ctx.group, ctx.recv, ctx.send), None, None, None
 
 
 def make_host_mesh(data: int = 1, model: int = 1, pod: int = 0) -> Mesh:

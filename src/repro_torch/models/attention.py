@@ -84,7 +84,8 @@ from repro_torch.models.common import (
 
 __all__ = ["init_gqa", "gqa_shapes", "gqa_specs", "gqa_attention", "gqa_decode", "init_mla",
            "mla_shapes", "mla_specs", "mla_attention", "mla_decode", "naive_attention",
-           "flash_attention", "decode_attention", "decode_partial", "decode_attention_split"]
+           "flash_attention", "decode_attention", "decode_partial", "decode_attention_split",
+           "combine_partials"]
 
 _NEG = -1e30
 
@@ -305,23 +306,33 @@ def decode_partial(q, k_block, v_block, pos: int, first: int = 0, window: int = 
     return m, l, o
 
 
+def combine_partials(m, l, o, mesh) -> torch.Tensor:
+    """Partial softmaxes of blocks of a sequence split over the data axes
+    of ``mesh`` (every axis but ``model``), this rank's the score maximum
+    m (..., 1), l = sum exp(s - m) (..., 1) and o = sum exp(s - m) v (...,
+    D), fp32: each rescaled to the maximum over the ranks, M = max_r m_r,
+    and summed over them, l = sum_r l_r exp(m_r - M) and o = sum_r o_r
+    exp(m_r - M) (one all-reduce of o and l together) -> o / l (..., D).  A
+    block with no valid position (l = o = 0) adds exactly 0."""
+    axes = tuple(a for a in mesh.axis_names if a != "model")
+    d = o.shape[-1]
+    top = mesh.all_reduce_max(m.clone(), axes)
+    scale = torch.exp(m - top)
+    ol = mesh.all_reduce_sum(torch.cat([o * scale, l * scale], dim=-1), axes)
+    return ol[..., :d] / ol[..., d:]
+
+
 def decode_attention_split(q, k_block, v_block, pos: int, first: int, mesh, window: int = 0,
                            is_global=1.0) -> torch.Tensor:
     """``decode_attention`` over a cache whose sequence lies in blocks on
     the data axes of ``mesh`` (every axis but ``model``), this rank's the
     positions [first, first + S): each rank's partial (``decode_partial``)
-    rescaled to the maximum over the ranks, M = max_r m_r, and summed over
-    them, l = sum_r l_r exp(m_r - M) and o = sum_r o_r exp(m_r - M) (one
-    all-reduce of o and l together) -> o / l (B, 1, H, D) in q's type.  A
-    block with no valid position adds exactly 0; the block holding
+    combined over them (``combine_partials``) -> (B, 1, H, D) in q's type.
+    A block with no valid position adds exactly 0; the block holding
     ``pos`` always has one."""
     b, _, h, d = q.shape
-    axes = tuple(a for a in mesh.axis_names if a != "model")
-    m, l, o = decode_partial(q, k_block, v_block, pos, first, window, is_global)
-    top = mesh.all_reduce_max(m.clone(), axes)
-    scale = torch.exp(m - top)
-    ol = mesh.all_reduce_sum(torch.cat([o * scale, l * scale], dim=-1), axes)
-    out = ol[..., :d] / ol[..., d:]
+    out = combine_partials(*decode_partial(q, k_block, v_block, pos, first, window, is_global),
+                           mesh)
     return out.reshape(b, 1, h, d).to(q.dtype)
 
 
@@ -400,14 +411,42 @@ def init_mla(generator: torch.Generator, cfg) -> dict[str, torch.Tensor]:
     return p
 
 
-def _mla_qkv_latent(p, cfg, x, sin, cos):
+def _mla_heads(p, cfg, mesh):
+    """The rank's q heads where ``model`` splits the MLA projections on
+    whole heads (``wq_b`` / ``wkv_b`` by columns, ``wo`` by rows), else
+    None: the leaves are whole, or gathered whole (their split falls mid-
+    head) and the layer computed replicated over ``model``."""
+    h = cfg.n_heads
+    if mesh is None or p["wq_b"].shape[1] == h * (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) \
+            or h % mesh.shape["model"]:
+        return None
+    return h // mesh.shape["model"]
+
+
+def _mla_whole(p, cfg, mesh):
+    """``p`` with every projection that ``model`` splits gathered whole."""
+    h, nope, rope, vd = (cfg.n_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                         cfg.v_head_dim)
+    whole = dict(p)
+    for k, n, dim in (("wq_b", h * (nope + rope), 1), ("wkv_b", h * (nope + vd), 1),
+                      ("wo", h * vd, 0)):
+        if p[k].shape[dim] != n:
+            whole[k] = gather_whole(p[k], mesh, dim)
+    return whole
+
+
+def _mla_qkv_latent(p, cfg, x, sin, cos, heads=None, tp=None):
     """The shared front: x (..., S, d) -> q_nope (N, S, H, nope), rotated
     q_rope (N, S, H, rope), the normed latent (..., S, kv_lora_rank) and
-    the rotated shared k_rope (..., S, rope); N folds the leading axes."""
+    the rotated shared k_rope (..., S, rope); N folds the leading axes.
+    ``heads``: the q heads ``wq_b`` holds (a rank's, ``tp``); the normed
+    q latent then feeds them through ``column_in``, so that the replicated
+    ``wq_a`` and ``q_norm`` take their whole gradient on every rank."""
     s = x.shape[-2]
-    h, nope, rope = cfg.n_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    h, nope, rope = heads or cfg.n_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     qa = linear(x, p["wq_a"])
-    q = linear(rms_norm(qa, per_client(p["q_norm"], qa), cfg.norm_eps), p["wq_b"])
+    qa = rms_norm(qa, per_client(p["q_norm"], qa), cfg.norm_eps)
+    q = linear(qa if tp is None else column_in(qa, tp), p["wq_b"])
     q = q.reshape(-1, s, h, nope + rope)
     q_nope, q_rope = q[..., :nope], apply_rope(q[..., nope:], sin, cos)
     kv_a = linear(x, p["wkv_a"])
@@ -417,40 +456,63 @@ def _mla_qkv_latent(p, cfg, x, sin, cos):
     return q_nope, q_rope, latent, k_rope
 
 
-def mla_attention(p, cfg, x, sin, cos, is_global=1.0):
+def mla_attention(p, cfg, x, sin, cos, is_global=1.0, tp=None):
     """Full sequence (training and prefill): x (..., S, d) -> (out (..., S,
     d), (latent (..., S, kv_lora_rank), k_rope (..., S, rope))), the
-    compressed decode cache."""
+    compressed decode cache.  ``tp``: on a rank's blocks (x replicated
+    over ``model``): K3 on the rank's heads where ``model`` splits the
+    projections on whole heads, the latent and k_rope feeding them through
+    ``column_in``, ``wo``'s row block's partial output summed over
+    ``model``; else every projection gathered whole and the layer computed
+    replicated."""
+    hl = _mla_heads(p, cfg, tp)
+    if tp is not None and hl is None:
+        return mla_attention(_mla_whole(p, cfg, tp), cfg, x, sin, cos, is_global)
     s = x.shape[-2]
-    h = cfg.n_heads
+    h = hl or cfg.n_heads
     nope, rope, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     if vd > nope + rope:
         raise ValueError(f"v_head_dim {vd} exceeds the q/k head width {nope + rope}")
-    q_nope, q_rope, latent, k_rope = _mla_qkv_latent(p, cfg, x, sin, cos)
-    kvb = linear(latent, p["wkv_b"]).reshape(-1, s, h, nope + vd)
+    q_nope, q_rope, latent, k_rope = _mla_qkv_latent(p, cfg, x, sin, cos, hl, tp)
+    lat, kr = (latent, k_rope) if tp is None else (column_in(latent, tp), column_in(k_rope, tp))
+    kvb = linear(lat, p["wkv_b"]).reshape(-1, s, h, nope + vd)
     k_nope, v = kvb[..., :nope], kvb[..., nope:]
     n = k_nope.shape[0]
     q_full = torch.cat([q_nope, q_rope], dim=-1)
-    k_full = torch.cat([k_nope, k_rope.reshape(n, s, 1, rope).expand(n, s, h, rope)], dim=-1)
+    k_full = torch.cat([k_nope, kr.reshape(n, s, 1, rope).expand(n, s, h, rope)], dim=-1)
     v_full = F.pad(v, (0, nope + rope - vd))
     o = flash_attention(q_full, k_full, v_full, cfg.sliding_window, is_global)[..., :vd]
-    return linear(o.reshape(*x.shape[:-1], h * vd), p["wo"]), (latent, k_rope)
+    out = linear(o.reshape(*x.shape[:-1], h * vd), p["wo"])
+    return (out if tp is None else row_out(out, tp)), (latent, k_rope)
 
 
-def mla_decode(p, cfg, x, sin_pos, cos_pos, cache, pos: int, is_global=1.0):
+def mla_decode(p, cfg, x, sin_pos, cos_pos, cache, pos: int, is_global=1.0, tp=None,
+               seq=None):
     """Absorbed-matmul decode of one token: x (B, 1, d) and ``cache`` =
     (latent (B, S_max, kv_lora_rank), k_rope (B, S_max, rope)) -> (out
     (B, 1, d), cache), the token's latent and k_rope written into the cache
     at ``pos`` in place.  The scores are taken against the latent cache
-    with ``wkv_b``'s key half absorbed into q, in fp32."""
+    with ``wkv_b``'s key half absorbed into q, in fp32.  ``tp``: on a
+    rank's blocks, ``mla_attention``'s rules (the rank's heads, ``wo``'s
+    partial output summed over ``model``); ``seq`` (with ``tp``): the cache
+    block holds the positions [seq, seq + S) of a sequence split over
+    ``tp``'s data axes, the token is written where ``pos`` falls in it, and
+    each rank's partial softmax and weighted latent context are combined
+    over the data axes (``combine_partials``) before ``wkv_b``'s value
+    half."""
+    hl = _mla_heads(p, cfg, tp)
+    if tp is not None and hl is None:
+        p = _mla_whole(p, cfg, tp)
     b = x.shape[0]
-    h = cfg.n_heads
+    h = hl or cfg.n_heads
     nope, rope, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     rkv = cfg.kv_lora_rank
     latent_c, krope_c = cache
-    q_nope, q_rope, latent_new, krope_new = _mla_qkv_latent(p, cfg, x, sin_pos, cos_pos)
-    latent_c[:, pos] = latent_new[:, 0].to(latent_c.dtype)
-    krope_c[:, pos] = krope_new[:, 0].to(krope_c.dtype)
+    q_nope, q_rope, latent_new, krope_new = _mla_qkv_latent(p, cfg, x, sin_pos, cos_pos, hl)
+    first = seq or 0
+    if seq is None or seq <= pos < seq + latent_c.shape[1]:
+        latent_c[:, pos - first] = latent_new[:, 0].to(latent_c.dtype)
+        krope_c[:, pos - first] = krope_new[:, 0].to(krope_c.dtype)
     f32 = torch.float32
     wkv_b = p["wkv_b"].reshape(rkv, h, nope + vd).to(f32)
     wk, wv = wkv_b[..., :nope], wkv_b[..., nope:]
@@ -459,8 +521,17 @@ def mla_decode(p, cfg, x, sin_pos, cos_pos, cache, pos: int, is_global=1.0):
     s_lat = torch.einsum("bhr,bsr->bhs", q_lat, lat)
     s_rope = torch.einsum("bhr,bsr->bhs", q_rope[:, 0].to(f32), krope_c.to(f32))
     scores = (s_lat + s_rope) / math.sqrt(nope + rope)
-    kpos = torch.arange(latent_c.shape[1], device=x.device)
-    probs = torch.softmax(scores + _mask_val(pos, kpos, cfg.sliding_window, is_global), dim=-1)
-    ctx = torch.einsum("bhs,bsr->bhr", probs, lat)
+    kpos = torch.arange(first, first + latent_c.shape[1], device=x.device)
+    scores = scores + _mask_val(pos, kpos, cfg.sliding_window, is_global)
+    if seq is None:
+        ctx = torch.einsum("bhs,bsr->bhr", torch.softmax(scores, dim=-1), lat)
+    else:
+        m = scores.amax(-1, keepdim=True)
+        e = torch.exp(scores - m)
+        valid = m > _NEG / 2       # a block with no valid position adds nothing
+        l = torch.where(valid, e.sum(-1, keepdim=True), 0.0)
+        ctx = combine_partials(m, l, torch.where(valid, torch.einsum("bhs,bsr->bhr", e, lat),
+                                                 0.0), tp)
     o = torch.einsum("bhr,rhv->bhv", ctx, wv)
-    return linear(o.reshape(b, 1, h * vd).to(x.dtype), p["wo"]), (latent_c, krope_c)
+    out = linear(o.reshape(b, 1, h * vd).to(x.dtype), p["wo"])
+    return (out if hl is None else row_out(out, tp)), (latent_c, krope_c)

@@ -41,6 +41,12 @@
   shared expert once.
 - ``moe_specs`` — the logical axes of each leaf, as the reference names
   them.
+- ``route``, ``router_sums``, ``load_balance``, ``scatter_weights``,
+  ``dense_sum`` and ``dispatched`` — the router, its load-balance sums
+  and loss, and the dense and capacity paths over a given block of
+  experts: the pieces that ``transformer._moe_blocks`` composes on a
+  rank's storage blocks (the router's sums over the data axes, the
+  experts over ``model``).
 
 Weights are shared by the batch, or carry a leading client axis m (one
 set per client, as the rest of the model's) in ``moe_dense`` only: the
@@ -59,7 +65,8 @@ import torch
 from repro_torch.models.common import activation, lecun_init, linear
 
 __all__ = ["init_moe", "moe_specs", "moe_dense", "capacity", "dispatch", "moe_capacity",
-           "moe_capacity_sharded"]
+           "moe_capacity_sharded", "route", "router_sums", "load_balance", "dense_sum",
+           "scatter_weights", "dispatched"]
 
 # the bytes a block of experts may take for its (T, fe) activations and
 # (T, d) outputs in ``moe_dense``
@@ -77,15 +84,19 @@ def moe_shapes(cfg) -> dict[str, tuple[int, ...]]:
     return shapes
 
 
-def init_moe(generator: torch.Generator, cfg, dtype: torch.dtype = torch.float32) -> dict:
+def init_moe(generator: torch.Generator, cfg, dtype: torch.dtype = torch.float32,
+             keep=None) -> dict:
     """LeCun-initialised router and experts drawn from ``generator``; the
     router fp32, every other leaf cast to ``dtype`` as soon as it is drawn.
-    ``w_down`` has fan-in fe and ``shared_down`` fan-in fs."""
+    ``w_down`` has fan-in fe and ``shared_down`` fan-in fs.  ``keep(name,
+    leaf)``: what is kept of each leaf, applied as soon as it is drawn and
+    cast (a rank's block), before the next is drawn."""
+    keep = keep or (lambda name, leaf: leaf)
     shapes = moe_shapes(cfg)
-    p = {"router": lecun_init(generator, shapes["router"])}
+    p = {"router": keep("router", lecun_init(generator, shapes["router"]))}
     for name, shape in shapes.items():
         if name != "router":
-            p[name] = lecun_init(generator, shape, fan_in=shape[-2]).to(dtype)
+            p[name] = keep(name, lecun_init(generator, shape, fan_in=shape[-2]).to(dtype))
     return p
 
 
@@ -104,9 +115,10 @@ def moe_specs(cfg) -> dict:
     return s
 
 
-def _router(p, cfg, x2d: torch.Tensor):
-    """x2d (..., T, d) -> top-k (ids (..., T, k) int64, weights fp32 (...,
-    T, k), aux fp32 (...))."""
+def route(p, cfg, x2d: torch.Tensor):
+    """The router on x2d (..., T, d): top-k (ids (..., T, k) int64, the k
+    weights renormalised to sum to 1, fp32 (..., T, k)) and the fp32
+    probabilities (..., T, E)."""
     mc = cfg.moe
     logits = linear(x2d.to(torch.float32), p["router"])          # (..., T, E)
     probs = torch.softmax(logits, dim=-1)
@@ -114,13 +126,32 @@ def _router(p, cfg, x2d: torch.Tensor):
     w, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
     w, ids = w[..., :mc.top_k], ids[..., :mc.top_k]
     w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)      # renormalise over k
-    e, t = mc.n_experts, x2d.shape[-2]
+    return ids, w, probs
+
+
+def router_sums(cfg, ids: torch.Tensor, probs: torch.Tensor):
+    """The load-balance loss's sums over a group of tokens: each expert's
+    count of the (token, slot) assignments (..., E) fp32, no gradient, and
+    its probabilities summed over the tokens (..., E)."""
     flat = ids.flatten(-2)
-    counts = torch.zeros(*flat.shape[:-1], e, dtype=torch.float32, device=x2d.device)
-    f = counts.scatter_add_(-1, flat, torch.ones_like(flat, dtype=torch.float32)) / (
-        t * mc.top_k)
-    aux = e * torch.sum(f * probs.mean(-2), dim=-1)
-    return ids, w, aux
+    counts = torch.zeros(*flat.shape[:-1], cfg.moe.n_experts, dtype=torch.float32,
+                         device=ids.device)
+    counts = counts.scatter_add_(-1, flat, torch.ones_like(flat, dtype=torch.float32))
+    return counts, probs.sum(-2)
+
+
+def load_balance(cfg, counts: torch.Tensor, psum: torch.Tensor, t: int) -> torch.Tensor:
+    """The Switch load-balance loss of ``t`` tokens from ``router_sums``'
+    sums: E x sum_e f_e p_e, f_e = counts_e / (t x top_k), p_e = psum_e / t."""
+    mc = cfg.moe
+    return mc.n_experts * torch.sum(counts / (t * mc.top_k) * (psum / t), dim=-1)
+
+
+def _router(p, cfg, x2d: torch.Tensor):
+    """x2d (..., T, d) -> top-k (ids (..., T, k) int64, weights fp32 (...,
+    T, k), aux fp32 (...))."""
+    ids, w, probs = route(p, cfg, x2d)
+    return ids, w, load_balance(cfg, *router_sums(cfg, ids, probs), x2d.shape[-2])
 
 
 def _shared_expert(p, cfg, x2d):
@@ -145,17 +176,15 @@ def _tokens(p, x: torch.Tensor) -> torch.Tensor:
     return x.reshape(*x.shape[:-3], -1, d) if x.ndim >= 3 else x
 
 
-def moe_dense(p, cfg, x: torch.Tensor):
-    """All experts on all tokens.  x (..., S, d) -> (out in x's type and
-    shape, aux): aux fp32, one per client with per-client weights, else one
-    per leading group."""
+def dense_sum(p, cfg, x2d: torch.Tensor, w_full: torch.Tensor) -> torch.Tensor:
+    """Every expert of ``p``'s ``w_gate`` / ``w_up`` / ``w_down`` (..., n,
+    ...) on every token of x2d (..., T, d), combined with ``w_full`` (...,
+    T, n), those experts' router weights in x2d's type: the fp32 sum
+    (..., T, d), the experts walked in blocks of at most ``_BLOCK_BYTES``
+    of activations."""
     mc = cfg.moe
-    x2d = _tokens(p, x)
-    ids, w, aux = _router(p, cfg, x2d)
-    e, t, d = mc.n_experts, x2d.shape[-2], x2d.shape[-1]
-    w_full = torch.zeros(*ids.shape[:-1], e, dtype=torch.float32, device=x.device)
-    w_full = w_full.scatter(-1, ids, w).to(x.dtype)                 # (..., T, E)
-    per_expert = t * (2 * mc.d_expert + d) * x.element_size() * max(1, x2d[..., 0, 0].numel())
+    e, t, d = p["w_up"].shape[-3], x2d.shape[-2], x2d.shape[-1]
+    per_expert = t * (2 * mc.d_expert + d) * x2d.element_size() * max(1, x2d[..., 0, 0].numel())
     expert_block = max(1, min(e, _BLOCK_BYTES // per_expert))
     xe = x2d.unsqueeze(-3)                                           # (..., 1, T, d)
     out = None
@@ -165,8 +194,25 @@ def moe_dense(p, cfg, x: torch.Tensor):
         ye = _expert_ffn_all(blk, cfg, xe)                           # (..., n, T, d)
         part = torch.einsum("...te,...etd->...td", w_full.narrow(-1, lo, n), ye)
         out = part.to(torch.float32) if out is None else out + part.to(torch.float32)
-    out = out.to(x.dtype)
-    if mc.n_shared:
+    return out
+
+
+def scatter_weights(cfg, ids: torch.Tensor, w: torch.Tensor, dtype) -> torch.Tensor:
+    """Top-k ids and weights (..., T, k) -> every expert's weight (..., T,
+    E) in ``dtype``, zero where the token does not go."""
+    w_full = torch.zeros(*ids.shape[:-1], cfg.moe.n_experts, dtype=torch.float32,
+                         device=ids.device)
+    return w_full.scatter(-1, ids, w).to(dtype)
+
+
+def moe_dense(p, cfg, x: torch.Tensor):
+    """All experts on all tokens.  x (..., S, d) -> (out in x's type and
+    shape, aux): aux fp32, one per client with per-client weights, else one
+    per leading group."""
+    x2d = _tokens(p, x)
+    ids, w, aux = _router(p, cfg, x2d)
+    out = dense_sum(p, cfg, x2d, scatter_weights(cfg, ids, w, x.dtype)).to(x.dtype)
+    if cfg.moe.n_shared:
         out = out + _shared_expert(p, cfg, x2d)
     return out.reshape(x.shape), aux
 
@@ -217,12 +263,32 @@ def dispatch(ids: torch.Tensor, w: torch.Tensor, cap: int, expert_offset: int, e
     return tok_of_slot, w_of_slot, slot_valid
 
 
+def dispatched(p, cfg, x2d: torch.Tensor, ids: torch.Tensor, w: torch.Tensor, cap: int,
+               expert_offset: int = 0, grad_sync=None) -> torch.Tensor:
+    """The capacity dispatch of the tokens x2d (T, d), routed to ``ids``
+    with weights ``w`` (T, k), over the experts [offset, offset + E_loc)
+    that ``p``'s ``w_gate`` / ``w_up`` / ``w_down`` (E_loc, ...) hold, each
+    taking ``cap`` rows: the partial output (T, d) in the weights' type,
+    which the caller sums over the processes holding the other experts.
+    ``grad_sync`` is applied to x2d and ``w`` (``moe_capacity``)."""
+    t, d = x2d.shape
+    e_loc = p["w_up"].shape[0]
+    if grad_sync is not None:
+        x2d, w = grad_sync(x2d), grad_sync(w)
+    tok_of_slot, w_of_slot, _ = dispatch(ids, w, cap, expert_offset, e_loc)
+    xe = x2d.index_select(0, tok_of_slot).reshape(e_loc, cap, d)
+    ye = _expert_ffn_all(p, cfg, xe)
+    contrib = ye.reshape(-1, d) * w_of_slot[:, None].to(ye.dtype)
+    return torch.zeros(t, d, dtype=torch.float32, device=x2d.device).index_add(
+        0, tok_of_slot, contrib.to(torch.float32)).to(ye.dtype)
+
+
 def moe_capacity(p, cfg, x2d: torch.Tensor, expert_offset: int = 0,
                  n_local_experts: int | None = None, include_shared: bool = True,
                  grad_sync=None):
     """Capacity dispatch over the experts [offset, offset + E_loc) of
-    ``p``'s ``w_gate`` / ``w_up`` / ``w_down`` (E_loc, ...); the router
-    runs on every expert.  x2d (T, d) -> (the partial output (T, d) in
+    ``p``'s ``w_gate`` / ``w_up`` / ``w_down`` (E_loc = ``n_local_experts``,
+    ...); the router runs on every expert.  x2d (T, d) -> (the partial output (T, d) in
     x2d's type, which the caller sums over the processes holding the other
     experts; the aux loss fp32, the same on each).
 
@@ -235,19 +301,9 @@ def moe_capacity(p, cfg, x2d: torch.Tensor, expert_offset: int = 0,
     if p["router"].ndim != 2 or x2d.ndim != 2:
         raise ValueError("the capacity dispatch takes one model's weights and tokens (T, d); "
                          "per-client weights run moe_dense")
-    t, d = x2d.shape
-    e_loc = n_local_experts or mc.n_experts
     ids, w, aux = _router(p, cfg, x2d)
-    xd = x2d
-    if grad_sync is not None:
-        xd, w = grad_sync(x2d), grad_sync(w)
-    cap = capacity(cfg, t)
-    tok_of_slot, w_of_slot, _ = dispatch(ids, w, cap, expert_offset, e_loc)
-    xe = xd.index_select(0, tok_of_slot).reshape(e_loc, cap, d)
-    ye = _expert_ffn_all(p, cfg, xe)
-    contrib = ye.reshape(-1, d) * w_of_slot[:, None].to(ye.dtype)
-    out = torch.zeros(t, d, dtype=torch.float32, device=x2d.device).index_add(
-        0, tok_of_slot, contrib.to(torch.float32)).to(ye.dtype)
+    out = dispatched(p, cfg, x2d, ids, w, capacity(cfg, x2d.shape[0]), expert_offset,
+                     grad_sync)
     if include_shared and mc.n_shared:
         out = out + _shared_expert(p, cfg, x2d)
     return out, aux

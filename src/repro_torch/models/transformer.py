@@ -65,9 +65,10 @@ by the loss mask and divided by its sum, each chunk's logits in fp32
 and, with ``cfg.mtp``, the MTP head's weighted cross-entropy against the
 labels shifted by one more position.
 
-Storage sharding: on a grid (``data`` or ``model`` larger than 1) the
-families of ``shards_storage`` (the dense GQA models, hymba, xlstm, and
-the frame and patch inputs of musicgen-large and internvl2-1b) take a rank's
+Storage sharding: on a grid (``data`` or ``model`` larger than 1) every
+family (``shards_storage``: the dense GQA models, hymba, xlstm, the frame
+and patch inputs of musicgen-large and internvl2-1b, and the MoE / MLA /
+MTP models dbrx-132b and deepseek-v3-671b) takes a rank's
 blocks of every leaf under the baseline policy (``sharding.shard_tree``)
 and the rank's ``data`` share of the batch, as the reference's layout
 puts them on a device, and compute tensor-parallel over ``model``
@@ -94,16 +95,29 @@ and the cross-entropy is computed replicated over ``model``.  The loss
 divides by the mask's sum over the data axes (vlm: the text positions),
 and every leaf, replicated over them, takes its gradient summed over
 them: each rank's backward ends with the gradient of its blocks for the
-mean over the whole batch.  The MoE and MLA models (and the ``fsdp``
-variant's layout) hold every leaf whole on every rank.
+mean over the whole batch.  An MoE layer runs on the rank's experts
+(``_moe_blocks``: the experts over ``model``, their FFN columns over
+``data``; under a mesh the reference's four capacity rules, rule 1's
+experts exchanged whole from the blocks by an all-to-all on every call,
+the FFN columns gathered over ``data`` where a rule needs them whole and
+the gradient reduce-scattered back, the tokens gathered over the data
+axes where the rule replicates them; without one, or ``impl="dense"``,
+``moe_dense``'s function on the rank's experts; the shared expert
+tensor-parallel over ``model``), with the router's aux loss over the
+whole batch; MLA on the rank's heads (``attention.mla_attention(...,
+tp=)``); the MTP head through the vocab-parallel cross-entropy.  An
+expert leaf's gradient is not summed over ``data``, which splits its
+columns (``_sum_replicated``).  The ``fsdp`` variant's layout (the dry
+run's) holds every leaf whole.
 
 Serving on a grid, for the same families: ``init_cache(...,
 mesh=)`` builds the rank's block of each cache leaf under the baseline
 policy (``cache_layout``: rows over the data axes where they divide the
 batch; else, where they divide the cache's length, the k / v sequence
 over them (``seq_block``), as the reference's decode constraint lays it
-out; kv heads over ``model`` where it divides them; hymba's Mamba state
-and conv tail and the xLSTM states whole over ``model``);
+out; kv heads over ``model`` where it divides them; MLA's latent and
+k_rope, which have no head axis, and hymba's Mamba state and conv tail and
+the xLSTM states whole over ``model``);
 ``prefill(..., mesh=)`` takes the rank's rows (``batch_rows``) and runs
 ``forward(..., tp=mesh)``, writes the rank's k and v (every kv head where
 the cache holds them all; on a split sequence the prompt's positions in
@@ -116,7 +130,10 @@ the vocab-parallel lookup, GQA on the rank's q and kv heads
 combined over the data axes), the Mamba heads on the rank's channels and
 the xLSTM cores on its heads (``ssm.mamba_decode`` / ``mlstm_decode`` /
 ``slstm_decode(..., tp=)``, their states brought back whole over
-``model`` each step), the MLP's blocks.  Both return the logits
+``model`` each step), MLA's absorbed scores on the rank's heads (on a
+split sequence the partial softmaxes and weighted latent contexts
+combined over the data axes before ``wkv_b``'s value half), the MLP's or
+the MoE's blocks.  Both return the logits
 replicated, as the reference's steps do: the vocab-parallel head's
 blocks gathered over ``model``, the rows over the data axes.
 
@@ -141,7 +158,7 @@ import math
 
 import numpy as np
 import torch
-from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -170,7 +187,8 @@ from repro_torch.models.common import (
 )
 
 __all__ = [
-    "TransformerLayout", "check_supported", "shards_storage", "param_blocks", "layer_flags", "init_transformer", "init_params",
+    "TransformerLayout", "check_supported", "shards_storage", "param_blocks", "layer_flags",
+    "init_transformer", "init_params", "init_param_blocks",
     "abstract_params",
     "transformer_specs", "cast_params", "embed_inputs", "forward", "output_head",
     "chunked_logits_sum", "token_nll", "loss_fn", "init_cache", "cache_specs", "cache_layout",
@@ -182,11 +200,9 @@ def check_supported(cfg, tree: bool = False) -> None:
     """Raise for what the port does not run: the flat fp32 layout
     (federated training) takes float32 configs with token inputs, the
     parameter tree (``tree``: the training launcher and serving) float32
-    and bfloat16 and every input mode.  On a grid, the configs that
-    ``shards_storage`` names (the dense GQA models, hymba, xlstm and both
-    modal input modes) take the rank's blocks of the tree in ``loss_fn``,
-    ``init_cache``, ``prefill`` and ``decode_step``; the MoE and MLA
-    models hold it whole."""
+    and bfloat16 and every input mode.  On a grid every config takes the
+    rank's blocks of the tree (``shards_storage``) in ``loss_fn``,
+    ``init_cache``, ``prefill`` and ``decode_step``."""
     if not tree and cfg.input_mode != "tokens":
         raise ValueError(
             f"repro_torch's flat transformer layout (federated training) takes token inputs "
@@ -216,13 +232,11 @@ def shards_storage(cfg, mesh) -> bool:
     """Whether a rank of ``mesh`` holds ``cfg``'s leaves as its blocks under
     the baseline policy (``sharding.shard_tree``) and computes on them
     (``loss_fn``, ``init_cache``, ``prefill``, ``decode_step``): on a grid
-    (``data`` or ``model`` larger than 1), for the dense GQA models
-    (stablelm-3b, glm4-9b, qwen3-14b, gemma3-27b), hymba-1.5b, xlstm-125m,
-    musicgen-large (frames) and internvl2-1b (patches).  The MoE and MLA
-    models keep every leaf whole on every rank."""
-    return bool(mesh is not None and getattr(mesh, "grid", False)
-                and cfg.block_type in ("attn", "hymba", "xlstm") and not cfg.use_mla
-                and cfg.moe is None and not cfg.mtp)
+    (``data`` or ``model`` larger than 1), for every family the port runs
+    (``check_supported``): the dense GQA models, hymba-1.5b, xlstm-125m,
+    musicgen-large (frames), internvl2-1b (patches) and the MoE / MLA /
+    MTP models dbrx-132b and deepseek-v3-671b."""
+    return bool(mesh is not None and getattr(mesh, "grid", False))
 
 
 # ---------------------------------------------------------------------------
@@ -472,37 +486,50 @@ def cast_params(tree, dtype: torch.dtype):
             else v if _keeps_fp32(k, v) else v.to(dtype) for k, v in tree.items()}
 
 
-def _init_tree(generator: torch.Generator, cfg, dtype: torch.dtype) -> dict:
+def _init_tree(generator: torch.Generator, cfg, dtype: torch.dtype, keep=None) -> dict:
     """The parameter tree drawn from ``generator`` on its device with the
     reference's distributions, each module cast to ``dtype`` (by
-    ``cast_params``) as soon as it is drawn, an MoE block leaf by leaf."""
+    ``cast_params``) as soon as it is drawn, an MoE block leaf by leaf.
+    ``keep(path, leaf)``: what is kept of each leaf (``init_param_blocks``:
+    the rank's block), applied to a module's leaves as soon as it is cast,
+    to an MoE block's as soon as each is drawn."""
     dev = generator.device
+    keep = keep or (lambda path, leaf: leaf)
+
+    def kept(module, path):
+        return {k: kept(v, (*path, k)) if isinstance(v, dict) else keep((*path, k), v)
+                for k, v in module.items()}
+
     layers = []
-    for _ in range(cfg.n_layers):
+    for i in range(cfg.n_layers):
+        at = ("layers", i)
         if cfg.block_type == "xlstm":
-            layers.append({"xlstm": cast_params(ssm_mod.init_xlstm(generator, cfg), dtype),
-                           **_init_norm(cfg, "norm1", dev)})
+            layers.append(kept({"xlstm": cast_params(ssm_mod.init_xlstm(generator, cfg), dtype),
+                                **_init_norm(cfg, "norm1", dev)}, at))
             continue
-        layer = {**_init_norm(cfg, "norm1", dev), **_init_norm(cfg, "norm2", dev)}
-        layer["attn"] = cast_params((init_mla if cfg.use_mla else init_gqa)(generator, cfg),
-                                    dtype)
+        layer = kept({**_init_norm(cfg, "norm1", dev), **_init_norm(cfg, "norm2", dev)}, at)
+        layer["attn"] = kept(cast_params((init_mla if cfg.use_mla else init_gqa)(generator, cfg),
+                                         dtype), (*at, "attn"))
         if cfg.block_type == "hymba":
-            layer["ssm"] = cast_params(ssm_mod.init_mamba(generator, cfg), dtype)
-            layer["attn_out_norm"] = torch.zeros(cfg.d_model, device=dev)
-            layer["ssm_out_norm"] = torch.zeros(cfg.d_model, device=dev)
-        layer["mlp"] = (moe_mod.init_moe(generator, cfg, dtype) if cfg.moe
-                        else cast_params(_init_mlp(generator, cfg), dtype))
+            layer["ssm"] = kept(cast_params(ssm_mod.init_mamba(generator, cfg), dtype),
+                                (*at, "ssm"))
+            layer |= kept({"attn_out_norm": torch.zeros(cfg.d_model, device=dev),
+                           "ssm_out_norm": torch.zeros(cfg.d_model, device=dev)}, at)
+        layer["mlp"] = (moe_mod.init_moe(generator, cfg, dtype,
+                                         lambda name, leaf, at=at: keep((*at, "mlp", name), leaf))
+                        if cfg.moe else kept(cast_params(_init_mlp(generator, cfg), dtype),
+                                             (*at, "mlp")))
         layers.append(layer)
-    tree = {"layers": layers, **_init_norm(cfg, "final_norm", dev)}
+    tree = {"layers": layers, **kept(_init_norm(cfg, "final_norm", dev), ())}
     if cfg.input_mode == "frames":
-        tree["frame_norm"] = torch.zeros(cfg.d_model, device=dev)
-    tree["embed"] = (torch.randn((cfg.vocab, cfg.d_model), generator=generator, device=dev)
-                     * 0.02).to(dtype)
+        tree |= kept({"frame_norm": torch.zeros(cfg.d_model, device=dev)}, ())
+    tree |= kept({"embed": (torch.randn((cfg.vocab, cfg.d_model), generator=generator,
+                                        device=dev) * 0.02).to(dtype)}, ())
     if not cfg.tie_embeddings:
-        tree["head"] = lecun_init(generator, (cfg.d_model, cfg.vocab)).to(dtype)
+        tree |= kept({"head": lecun_init(generator, (cfg.d_model, cfg.vocab)).to(dtype)}, ())
     if cfg.mtp:
-        tree["mtp_proj"] = lecun_init(generator, (cfg.d_model, cfg.d_model)).to(dtype)
-        tree["mtp_norm"] = torch.zeros(cfg.d_model, device=dev)
+        tree |= kept({"mtp_proj": lecun_init(generator, (cfg.d_model, cfg.d_model)).to(dtype),
+                      "mtp_norm": torch.zeros(cfg.d_model, device=dev)}, ())
     return tree
 
 
@@ -528,6 +555,26 @@ def init_params(generator: torch.Generator, cfg) -> dict:
     return _init_tree(generator, cfg, getattr(torch, cfg.dtype))
 
 
+def init_param_blocks(generator: torch.Generator, cfg, mesh) -> dict:
+    """``param_blocks(init_params(generator, cfg), cfg, mesh)``, bit for
+    bit, drawn leaf by leaf: each module's leaves (an MoE block's each
+    leaf) cut to the rank's block as soon as they are drawn and cast, so
+    that no whole tree, and no whole leaf beyond the one being drawn, is
+    ever held (dbrx-132b's experts are 2.1 GB a leaf a layer in bf16)."""
+    from repro_torch.sharding import shard_tree
+
+    check_supported(cfg, tree=True)
+    specs = _param_specs(cfg, mesh)
+
+    def keep(path, leaf):
+        spec = specs
+        for k in path:
+            spec = spec[k]
+        return shard_tree(leaf, spec, mesh)
+
+    return _init_tree(generator, cfg, getattr(torch, cfg.dtype), keep)
+
+
 def abstract_params(cfg) -> dict:
     """``init_params``' tree as empty ``meta`` tensors of the same shapes
     and types, drawing nothing (the reference's ``jax.eval_shape`` of its
@@ -535,6 +582,22 @@ def abstract_params(cfg) -> dict:
     generator's device whatever the default device is, so a ``meta``
     default does not make it abstract."""
     check_supported(cfg, tree=True)
+    return _abstract_tree(cfg, lambda shape, kind: torch.empty(shape, dtype=kind, device="meta"))
+
+
+def _param_specs(cfg, mesh):
+    """The baseline policy's spec of each leaf of ``init_params``' tree on
+    ``mesh``, from the leaves' shapes alone: no tensor is made, so that a
+    step that asks for them (``_loss_blocks``) allocates nothing for them,
+    on the dry run's ``meta`` device either."""
+    from repro_torch.sharding import make_policy
+
+    return make_policy(mesh, 0).shardings(
+        transformer_specs(cfg), _abstract_tree(cfg, lambda shape, kind: _Leaf(shape, kind, 0.0)))
+
+
+def _abstract_tree(cfg, make) -> dict:
+    """``init_params``' tree with ``make(shape, dtype)`` at each leaf."""
     dtype = getattr(torch, cfg.dtype)
     entries = _leaf_entries(cfg)
     if cfg.input_mode == "frames":
@@ -543,7 +606,7 @@ def abstract_params(cfg) -> dict:
     tree: dict = {"layers": [{} for _ in range(cfg.n_layers)]}
     for path, shape in entries:
         kind = torch.float32 if _keeps_fp32(path[-1], shape) else dtype
-        _set_leaf(tree, path, torch.empty(shape, dtype=kind, device="meta"))
+        _set_leaf(tree, path, make(shape, kind))
     if cfg.block_type != "xlstm":   # init_params' key order: both norms first
         order = [*_norm_shapes(cfg, "norm1"), *_norm_shapes(cfg, "norm2"), "attn", "ssm",
                  "attn_out_norm", "ssm_out_norm", "mlp"]
@@ -563,11 +626,12 @@ def _norm(p, cfg, x, name):
     return rms_norm(x, per_client(p[name], x), cfg.norm_eps)
 
 
-def _mlp(p, cfg, x, tp=None):
-    """The dense MLP; with ``tp`` (a mesh) and ``w_up`` split over its
-    ``model`` axis, on the rank's column blocks of ``w_gate`` / ``w_up``
-    and row block of ``w_down``, the output summed over ``model``."""
-    split = tp is not None and p["w_up"].shape[-1] != cfg.d_ff
+def _mlp(p, cfg, x, tp=None, width=None):
+    """The dense MLP (hidden ``width``, by default ``cfg.d_ff``); with
+    ``tp`` (a mesh) and ``w_up`` split over its ``model`` axis, on the
+    rank's column blocks of ``w_gate`` / ``w_up`` and row block of
+    ``w_down``, the output summed over ``model``."""
+    split = tp is not None and p["w_up"].shape[-1] != (width or cfg.d_ff)
     if split:
         x = column_in(x, tp)
     gate = linear(x, p["w_gate"]) if "w_gate" in p else None
@@ -576,9 +640,14 @@ def _mlp(p, cfg, x, tp=None):
     return row_out(out, tp) if split else out
 
 
-def _ffn(p, cfg, x, mesh=None, tp=None):
-    """The layer's MLP: (out, the router's aux loss), 0.0 for a dense one."""
+def _ffn(p, cfg, x, mesh=None, tp=None, whole_rows=False):
+    """The layer's MLP: (out, the router's aux loss), 0.0 for a dense one.
+    ``tp``: on a rank's blocks (an MoE by ``_moe_blocks``, its capacity
+    rules where ``mesh`` is given, as the reference's dispatch sees it)."""
     if cfg.moe:
+        if tp is not None:
+            return _moe_blocks(p, cfg, x, tp, mesh is not None and cfg.moe.impl == "capacity",
+                               whole_rows)
         return _run_moe(p, cfg, x, mesh)
     return _mlp(p, cfg, x, tp), 0.0
 
@@ -654,25 +723,25 @@ def _run_moe(p, cfg, x, mesh):
     dp_all = tuple(a for a in all_axes if a != "model")
     b, s, d = x.shape
     x2d = x.reshape(-1, d)
-    if b * s <= _EP_TOKENS and mc.n_experts % n_dev == 0:
-        # 1: experts over every axis
+    rule = _ep_rule(cfg, mesh, b * s)
+    if rule == 1:
+        # experts over every axis
         e_loc = mc.n_experts // n_dev
         lo = mesh.index(all_axes) * e_loc
         out2d, aux = _ep_block(p, _local_experts(p, mesh, all_axes, lo, e_loc), cfg, x2d, mesh,
                                lo, e_loc)
         return out2d.reshape(b, s, d), aux
-    if b * s <= _EP_TOKENS and mc.n_experts % model == 0 \
-            and mc.d_expert % (n_dev // model) == 0:
-        # 2: experts over model, their FFN columns over the data axes
+    if rule == 2:
+        # experts over model, their FFN columns over the data axes
         e_loc, fe = mc.n_experts // model, mc.d_expert // (n_dev // model)
         lo = mesh.axis_index("model") * e_loc
         pl = _local_experts(p, mesh, all_axes, lo, e_loc, (mesh.index(dp_all) * fe, fe))
         out2d, aux = _ep_block(p, pl, cfg, x2d, mesh, lo, e_loc)
         return out2d.reshape(b, s, d), aux
-    if mc.n_experts % model:                # 3: replicated
+    if rule == 3:                           # replicated
         out, aux = moe_mod.moe_capacity(p, cfg, x2d)
         return out.reshape(x.shape), aux
-    # 4: experts over model, tokens over the data axes
+    # experts over model, tokens over the data axes
     dp = dp_all if b % mesh.size(dp_all) == 0 else ()
     e_loc = mc.n_experts // model
     pl = _local_experts(p, mesh, ("model",) + dp, mesh.axis_index("model") * e_loc, e_loc)
@@ -689,6 +758,199 @@ def _run_moe(p, cfg, x, mesh):
         aux = mesh.all_reduce_mean(aux, dp)
         out = mesh.all_gather(out, dp, dim=0)
     return out, aux
+
+
+def _ep_rule(cfg, mesh, t: int) -> int:
+    """Which of ``_run_moe``'s four rules the reference takes for ``t``
+    tokens on ``mesh``."""
+    mc, n_dev, model = cfg.moe, mesh.size(), mesh.shape["model"]
+    if t <= _EP_TOKENS and mc.n_experts % n_dev == 0:
+        return 1
+    if t <= _EP_TOKENS and mc.n_experts % model == 0 \
+            and mc.d_expert % (n_dev // model) == 0:
+        return 2
+    return 3 if mc.n_experts % model else 4
+
+
+_EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
+
+
+def _col_dim(name: str) -> int:
+    """The dimension of an expert leaf that holds its expert-FFN columns."""
+    return 1 if name == "w_down" else 2
+
+
+def _expert_columns(p, cfg, mesh, partial: bool = True) -> dict:
+    """The rank's expert blocks with their expert-FFN columns gathered whole
+    over ``data``, where the policy splits them (``expert_ff``); backward,
+    the gradient summed over ``data`` and cut back to the block (the
+    matching reduce-scatter), or, where each data rank computes every row
+    (not ``partial``), only cut."""
+    out = {}
+    for k in _EXPERT_LEAVES:
+        w, dim = p[k], _col_dim(k)
+        if w.shape[dim] != cfg.moe.d_expert:
+            w = mesh.all_gather(w, "data", dim=dim)
+            w = mesh.grad_sum(w, "data") if partial else w
+        out[k] = w
+    return out
+
+
+def _experts_exchanged(p, cfg, mesh, lo: int, e_loc: int) -> dict:
+    """Rule 1's experts [lo, lo + e_loc) whole on this rank, from the blocks
+    its pod's ranks store (experts over ``model``, expert-FFN columns over
+    ``data``; the replicas over the other axes are not read): one
+    all-to-all a leaf over every axis, in which each rank sends each
+    other rank the pieces of its block that rank needs.  Backward, each
+    piece's gradient goes back to the block it came from."""
+    mc, names = cfg.moe, mesh.axis_names
+    eb, fb = p["w_up"].shape[0], p["w_up"].shape[2]
+    nm, nc = mc.n_experts // eb, mc.d_expert // fb
+    me = mesh.coords
+    ranks = [mesh._coords_of(r) for r in range(mesh.size())]
+    rank_of = {tuple(c[a] for a in names): r for r, c in enumerate(ranks)}
+
+    def source(at, e, j):     # the rank of ``at``'s pod holding column block j of expert e
+        src = dict(at)
+        if nm > 1:
+            src["model"] = e // eb
+        if nc > 1:
+            src["data"] = j
+        return src
+
+    sent, send = [], [0] * len(ranks)
+    for r, at in enumerate(ranks):
+        for e in range(r * e_loc, (r + 1) * e_loc):
+            for j in range(nc):
+                if source(at, e, j) == me:
+                    sent.append(e - me["model"] * eb if nm > 1 else e)
+                    send[r] += 1
+    pieces = sorted((rank_of[tuple(source(me, e, j)[a] for a in names)], e, j)
+                    for e in range(lo, lo + e_loc) for j in range(nc))
+    recv, at = [0] * len(ranks), {}
+    for i, (r, e, j) in enumerate(pieces):
+        recv[r] += 1
+        at[e, j] = i
+    order = [at[e, j] for e in range(lo, lo + e_loc) for j in range(nc)]
+    first = sent[0] if sent else 0
+    out = {}
+    for k in _EXPERT_LEAVES:
+        w = p[k]
+        if sent == list(range(first, first + len(sent))):     # a run of the block: no copy
+            part = w.narrow(0, first, len(sent))
+        else:
+            part = w.index_select(0, torch.tensor(sent, dtype=torch.int64, device=w.device))
+        got = mesh.all_to_all(part, send, recv)
+        got = got.index_select(0, torch.tensor(order, dtype=torch.int64, device=w.device))
+        got = got.reshape(e_loc, nc, *w.shape[1:])
+        if k == "w_down":
+            out[k] = got.reshape(e_loc, nc * fb, w.shape[2])
+        else:
+            out[k] = got.permute(0, 2, 1, 3).reshape(e_loc, w.shape[1], nc * fb)
+    return out
+
+
+def _shared_blocks(p, cfg, x2d, mesh):
+    """The shared expert on the rank's rows, tensor-parallel over ``model``
+    as ``_mlp(tp=)`` computes the dense MLP (``shared_*`` are ``ffn``
+    leaves); the reference computes it replicated over ``model``."""
+    shared = {"w_gate": p["shared_gate"], "w_up": p["shared_up"], "w_down": p["shared_down"]}
+    return _mlp(shared, cfg, x2d, mesh, width=cfg.moe.d_expert * cfg.moe.n_shared)
+
+
+def _moe_blocks(p, cfg, x, mesh, capacity: bool, whole_rows: bool = False):
+    """The MoE layer on a rank's blocks (experts over ``model``, their FFN
+    columns over ``data``, the router replicated, the shared expert's
+    ``ffn`` over ``model``) and its rows x (B_loc, S, d) of a batch split
+    over the data axes (``whole_rows``: every row, a batch they do not
+    divide) -> (out (B_loc, S, d), aux).  The router runs on the rank's
+    rows.
+
+    Without ``capacity`` (``impl="dense"``, or no mesh as the reference's
+    scale-out round runs it): ``moe_dense`` on the rank's experts, their
+    columns gathered over ``data``, the partial outputs summed over
+    ``model`` in fp32; the aux loss over the whole batch.  With it,
+    ``_run_moe``'s rule for the whole batch's tokens:
+
+    1. the rank's E / n_dev experts whole, exchanged from its pod's blocks
+       (``_experts_exchanged``), on every token;
+    2. its ``model`` block of experts on the columns of its ``data``
+       block that its other data axes (``pod``) give it, on every token;
+    3. every expert, the columns gathered over ``data``, on every token,
+       computed alike on every rank;
+    4. its ``model`` block of experts, the columns gathered over ``data``,
+       on its rows (the capacity of its rows' tokens), the aux loss the
+       mean of the data ranks' own.
+
+    Rules 1-3 gather the tokens and their routing over the data axes, as
+    the reference replicates them, and cut the output back to the rank's
+    rows; their aux loss is the whole batch's.  Gradients: each rank ends
+    with its blocks' and its rows' (its rows' part of the replicated
+    router's, which ``_loss_blocks`` sums over the data axes), every
+    gather's backward the matching reduce-scatter; with ``whole_rows``
+    every data rank computes every row, and nothing is summed over them."""
+    mc, names = cfg.moe, mesh.axis_names
+    rows = () if whole_rows else _data_axes(mesh)
+    b, s, d = x.shape
+    x2d = x.reshape(-1, d)
+    t_loc = x2d.shape[0]
+    t = t_loc * mesh.size(rows)
+    ids, w, probs = moe_mod.route(p, cfg, x2d)
+    counts, psum = moe_mod.router_sums(cfg, ids, probs)
+    rule = _ep_rule(cfg, mesh, t) if capacity else 0
+    if rule == 4:
+        aux = mesh.all_reduce_mean(moe_mod.load_balance(cfg, counts, psum, t_loc), rows)
+    else:
+        aux = moe_mod.load_balance(cfg, mesh.all_reduce_sum(counts, rows),
+                                   mesh.all_reduce_sum(psum, rows), t)
+    model = mesh.axis_index("model")
+    if rule == 0:
+        pe = _expert_columns(p, cfg, mesh, bool(rows))
+        e_loc = pe["w_up"].shape[0]
+        wf = moe_mod.scatter_weights(cfg, ids, w, x.dtype)
+        if e_loc != mc.n_experts:
+            # every expert's weight feeds its model rank: the whole (T, E)
+            # gradient is summed over model before the rank's slice is taken
+            wf = column_in(wf, mesh).narrow(-1, model * e_loc, e_loc)
+            out = row_out(moe_mod.dense_sum(pe, cfg, column_in(x2d, mesh), wf),
+                          mesh).to(x.dtype)
+        else:
+            out = moe_mod.dense_sum(pe, cfg, x2d, wf).to(x.dtype)
+    elif rule == 4:
+        e_loc = mc.n_experts // mesh.shape["model"]
+        out = mesh.all_reduce_sum(moe_mod.dispatched(
+            _expert_columns(p, cfg, mesh, bool(rows)), cfg, x2d, ids, w,
+            moe_mod.capacity(cfg, t_loc),
+            model * e_loc, grad_sync=lambda v: mesh.grad_sum(v, "model")), "model")
+    else:
+        xa, ida, wa = (mesh.all_gather(v, rows) for v in (x2d, ids, w))
+        cap = moe_mod.capacity(cfg, t)
+        if rule == 3:
+            out = moe_mod.dispatched(_expert_columns(p, cfg, mesh, bool(rows)), cfg, xa, ida,
+                                     wa, cap)
+        else:
+            if rule == 1:
+                e_loc = mc.n_experts // mesh.size()
+                lo = mesh.index(names) * e_loc
+                pl = _experts_exchanged(p, cfg, mesh, lo, e_loc)
+            else:
+                e_loc = mc.n_experts // mesh.shape["model"]
+                lo = model * e_loc
+                fb = p["w_up"].shape[2]
+                other = tuple(a for a in _data_axes(mesh)
+                              if not (a == "data" and fb != mc.d_expert))
+                sub = mc.d_expert // mesh.size(_data_axes(mesh))
+                pl = {k: p[k].narrow(_col_dim(k), mesh.index(other) * sub, sub)
+                      for k in _EXPERT_LEAVES}
+            out = mesh.all_reduce_sum(moe_mod.dispatched(
+                pl, cfg, xa, ida, wa, cap, lo, grad_sync=lambda v: mesh.grad_sum(v, names)),
+                names)
+            # each rank keeps its rows: every row's cotangent reaches every partial
+            out = mesh.grad_sum(out, rows)
+        out = out.narrow(0, mesh.index(rows) * t_loc, t_loc)
+    if mc.n_shared:
+        out = out + _shared_blocks(p, cfg, x2d, mesh)
+    return out.reshape(b, s, d), aux
 
 
 def _lookup(table: torch.Tensor, cfg, tokens: torch.Tensor, tp=None) -> torch.Tensor:
@@ -778,13 +1040,14 @@ def _flags_at(flags, i: int) -> dict[str, float]:
 
 
 def _apply_layer_seq(pl, cfg, x, flags: dict[str, float], tabs_l, tabs_g, mesh=None,
-                     tp=None, all_kv=False):
+                     tp=None, all_kv=False, whole_rows=False):
     """One layer over the full sequence: attention (in parallel with the
     Mamba heads for hymba), then the MLP; for xlstm the flagged core.
     Returns (x, the router's aux loss (0.0 without MoE), the layer's decode
     cache entries).  ``tp``: the mesh whose ``model`` axis splits ``pl``
     (a rank's blocks); ``all_kv``: k and v as the cache block holds them
-    (``gqa_attention``)."""
+    (``gqa_attention``); ``whole_rows``: x holds every row of a batch that
+    the data axes do not divide (``_moe_blocks``)."""
     if cfg.block_type == "xlstm":
         name = "mlstm" if flags["is_mlstm"] > 0 else "slstm"
         out, state = getattr(ssm_mod, f"{name}_seq")(pl["xlstm"], cfg, _norm(pl, cfg, x, "norm1"),
@@ -794,7 +1057,7 @@ def _apply_layer_seq(pl, cfg, x, flags: dict[str, float], tabs_l, tabs_g, mesh=N
     sin, cos = _select_rope(tabs_l, tabs_g, is_global)
     h = _norm(pl, cfg, x, "norm1")
     if cfg.use_mla:
-        a_out, (latent, k_rope) = mla_attention(pl["attn"], cfg, h, sin, cos, is_global)
+        a_out, (latent, k_rope) = mla_attention(pl["attn"], cfg, h, sin, cos, is_global, tp=tp)
         cache = {"latent": latent, "k_rope": k_rope}
     else:
         a_out, (k, v) = gqa_attention(pl["attn"], cfg, h, sin, cos, is_global, tp=tp,
@@ -804,7 +1067,7 @@ def _apply_layer_seq(pl, cfg, x, flags: dict[str, float], tabs_l, tabs_g, mesh=N
         s_out, (cache["ssm_h"], cache["conv"]) = ssm_mod.mamba_seq(pl["ssm"], cfg, h, tp=tp)
         a_out = _hymba_fuse(pl, cfg, a_out, s_out)
     x = x + a_out
-    m_out, aux = _ffn(pl["mlp"], cfg, _norm(pl, cfg, x, "norm2"), mesh, tp)
+    m_out, aux = _ffn(pl["mlp"], cfg, _norm(pl, cfg, x, "norm2"), mesh, tp, whole_rows)
     return x + m_out, aux, cache
 
 
@@ -815,7 +1078,8 @@ def _hymba_fuse(pl, cfg, a_out, s_out):
 
 
 def forward(params, cfg, inputs: torch.Tensor, layout: TransformerLayout | None = None,
-            collect_cache: bool = False, with_aux: bool = False, mesh=None, tp=None):
+            collect_cache: bool = False, with_aux: bool = False, mesh=None, tp=None,
+            whole_rows: bool = False):
     """Hidden states after the final norm, (..., S, d).  ``params`` is the
     flat (P,) or (m, P) vector (cut by ``layout``) or its tree of views;
     ``inputs`` the token ids (..., S) or, floating point, the embedded
@@ -827,8 +1091,12 @@ def forward(params, cfg, inputs: torch.Tensor, layout: TransformerLayout | None 
     cache entries a layer, last: (hidden[, aux][, caches]).  ``mesh``:
     the MoE's device mesh (one model's weights and (B, S) inputs only).
     ``tp``: the mesh whose ``model`` axis splits ``params``, a rank's
-    blocks (``shards_storage``), computed tensor-parallel; the hidden
-    states come out replicated over ``model``, and the cache entries are
+    blocks (``shards_storage``), computed tensor-parallel (``mesh`` then
+    that same mesh where the MoE dispatch sees it, None for
+    ``moe_dense``'s function; ``whole_rows``: the inputs are every row of
+    a batch that the data axes do not divide, else the rank's rows of
+    it); the hidden states come out replicated over ``model``, and the
+    cache entries are
     the rank's: k and v its cache block's kv heads, the recurrent states
     its channels or heads."""
     if isinstance(params, torch.Tensor):
@@ -842,7 +1110,8 @@ def forward(params, cfg, inputs: torch.Tensor, layout: TransformerLayout | None 
     caches, aux = [], 0.0
     for i, pl in enumerate(params["layers"]):
         x, layer_aux, cache = _apply_layer_seq(pl, cfg, x, _flags_at(flags, i), tabs_l, tabs_g,
-                                               mesh, tp, all_kv=collect_cache)
+                                               mesh, tp, all_kv=collect_cache,
+                                               whole_rows=whole_rows)
         aux = aux + layer_aux
         if collect_cache:
             caches.append(cache)
@@ -928,25 +1197,67 @@ def _vocab_parallel_nll_sum(h, head, cfg, labels, mask, mesh):
     return chunked_logits_sum(column_in(h, mesh), head, cfg.loss_chunk, per_chunk)
 
 
+def _sum_replicated(params, specs, mesh):
+    """``params`` (a rank's blocks, laid out by ``specs``, their baseline
+    specs) with each leaf's gradient summed over the data axes over which
+    its spec replicates it: every data axis but one the spec names (an
+    expert leaf's ``data``, which splits its columns, takes its sum in its
+    gather's reduce-scatter instead)."""
+    from repro_torch.sharding import _map
+
+    dp = _data_axes(mesh)
+
+    def one(spec, leaf):
+        named = {a for e in spec if e is not None for a in ((e,) if isinstance(e, str) else e)}
+        return mesh.grad_sum(leaf, tuple(a for a in dp if a not in named))
+
+    return _map(one, specs, params, "")
+
+
 def _loss_blocks(params, cfg, batch: dict, mesh):
     """``loss_fn`` on a rank's blocks and its ``data`` share of the batch
-    (``shards_storage``): every leaf's gradient summed over the data axes,
-    the loss the mean over the whole batch, the same on every rank."""
-    dp = tuple(a for a in mesh.axis_names if a != "model")
-    params = tree_map(lambda p: mesh.grad_sum(p, dp), params)
+    (``shards_storage``): each leaf's gradient summed over the data axes
+    that replicate it (``_sum_replicated``; an expert leaf's columns
+    split over ``data`` take their sum in their gather's reduce-scatter),
+    the loss the mean over the whole batch, the same on every rank; the
+    aux term and the MTP head's cross-entropy (vocab-parallel, as the
+    trunk's) as ``loss_fn`` adds them."""
+    dp = _data_axes(mesh)
+    params = _sum_replicated(params, _param_specs(cfg, mesh), mesh)
     labels = batch["labels"]
     x, mask = embed_inputs(params, cfg, batch, tp=mesh)
-    h = forward(params, cfg, x, tp=mesh)
+    h, aux = forward(params, cfg, x, with_aux=True, mesh=mesh, tp=mesh)
     if mask is None:
         mask = torch.ones(labels.shape, dtype=torch.float32, device=h.device)
     head = output_head(params, cfg)
-    if head.shape[-1] != cfg.vocab:
-        tot = _vocab_parallel_nll_sum(h, head, cfg, labels, mask, mesh)
-    else:                                  # the head whole: computed replicated over model
-        tot = _masked_nll_sum(h, head, cfg, labels, mask)
-    count = mesh.all_reduce_sum(mask.sum(), dp)
-    ce = mesh.all_reduce_sum(tot / torch.clamp(count, min=1.0), dp)
-    return ce, {"ce": ce, "aux": torch.zeros((), device=h.device)}
+
+    def ce_of(h, labels, mask):
+        if head.shape[-1] != cfg.vocab:
+            tot = _vocab_parallel_nll_sum(h, head, cfg, labels, mask, mesh)
+        else:                              # the head whole: computed replicated over model
+            tot = _masked_nll_sum(h, head, cfg, labels, mask)
+        count = mesh.all_reduce_sum(mask.sum(), dp)
+        return mesh.all_reduce_sum(tot / torch.clamp(count, min=1.0), dp)
+
+    ce = ce_of(h, labels, mask)
+    loss, metrics = ce, {"ce": ce, "aux": aux}
+    if cfg.moe:
+        loss = loss + cfg.moe.router_aux_weight * aux
+    if cfg.mtp:
+        mtp_ce = ce_of(*_mtp_inputs(params, cfg, h, labels, mask))
+        loss = loss + cfg.mtp_weight * mtp_ce
+        metrics["mtp_ce"] = mtp_ce
+    return loss, metrics
+
+
+def _mtp_inputs(params, cfg, h, labels, mask):
+    """The MTP head's hidden states, labels and mask: rms_norm(h @
+    mtp_proj, mtp_norm) against the labels shifted one more position, the
+    last position masked."""
+    s = h.shape[-2]
+    h_mtp = rms_norm(h @ params["mtp_proj"], params["mtp_norm"], cfg.norm_eps)
+    m2 = mask * (torch.arange(s, device=h.device) < s - 1).to(torch.float32)
+    return h_mtp, torch.roll(labels, -1, dims=-1), m2
 
 
 def loss_fn(params, cfg, batch: dict, mesh=None, sharded: bool | None = None):
@@ -973,16 +1284,13 @@ def loss_fn(params, cfg, batch: dict, mesh=None, sharded: bool | None = None):
     if mask is None:
         mask = torch.ones(labels.shape, dtype=torch.float32, device=h.device)
     head = output_head(params, cfg)
-    s = h.shape[-2]
     ce = _masked_ce(h, head, cfg, labels, mask)
     loss = ce
     metrics = {"ce": ce, "aux": aux}
     if cfg.moe:
         loss = loss + cfg.moe.router_aux_weight * aux
     if cfg.mtp:
-        h_mtp = rms_norm(h @ params["mtp_proj"], params["mtp_norm"], cfg.norm_eps)
-        y2 = torch.roll(labels, -1, dims=-1)
-        m2 = mask * (torch.arange(s, device=h.device) < s - 1).to(torch.float32)
+        h_mtp, y2, m2 = _mtp_inputs(params, cfg, h, labels, mask)
         mtp_ce = _masked_ce(h_mtp, head, cfg, y2, m2)
         loss = loss + cfg.mtp_weight * mtp_ce
         metrics["mtp_ce"] = mtp_ce
@@ -1170,8 +1478,9 @@ def prefill(params, cfg, batch: dict, max_len: int, mesh=None, batch_size: int |
     Where the data axes split the cache's sequence (``seq_block``: a batch
     they do not divide, a ``max_len`` they do), every data rank runs every
     row of the prompt and keeps the prompt's k and v at the positions of
-    its block, none where its block starts at or past S.  The MoE and MLA
-    models keep ``mesh``'s capacity dispatch on every leaf whole."""
+    its block, none where its block starts at or past S.  An MoE layer
+    takes ``_moe_blocks``' rule for the prompt's tokens, MLA its rank's
+    heads."""
     sharded = shards_storage(cfg, mesh)
     tp = mesh if sharded else None
     x, _ = embed_inputs(params, cfg, batch, tp=tp)
@@ -1184,7 +1493,8 @@ def prefill(params, cfg, batch: dict, max_len: int, mesh=None, batch_size: int |
         if batch_rows(mesh, batch_size)[1] != b:
             raise ValueError(f"a rank holds {batch_rows(mesh, batch_size)[1]} rows of a batch "
                              f"of {batch_size} on {mesh.shape}; got {b}")
-        h, caches = forward(params, cfg, x, collect_cache=True, tp=mesh)
+        h, caches = forward(params, cfg, x, collect_cache=True, mesh=mesh, tp=mesh,
+                            whole_rows=batch_size % mesh.size(_data_axes(mesh)) != 0)
         logits = _logits_blocks(params, cfg, h[:, -1], mesh, batch_size)
         cache = init_cache(cfg, batch_size, max_len, device=h.device, mesh=mesh)
         first, held = seq_block(cfg, mesh, batch_size, max_len)
@@ -1210,10 +1520,11 @@ def prefill(params, cfg, batch: dict, max_len: int, mesh=None, batch_size: int |
 
 
 def _apply_layer_decode(pl, cfg, x, flags: dict[str, float], tabs_l, tabs_g, cache: dict,
-                        i: int, pos: int, mesh=None, tp=None, seq=None):
+                        i: int, pos: int, mesh=None, tp=None, seq=None, whole_rows=False):
     """One layer, one token; layer ``i``'s cache entries advance in place.
     ``tp``: on a rank's blocks and its cache block; ``seq``: the first
-    position of that block where it holds a block of the sequence."""
+    position of that block where it holds a block of the sequence;
+    ``whole_rows``: x holds every row (``_moe_blocks``)."""
     if cfg.block_type == "xlstm":
         name = "mlstm" if flags["is_mlstm"] > 0 else "slstm"
         state = tuple(t[i] for t in cache[name])
@@ -1227,7 +1538,8 @@ def _apply_layer_decode(pl, cfg, x, flags: dict[str, float], tabs_l, tabs_g, cac
     h = _norm(pl, cfg, x, "norm1")
     if cfg.use_mla:
         a_out, _ = mla_decode(pl["attn"], cfg, h, sin, cos,
-                              (cache["latent"][i], cache["k_rope"][i]), pos, is_global)
+                              (cache["latent"][i], cache["k_rope"][i]), pos, is_global, tp=tp,
+                              seq=seq)
     else:
         a_out, _ = gqa_decode(pl["attn"], cfg, h, sin, cos, (cache["k"][i], cache["v"][i]),
                               pos, is_global, tp=tp, seq=seq)
@@ -1236,7 +1548,8 @@ def _apply_layer_decode(pl, cfg, x, flags: dict[str, float], tabs_l, tabs_g, cac
             pl["ssm"], cfg, h, cache["ssm_h"][i], cache["conv"][i], tp=tp)
         a_out = _hymba_fuse(pl, cfg, a_out, s_out)
     x = x + a_out
-    return x + _ffn(pl["mlp"], cfg, _norm(pl, cfg, x, "norm2"), mesh, tp)[0]  # decode drops the aux
+    # decode drops the aux
+    return x + _ffn(pl["mlp"], cfg, _norm(pl, cfg, x, "norm2"), mesh, tp, whole_rows)[0]
 
 
 @torch.no_grad()
@@ -1259,8 +1572,10 @@ def decode_step(params, cfg, batch: dict, cache: dict, pos: int, mesh=None,
     only on the rank whose block holds ``pos`` and combines the blocks'
     partial softmaxes over the data axes; ``max_len`` is the whole cache's
     length, by default read from the block (``_whole_len``, which raises
-    where a block and a whole cache cannot be told apart).  The MoE and MLA
-    models keep ``mesh``'s capacity dispatch on every leaf whole."""
+    where a block and a whole cache cannot be told apart).  MLA attends its
+    rank's heads to the latent block the same way (``mla_decode(...,
+    tp=, seq=)``), an MoE layer takes ``_moe_blocks``' rule for the
+    batch's tokens."""
     sharded = shards_storage(cfg, mesh)
     tp = mesh if sharded else None
     rows = batch["frame" if cfg.input_mode == "frames" else "token"]
@@ -1287,9 +1602,10 @@ def decode_step(params, cfg, batch: dict, cache: dict, pos: int, mesh=None,
             max_len = held
         tabs_l, tabs_g = _rope_tables(cfg, max_len, x.device, positions=pos)
     flags = layer_flags(cfg)
+    whole_rows = sharded and batch_size % mesh.size(_data_axes(mesh)) != 0
     for i, pl in enumerate(params["layers"]):
         x = _apply_layer_decode(pl, cfg, x, _flags_at(flags, i), tabs_l, tabs_g, cache,
-                                i, pos, mesh, tp=tp, seq=seq)
+                                i, pos, mesh, tp=tp, seq=seq, whole_rows=whole_rows)
     x = _norm(params, cfg, x, "final_norm")
     if sharded:
         return _logits_blocks(params, cfg, x[:, 0], mesh, batch_size), cache

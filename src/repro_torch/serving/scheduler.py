@@ -28,8 +28,9 @@ reference's decode lays out a batch of one or one they do not divide):
 choosing ``max_new`` so that they divide it is how a caller gets that
 split for a single request or an odd group.  Prefill and decode run on
 the rank's blocks and its cache block, their logits come back
-replicated, and every rank makes the same tokens.  The MoE and MLA models take the mesh as the reference's do
-(``transformer.decode_step``): every leaf whole, the capacity dispatch.
+replicated, and every rank makes the same tokens.  The MoE and MLA models
+do so too, an MoE layer by the capacity rule the reference's dispatch takes
+under its mesh (``transformer._moe_blocks``).
 
 The model runs on the device of ``params`` (from ``init_params`` or a
 checkpoint); tokens cross to it once a group and come back once a step,

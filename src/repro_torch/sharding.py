@@ -36,17 +36,15 @@ reference's ``NamedSharding`` lays out devices), and ``gather_tree``
 puts the ranks' blocks back together over the mesh's processes.
 
 Which families a rank holds as blocks: on a grid (``data`` or ``model``
-larger than 1) the dense GQA models (stablelm-3b, glm4-9b, qwen3-14b,
-gemma3-27b), hymba-1.5b, xlstm-125m, internvl2-1b and musicgen-large
-(``models.transformer.shards_storage``) hold every leaf as its block
-under the baseline policy and train, prefill and decode on their
-``data`` share of the batch (the decode cache's block too), tensor-parallel
-over ``model``; the MoE and MLA models, and every family under the
-``fsdp`` variant, hold each leaf whole on every rank.  For those, ``model_block`` gives a
-rank's block of a leaf along the dimension ``model`` splits, which the
-scale-out round's int8 aggregation quantizes as the reference's does
-(one scale a leaf and model shard); ``spec_leaves`` lists a layout
-tree's specs in ``tree_flatten``'s order of the leaves they describe.
+larger than 1) every family (``models.transformer.shards_storage``: the
+dense GQA models, hymba-1.5b, xlstm-125m, internvl2-1b, musicgen-large,
+and dbrx-132b and deepseek-v3-671b, their experts over ``model`` and the
+experts' FFN columns over ``data``) holds every leaf as its block under
+the baseline policy and trains, prefills and decodes on its ``data``
+share of the batch (the decode cache's block too), tensor-parallel over
+``model``; under the ``fsdp`` variant (the dry run's only) every leaf is
+whole.  ``spec_leaves`` lists a layout tree's specs in ``tree_flatten``'s
+order of the leaves they describe.
 """
 
 from __future__ import annotations
@@ -55,7 +53,7 @@ import math
 from typing import Any
 
 __all__ = ["ShardingPolicy", "make_policy", "named_sharding_tree", "shard_shape",
-           "shard_bytes", "shard_tree", "gather_tree", "model_block", "spec_leaves"]
+           "shard_bytes", "shard_tree", "gather_tree", "spec_leaves"]
 
 
 def _is_axes(x) -> bool:
@@ -172,21 +170,6 @@ def gather_tree(blocks, specs, mesh):
         return out
 
     return _map(one, specs, blocks, "")
-
-
-def model_block(mesh, spec: tuple, shape: tuple[int, ...]) -> tuple[int, int, int] | None:
-    """This rank's block of a leaf of ``shape`` under ``spec`` (the baseline
-    policy's ``spec_for``) along the dimension that ``model`` splits:
-    ``(dim, start, length)``, the rank's ``model`` index picking the block;
-    None where the spec names no ``model`` (the divisibility guard
-    replicated the leaf: it is one block).  Other axes split no block: a
-    ``data`` entry (``expert_ff``) stays whole, as the reference's
-    aggregation leaves ``data`` to GSPMD."""
-    for dim, entry in enumerate(spec):
-        if entry == "model":
-            length = shape[dim] // mesh.shape["model"]
-            return dim, mesh.axis_index("model") * length, length
-    return None
 
 
 def spec_leaves(specs) -> list[tuple]:

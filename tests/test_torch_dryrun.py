@@ -456,31 +456,54 @@ def test_run_moe_branch_collectives(case):
 
 
 SHARDED = ("gemma3-27b", "glm4-9b", "qwen3-14b", "stablelm-3b", "hymba-1.5b", "internvl2-1b",
-           "musicgen-large", "xlstm-125m")
+           "musicgen-large", "xlstm-125m", "dbrx-132b", "deepseek-v3-671b")
 
 
 @pytest.mark.parametrize("name", list_configs())
 def test_records_say_whether_the_rank_holds_its_blocks(name, monkeypatch):
     """The single-mesh ``train``, ``prefill`` and ``decode`` records (a
     batch of 16, which the 16 data ranks divide) and the federated round's
-    of the dense GQA models, hymba, xlstm and the modal inputs hold the
-    rank's blocks (``storage`` "sharded", ``argument_size_held ==
-    argument_size``); the MoE and MLA models' hold the arguments whole."""
+    of every family, the MoE and MLA models among them (their experts over
+    ``model``, the experts' FFN columns over ``data``, MLA's heads over
+    ``model``), hold the rank's blocks (``storage`` "sharded",
+    ``argument_size_held == argument_size``), less than the whole
+    arguments on a mesh of one."""
     from repro_torch.launch.mesh import make_production_mesh
 
+    assert name in SHARDED
     monkeypatch.setattr(dryrun, "get_config", _reduced)
     mesh = make_production_mesh(dry=True)
-    recs = [dryrun.trace_step(_reduced(name), mesh, InputShape("t", 32, 16, kind), probes=False)
+    cfg = _reduced(name)
+    recs = [dryrun.trace_step(cfg, mesh, InputShape("t", 32, 16, kind), probes=False)
             for kind in ("train", "prefill", "decode")]
     recs.append(dryrun.run_federated(name, local_steps=1, batch_per_client=16, seq=32))
     for rec in recs:
         mem = rec["memory"]
-        if name in SHARDED:
-            assert rec["storage"] == "sharded", rec["kind"]
-            assert mem["argument_size_held"] == mem["argument_size"], rec["kind"]
-        else:
-            assert rec["storage"] == "whole", rec["kind"]
-            assert mem["argument_size_held"] > mem["argument_size"], rec["kind"]
+        assert rec["storage"] == "sharded", rec["kind"]
+        assert mem["argument_size_held"] == mem["argument_size"], rec["kind"]
+        if rec["kind"] == "train":
+            whole = dryrun.argument_size(cfg, make_dry_mesh(), InputShape("t", 32, 16, "train"))
+            assert mem["argument_size_held"] < whole, rec["kind"]
+
+
+@pytest.mark.parametrize(("name", "shape"), [("dbrx-132b", "decode_32k"),
+                                             ("deepseek-v3-671b", "long_500k")])
+def test_full_size_moe_and_mla_records_hold_their_blocks(name, shape):
+    """At full size on the 16 x 16 dry mesh: dbrx-132b's ``decode_32k``
+    holds 41.5 GiB a rank (885.1 while its leaves stayed whole), its
+    ``argument_size``; deepseek-v3-671b's ``long_500k`` (batch 1: the
+    latent and k_rope cache's sequence over the 16 data ranks, the
+    partial softmaxes combined over them) its 11.1 GiB share, its decode
+    taking rule 1 (one whole expert a rank, exchanged from the blocks by
+    an all-to-all)."""
+    rec = dryrun.run_one(name, shape, multi_pod=False)
+    mem = rec["memory"]
+    assert rec["storage"] == "sharded"
+    assert mem["argument_size_held"] == mem["argument_size"]
+    held = mem["argument_size_held"] / 2**30
+    assert abs(held - {"dbrx-132b": 41.49, "deepseek-v3-671b": 11.13}[name]) < 0.01, held
+    if name == "deepseek-v3-671b":
+        assert rec["collective_bytes"]["all-to-all"] > 0
 
 
 @pytest.mark.parametrize("name", SHARDED)

@@ -17,6 +17,13 @@
   1e-5 relative (the one-device mesh for the first three cases, whose
   experts all keep what they keep on four; for the split batch, the
   capacity dispatch of each half and the mean of their aux losses);
+- the same cases on each rank's storage blocks in that world
+  (``transformer._moe_blocks``: the experts over model, their FFN columns
+  over data as the baseline policy stores them, the rank's rows of the
+  batch, every row of the batch of 3): its output rows within 1e-5
+  relative and its aux within 1e-6 of the same oracle, the gradients of
+  its rows and its blocks within 1e-5 relative of the one-process
+  computation's cut to them;
 - the rank coordinates against the reference mesh's ``devices`` (data 2 x
   model 2, and pod 2 x data 1 x model 2), the subgroups' sums, means and
   gathers (the ``pod`` subgroup's too), and the scale-out round built on a
@@ -64,6 +71,7 @@ from repro_torch.convert import serving_params_from_jax  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
+from repro_torch.models.moe import moe_specs  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.optim import chain, clip_by_global_norm, sgd  # noqa: E402
 from test_torch_serving import _check_cache, _close  # noqa: E402
@@ -150,7 +158,9 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import MoEConfig
 from repro_torch.federated.scaleout import make_federated_round
 from repro_torch.launch.mesh import make_host_mesh
-from repro_torch.models.transformer import _run_moe
+from repro_torch.models.moe import moe_specs
+from repro_torch.models.transformer import _moe_blocks, _run_moe, _sum_replicated, batch_rows
+from repro_torch.sharding import make_policy, shard_tree
 
 out = {}
 mesh = make_host_mesh(2, 2)
@@ -181,6 +191,23 @@ for case in CASES:
     out[case + "/out"], out[case + "/aux"] = o.detach().numpy(), aux.detach().numpy()
     for name, gr in zip(["x", *p], grads):
         out[f"{case}/d{name}"] = gr.numpy()
+    # the same case on the rank's storage blocks (experts over model, their
+    # FFN columns over data) and its rows of the batch
+    whole = {k: v.detach() for k, v in p.items()}
+    specs = make_policy(mesh, 0).shardings(moe_specs(cfg), whole)
+    blocks = {k: v.requires_grad_(True) for k, v in shard_tree(whole, specs, mesh).items()}
+    lo, n = batch_rows(mesh, x.shape[0])
+    xr = x.detach()[lo:lo + n].requires_grad_(True)
+    # the replicated leaves' gradients summed over data where the rows split
+    # (every data rank computes every row of the batch of 3)
+    whole_rows = n == x.shape[0]
+    o, aux = _moe_blocks(blocks if whole_rows else _sum_replicated(blocks, specs, mesh), cfg, xr,
+                         mesh, True, whole_rows=whole_rows)
+    grads = torch.autograd.grad((o * torch.from_numpy(g[lo:lo + n])).sum() + float(ga) * aux,
+                                [xr, *blocks.values()])
+    out[f"{case}/blocks/out"], out[f"{case}/blocks/aux"] = o.detach().numpy(), aux.detach().numpy()
+    for name, gr in zip(["x", *blocks], grads):
+        out[f"{case}/blocks/d{name}"] = gr.numpy()
 np.savez(os.path.join(work, f"rank{rank}.npz"), **out)
 dist.destroy_process_group()
 """
@@ -267,6 +294,60 @@ def test_run_moe_branches_on_four_processes_match_the_virtual_mesh(four_devices,
         assert abs(float(aux) - float(oracle[case + "/aux"])) <= 1e-6
         for name, want in grads.items():
             _close(torch.from_numpy(got[f"{case}/d{name}"]), want.numpy(), 1e-5,
+                   f"rank {r} d{name}")
+
+
+class _At:
+    """A rank of the (data 2, model 2) grid, as ``shard_tree`` reads a mesh."""
+
+    shape = {"data": 2, "model": 2}
+    axis_names = tuple(shape)
+
+    def __init__(self, rank):
+        self.coords = dict(zip(self.axis_names, divmod(rank, 2)))
+
+    def size(self, axes):
+        return int(np.prod([self.shape[a] for a in axes]))
+
+    def index(self, axes):
+        idx = 0
+        for a in ((axes,) if isinstance(axes, str) else axes):
+            idx = idx * self.shape[a] + self.coords[a]
+        return idx
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_run_moe_branches_on_storage_blocks_match_the_virtual_mesh(four_devices, case):
+    """Each case on every rank's storage blocks under the baseline policy
+    (``_moe_blocks``: the experts over model, their FFN columns over data,
+    the router replicated, the shared expert's ``ffn`` over model) and its
+    rows of the batch (all 3 of the batch of 3): its output rows within
+    1e-5 relative of the reference's 4-device oracle, its aux loss within
+    1e-6, and the gradients of its rows and of each of its blocks (the
+    replicated leaves' summed over data, as ``_loss_blocks`` sums them)
+    within 1e-5 relative of the one-process computation's, cut to the
+    rank's rows and blocks."""
+    from repro_torch.models.transformer import batch_rows
+    from repro_torch.sharding import make_policy, shard_tree
+
+    oracle, ranks = four_devices
+    cfg = _moe_cfg(get_config, MoEConfig, case)
+    _, _, grads = _one_process(case)
+    whole = {k: v for k, v in grads.items() if k != "x"}
+    rows = oracle[case + "/out"].shape[0]
+    for r, got in enumerate(ranks):
+        at = _At(r)
+        lo, n = batch_rows(at, rows)
+        assert n == (rows // 2 if rows % 2 == 0 else rows)
+        _close(torch.from_numpy(got[case + "/blocks/out"]), oracle[case + "/out"][lo:lo + n],
+               1e-5, f"rank {r} out")
+        assert abs(float(got[case + "/blocks/aux"]) - float(oracle[case + "/aux"])) <= 1e-6, r
+        _close(torch.from_numpy(got[case + "/blocks/dx"]), grads["x"][lo:lo + n].numpy(), 1e-5,
+               f"rank {r} dx")
+        want = shard_tree(whole, make_policy(at, 0).shardings(moe_specs(cfg), whole), at)
+        assert want["w_up"].shape[-1] == cfg.moe.d_expert // 2    # the columns over data
+        for name, w in want.items():
+            _close(torch.from_numpy(got[f"{case}/blocks/d{name}"]), w.numpy(), 1e-5,
                    f"rank {r} d{name}")
 
 

@@ -42,6 +42,11 @@ here by a one-process run and handed to the world in order.
   world: its exact round keeps each rank's blocks (the cores on the
   rank's one of two heads) and equals the pods-only round within
   ``ATOL``;
+- (g) reduced dbrx-132b in the same world (its 4 experts over model,
+  their FFN columns over data): its exact round's blocks and losses equal
+  the reference's grid round, cut to the rank's blocks, within ``ATOL``;
+  its int8 round keeps each rank's blocks at one scale a (leaf, block),
+  an expert leaf's block being its ``data`` block of columns too;
 - (d) the dry 2 x 2 x 2 trace's collective bytes by kind equal their
   closed-form counts (the tensor-parallel step's sums over ``model``, the
   gradients' over ``data``, the round's over ``pod``; no gather over
@@ -85,22 +90,23 @@ from repro_torch.models.transformer import (  # noqa: E402
     abstract_params,
     init_params,
     param_blocks,
+    transformer_specs,
 )
-from repro_torch.sharding import shard_shape  # noqa: E402
+from repro_torch.sharding import make_policy, shard_shape, spec_leaves  # noqa: E402
 from test_torch_engine import JaxReplayDraws  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
 ATOL = 1e-5
 ORACLE_TOL = 1e-6
 B, S, LR, STEPS, SEEDS, W = 4, 32, 0.05, 2, (10, 11), (0.25, 0.75)
-MODEL, HYMBA, XLSTM, QMAX = "qwen3-14b", "hymba-1.5b", "xlstm-125m", 127
+MODEL, HYMBA, XLSTM, DBRX, QMAX = "qwen3-14b", "hymba-1.5b", "xlstm-125m", "dbrx-132b", 127
 CFG = fl_cfg(backend="scaleout").to_dict()
 
 # the constants and the draws both sides replay, importable by the subprocesses
 _CASE = f"""
 import torch
 B, S, LR, STEPS, SEEDS, W = {B}, {S}, {LR}, {STEPS}, {SEEDS}, {W}
-MODEL, HYMBA, XLSTM = {MODEL!r}, {HYMBA!r}, {XLSTM!r}
+MODEL, HYMBA, XLSTM, DBRX = {MODEL!r}, {HYMBA!r}, {XLSTM!r}, {DBRX!r}
 CFG = {CFG!r}
 
 
@@ -143,7 +149,7 @@ os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
 import jax, jax.numpy as jnp, numpy as np
 from jax.sharding import AxisType
 sys.path.insert(0, sys.argv[1])
-from grid_case import B, CFG, LR, MODEL, S, SEEDS, STEPS, W
+from grid_case import B, CFG, DBRX, LR, MODEL, S, SEEDS, STEPS, W
 from repro.configs import get_config
 from repro.configs.inputs import dummy_batch
 from repro.data import make_classification
@@ -165,6 +171,16 @@ for bits in (0, 8):
                                   jnp.asarray(W, jnp.float32))
     out |= {f"q{bits}/{i}": np.asarray(x[0]) for i, x in enumerate(jax.tree.leaves(new))}
     out[f"loss{bits}"] = np.asarray(losses)
+# reduced dbrx-132b's exact round: its experts over model, their columns over data
+dcfg = get_config(DBRX, reduced=True)
+dparams = init_transformer(jax.random.PRNGKey(0), dcfg)
+dbatches = [dummy_batch(dcfg, B, S, seed=s) for s in SEEDS]
+dbatch = {k: jnp.stack([b[k] for b in dbatches]) for k in dbatches[0]}
+fn = make_federated_round(dcfg, mesh, lr=LR, local_steps=STEPS, compress_bits=0)
+with set_mesh(mesh):
+    new, losses = jax.jit(fn)(stack_for_clients(dparams, 2), dbatch, jnp.asarray(W, jnp.float32))
+out |= {f"dbrx_q0/{i}": np.asarray(x[0]) for i, x in enumerate(jax.tree.leaves(new))}
+out["dbrx_loss0"] = np.asarray(losses)
 train = make_classification(800, n_features=64, n_classes=10, seed=0)
 test = make_classification(200, n_features=64, n_classes=10, seed=1)
 with set_mesh(mesh):
@@ -187,7 +203,8 @@ rank, work = int(sys.argv[1]), sys.argv[2]
 dist.init_process_group("gloo", init_method="file://" + os.path.join(work, "store"),
                         world_size=8, rank=rank)
 sys.path.insert(0, work)
-from grid_case import B, CFG, HYMBA, LR, MODEL, S, SEEDS, STEPS, W, Recorded, xlstm_cfg
+from grid_case import (B, CFG, DBRX, HYMBA, LR, MODEL, S, SEEDS, STEPS, W, Recorded,
+                       xlstm_cfg)
 from repro_torch.configs import get_config
 from repro_torch.configs.inputs import dummy_batch
 from repro_torch.data import make_classification
@@ -231,6 +248,26 @@ xbatch = {k: v[None, lo:lo + share] for k, v in dummy_batch(xcfg, B, S,
 fn = make_federated_round(xcfg, mesh, lr=LR, local_steps=STEPS)
 new, losses = fn(stack_for_clients(xblocks, 1), xbatch, torch.tensor(W))
 out["xlstm_q0"], out["xlstm_loss0"] = [t[0] for t in tree_leaves(new)], losses
+# dbrx: its blocks, the experts over model and their FFN columns over data;
+# the exact and int8 rounds, and the rank's blocks of its pod's local ends
+dcfg = get_config(DBRX, reduced=True)
+dblocks = param_blocks(torch.load(os.path.join(work, "dbrx.pt")), dcfg, mesh)
+out["dbrx_held"] = [tuple(t.shape) for t in tree_leaves(dblocks)]
+dbatch = {k: v[None, lo:lo + share] for k, v in dummy_batch(dcfg, B, S,
+                                                            seed=SEEDS[pod]).items()}
+for bits in (0, 8):
+    fn = make_federated_round(dcfg, mesh, lr=LR, local_steps=STEPS, compress_bits=bits)
+    new, losses = fn(stack_for_clients(dblocks, 1), dbatch, torch.tensor(W))
+    out[f"dbrx_q{bits}"], out[f"dbrx_loss{bits}"] = [t[0] for t in tree_leaves(new)], losses
+dleaves, dspec = tree_flatten(dblocks)
+for _ in range(STEPS):
+    dleaves = [p.detach().requires_grad_(True) for p in dleaves]
+    loss, _ = loss_fn(tree_unflatten(dleaves, dspec), dcfg, {k: v[0] for k, v in dbatch.items()},
+                      mesh.in_pod())
+    grads = torch.autograd.grad(loss, dleaves, allow_unused=True, materialize_grads=True)
+    with torch.no_grad():
+        dleaves = [(w - LR * g).to(w.dtype) for w, g in zip(dleaves, grads)]
+out["dbrx_ends"] = dleaves
 # the rank's blocks of its pod's local ends, as the round's local SGD computes them
 leaves, spec = tree_flatten(blocks)
 one = {k: v[0, lo:lo + share] for k, v in batch.items()}
@@ -301,6 +338,11 @@ def grid(tmp_path_factory, data):
         xcfg = xlstm_cfg(get_config)
         xlstm = init_params(torch.Generator().manual_seed(0), xcfg)
         torch.save(xlstm, work / "xlstm.pt")
+        dcfg, ref_dcfg = get_config(DBRX, reduced=True), ref_get_config(DBRX, reduced=True)
+        ref_dbrx = jax.tree.map(np.asarray, ref_tf.init_transformer(jax.random.PRNGKey(0),
+                                                                    ref_dcfg))
+        dbrx = serving_params_from_jax(ref_dbrx, dcfg)
+        torch.save(dbrx, work / "dbrx.pt")
         train, test = data
         rec = Recorded(JaxReplayDraws(CFG["seed"], "cpu"))
         one = make_engine(FLConfig.from_dict(CFG), train, test, 10, device="cpu", draws=rec,
@@ -340,6 +382,7 @@ def grid(tmp_path_factory, data):
     return {"ref": ref, "ranks": ranks, "ref_start": ref_start, "params": params,
             "pods_only": pods_only, "one": (one_res, one.params), "cfg": cfg, "ref_cfg": ref_cfg,
             "hymba": (hcfg, hymba), "xlstm": (xcfg, xlstm),
+            "dbrx": (dcfg, ref_dcfg, ref_dbrx, dbrx),
             "mlp": jax.tree.structure(rec.draws._template)}
 
 
@@ -645,3 +688,70 @@ def test_federated_dry_run_record_is_the_reference_2x16x16(monkeypatch):
                  for lg, t in zip(logical, tree_leaves(whole)))
     share = params + 2 * 1 * 32 * 4 + 4
     assert rec["memory"]["argument_size_held"] == rec["memory"]["argument_size"] == share
+
+
+# ----------------------------------------------------------------- (g) dbrx
+def _dbrx_specs(grid):
+    """Each leaf's baseline spec on the grid, in the port's leaf order."""
+    dcfg, _, _, whole = grid["dbrx"]
+    return spec_leaves(make_policy(_Grid(), 0).shardings(transformer_specs(dcfg), whole))
+
+
+def test_dbrx_exact_grid_round_matches_the_reference(grid):
+    """Reduced dbrx-132b's exact round on the grid: every rank holds its
+    baseline-spec blocks before and after (the 4 experts over model, their
+    FFN columns over data, attention and vocab over model), and its blocks
+    and losses equal the reference's grid round, cut to the rank's
+    blocks, within ``ATOL``."""
+    dcfg, _, ref_start, whole = grid["dbrx"]
+    n = len(jax.tree.leaves(ref_start))
+    ref_new = _ref_tree([grid["ref"][f"dbrx_q0/{i}"] for i in range(n)], ref_start)
+    want_tree = serving_params_from_jax(ref_new, dcfg)
+    for r, got in enumerate(grid["ranks"]):
+        at = _At(got["coords"])
+        blocks = param_blocks(whole, dcfg, at)
+        moe = blocks["layers"][0]["mlp"]
+        e, fe = dcfg.moe.n_experts, dcfg.moe.d_expert
+        assert moe["w_up"].shape == (e // 2, dcfg.d_model, fe // 2), r
+        assert moe["w_down"].shape == (e // 2, fe // 2, dcfg.d_model), r
+        assert got["dbrx_held"] == [tuple(t.shape) for t in tree_leaves(blocks)], r
+        want = tree_leaves(param_blocks(want_tree, dcfg, at))
+        for j, (g, w) in enumerate(zip(got["dbrx_q0"], want, strict=True)):
+            assert g.shape == w.shape, (r, j)
+            assert _diff(g, w) <= ATOL, (r, j, _diff(g, w))
+        np.testing.assert_allclose(got["dbrx_loss0"].numpy(), grid["ref"]["dbrx_loss0"],
+                                   atol=ATOL)
+
+
+def test_dbrx_int8_grid_round_takes_one_scale_a_leaf_and_block(grid):
+    """Reduced dbrx-132b's int8 round keeps each rank's blocks, each equal
+    to the numpy oracle of one scale a (leaf, block) on the pods' ends of
+    that block within ``ORACLE_TOL``: an expert leaf's block is also its
+    ``data`` block of columns, whose scale differs from one taken over the
+    whole ``model`` block (both data blocks) by more than ``ORACLE_TOL`` on
+    some expert leaf."""
+    dcfg, _, _, whole = grid["dbrx"]
+    specs = _dbrx_specs(grid)
+    expert = [j for j, sp in enumerate(specs) if "data" in sp]
+    assert len(expert) == 3 * dcfg.n_layers                   # w_gate, w_up, w_down a layer
+    ranks = {tuple(g["coords"]): g for g in grid["ranks"]}
+    moved = []
+    for r, got in enumerate(grid["ranks"]):
+        pod, d, m = got["coords"]
+        ends = [ranks[p, d, m]["dbrx_ends"] for p in (0, 1)]
+        start = tree_leaves(param_blocks(whole, dcfg, _At(got["coords"])))
+        for j, (g, s0) in enumerate(zip(got["dbrx_q8"], start, strict=True)):
+            oracle = _quantize_oracle([e[j] for e in ends], s0, W)
+            assert g.shape == oracle.shape, (r, j)
+            assert _diff(g, oracle) <= ORACLE_TOL, (r, j, _diff(g, oracle))
+            if j in expert:      # one scale over the model block, this rank's columns cut
+                dim = specs[j].index("data")
+                both = [[ranks[p, i, m]["dbrx_ends"][j].numpy() for i in (0, 1)] for p in (0, 1)]
+                s_both = [tree_leaves(param_blocks(whole, dcfg, _At([pod, i, m])))[j].numpy()
+                          for i in (0, 1)]
+                mb = _quantize_oracle([np.concatenate(b, axis=dim) for b in both],
+                                      np.concatenate(s_both, axis=dim), W)
+                moved.append(_diff(g, np.split(mb, 2, axis=dim)[d]))
+        np.testing.assert_allclose(got["dbrx_loss8"].numpy(), got["dbrx_loss0"].numpy(),
+                                   atol=ATOL)
+    assert max(moved) > ORACLE_TOL, "the data blocks' scales never moved an expert leaf"

@@ -41,12 +41,26 @@ xLSTM: reduced xlstm-125m with one mLSTM and one sLSTM layer (layers
 ways), and a micro xLSTM whose 3 heads split mid-head (computed
 replicated).
 
+MoE and MLA: reduced dbrx-132b and deepseek-v3-671b (its MTP head on)
+with the capacity dispatch at a capacity factor of 0.5, so that experts
+overflow: their 4 experts over ``model`` and the experts' FFN columns
+over ``data``, deepseek's shared expert tensor-parallel and its MLA on
+the rank's 2 of 4 heads, the latent and k_rope cache replicated over
+``model``.  Both worlds take rule 1 of the reference's dispatch (the
+rank's experts exchanged whole by an all-to-all), so these cases are held
+against the reference under its mesh (``_MESH_REFERENCE``: a subprocess
+on 4 virtual devices, ``loss_fn``, ``jax.grad``, ``prefill`` and
+``decode_step`` with the mesh), whose dispatch drops what the port's
+does, and not its unsharded path (``moe_dense``, which drops nothing).
+
 Serving, in the same worlds on the same blocks: every case's prefill of
 the batch's first 4 rows (2 a data rank in the world of 4) and
 ``SERVE_STEPS`` greedy decode steps (the frames model decodes its next
-frames), and hymba's of 3 rows that the data axes do not divide (every
-rank holds every row), against the reference's unsharded ``prefill`` and
-``decode_step`` on the whole tree, jitted in this process: the logits
+frames), hymba's of 3 rows that the data axes do not divide (every
+rank holds every row) and the batches of one of ``ONE_ROW`` (deepseek's
+latent sequence split over the data ranks), against the reference's
+unsharded ``prefill`` and ``decode_step`` on the whole tree, jitted in
+this process (the MoE cases: under its mesh): the logits
 within ``SERVE_TOL`` of max(1, |ref|), the greedy tokens exactly, each
 rank's cache block (after prefill and at the end) within ``SERVE_TOL``
 element by element of the reference's cache cut to it
@@ -59,9 +73,12 @@ vocab-parallel log-sum-exp and the sums over ranks add in another order),
 and each of its gradient blocks equals the reference's gradient, cut to
 that rank's block, within ``GRAD_ATOL`` times max(1, the leaf's largest
 |gradient|); so do the blocks gathered whole (``sharding.gather_tree``)
-on rank 0.
+on rank 0.  Outside the worlds: ``init_param_blocks`` (the leaf-by-leaf
+build) against ``param_blocks(init_params(...))`` bit for bit, and MLA's
+decode over a latent cache split into blocks against the whole cache's.
 """
 
+import json
 import os
 import pickle
 import subprocess
@@ -77,7 +94,7 @@ pytest.importorskip("jax")
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
-from torch.utils._pytree import tree_leaves  # noqa: E402
+from torch.utils._pytree import tree_flatten, tree_leaves  # noqa: E402
 
 from repro.configs import get_config as ref_get_config  # noqa: E402
 from repro.models import transformer as ref_tf  # noqa: E402
@@ -105,6 +122,7 @@ _CASE = """
 import dataclasses
 
 MICRO = dict(d_model=64, n_heads=3, n_kv_heads=1, head_dim=16, d_ff=128, vocab=64)
+OVERFLOW = dict(impl="capacity", capacity_factor=0.5)
 # name: (the reduced config it starts from, the fields it changes)
 CASES = {
     "stablelm-3b": ("stablelm-3b", {}),
@@ -121,7 +139,15 @@ CASES = {
     # "MS": one mLSTM and one sLSTM layer (reduced "MMMS" holds two mLSTM)
     "xlstm-125m": ("xlstm-125m", {"layer_pattern": "MS"}),
     "xlstm_mid_head": ("xlstm-125m", {"layer_pattern": "MS", "d_model": 48, "ssm_heads": 3}),
+    # the MoE (4 experts over model, their FFN columns over data) and MLA
+    # (4 heads over model, the MTP head) models, the capacity dispatch with
+    # a factor of 0.5 so that experts overflow
+    "dbrx-132b": ("dbrx-132b", {"moe": OVERFLOW}),
+    "deepseek-v3-671b": ("deepseek-v3-671b", {"moe": OVERFLOW}),
 }
+# the cases the reference runs under its mesh (the capacity dispatch), not
+# unsharded (moe_dense, which drops nothing)
+MESH_CASES = ("dbrx-132b", "deepseek-v3-671b")
 # serving: prefill and SERVE_STEPS greedy decode steps of the first rows of
 # the case's batch, each run (rows, prompt length, cache length): 4 rows of
 # the whole prompt (the data axes divide them); for hymba (a kv cache and a
@@ -134,10 +160,11 @@ CASES = {
 # valid position until the step at 16), gemma3-27b's prompt of 32 in 40
 # (its window crossing the halves' boundary at 20 from position 32, the
 # first half with no valid position on the local layer from 35 on, the
-# global layer reading both)
+# global layer reading both), deepseek-v3-671b's 12 in 32 (its latent and
+# k_rope cache split as stablelm's k and v)
 SERVE_STEPS = 8
 UNDIVIDED = ("hymba-1.5b",)
-ONE_ROW = {"stablelm-3b": (12, 32), "gemma3-27b": (32, 40)}
+ONE_ROW = {"stablelm-3b": (12, 32), "gemma3-27b": (32, 40), "deepseek-v3-671b": (12, 32)}
 # BatchScheduler(mesh=): two prompt lengths, groups of max_batch 4 and 3;
 # the groups of 3 and of 1 hold caches of 22 and 18 positions, which the
 # world of 4's two data ranks split
@@ -148,8 +175,10 @@ SCHED_LENS, SCHED_NEW = (16, 16, 16, 16, 12), 6
 def make_cfg(get, name):
     arch, kw = CASES[name]
     kw = dict(kw)
-    heads = kw.pop("ssm_heads", None)
+    heads, moe = kw.pop("ssm_heads", None), kw.pop("moe", None)
     cfg = dataclasses.replace(get(arch, reduced=True), loss_chunk=16, **kw)
+    if moe:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **moe))
     if heads:
         cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm, n_heads=heads))
     return cfg
@@ -246,6 +275,58 @@ dist.destroy_process_group()
 """
 
 
+# the reference under its mesh for MESH_CASES: a (data, model) mesh of
+# Auto axes over the first 2 or 4 of 4 virtual devices (jax 0.9's default
+# Explicit axes make the reference's decode cache constraint raise), the
+# loss and jax.grad, prefill and the greedy decode steps of each serving run
+_MESH_REFERENCE = r"""
+import json, os, pickle, sys
+from concurrent.futures import ThreadPoolExecutor
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+import jax, jax.numpy as jnp, numpy as np
+work = sys.argv[1]
+sys.path.insert(0, work)
+from shard_case import MESH_CASES, SERVE_STEPS, make_cfg, serve_runs
+from repro.configs import get_config
+from repro.models import transformer as tf
+
+with open(os.path.join(work, "case.pkl"), "rb") as f:
+    case = pickle.load(f)
+worlds = {int(n): tuple(dm) for n, dm in json.loads(sys.argv[2]).items()}
+
+
+def run(name, world):
+    cfg = make_cfg(get_config, name)
+    tree, batch = case[name]
+    mesh = jax.make_mesh(worlds[world], ("data", "model"),
+                         axis_types=(jax.sharding.AxisType.Auto,) * 2,
+                         devices=jax.devices()[:world])
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    (loss, _), grads = jax.jit(jax.value_and_grad(lambda p, b: tf.loss_fn(p, cfg, b, mesh),
+                                                  has_aux=True))(tree, jb)
+    step = jax.jit(lambda p, bt, c, pos: tf.decode_step(p, cfg, bt, c, pos, mesh))
+    served = {}
+    for b, s, max_len in serve_runs(name, batch["tokens"].shape[1]):
+        pre = jax.jit(lambda p, bt, n=max_len: tf.prefill(p, cfg, bt, n, mesh))
+        logits, cache = pre(tree, {k: jnp.asarray(v[:b, :s]) for k, v in batch.items()
+                                   if k != "labels"})
+        seen, first = [logits], jax.tree.map(np.asarray, cache)
+        for i in range(SERVE_STEPS):
+            tok = jnp.argmax(logits, -1)[:, None].astype(jnp.int32)
+            logits, cache = step(tree, {"token": tok}, cache, jnp.int32(s + i))
+            seen.append(logits)
+        served[b] = (np.stack([np.asarray(x) for x in seen]), first,
+                     jax.tree.map(np.asarray, cache))
+    return (name, world), ((float(loss), jax.tree.map(np.asarray, grads)), served)
+
+
+with ThreadPoolExecutor(4) as pool:   # XLA compiles outside the GIL
+    out = dict(pool.map(lambda nw: run(*nw), [(n, w) for n in MESH_CASES for w in worlds]))
+with open(os.path.join(work, "mesh_reference.pkl"), "wb") as f:
+    pickle.dump(out, f)
+"""
+
+
 @pytest.fixture(autouse=True, scope="module")
 def one_thread():
     """Several test workers share the cores: one intra-op thread keeps this
@@ -314,6 +395,11 @@ def shard(tmp_path_factory):
                                str(work)], env=env, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
              for n, dm in WORLDS.items() for r in range(n)]
+    ref_env = dict(env)
+    ref_env.pop("XLA_FLAGS", None)
+    procs.append(subprocess.Popen([sys.executable, "-c", _MESH_REFERENCE, str(work),
+                                   json.dumps(WORLDS)], env=ref_env, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True))
     def reference(name):
         (tree, batch), ref_cfg = case[name], cfgs[name][0]
         jb = {k: jnp.asarray(v) for k, v in batch.items()}
@@ -345,10 +431,11 @@ def shard(tmp_path_factory):
 
     try:
         # XLA compiles outside the GIL: the cases' compiles overlap
+        unsharded = [name for name in CASES if name not in MESH_CASES]
         with ThreadPoolExecutor(3) as pool:
-            served = pool.map(reference_serve, CASES)
-            ref = dict(zip(CASES, pool.map(reference, CASES)))
-            ref_serve = dict(zip(CASES, served))
+            served = pool.map(reference_serve, unsharded)
+            ref = dict(zip(unsharded, pool.map(reference, unsharded)))
+            ref_serve = dict(zip(unsharded, served))
         # the unsharded port's scheduler on the same weights
         sched = {}
         for name in SCHEDULED:
@@ -366,14 +453,23 @@ def shard(tmp_path_factory):
     for p, (_, err) in zip(procs, outs):
         assert p.returncode == 0, err[-3000:]
     ranks = {n: [torch.load(work / f"world{n}_rank{r}.pt") for r in range(n)] for n in WORLDS}
+    with open(work / "mesh_reference.pkl", "rb") as f:
+        for (name, world), (loss_grads, served) in pickle.load(f).items():
+            ref[name, world], ref_serve[name, world] = loss_grads, served
     return {"ref": ref, "ranks": ranks, "cfgs": cfgs, "serve": ref_serve, "sched": sched}
+
+
+def _reference(shard, key, name, world):
+    """The reference's results of a case for a world: under that world's
+    mesh for MESH_CASES, else unsharded (the same for both worlds)."""
+    return shard[key][(name, world) if name in MESH_CASES else name]
 
 
 @pytest.mark.parametrize("world", sorted(WORLDS))
 @pytest.mark.parametrize("name", list(CASES))
 def test_loss_and_gradient_on_blocks_match_the_reference(shard, name, world):
     ref_cfg, cfg = shard["cfgs"][name]
-    want_loss, want_grads = shard["ref"][name]
+    want_loss, want_grads = _reference(shard, "ref", name, world)
     data, model = WORLDS[world]
     shape = {"data": data, "model": model}
     whole = serving_params_from_jax(want_grads, cfg)
@@ -406,7 +502,8 @@ def test_serving_on_blocks_matches_the_reference(shard, name, world):
     data, model = WORLDS[world]
     shape = {"data": data, "model": model}
     cache_len = {b: n for b, _, n in serve_runs(name, S)}
-    for b, (want_logits, want_first, want_end) in shard["serve"][name].items():
+    for b, (want_logits, want_first, want_end) in _reference(shard, "serve", name,
+                                                             world).items():
         for rank, got in enumerate(shard["ranks"][world]):
             run = got[name][f"serve{b}"]
             logits = run["logits"]
@@ -470,8 +567,14 @@ def test_the_cases_shard_and_split_as_the_docstring_says():
         if cfg.block_type == "hymba":      # the Mamba channels on whole blocks
             assert cfg.d_model % 2 == 0, name
     assert shards_storage(get_config("xlstm-125m", reduced=True), grid)
+    # the MoE and MLA models shard too: on the card's (pod 2, data 2, model 2)
+    # grid dbrx-132b's 16 experts take rule 1 (2 whole experts a rank, E / 8),
+    # deepseek-v3-671b's 128 MLA heads split on whole heads at model 2 and 16
     for name in ("dbrx-132b", "deepseek-v3-671b"):
-        assert not shards_storage(get_config(name, reduced=True), grid), name
+        assert shards_storage(get_config(name, reduced=True), grid), name
+    dbrx, deepseek = get_config("dbrx-132b"), get_config("deepseek-v3-671b")
+    assert dbrx.moe.n_experts % 8 == 0 and dbrx.moe.d_expert % 2 == 0
+    assert deepseek.n_heads % 16 == 0 and deepseek.moe.n_experts % 16 == 0
     # full width at model 2 and 16: hymba's 25 q heads split mid-head (its
     # attention replicated), its 1600 channels on whole blocks, internvl2's
     # 14 / 2 kv and musicgen's 32 heads on whole heads at 2; hymba's and
@@ -487,15 +590,16 @@ def test_the_cases_shard_and_split_as_the_docstring_says():
     assert xlstm.ssm.n_heads % 2 == 0 and xlstm.ssm.n_heads % 16
 
 
-@pytest.mark.parametrize("name", ["stablelm-3b", "hymba-1.5b"])
+@pytest.mark.parametrize("name", ["stablelm-3b", "hymba-1.5b", "deepseek-v3-671b"])
 def test_cache_layout_splits_the_sequence_where_the_reference_constraint_does(name,
                                                                                monkeypatch):
-    """``cache_layout``'s k / v leaf (L, B, S, KV, hd) puts the data axes on
-    the rows, on the sequence or on neither exactly where the reference's
-    ``_cache_constraint`` puts them on a layer's leaf (B, S, KV, hd):
-    rows where the data axes divide a batch larger than 1, else the
-    sequence where they divide its length (a batch of one, or 3), else
-    neither (a length they do not divide).  The reference's constraint is
+    """``cache_layout``'s k / v leaf (L, B, S, KV, hd) (MLA: its latent (L,
+    B, S, kv_lora_rank)) puts the data axes on the rows, on the sequence or
+    on neither exactly where the reference's ``_cache_constraint`` puts
+    them on a layer's leaf (B, S, KV, hd): rows where the data axes divide
+    a batch larger than 1, else the sequence where they divide its length
+    (a batch of one, or 3), else neither (a length they do not divide);
+    MLA's latent stays whole over ``model``.  The reference's constraint is
     read by standing in for ``with_sharding_constraint``."""
     import jax.sharding
 
@@ -512,7 +616,8 @@ def test_cache_layout_splits_the_sequence_where_the_reference_constraint_does(na
         return None
 
     cfg = make_cfg(get_config, name)
-    kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    key = "latent" if cfg.use_mla else "k"
+    tail = (cfg.kv_lora_rank,) if cfg.use_mla else (cfg.n_kv_heads, cfg.resolved_head_dim)
     ways = set()
     for shape in ({"data": 2, "model": 2}, {"pod": 2, "data": 2, "model": 2},
                   {"data": 4, "model": 1}):
@@ -520,9 +625,12 @@ def test_cache_layout_splits_the_sequence_where_the_reference_constraint_does(na
         for b in (1, 3, 4, 8):
             for max_len in (40, 41, 36):
                 seen.clear()
-                ref_tf._cache_constraint({"k": np.zeros((b, max_len, kv, hd), np.float32)}, at)
+                ref_tf._cache_constraint({key: np.zeros((b, max_len, *tail), np.float32)}, at)
                 want = placed(seen[0], ("rows", "seq")) if seen else None
-                got = placed(cache_layout(cfg, at, b, max_len)["k"][1:], ("rows", "seq"))
+                spec = cache_layout(cfg, at, b, max_len)[key]
+                got = placed(spec[1:], ("rows", "seq"))
+                if cfg.use_mla:      # no head axis: replicated over model
+                    assert "model" not in repr(spec), spec
                 assert got == want, (shape, b, max_len, got, want)
                 ways.add(got)
     assert ways == {"rows", "seq", None}
@@ -596,3 +704,87 @@ def test_split_decode_attention_combines_to_the_whole_cache():
                     empty += 1
                     assert not l.any() and not o.any(), (n, pos, window, r)
     assert empty >= 10
+
+
+def test_split_mla_decode_combines_to_the_whole_cache():
+    """MLA's absorbed decode over a latent / k_rope cache cut into n
+    blocks, each thread standing for a data rank attending its block and
+    combining the partial softmaxes and weighted latent contexts over the
+    ranks before ``wkv_b``'s value half (``mla_decode(..., tp=, seq=)``),
+    equals ``mla_decode`` on the whole cache within 1e-5 of max(1, |out|)
+    and is finite, for every n, causal limit and window, including blocks
+    with no valid position; the token is written only into the block that
+    holds ``pos``, at its place there."""
+    import dataclasses
+
+    from repro_torch.models.attention import init_mla, mla_decode
+    from repro_torch.models.transformer import _rope_tables
+
+    cfg = get_config("deepseek-v3-671b", reduced=True)
+    p = init_mla(torch.Generator().manual_seed(0), cfg)
+    p = {k: v + 0.1 * torch.randn(v.shape, generator=torch.Generator().manual_seed(1))
+         if v.ndim == 1 else v for k, v in p.items()}      # norm scales away from zero
+    rng = np.random.default_rng(0)
+    b, s = 2, 48
+    x = torch.from_numpy(rng.standard_normal((b, 1, cfg.d_model)).astype(np.float32))
+    latent, k_rope = (torch.from_numpy(rng.standard_normal((b, s, n)).astype(np.float32))
+                      for n in (cfg.kv_lora_rank, cfg.qk_rope_head_dim))
+    empty = 0
+    for n in (2, 3, 4):
+        m = s // n
+        for pos, window, is_global in ((5, 0, 1.0), (47, 0, 1.0), (30, 8, 0.0), (40, 12, 0.0)):
+            c = dataclasses.replace(cfg, sliding_window=window)
+            _, (sin, cos) = _rope_tables(c, s, "cpu", positions=pos)
+            whole = (latent.clone(), k_rope.clone())
+            want, (wl, wk) = mla_decode(p, c, x, sin, cos, whole, pos, is_global)
+            ranks = _Ranks(n)
+
+            def rank(r, ranks=ranks, pos=pos, c=c, sin=sin, cos=cos, is_global=is_global):
+                ranks.local.rank = r
+                blk = (latent[:, r * m:(r + 1) * m].clone(), k_rope[:, r * m:(r + 1) * m].clone())
+                out, cache = mla_decode(p, c, x, sin, cos, blk, pos, is_global, tp=ranks,
+                                        seq=r * m)
+                return out, cache
+
+            with ThreadPoolExecutor(n) as pool:
+                got = list(pool.map(rank, range(n)))
+            scale = max(1.0, float(want.abs().max()))
+            for r, (out, (gl, gk)) in enumerate(got):
+                assert torch.isfinite(out).all(), (n, pos, window, r)
+                err = float((out - want).abs().max())
+                assert err <= 1e-5 * scale, (n, pos, window, is_global, r, err)
+                # the block is the whole cache's block after the write
+                assert torch.equal(gl, wl[:, r * m:(r + 1) * m]), (n, pos, r)
+                assert torch.equal(gk, wk[:, r * m:(r + 1) * m]), (n, pos, r)
+                valid = [q for q in range(r * m, (r + 1) * m)
+                         if q <= pos and (not window or is_global > 0 or pos - q < window)]
+                empty += not valid
+    assert empty >= 10
+
+
+@pytest.mark.parametrize("name", ["dbrx-132b", "deepseek-v3-671b", "hymba-1.5b", "xlstm-125m",
+                                  "musicgen-large"])
+def test_leaf_by_leaf_build_is_the_blocks_of_the_whole_tree(name):
+    """``init_param_blocks`` (each leaf cut to the rank's block as soon as
+    it is drawn) equals ``param_blocks(init_params(...))`` bit for bit, leaf
+    for leaf in the same order and type, on every rank of both worlds'
+    grids and of the card's (pod 2, data 2, model 2) grid."""
+    from repro_torch.models.transformer import init_param_blocks
+
+    cfg = get_config(name, reduced=True)
+    whole = init_params(torch.Generator().manual_seed(3), cfg)
+    for shape in ({"data": 1, "model": 2}, {"data": 2, "model": 2},
+                  {"pod": 2, "data": 2, "model": 2}):
+        for rank in range(int(np.prod(list(shape.values())))):
+            coords, r = {}, rank
+            for a in reversed(shape):
+                r, coords[a] = divmod(r, shape[a])
+            at = _At(shape, coords)
+            want, want_spec = tree_flatten(param_blocks(whole, cfg, at))
+            got, got_spec = tree_flatten(init_param_blocks(torch.Generator().manual_seed(3),
+                                                           cfg, at))
+            assert got_spec == want_spec, (shape, rank)
+            for j, (g, w) in enumerate(zip(got, want, strict=True)):
+                assert g.dtype == w.dtype and torch.equal(g, w), (shape, rank, j)
+                assert g.is_contiguous() and g.untyped_storage().nbytes() == w.numel() * \
+                    w.element_size(), (shape, rank, j)    # the block alone, not a view
